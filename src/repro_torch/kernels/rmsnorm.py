@@ -1,0 +1,72 @@
+"""Fused RMSNorm — hand-written CUDA kernel for Hopper (``csrc/rmsnorm.cu``).
+
+Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py:rmsnorm``
+(``_rmsnorm_kernel``).  Bound on an H100: bytes — each element is read
+once and written once at 3.35 TB/s; the kernel keeps a row in registers
+between the sum of squares and the write, so it moves nothing twice (see
+the source's header for the launch shapes).
+
+``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
+anything the kernel does not take; for a CPU tensor it runs the plain
+version, ``ref.rmsnorm_ref``.  It never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import rmsnorm_ref
+
+MAX_D = 8192
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        lib = build.load("rmsnorm")
+        fn = lib.repro_rmsnorm
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = (lib, fn)
+    return _fn
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., D) contiguous, float32 or bfloat16; scale: (D,), float32 or
+    bfloat16.  Returns x.dtype."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    D = x.shape[-1]
+    if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
+        raise ValueError(f"rmsnorm: dtypes {x.dtype}/{scale.dtype} not "
+                         f"supported (float32, bfloat16)")
+    if scale.device != x.device or tuple(scale.shape) != (D,):
+        raise ValueError(f"rmsnorm: scale must be ({D},) on {x.device}, got "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    if not x.is_contiguous() or not scale.is_contiguous():
+        raise ValueError("rmsnorm: x and scale must be contiguous")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
+    y = torch.empty_like(x)
+    rows = x.numel() // D
+    if rows == 0:
+        return y
+    lib, fn = _entry()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, D,
+              _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, stream)
+    build.check(lib, code, "rmsnorm launch")
+    rmsnorm.launches += 1
+    return y
+
+
+rmsnorm.launches = 0

@@ -1,0 +1,131 @@
+"""StackedLM: composes an ArchConfig's segment pattern into init/apply
+(twin of ``repro/models/transformer.py``).
+
+Params keep the reference's nesting: ``segments[i]["b{j}"]`` holds the
+params of every application of that block stacked on a leading ``repeat``
+axis.  The reference runs a ``lax.scan`` over that axis; the port runs a
+Python loop that indexes the stacked tensors (views, no copies).
+
+Entry points:
+  init_lm(arch, device=..., generator=...)            -> params
+  init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
+  lm_apply(params, arch, tokens, ...)                 -> LMOutput
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+
+Params = dict
+
+
+class LMOutput(NamedTuple):
+    logits: torch.Tensor
+    cache: Optional[Any]
+
+
+def compute_dtype(arch: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if arch.dtype == "bfloat16" else torch.float32
+
+
+def param_dtype(arch: ArchConfig) -> torch.dtype:
+    return torch.float32 if arch.param_dtype == "float32" else torch.bfloat16
+
+
+def init_lm(arch: ArchConfig, *, device=None,
+            generator: Optional[torch.Generator] = None,
+            seed: int = 0) -> Params:
+    """Random params with the reference ``init_lm``'s shapes, dtypes and
+    distributions (truncated normals scaled by 1/sqrt(fan_in), unit norm
+    scales), drawn on ``device`` from ``generator`` (default: a generator
+    on that device seeded with ``seed``).  The values are not the
+    reference's: to run the reference's own weights, convert them
+    (``repro_torch.convert``)."""
+    B.check_arch(arch)
+    dev = _device.resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    dt = param_dtype(arch)
+    params: Params = {
+        "embed": L.init_embedding(arch.padded_vocab, arch.d_model,
+                                  generator=generator, device=dev, dtype=dt),
+        "final_norm": B.norm_init(arch, arch.d_model, device=dev, dtype=dt),
+    }
+    if not arch.tie_embeddings:
+        params["head"] = L.init_dense(arch.d_model, arch.padded_vocab,
+                                      generator=generator, device=dev,
+                                      dtype=dt)
+    params["segments"] = [
+        {f"b{i}": B.init_block(kind, arch, generator=generator, device=dev,
+                               dtype=dt, repeat=seg.repeat)
+         for i, kind in enumerate(seg.blocks)}
+        for seg in arch.pattern]
+    return params
+
+
+def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
+                     device=None, dtype=torch.bfloat16) -> list:
+    """Per-segment serving KV block pools, stacked on the segment's repeat
+    axis: ``[{"b{i}": {"k": (R, NB, BS, Hkv, D), "v": ...}}]``.  No batch
+    axis — the pool is shared by every in-flight request and indexed
+    through per-request block tables (layers.paged_attention)."""
+    dev = _device.resolve(device)
+    return [{f"b{i}": B.init_paged_block_cache(kind, arch, num_blocks,
+                                               block_size, device=dev,
+                                               dtype=dtype, repeat=seg.repeat)
+             for i, kind in enumerate(seg.blocks)}
+            for seg in arch.pattern]
+
+
+def _take(tree, r: int):
+    """Application ``r`` of a repeat-stacked param/cache dict (views)."""
+    if isinstance(tree, dict):
+        return {k: _take(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
+             cache: Optional[list] = None,
+             positions: Optional[torch.Tensor] = None,
+             block_tables: Optional[torch.Tensor] = None,
+             new_lens: Optional[torch.Tensor] = None,
+             impl: str = "xla") -> LMOutput:
+    """Forward pass.
+
+    tokens: (B, S) integer tokens.
+    cache:  None => whole-sequence forward (causal self-attention over the
+       S tokens; ``impl="pallas"`` runs it through the port's flash
+       kernel).  Otherwise the paged pools from ``init_paged_cache``, with
+       ``block_tables`` (B, max_blocks), per-sequence ``positions`` (B,) and
+       optional ``new_lens`` (B,) (rows past it are padding).  The pools
+       are updated in place and returned as ``LMOutput.cache``.
+    """
+    if cache is not None and block_tables is None:
+        raise NotImplementedError("the port's cached forward is paged: pass "
+                                  "block_tables with the pools")
+    cdt = compute_dtype(arch)
+    x = L.embed(params["embed"], tokens.long(), arch.d_model).to(cdt)
+    if positions is None and cache is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    for si, seg in enumerate(arch.pattern):
+        segp = params["segments"][si]
+        for r in range(seg.repeat):
+            for bi, kind in enumerate(seg.blocks):
+                key = f"b{bi}"
+                c = None if cache is None else _take(cache[si][key], r)
+                x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
+                                     cache=c, positions=positions,
+                                     block_tables=block_tables,
+                                     new_lens=new_lens, impl=impl)
+    hidden = B.norm_apply(arch, params["final_norm"], x)
+    if arch.tie_embeddings:
+        logits = L.unembed(params["embed"], hidden)
+    else:
+        logits = L.dense(params["head"], hidden).to(torch.float32)
+    return LMOutput(logits, cache)

@@ -1,0 +1,239 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device: the
+kernels have no CPU mode.  The file imports neither JAX nor the JAX package,
+so it runs on a machine that has only PyTorch and the CUDA toolkit:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances (``atol + rtol * |plain|``): kernel and plain version both
+compute in fp32, so fp32 differs only by summation order (2e-5); bf16
+outputs may differ by one rounding step of 8 significant bits, at most 2^-7
+of the value.
+"""
+import importlib.util
+import pathlib
+import subprocess
+
+import pytest
+import torch
+
+from repro_torch.kernels import build as tbuild
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DTYPES = {"float32": (torch.float32, 2e-5, 2e-5),
+          "bfloat16": (torch.bfloat16, 1e-5, 2.0 ** -7)}
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
+                                   (2, 8192)])
+def test_cuda_rmsnorm_matches_plain(shape, dtype):
+    _need_cuda()
+    tdt, atol, rtol = DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    s = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")
+    before = trn.rmsnorm.launches
+    got = trn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm.launches == before + 1
+    torch.testing.assert_close(got.float(), tref.rmsnorm_ref(x, s).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", [
+    (2, 128, 128, 4, 2, 128, True),
+    (1, 300, 300, 4, 1, 64, True),
+    (1, 100, 260, 2, 2, 32, True),
+    (1, 260, 100, 2, 2, 16, True),
+    (2, 77, 130, 4, 2, 128, False),
+])
+def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
+                                            dtype):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt, atol, rtol = DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
+    k = torch.randn((B, T, Hkv, D), generator=g, device="cuda").to(tdt)
+    v = torch.randn((B, T, Hkv, D), generator=g, device="cuda").to(tdt)
+    before = tfa.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+# Wrong flash kernels, each one edit away from csrc/flash_attention.cu:
+# (source text, replacement).  The first three are the classic bugs of a
+# flash kernel; the last is the bf16 rounding of the probabilities that the
+# reference's plain attention does (layers._sdpa), which the kernel must not.
+FLASH_MUTANTS = {
+    "mask one key late": ("(!causal || q_pos >= k_pos)",
+                          "(!causal || q_pos + 1 >= k_pos)"),
+    "kv heads interleaved": ("const int hk = h / group;",
+                             "const int hk = h % (gridDim.y / group);"),
+    "acc not rescaled": ("acc[i][j] *= alpha;", "(void)alpha;"),
+    "probs in bf16": ("Ps[(ty * 4 + i) * PP + tx + 16 * j] = p;",
+                      "Ps[(ty * 4 + i) * PP + tx + 16 * j] = "
+                      "__bfloat162float(__float2bfloat16(p));"),
+}
+
+
+@pytest.mark.gpu
+def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
+    """chip_smoke.py's kernel check, at the forward's shape, fails every
+    mutant in both dtypes.  The bf16-probabilities one is required to fail
+    in fp32 only: in bf16 it moves outputs by about one rounding step, so
+    whether the bf16 check sees it depends on the data."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = (tbuild.CSRC / "flash_attention.cu").read_text()
+    procs = {}
+    for i, (name, (old, new)) in enumerate(FLASH_MUTANTS.items()):
+        assert src.count(old) == 1, name
+        cu, so = tmp_path / f"mutant{i}.cu", tmp_path / f"mutant{i}.so"
+        cu.write_text(src.replace(old, new))
+        procs[name] = (so, subprocess.Popen(
+            tbuild.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        assert p.returncode == 0, f"{name}: {out}"
+        libs[name] = tbuild.open_library(so)
+
+    B, S, H, Hkv, D = 2, 512, 32, 8, 128        # the forward's attention
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rejected = {}
+    for dn, (tdt, _, _) in DTYPES.items():
+        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
+        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
+        v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
+        want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
+        for name, lib in [("kernel", None), *libs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(tfa, "_fn", tfa.bind(lib))
+            got = tops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_close(got, want, dn)
+            print(f"flash {name} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected[name, dn] = not ok
+        monkeypatch.undo()
+    assert not rejected["kernel", "float32"]
+    assert not rejected["kernel", "bfloat16"]
+    for name in FLASH_MUTANTS:
+        assert rejected[name, "float32"], name
+        if name != "probs in bf16":
+            assert rejected[name, "bfloat16"], name
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
+    _need_cuda()
+    x = torch.randn((4, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        trn.rmsnorm(x, torch.ones(64, device="cuda"))
+    xt = torch.randn((64, 4), device="cuda").t()
+    with pytest.raises(ValueError, match="contiguous"):
+        trn.rmsnorm(xt, torch.ones(64, device="cuda"))
+    q = torch.randn((1, 4, 8, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the slice on the card: the same model and requests on CUDA (kernels) and
+# on the CPU (plain versions), in fp32
+# ---------------------------------------------------------------------------
+
+def _tiny_qwen():
+    from repro_torch.configs.base import ArchConfig, Segment
+    return ArchConfig(name="qwen3-tiny", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=512, vocab=300, qk_norm=True,
+                      rope_theta=1_000_000.0,
+                      pattern=(Segment(("attn",), 2),), dtype="float32",
+                      param_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cuda_forward_matches_cpu_forward():
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import transformer as T
+    arch = _tiny_qwen()
+    params = T.init_lm(arch, device="cpu", seed=0)
+    gparams = _to(params, "cuda")
+    tokens = torch.randint(0, arch.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(0))
+    for impl in ("xla", "pallas"):
+        before = (trn.rmsnorm.launches, tfa.flash_attention.launches)
+        got = T.lm_apply(gparams, arch, tokens.cuda(), impl=impl).logits
+        torch.cuda.synchronize()
+        want = T.lm_apply(params, arch, tokens, impl=impl).logits
+        assert trn.rmsnorm.launches - before[0] == 4 * arch.n_layers + 1
+        assert tfa.flash_attention.launches - before[1] == \
+            (arch.n_layers if impl == "pallas" else 0)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_matches_cpu_engine():
+    """Greedy tokens equal and logprobs close under chunked prefill and
+    forced preemption."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    arch = _tiny_qwen()
+    params = T.init_lm(arch, device="cpu", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, size=n).astype(np.int32)
+               for n in (9, 5, 13, 7)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousBatchingEngine(arch, params, device=dev, slots=2,
+                                       max_len=32, block_size=4,
+                                       num_blocks=7, prefill_chunk=4)
+        outs[dev] = eng.generate([
+            Request(id=i, prompt=p, max_new_tokens=8,
+                    sampling=SamplingParams(logprobs=True))
+            for i, p in enumerate(prompts)])
+        assert eng.metrics.preemptions > 0
+        assert eng.cache.allocator.num_used == 0
+    assert [o.token_ids for o in outs["cuda"]] == \
+        [o.token_ids for o in outs["cpu"]]
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -1,0 +1,111 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and its entry points
+refuse to run on the host unless the CPU is asked for."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: pathlib.Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) \
+                == "import_module" and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            mods.add(node.args[0].value)
+    return mods
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    assert len(PORT_FILES) > 20
+    bad = {}
+    for path in PORT_FILES:
+        hits = sorted(m for m in _imported_modules(path)
+                      if m.split(".")[0] in FORBIDDEN)
+        if hits:
+            bad[str(path.relative_to(ROOT))] = hits
+    assert not bad, bad
+
+
+def test_import_scan_catches_a_forbidden_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import repro_torch\nfrom repro.models import layers\n"
+                 "def g():\n    import jax.numpy as jnp\n")
+    assert {m.split(".")[0] for m in _imported_modules(f)} & set(FORBIDDEN) \
+        == {"repro", "jax"}
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_refuse_the_host_without_an_explicit_device():
+    _no_cuda()
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from torch_port_fixtures import QWEN_TINY, port_arch
+    arch = port_arch(QWEN_TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(arch, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_lm(arch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(arch, {}, device="cuda")
+    params = T.init_lm(arch, device="cpu")
+    assert params["embed"]["embedding"].device.type == "cpu"
+
+
+def test_serve_cli_refuses_the_host_without_device_flag():
+    _no_cuda()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen3-8b", "--smoke"])
+
+
+def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
+                "--requests", "3", "--prompt-len", "6", "--max-new", "3",
+                "--max-len", "32", "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert "[continuous/greedy] 3 requests, 9 tokens" in out
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
+    _no_cuda()
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, timeout=120, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
+    assert "FAILED" in r.stderr
+
+
+def test_kernel_counters_count_only_kernel_launches():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    before = (RN.rmsnorm.launches, FA.flash_attention.launches)
+    x = torch.from_numpy(np.ones((2, 8), np.float32))
+    RN.rmsnorm(x, torch.ones(8))
+    q = torch.zeros((1, 2, 3, 16))
+    FA.flash_attention(q, q, q)
+    assert (RN.rmsnorm.launches, FA.flash_attention.launches) == before

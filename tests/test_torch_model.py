@@ -1,0 +1,207 @@
+"""The port's model stack (``repro_torch.models`` / ``runtime.steps``)
+against the JAX reference on the same params and the same inputs.
+
+Params come from the JAX ``init_lm`` and are converted leaf for leaf
+(``repro_torch.convert``); token and activation inputs are made with numpy
+from a fixed seed.  Everything is float32, so logits and updated KV pools
+are held to 1e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro.runtime import steps as JST
+from repro_torch import convert
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.runtime import steps as TST
+from serving_fixtures import TINY
+from torch_port_fixtures import (QWEN_TINY, jax_params, port_arch,
+                                 torch_params)
+
+ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY}
+TOL = 1e-5
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=tol)
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b)
+        for k in a:
+            _same_tree(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_tree(x, y)
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_convert_round_trip_is_bit_exact(param_dtype):
+    arch = QWEN_TINY.scaled(param_dtype=param_dtype)
+    params = jax.tree.map(lambda a: a.astype(param_dtype),
+                          jax_params(QWEN_TINY))
+    host = jax.tree.map(np.asarray, params)
+    tp = convert.to_torch(host)
+    leaf = tp["segments"][0]["b0"]["attn"]["wq"]["w"]
+    assert leaf.shape == (2, 64, 64)               # stacked repeat axis kept
+    assert leaf.dtype == getattr(torch, param_dtype)
+    _same_tree(host, convert.to_numpy(tp))
+    cache = jax.tree.map(np.asarray, JT.init_paged_cache(arch, 5, 4))
+    _same_tree(cache, convert.to_numpy(convert.to_torch(cache)))
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_init_lm_matches_reference_tree(name):
+    """Same nesting, shapes and dtypes as the reference init (values are
+    the port's own draws)."""
+    arch = ARCHS[name]
+    want = jax.tree.map(np.asarray, jax_params(arch))
+    got = TT.init_lm(port_arch(arch), device="cpu", seed=0)
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                walk(a[k], b[k])
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            assert tuple(a.shape) == tuple(b.shape)
+            assert str(a.dtype) == str(b.dtype).replace("torch.", "")
+    walk(want, got)
+    w = got["segments"][0]["b0"]["mlp"]["w_in"]["w"]
+    assert float(w.abs().max()) <= 2.0 / arch.d_model ** 0.5   # truncated
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_lm_apply_matches_reference(name, impl):
+    arch = ARCHS[name]
+    tokens = np.random.default_rng(0).integers(0, arch.vocab, (2, 11))
+    want = JT.lm_apply(jax_params(arch), arch, jnp.asarray(tokens, jnp.int32),
+                       impl=impl).logits
+    got = TT.lm_apply(torch_params(arch), port_arch(arch),
+                      torch.from_numpy(tokens), impl=impl).logits
+    assert got.shape == (2, 11, arch.padded_vocab)
+    assert got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("S,T", [(7, 7), (5, 9), (1100, 1100)])
+def test_sdpa_dense_and_chunked_match_reference(S, T):
+    """S*T > 1024^2 with S > 512 takes the q-block-chunked path."""
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((1, S, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((1, T, 1, 8)).astype(np.float32)
+    v = rng.standard_normal((1, T, 1, 8)).astype(np.float32)
+    for causal in (True, False):
+        want = JL._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, scale=0.3)
+        got = TL._sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v), causal=causal, scale=0.3)
+        _close(got, want)
+
+
+def test_rope_and_paged_indices_match_reference():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    pos = np.asarray([[3, 4, 5, 6, 7], [90, 91, 92, 93, 94]])
+    _close(TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6),
+           JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6))
+    # row 1 runs past its 3-block table (overrun -> null block scratch
+    # rows); row 0 has padding past new_lens
+    tables = np.asarray([[4, 2, 7], [1, 5, 3]], np.int32)
+    positions = np.asarray([2, 9], np.int32)
+    new_lens = np.asarray([3, 5], np.int32)
+    jq, jf = JL.paged_flat_indices(jnp.asarray(positions), 5,
+                                   jnp.asarray(tables), 4,
+                                   new_lens=jnp.asarray(new_lens))
+    tq, tf = TL.paged_flat_indices(torch.from_numpy(positions), 5,
+                                   torch.from_numpy(tables), 4,
+                                   new_lens=torch.from_numpy(new_lens))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_paged_prefill_and_decode_steps_match_reference(name):
+    """Two padded prompt chunks then three decode steps (with an idle row
+    on the null block), on shuffled block tables: logits after every step
+    and the pools after every step (null block excluded — padded rows'
+    scratch writes may land there in any order) match the JAX steps."""
+    arch = ARCHS[name]
+    tarch = port_arch(arch)
+    NB, BS, C = 12, 4, 6
+    jcache = JT.init_paged_cache(arch, NB, BS, jnp.float32)
+    tcache = convert.to_torch(jax.tree.map(np.asarray, jcache))
+    jpre = JST.make_paged_prefill_step(arch)
+    jdec = JST.make_paged_decode_step(arch)
+    tpre = TST.make_paged_prefill_step(tarch)
+    tdec = TST.make_paged_decode_step(tarch)
+    jp, tp = jax_params(arch), torch_params(arch)
+    rng = np.random.default_rng(3)
+    tables = np.asarray([[3, 7, 1, 9], [2, 5, 11, 4]], np.int32)
+
+    def pools_close():
+        for js, ts in zip(jcache, tcache):
+            for kv in ("k", "v"):
+                _close(ts["b0"][kv][:, 1:], np.asarray(js["b0"][kv])[:, 1:])
+
+    pos = np.asarray([0, 0], np.int32)
+    for new_lens in ([6, 4], [5, 6]):
+        toks = rng.integers(0, arch.vocab, (2, C)).astype(np.int32)
+        nl = np.asarray(new_lens, np.int32)
+        want, jcache = jpre(jp, jcache, jnp.asarray(toks), jnp.asarray(pos),
+                            jnp.asarray(tables), jnp.asarray(nl), None)
+        got, out = tpre(tp, tcache, torch.from_numpy(toks),
+                        torch.from_numpy(pos), torch.from_numpy(tables),
+                        torch.from_numpy(nl), None)
+        assert out is tcache                          # pools updated in place
+        _close(got, want)
+        pools_close()
+        pos = pos + nl
+
+    tables3 = np.concatenate([tables, np.zeros((1, 4), np.int32)])
+    for _ in range(3):
+        toks = rng.integers(0, arch.vocab, (3, 1)).astype(np.int32)
+        p3 = np.concatenate([pos, [0]]).astype(np.int32)
+        want, jcache = jdec(jp, jcache, jnp.asarray(toks), jnp.asarray(p3),
+                            jnp.asarray(tables3), None)
+        got, _ = tdec(tp, tcache, torch.from_numpy(toks),
+                      torch.from_numpy(p3), torch.from_numpy(tables3), None)
+        _close(got[:2], np.asarray(want)[:2])
+        pools_close()
+        pos = pos + 1
+
+
+def test_greedy_sampler_cuts_padded_vocab():
+    from repro_torch.serving.sampling import make_sampler
+    logits = torch.zeros((2, 512))
+    logits[0, 400] = 5.0                       # padding column: never wins
+    logits[0, 7] = 1.0
+    logits[1, 299] = 2.0
+    sample = make_sampler(300)
+    z = np.zeros(2, np.float32)
+    tok, logp = sample(logits, z, z.astype(np.int32), z + 1, z, z)
+    assert tok.tolist() == [7, 299]
+    want = torch.log_softmax(logits[:, :300], -1)[[0, 1], [7, 299]]
+    torch.testing.assert_close(logp, want)
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        sample(logits, z + 0.5, z.astype(np.int32), z + 1, z, z)

@@ -1,0 +1,159 @@
+"""The port's continuous-batching engine (``repro_torch.serving``) on the CPU
+against the greedy goldens (tests/goldens_serving.json) and against the JAX
+engine, with the reference's params converted leaf for leaf.
+
+The goldens were frozen under the old threefry RNG, so the params are built
+inside ``jax.threefry_partitionable(False)`` (tests/torch_port_fixtures.py).
+The engine kwargs are those of tests/test_serving.py for the same
+scenarios; tokens must match exactly.
+"""
+import numpy as np
+import pytest
+
+from repro_torch.configs.base import ArchConfig, Segment
+from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+from repro_torch.serving.sampling import SamplingParams
+from serving_fixtures import TINY, load_goldens, scenario_requests
+from torch_port_fixtures import QWEN_TINY, jax_params, port_arch, torch_params
+
+
+def _engine(arch, **kw):
+    return ContinuousBatchingEngine(port_arch(arch), torch_params(arch),
+                                    device="cpu", **kw)
+
+
+def _run_scenario(name, **engine_kw):
+    arch, reqs, slots, max_len = scenario_requests(name)
+    eng = _engine(arch, slots=slots, max_len=max_len, **engine_kw)
+    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m)
+                         for rid, p, m in reqs])
+    return eng, {o.request_id: o.token_ids for o in outs}
+
+
+GOLDEN_CASES = [
+    ("tiny/base",    dict(block_size=4, prefill_chunk=3), False),
+    ("tiny/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8), True),
+    ("tiny/victims", dict(block_size=16, num_blocks=7, prefill_chunk=16),
+     True),
+    ("tiny/mixed",   dict(block_size=4, prefill_chunk=8), False),
+]
+
+
+@pytest.mark.parametrize("scenario,kw,preempts", GOLDEN_CASES,
+                         ids=[c[0] for c in GOLDEN_CASES])
+def test_greedy_goldens(scenario, kw, preempts):
+    eng, got = _run_scenario(scenario, **kw)
+    assert got == load_goldens(scenario), scenario
+    assert (eng.metrics.preemptions > 0) == preempts
+    assert eng.cache.allocator.num_used == 0          # every block returned
+    assert eng.metrics.summary()["completed"] == len(got)
+
+
+SHARING_CASES = [
+    ("tiny/base",    dict(block_size=4, prefill_chunk=3)),
+    ("tiny/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8)),
+]
+
+
+@pytest.mark.parametrize("scenario,kw", SHARING_CASES,
+                         ids=[c[0] for c in SHARING_CASES])
+def test_greedy_goldens_with_prefix_sharing(scenario, kw):
+    eng, got = _run_scenario(scenario, share_prefix=True, **kw)
+    assert got == load_goldens(scenario), scenario
+    if scenario.endswith("preempt"):
+        assert eng.metrics.preemptions > 0
+        assert eng.cache.prefix_stats()["hit_tokens"] > 0
+    # after drain no request holds blocks; only the content index does
+    assert eng.cache.allocator.num_used == eng.cache.num_cached
+    assert eng.metrics.summary()["prefix_hit_rate"] \
+        == pytest.approx(eng.cache.prefix_stats()["hit_rate"])
+
+
+def test_shared_prefix_skips_prefill_and_matches_unshared_outputs():
+    prefix = np.arange(1, 13, dtype=np.int32)       # 3 full blocks of 4
+    prompts = [np.concatenate([prefix, np.asarray([50 + i, 60 + i],
+                                                  np.int32)])
+               for i in range(4)]
+
+    def serve(share):
+        eng = _engine(TINY, slots=2, max_len=64, block_size=4,
+                      prefill_chunk=4, share_prefix=share)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(id=i, prompt=p.copy(), max_new_tokens=5))
+        eng.run_until_drained()
+        return eng, {o.request_id: o.token_ids for o in eng.completed}
+
+    eng_off, out_off = serve(False)
+    eng_on, out_on = serve(True)
+    assert out_on == out_off
+    # requests 0 and 1 are admitted together and prefill privately; 2 and 3
+    # match the full prefix
+    assert eng_on.cache.prefix_stats()["hit_tokens"] == 2 * len(prefix)
+    assert eng_off.cache.prefix_stats()["hit_tokens"] == 0
+    assert eng_on.metrics.prefill_chunks < eng_off.metrics.prefill_chunks
+
+
+def test_matches_jax_engine_on_qwen_shaped_config():
+    """qk-norm, rope theta 1e6, GQA and a padded vocab (300 -> 512):
+    the port's engine and the JAX engine emit the same greedy tokens and
+    logprobs under chunked prefill and forced preemption."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.serving import ContinuousBatchingEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    from repro.serving import SamplingParams as JaxSamplingParams
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, QWEN_TINY.vocab, size=n).astype(np.int32)
+               for n in (9, 5, 13, 7)]
+    kw = dict(slots=2, max_len=32, block_size=4, num_blocks=7,
+              prefill_chunk=4)
+    jeng = JaxEngine(QWEN_TINY, jax_params(QWEN_TINY), make_host_mesh(), **kw)
+    want = jeng.generate([
+        JaxRequest(id=i, prompt=p, max_new_tokens=8,
+                   sampling=JaxSamplingParams(logprobs=True))
+        for i, p in enumerate(prompts)])
+    teng = _engine(QWEN_TINY, **kw)
+    got = teng.generate([Request(id=i, prompt=p, max_new_tokens=8,
+                                 sampling=SamplingParams(logprobs=True))
+                         for i, p in enumerate(prompts)])
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    assert all(t < QWEN_TINY.vocab for o in got for t in o.token_ids)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-5)
+    assert teng.metrics.preemptions == jeng.metrics.preemptions > 0
+
+
+def test_stochastic_sampling_is_refused_at_submit():
+    eng = _engine(TINY, slots=2, max_len=64)
+    with pytest.raises(NotImplementedError, match="temperature"):
+        eng.submit(Request(id=0, prompt=np.arange(1, 5, dtype=np.int32),
+                           sampling=SamplingParams(temperature=0.7)))
+    assert not eng.has_work
+    with pytest.raises(ValueError, match="temperature"):
+        eng.submit(Request(id=1, prompt=np.arange(1, 5, dtype=np.int32),
+                           sampling=SamplingParams(temperature=-1.0)))
+
+
+@pytest.mark.parametrize("blocks", [("attn", "mamba2"), ("mla",),
+                                    ("cross_attn",)])
+def test_unported_block_kinds_raise_at_construction(blocks):
+    arch = ArchConfig(name="mixed", family="hybrid", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                      pattern=(Segment(blocks, 1),), dtype="float32",
+                      param_dtype="float32")
+    bad = [k for k in blocks if k != "attn"]
+    with pytest.raises(NotImplementedError, match=bad[0]):
+        ContinuousBatchingEngine(arch, {}, device="cpu")
+
+
+def test_prefill_serves_oldest_request_first():
+    eng = _engine(TINY, slots=2, max_len=64, block_size=4, prefill_chunk=2)
+    older = Request(id=0, prompt=np.arange(1, 9, dtype=np.int32))
+    newer = Request(id=1, prompt=np.arange(1, 9, dtype=np.int32))
+    eng.submit(older)
+    eng.submit(newer)
+    eng._admit()
+    eng.slots[0], eng.slots[1] = eng.slots[1], eng.slots[0]
+    eng._prefill_chunk()
+    assert eng.slots[1].prefill_pos == 2      # older advanced
+    assert eng.slots[0].prefill_pos == 0      # newer waits

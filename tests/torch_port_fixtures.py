@@ -1,0 +1,60 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py).
+
+The port (``src/repro_torch``) keeps its own copy of every config class, so
+a JAX ``ArchConfig`` is mirrored field for field with ``port_arch``.
+Reference params are built under ``jax.threefry_partitionable(False)`` —
+the RNG the serving goldens were frozen with — and handed to the port as
+numpy leaves through ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import numpy as np
+
+from repro.configs.base import ArchConfig, Segment
+from repro.models import transformer as JT
+from repro_torch import convert
+from repro_torch.configs import base as tbase
+
+# qwen3-shaped tiny config: qk-norm, rope theta 1e6, GQA, explicit
+# head_dim, and a vocab that is not a multiple of 256 (padded to 512, so
+# greedy argmax must cut the padding columns)
+QWEN_TINY = ArchConfig(name="qwen3-tiny", family="dense", n_layers=2,
+                       d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                       d_ff=128, vocab=300, qk_norm=True,
+                       rope_theta=1_000_000.0,
+                       pattern=(Segment(("attn",), 2),), dtype="float32",
+                       param_dtype="float32")
+
+_JAX_PARAMS: dict[str, dict] = {}
+_TORCH_PARAMS: dict[str, dict] = {}
+
+
+def port_arch(arch: ArchConfig) -> tbase.ArchConfig:
+    """The port's ArchConfig with every field of a JAX ArchConfig."""
+    kw = {f.name: getattr(arch, f.name) for f in dataclasses.fields(arch)}
+    kw["pattern"] = tuple(tbase.Segment(s.blocks, s.repeat)
+                          for s in arch.pattern)
+    for name, cls in (("moe", tbase.MoESpec), ("ssm", tbase.SSMSpec),
+                      ("mla", tbase.MLASpec), ("encoder", tbase.EncoderSpec)):
+        if kw[name] is not None:
+            kw[name] = cls(**dataclasses.asdict(kw[name]))
+    return tbase.ArchConfig(**kw)
+
+
+def jax_params(arch: ArchConfig) -> dict:
+    """Reference params from PRNGKey(0) under the goldens' RNG."""
+    if arch.name not in _JAX_PARAMS:
+        with jax.threefry_partitionable(False):
+            _JAX_PARAMS[arch.name] = JT.init_lm(jax.random.PRNGKey(0), arch)
+    return _JAX_PARAMS[arch.name]
+
+
+def torch_params(arch: ArchConfig) -> dict:
+    """``jax_params(arch)`` converted leaf for leaf to CPU tensors."""
+    if arch.name not in _TORCH_PARAMS:
+        _TORCH_PARAMS[arch.name] = convert.to_torch(
+            jax.tree.map(np.asarray, jax_params(arch)))
+    return _TORCH_PARAMS[arch.name]
