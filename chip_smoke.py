@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything (~1 minute on an H100)
+    python3 chip_smoke.py                 # everything (~2 minutes on an H100)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
-    python3 chip_smoke.py --profile       # plus a traced serve (by kernel)
+    python3 chip_smoke.py --profile       # plus a traced serve of each model
 
 Phases, each of which fails the run (exit code 1) on any error:
 
@@ -15,21 +15,32 @@ Phases, each of which fails the run (exit code 1) on any error:
    parallel) and prints the build time.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, in bf16 and fp32, with the tolerance stated: at every shape
-   the serve path's decode and prefill steps and the forward give it at
-   this script's settings (``served_cases``), and at larger and ragged
-   edge cases.  Kernel, plain and library times are device times: 20
-   calls captured in one CUDA graph and replayed between CUDA events.  The
+   each model's serve path (decode and prefill steps) and forward give it
+   at this script's settings (``served_cases``), and at larger and ragged
+   edge cases.  Kernel and plain times (and the library call's, where one
+   PyTorch call computes the same function) are device times: 20 calls
+   captured in one CUDA graph and replayed between CUDA events.  The
    kernel's eager time per call from Python (``call_ms``) stands beside
    them: at the decode step's shapes that is the host's cost, not the
    device's.
-4. Serve: qwen3-8b at its published widths and all 36 layers, bf16, random
-   weights from a seeded generator, 8 greedy requests of 512 prompt tokens
-   and 32 new tokens through ``ContinuousBatchingEngine.generate``.  Every
-   launch counter is set to 0 just before and read just after.
-5. Forward: ``lm_apply(impl="pallas")`` over 2 of the prompts (the flash
-   kernel's path): the flash counter must rise by 36 and the RMSNorm counter
-   by 145; the last-position logits and their argmax are held against the
+4. Serve qwen3-8b: published widths and all 36 layers, bf16, random weights
+   from a seeded generator, 8 greedy requests of 512 prompt tokens and 32
+   new tokens through ``ContinuousBatchingEngine.generate``.  Every launch
+   counter is set to 0 just before and read just after.
+5. Forward qwen3-8b: ``lm_apply(impl="pallas")`` over 2 of the prompts
+   (the flash kernel's path): exact launch counts (36 flash, 145 RMSNorm);
+   the last-position logits and their argmax are held against the
    engine's own paged prefill logits for the same prompts.
+6. Serve mamba2-780m: published widths and all 48 layers, bf16, seeded
+   random weights, 8 greedy requests of 500 prompt tokens (a 256-token
+   chunk, then a padded one of 244) and 32 new tokens, on slot-state
+   pools.  Every request must finish with its tokens, every slot and
+   block must come back, and the SSD counter must read 48 per prefill
+   chunk.
+7. Forward mamba2-780m: ``lm_apply(impl="pallas")`` over 2 of the prompts,
+   one scan over 500 tokens from h0 = 0 (48 SSD and 97 RMSNorm launches),
+   held against the engine's chunked prefill, which hands h0 and the conv
+   buffers from one chunk to the next.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -60,18 +72,40 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 # significant bits, so they may land one rounding step apart, and one step
 # is at most 2^-7 of the value.
 TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
-# flash-kernel forward vs the engine's paged prefill, both bf16 end to end
-# over 36 layers: two independent attention paths, so the logits agree only
-# to bf16 rounding; max |diff| must stay under this share of max |logit|
-# (about 4x the 0.0038 measured on the H100), and each forward's argmax
-# must be the paged prefill's, or within that tolerance of its top logit.
+# SSD scan: max |kernel - plain| <= SSD_REL_TOL * max |plain|, for y and for
+# h_final, in both dtypes (the outputs are fp32 and both versions compute
+# in fp32 from the same inputs).  Each output is a sum of up to Q + N = 256
+# products plus the carried state, many times its own size, so sums in
+# another order differ by ~1e-6 of the output's scale, also at outputs
+# near 0, where an elementwise rtol would fail on summation order alone
+# (the plain version and the JAX kernels differ by up to 4e-6 of it on the
+# CPU, tests/test_torch_kernels.py).  The decays exp(cum_i - cum_j) are
+# the one place where order costs more: |cum| reaches thousands at strong
+# decay, so the kernel sums cum in the plain version's row order.  The
+# wrong kernels of tests/test_torch_gpu.py miss this by orders of
+# magnitude or go NaN.
+SSD_REL_TOL = 1e-4
+# forward vs the engine's chunked prefill, both bf16 end to end over all
+# layers: two paths with other matmul shapes, so the logits agree only to
+# bf16 rounding; max |diff| must stay under this share of max |logit|
+# (qwen3-8b: about 4x the 0.0038 measured on the H100), and each
+# forward's argmax must be the prefill's, or within that tolerance of its
+# top logit.
 FORWARD_REL_TOL = 0.015
 
 TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
 
-SERVE = dict(requests=8, prompt_len=512, max_new=32, slots=4, max_len=1024,
-             block_size=16, prefill_chunk=256)
+QWEN = "qwen3-8b"
+MAMBA = "mamba2-780m"
+SERVE = {
+    QWEN: dict(requests=8, prompt_len=512, max_new=32, slots=4, max_len=1024,
+               block_size=16, prefill_chunk=256),
+    # 500 = 256 + 244: the second prefill chunk is padded
+    MAMBA: dict(requests=8, prompt_len=500, max_new=32, slots=4,
+                max_len=1024, block_size=16, prefill_chunk=256),
+}
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
+KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
 
 
 def fail(msg: str) -> None:
@@ -142,31 +176,109 @@ def check_close(got, want, dtype_name):
     return err, ok, f"atol {atol:g} + rtol {rtol:g}*|plain|"
 
 
-def served_cases(arch):
-    """The shapes each main path gives the kernels at this script's
-    settings, derived from ``SERVE`` and the arch, plus the larger and
-    ragged cases that test the kernels' edges.  RMSNorm: ``(path, use,
-    rows, D)``; flash: ``(path, B, S, T, causal)``.  The serve path's decode
-    step normalises ``slots`` rows, its prefill step ``prefill_chunk`` rows
-    (a padded chunk), and the forward ``FORWARD_PROMPTS * prompt_len``; the
-    q/k norms see each row once per q/kv head."""
-    d, H, Hkv, hd = arch.d_model, arch.n_heads, arch.n_kv_heads, arch.head_dim
-    tokens = {"serve decode": SERVE["slots"],
-              "serve prefill": SERVE["prefill_chunk"],
-              "forward": FORWARD_PROMPTS * SERVE["prompt_len"]}
-    norm = []
-    for path, r in tokens.items():
-        norm += [(path, "norm1/norm2/final_norm", r, d),
-                 (path, "q_norm", r * H, hd), (path, "k_norm", r * Hkv, hd)]
-    norm += [("edge", "long rows", 2048, d), ("edge", "q_norm", 2048 * H, hd)]
-    S = SERVE["prompt_len"]
-    flash = [("forward", FORWARD_PROMPTS, S, S, True),
-             ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
-             ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False)]
-    return norm, flash
+def check_ssd(got, want):
+    """The SSD scan's check: ``got`` and ``want`` are (y, h_final) pairs;
+    each output's max |diff| must stay within SSD_REL_TOL of its plain
+    version's max |value|, and every output must be finite."""
+    import torch
+    errs = [(g - w).abs().max() for g, w in zip(got, want)]
+    ok = all(bool(torch.isfinite(g).all()) and
+             float(e) <= SSD_REL_TOL * float(w.abs().max())
+             for g, w, e in zip(got, want, errs))
+    err = float(torch.stack(errs).max())      # NaN if an output is NaN
+    return err, ok, f"{SSD_REL_TOL:g}*max|plain| (y and h_final)"
 
 
-def kernel_phase(torch, arch, iters):
+def bound(nbytes, flops):
+    """The least time for moving ``nbytes`` and doing ``flops``, a dict of
+    operation counts by the type they run at, each at its peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(f / PEAK_FLOPS[t] for t, f in flops.items()) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ssd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0):
+    """(bytes, flops by type) the scan must move and do: each input read
+    once, each output written once; 2 flops per multiply-add over the
+    causal triangle of each chunk's real rows.  C.B^T depends on the group
+    alone (decay and dt scale it afterwards), so it counts once per group,
+    at the inputs' type: a product of two bf16 values summed in fp32 is
+    exact.  The score product, the inter-chunk term and the state update
+    count once per head, in fp32."""
+    cb = ops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        cb += B * G * 2 * tri * N
+        ops += B * H * (2 * tri * P + 4 * q * N * P)
+    flops = {"float32": ops}
+    flops[dtype_name] = flops.get(dtype_name, 0) + cb
+    nbytes = (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
+              + 2 * B * S * H * 4 + B * S * H * P * 4
+              + B * H * P * N * 4 * (2 if has_h0 else 1))
+    return nbytes, flops
+
+
+def served_cases(name, arch):
+    """The shapes each main path of model ``name`` gives the kernels at
+    this script's settings, derived from ``SERVE[name]`` and the arch, plus
+    the larger and ragged cases that test the kernels' edges.  RMSNorm:
+    ``(path, use, rows, D)``; flash: ``(path, B, S, T, causal)``; SSD:
+    ``(path, B, S, G, h0)``.  The serve path's decode step normalises
+    ``slots`` rows, its prefill step ``prefill_chunk`` rows (a padded
+    chunk, scanned from the carried state), and the forward
+    ``FORWARD_PROMPTS * prompt_len`` (scanned from h0 = 0); the q/k norms
+    see each row once per q/kv head, the gated norm of a mamba2 block is
+    d_inner wide."""
+    st = SERVE[name]
+    d = arch.d_model
+    tokens = {"serve decode": st["slots"], "serve prefill": st["prefill_chunk"],
+              "forward": FORWARD_PROMPTS * st["prompt_len"]}
+    norm, flash, ssd = [], [], []
+    S = st["prompt_len"]
+    if name == QWEN:
+        H, Hkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
+        for path, r in tokens.items():
+            norm += [(f"{name} {path}", "norm1/norm2/final_norm", r, d),
+                     (f"{name} {path}", "q_norm", r * H, hd),
+                     (f"{name} {path}", "k_norm", r * Hkv, hd)]
+        norm += [("edge", "long rows", 2048, d), ("edge", "q_norm", 2048 * H, hd)]
+        flash = [(f"{name} forward", FORWARD_PROMPTS, S, S, True),
+                 ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
+                 ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False)]
+    else:
+        d_inner = arch.ssm.expand * d
+        G = arch.ssm.n_groups
+        for path, r in tokens.items():
+            norm += [(f"{name} {path}", "norm/final_norm", r, d),
+                     (f"{name} {path}", "gated norm", r, d_inner)]
+        ssd = [(f"{name} serve prefill", 1, st["prefill_chunk"], G, True),
+               (f"{name} forward", FORWARD_PROMPTS, S, G, False),
+               ("edge", 1, 300, G, False),         # ragged: 128 + 128 + 44
+               ("edge", 1, 100, G, False),         # Q = 100 < chunk
+               ("edge", 1, 256, 2, True),          # two groups, h0 != 0
+               ("edge", 2, 300, 2, True)]
+    return norm, flash, ssd
+
+
+def ssd_inputs(torch, gen, B, S, H, P, N, G, dt_bias, dtype, has_h0):
+    """The scan's inputs as the model makes them: x, B, C ~ N(0, 1) in the
+    working dtype, dt = softplus(N(0, 1) + dt_bias) and a = dt·A with A =
+    -(1..H) in fp32 (the init's A_log), h0 ~ N(0, 1) in fp32.  With these
+    decays exp(cum_i - cum_j) overflows above the diagonal."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(B, S, H, P).to(dtype)
+    Bm = randn(B, S, G, N).to(dtype)
+    Cm = randn(B, S, G, N).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, H) + dt_bias)
+    a = dt * -torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
+    h0 = randn(B, H, P, N) if has_h0 else None
+    return x, Bm, Cm, dt, a, h0
+
+
+def kernel_phase(torch, archs, iters):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -174,117 +286,158 @@ def kernel_phase(torch, arch, iters):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    norm_cases, flash_cases = served_cases(arch)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    for path, use, R, D in norm_cases:
-        for dt in (torch.bfloat16, torch.float32):
-            dn = str(dt).split(".")[1]
-            x = randn(R, D, dtype=dt)
-            scale = (1.0 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
-            got = RN.rmsnorm(x, scale)
-            want = ref.rmsnorm_ref(x, scale)
-            torch.cuda.synchronize()
-            err, ok, tol = check_close(got, want, dn)
-            ms = time_ms(lambda: RN.rmsnorm(x, scale), iters)
-            eager = call_ms(lambda: RN.rmsnorm(x, scale), iters)
-            plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters)
-            lib_ms = (time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6), iters)
-                      if hasattr(F, "rms_norm") else None)
-            nbytes = 2 * R * D * x.element_size() + D * scale.element_size()
-            flops = 4 * R * D
-            rows.append(dict(
-                name="rmsnorm", path=path, use=use, shape=f"({R}, {D})",
-                dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
-                call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes=nbytes, flops=flops, **bound(nbytes, flops, "float32")))
+    dtypes = ((torch.bfloat16, "bfloat16"), (torch.float32, "float32"))
+    for name, arch in archs.items():
+        norm_cases, flash_cases, ssd_cases = served_cases(name, arch)
+        for path, use, R, D in norm_cases:
+            for dt, dn in dtypes:
+                x = randn(R, D, dtype=dt)
+                scale = (1.0 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+                got = RN.rmsnorm(x, scale)
+                want = ref.rmsnorm_ref(x, scale)
+                torch.cuda.synchronize()
+                err, ok, tol = check_close(got, want, dn)
+                ms = time_ms(lambda: RN.rmsnorm(x, scale), iters)
+                eager = call_ms(lambda: RN.rmsnorm(x, scale), iters)
+                plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters)
+                lib_ms = (time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6),
+                                  iters) if hasattr(F, "rms_norm") else None)
+                nbytes = 2 * R * D * x.element_size() \
+                    + D * scale.element_size()
+                flops = 4 * R * D
+                rows.append(dict(
+                    name="rmsnorm", path=path, use=use, shape=f"({R}, {D})",
+                    dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
+                    call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
+                    bytes=nbytes, flops=flops,
+                    **bound(nbytes, {"float32": flops})))
 
-    H, HKV, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
-    for path, B, S, Tk, causal in flash_cases:
-        for dt in (torch.bfloat16, torch.float32):
-            dn = str(dt).split(".")[1]
-            q = randn(B, S, H, D, dtype=dt)
-            k = randn(B, Tk, HKV, D, dtype=dt)
-            v = randn(B, Tk, HKV, D, dtype=dt)
-            sc = 1.0 / D ** 0.5
-            got = ops.flash_attention(q, k, v, scale=sc, causal=causal)
-            want = ref.flash_attention_ref(q, k, v, scale=sc, causal=causal)
-            torch.cuda.synchronize()
-            err, ok, tol = check_close(got, want, dn)
-            ms = time_ms(lambda: ops.flash_attention(q, k, v, scale=sc,
-                                                     causal=causal), iters)
-            eager = call_ms(lambda: ops.flash_attention(q, k, v, scale=sc,
-                                                        causal=causal), iters)
-            plain_ms = time_ms(lambda: ref.flash_attention_ref(
-                q, k, v, scale=sc, causal=causal), iters)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
-                iters)
-            # top-left causal: query i sees keys 0..i, so only the first
-            # min(S, T) keys are ever read and min(i+1, T) pairs are computed
-            pairs = (sum(min(i + 1, Tk) for i in range(S)) if causal
-                     else S * Tk)
-            keys = min(S, Tk) if causal else Tk
-            flops = 4 * B * H * D * pairs
-            nbytes = (2 * B * S * H * D + 2 * B * keys * HKV * D) \
-                * q.element_size()
-            rows.append(dict(
-                name="flash_attention", path=path, use="attention",
-                shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
-                      f"{' causal' if causal else ''}",
-                dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
-                call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes=nbytes, flops=flops, **bound(nbytes, flops, dn)))
+        for path, B, S, Tk, causal in flash_cases:
+            H, HKV, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
+            for dt, dn in dtypes:
+                q = randn(B, S, H, D, dtype=dt)
+                k = randn(B, Tk, HKV, D, dtype=dt)
+                v = randn(B, Tk, HKV, D, dtype=dt)
+                sc = 1.0 / D ** 0.5
+                got = ops.flash_attention(q, k, v, scale=sc, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, scale=sc,
+                                               causal=causal)
+                torch.cuda.synchronize()
+                err, ok, tol = check_close(got, want, dn)
+                ms = time_ms(lambda: ops.flash_attention(
+                    q, k, v, scale=sc, causal=causal), iters)
+                eager = call_ms(lambda: ops.flash_attention(
+                    q, k, v, scale=sc, causal=causal), iters)
+                plain_ms = time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, scale=sc, causal=causal), iters)
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
+                    iters)
+                # top-left causal: query i sees keys 0..i, so only the first
+                # min(S, T) keys are ever read and min(i+1, T) pairs computed
+                pairs = (sum(min(i + 1, Tk) for i in range(S)) if causal
+                         else S * Tk)
+                keys = min(S, Tk) if causal else Tk
+                flops = 4 * B * H * D * pairs
+                nbytes = (2 * B * S * H * D + 2 * B * keys * HKV * D) \
+                    * q.element_size()
+                rows.append(dict(
+                    name="flash_attention", path=path, use="attention",
+                    shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
+                          f"{' causal' if causal else ''}",
+                    dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
+                    call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
+                    bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+
+        for path, B, S, G, has_h0 in ssd_cases:
+            s = arch.ssm
+            H = s.expand * arch.d_model // s.head_dim
+            P, N, chunk = s.head_dim, s.d_state, s.chunk
+            Q = min(chunk, S)
+            # the init's dt_bias: inverse softplus of log-uniform [1e-3, 0.1]
+            u = torch.rand((H,), generator=gen, device="cuda")
+            dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                            + math.log(0.001))
+            dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+            for dt, dn in dtypes:
+                x, Bm, Cm, dtv, a, h0 = ssd_inputs(torch, gen, B, S, H, P, N,
+                                                   G, dt_bias, dt, has_h0)
+
+                def kernel():
+                    return ops.ssd_scan(x, Bm, Cm, dtv, a, h0, chunk=chunk)
+
+                def plain():
+                    return ref.ssd_scan_ref(x, Bm, Cm, dtv, a, h0,
+                                            chunk=chunk)
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err, ok, tol = check_ssd(got, want)
+                nbytes, flops = ssd_work(B, S, H, P, N, G, Q, dn,
+                                         x.element_size(), has_h0)
+                rows.append(dict(
+                    name="ssd_scan", path=path, use="scan",
+                    shape=f"B={B} S={S} H={H} P={P} N={N} G={G} Q={Q}"
+                          f"{' h0' if has_h0 else ''}",
+                    dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                    ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
+                    plain_ms=time_ms(plain, iters), library_ms=None,
+                    bytes=nbytes, flops=sum(flops.values()),
+                    **bound(nbytes, flops)))
     return rows
-
-
-def bound(nbytes, flops, dtype_name):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def reset_counts():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SSD
     RN.rmsnorm.launches = 0
     FA.flash_attention.launches = 0
+    SSD.ssd_scan.launches = 0
 
 
 def read_counts():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SSD
     return {"rmsnorm": RN.rmsnorm.launches,
-            "flash_attention": FA.flash_attention.launches}
+            "flash_attention": FA.flash_attention.launches,
+            "ssd_scan": SSD.ssd_scan.launches}
 
 
-def serve_phase(torch, np, report, arch):
+def block_counts(arch):
+    kinds = [k for seg in arch.pattern for k in seg.blocks
+             for _ in range(seg.repeat)]
+    return kinds.count("attn"), kinds.count("mamba2")
+
+
+def serve_phase(torch, np, report, name, arch):
     from repro_torch.models import transformer as T
     from repro_torch.runtime import steps as ST
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
+    st = SERVE[name]
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_lm(arch, device="cuda", generator=gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"serve: qwen3-8b, {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"serve: {name}, {arch.n_layers} layers, d_model {arch.d_model}, "
           f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB bf16), "
           f"init {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, arch.vocab, size=SERVE["prompt_len"])
-               .astype(np.int32) for _ in range(SERVE["requests"])]
-    engine_kw = dict(device="cuda", slots=SERVE["slots"],
-                     max_len=SERVE["max_len"],
-                     block_size=SERVE["block_size"],
-                     prefill_chunk=SERVE["prefill_chunk"])
+    prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
+               .astype(np.int32) for _ in range(st["requests"])]
+    engine_kw = dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
+                     block_size=st["block_size"],
+                     prefill_chunk=st["prefill_chunk"])
     # warm-up engine (not timed, not counted): first cuBLAS calls
     warm = ContinuousBatchingEngine(arch, params, **engine_kw)
     warm.generate([Request(id=0, prompt=prompts[0][:16], max_new_tokens=2)])
@@ -292,8 +445,9 @@ def serve_phase(torch, np, report, arch):
     torch.cuda.synchronize()
 
     eng = ContinuousBatchingEngine(arch, params, **engine_kw)
-    reqs = [Request(id=i, prompt=p, max_new_tokens=SERVE["max_new"])
+    reqs = [Request(id=i, prompt=p, max_new_tokens=st["max_new"])
             for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
@@ -302,17 +456,25 @@ def serve_phase(torch, np, report, arch):
     counts = read_counts()
 
     for o in outs:
-        if o.n_tokens != SERVE["max_new"] or o.finish_reason != "length":
-            fail(f"request {o.request_id}: {o.n_tokens} tokens, "
-                 f"finish {o.finish_reason!r} (want {SERVE['max_new']}, "
+        if o.n_tokens != st["max_new"] or o.finish_reason != "length":
+            fail(f"{name} request {o.request_id}: {o.n_tokens} tokens, "
+                 f"finish {o.finish_reason!r} (want {st['max_new']}, "
                  f"'length')")
         if not all(0 <= t < arch.vocab for t in o.token_ids):
-            fail(f"request {o.request_id}: token outside [0, vocab)")
+            fail(f"{name} request {o.request_id}: token outside [0, vocab)")
     if eng.cache.allocator.num_used != 0:
-        fail(f"{eng.cache.allocator.num_used} blocks still held after drain")
-    if counts["rmsnorm"] == 0:
-        fail("the serving path launched no RMSNorm kernel")
+        fail(f"{name}: {eng.cache.allocator.num_used} blocks still held "
+             f"after drain")
+    if any(s.busy for s in eng.slots):
+        fail(f"{name}: a slot (and its slot-state row) still held after "
+             f"drain")
     s = eng.metrics.summary()
+    n_attn, n_mamba = block_counts(arch)
+    if counts["rmsnorm"] == 0:
+        fail(f"{name}: the serving path launched no RMSNorm kernel")
+    if counts["ssd_scan"] != n_mamba * s["prefill_chunks"]:
+        fail(f"{name}: {counts['ssd_scan']} SSD launches, want {n_mamba} "
+             f"per prefill chunk x {s['prefill_chunks']}")
     total = sum(o.n_tokens for o in outs)
     serve = dict(requests=len(outs), tokens=total, wall_s=wall,
                  tok_per_s=total / wall, ttft_p50_s=s["ttft_p50_s"],
@@ -322,57 +484,67 @@ def serve_phase(torch, np, report, arch):
                  prefill_chunks=s["prefill_chunks"],
                  preemptions=s["preemptions"], launches=counts,
                  phases_host_s=s["phases"],
+                 pool_gb=eng.cache.pool_bytes / 1e9,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    report["serve"] = serve
-    print(f"serve: {len(outs)} requests, {total} tokens in {wall:.3f} s = "
-          f"{total / wall:.2f} tok/s, TTFT p50 {s['ttft_p50_s'] * 1e3:.1f} ms, "
-          f"TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms, "
-          f"{s['decode_steps']} decode steps / {s['prefill_chunks']} prefill "
-          f"chunks, launches {counts}, blocks freed, peak memory "
-          f"{serve['peak_mem_gb']:.2f} GB")
+    report[f"serve {name}"] = serve
+    print(f"serve: {name}: {len(outs)} requests, {total} tokens in "
+          f"{wall:.3f} s = {total / wall:.2f} tok/s, TTFT p50 "
+          f"{s['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{s['tpot_p50_s'] * 1e3:.2f} ms, {s['decode_steps']} decode steps "
+          f"/ {s['prefill_chunks']} prefill chunks, launches {counts}, "
+          f"blocks and slots freed, cache pools {serve['pool_gb']:.2f} GB, "
+          f"peak memory {serve['peak_mem_gb']:.2f} GB")
 
-    # the engine's own paged prefill (its step, its cache) for 2 prompts,
-    # without the fused sampler, to get the first-token logits
+    # the engine's own chunked prefill (its step, its cache, slot row 0
+    # reset as admission does) for 2 prompts, without the fused sampler, to
+    # get the first-token logits
     prefill = ST.make_paged_prefill_step(arch)
+    admit = ST.make_slot_admit_step(arch)
+    sid = (torch.tensor([0], device="cuda") if eng.cache.has_slot_state
+           else None)
     ref_logits = []
-    C = SERVE["prefill_chunk"]
+    C = st["prefill_chunk"]
     for rid in range(FORWARD_PROMPTS):
         ctx = prompts[rid]
         if not eng.cache.reserve(1000 + rid, len(ctx)):
             fail("cannot reserve blocks for the reference prefill")
+        admit(params, eng.cache.pools, 0)
         table = torch.as_tensor(eng.cache.table_array([1000 + rid]),
                                 device="cuda")
         for p0 in range(0, len(ctx), C):
-            chunk = torch.as_tensor(ctx[p0:p0 + C][None, :], device="cuda")
-            last, _ = prefill(params, eng.cache.pools, chunk,
+            n = min(C, len(ctx) - p0)
+            chunk = np.zeros((1, C), np.int32)   # padded, as the engine pads
+            chunk[0, :n] = ctx[p0:p0 + n]
+            last, _ = prefill(params, eng.cache.pools,
+                              torch.as_tensor(chunk, device="cuda"),
                               torch.tensor([p0], device="cuda"), table,
-                              torch.tensor([chunk.shape[1]], device="cuda"),
-                              None)
+                              torch.tensor([n], device="cuda"), sid)
         ref_logits.append(last[0])
         eng.cache.release(1000 + rid)
         first = int(torch.argmax(last[0, :arch.vocab]))
         if first != outs[rid].token_ids[0]:
-            fail(f"request {rid}: paged prefill argmax {first} != the "
-                 f"engine's first token {outs[rid].token_ids[0]}")
+            fail(f"{name} request {rid}: chunked prefill argmax {first} != "
+                 f"the engine's first token {outs[rid].token_ids[0]}")
     return params, prompts, torch.stack(ref_logits)
 
 
-def profile_phase(torch, report, arch, params, prompts):
-    """A traced serve of one full batch (4 requests x 512 prompt tokens, 8
-    new tokens each) under ``torch.profiler``: device busy share of the
-    window and device time by kernel, from the exported Chrome trace.  The
-    untraced serve phase above gives the end-to-end numbers; tracing adds
-    host cost, so this run's wall time is not one of them."""
+def profile_phase(torch, report, name, arch, params, prompts):
+    """A traced serve of one full batch (``slots`` requests, 8 new tokens
+    each) under ``torch.profiler``: device busy share of the window and
+    device time by kernel, from the exported Chrome trace.  The untraced
+    serve phase gives the end-to-end numbers; tracing adds host cost, so
+    this run's wall time is not one of them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
+    st = SERVE[name]
     eng = ContinuousBatchingEngine(
-        arch, params, device="cuda", slots=SERVE["slots"],
-        max_len=SERVE["max_len"], block_size=SERVE["block_size"],
-        prefill_chunk=SERVE["prefill_chunk"])
+        arch, params, device="cuda", slots=st["slots"],
+        max_len=st["max_len"], block_size=st["block_size"],
+        prefill_chunk=st["prefill_chunk"])
     reqs = [Request(id=i, prompt=p, max_new_tokens=8)
-            for i, p in enumerate(prompts[:SERVE["slots"]])]
+            for i, p in enumerate(prompts[:st["slots"]])]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -380,7 +552,7 @@ def profile_phase(torch, report, arch, params, prompts):
         eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trace = ROOT / "build" / "chip_smoke_trace.json"
+    trace = ROOT / "build" / f"chip_smoke_trace_{name}.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text()).get("traceEvents", [])
@@ -394,8 +566,8 @@ def profile_phase(torch, report, arch, params, prompts):
                launch_calls=launches)
     if not kernels:
         out["device_busy_share"] = None      # the profiler saw no device
-        print("profile: no kernel events in the trace: device time not "
-              "measured")
+        print(f"profile {name}: no kernel events in the trace: device time "
+              f"not measured")
     else:
         spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
         busy, end = 0.0, None
@@ -411,6 +583,7 @@ def profile_phase(torch, report, arch, params, prompts):
             n = e["name"]
             key = ("rmsnorm" if "rmsnorm_kernel" in n else
                    "flash" if "flash_fwd" in n else
+                   "ssd_scan" if "ssd_scan_kernel" in n else
                    "gemm" if "gemm" in n.lower() or "gemv" in n.lower() else
                    n[:60])
             t = by_name.setdefault(key, [0, 0.0])
@@ -420,20 +593,21 @@ def profile_phase(torch, report, arch, params, prompts):
         out.update(device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
                    by_kernel=[{"kernel": k, "count": c, "ms": us / 1e3}
                               for k, (c, us) in top])
-        print(f"profile: traced serve of {len(reqs)} requests, wall "
+        print(f"profile {name}: traced serve of {len(reqs)} requests, wall "
               f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
               f"({100 * busy / 1e6 / wall:.1f}%), {len(kernels)} kernels, "
               f"{launches} launch calls, {s['decode_steps']} decode steps / "
               f"{s['prefill_chunks']} prefill chunks")
         for k, (c, us) in top:
-            print(f"  profile kernel {k}: {c} launches, {us / 1e3:.2f} ms")
-    report["profile"] = out
+            print(f"  profile {name} kernel {k}: {c} launches, "
+                  f"{us / 1e3:.2f} ms")
+    report[f"profile {name}"] = out
 
 
-def forward_phase(torch, np, report, arch, params, prompts, ref_logits):
+def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     from repro_torch.models import transformer as T
 
-    B, S = FORWARD_PROMPTS, SERVE["prompt_len"]
+    B, S = FORWARD_PROMPTS, SERVE[name]["prompt_len"]
     tokens = torch.as_tensor(np.stack(prompts[:B]), device="cuda")
     reset_counts()
     t0 = time.perf_counter()
@@ -441,37 +615,40 @@ def forward_phase(torch, np, report, arch, params, prompts, ref_logits):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    want = {"flash_attention": arch.n_layers,
-            "rmsnorm": 4 * arch.n_layers + 1}
+    n_attn, n_mamba = block_counts(arch)
+    want = {"rmsnorm": (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1,
+            "flash_attention": n_attn, "ssd_scan": n_mamba}
     if counts != want:
-        fail(f"forward launches {counts}, want {want}")
+        fail(f"{name} forward launches {counts}, want {want}")
     logits = out.logits[:, -1, :arch.vocab]
     refl = ref_logits[:, :arch.vocab]
     if out.logits.shape != (B, S, arch.padded_vocab) or \
             not torch.isfinite(out.logits).all():
-        fail(f"forward logits shape {tuple(out.logits.shape)} or not finite")
+        fail(f"{name} forward logits shape {tuple(out.logits.shape)} or not "
+             f"finite")
     err = float((logits - refl).abs().max())
     scale = float(refl.abs().max())
     tol = FORWARD_REL_TOL * scale
     picks = [int(torch.argmax(logits[i])) for i in range(B)]
     best = [int(torch.argmax(refl[i])) for i in range(B)]
-    # how far below the paged prefill's top logit the forward's pick sits
+    # how far below the chunked prefill's top logit the forward's pick sits
     # (0 when the two argmaxes agree)
     shortfall = [float(refl[i, best[i]] - refl[i, picks[i]]) for i in range(B)]
-    report["forward"] = dict(wall_s=wall, launches=counts, max_abs_err=err,
-                             max_abs_logit=scale, rel_tol=FORWARD_REL_TOL,
-                             argmax_agree=[p == b for p, b in zip(picks, best)],
-                             argmax_shortfall=shortfall)
-    print(f"forward: lm_apply(impl='pallas') B={B} S={S} in "
+    report[f"forward {name}"] = dict(
+        wall_s=wall, launches=counts, max_abs_err=err, max_abs_logit=scale,
+        rel_tol=FORWARD_REL_TOL,
+        argmax_agree=[p == b for p, b in zip(picks, best)],
+        argmax_shortfall=shortfall)
+    print(f"forward: {name}: lm_apply(impl='pallas') B={B} S={S} in "
           f"{wall * 1e3:.1f} ms, launches {counts}; last-position logits vs "
-          f"paged prefill: max |diff| {err:.4g} (max |logit| {scale:.4g}, "
+          f"chunked prefill: max |diff| {err:.4g} (max |logit| {scale:.4g}, "
           f"tol {FORWARD_REL_TOL}*max = {tol:.4g}), argmax {picks} vs {best}")
     if not err <= tol:
-        fail(f"forward logits differ from the paged prefill by {err:.4g} "
-             f"> {tol:.4g}")
+        fail(f"{name} forward logits differ from the chunked prefill by "
+             f"{err:.4g} > {tol:.4g}")
     if any(s > tol for s in shortfall):
-        fail(f"forward argmax {picks} != paged prefill argmax {best}, and "
-             f"not a near tie (shortfall {shortfall} > {tol:.4g})")
+        fail(f"{name} forward argmax {picks} != chunked prefill argmax "
+             f"{best}, and not a near tie (shortfall {shortfall} > {tol:.4g})")
 
 
 def _leaves(tree):
@@ -492,7 +669,7 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON")
     ap.add_argument("--profile", action="store_true",
-                    help="after the forward phase, trace one more serve "
+                    help="after each forward phase, trace one more serve "
                          "with torch.profiler (device busy share, time by "
                          "kernel)")
     args = ap.parse_args()
@@ -525,10 +702,10 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     from repro_torch.configs import get_arch
-    arch = get_arch("qwen3-8b")
+    archs = {QWEN: get_arch(QWEN), MAMBA: get_arch(MAMBA)}
     report = {"card": card, "build_s": rep["seconds"]}
     # 3. kernels vs their plain versions
-    rows = kernel_phase(torch, arch, TIMED_LAUNCHES)
+    rows = kernel_phase(torch, archs, TIMED_LAUNCHES)
     report["kernel_cases"] = rows
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -544,33 +721,42 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {bad}")
 
     # launches on each main path, each counted from 0 around its own run
-    by_path = {"serve": {"rmsnorm": 0, "flash_attention": 0},
-               "forward": {"rmsnorm": 0, "flash_attention": 0}}
+    paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
+    by_path = {p: {k: 0 for k in KERNELS} for p in paths}
     if not args.kernels_only:
-        # 4. serve, 5. forward
-        params, prompts, ref_logits = serve_phase(torch, np, report, arch)
-        forward_phase(torch, np, report, arch, params, prompts, ref_logits)
-        if args.profile:
-            profile_phase(torch, report, arch, params, prompts)
-        by_path = {p: report[p]["launches"] for p in by_path}
+        for name, arch in archs.items():
+            # 4./6. serve, 5./7. forward
+            params, prompts, ref_logits = serve_phase(torch, np, report,
+                                                      name, arch)
+            forward_phase(torch, np, report, name, arch, params, prompts,
+                          ref_logits)
+            if args.profile:
+                profile_phase(torch, report, name, arch, params, prompts)
+            del params, ref_logits
+            torch.cuda.empty_cache()
+        by_path = {p: report[p]["launches"] for p in paths}
 
-    # 6. one entry per kernel, on the main path that serves it most: its
+    # 8. one entry per kernel, on the main path that runs it most: its
     # numbers are the bf16 case of that path with the most launches (the
-    # decode step's (slots, d_model) norms; the forward's attention), its
-    # launches that path's count, and every path's count beside it
-    headline = {"rmsnorm": ("serve", "serve decode", "norm1/norm2/final_norm"),
-                "flash_attention": ("forward", "forward", "attention")}
+    # qwen decode step's (slots, d_model) norms; the qwen forward's
+    # attention; the mamba2 prefill chunk's scan), its launches that path's
+    # count, and every path's count beside it
+    headline = {
+        "rmsnorm": (f"serve {QWEN}", f"{QWEN} serve decode",
+                    "norm1/norm2/final_norm"),
+        "flash_attention": (f"forward {QWEN}", f"{QWEN} forward",
+                            "attention"),
+        "ssd_scan": (f"serve {MAMBA}", f"{MAMBA} serve prefill", "scan")}
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:20",
-                "flash_attention": "src/repro/kernels/flash_attention.py:77"}
-    source = {"rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-              "flash_attention":
-                  "src/repro_torch/kernels/csrc/flash_attention.cu"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:77",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:71"}
     kernels = []
     for name, (path, case_path, use) in headline.items():
         r = next(r for r in rows if r["name"] == name and r["path"] ==
                  case_path and r["use"] == use and r["dtype"] == "bfloat16")
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name], "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"],

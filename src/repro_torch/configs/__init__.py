@@ -1,13 +1,15 @@
-"""Architecture registry: the archs the port serves (``qwen3-8b`` so far)."""
+"""Architecture registry: the archs the port serves (``qwen3-8b`` and
+``mamba2-780m`` so far)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
                                       MoESpec, Segment, SSMSpec)
-from repro_torch.configs import qwen3_8b
+from repro_torch.configs import mamba2_780m, qwen3_8b
 
-ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH for m in (qwen3_8b,)}
+ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH
+                                for m in (qwen3_8b, mamba2_780m)}
 
 
 def get_arch(name: str) -> ArchConfig:

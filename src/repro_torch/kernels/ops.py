@@ -3,9 +3,11 @@
 
 The model passes (B, S, H, D) tensors.  The flash kernel wants head-major
 (B, H, S, D): the adapter hands it transposed *views* (the kernel takes
-strides), so no layout copy happens, and GQA kv stays at Hkv heads — the
+strides), so no layout copy happens.  GQA kv stays at Hkv heads — the flash
 kernel maps q head h to kv head h // (H / Hkv), the same mapping as the
-reference's ``jnp.repeat`` over the kv head axis.
+reference's ``jnp.repeat`` over the kv head axis.  The SSD scan takes the
+model's layout as it is; its B and C stay at G groups, read by head h as
+group h // (H / G), where the reference copies them out to every head.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -28,3 +31,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); scale: (D,) -> x.dtype."""
     return _rn.rmsnorm(x, scale, eps)
+
+
+# the SSD kernel takes the model's layout itself: x (B,S,H,P); Bm, Cm
+# (B,S,G,N); dt, a (B,S,H) float32; h0 (B,H,P,N) float32 or None ->
+# (y (B,S,H,P) float32, h_final (B,H,P,N) float32)
+ssd_scan = _ssd.ssd_scan

@@ -34,3 +34,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = logits.masked_fill(~(qp[:, None] >= kp[None, :]), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bthd->bshd", probs, vf).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 dt: torch.Tensor, a: torch.Tensor,
+                 h0: torch.Tensor | None = None, *,
+                 chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan, the form of ``repro/models/mamba2.py::
+    _ssd_chunked``.  x: (B,S,H,P); Bm, Cm: (B,S,G,N) with G | H — head h
+    reads group h // (H // G); dt, a: (B,S,H); h0: (B,H,P,N) or None.
+
+    Chunks of Q = min(chunk, S) rows; a ragged tail is padded with
+    dt = a = 0 (decay 1, no input: the state is untouched).  Per chunk:
+    y = (C·Bᵀ ⊙ exp(cum_i − cum_j) · dt_j)_{j≤i} @ x + exp(cum) · C·hᵀ and
+    h' = exp(cum_Q)·h + Σ_j exp(cum_Q − cum_j)·dt_j·x_j⊗B_j.  exp(seg) above
+    the diagonal may overflow; the mask selects, so it never meets a 0.
+    Returns (y (B,S,H,P) fp32, h_final (B,H,P,N) fp32)."""
+    Bsz, S_orig, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S_orig)
+    x, Bm, Cm, dt, a = (t.float() for t in (x, Bm, Cm, dt, a))
+    pad = (-S_orig) % Q
+    if pad:
+        x, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                     for t in (x, Bm, Cm))
+        dt, a = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, a))
+    hpg = H // G
+    head_group = torch.arange(H, device=x.device) // hpg
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for c0 in range(0, x.shape[1], Q):
+        x_c, B_c, C_c = (t[:, c0:c0 + Q] for t in (x, Bm, Cm))
+        dt_c, a_c = dt[:, c0:c0 + Q], a[:, c0:c0 + Q]              # (B,Q,H)
+        cum = torch.cumsum(a_c, dim=1)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]              # (B,Q,Q,H)
+        decay = torch.where(tri[None, :, :, None], torch.exp(seg),
+                            torch.zeros((), device=x.device))
+        cb = torch.einsum("bign,bjgn->bijg", C_c, B_c)[..., head_group]
+        scores = cb * decay * dt_c[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", scores, x_c)
+        Ch, Bh = C_c[:, :, head_group], B_c[:, :, head_group]      # (B,Q,H,N)
+        y = y + torch.einsum("bqhn,bhpn->bqhp", Ch, h) * \
+            torch.exp(cum)[..., None]
+        dec_end = torch.exp(cum[:, -1:, :] - cum)                  # (B,Q,H)
+        bx = torch.einsum("bqh,bqhp,bqhn->bhpn", dec_end * dt_c, x_c, Bh)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + bx
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S_orig], h

@@ -1,0 +1,121 @@
+"""Mamba2 SSD chunked scan — hand-written CUDA kernel for Hopper
+(``csrc/ssd_scan.cu``).
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:ssd_scan``
+(``_ssd_kernel``) with the same semantics: chunks of Q = min(chunk, S)
+rows, the ragged tail padded with dt = a = 0, the causal mask a select (so
+an ``exp`` that overflows above the diagonal never meets a 0), the state
+carried in fp32 across chunks from ``h0`` to ``h_final``.  Unlike the TPU
+wrapper it takes B and C per group and reads group h // (H/G) for head h,
+and it takes every input in the model's (B,S,H,...) layout by strides, so
+nothing is copied, transposed or expanded.
+
+Bound on an H100: operations, fp32 FMAs over the causal triangle (see the
+source's header); this first version runs on the CUDA cores.
+
+``ssd_scan(...)`` launches the kernel for CUDA tensors and raises on
+anything the kernel does not take; for CPU tensors it runs the plain
+version, ``ref.ssd_scan_ref``.  It never falls back from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import ssd_scan_ref
+
+DEFAULT_CHUNK = 128
+MAX_Q = 128              # chunk rows the kernel takes
+MAX_N = 128              # d_state
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def bind(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_ssd_scan`` entry point)."""
+    fn = lib.repro_ssd_scan
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 18
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        _fn = bind(build.load("ssd_scan"))
+    return _fn
+
+
+def _bhs(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides over (batch, head or group, row) of a (B,S,H,...)
+    tensor, the order the kernel takes them in."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             dt: torch.Tensor, a: torch.Tensor,
+             h0: torch.Tensor | None = None, *,
+             chunk: int = DEFAULT_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """The model's layout: x (B,S,H,P); Bm, Cm (B,S,G,N) with G | H; dt, a
+    (B,S,H) float32; h0 (B,H,P,N) float32 or None (zeros).  Any strides,
+    with the last axis of x, Bm and Cm contiguous.  x, Bm and Cm share
+    float32 or bfloat16.  Returns y (B,S,H,P) float32 and h_final
+    (B,H,P,N) float32."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, Bm, Cm, dt, a, h0, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
+        raise ValueError(f"ssd_scan: x/Bm/Cm dtypes {x.dtype}/{Bm.dtype}/"
+                         f"{Cm.dtype} must match and be float32 or bfloat16")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: dt/a dtypes {dt.dtype}/{a.dtype} must "
+                         f"be float32")
+    tensors = (x, Bm, Cm, dt, a) + (() if h0 is None else (h0,))
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("ssd_scan: inputs on different devices")
+    if Bm.shape != Cm.shape or Bm.shape[0] != B or Bm.shape[1] != S:
+        raise ValueError(f"ssd_scan: Bm {tuple(Bm.shape)} / Cm "
+                         f"{tuple(Cm.shape)} do not match x {tuple(x.shape)}")
+    if tuple(dt.shape) != (B, S, H) or tuple(a.shape) != (B, S, H):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)} / a "
+                         f"{tuple(a.shape)} must be {(B, S, H)}")
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_scan: H={H} not a multiple of G={G}")
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"ssd_scan: d_state N={N} outside [1, {MAX_N}]")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk {chunk} < 1")
+    Q = min(chunk, S)
+    if Q > MAX_Q:
+        raise ValueError(f"ssd_scan: chunk of {Q} rows > {MAX_Q}")
+    if x.stride(-1) != 1 or Bm.stride(-1) != 1 or Cm.stride(-1) != 1:
+        raise ValueError("ssd_scan: the last axis of x, Bm and Cm must be "
+                         "contiguous")
+    if h0 is not None and (h0.dtype != torch.float32 or not
+                           h0.is_contiguous() or
+                           tuple(h0.shape) != (B, H, P, N)):
+        raise ValueError(f"ssd_scan: h0 must be contiguous float32 "
+                         f"{(B, H, P, N)}, got {h0.dtype} "
+                         f"{tuple(h0.shape)}")
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
+    hf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    lib, fn = _entry()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+              a.data_ptr(), None if h0 is None else h0.data_ptr(),
+              y.data_ptr(), hf.data_ptr(), B, H, G, S, P, N, Q,
+              *_bhs(x), *_bhs(Bm), *_bhs(Cm), *_bhs(dt), *_bhs(a), *_bhs(y),
+              _DTYPES[x.dtype], stream)
+    build.check(lib, code, "ssd_scan launch")
+    ssd_scan.launches += 1
+    return y, hf
+
+
+ssd_scan.launches = 0

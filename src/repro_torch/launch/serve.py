@@ -2,6 +2,7 @@
 ``repro/launch/serve.py``, greedy continuous engine).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 6 --max-new 8
 
@@ -13,7 +14,7 @@ random, drawn from a generator seeded with 0 on the serving device.
                  prefix of --prompt-len tokens plus 4 unique tokens each,
                  later requests reuse its cached blocks and start prefill at
                  the matched boundary; the report line gains the prefix-cache
-                 hit rate.
+                 hit rate.  Refused for archs with slot state (mamba2).
 --metrics-out    write the engine's JSON metrics report there.
 """
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Block registry: init / apply / paged-cache-init per block kind (twin of
-``repro/models/blocks.py``).  The port implements kind ``attn`` — RMSNorm,
-GQA self-attention with RoPE and optional qk-norm, RMSNorm, SwiGLU MLP —
-and raises ``NotImplementedError`` naming any other kind."""
+``repro/models/blocks.py``).  The port implements kinds ``attn`` —
+RMSNorm, GQA self-attention with RoPE and optional qk-norm, RMSNorm,
+SwiGLU MLP — and ``mamba2`` — RMSNorm, Mamba2 SSD mixer — and raises
+``NotImplementedError`` naming any other kind."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,15 +11,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 
 Params = dict
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "mamba2")
 
 
 def check_arch(arch: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming whatever part of ``arch`` the
-    port does not implement yet (block kinds other than ``attn``, other
-    norms and activations, encoders, frontends, MTP heads)."""
+    port does not implement yet (block kinds other than ``PORTED_KINDS``,
+    other norms and activations, encoders, frontends, MTP heads)."""
     kinds = sorted({k for seg in arch.pattern for k in seg.blocks})
     missing = [k for k in kinds if k not in PORTED_KINDS]
     if missing:
@@ -60,14 +62,25 @@ def attn_cfg_for(arch: ArchConfig, *, causal=True,
         causal=causal, bias=arch.attn_bias)
 
 
+def ssm_cfg_for(arch: ArchConfig) -> M2.Mamba2Config:
+    s = arch.ssm
+    return M2.Mamba2Config(d_model=arch.d_model, d_state=s.d_state,
+                           head_dim=s.head_dim, expand=s.expand,
+                           n_groups=s.n_groups, d_conv=s.d_conv, chunk=s.chunk)
+
+
 def init_block(kind: str, arch: ArchConfig, *, generator, device, dtype,
                repeat: Optional[int] = None) -> Params:
     """Params of one block kind; ``repeat`` stacks that many independent
     blocks on a leading axis (a segment's repeat axis)."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     d = arch.d_model
     kw = dict(device=device, dtype=dtype, repeat=repeat)
+    if kind == "mamba2":
+        return {"norm": norm_init(arch, d, **kw),
+                "mixer": M2.init_mamba2(ssm_cfg_for(arch),
+                                        generator=generator, **kw)}
     return {"norm1": norm_init(arch, d, **kw),
             "attn": L.init_attention(attn_cfg_for(arch), generator=generator,
                                      **kw),
@@ -79,9 +92,22 @@ def init_block(kind: str, arch: ArchConfig, *, generator, device, dtype,
 def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
                            block_size: int, *, device,
                            dtype=torch.bfloat16,
-                           repeat: Optional[int] = None) -> Params:
-    """Serving KV block pool for one block kind (continuous-batching
-    engine)."""
+                           repeat: Optional[int] = None,
+                           slots: int = 0) -> Params:
+    """Serving cache pool for one block kind (continuous-batching engine).
+
+    ``attn`` gets a physical KV *block pool* (length-indexed, paged through
+    block tables).  ``mamba2`` state is O(1) per request, so paging does
+    not apply: it gets a *slot-indexed state pool*, ``slots`` rows plus a
+    trailing reserved null row (see mamba2.mamba2_slot), in float32
+    whatever ``dtype`` is, like the reference's."""
+    if kind == "mamba2":
+        if slots <= 0:
+            raise ValueError(
+                f"slot-state pool for {kind!r} needs slots > 0 (one state "
+                f"row per engine slot + the null row)")
+        return M2.init_mamba2_cache(ssm_cfg_for(arch), slots + 1,
+                                    device=device, repeat=repeat)
     if kind != "attn":
         raise NotImplementedError(f"no paged serving cache for block kind "
                                   f"{kind!r} in repro_torch yet")
@@ -95,11 +121,27 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 new_lens: Optional[torch.Tensor] = None,
+                slot_ids: Optional[torch.Tensor] = None,
                 impl: str = "xla"):
-    """-> (x, cache).  ``block_tables`` selects the paged-KV path, whose
+    """-> (x, cache).  ``block_tables`` selects the paged-KV path for
+    ``attn``, ``slot_ids`` the slot-state pool path for ``mamba2``; either
     pool ``cache`` is updated in place and returned."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
+    if kind == "mamba2":
+        normed = norm_apply(arch, p["norm"], x)
+        if cache is None:
+            h, new_cache = M2.mamba2(p["mixer"], ssm_cfg_for(arch), normed,
+                                     impl=impl)
+        elif slot_ids is None:
+            raise ValueError("the port's cached mamba2 path is the slot-state "
+                             "pool: pass slot_ids with the pools")
+        else:
+            h, new_cache = M2.mamba2_slot(p["mixer"], ssm_cfg_for(arch),
+                                          normed, pool=cache,
+                                          slot_ids=slot_ids,
+                                          new_lens=new_lens, impl=impl)
+        return x + h, new_cache
     h, new_cache = L.attention(p["attn"], attn_cfg_for(arch),
                                norm_apply(arch, p["norm1"], x), cache=cache,
                                positions=positions, block_tables=block_tables,

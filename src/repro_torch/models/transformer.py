@@ -9,6 +9,7 @@ Python loop that indexes the stacked tensors (views, no copies).
 Entry points:
   init_lm(arch, device=..., generator=...)            -> params
   init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
+  admit_slot(params, arch, pools, slot_id)            -> pools (row reset)
   lm_apply(params, arch, tokens, ...)                 -> LMOutput
 """
 from __future__ import annotations
@@ -70,17 +71,45 @@ def init_lm(arch: ArchConfig, *, device=None,
 
 
 def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
-                     device=None, dtype=torch.bfloat16) -> list:
-    """Per-segment serving KV block pools, stacked on the segment's repeat
-    axis: ``[{"b{i}": {"k": (R, NB, BS, Hkv, D), "v": ...}}]``.  No batch
-    axis — the pool is shared by every in-flight request and indexed
-    through per-request block tables (layers.paged_attention)."""
+                     device=None, dtype=torch.bfloat16, slots: int = 0) -> list:
+    """Per-segment serving cache pools, stacked on the segment's repeat
+    axis.  Two state classes, side by side (serving/cache_manager.py is
+    the host side of both):
+      * ``attn`` blocks get paged KV block pools, ``{"k": (R, NB, BS, Hkv,
+        D), "v": ...}``: no batch axis — the pool is shared by every
+        in-flight request and indexed through per-request block tables
+        (layers.paged_attention);
+      * ``mamba2`` blocks get slot-indexed state pools, ``{"conv_x": (R,
+        slots+1, K, d_inner), ..., "ssm": (R, slots+1, H, P, N)}`` in
+        float32: one row per engine slot plus a reserved null row for
+        inactive batch rows.  ``slots`` must be > 0 for such archs."""
     dev = _device.resolve(device)
     return [{f"b{i}": B.init_paged_block_cache(kind, arch, num_blocks,
                                                block_size, device=dev,
-                                               dtype=dtype, repeat=seg.repeat)
+                                               dtype=dtype, repeat=seg.repeat,
+                                               slots=slots)
              for i, kind in enumerate(seg.blocks)}
             for seg in arch.pattern]
+
+
+def admit_slot(params: Params, arch: ArchConfig, pools: list,
+               slot_id: int) -> list:
+    """Reset one engine slot's rows across every slot-state pool, in place
+    (paged KV block pools pass through untouched — block reuse is the
+    allocator's business).  mamba2 rows are zeroed: a fresh recurrent
+    state for the admitted request; recompute-style preemption re-admits
+    through here, so the re-prefill starts from a clean h0.  The
+    reference's other slot-state kinds (cross_attn, wdec) are not ported
+    and raise."""
+    for si, seg in enumerate(arch.pattern):
+        for bi, kind in enumerate(seg.blocks):
+            if kind == "mamba2":
+                for t in pools[si][f"b{bi}"].values():
+                    t[:, slot_id].zero_()
+            elif kind not in B.PORTED_KINDS:
+                raise NotImplementedError(f"admit_slot: block kind {kind!r} "
+                                          f"is not ported")
+    return pools
 
 
 def _take(tree, r: int):
@@ -95,16 +124,20 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
              positions: Optional[torch.Tensor] = None,
              block_tables: Optional[torch.Tensor] = None,
              new_lens: Optional[torch.Tensor] = None,
+             slot_ids: Optional[torch.Tensor] = None,
              impl: str = "xla") -> LMOutput:
     """Forward pass.
 
     tokens: (B, S) integer tokens.
     cache:  None => whole-sequence forward (causal self-attention over the
-       S tokens; ``impl="pallas"`` runs it through the port's flash
-       kernel).  Otherwise the paged pools from ``init_paged_cache``, with
-       ``block_tables`` (B, max_blocks), per-sequence ``positions`` (B,) and
-       optional ``new_lens`` (B,) (rows past it are padding).  The pools
-       are updated in place and returned as ``LMOutput.cache``.
+       S tokens, ``impl="pallas"`` through the port's flash kernel; the
+       mamba2 scan through the port's SSD kernel either way).  Otherwise
+       the pools from ``init_paged_cache``, with ``block_tables`` (B,
+       max_blocks), per-sequence ``positions`` (B,), optional ``new_lens``
+       (B,) (rows past it are padding) and, when the pattern holds mamba2
+       blocks, ``slot_ids`` (B,) — each row's slot-state pool row, the
+       null row (= slots) for inactive rows.  The pools are updated in
+       place and returned as ``LMOutput.cache``.
     """
     if cache is not None and block_tables is None:
         raise NotImplementedError("the port's cached forward is paged: pass "
@@ -122,7 +155,8 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
                 x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
                                      cache=c, positions=positions,
                                      block_tables=block_tables,
-                                     new_lens=new_lens, impl=impl)
+                                     new_lens=new_lens, slot_ids=slot_ids,
+                                     impl=impl)
     hidden = B.norm_apply(arch, params["final_norm"], x)
     if arch.tie_embeddings:
         logits = L.unembed(params["embed"], hidden)

@@ -3,9 +3,10 @@ half of ``repro/runtime/steps.py``).
 
 The steps take the shared serving cache (``transformer.init_paged_cache``)
 plus per-sequence position vectors (B,), block tables (B, max_blocks) and
-slot ids (B,).  The reference jits them and donates the cache
-(``STEP_DONATION``); the port runs eagerly and updates the KV pools IN
-PLACE — the cache returned is the same object that was passed in.
+slot ids (B,) (slot-state pool rows; None for archs without slot state).
+The reference jits them and donates the cache (``STEP_DONATION``); the
+port runs eagerly and updates the pools IN PLACE — the cache returned is
+the same object that was passed in.
 
 With ``sampler`` (``serving.sampling.make_sampler``) the steps fuse the
 greedy sampler: they take per-row (temperature, top_k, top_p, seeds) host
@@ -26,9 +27,9 @@ def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",
     new_lens, slot_ids) -> (last_valid_logits (B,V), cache).  Called once
     per prompt *chunk*.  ``new_lens`` (B,) is the real token count per row;
     the chunk may be padded to a fixed C, and the returned logits are taken
-    at row new_lens-1 (the last real token).  ``slot_ids`` maps rows to
-    slot-state pool rows; the port serves attention-only archs, whose
-    caches have none, so it is accepted and unused.
+    at row new_lens-1 (the last real token).  ``slot_ids`` (B,) maps rows
+    to slot-state pool rows (the mamba2 state is carried as h0 across
+    chunks).
 
     With ``sampler`` the signature gains (temperature, top_k, top_p, seeds)
     and returns (token (B,), logprob (B,), cache): the token after the
@@ -38,7 +39,7 @@ def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",
                      new_lens, slot_ids):
         out = T.lm_apply(params, arch, tokens, cache=cache,
                          positions=positions, block_tables=block_tables,
-                         new_lens=new_lens, impl=impl)
+                         new_lens=new_lens, slot_ids=slot_ids, impl=impl)
         idx = (new_lens - 1).long()[:, None, None].expand(
             -1, 1, out.logits.shape[-1])
         return torch.gather(out.logits, 1, idx)[:, 0], out.cache
@@ -62,7 +63,8 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
     """-> decode(params, cache, tokens (B,1), positions, block_tables,
     slot_ids) -> (logits (B,V), cache).  Every batch row advances at its
     *own* position — rows of idle/prefilling slots point their block
-    tables at the null block and are discarded by the caller.
+    tables at the null block and their slot ids at the null slot row, and
+    are discarded by the caller.
 
     With ``sampler`` the signature gains (temperature, top_k, top_p, seeds)
     and returns (token (B,), logprob (B,), cache): the next token at
@@ -70,7 +72,7 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
     def _logits(params, cache, tokens, positions, block_tables, slot_ids):
         out = T.lm_apply(params, arch, tokens, cache=cache,
                          positions=positions, block_tables=block_tables,
-                         impl=impl)
+                         slot_ids=slot_ids, impl=impl)
         return out.logits[:, -1], out.cache
 
     if sampler is None:
@@ -84,3 +86,12 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
                             positions + 1)
         return tok, logp, cache
     return paged_decode_step
+
+
+def make_slot_admit_step(arch: ArchConfig):
+    """-> admit(params, cache, slot_id) -> cache.  Resets one engine slot's
+    rows in every slot-state pool on admission (mamba2 state zeroed, in
+    place — see transformer.admit_slot).  No-op for paged block pools."""
+    def slot_admit_step(params, cache, slot_id):
+        return T.admit_slot(params, arch, cache, int(slot_id))
+    return slot_admit_step

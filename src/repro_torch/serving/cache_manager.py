@@ -1,0 +1,110 @@
+"""Unified serving cache manager: paged KV block pools + slot-state pools
+(twin of ``repro/serving/cache_manager.py``).
+
+The continuous-batching engine juggles two classes of per-request state,
+and this module is the single host-side owner of both:
+
+  * **length-indexed** — attention KV grows one entry per token.  It lives
+    in fixed-size physical blocks (paged_cache.py: free-list allocator +
+    per-request block tables over the pools from
+    models/transformer.init_paged_cache).  Block 0 is the reserved null
+    block for idle slots / padded table tails / overrun writes.
+
+  * **slot-indexed** — mamba2 ``conv_x/conv_b/conv_c/ssm`` state is O(1)
+    per request regardless of generated length.  It lives in pools with
+    one row per engine slot plus a trailing reserved **null slot** row (the
+    slot-state analogue of the null block): inactive batch rows in a
+    fixed-shape decode step gather and scatter against the null row, so
+    their garbage never touches a live request's state.  Rows are zeroed
+    on admission (runtime/steps.make_slot_admit_step), the SSM state is
+    carried as ``h0`` across prefill chunks, and recompute-style
+    preemption needs no extra handling: re-admission re-zeroes the row and
+    the re-prefill replays prompt + generated tokens through it.
+
+Both classes share one cache structure (a list of per-segment dicts), so
+the paged steps thread a single cache, updated in place.
+
+Prefix sharing (paged_cache.py ``share_prefix``) applies to the
+length-indexed class ONLY: a paged attention block's KV at position i is a
+pure function of the token prefix, so equal hash chains imply equal
+content.  mamba2's recurrent state is accumulated *by running prefill*
+over every prompt token, so skipping matched tokens would leave it wrong.
+Constructing a UnifiedCacheManager with ``share_prefix`` for an arch
+carrying any slot-state kind therefore raises up front rather than serving
+corrupt state.  Which kinds the port can run at all is
+``models/blocks.PORTED_KINDS``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blocks as B
+from repro_torch.serving.paged_cache import PagedCacheConfig, PagedKVCache
+
+# O(1)-per-request state, slot-indexed: of the ported kinds, mamba2 (attn
+# is length-indexed, block-paged through per-request tables)
+SLOT_STATE_KINDS = {"mamba2"}
+
+
+def check_servable(arch: ArchConfig) -> None:
+    """Raise when the engine's cache layer has no paged or slot-state pool
+    for one of the arch's block kinds.  Which kinds the port runs, and so
+    has pools for, is ``models/blocks.check_arch``'s decision alone."""
+    B.check_arch(arch)
+
+
+class UnifiedCacheManager(PagedKVCache):
+    """PagedKVCache plus slot-state row bookkeeping.
+
+    The block side (reserve / release / can_fit / table_array) is inherited
+    unchanged.  The slot side is deliberately thin: engine slot i *is* pool
+    row i, so admission/finish need no allocation — only the null-row
+    mapping for inactive batch rows, provided by :meth:`slot_ids_array`.
+    """
+
+    def __init__(self, arch: ArchConfig, cfg: PagedCacheConfig, *, device,
+                 dtype=torch.bfloat16):
+        check_servable(arch)
+        kinds = {k for seg in arch.pattern for k in seg.blocks}
+        self.slot_state_kinds = sorted(kinds & SLOT_STATE_KINDS)
+        if self.slot_state_kinds and cfg.slots <= 0:
+            raise ValueError(f"{arch.name} carries slot-state caches "
+                             f"({self.slot_state_kinds}) — cfg.slots must "
+                             f"be the engine slot count")
+        if cfg.share_prefix and self.slot_state_kinds:
+            raise ValueError(
+                f"prefix sharing cannot serve {arch.name}: slot-state rows "
+                f"({self.slot_state_kinds}) are per-request — mamba2 "
+                f"recurrent state is built by prefilling every prompt token "
+                f"(a matched prefix would be skipped, leaving it wrong).  "
+                f"Only purely paged archs (attention block kinds) may "
+                f"share; serve this arch with share_prefix=False")
+        super().__init__(arch, cfg, device=device, dtype=dtype)
+
+    @property
+    def has_slot_state(self) -> bool:
+        return bool(self.slot_state_kinds)
+
+    @property
+    def null_slot(self) -> int:
+        """Reserved scratch row index (= cfg.slots): inactive batch rows
+        gather/scatter here, mirroring the null block."""
+        return self.cfg.slots
+
+    def slot_ids_array(self, rows: list[Optional[int]]) -> np.ndarray:
+        """(B,) int32 pool-row vector: the given slot row (``_Slot.idx``)
+        for active batch rows, the null slot row for None (inactive)."""
+        return np.asarray([self.null_slot if r is None else r
+                           for r in rows], np.int32)
+
+    def stats(self) -> dict:
+        """Paged-layer stats plus the slot-state dimension of the unified
+        cache (which state classes this arch carries, and how many rows)."""
+        out = super().stats()
+        out["slot_state_kinds"] = list(self.slot_state_kinds)
+        out["slot_rows"] = self.cfg.slots if self.has_slot_state else 0
+        return out

@@ -1,4 +1,4 @@
-"""Continuous-batching engine over paged KV (twin of
+"""Continuous-batching engine over paged KV and slot-state pools (twin of
 ``repro/serving/engine.py``), greedy decode on one device.
 
 Requests and results are two typed objects: ``Request`` is input-only and
@@ -13,7 +13,9 @@ Entry points: ``submit()`` + ``step()``/``run_until_drained()``,
 Engine step = admit -> one prefill chunk -> one decode step:
   1. every free slot pulls from the RequestScheduler (priority/FCFS +
      max-tokens budget, footprints capped at max_len) if its context's
-     blocks fit the pool.  With ``share_prefix`` admission first matches
+     blocks fit the pool, and its slot-state rows (mamba2) are zeroed —
+     at every admission, re-admission after preemption included.  With
+     ``share_prefix`` (purely paged archs only) admission first matches
      the longest cached full-block prefix: matched blocks are
      refcount-shared and prefill starts at the matched boundary;
   2. the oldest prefilling request advances one chunk; finishing the prompt
@@ -24,10 +26,12 @@ Engine step = admit -> one prefill chunk -> one decode step:
      (recompute-style: blocks dropped, request requeued with
      prompt+generated as its new prefill).
 
-The steps (runtime/steps.py) run eagerly and write the KV pools in place;
+The steps (runtime/steps.py) run eagerly and write the pools in place;
 the greedy sampler is fused into them, so only a (B,) token vector comes
-back to the host per step.  The port serves ``attn``-only archs; any other
-block kind raises ``NotImplementedError`` naming it at construction.
+back to the host per step.  The port serves archs built of ``attn`` and
+``mamba2`` blocks (serving/cache_manager.py owns both state classes); any
+other block kind raises ``NotImplementedError`` naming it at
+construction.
 Stochastic sampling (temperature > 0) is refused at submit.  Not ported
 yet: the reference engine's ASA plan / mesh placement, Chrome tracer,
 snapshot writer, StepMonitor and cache sanitizer, per-request frontends,
@@ -47,9 +51,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 from repro_torch.runtime import steps as ST
+from repro_torch.serving.cache_manager import UnifiedCacheManager
 from repro_torch.serving.metrics import ServingMetrics
-from repro_torch.serving.paged_cache import (PagedCacheConfig, PagedKVCache,
-                                             blocks_for)
+from repro_torch.serving.paged_cache import PagedCacheConfig, blocks_for
 from repro_torch.serving.sampling import GREEDY, SamplingParams, make_sampler
 from repro_torch.serving.scheduler import RequestScheduler
 
@@ -167,14 +171,16 @@ class ContinuousBatchingEngine:
         max_blocks_per_seq = blocks_for(max_len, block_size)
         if num_blocks is None:
             num_blocks = slots * max_blocks_per_seq + 1   # +1: null block
-        self.cache = PagedKVCache(
+        self.cache = UnifiedCacheManager(
             arch, PagedCacheConfig(block_size, num_blocks, max_blocks_per_seq,
-                                   share_prefix=share_prefix),
+                                   slots=slots, share_prefix=share_prefix),
             device=self.device, dtype=T.compute_dtype(arch))
         self.params = _to_device(params, self.device)
         sampler = make_sampler(arch.vocab)
         self._prefill = ST.make_paged_prefill_step(arch, sampler=sampler)
         self._decode = ST.make_paged_decode_step(arch, sampler=sampler)
+        self._admit_slot_state = (ST.make_slot_admit_step(arch)
+                                  if self.cache.has_slot_state else None)
         self.scheduler = scheduler or RequestScheduler()
         # the engine truncates every request to max_len, so the token budget
         # charges capped footprints (the engine owns the cap)
@@ -301,7 +307,18 @@ class ContinuousBatchingEngine:
             if self.share_prefix:
                 self.metrics.on_prefix_match(n_cached, len(ctx),
                                              now=self._clock())
+            if self._admit_slot_state is not None:
+                # a fresh (zeroed) mamba2 state for this slot's pool rows
+                self.cache.pools = self._admit_slot_state(
+                    self.params, self.cache.pools, slot.idx)
         return admitted
+
+    def _slot_ids(self, rows: list[Optional[int]]) -> Optional[torch.Tensor]:
+        """Pool rows of the batch rows (None: the null slot), or None when
+        the arch carries no slot state."""
+        if not self.cache.has_slot_state:
+            return None
+        return self._tensor(self.cache.slot_ids_array(rows).astype(np.int64))
 
     # -- phase 2: one chunk of prefill ---------------------------------
     def _prefill_chunk(self) -> bool:
@@ -322,7 +339,7 @@ class ContinuousBatchingEngine:
             self.params, self.cache.pools, self._tensor(chunk[None, :]),
             self._tensor(np.asarray([slot.prefill_pos], np.int64)),
             self._tensor(table), self._tensor(np.asarray([n_new], np.int64)),
-            None, *_GREEDY_ROWS)
+            self._slot_ids([slot.idx]), *_GREEDY_ROWS)
         slot.prefill_pos += n_new
         slot.pos = slot.prefill_pos
         self.cache.commit_prefix(st.id, ctx, slot.prefill_pos)
@@ -368,9 +385,13 @@ class ContinuousBatchingEngine:
                 pos[i] = s.pos
                 rids[i] = s.req.id
         table = self.cache.table_array(rids)
+        # idle/prefilling rows scatter their slot state into the null row;
+        # active rows use s.idx (the row admission reset and prefill filled)
+        sids = self._slot_ids([s.idx if s.state == "decode" else None
+                               for s in self.slots])
         tok, logp, _ = self._decode(
             self.params, self.cache.pools, self._tensor(last),
-            self._tensor(pos), self._tensor(table), None, *_GREEDY_ROWS)
+            self._tensor(pos), self._tensor(table), sids, *_GREEDY_ROWS)
         # the (B,) token/logprob copy is where the host waits for the device
         ts0 = self._clock()
         nxt = tok.cpu().numpy()

@@ -5,7 +5,8 @@ block tables, and cross-request shared-prefix block reuse (twin of
 The device side is a *physical block pool* per attention layer
 (models/transformer.init_paged_cache — torch tensors of shape (repeat,
 num_blocks, block_size, Hkv, head_dim) on the engine's device, no batch
-axis), written in place by the paged steps.  The host side is a copy of
+axis), and a slot-state pool per mamba2 layer, both written in place by
+the paged steps.  The host side is a copy of
 the reference's bookkeeping: which physical blocks belong to which
 request, how many are free, and — with ``share_prefix`` — which blocks
 hold which *content*.
@@ -117,11 +118,16 @@ class PagedCacheConfig:
     block_size: int
     num_blocks: int            # physical, including the reserved null block
     max_blocks_per_seq: int    # block-table width (= ceil(max_len / bs))
+    slots: int = 0             # slot-state pool rows (0: attn-only arch)
     share_prefix: bool = False  # cross-request full-block prefix reuse
 
 
 class PagedKVCache:
     """Device block pools + allocator + per-request block tables.
+
+    With ``cfg.slots`` > 0 the device pools also carry slot-indexed state
+    pools for O(1)-per-request caches; serving/cache_manager.py layers the
+    slot-row bookkeeping on top of this class.
 
     With ``cfg.share_prefix`` the host side additionally keeps the content
     index (hash chain -> physical block), per-block reference counts beyond
@@ -133,7 +139,8 @@ class PagedKVCache:
                  dtype=torch.bfloat16):
         self.arch, self.cfg = arch, cfg
         self.pools = T.init_paged_cache(arch, cfg.num_blocks, cfg.block_size,
-                                        device=device, dtype=dtype)
+                                        device=device, dtype=dtype,
+                                        slots=cfg.slots)
         self.allocator = BlockAllocator(cfg.num_blocks)
         self.tables: dict[int, list[int]] = {}   # request id -> physical blocks
         # chain key -> block holding that full chunk; key = (prev_key, chunk)

@@ -9,9 +9,11 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 Tolerances (``atol + rtol * |plain|``): kernel and plain version both
 compute in fp32, so fp32 differs only by summation order (2e-5); bf16
 outputs may differ by one rounding step of 8 significant bits, at most 2^-7
-of the value.
+of the value.  The SSD scan's outputs are fp32 in both dtypes and are held
+by chip_smoke.py's own ``check_ssd`` (1e-4 of each output's max |value|).
 """
 import importlib.util
+import math
 import pathlib
 import subprocess
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan as tssd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (torch.float32, 2e-5, 2e-5),
@@ -32,6 +35,15 @@ DTYPES = {"float32": (torch.float32, 2e-5, 2e-5),
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _smoke():
+    """chip_smoke.py as a module: its checks and input makers."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 @pytest.mark.gpu
@@ -79,6 +91,26 @@ def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                rtol=rtol)
 
 
+def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
+    """Each (old, new) edit of ``csrc/<source>``, compiled in parallel into
+    ``tmp_path`` -> {name: loaded library}."""
+    src = (tbuild.CSRC / source).read_text()
+    procs = {}
+    for i, (name, (old, new)) in enumerate(mutants.items()):
+        assert src.count(old) == 1, name
+        cu, so = tmp_path / f"mutant{i}.cu", tmp_path / f"mutant{i}.so"
+        cu.write_text(src.replace(old, new))
+        procs[name] = (so, subprocess.Popen(
+            tbuild.nvcc_command(cu, so), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        out, _ = p.communicate()
+        assert p.returncode == 0, f"{name}: {out}"
+        libs[name] = tbuild.open_library(so)
+    return libs
+
+
 # Wrong flash kernels, each one edit away from csrc/flash_attention.cu:
 # (source text, replacement).  The first three are the classic bugs of a
 # flash kernel; the last is the bf16 rounding of the probabilities that the
@@ -103,24 +135,8 @@ def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
     whether the bf16 check sees it depends on the data."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    src = (tbuild.CSRC / "flash_attention.cu").read_text()
-    procs = {}
-    for i, (name, (old, new)) in enumerate(FLASH_MUTANTS.items()):
-        assert src.count(old) == 1, name
-        cu, so = tmp_path / f"mutant{i}.cu", tmp_path / f"mutant{i}.so"
-        cu.write_text(src.replace(old, new))
-        procs[name] = (so, subprocess.Popen(
-            tbuild.nvcc_command(cu, so), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        assert p.returncode == 0, f"{name}: {out}"
-        libs[name] = tbuild.open_library(so)
+    smoke = _smoke()
+    libs = _build_mutants(tmp_path, "flash_attention.cu", FLASH_MUTANTS)
 
     B, S, H, Hkv, D = 2, 512, 32, 8, 128        # the forward's attention
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -148,6 +164,95 @@ def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
             assert rejected[name, "bfloat16"], name
 
 
+def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dt_bias is None:       # the init's: inverse softplus of [1e-3, 0.1]
+        u = torch.rand((H,), generator=g, device="cuda")
+        dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                        + math.log(0.001))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    return smoke.ssd_inputs(torch, g, B, S, H, P, N, G, dt_bias, dtype,
+                            has_h0)
+
+
+# (B, S, H, P, N, G, chunk, h0): the served prefill chunk and forward of
+# mamba2-780m, then ragged S, Q < chunk, two groups, a small chunk, and a
+# head_dim narrower than the kernel's 16-row tile with three groups
+SSD_CASES = [
+    (1, 256, 48, 64, 128, 1, 128, True),
+    (2, 500, 48, 64, 128, 1, 128, False),
+    (1, 300, 8, 64, 128, 1, 128, False),
+    (1, 100, 8, 64, 128, 1, 128, False),
+    (1, 256, 8, 64, 128, 2, 128, True),
+    (2, 33, 4, 32, 64, 1, 16, True),
+    (1, 7, 6, 8, 16, 3, 4, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,h0", SSD_CASES)
+def test_cuda_ssd_scan_matches_plain(B, S, H, P, N, G, chunk, h0, dtype):
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = _smoke()
+    x, Bm, Cm, dt, a, h = _ssd_case(smoke, B, S, H, P, N, G,
+                                    DTYPES[dtype][0], h0)
+    before = tssd.ssd_scan.launches
+    got = tops.ssd_scan(x, Bm, Cm, dt, a, h, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan.launches == before + 1
+    assert got[0].shape == (B, S, H, P) and got[1].shape == (B, H, P, N)
+    want = tref.ssd_scan_ref(x, Bm, Cm, dt, a, h, chunk=chunk)
+    err, ok, tol = smoke.check_ssd(got, want)
+    assert ok, (err, tol)
+
+
+# Wrong SSD kernels, each one edit away from csrc/ssd_scan.cu
+SSD_MUTANTS = {
+    "mask by multiply": (
+        "keep ? acc[ii][k] * expf(cum[i] - cum[j]) * dtv[j] : 0.f",
+        "acc[ii][k] * expf(cum[i] - cum[j]) * dtv[j] * (float)keep"),
+    "state not carried across chunks": (
+        "Hs[(r0 + m) * ldh + n] = dlast * Hs[(r0 + m) * ldh + n] + acc[m];",
+        "(void)dlast;"),
+    "wrong group index": ("const int g = h / group;",
+                          "const int g = h % (H / group);"),
+}
+
+
+@pytest.mark.gpu
+def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
+    """chip_smoke.py's SSD check fails every mutant in both dtypes, at
+    mamba2-780m's widths with two groups, three chunks (S = 300) and h0 !=
+    0.  dt = softplus(N(0, 1)), as tests/test_kernels.py draws it, so
+    exp(cum_i - cum_j) overflows above the diagonal within a few rows."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = _smoke()
+    libs = _build_mutants(tmp_path, "ssd_scan.cu", SSD_MUTANTS)
+    rejected = {}
+    for dn, (tdt, _, _) in DTYPES.items():
+        x, Bm, Cm, dt, a, h0 = _ssd_case(
+            smoke, 1, 300, 48, 64, 128, 2, tdt, True,
+            dt_bias=torch.zeros(48, device="cuda"))
+        want = tref.ssd_scan_ref(x, Bm, Cm, dt, a, h0)
+        for name, lib in [("kernel", None), *libs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(tssd, "_fn", tssd.bind(lib))
+            got = tops.ssd_scan(x, Bm, Cm, dt, a, h0)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_ssd(got, want)
+            print(f"ssd {name} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected[name, dn] = not ok
+        monkeypatch.undo()
+    assert not rejected["kernel", "float32"]
+    assert not rejected["kernel", "bfloat16"]
+    for name in SSD_MUTANTS:
+        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     _need_cuda()
@@ -160,6 +265,29 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     q = torch.randn((1, 4, 8, 48), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
+
+    def ssd(B=1, S=8, H=4, P=16, N=32, G=1, dtype=torch.bfloat16,
+            dt_dtype=torch.float32, chunk=128, h0=None):
+        x = torch.randn((B, S, H, P), device="cuda").to(dtype)
+        bm = torch.randn((B, S, G, N), device="cuda").to(dtype)
+        dt = torch.rand((B, S, H), device="cuda").to(dt_dtype)
+        return tops.ssd_scan(x, bm, bm, dt, -dt, h0, chunk=chunk)
+    with pytest.raises(ValueError, match="dtypes"):
+        ssd(dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32"):
+        ssd(dt_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd(N=256)
+    with pytest.raises(ValueError, match="chunk of 200 rows"):
+        ssd(S=200, chunk=256)
+    with pytest.raises(ValueError, match="multiple"):
+        ssd(H=6, G=4)
+    with pytest.raises(ValueError, match="h0"):
+        ssd(h0=torch.zeros((1, 4, 16, 16), device="cuda"))
+    xt = torch.randn((1, 8, 16, 4), device="cuda").transpose(2, 3)
+    d = torch.rand((1, 8, 4), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.ssd_scan(xt, xt[:, :, :1], xt[:, :, :1], d, -d)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +347,60 @@ def test_cuda_engine_matches_cpu_engine():
         eng = ContinuousBatchingEngine(arch, params, device=dev, slots=2,
                                        max_len=32, block_size=4,
                                        num_blocks=7, prefill_chunk=4)
+        outs[dev] = eng.generate([
+            Request(id=i, prompt=p, max_new_tokens=8,
+                    sampling=SamplingParams(logprobs=True))
+            for i, p in enumerate(prompts)])
+        assert eng.metrics.preemptions > 0
+        assert eng.cache.allocator.num_used == 0
+    assert [o.token_ids for o in outs["cuda"]] == \
+        [o.token_ids for o in outs["cpu"]]
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
+
+
+def _tiny_hybrid():
+    from repro_torch.configs.base import ArchConfig, Segment, SSMSpec
+    return ArchConfig(name="hybrid-tiny", family="hybrid", n_layers=4,
+                      d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                      vocab=300,
+                      ssm=SSMSpec(d_state=64, head_dim=32, n_groups=2,
+                                  chunk=16),
+                      pattern=(Segment(("attn", "mamba2"), 2),),
+                      dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_forward_and_engine_match_cpu():
+    """attn + mamba2 on the card (SSD, flash and RMSNorm kernels) against
+    the CPU (plain versions): forward logits, and greedy tokens under
+    chunked prefill and forced preemption."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    arch = _tiny_hybrid()
+    params = T.init_lm(arch, device="cpu", seed=0)
+    tokens = torch.randint(0, arch.vocab, (2, 70),
+                           generator=torch.Generator().manual_seed(0))
+    before = tssd.ssd_scan.launches
+    got = T.lm_apply(_to(params, "cuda"), arch, tokens.cuda(),
+                     impl="pallas").logits
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan.launches - before == 2
+    want = T.lm_apply(params, arch, tokens, impl="pallas").logits
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, size=n).astype(np.int32)
+               for n in (19, 5, 23, 7)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousBatchingEngine(arch, params, device=dev, slots=2,
+                                       max_len=40, block_size=4,
+                                       num_blocks=9, prefill_chunk=8)
         outs[dev] = eng.generate([
             Request(id=i, prompt=p, max_new_tokens=8,
                     sampling=SamplingParams(logprobs=True))

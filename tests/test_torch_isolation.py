@@ -77,6 +77,22 @@ def test_serve_cli_refuses_the_host_without_device_flag():
         serve.main(["--arch", "qwen3-8b", "--smoke"])
 
 
+def test_serve_cli_refuses_the_host_for_mamba2_without_device_flag():
+    _no_cuda()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-780m", "--smoke"])
+
+
+def test_serve_cli_serves_mamba2_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                "--requests", "3", "--prompt-len", "6", "--max-new", "3",
+                "--max-len", "32", "--prefill-chunk", "4"])
+    out = capsys.readouterr().out
+    assert "[continuous/greedy] 3 requests, 9 tokens" in out
+
+
 def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import serve
     serve.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
@@ -103,9 +119,16 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
 def test_kernel_counters_count_only_kernel_launches():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
-    before = (RN.rmsnorm.launches, FA.flash_attention.launches)
+    from repro_torch.kernels import ssd_scan as SSD
+
+    def counts():
+        return (RN.rmsnorm.launches, FA.flash_attention.launches,
+                SSD.ssd_scan.launches)
+    before = counts()
     x = torch.from_numpy(np.ones((2, 8), np.float32))
     RN.rmsnorm(x, torch.ones(8))
     q = torch.zeros((1, 2, 3, 16))
     FA.flash_attention(q, q, q)
-    assert (RN.rmsnorm.launches, FA.flash_attention.launches) == before
+    d = torch.full((1, 2, 3), 0.1)
+    SSD.ssd_scan(q, q[:, :, :1], q[:, :, :1], d, -d)
+    assert counts() == before

@@ -1,12 +1,16 @@
 """The port's kernel modules (``repro_torch.kernels``) against the JAX
 package's Pallas kernels, run in interpret mode as tests/test_kernels.py
-runs them, and against the JAX plain versions (``repro.kernels.ref``).
+runs them, and against the JAX plain versions (``repro.kernels.ref``,
+``repro.models.mamba2._ssd_chunked``).
 
 On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels themselves are held against those plain versions on the card by
 tests/test_torch_gpu.py and by ``chip_smoke.py``.  Inputs
 are made with numpy from a fixed seed and handed to both frameworks.
-Tolerances are those of tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16.
+Tolerances are those of tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16;
+the SSD scan is held at 1e-5 of its output's scale to its chunked twins
+(``_close_scaled`` says why not elementwise) and at the 2e-3 of
+tests/test_kernels.py to the sequential recurrence.
 """
 import shutil
 
@@ -18,11 +22,13 @@ import torch
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import mamba2 as JM2
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import ssd_scan as tssd
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -96,6 +102,106 @@ def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     _close(got, jref.rmsnorm_ref(jx, js), tol)
 
 
+def _ssd_inputs(seed, B, S, H, P, N, G):
+    """x, Bm, Cm ~ N(0, 1); dt = softplus(N(0, 1)); a = -exp(N(0, 1))·dt —
+    the distributions of tests/test_kernels.py, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    a = (-np.exp(rng.standard_normal((B, S, H))) * dt).astype(np.float32)
+    return x, Bm, Cm, dt, a
+
+
+def _close_scaled(t: torch.Tensor, j, tol: float):
+    """max |t - j| <= tol * max |j|.  An SSD output is a sum of up to
+    S·(Q + N) products many times its own size, so fp32 sums taken in
+    another order differ by ~1e-6 of the output's scale, also at outputs
+    near 0: an elementwise rtol would fail there on summation order
+    alone."""
+    want = np.asarray(j, np.float32)
+    err = float(np.abs(t.float().numpy() - want).max())
+    assert err <= tol * float(np.abs(want).max()), (err, tol)
+
+
+def _ssd_torch(arrays, h0=None, chunk=128):
+    ts = [torch.from_numpy(t) for t in arrays]
+    h0 = None if h0 is None else torch.from_numpy(np.asarray(h0))
+    return tops.ssd_scan(*ts, h0=h0, chunk=chunk)
+
+
+# the cases of tests/test_kernels.py, plus a mamba2-780m-shaped narrow one
+# (head_dim 64, d_state 128, chunk 128, ragged S = 300 over three chunks)
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk", [
+    (2, 64, 4, 16, 8, 1, 32),
+    (1, 100, 2, 8, 16, 2, 32),    # ragged seq, multi-group
+    (2, 33, 4, 32, 64, 1, 16),
+    (1, 300, 4, 64, 128, 1, 128),
+])
+def test_ssd_scan_matches_pallas_chunked_and_sequential(B, S, H, P, N, G,
+                                                        chunk):
+    """fp32: the plain chunked scan (what the wrapper runs on the CPU) vs
+    the Pallas kernel in interpret mode and vs ``_ssd_chunked`` at 1e-5;
+    vs the sequential recurrence at the 2e-3 of tests/test_kernels.py."""
+    cfg = JM2.Mamba2Config(d_model=H * P // 2, d_state=N, head_dim=P,
+                           n_groups=G, chunk=chunk)
+    arrays = _ssd_inputs(0, B, S, H, P, N, G)
+    before = tssd.ssd_scan.launches
+    y, hf = _ssd_torch(arrays, chunk=chunk)
+    assert tssd.ssd_scan.launches == before     # CPU: the plain version
+    assert y.shape == (B, S, H, P) and hf.shape == (B, H, P, N)
+    assert y.dtype == hf.dtype == torch.float32
+    jx = [jnp.asarray(t) for t in arrays]
+    py, ph = jops.ssd_scan(cfg, *jx)
+    _close_scaled(y, py, 1e-5)
+    _close_scaled(hf, ph, 1e-5)
+    cy, ch = JM2._ssd_chunked(cfg, jx[0], jx[1], jx[2], (jx[3], jx[4]))
+    _close_scaled(y, cy, 1e-5)
+    _close_scaled(hf, ch, 1e-5)
+    hg = np.arange(H) // (H // G)
+    sy, sh = jref.ssd_scan_ref(jx[0], jx[1][:, :, hg], jx[2][:, :, hg],
+                               jx[3], jx[4])
+    _close(y, sy, 2e-3)
+    _close(hf, sh, 2e-3)
+
+
+def test_ssd_scan_carries_state():
+    """Scan over [0:S] == scan [0:k] then [k:S] from the carried state, as
+    tests/test_kernels.py holds the Pallas kernel; and the split run equals
+    the Pallas kernel's own split run fed the same h0."""
+    B, S, H, P, N, chunk, k = 1, 64, 4, 16, 8, 16, 32
+    cfg = JM2.Mamba2Config(d_model=32, d_state=N, head_dim=P, chunk=chunk)
+    arrays = _ssd_inputs(1, B, S, H, P, N, 1)
+    y_full, h_full = _ssd_torch(arrays, chunk=chunk)
+    y1, h1 = _ssd_torch([t[:, :k] for t in arrays], chunk=chunk)
+    y2, h2 = _ssd_torch([t[:, k:] for t in arrays], h0=h1.numpy(),
+                        chunk=chunk)
+    _close_scaled(y2, y_full[:, k:].numpy(), 1e-5)
+    _close_scaled(h2, h_full.numpy(), 1e-5)
+    _close_scaled(y1, y_full[:, :k].numpy(), 1e-6)
+    jy2, jh2 = jops.ssd_scan(cfg, *[jnp.asarray(t[:, k:]) for t in arrays],
+                             h0=jnp.asarray(h1.numpy()))
+    _close_scaled(y2, jy2, 1e-5)
+    _close_scaled(h2, jh2, 1e-5)
+
+
+def test_ssd_scan_selects_where_exp_overflows_above_the_diagonal():
+    """a = -60 a step: exp(cum_i - cum_j) for j > i is exp(60·(j-i)), inf
+    from two rows apart.  The mask must select, so y and h_final stay
+    finite and equal the Pallas kernel's."""
+    B, S, H, P, N, G, chunk = 1, 16, 2, 8, 8, 1, 16
+    x, Bm, Cm, dt, _ = _ssd_inputs(2, B, S, H, P, N, G)
+    a = np.full((B, S, H), -60.0, np.float32)
+    assert 120.0 > np.log(np.finfo(np.float32).max)     # exp(120) is inf
+    y, hf = _ssd_torch((x, Bm, Cm, dt, a), chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    cfg = JM2.Mamba2Config(d_model=8, d_state=N, head_dim=P, chunk=chunk)
+    py, ph = jops.ssd_scan(cfg, *(jnp.asarray(t) for t in (x, Bm, Cm, dt, a)))
+    _close_scaled(y, py, 1e-5)
+    _close_scaled(hf, ph, 1e-5)
+
+
 def test_plain_versions_are_what_the_wrappers_run_on_cpu():
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((3, 64)).astype(np.float32))
@@ -107,6 +213,11 @@ def test_plain_versions_are_what_the_wrappers_run_on_cpu():
     want = tref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                     k.transpose(1, 2), scale=0.25)
     assert torch.equal(got, want.transpose(1, 2))
+    x, Bm, Cm, dt, a = (torch.from_numpy(t)
+                        for t in _ssd_inputs(3, 1, 9, 4, 8, 6, 2))
+    y, hf = tssd.ssd_scan(x, Bm, Cm, dt, a, chunk=4)
+    wy, wh = tref.ssd_scan_ref(x, Bm, Cm, dt, a, chunk=4)
+    assert torch.equal(y, wy) and torch.equal(hf, wh)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -116,6 +227,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     q = torch.empty((1, 2, 4, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfa.flash_attention(q, q, q)
+    d = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tssd.ssd_scan(q, q, q, d, d)
 
 
 def test_build_is_keyed_by_source_hash_and_needs_nvcc():

@@ -3,8 +3,8 @@ against the JAX reference on the same params and the same inputs.
 
 Params come from the JAX ``init_lm`` and are converted leaf for leaf
 (``repro_torch.convert``); token and activation inputs are made with numpy
-from a fixed seed.  Everything is float32, so logits and updated KV pools
-are held to 1e-5.
+from a fixed seed.  Everything is float32, so logits and updated KV and
+slot-state pools are held to 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -13,17 +13,20 @@ import pytest
 import torch
 
 from repro.models import layers as JL
+from repro.models import mamba2 as JM2
 from repro.models import transformer as JT
 from repro.runtime import steps as JST
 from repro_torch import convert
 from repro_torch.models import layers as TL
+from repro_torch.models import mamba2 as TM2
 from repro_torch.models import transformer as TT
 from repro_torch.runtime import steps as TST
-from serving_fixtures import TINY
-from torch_port_fixtures import (QWEN_TINY, jax_params, port_arch,
-                                 torch_params)
+from serving_fixtures import TINY, TINY_HYBRID, TINY_SSM
+from torch_port_fixtures import (QWEN_TINY, SSM_G2_TINY, jax_params,
+                                 port_arch, torch_params)
 
-ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY}
+ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY, "tiny-ssm": TINY_SSM,
+         "tiny-hybrid": TINY_HYBRID, "tiny-ssm-g2": SSM_G2_TINY}
 TOL = 1e-5
 
 
@@ -86,7 +89,8 @@ def test_init_lm_matches_reference_tree(name):
             assert tuple(a.shape) == tuple(b.shape)
             assert str(a.dtype) == str(b.dtype).replace("torch.", "")
     walk(want, got)
-    w = got["segments"][0]["b0"]["mlp"]["w_in"]["w"]
+    b0 = got["segments"][0]["b0"]
+    w = (b0["mlp"]["w_in"] if "mlp" in b0 else b0["mixer"]["x_proj"])["w"]
     assert float(w.abs().max()) <= 2.0 / arch.d_model ** 0.5   # truncated
 
 
@@ -148,8 +152,8 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
     scratch writes may land there in any order) match the JAX steps."""
     arch = ARCHS[name]
     tarch = port_arch(arch)
-    NB, BS, C = 12, 4, 6
-    jcache = JT.init_paged_cache(arch, NB, BS, jnp.float32)
+    NB, BS, C, SLOTS = 12, 4, 6, 3
+    jcache = JT.init_paged_cache(arch, NB, BS, jnp.float32, slots=SLOTS)
     tcache = convert.to_torch(jax.tree.map(np.asarray, jcache))
     jpre = JST.make_paged_prefill_step(arch)
     jdec = JST.make_paged_decode_step(arch)
@@ -158,21 +162,32 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
     jp, tp = jax_params(arch), torch_params(arch)
     rng = np.random.default_rng(3)
     tables = np.asarray([[3, 7, 1, 9], [2, 5, 11, 4]], np.int32)
+    # slot-state pool rows, out of order; the idle decode row takes the
+    # null row (= SLOTS)
+    sids = np.asarray([2, 0], np.int32)
+    sids3 = np.asarray([2, 0, SLOTS], np.int32)
 
     def pools_close():
+        """Paged KV pools without the null block (row 1 of the block
+        axis on), slot-state pools without the null row (the last): padded
+        and idle rows write scratch there in any order."""
         for js, ts in zip(jcache, tcache):
-            for kv in ("k", "v"):
-                _close(ts["b0"][kv][:, 1:], np.asarray(js["b0"][kv])[:, 1:])
+            for key, pool in ts.items():
+                skip = (slice(1, None) if "k" in pool
+                        else slice(None, -1))
+                for leaf, t in pool.items():
+                    _close(t[:, skip], np.asarray(js[key][leaf])[:, skip])
 
     pos = np.asarray([0, 0], np.int32)
     for new_lens in ([6, 4], [5, 6]):
         toks = rng.integers(0, arch.vocab, (2, C)).astype(np.int32)
         nl = np.asarray(new_lens, np.int32)
         want, jcache = jpre(jp, jcache, jnp.asarray(toks), jnp.asarray(pos),
-                            jnp.asarray(tables), jnp.asarray(nl), None)
+                            jnp.asarray(tables), jnp.asarray(nl),
+                            jnp.asarray(sids))
         got, out = tpre(tp, tcache, torch.from_numpy(toks),
                         torch.from_numpy(pos), torch.from_numpy(tables),
-                        torch.from_numpy(nl), None)
+                        torch.from_numpy(nl), torch.from_numpy(sids))
         assert out is tcache                          # pools updated in place
         _close(got, want)
         pools_close()
@@ -183,12 +198,61 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
         toks = rng.integers(0, arch.vocab, (3, 1)).astype(np.int32)
         p3 = np.concatenate([pos, [0]]).astype(np.int32)
         want, jcache = jdec(jp, jcache, jnp.asarray(toks), jnp.asarray(p3),
-                            jnp.asarray(tables3), None)
+                            jnp.asarray(tables3), jnp.asarray(sids3))
         got, _ = tdec(tp, tcache, torch.from_numpy(toks),
-                      torch.from_numpy(p3), torch.from_numpy(tables3), None)
+                      torch.from_numpy(p3), torch.from_numpy(tables3),
+                      torch.from_numpy(sids3))
         _close(got[:2], np.asarray(want)[:2])
         pools_close()
         pos = pos + 1
+
+
+def _conv_params(rng, K, C):
+    w = rng.standard_normal((K, C)).astype(np.float32) * 0.5
+    b = rng.standard_normal((C,)).astype(np.float32) * 0.1
+    return ({"w": jnp.asarray(w), "b": jnp.asarray(b)},
+            {"w": torch.from_numpy(w), "b": torch.from_numpy(b)})
+
+
+@pytest.mark.parametrize("left", [False, True])
+def test_causal_conv_matches_reference(left):
+    rng = np.random.default_rng(4)
+    K, C = 4, 12
+    jc, tc = _conv_params(rng, K, C)
+    u = rng.standard_normal((2, 7, C)).astype(np.float32)
+    buf = rng.standard_normal((2, K - 1, C)).astype(np.float32)
+    want = JM2._causal_conv(jnp.asarray(u), jc,
+                            left=jnp.asarray(buf) if left else None)
+    got = TM2._causal_conv(torch.from_numpy(u), tc,
+                           left=torch.from_numpy(buf) if left else None)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("new_lens", [None, [7, 2], [1, 0]])
+def test_conv_tail_matches_reference(new_lens):
+    """new_lens below d_conv-1 (2, 1, 0) take part of the old buffer."""
+    rng = np.random.default_rng(5)
+    buf = rng.standard_normal((2, 3, 5)).astype(np.float32)
+    raw = rng.standard_normal((2, 7, 5)).astype(np.float32)
+    nl = None if new_lens is None else np.asarray(new_lens, np.int32)
+    want = JM2._conv_tail(jnp.asarray(buf), jnp.asarray(raw),
+                          None if nl is None else jnp.asarray(nl))
+    got = TM2._conv_tail(torch.from_numpy(buf), torch.from_numpy(raw),
+                         None if nl is None else torch.from_numpy(nl))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_conv_step_matches_reference():
+    rng = np.random.default_rng(6)
+    K, C = 4, 12
+    jc, tc = _conv_params(rng, K, C)
+    buf = rng.standard_normal((3, K - 1, C)).astype(np.float32)
+    u = rng.standard_normal((3, 1, C)).astype(np.float32)
+    want_out, want_buf = JM2._conv_step(jnp.asarray(u), jnp.asarray(buf), jc)
+    got_out, got_buf = TM2._conv_step(torch.from_numpy(u),
+                                      torch.from_numpy(buf), tc)
+    _close(got_out, want_out)
+    np.testing.assert_array_equal(got_buf.numpy(), np.asarray(want_buf))
 
 
 def test_greedy_sampler_cuts_padded_vocab():

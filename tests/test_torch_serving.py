@@ -13,8 +13,9 @@ import pytest
 from repro_torch.configs.base import ArchConfig, Segment
 from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 from repro_torch.serving.sampling import SamplingParams
-from serving_fixtures import TINY, load_goldens, scenario_requests
-from torch_port_fixtures import QWEN_TINY, jax_params, port_arch, torch_params
+from serving_fixtures import TINY, TINY_SSM, load_goldens, scenario_requests
+from torch_port_fixtures import (QWEN_TINY, SSM_G2_TINY, jax_params,
+                                 port_arch, torch_params)
 
 
 def _engine(arch, **kw):
@@ -36,6 +37,10 @@ GOLDEN_CASES = [
     ("tiny/victims", dict(block_size=16, num_blocks=7, prefill_chunk=16),
      True),
     ("tiny/mixed",   dict(block_size=4, prefill_chunk=8), False),
+    ("ssm/base",     dict(block_size=4, prefill_chunk=3), False),
+    ("hybrid/base",  dict(block_size=4, prefill_chunk=4), False),
+    ("hybrid/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8),
+     True),
 ]
 
 
@@ -46,6 +51,7 @@ def test_greedy_goldens(scenario, kw, preempts):
     assert got == load_goldens(scenario), scenario
     assert (eng.metrics.preemptions > 0) == preempts
     assert eng.cache.allocator.num_used == 0          # every block returned
+    assert not any(s.busy for s in eng.slots)         # every slot row free
     assert eng.metrics.summary()["completed"] == len(got)
 
 
@@ -123,6 +129,44 @@ def test_matches_jax_engine_on_qwen_shaped_config():
     assert teng.metrics.preemptions == jeng.metrics.preemptions > 0
 
 
+def test_matches_jax_engine_on_grouped_ssm_config():
+    """Pure mamba2 with two B/C groups and a scan chunk of 4: the port's
+    engine and the JAX engine emit the same greedy tokens, logprobs to
+    1e-5 and the same preemption count under chunked prefill and forced
+    preemption (re-admission zeroes the slot row, and the re-prefill
+    carries h0 and the conv buffers across chunks)."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.serving import ContinuousBatchingEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    from repro.serving import SamplingParams as JaxSamplingParams
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, SSM_G2_TINY.vocab, size=n).astype(np.int32)
+               for n in (9, 5, 13, 7)]
+    kw = dict(slots=2, max_len=32, block_size=4, num_blocks=7,
+              prefill_chunk=5)
+    jeng = JaxEngine(SSM_G2_TINY, jax_params(SSM_G2_TINY), make_host_mesh(),
+                     **kw)
+    want = jeng.generate([
+        JaxRequest(id=i, prompt=p, max_new_tokens=8,
+                   sampling=JaxSamplingParams(logprobs=True))
+        for i, p in enumerate(prompts)])
+    teng = _engine(SSM_G2_TINY, **kw)
+    got = teng.generate([Request(id=i, prompt=p, max_new_tokens=8,
+                                 sampling=SamplingParams(logprobs=True))
+                         for i, p in enumerate(prompts)])
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-5)
+    assert teng.metrics.preemptions == jeng.metrics.preemptions > 0
+    assert teng.cache.allocator.num_used == 0
+
+
+def test_prefix_sharing_is_refused_for_slot_state_archs():
+    with pytest.raises(ValueError, match="prefix sharing cannot serve"):
+        _engine(TINY_SSM, slots=2, max_len=64, share_prefix=True)
+
+
 def test_stochastic_sampling_is_refused_at_submit():
     eng = _engine(TINY, slots=2, max_len=64)
     with pytest.raises(NotImplementedError, match="temperature"):
@@ -134,7 +178,7 @@ def test_stochastic_sampling_is_refused_at_submit():
                            sampling=SamplingParams(temperature=-1.0)))
 
 
-@pytest.mark.parametrize("blocks", [("attn", "mamba2"), ("mla",),
+@pytest.mark.parametrize("blocks", [("shared_attn", "mamba2"), ("mla",),
                                     ("cross_attn",)])
 def test_unported_block_kinds_raise_at_construction(blocks):
     arch = ArchConfig(name="mixed", family="hybrid", n_layers=2, d_model=64,

@@ -13,7 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 
-from repro.configs.base import ArchConfig, Segment
+from repro.configs.base import ArchConfig, Segment, SSMSpec
 from repro.models import transformer as JT
 from repro_torch import convert
 from repro_torch.configs import base as tbase
@@ -27,6 +27,16 @@ QWEN_TINY = ArchConfig(name="qwen3-tiny", family="dense", n_layers=2,
                        rope_theta=1_000_000.0,
                        pattern=(Segment(("attn",), 2),), dtype="float32",
                        param_dtype="float32")
+
+# pure mamba2 with two B/C groups (4 heads read each group) and a chunk of
+# 4, so prompts and prefill chunks span several scan chunks
+SSM_G2_TINY = ArchConfig(name="tiny-ssm-g2", family="ssm", n_layers=2,
+                         d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                         vocab=256,
+                         ssm=SSMSpec(d_state=16, head_dim=16, n_groups=2,
+                                     chunk=4),
+                         pattern=(Segment(("mamba2",), 2),),
+                         dtype="float32", param_dtype="float32")
 
 _JAX_PARAMS: dict[str, dict] = {}
 _TORCH_PARAMS: dict[str, dict] = {}
