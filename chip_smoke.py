@@ -12,17 +12,19 @@ Phases, each of which fails the run (exit code 1) on any error:
    ``nvidia-smi`` reports them; turns TF32 off for float32 products.
 2. Build: compiles every kernel of the port from ``src/repro_torch/kernels/
    csrc`` with ``nvcc`` for ``sm_90a`` (one compiler per source, in
-   parallel) and prints the build time.
+   parallel) and prints the build time and each kernel's registers and
+   spills as ``-Xptxas -v`` reports them.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, in bf16 and fp32, with the tolerance stated: at every shape
    each model's serve path (decode and prefill steps) and forward give it
    at this script's settings (``served_cases``), and at larger and ragged
    edge cases.  Kernel and plain times (and the library call's, where one
    PyTorch call computes the same function) are device times: 20 calls
-   captured in one CUDA graph and replayed between CUDA events.  The
-   kernel's eager time per call from Python (``call_ms``) stands beside
-   them: at the decode step's shapes that is the host's cost, not the
-   device's.
+   captured in one CUDA graph, the median of 5 replays between CUDA
+   events.  The kernel's eager time per call from Python (``call_ms``)
+   stands beside them: at the decode step's shapes that is the host's
+   cost, not the device's.  Each row gives ``ms / library_ms`` (above 1:
+   the kernel loses to the PyTorch call) and ``bound_ms / ms``.
 4. Serve qwen3-8b: published widths and all 36 layers, bf16, random weights
    from a seeded generator, 8 greedy requests of 512 prompt tokens and 32
    new tokens through ``ContinuousBatchingEngine.generate``.  Every launch
@@ -56,6 +58,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -138,11 +141,14 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, replays: int = 5) -> float:
     """Device time of one call: ``iters`` calls captured in one CUDA graph
     (after 3 warm-up calls on a side stream), replayed once to warm up and
-    once between CUDA events.  The replay takes the host's launch cost out,
-    so a small kernel is timed on the device, not at Python's pace."""
+    then ``replays`` times, each between CUDA events; the median replay
+    over ``iters``.  The replay takes the host's launch cost out, so a
+    small kernel is timed on the device, not at Python's pace; the median
+    keeps one slow replay (a clock change, a neighbour on the host) out of
+    the reading."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -156,13 +162,16 @@ def time_ms(fn, iters: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[replays // 2]
 
 
 def check_close(got, want, dtype_name):
@@ -187,6 +196,28 @@ def check_ssd(got, want):
              for g, w, e in zip(got, want, errs))
     err = float(torch.stack(errs).max())      # NaN if an output is NaN
     return err, ok, f"{SSD_REL_TOL:g}*max|plain| (y and h_final)"
+
+
+def ptxas_report(txt):
+    """(kernel, registers line, spill line) for each kernel in the output
+    of ``nvcc -Xptxas -v``; the kernel is its mangled name from the base
+    name to the end of its template arguments
+    (``rmsnorm_kernelI13__nv_bfloat16S1_Li8ELi256EE``: T, TS, VEC,
+    LANES)."""
+    out, kernel, spill = [], "?", ""
+    for line in txt.splitlines():
+        m = re.search(
+            r"Compiling entry function '_Z\S*?\d+([a-z_]+kernel\S*?)'", line)
+        if m:
+            kernel = m.group(1)
+            kernel = kernel[:kernel.find("EEv") + 1] if "EEv" in kernel \
+                else kernel[:60]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split(":", 1)[-1].strip()
+            out.append((kernel, regs, spill))
+    return out
 
 
 def bound(nbytes, flops):
@@ -697,9 +728,8 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} libraries in {rep['seconds']:.1f} s "
           f"-> {build.BUILD_DIR}")
     for name, txt in rep["ptxas"].items():
-        for line in txt.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(txt):
+            print(f"  ptxas {name}: {kernel}: {regs}; {spill}")
 
     from repro_torch.configs import get_arch
     archs = {QWEN: get_arch(QWEN), MAMBA: get_arch(MAMBA)}
@@ -708,13 +738,21 @@ def main() -> int:
     rows = kernel_phase(torch, archs, TIMED_LAUNCHES)
     report["kernel_cases"] = rows
     for r in rows:
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        # ms / library_ms (above 1: slower than the PyTorch call) and the
+        # share of the bound reached, bound_ms / ms
+        r["library_ratio"] = (None if r["library_ms"] is None
+                              else r["ms"] / r["library_ms"])
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f} ms (kernel/library "
+               f"{r['library_ratio']:.2f}x)")
         print(f"kernel {r['name']} [{r['path']}: {r['use']}] {r['shape']} "
               f"{r['dtype']}: {'ok' if r['ok'] else 'MISMATCH'} max_abs_err "
               f"{r['max_abs_err']:.3g} (tol {r['tol']}), {r['ms']:.4f} ms "
               f"(eager call {r['call_ms']:.4f} ms), plain "
-              f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_share']:.1f}% of it)")
     bad = [f"{r['name']} {r['shape']} {r['dtype']}" for r in rows
            if not r["ok"]]
     if bad:
@@ -762,8 +800,9 @@ def main() -> int:
             "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "path": path, "shape": r["shape"], "dtype": r["dtype"],
-            "tol": r["tol"],
+            "library_ratio": r["library_ratio"],
+            "bound_share": r["bound_share"], "path": path,
+            "shape": r["shape"], "dtype": r["dtype"], "tol": r["tol"],
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     report["kernels"] = kernels
     if args.out:

@@ -9,8 +9,14 @@ denominator clamped at 1e-30.  Unlike the TPU wrapper it takes GQA kv
 (fewer kv heads than q heads) directly and reads kv head h // (H/Hkv).
 
 Bound on an H100: operations, 4*B*H*D*(unmasked pairs) at 989 TFLOP/s
-bf16.  This first version computes with fp32 FMAs from shared memory (see
-the source header); moving it onto the tensor cores is later work.
+bf16.  bf16 runs on the tensor cores (the source header has the design):
+blocks of 128 q rows as two consumer warpgroups, kv tiles of 64 keys
+brought by a TMA producer warpgroup into a four-stage mbarrier ring,
+QK^T and PV as ``wgmma`` from swizzled bf16 shared memory, softmax in
+registers, and P split into bf16 hi + lo so that PV keeps P to about 16
+bits, as the fp32 specification needs.  fp32 runs on an fp32 FMA body.
+bf16 needs every row start 16-byte aligned (strides multiples of 8
+elements), which the model's layouts give.
 
 ``flash_attention(q, k, v)`` launches the kernel for CUDA tensors and
 raises on anything the kernel does not take; for CPU tensors it runs the
@@ -85,6 +91,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)            # keeps q's strides (dense layouts)
     if o.stride(-1) != 1:
         o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
+            for t in (q, k, v, o)):
+        raise ValueError("flash_attention: bf16 rows must start 16-byte "
+                         "aligned (pointers and strides)")
     if S == 0 or B == 0:
         return o
     if T == 0:

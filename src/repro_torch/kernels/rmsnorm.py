@@ -3,8 +3,11 @@
 Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py:rmsnorm``
 (``_rmsnorm_kernel``).  Bound on an H100: bytes — each element is read
 once and written once at 3.35 TB/s; the kernel keeps a row in registers
-between the sum of squares and the write, so it moves nothing twice (see
-the source's header for the launch shapes).
+between the sum of squares and the write, so it moves nothing twice.
+
+Each row gets a group of lanes, each lane a few vectors of 16 bytes, all
+loaded before any arithmetic; a block holds several rows
+(``launch_shape`` picks the shape, the source's header says why).
 
 ``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
 anything the kernel does not take; for a CPU tensor it runs the plain
@@ -20,21 +23,48 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import rmsnorm_ref
 
 MAX_D = 8192
+VEC_BYTES = 16             # one vector load
+MAX_VECS_PER_LANE = 8      # csrc/rmsnorm.cu: kMaxNV
+MIN_BLOCK = 256            # csrc/rmsnorm.cu: kMinBlock
+LANE_GROUPS = (8, 16, 32, 64, 128, 256, 512, 1024)   # csrc/rmsnorm.cu builds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+
+
+def launch_shape(D: int, itemsize: int, aligned: bool = True):
+    """The kernel's launch shape for rows of ``D`` elements of
+    ``itemsize`` bytes -> ``(lanes per row, vectors per lane, rows per
+    block, elements per vector)``.  Vectors are 16 bytes when D is a
+    multiple of their width and the pointers are 16-byte ``aligned``, else
+    single elements.  The group is the narrowest that holds the row in at
+    most 8 vectors a lane, so a lane has several loads in flight; a block
+    has ``max(256, lanes)`` threads."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
+    vec = VEC_BYTES // itemsize
+    if D % vec or not aligned:
+        vec = 1
+    nvec = D // vec
+    lanes = next(g for g in LANE_GROUPS if g * MAX_VECS_PER_LANE >= nvec)
+    return lanes, -(-nvec // lanes), max(MIN_BLOCK, lanes) // lanes, vec
 
 
 def _entry():
     global _fn
     if _fn is None:
-        lib = build.load("rmsnorm")
-        fn = lib.repro_rmsnorm
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
+        _fn = bind(build.load("rmsnorm"))
     return _fn
+
+
+def bind(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_rmsnorm`` entry point)."""
+    fn = lib.repro_rmsnorm
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -60,10 +90,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     rows = x.numel() // D
     if rows == 0:
         return y
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, y))
+    lanes, per_lane, rows_per_block, vec = launch_shape(
+        D, x.element_size(), aligned)
     lib, fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, D,
-              _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, stream)
+              _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, lanes, per_lane,
+              rows_per_block, vec, stream)
     build.check(lib, code, "rmsnorm launch")
     rmsnorm.launches += 1
     return y

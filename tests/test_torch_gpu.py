@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card.
 
-Every test here is marked ``gpu`` and skips without a CUDA device: the
-kernels have no CPU mode.  The file imports neither JAX nor the JAX package,
-so it runs on a machine that has only PyTorch and the CUDA toolkit:
+Every test that runs a kernel is marked ``gpu`` and skips without a CUDA
+device: the kernels have no CPU mode (only the check that each wrong-kernel
+edit applies to its source runs anywhere).  The file imports neither JAX
+nor the JAX package, so it runs on a machine that has only PyTorch and the
+CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -72,6 +74,8 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (1, 100, 260, 2, 2, 32, True),
     (1, 260, 100, 2, 2, 16, True),
     (2, 77, 130, 4, 2, 128, False),
+    (1, 2048, 2048, 4, 2, 128, True),
+    (1, 129, 1, 4, 2, 128, True),      # one key, one row past a 128-tile
 ])
 def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                             dtype):
@@ -112,10 +116,26 @@ def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
 
 
 # Wrong flash kernels, each one edit away from csrc/flash_attention.cu:
-# (source text, replacement).  The first three are the classic bugs of a
-# flash kernel; the last is the bf16 rounding of the probabilities that the
-# reference's plain attention does (layers._sdpa), which the kernel must not.
-FLASH_MUTANTS = {
+# (source text, replacement).  The bf16 tensor-core body's: the classic
+# bugs of a flash kernel, the lo term of P dropped (P rounded to bf16 once,
+# as the reference's plain attention does in layers._sdpa) and V read as a
+# K-major operand.  The fp32 FMA body's: the same classic bugs and P rounded
+# to bf16.
+FLASH_MUTANTS_BF16 = {
+    "mask one key late": ("(causal && key > rows[r])",
+                          "(causal && key > rows[r] + 1)"),
+    "kv heads interleaved": ("const int kvh = h / group;",
+                             "const int kvh = h % (gridDim.x / group);"),
+    "acc not rescaled": ("""acc[4 * j + 0] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];""", "(void)alpha;"),
+    "lo term of P dropped": (
+        "wgmma_rs<D>(acc, p_lo[kk], vd + ((2 * kSbo * kk) >> 4));", ""),
+    "V read untransposed": ("constexpr int kTransV = 1;",
+                            "constexpr int kTransV = 0;"),
+}
+FLASH_MUTANTS_FP32 = {
     "mask one key late": ("(!causal || q_pos >= k_pos)",
                           "(!causal || q_pos + 1 >= k_pos)"),
     "kv heads interleaved": ("const int hk = h / group;",
@@ -130,13 +150,14 @@ FLASH_MUTANTS = {
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's kernel check, at the forward's shape, fails every
-    mutant in both dtypes.  The bf16-probabilities one is required to fail
-    in fp32 only: in bf16 it moves outputs by about one rounding step, so
-    whether the bf16 check sees it depends on the data."""
+    mutant of the body its dtype runs: the bf16 body's in bf16, the fp32
+    body's in fp32."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
-    libs = _build_mutants(tmp_path, "flash_attention.cu", FLASH_MUTANTS)
+    mutants = {("bfloat16", n): m for n, m in FLASH_MUTANTS_BF16.items()}
+    mutants.update({("float32", n): m for n, m in FLASH_MUTANTS_FP32.items()})
+    libs = _build_mutants(tmp_path, "flash_attention.cu", mutants)
 
     B, S, H, Hkv, D = 2, 512, 32, 8, 128        # the forward's attention
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -146,22 +167,64 @@ def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
         k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
         v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
         want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
-        for name, lib in [("kernel", None), *libs.items()]:
+        for name, lib in [(("kernel", "kernel"), None), *libs.items()]:
+            if name[0] not in ("kernel", dn):
+                continue
             if lib is not None:
                 monkeypatch.setattr(tfa, "_fn", tfa.bind(lib))
             got = tops.flash_attention(q, k, v)
             torch.cuda.synchronize()
             err, ok, tol = smoke.check_close(got, want, dn)
-            print(f"flash {name} {dn}: max_abs_err {err:.3g} "
+            print(f"flash {name[1]} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected[name[1], dn] = not ok
+        monkeypatch.undo()
+    assert not rejected["kernel", "float32"]
+    assert not rejected["kernel", "bfloat16"]
+    for name in FLASH_MUTANTS_BF16:
+        assert rejected[name, "bfloat16"], name
+    for name in FLASH_MUTANTS_FP32:
+        assert rejected[name, "float32"], name
+
+
+# Wrong RMSNorm kernels, each one edit away from csrc/rmsnorm.cu
+RMSNORM_MUTANTS = {
+    "squares of half the vectors": (
+        "if (i < nv && vi < nvec && active)",
+        "if (2 * i < nv && vi < nvec && active)"),
+    "scale at the wrong lane offset": (
+        "sbuf[i] = sr[vi];", "sbuf[i] = sr[(vi + 1) % nvec];"),
+}
+
+
+@pytest.mark.gpu
+def test_smoke_check_rejects_wrong_rmsnorm_kernels(tmp_path, monkeypatch):
+    """chip_smoke.py's kernel check fails every RMSNorm mutant in both
+    dtypes at the qwen3-8b forward's (1024, 4096) rows."""
+    _need_cuda()
+    smoke = _smoke()
+    libs = _build_mutants(tmp_path, "rmsnorm.cu", RMSNORM_MUTANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rejected = {}
+    for dn, (tdt, _, _) in DTYPES.items():
+        x = torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
+        s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
+             ).to(tdt)
+        want = tref.rmsnorm_ref(x, s)
+        for name, lib in [("kernel", None), *libs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(trn, "_fn", trn.bind(lib))
+            got = trn.rmsnorm(x, s)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_close(got, want, dn)
+            print(f"rmsnorm {name} {dn}: max_abs_err {err:.3g} "
                   f"({'passes' if ok else 'fails'} {tol})")
             rejected[name, dn] = not ok
         monkeypatch.undo()
     assert not rejected["kernel", "float32"]
     assert not rejected["kernel", "bfloat16"]
-    for name in FLASH_MUTANTS:
-        assert rejected[name, "float32"], name
-        if name != "probs in bf16":
-            assert rejected[name, "bfloat16"], name
+    for name in RMSNORM_MUTANTS:
+        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
 
 
 def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
@@ -221,6 +284,22 @@ SSD_MUTANTS = {
 }
 
 
+@pytest.mark.parametrize("source,mutants", [
+    ("flash_attention.cu", FLASH_MUTANTS_BF16),
+    ("flash_attention.cu", FLASH_MUTANTS_FP32),
+    ("rmsnorm.cu", RMSNORM_MUTANTS),
+    ("ssd_scan.cu", SSD_MUTANTS),
+], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd"])
+def test_every_mutant_edit_applies_once(source, mutants):
+    """Each wrong kernel above is one edit of text that occurs exactly once
+    in its source, so the card's mutant tests build what they claim.  Runs
+    without a card."""
+    src = (tbuild.CSRC / source).read_text()
+    for name, (old, new) in mutants.items():
+        assert src.count(old) == 1, name
+        assert src.replace(old, new) != src, name
+
+
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's SSD check fails every mutant in both dtypes, at
@@ -264,6 +343,10 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
         trn.rmsnorm(xt, torch.ones(64, device="cuda"))
     q = torch.randn((1, 4, 8, 48), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q)
+    q = torch.randn((1 + 8 * 4 * 64,), device="cuda").to(torch.bfloat16)
+    q = q[1:].view(1, 4, 8, 64)               # rows 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
         tfa.flash_attention(q, q, q)
 
     def ssd(B=1, S=8, H=4, P=16, N=32, G=1, dtype=torch.bfloat16,

@@ -242,3 +242,148 @@ def test_build_is_keyed_by_source_hash_and_needs_nvcc():
                                                 for p in paths.values()):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 flash kernel's arithmetic, emulated: why P is split into hi + lo
+# ---------------------------------------------------------------------------
+
+def _smoke_check_close():
+    """chip_smoke.py's own kernel check (the module imports no JAX)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.check_close
+
+
+def _flash_tiled_bf16(q, k, v, *, scale, causal, bk, split):
+    """The bf16 kernel's arithmetic in plain torch: QK^T of bf16 inputs in
+    fp32, an online softmax over kv tiles of ``bk`` keys, and PV summed in
+    fp32 from P rounded to bf16, either once (``split=False``) or as
+    hi = bf16(P) plus lo = bf16(P - hi).  q: (B,S,H,D), k,v: (B,T,Hkv,D)
+    bf16 -> (B,S,H,D) fp32, before the final cast."""
+    B, S, H, D = q.shape
+    T, g = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)                               # (B,H,S,D)
+    kf, vf = (t.float().repeat_interleave(g, dim=2).transpose(1, 2)
+              for t in (k, v))
+    m = torch.full((B, H, S), tref.NEG_INF)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, D))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, T, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = qf @ kt.transpose(-1, -2) * scale
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = (qp >= kp) if causal else torch.ones_like(qp >= kp)
+        s = torch.where(keep, s, torch.tensor(tref.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
+
+
+@pytest.mark.parametrize("S,T,causal", [(512, 512, True), (300, 700, False)])
+def test_flash_bf16_needs_p_split_into_hi_and_lo(S, T, causal):
+    """At the forward's shape (fewer heads) and a ragged one: with P as
+    bf16 hi + lo the tiled kernel arithmetic stays within ~1e-5 of the fp32
+    plain version and passes chip_smoke's bf16 check after the cast; with
+    P rounded to bf16 once, its error is over 100x larger and the check
+    fails.  BK = 64, the kernel's kv tile."""
+    check_close = _smoke_check_close()
+    rng = np.random.default_rng(0)
+    B, H, Hkv, D = 1, 4, 1, 128
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, n, h, D))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for n, h in ((S, H), (T, Hkv), (T, Hkv)))
+    scale = D ** -0.5
+    exact = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     scale=scale, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    got = {split: _flash_tiled_bf16(q, k, v, scale=scale, causal=causal,
+                                    bk=64, split=split)
+           for split in (True, False)}
+    err = {split: float((g - exact).abs().max()) for split, g in got.items()}
+    assert err[True] * 100 <= err[False], err
+    assert err[True] < 2e-5, err
+    _, ok_split, _ = check_close(got[True].to(torch.bfloat16), want,
+                                 "bfloat16")
+    _, ok_single, _ = check_close(got[False].to(torch.bfloat16), want,
+                                  "bfloat16")
+    assert ok_split and not ok_single
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm's launch shape (chosen in Python, checked again by the C side)
+# ---------------------------------------------------------------------------
+
+def _rmsnorm_source_constants():
+    import re
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    min_block = int(re.search(r"constexpr int kMinBlock = (\d+);", src)[1])
+    max_nv = int(re.search(r"constexpr int kMaxNV = (\d+);", src)[1])
+    span = int(re.search(r"constexpr int kMaxVecSpan = (\d+);", src)[1])
+    lanes = tuple(int(n) for n in re.findall(
+        r"case (\d+): +return launch<T, TS, VEC, \1>", src))
+    return min_block, max_nv, span, lanes
+
+
+def test_rmsnorm_launch_shape_covers_every_width_once():
+    """For every D in [1, 8192] and both item sizes: the lane group,
+    vectors a lane and vector width cover the row's D elements exactly
+    once, with no lane's last vector wholly past the row; the block has at
+    most 1024 threads, exactly the count the C build's
+    ``__launch_bounds__(max(kMinBlock, LANES))`` was made for; and the
+    constants match csrc/rmsnorm.cu, whose vector builds span at most
+    ``kMaxVecSpan`` elements a row group."""
+    min_block, max_nv, span, built_lanes = _rmsnorm_source_constants()
+    assert (min_block, max_nv) == (trn.MIN_BLOCK, trn.MAX_VECS_PER_LANE)
+    assert built_lanes == trn.LANE_GROUPS
+    for itemsize in (2, 4):
+        full = 16 // itemsize
+        for D in range(1, trn.MAX_D + 1):
+            lanes, nv, rows, vec = trn.launch_shape(D, itemsize)
+            assert vec == (full if D % full == 0 else 1), (D, itemsize)
+            assert lanes in built_lanes and 1 <= nv <= max_nv
+            assert vec == 1 or lanes * vec <= span
+            threads = lanes * rows
+            assert threads == max(min_block, lanes) <= 1024
+            nvec = D // vec
+            assert nvec * vec == D
+            assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
+            # vector vi sits at lane vi % lanes, slot vi // lanes
+            slots = (np.arange(lanes)[:, None]
+                     + lanes * np.arange(nv)[None, :]).ravel()
+            used = np.sort(slots[slots < nvec])
+            assert np.array_equal(used, np.arange(nvec)), (D, itemsize)
+
+
+@pytest.mark.parametrize("D", [128, 4096])
+def test_rmsnorm_launch_shape_idles_no_lane_at_the_model_widths(D):
+    """q/k norms (128) and qwen3-8b's d_model (4096) in bf16: every lane
+    slot holds a vector of the row."""
+    lanes, nv, _, vec = trn.launch_shape(D, 2)
+    assert vec == 8 and lanes * nv * vec == D
+
+
+def test_rmsnorm_launch_shape_falls_back_to_elements():
+    """Widths that are not a multiple of the vector, and pointers that are
+    not 16-byte aligned, take single elements (the C side refuses vectors
+    there)."""
+    assert trn.launch_shape(300, 2)[3] == 1
+    assert trn.launch_shape(4098, 4)[3] == 1
+    assert trn.launch_shape(4096, 2, aligned=False)[3] == 1
+    assert trn.launch_shape(4096, 4)[3] == 4
+    for D in (0, trn.MAX_D + 1):
+        with pytest.raises(ValueError, match="outside"):
+            trn.launch_shape(D, 2)
