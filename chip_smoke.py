@@ -109,6 +109,10 @@ SERVE = {
 }
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
+# the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
+# bf16 body's three (chunk states, state passing, chunk outputs)
+SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+               "ssd_out_kernel")
 
 
 def fail(msg: str) -> None:
@@ -232,19 +236,22 @@ def bound(nbytes, flops):
 def ssd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0):
     """(bytes, flops by type) the scan must move and do: each input read
     once, each output written once; 2 flops per multiply-add over the
-    causal triangle of each chunk's real rows.  C.B^T depends on the group
-    alone (decay and dt scale it afterwards), so it counts once per group,
-    at the inputs' type: a product of two bf16 values summed in fp32 is
-    exact.  The score product, the inter-chunk term and the state update
-    count once per head, in fp32."""
+    causal triangle of each chunk's real rows, every product on the bf16
+    tensor cores.  C.B^T depends on the group alone (decay and dt scale it
+    afterwards), so it counts once per group: once with bf16 inputs (a
+    product of two bf16 values summed in fp32 is exact), three times with
+    fp32 ones (hi.hi + hi.lo + lo.hi of a split into bf16 hi + lo).  The
+    score product, the inter-chunk term and the state update count once
+    per head, each with an fp32 factor split into hi + lo: twice with bf16
+    inputs, three times with fp32 ones."""
     cb = ops = 0
     for c0 in range(0, S, Q):
         q = min(Q, S - c0)
         tri = q * (q + 1) // 2
         cb += B * G * 2 * tri * N
         ops += B * H * (2 * tri * P + 4 * q * N * P)
-    flops = {"float32": ops}
-    flops[dtype_name] = flops.get(dtype_name, 0) + cb
+    bf16 = dtype_name == "bfloat16"
+    flops = {"bfloat16": (1 if bf16 else 3) * cb + (2 if bf16 else 3) * ops}
     nbytes = (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
               + 2 * B * S * H * 4 + B * S * H * P * 4
               + B * H * P * N * 4 * (2 if has_h0 else 1))
@@ -610,20 +617,26 @@ def profile_phase(torch, report, name, arch, params, prompts):
                 busy += b - end
                 end = b
         by_name: dict[str, list] = {}
+        ssd_parts: dict[str, list] = {}    # the SSD call's CUDA kernels
         for e in kernels:
             n = e["name"]
+            ssd = next((k for k in SSD_KERNELS if k in n), None)
             key = ("rmsnorm" if "rmsnorm_kernel" in n else
                    "flash" if "flash_fwd" in n else
-                   "ssd_scan" if "ssd_scan_kernel" in n else
+                   "ssd_scan" if ssd else
                    "gemm" if "gemm" in n.lower() or "gemv" in n.lower() else
                    n[:60])
-            t = by_name.setdefault(key, [0, 0.0])
-            t[0] += 1
-            t[1] += e["dur"]
+            for d, k in ((by_name, key), (ssd_parts, ssd)):
+                if k is not None:
+                    t = d.setdefault(k, [0, 0.0])
+                    t[0] += 1
+                    t[1] += e["dur"]
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
         out.update(device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
                    by_kernel=[{"kernel": k, "count": c, "ms": us / 1e3}
-                              for k, (c, us) in top])
+                              for k, (c, us) in top],
+                   ssd_parts=[{"kernel": k, "count": c, "ms": us / 1e3}
+                              for k, (c, us) in ssd_parts.items()])
         print(f"profile {name}: traced serve of {len(reqs)} requests, wall "
               f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
               f"({100 * busy / 1e6 / wall:.1f}%), {len(kernels)} kernels, "
@@ -631,6 +644,9 @@ def profile_phase(torch, report, name, arch, params, prompts):
               f"{s['prefill_chunks']} prefill chunks")
         for k, (c, us) in top:
             print(f"  profile {name} kernel {k}: {c} launches, "
+                  f"{us / 1e3:.2f} ms")
+        for k, (c, us) in ssd_parts.items():
+            print(f"  profile {name} ssd_scan part {k}: {c} launches, "
                   f"{us / 1e3:.2f} ms")
     report[f"profile {name}"] = out
 
@@ -730,6 +746,9 @@ def main() -> int:
     for name, txt in rep["ptxas"].items():
         for kernel, regs, spill in ptxas_report(txt):
             print(f"  ptxas {name}: {kernel}: {regs}; {spill}")
+        for line in txt.splitlines():      # warnings and ptxas advisories
+            if "warning" in line.lower() or re.search(r"\(C7\d{3}\)", line):
+                print(f"  ptxas {name}: {line.strip()}")
 
     from repro_torch.configs import get_arch
     archs = {QWEN: get_arch(QWEN), MAMBA: get_arch(MAMBA)}

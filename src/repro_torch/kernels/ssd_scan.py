@@ -10,8 +10,11 @@ wrapper it takes B and C per group and reads group h // (H/G) for head h,
 and it takes every input in the model's (B,S,H,...) layout by strides, so
 nothing is copied, transposed or expanded.
 
-Bound on an H100: operations, fp32 FMAs over the causal triangle (see the
-source's header); this first version runs on the CUDA cores.
+bf16 inputs run three CUDA kernels a call on the tensor cores (chunk
+states in parallel, the state passed across chunks, then y in parallel;
+the source's header has the design) with a chunk-state scratch this
+wrapper allocates; fp32 inputs run the FMA kernel.  Bound on an H100 at
+the path's shapes: bytes (see the source's header).
 
 ``ssd_scan(...)`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; for CPU tensors it runs the plain
@@ -36,7 +39,7 @@ _fn = None
 def bind(lib: ctypes.CDLL):
     """-> (lib, its typed ``repro_ssd_scan`` entry point)."""
     fn = lib.repro_ssd_scan
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 18
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -106,11 +109,18 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                          f"{tuple(h0.shape)}")
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     hf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # bf16: the chunk states (B, H, nc, P, N) and each chunk's cum_last
+    nc = -(-S // Q)
+    scratch = (torch.empty(B * H * nc * (P * N + 1), dtype=torch.float32,
+                           device=x.device)
+               if x.dtype == torch.bfloat16 else None)
     lib, fn = _entry()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
               a.data_ptr(), None if h0 is None else h0.data_ptr(),
-              y.data_ptr(), hf.data_ptr(), B, H, G, S, P, N, Q,
+              y.data_ptr(), hf.data_ptr(),
+              None if scratch is None else scratch.data_ptr(),
+              B, H, G, S, P, N, Q,
               *_bhs(x), *_bhs(Bm), *_bhs(Cm), *_bhs(dt), *_bhs(a), *_bhs(y),
               _DTYPES[x.dtype], stream)
     build.check(lib, code, "ssd_scan launch")

@@ -131,7 +131,7 @@ FLASH_MUTANTS_BF16 = {
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];""", "(void)alpha;"),
     "lo term of P dropped": (
-        "wgmma_rs<D>(acc, p_lo[kk], vd + ((2 * kSbo * kk) >> 4));", ""),
+        "wgmma_rs<kTransV>(acc, p_lo[kk], vd + ((2 * kSbo * kk) >> 4));", ""),
     "V read untransposed": ("constexpr int kTransV = 1;",
                             "constexpr int kTransV = 0;"),
 }
@@ -239,8 +239,10 @@ def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
 
 
 # (B, S, H, P, N, G, chunk, h0): the served prefill chunk and forward of
-# mamba2-780m, then ragged S, Q < chunk, two groups, a small chunk, and a
-# head_dim narrower than the kernel's 16-row tile with three groups
+# mamba2-780m, then ragged S, Q < chunk, two groups, a small chunk, a
+# head_dim narrower than the fp32 kernel's 16-row tile with three groups,
+# and widths whose rows are no 16-byte multiple (P = 12, N = 24: the bf16
+# kernel loads its tiles itself instead of by TMA)
 SSD_CASES = [
     (1, 256, 48, 64, 128, 1, 128, True),
     (2, 500, 48, 64, 128, 1, 128, False),
@@ -249,6 +251,7 @@ SSD_CASES = [
     (1, 256, 8, 64, 128, 2, 128, True),
     (2, 33, 4, 32, 64, 1, 16, True),
     (1, 7, 6, 8, 16, 3, 4, True),
+    (2, 150, 6, 12, 24, 2, 64, True),
 ]
 
 
@@ -271,8 +274,27 @@ def test_cuda_ssd_scan_matches_plain(B, S, H, P, N, G, chunk, h0, dtype):
     assert ok, (err, tol)
 
 
-# Wrong SSD kernels, each one edit away from csrc/ssd_scan.cu
-SSD_MUTANTS = {
+# Wrong SSD kernels, each one edit away from csrc/ssd_scan.cu.  The bf16
+# tensor-core body's: the mask as a multiply (inf * 0 above the diagonal),
+# the state not passed across chunks, the wrong group, the lo term of w
+# (chunk states) or of the scores (y) dropped, and y's inter-chunk term
+# read from the wrong chunk's state.  The fp32 FMA body's: the first three.
+SSD_MUTANTS_BF16 = {
+    "mask by multiply": (
+        "v = keep ? v * expf(ci[r] - cum[key]) * dtv[key] : 0.f;",
+        "v = v * expf(ci[r] - cum[key]) * dtv[key] * (float)keep;"),
+    "state not passed across chunks": (
+        "h = expf(p.cl[bh * p.nc + c]) * h + s;", "(void)s;"),
+    "wrong group index": ("return h / (H / G);", "return h % G;"),
+    "lo term of w dropped": (
+        "wgmma_ss<64, 1, 1>(acc, ld + off, bd + off, 1);", ""),
+    "lo term of the scores dropped": (
+        "wgmma_rs<1>(yi, s_lo[kk], xd + off);", ""),
+    "state from the wrong chunk": (
+        "p.st + (static_cast<size_t>(z) - 1) * pn",
+        "p.st + static_cast<size_t>(z) * pn"),
+}
+SSD_MUTANTS_FP32 = {
     "mask by multiply": (
         "keep ? acc[ii][k] * expf(cum[i] - cum[j]) * dtv[j] : 0.f",
         "acc[ii][k] * expf(cum[i] - cum[j]) * dtv[j] * (float)keep"),
@@ -288,8 +310,9 @@ SSD_MUTANTS = {
     ("flash_attention.cu", FLASH_MUTANTS_BF16),
     ("flash_attention.cu", FLASH_MUTANTS_FP32),
     ("rmsnorm.cu", RMSNORM_MUTANTS),
-    ("ssd_scan.cu", SSD_MUTANTS),
-], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd"])
+    ("ssd_scan.cu", SSD_MUTANTS_FP32),
+    ("ssd_scan.cu", SSD_MUTANTS_BF16),
+], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -302,34 +325,41 @@ def test_every_mutant_edit_applies_once(source, mutants):
 
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
-    """chip_smoke.py's SSD check fails every mutant in both dtypes, at
+    """chip_smoke.py's SSD check fails every mutant of the body its dtype
+    runs (the bf16 body's in bf16, the fp32 body's in fp32), at
     mamba2-780m's widths with two groups, three chunks (S = 300) and h0 !=
     0.  dt = softplus(N(0, 1)), as tests/test_kernels.py draws it, so
     exp(cum_i - cum_j) overflows above the diagonal within a few rows."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
-    libs = _build_mutants(tmp_path, "ssd_scan.cu", SSD_MUTANTS)
+    mutants = {("bfloat16", n): m for n, m in SSD_MUTANTS_BF16.items()}
+    mutants.update({("float32", n): m for n, m in SSD_MUTANTS_FP32.items()})
+    libs = _build_mutants(tmp_path, "ssd_scan.cu", mutants)
     rejected = {}
     for dn, (tdt, _, _) in DTYPES.items():
         x, Bm, Cm, dt, a, h0 = _ssd_case(
             smoke, 1, 300, 48, 64, 128, 2, tdt, True,
             dt_bias=torch.zeros(48, device="cuda"))
         want = tref.ssd_scan_ref(x, Bm, Cm, dt, a, h0)
-        for name, lib in [("kernel", None), *libs.items()]:
+        for name, lib in [(("kernel", "kernel"), None), *libs.items()]:
+            if name[0] not in ("kernel", dn):
+                continue
             if lib is not None:
                 monkeypatch.setattr(tssd, "_fn", tssd.bind(lib))
             got = tops.ssd_scan(x, Bm, Cm, dt, a, h0)
             torch.cuda.synchronize()
             err, ok, tol = smoke.check_ssd(got, want)
-            print(f"ssd {name} {dn}: max_abs_err {err:.3g} "
+            print(f"ssd {name[1]} {dn}: max_abs_err {err:.3g} "
                   f"({'passes' if ok else 'fails'} {tol})")
-            rejected[name, dn] = not ok
+            rejected[name[1], dn] = not ok
         monkeypatch.undo()
     assert not rejected["kernel", "float32"]
     assert not rejected["kernel", "bfloat16"]
-    for name in SSD_MUTANTS:
-        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
+    for name in SSD_MUTANTS_BF16:
+        assert rejected[name, "bfloat16"], name
+    for name in SSD_MUTANTS_FP32:
+        assert rejected[name, "float32"], name
 
 
 @pytest.mark.gpu

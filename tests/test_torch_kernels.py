@@ -248,15 +248,20 @@ def test_build_is_keyed_by_source_hash_and_needs_nvcc():
 # the bf16 flash kernel's arithmetic, emulated: why P is split into hi + lo
 # ---------------------------------------------------------------------------
 
-def _smoke_check_close():
-    """chip_smoke.py's own kernel check (the module imports no JAX)."""
+def _smoke():
+    """chip_smoke.py as a module, for its own kernel checks (it imports no
+    JAX)."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.check_close
+    return smoke
+
+
+def _smoke_check_close():
+    return _smoke().check_close
 
 
 def _flash_tiled_bf16(q, k, v, *, scale, causal, bk, split):
@@ -321,6 +326,130 @@ def test_flash_bf16_needs_p_split_into_hi_and_lo(S, T, causal):
     _, ok_single, _ = check_close(got[False].to(torch.bfloat16), want,
                                   "bfloat16")
     assert ok_split and not ok_single
+
+
+# ---------------------------------------------------------------------------
+# the bf16 SSD kernel's arithmetic, emulated: its three phases, and why each
+# fp32 factor is split into hi + lo
+# ---------------------------------------------------------------------------
+
+def _round(v: torch.Tensor, how: str) -> torch.Tensor:
+    """An fp32 factor as a bf16 tensor-core product sees it: unchanged
+    ("fp32"), as bf16 hi + lo ("hilo") or rounded to bf16 once
+    ("single")."""
+    if how == "fp32":
+        return v
+    hi = v.to(torch.bfloat16).float()
+    return hi if how == "single" else hi + (v - hi).to(torch.bfloat16).float()
+
+
+def _ssd_three_phase(x, Bm, Cm, dt, a, h0=None, *, chunk,
+                     w="fp32", scores="fp32", h="fp32"):
+    """The bf16 kernel's algebra in plain torch, with every chunk at once
+    where the kernel has a block each: (a) each chunk's own state s_c =
+    sum_j w_j (x) B_j from 0, w_j = exp(cum_last - cum_j) dt_j x_j; (b) the
+    pass h_c = exp(cum_last^c) h_{c-1} + s_c from h0; (c) y = S x +
+    exp(cum_i) C h_{c-1}^T with S = select(j <= i, C.B^T exp(cum_i - cum_j)
+    dt_j, 0).  ``w``, ``scores`` and ``h`` say how each fp32 factor is
+    rounded (``_round``); B, C and x are the inputs' own values.  Shapes
+    as ``ref.ssd_scan_ref``; returns (y, h_final) fp32."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    x, Bm, Cm, dt, a = (t.float() for t in (x, Bm, Cm, dt, a))
+    pad = (-S) % Q
+    if pad:
+        x, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                     for t in (x, Bm, Cm))
+        dt, a = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, a))
+    nc = x.shape[1] // Q
+    hg = torch.arange(H) // (H // G)
+    xc = x.reshape(Bsz, nc, Q, H, P)
+    Bc, Cc = (t.reshape(Bsz, nc, Q, G, N)[:, :, :, hg]
+              for t in (Bm, Cm))                           # (B,nc,Q,H,N)
+    dtc, ac = (t.reshape(Bsz, nc, Q, H) for t in (dt, a))
+    cum = torch.cumsum(ac, dim=2)                          # row order
+    last = cum[:, :, -1]                                   # (B,nc,H)
+    # (a) chunk states, all chunks in parallel
+    wv = (torch.exp(last[:, :, None] - cum) * dtc)[..., None] * xc
+    st = torch.einsum("bcqhp,bcqhn->bchpn", _round(wv, w), Bc)
+    # (b) the serial pass; hin[c] is the state chunk c starts from
+    hc = (torch.zeros((Bsz, H, P, N)) if h0 is None else h0.float())
+    hin = []
+    for c in range(nc):
+        hin.append(hc)
+        hc = torch.exp(last[:, c])[:, :, None, None] * hc + st[:, c]
+    hin = torch.stack(hin, dim=1)                          # (B,nc,H,P,N)
+    # (c) chunk outputs, all chunks in parallel
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,Q,Q,H)
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg),
+                        torch.zeros(()))
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
+    sc = cb * decay * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", _round(sc, scores), xc)
+    y = y + torch.einsum("bcqhn,bchpn->bcqhp", Cc, _round(hin, h)) * \
+        torch.exp(cum)[..., None]
+    return y.reshape(Bsz, nc * Q, H, P)[:, :S], hc
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk", [
+    (2, 64, 4, 16, 8, 1, 32),
+    (1, 100, 2, 8, 16, 2, 32),    # ragged seq, multi-group
+    (2, 33, 4, 32, 64, 1, 16),
+    (1, 300, 4, 64, 128, 1, 128),
+])
+def test_ssd_three_phase_algebra_matches_ref_and_chunked(B, S, H, P, N, G,
+                                                         chunk, with_h0):
+    """fp32: chunk states in parallel, then the pass, then the chunk
+    outputs equal the plain scan and the JAX ``_ssd_chunked`` at 1e-5 of
+    each output's scale, from h0 = 0 and from h0 != 0."""
+    arrays = _ssd_inputs(4, B, S, H, P, N, G)
+    h0 = (np.random.default_rng(5).standard_normal((B, H, P, N))
+          .astype(np.float32) if with_h0 else None)
+    ts = [torch.from_numpy(t) for t in arrays]
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    y, hf = _ssd_three_phase(*ts, th0, chunk=chunk)
+    wy, wh = tref.ssd_scan_ref(*ts, th0, chunk=chunk)
+    _close_scaled(y, wy.numpy(), 1e-5)
+    _close_scaled(hf, wh.numpy(), 1e-5)
+    cfg = JM2.Mamba2Config(d_model=H * P // 2, d_state=N, head_dim=P,
+                           n_groups=G, chunk=chunk)
+    jx = [jnp.asarray(t) for t in arrays]
+    cy, ch = JM2._ssd_chunked(cfg, jx[0], jx[1], jx[2], (jx[3], jx[4]),
+                              h0=None if h0 is None else jnp.asarray(h0))
+    _close_scaled(y, cy, 1e-5)
+    _close_scaled(hf, ch, 1e-5)
+
+
+@pytest.mark.parametrize("rounded_once", [None, "w", "scores", "h"])
+def test_ssd_bf16_needs_each_fp32_factor_split_into_hi_and_lo(rounded_once):
+    """At mamba2-780m's widths (48 heads of 64, d_state 128, chunk 128)
+    with two groups, three chunks (S = 300) and h0 != 0, bf16 inputs and
+    the decays of the card's mutant test (dt = softplus(N(0, 1)), A =
+    -(1..H)): the kernel's arithmetic with w, the scores and h each split
+    into bf16 hi + lo passes chip_smoke.py's SSD check against the plain
+    scan; rounding any one of them to bf16 once fails it."""
+    check_ssd = _smoke().check_ssd
+    rng = np.random.default_rng(0)
+    B, S, H, P, N, G = 1, 300, 48, 64, 128, 2
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+    x, Bm, Cm = bf16(B, S, H, P), bf16(B, S, G, N), bf16(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H)).astype(np.float32)))
+    a = dt * -torch.arange(1, H + 1, dtype=torch.float32)
+    h0 = torch.from_numpy(rng.standard_normal((B, H, P, N))
+                          .astype(np.float32))
+    how = {k: "single" if k == rounded_once else "hilo"
+           for k in ("w", "scores", "h")}
+    got = _ssd_three_phase(x, Bm, Cm, dt, a, h0, chunk=128, **how)
+    want = tref.ssd_scan_ref(x, Bm, Cm, dt, a, h0)
+    err, ok, tol = check_ssd(got, want)
+    assert ok == (rounded_once is None), (rounded_once, err, tol)
 
 
 # ---------------------------------------------------------------------------
