@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything (~2 minutes on an H100)
+    python3 chip_smoke.py                 # everything (~3 minutes on an H100)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
     python3 chip_smoke.py --profile       # plus a traced serve of each model
+                                          # and a traced train step
 
 Phases, each of which fails the run (exit code 1) on any error:
 
@@ -18,13 +19,18 @@ Phases, each of which fails the run (exit code 1) on any error:
    the card, in bf16 and fp32, with the tolerance stated: at every shape
    each model's serve path (decode and prefill steps) and forward give it
    at this script's settings (``served_cases``), and at larger and ragged
-   edge cases.  Kernel and plain times (and the library call's, where one
-   PyTorch call computes the same function) are device times: 20 calls
-   captured in one CUDA graph, the median of 5 replays between CUDA
-   events.  The kernel's eager time per call from Python (``call_ms``)
-   stands beside them: at the decode step's shapes that is the host's
-   cost, not the device's.  Each row gives ``ms / library_ms`` (above 1:
-   the kernel loses to the PyTorch call) and ``bound_ms / ms``.
+   edge cases; the backward kernels at every shape the train step gives
+   them, plus ragged, S != T and wide-head (D = 160, 256) cases, held
+   norm-wise against autograd through the plain versions.  Kernel and
+   plain times (and the library call's, where one PyTorch call computes
+   the same function) are device times: 20 calls captured in one CUDA
+   graph, the median of 5 replays between CUDA events.  A backward row's
+   plain and library times are the backward's share: the captured
+   forward + backward less the captured forward, each measured here.  The
+   kernel's eager time per call from Python (``call_ms``) stands beside
+   them: at the decode step's shapes that is the host's cost, not the
+   device's.  Each row gives ``ms / library_ms`` (above 1: the kernel
+   loses to the PyTorch call) and ``bound_ms / ms``.
 4. Serve qwen3-8b: published widths and all 36 layers, bf16, random weights
    from a seeded generator, 8 greedy requests of 512 prompt tokens and 32
    new tokens through ``ContinuousBatchingEngine.generate``.  Every launch
@@ -43,6 +49,14 @@ Phases, each of which fails the run (exit code 1) on any error:
    one scan over 500 tokens from h0 = 0 (48 SSD and 97 RMSNorm launches),
    held against the engine's chunked prefill, which hands h0 and the conv
    buffers from one chunk to the next.
+8. Train qwen3-8b: published widths at 4 layers (the serving weights are
+   freed first), bf16, seeded weights; step 1's grads through the flash
+   kernel and its backward (``impl="pallas"``) held per leaf against the
+   grads through plain attention (``impl="xla"``); then 4 AdamW steps of
+   ``make_train_step`` on ``SyntheticLM`` batches of 2 x 512 tokens: step
+   time (median of steps 2-4, CUDA events), tokens/s, peak memory, the
+   launches of every kernel a step (each backward kernel as often as its
+   forward), losses and grad norms (finite).
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -55,6 +69,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -96,6 +111,18 @@ SSD_REL_TOL = 1e-4
 # top logit.
 FORWARD_REL_TOL = 0.015
 
+# backward kernels: max |kernel - plain| <= tol * max |plain| for each
+# gradient (the plain one is autograd through the plain forward).  In fp32
+# both sum the same products in another order; in bf16 each gradient is
+# rounded once at the end and its inputs (o, dO) are bf16, and gradients
+# near 0 carry no relative accuracy, so the check is norm-wise.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# train phase: step 1's grads through the kernels vs through plain
+# attention, both bf16 end to end, per param leaf, and their global norms
+GRAD_COS_MIN = 0.999
+GRAD_REL_L2_MAX = 2e-2
+GRAD_NORM_REL_TOL = 2e-2
+
 TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
 
 QWEN = "qwen3-8b"
@@ -108,11 +135,23 @@ SERVE = {
                 max_len=1024, block_size=16, prefill_chunk=256),
 }
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
-KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
+# the train phase: qwen3-8b's widths at 4 of its 36 layers (bf16 params and
+# grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36 layers, 24
+# GB at 4), AdamW on a cosine schedule, SyntheticLM batches
+TRAIN = dict(layers=4, seq_len=512, batch=2, steps=4, peak_lr=3e-4,
+             warmup=1, total=10)
+# wider head dims the flash kernels take, at their models' attention
+# (zamba2-2.7b's shared block over 2 x d_model, gemma-7b): (path, H, Hkv, D)
+WIDE_HEADS = (("zamba2-2.7b shared_attn", 32, 32, 160),
+              ("gemma-7b attn", 16, 16, 256))
+KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+           "flash_attention_bwd", "ssd_scan")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
 # bf16 body's three (chunk states, state passing, chunk outputs)
 SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                "ssd_out_kernel")
+# cuBLAS's kernels in a trace (on Hopper most are named nvjet_*)
+GEMM_NAMES = ("gemm", "gemv", "nvjet")
 
 
 def fail(msg: str) -> None:
@@ -189,17 +228,30 @@ def check_close(got, want, dtype_name):
     return err, ok, f"atol {atol:g} + rtol {rtol:g}*|plain|"
 
 
+def _normwise(got, want, tol):
+    """(max |got - want| over the outputs, whether every output is finite
+    and within ``tol`` * max |want| of its plain version)."""
+    import torch
+    errs = [(g.float() - w.float()).abs().max() for g, w in zip(got, want)]
+    ok = all(bool(torch.isfinite(g.float()).all()) and
+             float(e) <= tol * float(w.float().abs().max())
+             for g, w, e in zip(got, want, errs))
+    return float(torch.stack(errs).max()), ok   # NaN if an output is NaN
+
+
 def check_ssd(got, want):
     """The SSD scan's check: ``got`` and ``want`` are (y, h_final) pairs;
     each output's max |diff| must stay within SSD_REL_TOL of its plain
     version's max |value|, and every output must be finite."""
-    import torch
-    errs = [(g - w).abs().max() for g, w in zip(got, want)]
-    ok = all(bool(torch.isfinite(g).all()) and
-             float(e) <= SSD_REL_TOL * float(w.abs().max())
-             for g, w, e in zip(got, want, errs))
-    err = float(torch.stack(errs).max())      # NaN if an output is NaN
+    err, ok = _normwise(got, want, SSD_REL_TOL)
     return err, ok, f"{SSD_REL_TOL:g}*max|plain| (y and h_final)"
+
+
+def check_normwise(got, want, dtype_name):
+    """A backward kernel's check: for each gradient, max |got - want| <=
+    BWD_TOL * max |want|, and every gradient finite."""
+    err, ok = _normwise(got, want, BWD_TOL[dtype_name])
+    return err, ok, f"{BWD_TOL[dtype_name]:g}*max|plain| (each gradient)"
 
 
 def ptxas_report(txt):
@@ -262,7 +314,8 @@ def served_cases(name, arch):
     """The shapes each main path of model ``name`` gives the kernels at
     this script's settings, derived from ``SERVE[name]`` and the arch, plus
     the larger and ragged cases that test the kernels' edges.  RMSNorm:
-    ``(path, use, rows, D)``; flash: ``(path, B, S, T, causal)``; SSD:
+    ``(path, use, rows, D)``; flash: ``(path, B, S, T, causal, H, Hkv,
+    D)``, with the wider head dims the kernel takes (``WIDE_HEADS``); SSD:
     ``(path, B, S, G, h0)``.  The serve path's decode step normalises
     ``slots`` rows, its prefill step ``prefill_chunk`` rows (a padded
     chunk, scanned from the carried state), and the forward
@@ -285,6 +338,9 @@ def served_cases(name, arch):
         flash = [(f"{name} forward", FORWARD_PROMPTS, S, S, True),
                  ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
                  ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False)]
+        flash = [c + (H, Hkv, hd) for c in flash] + [
+            (f"edge {p}", FORWARD_PROMPTS, S, S, True, h, hk, D)
+            for p, h, hk, D in WIDE_HEADS]
     else:
         d_inner = arch.ssm.expand * d
         G = arch.ssm.n_groups
@@ -314,6 +370,52 @@ def ssd_inputs(torch, gen, B, S, H, P, N, G, dt_bias, dtype, has_h0):
     a = dt * -torch.arange(1, H + 1, device="cuda", dtype=torch.float32)
     h0 = randn(B, H, P, N) if has_h0 else None
     return x, Bm, Cm, dt, a, h0
+
+
+def train_cases(arch):
+    """The shapes the train phase's step gives the backward kernels (and
+    edges).  RMSNorm: ``(path, use, rows, D)`` (the q/k norms see each
+    token once per q/kv head); flash: ``(path, B, S, T, H, Hkv, D,
+    causal)``: the train step's attention, a ragged S, S != T both ways,
+    and the wide head dims."""
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    H, Hkv, hd, d = arch.n_heads, arch.n_kv_heads, arch.head_dim, arch.d_model
+    path = f"{arch.name} train"
+    norm = [(path, "norm1/norm2/final_norm", B * S, d),
+            (path, "q_norm", B * S * H, hd), (path, "k_norm", B * S * Hkv, hd),
+            ("edge", "ragged rows", 300, d), ("edge", "odd width", 37, 300)]
+    flash = [(path, B, S, S, H, Hkv, hd, True),
+             ("edge", 1, 300, 300, H, Hkv, hd, True),
+             ("edge", 1, 256, 700, H, Hkv, hd, True),
+             ("edge", 1, 300, 700, H, Hkv, hd, False)]
+    flash += [(f"edge {p}", B, S, S, h, hk, D, True)
+              for p, h, hk, D in WIDE_HEADS]
+    return norm, flash
+
+
+def flash_work(B, S, Tk, H, HKV, D, causal, itemsize, backward):
+    """(bytes, flops) of the forward (4 flops a pair a head dim: QK^T and
+    PV) or the backward (10: S and dP recomputed, dV, dK, dQ): each input
+    read once, each output written once.  Top-left causal: query i sees
+    keys 0..i, so only the first min(S, T) keys are ever read."""
+    pairs = (sum(min(i + 1, Tk) for i in range(S)) if causal else S * Tk)
+    keys = min(S, Tk) if causal else Tk
+    q, kv = B * S * H * D * itemsize, B * keys * HKV * D * itemsize
+    if backward:      # q, o, dO, lse and k, v in; dq, dk, dv out
+        return (4 * q + 4 * kv + B * H * S * 4, 10 * B * H * D * pairs)
+    return 2 * q + 2 * kv, 4 * B * H * D * pairs
+
+
+def bwd_share_ms(fwd, grad_out, iters):
+    """A backward's device time: the captured forward + backward less the
+    captured forward (``fwd`` returns the output and the inputs to
+    differentiate; ``grad_out`` is the output's gradient)."""
+    import torch
+
+    def both():
+        out, inputs = fwd()
+        return torch.autograd.grad(out, inputs, grad_out)
+    return time_ms(both, iters) - time_ms(fwd, iters)
 
 
 def kernel_phase(torch, archs, iters):
@@ -355,8 +457,7 @@ def kernel_phase(torch, archs, iters):
                     bytes=nbytes, flops=flops,
                     **bound(nbytes, {"float32": flops})))
 
-        for path, B, S, Tk, causal in flash_cases:
-            H, HKV, D = arch.n_heads, arch.n_kv_heads, arch.head_dim
+        for path, B, S, Tk, causal, H, HKV, D in flash_cases:
             for dt, dn in dtypes:
                 q = randn(B, S, H, D, dtype=dt)
                 k = randn(B, Tk, HKV, D, dtype=dt)
@@ -377,14 +478,8 @@ def kernel_phase(torch, archs, iters):
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
                     iters)
-                # top-left causal: query i sees keys 0..i, so only the first
-                # min(S, T) keys are ever read and min(i+1, T) pairs computed
-                pairs = (sum(min(i + 1, Tk) for i in range(S)) if causal
-                         else S * Tk)
-                keys = min(S, Tk) if causal else Tk
-                flops = 4 * B * H * D * pairs
-                nbytes = (2 * B * S * H * D + 2 * B * keys * HKV * D) \
-                    * q.element_size()
+                nbytes, flops = flash_work(B, S, Tk, H, HKV, D, causal,
+                                           q.element_size(), backward=False)
                 rows.append(dict(
                     name="flash_attention", path=path, use="attention",
                     shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
@@ -427,25 +522,120 @@ def kernel_phase(torch, archs, iters):
                     plain_ms=time_ms(plain, iters), library_ms=None,
                     bytes=nbytes, flops=sum(flops.values()),
                     **bound(nbytes, flops)))
+    rows += backward_rows(torch, archs[QWEN], iters, gen, dtypes)
     return rows
 
 
-def reset_counts():
+def backward_rows(torch, arch, iters, gen, dtypes):
+    """The backward kernels against autograd through the plain versions,
+    at ``train_cases(arch)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+
+    rows = []
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    norm_cases, flash_cases = train_cases(arch)
+    for path, use, R, D in norm_cases:
+        for dt, dn in dtypes:
+            x, g = randn(R, D, dtype=dt), randn(R, D, dtype=dt)
+            scale = (1.0 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+            xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
+            got = RN.rmsnorm_bwd(x, scale, g)
+            want = torch.autograd.grad(ref.rmsnorm_ref(xr, sr), (xr, sr), g)
+            torch.cuda.synchronize()
+            err, ok, tol = check_normwise(got, want, dn)
+
+            def plain():
+                return ref.rmsnorm_ref(xr, sr), (xr, sr)
+
+            def lib():
+                return F.rms_norm(xr, (D,), sr, 1e-6), (xr, sr)
+            nbytes = 3 * R * D * x.element_size() \
+                + 2 * D * scale.element_size()
+            flops = 8 * R * D
+            rows.append(dict(
+                name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                plain_ms=bwd_share_ms(plain, g, iters),
+                library_ms=(bwd_share_ms(lib, g, iters)
+                            if hasattr(F, "rms_norm") else None),
+                bytes=nbytes, flops=flops,
+                **bound(nbytes, {"float32": flops})))
+
+    for path, B, S, Tk, H, HKV, D, causal in flash_cases:
+        for dt, dn in dtypes:
+            # the model's layout: (B,S,H,D) tensors seen as (B,H,S,D) views
+            q, do = (randn(B, S, H, D, dtype=dt).transpose(1, 2)
+                     for _ in range(2))
+            k, v = (randn(B, Tk, HKV, D, dtype=dt).transpose(1, 2)
+                    for _ in range(2))
+            sc = 1.0 / D ** 0.5
+            o, lse = FA._forward(q, k, v, sc, causal, with_lse=True)
+
+            def kernel():
+                return FA.flash_attention_bwd(q, k, v, o, lse, do, scale=sc,
+                                              causal=causal)
+            qr, kr, vr = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            got = kernel()
+            want = torch.autograd.grad(ref.flash_attention_ref(
+                qr, kr, vr, scale=sc, causal=causal), (qr, kr, vr),
+                do.transpose(1, 2))
+            torch.cuda.synchronize()
+            err, ok, tol = check_normwise(
+                [t.transpose(1, 2) for t in got], want, dn)
+
+            def plain():
+                return ref.flash_attention_ref(qr, kr, vr, scale=sc,
+                                               causal=causal), (qr, kr, vr)
+            qt, kt, vt = (t.detach().contiguous().requires_grad_()
+                          for t in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=sc,
+                    enable_gqa=True), (qt, kt, vt)
+            nbytes, flops = flash_work(B, S, Tk, H, HKV, D, causal,
+                                       q.element_size(), backward=True)
+            rows.append(dict(
+                name="flash_attention_bwd", path=path, use="attention",
+                shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
+                      f"{' causal' if causal else ''}",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
+                plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
+                library_ms=bwd_share_ms(lib, do.contiguous(), iters),
+                bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+    return rows
+
+
+def _wrappers():
+    """{kernel name: its wrapper, which carries the launch count}."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
-    RN.rmsnorm.launches = 0
-    FA.flash_attention.launches = 0
-    SSD.ssd_scan.launches = 0
+    return {"rmsnorm": RN.rmsnorm, "rmsnorm_bwd": RN.rmsnorm_bwd,
+            "flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "ssd_scan": SSD.ssd_scan}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import rmsnorm as RN
-    from repro_torch.kernels import ssd_scan as SSD
-    return {"rmsnorm": RN.rmsnorm.launches,
-            "flash_attention": FA.flash_attention.launches,
-            "ssd_scan": SSD.ssd_scan.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def block_counts(arch):
@@ -455,6 +645,7 @@ def block_counts(arch):
 
 
 def serve_phase(torch, np, report, name, arch):
+    from repro_torch import tree
     from repro_torch.models import transformer as T
     from repro_torch.runtime import steps as ST
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
@@ -464,8 +655,8 @@ def serve_phase(torch, np, report, name, arch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_lm(arch, device="cuda", generator=gen)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
     print(f"serve: {name}, {arch.n_layers} layers, d_model {arch.d_model}, "
           f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB bf16), "
           f"init {time.perf_counter() - t0:.1f} s")
@@ -566,14 +757,85 @@ def serve_phase(torch, np, report, name, arch):
     return params, prompts, torch.stack(ref_logits)
 
 
-def profile_phase(torch, report, name, arch, params, prompts):
-    """A traced serve of one full batch (``slots`` requests, 8 new tokens
-    each) under ``torch.profiler``: device busy share of the window and
-    device time by kernel, from the exported Chrome trace.  The untraced
-    serve phase gives the end-to-end numbers; tracing adds host cost, so
-    this run's wall time is not one of them."""
+def traced(torch, label, fn):
+    """Run ``fn`` once under ``torch.profiler`` -> a dict of the window's
+    wall time, device busy time and share (the union of kernel intervals
+    in the exported Chrome trace), and device time by kernel (this repo's
+    kernels by name, cuBLAS's as "gemm", the rest by their first 60
+    characters), printed under ``label``.  Tracing adds host cost, so the
+    wall time is no end-to-end number."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trace = ROOT / "build" / f"chip_smoke_trace_{label.replace(' ', '_')}.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                   and "LaunchKernel" in e.get("name", ""))
+    out = dict(wall_s=wall, kernel_events=len(kernels),
+               launch_calls=launches)
+    if not kernels:
+        out["device_busy_share"] = None      # the profiler saw no device
+        print(f"profile {label}: no kernel events in the trace: device time "
+              f"not measured")
+        return out
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:                       # union of kernel intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name: dict[str, list] = {}
+    ssd_parts: dict[str, list] = {}          # the SSD call's CUDA kernels
+    for e in kernels:
+        n = e["name"]
+        ssd = next((k for k in SSD_KERNELS if k in n), None)
+        key = ("rmsnorm_bwd" if "rmsnorm_bwd_kernel" in n
+               or "rmsnorm_dscale_kernel" in n else
+               "rmsnorm" if "rmsnorm_kernel" in n else
+               "flash_bwd" if "flash_bwd_" in n else
+               "flash" if "flash_fwd" in n else
+               "ssd_scan" if ssd else
+               "gemm" if any(g in n.lower() for g in GEMM_NAMES) else
+               n[:60])
+        for d, k in ((by_name, key), (ssd_parts, ssd)):
+            if k is not None:
+                t = d.setdefault(k, [0, 0.0])
+                t[0] += 1
+                t[1] += e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    out.update(device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
+               by_kernel=[{"kernel": k, "count": c, "ms": us / 1e3}
+                          for k, (c, us) in top],
+               ssd_parts=[{"kernel": k, "count": c, "ms": us / 1e3}
+                          for k, (c, us) in ssd_parts.items()])
+    print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms ({100 * busy / 1e6 / wall:.1f}%), "
+          f"{len(kernels)} kernels, {launches} launch calls")
+    for k, (c, us) in top:
+        print(f"  profile {label} kernel {k}: {c} launches, "
+              f"{us / 1e3:.2f} ms")
+    for k, (c, us) in ssd_parts.items():
+        print(f"  profile {label} ssd_scan part {k}: {c} launches, "
+              f"{us / 1e3:.2f} ms")
+    return out
+
+
+def profile_phase(torch, report, name, arch, params, prompts):
+    """A traced serve of one full batch (``slots`` requests, 8 new tokens
+    each): device busy share of the window and device time by kernel.  The
+    untraced serve phase gives the end-to-end numbers."""
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
     st = SERVE[name]
@@ -583,71 +845,13 @@ def profile_phase(torch, report, name, arch, params, prompts):
         prefill_chunk=st["prefill_chunk"])
     reqs = [Request(id=i, prompt=p, max_new_tokens=8)
             for i, p in enumerate(prompts[:st["slots"]])]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    trace = ROOT / "build" / f"chip_smoke_trace_{name}.json"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace))
-    events = json.loads(trace.read_text()).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
-    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                   and "LaunchKernel" in e.get("name", ""))
+    out = traced(torch, name, lambda: eng.generate(reqs))
     s = eng.metrics.summary()
-    out = dict(wall_s=wall, requests=len(reqs),
-               decode_steps=s["decode_steps"],
-               prefill_chunks=s["prefill_chunks"], kernel_events=len(kernels),
-               launch_calls=launches)
-    if not kernels:
-        out["device_busy_share"] = None      # the profiler saw no device
-        print(f"profile {name}: no kernel events in the trace: device time "
-              f"not measured")
-    else:
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-        busy, end = 0.0, None
-        for a, b in spans:                   # union of kernel intervals
-            if end is None or a > end:
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
-        by_name: dict[str, list] = {}
-        ssd_parts: dict[str, list] = {}    # the SSD call's CUDA kernels
-        for e in kernels:
-            n = e["name"]
-            ssd = next((k for k in SSD_KERNELS if k in n), None)
-            key = ("rmsnorm" if "rmsnorm_kernel" in n else
-                   "flash" if "flash_fwd" in n else
-                   "ssd_scan" if ssd else
-                   "gemm" if "gemm" in n.lower() or "gemv" in n.lower() else
-                   n[:60])
-            for d, k in ((by_name, key), (ssd_parts, ssd)):
-                if k is not None:
-                    t = d.setdefault(k, [0, 0.0])
-                    t[0] += 1
-                    t[1] += e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-        out.update(device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
-                   by_kernel=[{"kernel": k, "count": c, "ms": us / 1e3}
-                              for k, (c, us) in top],
-                   ssd_parts=[{"kernel": k, "count": c, "ms": us / 1e3}
-                              for k, (c, us) in ssd_parts.items()])
-        print(f"profile {name}: traced serve of {len(reqs)} requests, wall "
-              f"{wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-              f"({100 * busy / 1e6 / wall:.1f}%), {len(kernels)} kernels, "
-              f"{launches} launch calls, {s['decode_steps']} decode steps / "
-              f"{s['prefill_chunks']} prefill chunks")
-        for k, (c, us) in top:
-            print(f"  profile {name} kernel {k}: {c} launches, "
-                  f"{us / 1e3:.2f} ms")
-        for k, (c, us) in ssd_parts.items():
-            print(f"  profile {name} ssd_scan part {k}: {c} launches, "
-                  f"{us / 1e3:.2f} ms")
+    out.update(requests=len(reqs), decode_steps=s["decode_steps"],
+               prefill_chunks=s["prefill_chunks"])
+    print(f"profile {name}: traced serve of {len(reqs)} requests, "
+          f"{s['decode_steps']} decode steps / {s['prefill_chunks']} prefill "
+          f"chunks")
     report[f"profile {name}"] = out
 
 
@@ -664,7 +868,8 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     counts = read_counts()
     n_attn, n_mamba = block_counts(arch)
     want = {"rmsnorm": (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1,
-            "flash_attention": n_attn, "ssd_scan": n_mamba}
+            "rmsnorm_bwd": 0, "flash_attention": n_attn,
+            "flash_attention_bwd": 0, "ssd_scan": n_mamba}
     if counts != want:
         fail(f"{name} forward launches {counts}, want {want}")
     logits = out.logits[:, -1, :arch.vocab]
@@ -698,15 +903,143 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
              f"{best}, and not a near tie (shortfall {shortfall} > {tol:.4g})")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def train_phase(torch, report, arch, card, profile=False):
+    """Phase 8: the training step of qwen3-8b's widths at TRAIN["layers"]
+    layers, through the flash kernel and both backward kernels; with
+    ``profile``, one more step traced."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import Segment
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim import schedules as SC
+    from repro_torch.runtime import steps as ST
+
+    t_phase = time.perf_counter()
+    L = TRAIN["layers"]
+    arch = dataclasses.replace(arch, n_layers=L,
+                               pattern=(Segment(("attn",), L),))
+    name = f"train {arch.name}"
+    gc.collect()                  # any reference cycles the serves left
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params = T.init_lm(arch, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"train: {arch.name} at {L} layers, d_model {arch.d_model}, "
+          f"{n_params / 1e9:.3f} B params, init "
+          f"{time.perf_counter() - t0:.1f} s; {held:.2f} GB held on the card "
+          f"before it")
+
+    def data():
+        return SyntheticLM(arch.vocab, TRAIN["seq_len"], TRAIN["batch"])
+    first = next(data())
+    tok, lab = (torch.as_tensor(first[k], device="cuda")
+                for k in ("tokens", "labels"))
+    # step 1's grads through the kernels and through plain attention
+    reset_counts()
+    loss_k, _, g_k = ST.loss_and_grads(ST.make_loss_fn(arch, impl="pallas"),
+                                       params, tok, lab)
+    grad_counts = read_counts()
+    loss_p, _, g_p = ST.loss_and_grads(ST.make_loss_fn(arch, impl="xla"),
+                                       params, tok, lab)
+    names = tree.names(params)
+    worst = {"cos": 1.0, "rel_l2": 0.0}
+    bad = []
+    for n, a, b in zip(names, g_k, g_p):
+        a, b = a.float().flatten(), b.float().flatten()
+        na, nb = torch.linalg.vector_norm(a), torch.linalg.vector_norm(b)
+        cos = float(torch.dot(a, b) / (na * nb).clamp_min(1e-30))
+        rel = float(torch.linalg.vector_norm(a - b) / nb.clamp_min(1e-30))
+        worst["cos"], worst["rel_l2"] = (min(worst["cos"], cos),
+                                         max(worst["rel_l2"], rel))
+        if not (cos >= GRAD_COS_MIN and rel <= GRAD_REL_L2_MAX):
+            bad.append(f"{n}: cos {cos:.6f}, rel L2 {rel:.3g}")
+    gn_k, gn_p = float(O.global_norm(g_k)), float(O.global_norm(g_p))
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    after_check = torch.cuda.memory_allocated() / 1e9
+    print(f"train: step 1's grads, flash kernel + backward kernels vs plain "
+          f"attention: {len(names)} leaves, worst cosine {worst['cos']:.6f} "
+          f"(min {GRAD_COS_MIN}), worst rel L2 {worst['rel_l2']:.4g} (max "
+          f"{GRAD_REL_L2_MAX}); grad norm {gn_k:.6g} vs {gn_p:.6g}; loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}; launches "
+          f"{grad_counts}; {after_check:.2f} GB held after it")
+    if bad:
+        fail(f"{name}: kernel grads differ from the plain path's: {bad}")
+    if not abs(gn_k - gn_p) <= GRAD_NORM_REL_TOL * gn_p:
+        fail(f"{name}: grad norm {gn_k} vs plain {gn_p}")
+
+    opt = O.adamw(SC.cosine_schedule(TRAIN["peak_lr"], TRAIN["warmup"],
+                                     TRAIN["total"]))
+    state = opt[0](params)
+    step = ST.make_train_step(arch, opt, impl="pallas")
+    batches = data()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9    # params, moments, the rest
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks, metrics = [], []
+    for _ in range(TRAIN["steps"]):
+        batch = next(batches)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, m = step(params, state, batch)
+        e1.record()
+        marks.append((e0, e1))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    per_step = {k: c / TRAIN["steps"] for k, c in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report[name] = dict(
+        layers=L, params=n_params, tokens_per_step=tokens, step_ms=step_ms,
+        step_ms_median=med, tok_per_s=tokens / med * 1e3, peak_mem_gb=peak,
+        mem_before_steps_gb=base,
+        launches=counts, launches_per_step=per_step, losses=losses,
+        grad_norms=norms, grad_check=dict(worst_cos=worst["cos"],
+                                          worst_rel_l2=worst["rel_l2"],
+                                          grad_norm_kernels=gn_k,
+                                          grad_norm_plain=gn_p))
+    print(f"train: {arch.name} {L} layers, {TRAIN['steps']} AdamW steps of "
+          f"{TRAIN['batch']} x {TRAIN['seq_len']} tokens: step "
+          f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, median of steps "
+          f"2-{TRAIN['steps']} {med:.2f} ms = {tokens / med * 1e3:.0f} "
+          f"tok/s, peak memory {peak:.2f} GB ({base:.2f} GB before the "
+          f"steps) on {card}; losses "
+          f"{[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in norms]}; launches a step {per_step}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{name}: losses {losses} / grad norms {norms} not finite")
+    want = {"rmsnorm": 4 * L + 1, "flash_attention": L,
+            "flash_attention_bwd": L, "ssd_scan": 0}
+    for c in (counts, grad_counts):
+        per = TRAIN["steps"] if c is counts else 1
+        if c["rmsnorm_bwd"] != c["rmsnorm"]:
+            fail(f"{name}: {c['rmsnorm_bwd']} RMSNorm backward launches for "
+                 f"{c['rmsnorm']} forward ones")
+        if any(c[k] != n * per for k, n in want.items()):
+            fail(f"{name}: launches {c}, want {want} a step")
+    if profile:
+        batch = next(batches)
+
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, batch)
+        report[f"profile {name}"] = traced(torch, name, one_step)
+    report[name]["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: phase done in {report[name]['phase_s']:.1f} s")
+    del params, state
 
 
 def main() -> int:
@@ -716,8 +1049,9 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measured number to this JSON")
     ap.add_argument("--profile", action="store_true",
-                    help="after each forward phase, trace one more serve "
-                         "with torch.profiler (device busy share, time by "
+                    help="after each forward phase, trace one more serve, "
+                         "and after the train steps one more step, with "
+                         "torch.profiler (device busy share, time by "
                          "kernel)")
     args = ap.parse_args()
 
@@ -754,8 +1088,10 @@ def main() -> int:
     archs = {QWEN: get_arch(QWEN), MAMBA: get_arch(MAMBA)}
     report = {"card": card, "build_s": rep["seconds"]}
     # 3. kernels vs their plain versions
+    t0 = time.perf_counter()
     rows = kernel_phase(torch, archs, TIMED_LAUNCHES)
     report["kernel_cases"] = rows
+    report["kernel_phase_s"] = time.perf_counter() - t0
     for r in rows:
         # ms / library_ms (above 1: slower than the PyTorch call) and the
         # share of the bound reached, bound_ms / ms
@@ -772,6 +1108,7 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
               f"{100 * r['bound_share']:.1f}% of it)")
+    print(f"kernels: {len(rows)} cases in {report['kernel_phase_s']:.1f} s")
     bad = [f"{r['name']} {r['shape']} {r['dtype']}" for r in rows
            if not r["ok"]]
     if bad:
@@ -779,6 +1116,7 @@ def main() -> int:
 
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
+    paths.append(f"train {QWEN}")
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
     if not args.kernels_only:
         for name, arch in archs.items():
@@ -791,29 +1129,44 @@ def main() -> int:
                 profile_phase(torch, report, name, arch, params, prompts)
             del params, ref_logits
             torch.cuda.empty_cache()
+        # 8. train, with the serving weights freed
+        train_phase(torch, report, archs[QWEN], card, profile=args.profile)
+        torch.cuda.empty_cache()
         by_path = {p: report[p]["launches"] for p in paths}
 
-    # 8. one entry per kernel, on the main path that runs it most: its
+    # 9. one entry per kernel, on the main path that runs it most: its
     # numbers are the bf16 case of that path with the most launches (the
     # qwen decode step's (slots, d_model) norms; the qwen forward's
-    # attention; the mamba2 prefill chunk's scan), its launches that path's
-    # count, and every path's count beside it
+    # attention; the mamba2 prefill chunk's scan; the train step's
+    # (tokens, d_model) norms and attention for the backward kernels), its
+    # launches that path's count, and every path's count beside it.  The
+    # backward kernels have no TPU twin (the reference trains through plain
+    # jnp): "replaces" names the TPU kernel whose gradient they compute.
     headline = {
         "rmsnorm": (f"serve {QWEN}", f"{QWEN} serve decode",
                     "norm1/norm2/final_norm"),
+        "rmsnorm_bwd": (f"train {QWEN}", f"{QWEN} train",
+                        "norm1/norm2/final_norm"),
         "flash_attention": (f"forward {QWEN}", f"{QWEN} forward",
                             "attention"),
+        "flash_attention_bwd": (f"train {QWEN}", f"{QWEN} train",
+                                "attention"),
         "ssd_scan": (f"serve {MAMBA}", f"{MAMBA} serve prefill", "scan")}
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:20",
+                "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:20",
                 "flash_attention": "src/repro/kernels/flash_attention.py:77",
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:77",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:71"}
+    sources = {"rmsnorm_bwd": "rmsnorm"}
     kernels = []
     for name, (path, case_path, use) in headline.items():
         r = next(r for r in rows if r["name"] == name and r["path"] ==
                  case_path and r["use"] == use and r["dtype"] == "bfloat16")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "call_ms": r["call_ms"],

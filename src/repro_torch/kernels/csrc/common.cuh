@@ -7,6 +7,10 @@
 
 namespace repro {
 
+struct Strides {            // element strides over (b, head or group, row)
+  long long b, h, s;
+};
+
 // dtype codes passed from Python (kernels/*.py keep the same table)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 

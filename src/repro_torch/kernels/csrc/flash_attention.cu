@@ -62,7 +62,15 @@
 // fp32: the FMA body (flash_fwd_kernel): BQ = BK = 64, 256 threads, each
 // owning a 4x4 block of scores and a 4 x D/16 block of the output, the
 // products as fp32 FMAs from shared memory.  A TF32 tensor-core path would
-// miss the fp32 specification by design.
+// miss the fp32 specification by design.  The FMA body also serves bf16 at
+// D = 160 and 256: 160 is no multiple of the 64-column swizzle block the
+// wgmma body's tiles are cut in, and at 256 four K/V stages and Q would
+// need 320 KB of shared memory, more than a block has (227 KB).
+//
+// Both bodies can write each row's logsumexp, lse = m + log(max(l, 1e-30))
+// in natural log and fp32, into a (B, H, S) array: the backward
+// (flash_attention_bwd.cu) recomputes P = exp(scale * q.k - lse) from it.
+// The caller passes a null pointer when it needs no gradient.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -86,9 +94,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
-                 int S, int Tk, Strides qs, Strides ks, Strides vs,
-                 Strides os, float scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int group, int S, int Tk,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                 int causal) {
   constexpr int DP = D + 1;     // padded rows: conflict-free column reads
   constexpr int PP = BK + 1;
   constexpr int DJ = D / 16;    // output columns per thread
@@ -211,12 +220,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
       ob[s_pos * os.s + tx + 16 * j] = repro::from_f32<T>(acc[i][j] / denom);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + s_pos] =
+          m[i] + logf(denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int S, int Tk, Strides qs,
+                   float* lse, int B, int H, int Hkv, int S, int Tk,
+                   Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -231,21 +244,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / Hkv, S, Tk, qs, ks,
-      vs, os, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H / Hkv, S, Tk, qs,
+      ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
+// the head dims built, kernels/flash_attention.py: HEAD_DIMS
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int Hkv, int S, int Tk,
-                       Strides qs, Strides ks, Strides vs, Strides os,
+                       void* o, float* lse, int B, int H, int Hkv, int S,
+                       int Tk, Strides qs, Strides ks, Strides vs, Strides os,
                        float scale, int causal, cudaStream_t stream) {
   switch (D) {
-    case 16:  return launch<T, 16>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 32:  return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 64:  return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 16:  return launch<T, 16>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 32:  return launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 64:  return launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 160: return launch<T, 160>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -265,6 +281,7 @@ constexpr int kThreadsTC = kConsumers + 128;  // + 1 producer warpgroup
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kStages = 4;                // K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // V is read by PV as an MN-major (transposed) B operand
 constexpr int kTransV = 1;
 
@@ -317,8 +334,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       bf16* __restrict__ o, int group, int S, int Tk,
-                       Strides os, float scale, int causal) {
+                       bf16* __restrict__ o, float* __restrict__ lse,
+                       int group, int S, int Tk, Strides os, float scale,
+                       int causal) {
   using L = Layout<D>;
   constexpr int kSbo = 8 * L::kRow;       // bytes between 8-row groups
   constexpr int kTile = L::bytes(TBK);
@@ -536,6 +554,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
       if (rows[r] >= S) continue;
       const float inv = 1.f / fmaxf(lr, 1e-30f);
+      // m is in log2 units (the scores were scaled by log2(e))
+      if (lse != nullptr && col0 == 0)
+        lse[(static_cast<long long>(b) * gridDim.x + h) * S + rows[r]] =
+            m[r] * kLn2 + logf(fmaxf(lr, 1e-30f));
       bf16* orow = ob + rows[r] * os.s;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -547,7 +569,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Hkv, int S, int Tk, Strides qs,
+                      float* lse, int B, int H, int Hkv, int S, int Tk,
+                      Strides qs,
                       Strides ks, Strides vs, Strides os, float scale,
                       int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_tc<D>();
@@ -567,20 +590,21 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid(H, B, (S + TBQ - 1) / TBQ);
   flash_fwd_wgmma_kernel<D><<<grid, kThreadsTC, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(o), H / Hkv, S, Tk, os, scale,
-      causal);
+      q_map, k_map, v_map, static_cast<bf16*>(o), lse, H / Hkv, S, Tk, os,
+      scale, causal);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int Hkv, int S, int Tk,
-                        Strides qs, Strides ks, Strides vs, Strides os,
-                        float scale, int causal, cudaStream_t stream) {
+                        void* o, float* lse, int B, int H, int Hkv, int S,
+                        int Tk, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale, int causal,
+                        cudaStream_t stream) {
   switch (D) {
-    case 16:  return launch_tc<16>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 32:  return launch_tc<32>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 64:  return launch_tc<64>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
-    case 128: return launch_tc<128>(q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 16:  return launch_tc<16>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 32:  return launch_tc<32>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 64:  return launch_tc<64>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -589,10 +613,13 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 
 // q, o: (B, H, S, D) views; k, v: (B, Hkv, T, D) views, each given by its
 // element strides over (b, h, s) with the last axis contiguous.  All four
-// share one dtype.  Returns the cudaError_t of the launch (0 on success).
+// share one dtype.  lse: a contiguous fp32 (B, H, S) array for the rows'
+// logsumexp, or null.  bf16 runs the tensor-core body at D <= 128 and the
+// FMA body at D = 160 and 256.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hkv, int S, int Tk, int D, long long q_sb, long long q_sh,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Hkv, int S, int Tk, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, int causal, int dtype,
@@ -602,14 +629,18 @@ extern "C" int repro_flash_attention(
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return dispatch_d<float>(D, q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os,
-                             scale, causal, s);
+    return dispatch_d<float>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs,
+                             os, scale, causal, s);
   if (dtype == repro::kBFloat16) {
+    if (D > 128)
+      return dispatch_d<bf16>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs,
+                              os, scale, causal, s);
     if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) ||
         !aligned16(o, os) || B > 65535 || S > 65535 * TBQ)
       return cudaErrorInvalidValue;
-    return dispatch_tc(D, q, k, v, o, B, H, Hkv, S, Tk, qs, ks, vs, os,
+    return dispatch_tc(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs, os,
                        scale, causal, s);
   }
   return cudaErrorInvalidValue;

@@ -17,10 +17,6 @@
 
 namespace repro {
 
-struct Strides {            // element strides over (b, head or group, row)
-  long long b, h, s;
-};
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

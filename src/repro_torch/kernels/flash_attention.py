@@ -1,27 +1,36 @@
-"""Flash attention forward — hand-written CUDA kernel for Hopper
-(``csrc/flash_attention.cu``).
+"""Flash attention, forward and backward — hand-written CUDA kernels for
+Hopper (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``).
 
-Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
+The forward replaces the TPU kernel ``src/repro/kernels/flash_attention.py:
 flash_attention`` (``_flash_kernel``) with the same semantics: online
 softmax with fp32 m, l and accumulator; top-left causal mask; tiles above
 the diagonal skipped; padded keys masked in the kernel; finite -1e30 mask;
 denominator clamped at 1e-30.  Unlike the TPU wrapper it takes GQA kv
 (fewer kv heads than q heads) directly and reads kv head h // (H/Hkv).
 
-Bound on an H100: operations, 4*B*H*D*(unmasked pairs) at 989 TFLOP/s
-bf16.  bf16 runs on the tensor cores (the source header has the design):
-blocks of 128 q rows as two consumer warpgroups, kv tiles of 64 keys
-brought by a TMA producer warpgroup into a four-stage mbarrier ring,
-QK^T and PV as ``wgmma`` from swizzled bf16 shared memory, softmax in
-registers, and P split into bf16 hi + lo so that PV keeps P to about 16
-bits, as the fp32 specification needs.  fp32 runs on an fp32 FMA body.
-bf16 needs every row start 16-byte aligned (strides multiples of 8
-elements), which the model's layouts give.
+Head dims: every D in ``HEAD_DIMS`` (16, 32, 64, 128, 160, 256), in fp32
+and bf16, forward and backward.  Bound on an H100: operations,
+4*B*H*D*(unmasked pairs) forward at 989 TFLOP/s bf16.  bf16 at D <= 128
+runs on the tensor cores (the source header has the design): blocks of
+128 q rows as two consumer warpgroups, kv tiles of 64 keys brought by a
+TMA producer warpgroup into a four-stage mbarrier ring, QK^T and PV as
+``wgmma`` from swizzled bf16 shared memory, softmax in registers, and P
+split into bf16 hi + lo so that PV keeps P to about 16 bits, as the fp32
+specification needs; it needs every row start 16-byte aligned (strides
+multiples of 8 elements), which the model's layouts give.  fp32 at every
+D, and bf16 at D = 160 and 256, run on an fp32 FMA body.
 
-``flash_attention(q, k, v)`` launches the kernel for CUDA tensors and
-raises on anything the kernel does not take; for CPU tensors it runs the
-plain version, ``ref.flash_attention_ref``.  It never falls back from one
-to the other.
+The backward (the reference has none: it trains through plain attention)
+recomputes P from the forward's row logsumexp and computes dQ, dK and dV
+with fp32 FMA kernels; dK and dV of a kv head sum its group of q heads
+inside one block, so they are deterministic.
+
+``flash_attention(q, k, v)`` launches the forward for CUDA tensors and
+raises on anything the kernels do not take; when autograd needs its
+gradient (grad mode on and an input that requires grad) it runs as
+``FlashAttentionFn``, whose backward is the backward kernel.  For CPU
+tensors it runs the plain version, ``ref.flash_attention_ref``, which
+autograd differentiates.  It never falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -33,18 +42,33 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dims both sources are built for (csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu: dispatch_d); bf16 at D <= 128 takes the
+# forward's tensor-core body (dispatch_tc), above it the FMA body
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+TENSOR_CORE_MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 def bind(lib: ctypes.CDLL):
     """-> (lib, its typed ``repro_flash_attention`` entry point)."""
     fn = lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def bind_bwd(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_flash_attention_bwd`` entry point)."""
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -56,21 +80,29 @@ def _entry():
     return _fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float | None = None,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B,H,S,D); k,v: (B,Hkv,T,D) with Hkv | H.  Any strides with the
-    last axis contiguous (the ops adapter passes transposed views of the
-    model's (B,S,H,D) tensors, so nothing is copied).  Returns (B,H,S,D)
-    in q.dtype, laid out like q."""
+def _bwd_entry():
+    global _bwd_fn
+    if _bwd_fn is None:
+        _bwd_fn = bind_bwd(build.load("flash_attention_bwd"))
+    return _bwd_fn
+
+
+def _bhs(t: torch.Tensor) -> tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor laid out like ``t`` (its strides, for a dense
+    layout), with the last axis contiguous."""
+    out = torch.empty_like(t)
+    if out.stride(-1) != 1:
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), scale=scale,
-                                  causal=causal)
-        return out.transpose(1, 2)
+    Hkv = k.shape[1]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
@@ -88,30 +120,109 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head-dim axis must be "
                          "contiguous")
-    o = torch.empty_like(q)            # keeps q's strides (dense layouts)
-    if o.stride(-1) != 1:
-        o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    if q.dtype == torch.bfloat16 and not all(
+
+
+def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
+    """Launch the forward kernel -> (o laid out like q, the rows'
+    logsumexp (B, H, S) fp32 or None)."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    o = _like(q)
+    if q.dtype == torch.bfloat16 and D <= TENSOR_CORE_MAX_D and not all(
             t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
             for t in (q, k, v, o)):
         raise ValueError("flash_attention: bf16 rows must start 16-byte "
                          "aligned (pointers and strides)")
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if S == 0 or B == 0:
-        return o
+        return o, lse
     if T == 0:
         raise ValueError("flash_attention: no keys (T=0)")
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              B, H, Hkv, S, T, D,
-              q.stride(0), q.stride(1), q.stride(2),
-              k.stride(0), k.stride(1), k.stride(2),
-              v.stride(0), v.stride(1), v.stride(2),
-              o.stride(0), o.stride(1), o.stride(2),
+              None if lse is None else lse.data_ptr(),
+              B, H, Hkv, S, T, D, *_bhs(q), *_bhs(k), *_bhs(v), *_bhs(o),
               scale, int(causal), _DTYPES[q.dtype], stream)
     build.check(lib, code, "flash_attention launch")
     flash_attention.launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool):
+    """The backward kernels (Di pre-pass, dK/dV, dQ): q, o, do (B,H,S,D);
+    k, v (B,Hkv,T,D); lse the forward's (B,H,S) fp32 logsumexp.  Any
+    strides with the last axis contiguous.  -> (dq, dk, dv), each laid out
+    like its input."""
+    _check(q, k, v)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} "
+                         f"/ do {tuple(do.shape)} {do.dtype} do not match q")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S)
+            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd: lse must be contiguous "
+                         f"float32 {(B, H, S)}")
+    dq, dk, dv = _like(q), _like(k), _like(v)
+    if S == 0 or B == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in _bhs(t)))
+    lib, fn = _bwd_entry()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, T, D, strides,
+              scale, int(causal), _DTYPES[q.dtype], stream)
+    build.check(lib, code, "flash_attention_bwd launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        o, lse = _forward(q, k, v, scale, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B,H,S,D); k,v: (B,Hkv,T,D) with Hkv | H and D in ``HEAD_DIMS``.
+    Any strides with the last axis contiguous (the ops adapter passes
+    transposed views of the model's (B,S,H,D) tensors, so nothing is
+    copied).  Returns (B,H,S,D) in q.dtype, laid out like q;
+    differentiable on CUDA through the backward kernel."""
+    D = q.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), scale=scale,
+                                  causal=causal)
+        return out.transpose(1, 2)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, scale, causal)
+    return _forward(q, k, v, scale, causal, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

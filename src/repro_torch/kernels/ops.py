@@ -1,6 +1,13 @@
 """Model-layout adapters over the port's kernels (twin of
 ``repro/kernels/ops.py``).
 
+On CUDA, ``flash_attention`` and ``rmsnorm`` are differentiable: each runs
+as a ``torch.autograd.Function`` whose backward is a hand-written kernel
+(``csrc/flash_attention_bwd.cu``, the backward in ``csrc/rmsnorm.cu``)
+whenever autograd needs it.  ``ssd_scan`` is not: its kernel has no
+backward yet, and on CUDA it raises when an input requires grad.  On the
+CPU all three run their plain versions, which autograd differentiates.
+
 The model passes (B, S, H, D) tensors.  The flash kernel wants head-major
 (B, H, S, D): the adapter hands it transposed *views* (the kernel takes
 strides), so no layout copy happens.  GQA kv stays at Hkv heads — the flash

@@ -1,4 +1,5 @@
-"""Fused RMSNorm — hand-written CUDA kernel for Hopper (``csrc/rmsnorm.cu``).
+"""Fused RMSNorm, forward and backward — hand-written CUDA kernels for
+Hopper (``csrc/rmsnorm.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py:rmsnorm``
 (``_rmsnorm_kernel``).  Bound on an H100: bytes — each element is read
@@ -9,9 +10,17 @@ Each row gets a group of lanes, each lane a few vectors of 16 bytes, all
 loaded before any arithmetic; a block holds several rows
 (``launch_shape`` picks the shape, the source's header says why).
 
+The backward (the reference defines none; this is the gradient of the
+same function) keeps the lane groups: dx = r*(g*s - xh*mean(g*s*xh)) per
+row, and dscale = sum over rows of g*xh, summed per block and then over
+the blocks in a fixed order, so it is the same on every run.
+
 ``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
-anything the kernel does not take; for a CPU tensor it runs the plain
-version, ``ref.rmsnorm_ref``.  It never falls back from one to the other.
+anything the kernel does not take; when autograd needs its gradient (grad
+mode on and an input that requires grad) it runs as ``RMSNormFn``, whose
+backward is the backward kernel.  For a CPU tensor it runs the plain
+version, ``ref.rmsnorm_ref``, which autograd differentiates.  It never
+falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -27,8 +36,12 @@ VEC_BYTES = 16             # one vector load
 MAX_VECS_PER_LANE = 8      # csrc/rmsnorm.cu: kMaxNV
 MIN_BLOCK = 256            # csrc/rmsnorm.cu: kMinBlock
 LANE_GROUPS = (8, 16, 32, 64, 128, 256, 512, 1024)   # csrc/rmsnorm.cu builds
+# the backward's grid: at most two blocks an SM of an H100, each walking its
+# rows with the grid's stride; each writes one row of dscale partials
+BWD_MAX_BLOCKS = 264
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 def launch_shape(D: int, itemsize: int, aligned: bool = True):
@@ -49,11 +62,25 @@ def launch_shape(D: int, itemsize: int, aligned: bool = True):
     return lanes, -(-nvec // lanes), max(MIN_BLOCK, lanes) // lanes, vec
 
 
+def bwd_blocks(rows: int, rows_per_block: int) -> int:
+    """Blocks of the backward's grid: one per ``rows_per_block`` rows, at
+    most ``BWD_MAX_BLOCKS`` (a function of the shape alone, so the order
+    in which dscale is summed is too)."""
+    return max(1, min(-(-rows // rows_per_block), BWD_MAX_BLOCKS))
+
+
 def _entry():
     global _fn
     if _fn is None:
         _fn = bind(build.load("rmsnorm"))
     return _fn
+
+
+def _bwd_entry():
+    global _bwd_fn
+    if _bwd_fn is None:
+        _bwd_fn = bind_bwd(build.load("rmsnorm"))
+    return _bwd_fn
 
 
 def bind(lib: ctypes.CDLL):
@@ -67,12 +94,18 @@ def bind(lib: ctypes.CDLL):
     return lib, fn
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., D) contiguous, float32 or bfloat16; scale: (D,), float32 or
-    bfloat16.  Returns x.dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
+def bind_bwd(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_rmsnorm_bwd`` entry point)."""
+    fn = lib.repro_rmsnorm_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     D = x.shape[-1]
@@ -86,6 +119,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError("rmsnorm: x and scale must be contiguous")
     if not 1 <= D <= MAX_D:
         raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    D = x.shape[-1]
     y = torch.empty_like(x)
     rows = x.numel() // D
     if rows == 0:
@@ -103,4 +140,65 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels: x and g (the gradient of y) (..., D) in x's
+    dtype, scale (D,) -> (dx in x.dtype, dscale in scale.dtype)."""
+    _check(x, scale)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: g {tuple(g.shape)} {g.dtype} does "
+                         f"not match x {tuple(x.shape)} {x.dtype}")
+    g = g.contiguous()
+    D = x.shape[-1]
+    dx = torch.empty_like(x)
+    rows = x.numel() // D
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, g, dx))
+    lanes, per_lane, rows_per_block, vec = launch_shape(
+        D, x.element_size(), aligned)
+    blocks = bwd_blocks(rows, rows_per_block)
+    partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+    lib, fn = _bwd_entry()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+              partial.data_ptr(), dscale.data_ptr(), rows, D,
+              _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, lanes, per_lane,
+              rows_per_block, vec, blocks, stream)
+    build.check(lib, code, "rmsnorm_bwd launch")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., D) contiguous, float32 or bfloat16; scale: (D,), float32 or
+    bfloat16.  Returns x.dtype; differentiable on CUDA through the
+    backward kernel."""
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, scale, eps)
+    _check(x, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, eps)
+    return _forward(x, scale, eps)
+
+
 rmsnorm.launches = 0
+rmsnorm_bwd.launches = 0

@@ -11,12 +11,15 @@ Entry points:
   init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
   admit_slot(params, arch, pools, slot_id)            -> pools (row reset)
   lm_apply(params, arch, tokens, ...)                 -> LMOutput
+  lm_loss(logits, labels, vocab, mask=None)           -> mean cross-entropy
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
@@ -119,13 +122,40 @@ def _take(tree, r: int):
     return tree[r]
 
 
+# per-layer activation checkpointing of the whole-sequence forward, by the
+# reference's names (``REMAT_POLICIES``): "full" recomputes the layer in
+# the backward; "selective" saves the outputs of the matrix products
+# without batch dims (the dense projections, ``aten.mm``) and recomputes
+# the rest, as ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``
+# does.  The reference applies the dots policy to any value other than
+# "none" and "full"; the port refuses names it does not know.
+REMAT_POLICIES = ("none", "full", "selective")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` checkpointed by policy ``remat`` (one layer's body)."""
+    if remat == "none":
+        return fn
+    context_fn = (_ckpt.noop_context_fn if remat == "full" else
+                  functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots))
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             context_fn=context_fn)
+
+
 def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
              cache: Optional[list] = None,
              positions: Optional[torch.Tensor] = None,
              block_tables: Optional[torch.Tensor] = None,
              new_lens: Optional[torch.Tensor] = None,
              slot_ids: Optional[torch.Tensor] = None,
-             impl: str = "xla") -> LMOutput:
+             impl: str = "xla", remat: str = "none") -> LMOutput:
     """Forward pass.
 
     tokens: (B, S) integer tokens.
@@ -138,7 +168,12 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        blocks, ``slot_ids`` (B,) — each row's slot-state pool row, the
        null row (= slots) for inactive rows.  The pools are updated in
        place and returned as ``LMOutput.cache``.
+    remat: per-layer checkpointing of the whole-sequence forward (one of
+       ``REMAT_POLICIES``); the cached forward ignores it, as the
+       reference's does.
     """
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
     if cache is not None and block_tables is None:
         raise NotImplementedError("the port's cached forward is paged: pass "
                                   "block_tables with the pools")
@@ -149,17 +184,41 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     for si, seg in enumerate(arch.pattern):
         segp = params["segments"][si]
         for r in range(seg.repeat):
-            for bi, kind in enumerate(seg.blocks):
-                key = f"b{bi}"
-                c = None if cache is None else _take(cache[si][key], r)
-                x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
-                                     cache=c, positions=positions,
-                                     block_tables=block_tables,
-                                     new_lens=new_lens, slot_ids=slot_ids,
-                                     impl=impl)
+            def body(x, si=si, r=r, seg=seg, segp=segp):
+                for bi, kind in enumerate(seg.blocks):
+                    key = f"b{bi}"
+                    c = None if cache is None else _take(cache[si][key], r)
+                    x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
+                                         cache=c, positions=positions,
+                                         block_tables=block_tables,
+                                         new_lens=new_lens,
+                                         slot_ids=slot_ids, impl=impl)
+                return x
+            x = _remat(body, remat if cache is None else "none")(x)
     hidden = B.norm_apply(arch, params["final_norm"], x)
     if arch.tie_embeddings:
         logits = L.unembed(params["embed"], hidden)
     else:
         logits = L.dense(params["head"], hidden).to(torch.float32)
     return LMOutput(logits, cache)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy in fp32 over (B, S) positions (twin of the
+    reference's ``lm_loss``): padded-vocab logits (ids >= ``vocab``) masked
+    to -1e30, logsumexp as m + log(sum(exp(logits - m))) minus the target
+    logit; with ``mask`` (B, S), sum(nll * mask) / max(sum(mask), 1)."""
+    V = logits.shape[-1]
+    logits = logits.float()
+    if V > vocab:
+        vid = torch.arange(V, device=logits.device)
+        logits = torch.where(vid < vocab, logits, L.NEG_INF)
+    m = torch.amax(logits, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - tgt
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,5 +1,11 @@
-"""Paged serving steps for the continuous-batching engine (twin of the paged
-half of ``repro/runtime/steps.py``).
+"""Step factories (twin of ``repro/runtime/steps.py``): the train step
+(loss, grads, microbatch accumulation, clipping, optimizer) and the paged
+serving steps for the continuous-batching engine.
+
+The train step takes ``(params, opt_state, batch)`` and returns them
+updated, as the reference's does; the reference donates ``(params,
+opt_state)`` to it (``STEP_DONATION["train"]``), and the port updates both
+IN PLACE — the params and moments returned are the tensors passed in.
 
 The steps take the shared serving cache (``transformer.init_paged_cache``)
 plus per-sequence position vectors (B,), block tables (B, max_blocks) and
@@ -17,8 +23,98 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
+from repro_torch.optim import optimizers as O
+
+
+def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
+                 mtp_weight: float = 0.3):
+    """-> loss_fn(params, tokens (B,S), labels (B,S)) -> (total, ce), both
+    0-d fp32: the mean next-token cross-entropy (``transformer.lm_loss``).
+    The ported block kinds add no auxiliary loss, so total == ce.  MTP
+    heads are not ported (``mtp_weight`` is kept for the reference's
+    signature)."""
+    if arch.mtp:
+        raise NotImplementedError(
+            f"{arch.name}: the MTP loss term is not ported yet (ROADMAP "
+            f"Queue 1 item 7)")
+
+    def loss_fn(params, tokens, labels):
+        out = T.lm_apply(params, arch, tokens, impl=impl, remat=remat)
+        loss = T.lm_loss(out.logits, labels, arch.vocab)
+        return loss, loss
+    return loss_fn
+
+
+def loss_and_grads(loss_fn, params, tokens, labels):
+    """-> (total, ce, grads): the loss and its gradient with respect to
+    every leaf of ``params`` (a list in ``tree.leaves`` order, each in its
+    leaf's dtype).  The params are taken as detached leaves that require
+    grad, so the caller's tensors need not."""
+    live = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    total, ce = loss_fn(tree.unflatten(params, live), tokens, labels)
+    grads = torch.autograd.grad(total, live)
+    return total.detach(), ce.detach(), list(grads)
+
+
+def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
+                    impl: str = "xla", remat: str = "none",
+                    clip_norm: float = 1.0, mtp_weight: float = 0.3):
+    """-> train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics).
+
+    batch = {"tokens": (B,S), "labels": (B,S)}, numpy arrays or tensors;
+    they are moved to the params' device.  With ``microbatches`` > 1 the
+    batch is cut into that many slices along B, and each slice's grads are
+    added in fp32 as g / microbatches (one slice's activations live at a
+    time).  Then: clip to global norm ``clip_norm``, the optimizer's
+    update, and p = (p.float() + u).to(p.dtype), leaf by leaf, in place.
+    metrics: ``loss``, ``ce`` and ``grad_norm`` (0-d fp32 tensors, the
+    norm before clipping) and ``step`` (int, after the update).
+    ``impl="pallas"`` runs the flash kernel, forward and backward, on CUDA
+    (its plain version on the CPU); ``act_sharding`` and
+    ``grad_shardings`` are not ported (no mesh yet)."""
+    _, opt_update = optimizer
+    loss_fn = make_loss_fn(arch, impl=impl, remat=remat,
+                           mtp_weight=mtp_weight)
+
+    def train_step(params, opt_state, batch):
+        dev = tree.leaves(params)[0].device
+        tokens, labels = (torch.as_tensor(batch[k]).to(dev)
+                          for k in ("tokens", "labels"))
+        if tokens.shape[0] % microbatches:
+            raise ValueError(f"batch of {tokens.shape[0]} rows does not "
+                             f"split into {microbatches} microbatches")
+        if microbatches == 1:
+            total, ce, grads = loss_and_grads(loss_fn, params, tokens,
+                                              labels)
+            for i, g in enumerate(grads):     # each leaf's own dtype freed
+                grads[i] = g.float()          # as its fp32 copy is made
+        else:
+            total = ce = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for p in tree.leaves(params)]
+            for tok, lab in zip(tokens.chunk(microbatches),
+                                labels.chunk(microbatches)):
+                t, c, g = loss_and_grads(loss_fn, params, tok, lab)
+                for acc, x in zip(grads, g):
+                    acc.add_(x.float() / microbatches)
+                del g
+                total = total + t / microbatches
+                ce = ce + c / microbatches
+        grads, gnorm = O.clip_by_global_norm(grads, clip_norm)
+        # the step owns its fp32 grads: each leaf's update overwrites it
+        updates, opt_state = opt_update(tree.unflatten(params, grads),
+                                        opt_state, params)
+        del grads
+        params = O.apply_updates(params, updates)
+        metrics = {"loss": total, "ce": ce, "grad_norm": gnorm,
+                   "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",

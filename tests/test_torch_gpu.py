@@ -13,6 +13,9 @@ compute in fp32, so fp32 differs only by summation order (2e-5); bf16
 outputs may differ by one rounding step of 8 significant bits, at most 2^-7
 of the value.  The SSD scan's outputs are fp32 in both dtypes and are held
 by chip_smoke.py's own ``check_ssd`` (1e-4 of each output's max |value|).
+The backward kernels are held by chip_smoke.py's ``check_normwise``
+against autograd through the plain versions (1e-4 of each gradient's max
+|value| in fp32, 2e-2 in bf16).
 """
 import importlib.util
 import math
@@ -22,6 +25,7 @@ import subprocess
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
@@ -93,6 +97,166 @@ def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
     want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
+                                   (1024, 4096), (2, 8192)])
+def test_cuda_rmsnorm_bwd_matches_plain(shape, dtype):
+    """dx and dscale through RMSNormFn (the backward kernel) against
+    autograd through the plain version."""
+    _need_cuda()
+    smoke = _smoke()
+    tdt = DTYPES[dtype][0]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    s = (1.0 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")
+         ).to(tdt)
+    gy = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    xk, sk = x.clone().requires_grad_(), s.clone().requires_grad_()
+    before = (trn.rmsnorm.launches, trn.rmsnorm_bwd.launches)
+    trn.rmsnorm(xk, sk).backward(gy)
+    torch.cuda.synchronize()
+    assert (trn.rmsnorm.launches, trn.rmsnorm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+    tref.rmsnorm_ref(xr, sr).backward(gy)
+    assert xk.grad.dtype == tdt and sk.grad.dtype == tdt
+    err, ok, tol = smoke.check_normwise((xk.grad, sk.grad),
+                                        (xr.grad, sr.grad), dtype)
+    assert ok, (err, tol)
+
+
+FLASH_BWD_CASES = [
+    (2, 128, 128, 4, 2, 128, True),
+    (1, 300, 300, 4, 1, 64, True),
+    (1, 100, 260, 2, 2, 32, True),
+    (1, 260, 100, 2, 2, 16, True),
+    (2, 77, 130, 4, 2, 128, False),
+    (1, 129, 1, 4, 2, 128, True),      # one key: dq = dk = 0 (below)
+    (1, 129, 2, 4, 2, 128, True),      # two keys, a row past a q tile
+    (1, 300, 300, 8, 2, 160, True),
+    (2, 200, 200, 4, 4, 256, True),
+    (1, 100, 230, 4, 1, 256, False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", FLASH_BWD_CASES)
+def test_cuda_flash_attention_bwd_matches_plain(B, S, T, H, Hkv, D, causal,
+                                                dtype):
+    """dq, dk, dv through FlashAttentionFn (forward kernel with lse, then
+    the backward kernels) against autograd through the plain version, from
+    the model's (B,S,H,D) layout."""
+    _need_cuda()
+    smoke = _smoke()
+    tdt = DTYPES[dtype][0]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, do = (torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, D), generator=g, device="cuda").to(tdt)
+            for _ in range(2))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    tops.flash_attention(*ins, causal=causal).backward(do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    tref.flash_attention_ref(*refs, scale=D ** -0.5,
+                             causal=causal).backward(do)
+    got, want = [t.grad for t in ins], [t.grad for t in refs]
+    if T == 1:
+        # one key: P = 1 on every row, so the plain dq and dk are exactly
+        # 0 and a norm-wise check has no scale.  The kernel's dS = dP - Di
+        # is a difference of two sums of the same products dO.v, taken in
+        # different orders; dq and dk are held against the size of
+        # scale * dO.v * k, and dv norm-wise
+        assert not want[0].any() and not want[1].any()
+        size = (D ** -0.5 * float(do.float().abs().max())
+                * float(v.float().abs().max())
+                * float(k.float().abs().max()))
+        floor = smoke.BWD_TOL[dtype] * size
+        for name, gr in (("dq", got[0]), ("dk", got[1])):
+            assert torch.isfinite(gr.float()).all(), name
+            assert float(gr.float().abs().max()) <= floor, (name, floor)
+        got, want = got[2:], want[2:]
+    err, ok, tol = smoke.check_normwise(got, want, dtype)
+    assert ok, (err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("D", [160, 256])
+def test_cuda_flash_attention_wide_head_dims_match_plain(D, dtype):
+    """The forward at the head dims of zamba2's shared block and gemma-7b
+    (the FMA body in both dtypes), with the tolerance of the other
+    widths."""
+    _need_cuda()
+    tdt, atol, rtol = DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((2, 300, 8, D), generator=g, device="cuda").to(tdt)
+    k, v = (torch.randn((2, 300, 4, D), generator=g, device="cuda").to(tdt)
+            for _ in range(2))
+    got = tops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_raises_under_grad():
+    """The SSD kernel has no backward: asked for a gradient it raises
+    instead of returning outputs that cut autograd; without grad it runs."""
+    _need_cuda()
+    x = torch.randn((1, 8, 4, 16), device="cuda").requires_grad_()
+    bm = torch.randn((1, 8, 1, 32), device="cuda")
+    dt = torch.rand((1, 8, 4), device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+        tops.ssd_scan(x, bm, bm, dt, -dt)
+    with torch.no_grad():
+        y, _ = tops.ssd_scan(x, bm, bm, dt, -dt)
+    assert y.grad_fn is None and torch.isfinite(y).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,remat", [("xla", "none"), ("pallas", "none"),
+                                        ("pallas", "full"),
+                                        ("pallas", "selective")])
+def test_cuda_loss_backward_matches_cpu(impl, remat):
+    """loss.backward() through lm_apply on the card (RMSNorm kernels, and
+    under impl="pallas" the flash kernels, forward and backward; with
+    remat, the kernels run again in the backward's recompute) gives every
+    param leaf the CPU plain path's gradient; every norm ``scale`` leaf
+    gets one."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import steps as ST
+    arch = _tiny_qwen()
+    params = T.init_lm(arch, device="cpu", seed=0)
+    tokens = torch.randint(0, arch.vocab, (2, 150),
+                           generator=torch.Generator().manual_seed(0))
+    labels = torch.roll(tokens, -1, dims=1)
+    loss_fn = ST.make_loss_fn(arch, impl=impl, remat=remat)
+    before = trn.rmsnorm_bwd.launches
+    got = ST.loss_and_grads(loss_fn, _to(params, "cuda"), tokens.cuda(),
+                            labels.cuda())
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_bwd.launches - before == 4 * arch.n_layers + 1
+    want = ST.loss_and_grads(loss_fn, params, tokens, labels)
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-5, rtol=1e-5)
+    names = tree.names(params)
+    # norm1, norm2, q_norm, k_norm (each stacked over the layers), final
+    assert sum(n.endswith("scale") for n in names) == 5
+    for n, g, w in zip(names, got[2], want[2]):
+        assert g is not None, n
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4,
+                                   msg=n)
 
 
 def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
@@ -194,6 +358,23 @@ RMSNORM_MUTANTS = {
         "if (2 * i < nv && vi < nvec && active)"),
     "scale at the wrong lane offset": (
         "sbuf[i] = sr[vi];", "sbuf[i] = sr[(vi + 1) % nvec];"),
+}
+
+
+# Wrong backward kernels, each one edit away from its source: the mask
+# dropped (every key visible), dK/dV summed over one q head of the group,
+# Di left out of dS, and dscale taken from the first block's partials only.
+FLASH_BWD_MUTANTS = {
+    "mask dropped": (
+        "return q_pos < S && k_pos < Tk && (!causal || q_pos >= k_pos);",
+        "return true;"),
+    "dK/dV from one q head": ("for (int h = h0; h < h0 + group; ++h) {",
+                              "for (int h = h0; h < h0 + 1; ++h) {"),
+    "Di left out": ("return p * (dp - di);", "return p * dp;"),
+}
+RMSNORM_BWD_MUTANTS = {
+    "dscale from one block": ("for (int b = 0; b < blocks; ++b) sum +=",
+                              "for (int b = 0; b < 1; ++b) sum +="),
 }
 
 
@@ -312,7 +493,10 @@ SSD_MUTANTS_FP32 = {
     ("rmsnorm.cu", RMSNORM_MUTANTS),
     ("ssd_scan.cu", SSD_MUTANTS_FP32),
     ("ssd_scan.cu", SSD_MUTANTS_BF16),
-], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16"])
+    ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS),
+    ("rmsnorm.cu", RMSNORM_BWD_MUTANTS),
+], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
+        "flash-bwd", "rmsnorm-bwd"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -360,6 +544,62 @@ def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
         assert rejected[name, "bfloat16"], name
     for name in SSD_MUTANTS_FP32:
         assert rejected[name, "float32"], name
+
+
+@pytest.mark.gpu
+def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
+    """chip_smoke.py's backward check fails every wrong backward kernel in
+    both dtypes, at the train step's shapes: qwen3-8b's attention (B=2,
+    S=512, 32 q heads in groups of 4) and its (1024, 4096) norm rows (256
+    blocks of dscale partials)."""
+    _need_cuda()
+    smoke = _smoke()
+    flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu",
+                           FLASH_BWD_MUTANTS)
+    (tmp_path / "r").mkdir()
+    rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu", RMSNORM_BWD_MUTANTS)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rejected = {}
+    B, S, H, Hkv, D = 2, 512, 32, 8, 128
+    for dn, (tdt, _, _) in DTYPES.items():
+        q, do = (torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, Hkv, D), generator=g,
+                            device="cuda").to(tdt) for _ in range(2))
+        refs = [t.clone().requires_grad_() for t in (q, k, v)]
+        tref.flash_attention_ref(*refs, scale=D ** -0.5).backward(do)
+        for name, lib in [("kernel", None), *flibs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(tfa, "_bwd_fn", tfa.bind_bwd(lib))
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            tops.flash_attention(*ins).backward(do)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_normwise(
+                [t.grad for t in ins], [t.grad for t in refs], dn)
+            print(f"flash_bwd {name} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected[name, dn] = not ok
+        monkeypatch.undo()
+        x, gy = (torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
+                 for _ in range(2))
+        s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
+             ).to(tdt)
+        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+        want = torch.autograd.grad(tref.rmsnorm_ref(xr, sr), (xr, sr), gy)
+        for name, lib in [("kernel", None), *rlibs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(trn, "_bwd_fn", trn.bind_bwd(lib))
+            got = trn.rmsnorm_bwd(x, s, gy)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_normwise(got, want, dn)
+            print(f"rmsnorm_bwd {name} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected[name, dn] = rejected.get((name, dn), False) or not ok
+        monkeypatch.undo()
+    assert not rejected["kernel", "float32"]
+    assert not rejected["kernel", "bfloat16"]
+    for name in list(FLASH_BWD_MUTANTS) + list(RMSNORM_BWD_MUTANTS):
+        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
 
 
 @pytest.mark.gpu
@@ -526,9 +766,5 @@ def test_cuda_hybrid_forward_and_engine_match_cpu():
         np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-4)
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+def _to(params, device):
+    return tree.map(lambda t: t.to(device), params)

@@ -14,6 +14,7 @@ tests/test_kernels.py to the sequential recurrence.
 """
 import shutil
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -516,3 +517,258 @@ def test_rmsnorm_launch_shape_falls_back_to_elements():
     for D in (0, trn.MAX_D + 1):
         with pytest.raises(ValueError, match="outside"):
             trn.launch_shape(D, 2)
+
+
+# ---------------------------------------------------------------------------
+# gradients of the plain versions, against jax.grad of the jnp twins
+# ---------------------------------------------------------------------------
+
+def _close_normwise(t: torch.Tensor, j, tol: float):
+    """max |t - j| <= tol * max |j| (bf16 gradients are sums of products
+    of rounded values, elementwise near 0 they carry no relative
+    accuracy)."""
+    want = np.asarray(j, np.float32)
+    err = float(np.abs(t.float().numpy() - want).max())
+    assert err <= tol * float(np.abs(want).max()), (err, tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 128), (3, 300)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rmsnorm_ref_grads_match_jax_grad(shape, dtype):
+    from repro.models import layers as JL
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    gy = rng.standard_normal(shape).astype(np.float32)
+    (jx, tx), (js, ts), (jg, tg) = (_pair(a, dtype) for a in (x, s, gy))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _, vjp = jax.vjp(lambda a, b: JL.rmsnorm({"scale": b}, a), jx, js)
+    jdx, jds = vjp(jg)
+    tx.requires_grad_()
+    ts.requires_grad_()
+    tref.rmsnorm_ref(tx, ts).backward(tg)
+    _close_normwise(tx.grad, jdx, tol)
+    _close_normwise(ts.grad, jds, tol)
+
+
+# (B, S, T, H, Hkv, D, causal): GQA, S != T both ways, the new head dims
+FLASH_GRAD_CASES = [
+    (2, 40, 40, 4, 2, 32, True),
+    (1, 24, 50, 4, 1, 32, True),
+    (1, 50, 24, 2, 2, 32, True),
+    (1, 33, 33, 4, 2, 160, True),
+    (1, 20, 45, 2, 1, 256, False),
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", FLASH_GRAD_CASES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_ref_grads_match_jax_grad(B, S, T, H, Hkv, D,
+                                                  causal, dtype):
+    """The plain attention the backward kernel is held to, against
+    jax.grad of the reference's own plain attention (``layers._sdpa``).
+    JAX's bf16 einsum rounds the logits to bf16 and the softmax back to
+    bf16 before PV; the plain version keeps both in fp32, which the bf16
+    tolerance covers."""
+    from repro.models import layers as JL
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.standard_normal(shape).astype(np.float32)
+                   for shape in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D),
+                                 (B, S, H, D)))
+    pairs = [_pair(a, dtype) for a in (q, k, v, do)]
+    scale = 1.0 / np.sqrt(D)
+    _, vjp = jax.vjp(lambda a, b, c: JL._sdpa(a, b, c, causal=causal,
+                                              scale=scale),
+                     *(p[0] for p in pairs[:3]))
+    jgrads = vjp(pairs[3][0])
+    tq, tk, tv = (p[1].requires_grad_() for p in pairs[:3])
+    tref.flash_attention_ref(tq, tk, tv, scale=scale,
+                             causal=causal).backward(pairs[3][1])
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for t, j in zip((tq, tk, tv), jgrads):
+        _close_normwise(t.grad, j, tol)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward's design, emulated: csrc/flash_attention_bwd.cu
+# ---------------------------------------------------------------------------
+
+def _flash_lse_tiled(q, k, *, scale, causal, bk):
+    """The forward kernel's logsumexp in plain torch: an online max and
+    sum over kv tiles of ``bk`` keys, lse = m + log(max(l, 1e-30)).
+    q: (B,H,S,D), k: (B,H,T,D) fp32 -> (B,H,S)."""
+    S, T = q.shape[2], k.shape[2]
+    m = torch.full(q.shape[:3], tref.NEG_INF)
+    l = torch.zeros(q.shape[:3])
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, T, bk):
+        s = q @ k[:, :, k0:k0 + bk].transpose(-1, -2) * scale
+        kp = torch.arange(k0, min(k0 + bk, T))[None, :]
+        if causal:
+            s = torch.where(qp >= kp, s, torch.tensor(tref.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    return m + torch.log(l.clamp_min(1e-30))
+
+
+def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r,
+                     drop_mask=False, one_head=False, drop_di=False):
+    """csrc/flash_attention_bwd.cu's three kernels in plain fp32 torch, by
+    tiles of ``r`` rows (BQ = BK): Di = rowsum(dO * O); a dK/dV block per
+    (kv head, key tile) that walks the q tiles at or below the diagonal of
+    every q head of its group, P = exp(scale q.k - lse) masked to 0 outside
+    ``visible``, dS = P (dP - Di); a dQ block per (q head, q tile) over the
+    key tiles at or left of the diagonal.  q, o, do: (B,H,S,D); k, v:
+    (B,Hkv,T,D).  The keyword flags are the one-edit wrong kernels of
+    tests/test_torch_gpu.py."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = H // Hkv
+    di = (do * o).sum(-1)
+    if drop_di:
+        di = torch.zeros_like(di)
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+
+    def visible(q0, nq, k0, nk):
+        qp = torch.arange(q0, q0 + nq)[:, None]
+        kp = torch.arange(k0, k0 + nk)[None, :]
+        keep = (qp < S) & (kp < T)
+        if causal:
+            keep &= qp >= kp
+        return torch.ones_like(keep) if drop_mask else keep
+
+    def scores(h, hk, q0, k0):
+        qs, dos = q[:, h, q0:q0 + r], do[:, h, q0:q0 + r]
+        ks, vs = k[:, hk, k0:k0 + r], v[:, hk, k0:k0 + r]
+        s = qs @ ks.transpose(-1, -2)
+        p = torch.where(visible(q0, qs.shape[1], k0, ks.shape[1]),
+                        torch.exp(s * scale - lse[:, h, q0:q0 + r, None]),
+                        torch.zeros(()))
+        ds = p * (dos @ vs.transpose(-1, -2) - di[:, h, q0:q0 + r, None])
+        return qs, dos, ks, p, ds
+
+    for hk in range(Hkv):
+        for k0 in range(0, T, r):
+            heads = range(hk * group, hk * group + (1 if one_head else group))
+            for h in heads:
+                for q0 in range((k0 // r) * r if causal else 0, S, r):
+                    qs, dos, _, p, ds = scores(h, hk, q0, k0)
+                    dv[:, hk, k0:k0 + r] += p.transpose(-1, -2) @ dos
+                    dk[:, hk, k0:k0 + r] += ds.transpose(-1, -2) @ qs * scale
+    for h in range(H):
+        for q0 in range(0, S, r):
+            last = min(T, q0 + r) if causal else T
+            for k0 in range(0, last, r):
+                _, _, ks, _, ds = scores(h, h // group, q0, k0)
+                dq[:, h, q0:q0 + r] += ds @ ks * scale
+    return dq, dk, dv
+
+
+def _flash_case(seed, B, S, T, H, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((B, S, H, D), (B, T, Hkv, D), (B, T, Hkv, D),
+                           (B, S, H, D)))
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,r", [
+    (1, 150, 150, 4, 2, 32, True, 64),     # ragged S = T: 64 + 64 + 22
+    (2, 70, 150, 4, 1, 16, True, 64),      # S < T, MQA
+    (1, 150, 70, 2, 2, 16, True, 64),      # S > T: keys past T masked
+    (1, 90, 130, 4, 2, 32, False, 64),
+    (1, 70, 70, 2, 1, 256, True, 32),      # D = 256 tiles
+])
+def test_flash_bwd_tiling_matches_autograd_of_the_plain_version(
+        B, S, T, H, Hkv, D, causal, r):
+    q, k, v, do = _flash_case(6, B, S, T, H, Hkv, D)
+    scale = 1.0 / np.sqrt(D)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = tref.flash_attention_ref(tq, tk, tv, scale=scale, causal=causal)
+    o.backward(do)
+    qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o.detach(),
+                                                      do))
+    lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
+                           scale=scale, causal=causal, bk=64)
+    got = _flash_bwd_tiled(qh, kh, vh, oh, doh, lse, scale=scale,
+                           causal=causal, r=r)
+    for g, t in zip(got, (tq, tk, tv)):
+        torch.testing.assert_close(g.transpose(1, 2), t.grad, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("wrong", ["drop_mask", "one_head", "drop_di"])
+def test_flash_bwd_emulation_fails_each_wrong_kernel(wrong):
+    """Each one-edit wrong backward kernel of tests/test_torch_gpu.py,
+    emulated, misses the plain gradients by far more than the card's
+    fp32 check allows (1e-4 of max |grad|)."""
+    B, S, T, H, Hkv, D = 1, 150, 150, 4, 2, 32
+    q, k, v, do = _flash_case(7, B, S, T, H, Hkv, D)
+    scale = 1.0 / np.sqrt(D)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    o = tref.flash_attention_ref(tq, tk, tv, scale=scale)
+    o.backward(do)
+    qh, kh, vh, oh, doh = (t.transpose(1, 2) for t in (q, k, v, o.detach(),
+                                                      do))
+    lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
+                           scale=scale, causal=True, bk=64)
+    got = _flash_bwd_tiled(qh, kh, vh, oh, doh, lse, scale=scale,
+                           causal=True, r=64, **{wrong: True})
+    errs = [float((g.transpose(1, 2) - t.grad).abs().max())
+            / float(t.grad.abs().max()) for g, t in zip(got, (tq, tk, tv))]
+    assert max(errs) > 1e-2, errs
+
+
+@pytest.mark.parametrize("S,T,causal", [(150, 150, True), (70, 150, True),
+                                        (150, 70, True), (90, 130, False)])
+def test_flash_lse_convention_is_logsumexp_of_the_masked_logits(S, T,
+                                                                causal):
+    """lse = m + log(max(l, 1e-30)) in natural log from the kernel's online
+    max and sum, against jax.nn.logsumexp of the -1e30-masked logits."""
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((1, 2, S, 32)).astype(np.float32)
+    k = rng.standard_normal((1, 2, T, 32)).astype(np.float32)
+    scale = 1.0 / np.sqrt(32)
+    logits = jnp.einsum("bhsd,bhtd->bhst", q, k) * scale
+    if causal:
+        logits = jnp.where(jnp.arange(S)[:, None] >= jnp.arange(T)[None, :],
+                           logits, -1e30)
+    want = jax.nn.logsumexp(logits, axis=-1)
+    got = _flash_lse_tiled(torch.from_numpy(q), torch.from_numpy(k),
+                           scale=scale, causal=causal, bk=64)
+    _close(got, want, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the RMSNorm backward's design: csrc/rmsnorm.cu rmsnorm_bwd_kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,D", [(37, 128), (1024, 64), (5, 300)])
+def test_rmsnorm_bwd_formula_and_block_partials_match_autograd(rows, D):
+    """dx = r (g s - xh mean(g s xh)) per row, and dscale summed as the
+    kernels sum it: each block's rows (a stride of the grid apart) into
+    one partial row, then the partials in block order."""
+    rng = np.random.default_rng(9)
+    x, gy = (torch.from_numpy(rng.standard_normal((rows, D)).astype(
+        np.float32)) for _ in range(2))
+    s = torch.from_numpy((1 + 0.1 * rng.standard_normal(D)).astype(
+        np.float32))
+    xa, sa = x.clone().requires_grad_(), s.clone().requires_grad_()
+    tref.rmsnorm_ref(xa, sa).backward(gy)
+    r = torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
+    xh = x * r
+    dx = r * (gy * s - xh * (gy * s * xh).mean(-1, keepdim=True))
+    _, _, rows_per_block, _ = trn.launch_shape(D, 4)
+    blocks = trn.bwd_blocks(rows, rows_per_block)
+    partial = torch.zeros((blocks, D))
+    for row in range(rows):
+        partial[(row // rows_per_block) % blocks] += gy[row] * xh[row]
+    dscale = partial.sum(0)
+    torch.testing.assert_close(dx, xa.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dscale, sa.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_rmsnorm_bwd_blocks_are_a_function_of_the_shape():
+    assert trn.bwd_blocks(1, 32) == 1
+    assert trn.bwd_blocks(1024, 4) == 256
+    assert trn.bwd_blocks(32768, 32) == trn.BWD_MAX_BLOCKS

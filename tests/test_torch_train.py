@@ -1,0 +1,365 @@
+"""The port's training step (``repro_torch.runtime.steps.make_train_step``)
+and its pieces against the JAX package, on the CPU.
+
+The anchor case is the ROADMAP's: tiny-rt (2 layers, d 64, 4/2 heads,
+d_ff 128, vocab 256), ``adamw(cosine_schedule(3e-3, 2, 40))``,
+``SyntheticLM(256, 32, 8)``, params from ``init_lm(PRNGKey(0))`` with the
+default RNG, converted leaf for leaf.  The reference is the mesh-free
+``jit_step("train", make_train_step(arch, opt))`` (``Trainer.train``
+raises on this jax).  Losses are held at 1e-5 relative; params and
+moments with allclose at rtol 1e-4, atol 1e-6 (fp32).
+
+One caveat on params, measured: AdamW's step is g / (sqrt(v) + eps) with
+eps = 1e-8, so for an element whose gradient is itself ~1e-8 (a sum of
+terms ~1e-4 that nearly cancel) the two frameworks' summation orders move
+the step by a few percent of lr: in the anchor case one element of
+``w_gate`` (grad 1.4566e-8 in JAX, 1.4729e-8 here) ends 4.1e-6 apart,
+1.2e-6 beyond the allclose bound.  ``_assert_params_close`` therefore
+holds every element at rtol 1e-4, atol 1e-6 except those whose reference
+sqrt(v_hat) fell in (0, 10 * eps) at some step (19 of 106,816 elements
+here); those are held at 1e-4 absolute, and at most 0.01 % of all
+elements may leave the allclose bound.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ArchConfig, Segment
+from repro.data import SyntheticLM as JSyntheticLM
+from repro.models import transformer as JT
+from repro.optim import optimizers as JO
+from repro.optim import schedules as JS
+from repro.runtime.steps import jit_step
+from repro.runtime.steps import make_train_step as j_make_train_step
+from repro_torch import convert, tree
+from repro_torch.data import SyntheticLM
+from repro_torch.models import transformer as T
+from repro_torch.optim import optimizers as O
+from repro_torch.optim import schedules as S
+from repro_torch.runtime import steps as ST
+from torch_port_fixtures import port_arch
+
+TINY_RT = ArchConfig(name="tiny-rt", family="dense", n_layers=2, d_model=64,
+                     n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
+                     pattern=(Segment(("attn",), 2),), dtype="float32",
+                     param_dtype="float32")
+ANCHOR_LOSSES = (6.0166, 5.8732, 5.5867, 5.5070, 5.3011)   # ROADMAP
+EPS = 1e-8          # adamw's
+
+
+def _opts(kind: str):
+    """(JAX optimizer, port optimizer) of one kind."""
+    if kind == "sgd":
+        return (JO.sgd_momentum(JS.cosine_schedule(3e-2, 2, 40)),
+                O.sgd_momentum(S.cosine_schedule(3e-2, 2, 40)))
+    return (JO.adamw(JS.cosine_schedule(3e-3, 2, 40)),
+            O.adamw(S.cosine_schedule(3e-3, 2, 40)))
+
+
+def _np_tree(t):
+    return jax.tree.map(np.asarray, t)
+
+
+@functools.cache
+def _run(steps: int, opt: str = "adamw", microbatches: int = 1,
+         clip_norm: float = 1.0, impl: str = "xla", remat: str = "none"):
+    """Both train steps from the same params over the same batches ->
+    {"jax"/"port": (losses, grad norms, params, mu, nu)} as numpy, plus
+    "sqrt_vhat_min": the reference's smallest nonzero sqrt(v_hat) per
+    element over the steps (adamw only)."""
+    jopt, topt = _opts(opt)
+    jparams = JT.init_lm(jax.random.PRNGKey(0), TINY_RT)
+    tparams = convert.to_torch(_np_tree(jparams))
+    jstate, tstate = jopt[0](jparams), topt[0](tparams)
+    jstep = jit_step("train", j_make_train_step(
+        TINY_RT, jopt, microbatches=microbatches, clip_norm=clip_norm))
+    tstep = ST.make_train_step(port_arch(TINY_RT), topt,
+                               microbatches=microbatches,
+                               clip_norm=clip_norm, impl=impl, remat=remat)
+    jdata, tdata = JSyntheticLM(256, 32, 8), SyntheticLM(256, 32, 8)
+    out = {"jax": ([], []), "port": ([], [])}
+    vmin = None
+    for _ in range(steps):
+        jb, tb = next(jdata), next(tdata)
+        jparams, jstate, jm = jstep(jparams, jstate,
+                                    {k: jnp.asarray(v) for k, v in jb.items()})
+        tparams, tstate, tm = tstep(tparams, tstate, tb)
+        assert tm["step"] == int(jm["step"]) == tstate.step
+        for key, m in (("jax", jm), ("port", tm)):
+            out[key][0].append(float(m["loss"]))
+            out[key][1].append(float(m["grad_norm"]))
+        if opt == "adamw":
+            t = jstate.step
+            s = [np.sqrt(np.asarray(v) / (1 - 0.95 ** float(t)))
+                 for v in jax.tree.leaves(jstate.nu)]
+            s = [np.where(x > 0, x, np.inf) for x in s]
+            vmin = s if vmin is None else [np.minimum(a, b)
+                                           for a, b in zip(vmin, s)]
+    res = {"jax": out["jax"] + (jax.tree.leaves(_np_tree(jparams)),
+                                jax.tree.leaves(_np_tree(jstate.mu)),
+                                jax.tree.leaves(_np_tree(jstate.nu))
+                                if jstate.nu is not None else None),
+           "port": out["port"] + ([t.numpy() for t in tree.leaves(tparams)],
+                                  [t.numpy() for t in tree.leaves(tstate.mu)],
+                                  [t.numpy() for t in tree.leaves(tstate.nu)]
+                                  if tstate.nu is not None else None),
+           "sqrt_vhat_min": vmin}
+    return res
+
+
+def _assert_params_close(want, got, sqrt_vhat_min):
+    """allclose(rtol 1e-4, atol 1e-6) per element, except where the
+    reference's Adam denominator sat near eps (module docstring)."""
+    n = n_out = 0
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert w.shape == g.shape and w.dtype == g.dtype, i
+        loose = (np.zeros(w.shape, bool) if sqrt_vhat_min is None
+                 else sqrt_vhat_min[i] < 10 * EPS)
+        diff = np.abs(w - g)
+        out = diff > 1e-6 + 1e-4 * np.abs(w)
+        assert not np.any(out & ~loose), i
+        assert np.all(diff[loose] <= 1e-4), i
+        n += w.size
+        n_out += int(out.sum())
+    assert n_out <= 1e-4 * n, (n_out, n)
+
+
+def _assert_tree_close(want, got, rtol=1e-4, atol=1e-6):
+    for i, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=str(i))
+
+
+# ---------------------------------------------------------------------------
+# the anchor case
+# ---------------------------------------------------------------------------
+
+def test_anchor_losses_match_the_roadmap_and_the_jax_step():
+    r = _run(5)
+    port, ref = r["port"][0], r["jax"][0]
+    np.testing.assert_allclose(port, ANCHOR_LOSSES, rtol=1e-5)
+    np.testing.assert_allclose(port, ref, rtol=1e-5)
+    np.testing.assert_allclose(r["port"][1], r["jax"][1], rtol=1e-5)
+
+
+def test_anchor_params_and_moments_match_the_jax_step():
+    r = _run(5)
+    _assert_params_close(r["jax"][2], r["port"][2], r["sqrt_vhat_min"])
+    _assert_tree_close(r["jax"][3], r["port"][3])
+    _assert_tree_close(r["jax"][4], r["port"][4])
+
+
+# ---------------------------------------------------------------------------
+# variants, each against its JAX twin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["microbatches2", "sgd_momentum",
+                                     "clip_binds", "pallas"])
+def test_train_step_variant_matches_jax(variant):
+    kw = {"microbatches2": dict(microbatches=2),
+          "sgd_momentum": dict(opt="sgd"),
+          "clip_binds": dict(clip_norm=0.05),
+          "pallas": dict(impl="pallas")}[variant]
+    r = _run(3, **kw)
+    np.testing.assert_allclose(r["port"][0], r["jax"][0], rtol=1e-5)
+    np.testing.assert_allclose(r["port"][1], r["jax"][1], rtol=1e-5)
+    if variant == "clip_binds":       # the clip is what this case tests
+        assert min(r["jax"][1]) > 0.05 * 10
+    _assert_params_close(r["jax"][2], r["port"][2], r["sqrt_vhat_min"])
+    _assert_tree_close(r["jax"][3], r["port"][3])
+
+
+def _grads(remat: str, impl: str = "xla"):
+    arch = port_arch(TINY_RT)
+    params = convert.to_torch(_np_tree(JT.init_lm(jax.random.PRNGKey(0),
+                                                  TINY_RT)))
+    b = next(SyntheticLM(256, 32, 8))
+    loss_fn = ST.make_loss_fn(arch, impl=impl, remat=remat)
+    return ST.loss_and_grads(loss_fn, params, torch.as_tensor(b["tokens"]),
+                             torch.as_tensor(b["labels"]))
+
+
+@pytest.mark.parametrize("remat", ["full", "selective"])
+def test_remat_gives_the_grads_of_no_remat(remat):
+    base = _grads("none")
+    got = _grads(remat)
+    assert float(got[0]) == float(base[0])
+    for g, w in zip(got[2], base[2]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-8)
+
+
+def test_selective_remat_saves_the_dense_products_only():
+    from torch.utils.checkpoint import CheckpointPolicy
+    assert T._save_dots(None, torch.ops.aten.mm.default) == \
+        CheckpointPolicy.MUST_SAVE
+    for op in (torch.ops.aten.bmm.default, torch.ops.aten.exp.default,
+               torch.ops.aten.mul.Tensor):
+        assert T._save_dots(None, op) == CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def test_unknown_remat_and_unported_options_raise():
+    arch = port_arch(TINY_RT)
+    params = T.init_lm(arch, device="cpu")
+    with pytest.raises(ValueError, match="remat"):
+        T.lm_apply(params, arch, torch.zeros((1, 4), dtype=torch.long),
+                   remat="dots")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        O.adamw(1e-3, quantized=True)
+    import dataclasses
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        ST.make_loss_fn(dataclasses.replace(arch, mtp=True))
+    step = ST.make_train_step(arch, O.adamw(1e-3), microbatches=3)
+    batch = next(SyntheticLM(256, 8, 4))
+    with pytest.raises(ValueError, match="microbatches"):
+        step(params, O.adamw(1e-3)[0](params), batch)
+
+
+# ---------------------------------------------------------------------------
+# pieces
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("V,masked", [(256, False), (300, False),
+                                      (300, True), (256, True)])
+def test_lm_loss_matches_jax(V, masked):
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 7, V)).astype(np.float32) * 3
+    labels = rng.integers(0, 256, (2, 7)).astype(np.int32)
+    mask = (rng.random((2, 7)) > 0.4).astype(np.float32) if masked else None
+    want = JT.lm_loss(jnp.asarray(logits), jnp.asarray(labels), 256,
+                      None if mask is None else jnp.asarray(mask))
+    tl = torch.from_numpy(logits).requires_grad_()
+    got = T.lm_loss(tl, torch.from_numpy(labels), 256,
+                    None if mask is None else torch.from_numpy(mask))
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    jg = jax.grad(lambda lg: JT.lm_loss(
+        lg, jnp.asarray(labels), 256,
+        None if mask is None else jnp.asarray(mask)))(jnp.asarray(logits))
+    got.backward()
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(jg), atol=1e-7)
+    if V > 256:
+        assert float(tl.grad[..., 256:].abs().max()) == 0.0
+
+
+def test_lm_loss_with_an_empty_mask_is_zero():
+    logits = torch.zeros((1, 3, 8))
+    got = T.lm_loss(logits, torch.zeros((1, 3), dtype=torch.long), 8,
+                    torch.zeros((1, 3)))
+    assert float(got) == 0.0
+
+
+def _random_tree(seed: int):
+    rng = np.random.default_rng(seed)
+    return {"a": {"w": rng.standard_normal((5, 7)).astype(np.float32)},
+            "b": [rng.standard_normal((3,)).astype(np.float32),
+                  rng.standard_normal((2, 2, 4)).astype(np.float32)],
+            "c": rng.standard_normal((6,)).astype(np.float32) * 1e-3}
+
+
+def test_global_norm_and_clip_match_jax():
+    g = _random_tree(1)
+    jg, tg = jax.tree.map(jnp.asarray, g), convert.to_torch(g)
+    np.testing.assert_allclose(float(O.global_norm(tg)),
+                               float(JO.global_norm(jg)), rtol=1e-6)
+    for max_norm in (1e9, 0.5):
+        jc, jn = JO.clip_by_global_norm(jg, max_norm)
+        tg = convert.to_torch(g)            # clipping scales it in place
+        tc, tn = O.clip_by_global_norm(tg, max_norm)
+        assert all(c is t for c, t in zip(tree.leaves(tc), tree.leaves(tg)))
+        np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+        _assert_tree_close(jax.tree.leaves(_np_tree(jc)),
+                           [t.numpy() for t in tree.leaves(tc)], rtol=1e-6,
+                           atol=0)
+    with pytest.raises(ValueError, match="fp32"):
+        O.clip_by_global_norm({"w": torch.ones(3, dtype=torch.bfloat16)},
+                              0.5)
+
+
+@pytest.mark.parametrize("kind", ["adamw", "sgd"])
+def test_optimizer_steps_match_jax_on_a_random_tree(kind):
+    jopt, topt = _opts(kind)
+    params = _random_tree(2)
+    jp, tp = jax.tree.map(jnp.asarray, params), convert.to_torch(params)
+    js, ts = jopt[0](jp), topt[0](tp)
+    for step in range(4):
+        g = _random_tree(10 + step)
+        ju, js = jopt[1](jax.tree.map(jnp.asarray, g), js, jp)
+        tu, ts = topt[1](convert.to_torch(g), ts, tp)
+        jp = JO.apply_updates(jp, ju)
+        tp = O.apply_updates(tp, tu)
+        assert ts.step == int(js.step) == step + 1
+        _assert_tree_close(jax.tree.leaves(_np_tree(ju)),
+                           [t.numpy() for t in tree.leaves(tu)], rtol=1e-5,
+                           atol=1e-9)
+    _assert_tree_close(jax.tree.leaves(_np_tree(jp)),
+                       [t.numpy() for t in tree.leaves(tp)], rtol=1e-6,
+                       atol=1e-9)
+    _assert_tree_close(jax.tree.leaves(_np_tree(js.mu)),
+                       [t.numpy() for t in tree.leaves(ts.mu)], rtol=1e-6,
+                       atol=1e-12)
+
+
+def test_apply_updates_keeps_dtypes_and_writes_in_place():
+    p = {"w": torch.ones(3, dtype=torch.bfloat16), "s": torch.zeros(2)}
+    u = {"w": torch.full((3,), 0.25), "s": torch.full((2,), -1.0)}
+    want = {k: (p[k].float() + u[k]).to(p[k].dtype) for k in p}
+    before = dict(p)
+    same = O.apply_updates(p, u)
+    assert same is p and all(p[k] is before[k] for k in p)
+    assert p["w"].dtype == torch.bfloat16 and p["s"].dtype == torch.float32
+    assert all(torch.equal(p[k], want[k]) for k in p)
+    assert float(u["w"][0]) == 0.25 and float(u["s"][0]) == -1.0
+
+
+@pytest.mark.parametrize("args", [(3e-3, 2, 40), (3e-4, 1, 10),
+                                  (1e-3, 0, 50), (2.5e-4, 10, 1000)])
+def test_schedules_are_bit_for_bit_the_reference(args):
+    pairs = [(JS.cosine_schedule(*args), S.cosine_schedule(*args)),
+             (JS.linear_warmup(*args[:2]), S.linear_warmup(*args[:2]))]
+    for jfn, tfn in pairs:
+        for step in range(51):
+            want = np.float32(jfn(jnp.int32(step)))
+            got = np.float32(tfn(step))
+            assert got.view(np.int32) == want.view(np.int32), (step, got,
+                                                               want)
+
+
+def test_synthetic_lm_batches_equal_the_reference():
+    for seed, offset in ((0, 0), (3, 7)):
+        j = JSyntheticLM(256, 32, 8, seed=seed).skip(offset)
+        t = SyntheticLM(256, 32, 8, seed=seed, start_step=offset)
+        for _ in range(3):
+            jb, tb = next(j), next(t)
+            assert jb.keys() == tb.keys()
+            for k in jb:
+                assert tb[k].dtype == jb[k].dtype
+                np.testing.assert_array_equal(tb[k], jb[k])
+        assert t.step == offset + 3
+
+
+def test_unflatten_keeps_no_reference_to_its_values():
+    """The train step hands its fp32 grads (gigabytes on the card) through
+    ``tree.unflatten``; they must be freed as soon as the step drops them,
+    not when the garbage collector next runs."""
+    import gc
+    import weakref
+    values = [torch.zeros(3), torch.zeros(2)]
+    ref = weakref.ref(values[0])
+    gc.disable()
+    try:
+        out = tree.unflatten({"a": 0, "b": [0]}, values)
+        assert out["a"] is values[0] and out["b"][0] is values[1]
+        del values, out
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_tree_names_follow_the_leaf_order():
+    t = {"b": [torch.zeros(1), (torch.ones(1),)], "a": {"y": torch.zeros(2),
+                                                      "x": torch.zeros(3)}}
+    assert tree.names(t) == ["a.x", "a.y", "b.0", "b.1.0"]
+    assert [x.numel() for x in tree.leaves(t)] == [3, 2, 1, 1]
+    assert tree.names(torch.zeros(1)) == [""]
