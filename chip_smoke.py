@@ -20,16 +20,19 @@ Phases, each of which fails the run (exit code 1) on any error:
    each model's serve path (decode and prefill steps) and forward give it
    at this script's settings (``served_cases``), and at larger and ragged
    edge cases; the backward kernels at every shape the train step gives
-   them, plus ragged, S != T and wide-head (D = 160, 256) cases, held
-   norm-wise against autograd through the plain versions.  Kernel and
+   them, plus S = T = 2048, ragged, S != T and wide-head (D = 160, 256)
+   cases, held norm-wise against autograd through the plain versions.  Kernel and
    plain times (and the library call's, where one PyTorch call computes
    the same function) are device times: 20 calls captured in one CUDA
    graph, the median of 5 replays between CUDA events.  A backward row's
    plain and library times are the backward's share: the captured
-   forward + backward less the captured forward, each measured here.  The
-   kernel's eager time per call from Python (``call_ms``) stands beside
-   them: at the decode step's shapes that is the host's cost, not the
-   device's.  Each row gives ``ms / library_ms`` (above 1: the kernel
+   forward + backward less the captured forward, each measured here.
+   RMSNorm rows (both directions) and the flash backward's train-shape
+   row also give a cold-L2 time (``cold_ms``): each captured call follows
+   a write of 64 MB, more than the 50 MB L2, and the write's own captured
+   time is subtracted.  The kernel's eager time per call from Python
+   (``call_ms``) stands beside them: at the decode step's shapes that is
+   the host's cost, not the device's.  Each row gives ``ms / library_ms`` (above 1: the kernel
    loses to the PyTorch call) and ``bound_ms / ms``.
 4. Serve qwen3-8b: published widths and all 36 layers, bf16, random weights
    from a seeded generator, 8 greedy requests of 512 prompt tokens and 32
@@ -124,6 +127,7 @@ GRAD_REL_L2_MAX = 2e-2
 GRAD_NORM_REL_TOL = 2e-2
 
 TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
+L2_FLUSH_BYTES = 64 << 20          # written before each call of a cold-L2 time
 
 QWEN = "qwen3-8b"
 MAMBA = "mamba2-780m"
@@ -215,6 +219,21 @@ def time_ms(fn, iters: int, replays: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return sorted(times)[replays // 2]
+
+
+def time_ms_cold(fn, iters: int, replays: int = 5) -> float:
+    """``time_ms`` with a cold L2: each captured call follows a write of
+    ``L2_FLUSH_BYTES`` (more than the H100's 50 MB L2), which evicts the
+    call's inputs; the flush's own time, captured alone, is subtracted."""
+    import torch
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                      device="cuda")
+
+    def flushed():
+        buf.zero_()
+        fn()
+    return time_ms(flushed, iters, replays) - time_ms(buf.zero_, iters,
+                                                       replays)
 
 
 def check_close(got, want, dtype_name):
@@ -376,8 +395,9 @@ def train_cases(arch):
     """The shapes the train phase's step gives the backward kernels (and
     edges).  RMSNorm: ``(path, use, rows, D)`` (the q/k norms see each
     token once per q/kv head); flash: ``(path, B, S, T, H, Hkv, D,
-    causal)``: the train step's attention, a ragged S, S != T both ways,
-    and the wide head dims."""
+    causal)``: the train step's attention, the same at S = T = 2048 (where
+    the products set the bound), a ragged S, S != T both ways, and the
+    wide head dims."""
     B, S = TRAIN["batch"], TRAIN["seq_len"]
     H, Hkv, hd, d = arch.n_heads, arch.n_kv_heads, arch.head_dim, arch.d_model
     path = f"{arch.name} train"
@@ -385,6 +405,7 @@ def train_cases(arch):
             (path, "q_norm", B * S * H, hd), (path, "k_norm", B * S * Hkv, hd),
             ("edge", "ragged rows", 300, d), ("edge", "odd width", 37, 300)]
     flash = [(path, B, S, S, H, Hkv, hd, True),
+             ("edge", B, 2048, 2048, H, Hkv, hd, True),
              ("edge", 1, 300, 300, H, Hkv, hd, True),
              ("edge", 1, 256, 700, H, Hkv, hd, True),
              ("edge", 1, 300, 700, H, Hkv, hd, False)]
@@ -443,6 +464,7 @@ def kernel_phase(torch, archs, iters):
                 torch.cuda.synchronize()
                 err, ok, tol = check_close(got, want, dn)
                 ms = time_ms(lambda: RN.rmsnorm(x, scale), iters)
+                cold = time_ms_cold(lambda: RN.rmsnorm(x, scale), iters)
                 eager = call_ms(lambda: RN.rmsnorm(x, scale), iters)
                 plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters)
                 lib_ms = (time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6),
@@ -453,7 +475,8 @@ def kernel_phase(torch, archs, iters):
                 rows.append(dict(
                     name="rmsnorm", path=path, use=use, shape=f"({R}, {D})",
                     dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
-                    call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
+                    cold_ms=cold, call_ms=eager, plain_ms=plain_ms,
+                    library_ms=lib_ms,
                     bytes=nbytes, flops=flops,
                     **bound(nbytes, {"float32": flops})))
 
@@ -564,6 +587,8 @@ def backward_rows(torch, arch, iters, gen, dtypes):
                 name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
                 ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                cold_ms=time_ms_cold(lambda: RN.rmsnorm_bwd(x, scale, g),
+                                     iters),
                 call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
                 plain_ms=bwd_share_ms(plain, g, iters),
                 library_ms=(bwd_share_ms(lib, g, iters)
@@ -611,7 +636,10 @@ def backward_rows(torch, arch, iters, gen, dtypes):
                 shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
                       f"{' causal' if causal else ''}",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
+                ms=time_ms(kernel, iters),
+                cold_ms=(None if path.startswith("edge")
+                         else time_ms_cold(kernel, iters)),
+                call_ms=call_ms(kernel, iters),
                 plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
                 library_ms=bwd_share_ms(lib, do.contiguous(), iters),
                 bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
@@ -1098,13 +1126,18 @@ def main() -> int:
         r["library_ratio"] = (None if r["library_ms"] is None
                               else r["ms"] / r["library_ms"])
         r["bound_share"] = r["bound_ms"] / r["ms"]
+        cold = r.get("cold_ms")
+        r["cold_bound_share"] = None if cold is None else r["bound_ms"] / cold
+        cold_txt = ("" if cold is None else
+                    f", cold L2 {cold:.4f} ms "
+                    f"({100 * r['cold_bound_share']:.1f}% of the bound)")
         lib = ("n/a" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ms (kernel/library "
                f"{r['library_ratio']:.2f}x)")
         print(f"kernel {r['name']} [{r['path']}: {r['use']}] {r['shape']} "
               f"{r['dtype']}: {'ok' if r['ok'] else 'MISMATCH'} max_abs_err "
-              f"{r['max_abs_err']:.3g} (tol {r['tol']}), {r['ms']:.4f} ms "
-              f"(eager call {r['call_ms']:.4f} ms), plain "
+              f"{r['max_abs_err']:.3g} (tol {r['tol']}), {r['ms']:.4f} ms"
+              f"{cold_txt} (eager call {r['call_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
               f"{100 * r['bound_share']:.1f}% of it)")
@@ -1169,7 +1202,7 @@ def main() -> int:
                       f"{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "call_ms": r["call_ms"],
+            "cold_ms": r.get("cold_ms"), "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_ratio": r["library_ratio"],

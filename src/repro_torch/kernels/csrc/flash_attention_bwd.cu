@@ -10,42 +10,92 @@
 //   * keys past T and rows past S are masked here (P = 0 there, which is
 //     what the finite -1e30 mask gives after the softmax);
 //   * q head h reads kv head h / (H / Hkv); dK and dV of a kv head are the
-//     sum over its group of q heads, taken inside one block in a fixed
-//     order, so the result is deterministic (no atomics).
+//     sum over its group of q heads, taken in a fixed order, so the result
+//     is the same on every run (no atomics).
 // P is recomputed from the forward's logsumexp, P = exp(scale * q.k - lse),
-// so nothing of size S x T is stored between the passes.
+// so nothing of size S x T is stored between the passes.  dQ has a kernel
+// of its own that recomputes S and dP (five products where four would do):
+// the price of summing dQ without atomics.
+// Bound on an H100: operations, 10 * B * H * D * (unmasked pairs) flops
+// (S and dP twice, dV, dK, dQ) at 989 TFLOP/s bf16 or 67 fp32; the bytes
+// are small beside them at the model's shapes.
 //
-// Three kernels a call, all fp32 FMA from shared memory:
-//   1. flash_bwd_dot_kernel: Di = rowsum(dO * O) for every (b, h, row),
-//      one warp a row;
+// bf16 at D <= 128: the tensor-core body, three kernels a call.
+//   1. flash_bwd_prep_kernel: Di = rowsum(dO * O) and lse2 = log2(e) * lse
+//      into (B, H, Sp) arrays of the scratch (Sp = S rounded up to 128;
+//      the padding rows get Di = 0 and lse2 = 1e30, so P = 0 there), D / 8
+//      lanes a row, 16-byte loads.  A pre-pass, not folded into a
+//      prologue, because both later kernels read it.
+//   2. flash_bwd_dkdv_wgmma_kernel: a cluster of two blocks owns 64 keys
+//      of one (b, kv head); K and V stay resident in swizzled shared
+//      memory.  The work is the group's (q head, q tile) items that see
+//      those keys; block rank r takes items r, r + 2, ... and each of its
+//      two consumer warpgroups every other one of those, so four
+//      warpgroups split the items round robin.  A producer thread streams
+//      each item's Q and dO tiles (TMA, 4-D tensor maps) and its rows'
+//      lse2 and Di (bulk copies) through a four-stage mbarrier ring.  Per
+//      item: S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 from shared
+//      memory (both K-major); P^T = exp2(scale log2(e) S^T - lse2), zeroed
+//      above the diagonal only on the tile that crosses it; dS^T = P^T
+//      (dP^T - Di); then dV += P^T dO and dK += dS^T Q as wgmma with P^T
+//      and dS^T from registers (the m64n64 accumulator layout is the
+//      register-A layout of its k16 slices, as in the forward's PV) and dO
+//      and Q read MN-major from the same tiles, as the forward reads V.
+//      The four warpgroups' sums meet in a fixed order, (rank 0 wg 0 +
+//      rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1): warpgroup 1 hands its
+//      sums to warpgroup 0 through the (then idle) ring, and rank 0 reads
+//      rank 1's through distributed shared memory.
+//   3. flash_bwd_dq_wgmma_kernel: mirrors the forward: 128 q rows of one
+//      (b, q head) as two consumer warpgroups of 64 rows, Q and dO
+//      resident, a four-stage TMA ring of (K, V) tiles; S = Q K^T and dP =
+//      dO V^T as wgmma from shared memory, dS in registers, dQ += dS K
+//      with K read MN-major.  Q tiles launch last first (heaviest first).
+//   Grid balance: the causal work of a key tile falls with its index (at
+//   B=2 S=T=512 Hkv=8, key tile t has 4 (8 - t) items), so the dK/dV grid
+//   splits each key tile over four warpgroups and launches key tile 0
+//   first: 256 blocks whose longest warpgroup walks 8 items against a mean
+//   of 4.5 (1.78), which heaviest-first scheduling on 132 SMs turns into
+//   a makespan of 9 item steps against the ideal 8.73 (1.03).  A block
+//   that owned a whole key tile for all four heads would walk 16 (the
+//   previous design's grid: 32 q tiles for the first block, 4 for the
+//   last).
+//   Precision: P^T and dS^T enter the tensor cores rounded once to bf16,
+//   as FlashAttention does, with fp32 sums; S, dP, dK, dV and dQ are fp32
+//   until the final store.  The CPU emulation
+//   (tests/test_torch_kernels.py) shows one rounding stays inside the bf16
+//   backward tolerance at qwen3-8b's head layout, so no hi + lo split.
+//   Registers: the consumers take 240 (setmaxnreg; the producer keeps 24):
+//   dK and dV take 128 fp32 a thread at D = 128, S^T and dP^T 64 more.
+//   ptxas reports 168 for both kernels (a 384-thread block's launch
+//   share), no spills, and no warning that it serialised a wgmma: the
+//   wgmma calls sit on straight-line code, never under a branch.
+// fp32 at every D, and bf16 at D = 160 and 256, keep the FMA body (a TF32
+// body would miss the fp32 specification, and 160 / 256 do not fit the
+// 64-column swizzle tiles):
+//   1. flash_bwd_dot_kernel: Di for every (b, h, row), one warp a row;
 //   2. flash_bwd_dkdv_kernel: a block owns BK keys of one (b, kv head) and
 //      walks the q tiles of each q head of its group: S^T = K Q^T and
 //      dP^T = V dO^T, P and dS = P * (dP - Di) into shared memory, then
 //      dV += P^T dO and dK += dS^T Q in registers;
 //   3. flash_bwd_dq_kernel: a block owns BQ rows of one (b, q head) and
 //      walks the kv tiles: S, dP and dS as above, dQ += dS K in registers.
-// Bound on an H100: operations, 10 * B * H * D * (unmasked pairs) flops
-// (S and dP twice, dV, dK, dQ) at 67 TFLOP/s fp32 or 989 bf16; the bytes
-// are small beside them at the model's shapes.  This design does the five
-// products at the fp32 FMA rate whatever the input type (bf16 inputs are
-// widened when a tile is loaded) and recomputes S and dP once in each of
-// kernels 2 and 3; tensor cores are for a later design.
-//
-// Tiles: BQ = BK = 64 at D <= 160, 32 at D = 256 (shared memory: four
-// tiles of rows x (D + 1) fp32 plus P and dS, 198 KB at D = 160, 140 KB at
-// D = 256).  256 threads as 16 x 16: a thread owns a (rows/16) x (cols/16)
-// block of each score tile and (rows/16) rows x D/16 columns of each
-// output tile; rows padded to D + 1 floats keep column reads free of bank
-// conflicts.
+//   Tiles: BQ = BK = 64 at D <= 160, 32 at D = 256 (shared memory: four
+//   tiles of rows x (D + 1) fp32 plus P and dS, 198 KB at D = 160, 140 KB
+//   at D = 256).  256 threads as 16 x 16: a thread owns a (rows/16) x
+//   (cols/16) block of each score tile and (rows/16) rows x D/16 columns
+//   of each output tile; rows padded to D + 1 floats keep column reads
+//   free of bank conflicts.
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;             // FMA body
 
 template <int D>
 struct Tile {
@@ -431,17 +481,623 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 #undef REPRO_BWD_CASE
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body (D <= 128)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+namespace cg = cooperative_groups;
+
+constexpr int TB = 64;                    // rows of every tile (q or kv)
+constexpr int kConsumers = 256;           // 2 consumer warpgroups
+constexpr int kThreadsTC = kConsumers + 128;  // + 1 producer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 4;                // the ring of either kernel
+constexpr int kSplit = 2;                 // blocks a cluster (dK/dV kernel)
+constexpr int kRowAlign = 128;            // rows of the padded lse2 and Di
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kPadLse = 1e30f;          // lse2 of a row past S: P = 0
+// dO and Q (dK/dV kernel) and K (dQ kernel) are read by the second
+// product as MN-major (transposed) B operands, as the forward reads V
+constexpr int kTransB = 1;
+
+// A tile of R rows x D bf16 in shared memory, as flash_attention.cu lays
+// it out: D*2/kRow column blocks of R rows of kRow bytes, swizzled as TMA
+// writes them.
+template <int D>
+struct Layout {
+  static constexpr int kRow = D * 2 < 128 ? D * 2 : 128;   // bytes
+  static constexpr int kBlocks = D * 2 / kRow;
+  static constexpr int kSlices = kRow / 32;     // k16 slices a block row
+  static constexpr uint64_t kSwizzle = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
+  static constexpr int kSbo = 8 * kRow;         // bytes between 8-row groups
+  static constexpr int kTile = TB * D * 2;      // bytes of a 64-row tile
+  static constexpr int kBlockBytes = TB * kRow; // one column block of it
+};
+
+// the 64-row tile at row0 of one head's matrix, every column block
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int row0, int h, int b,
+                                         uint32_t bar) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int blk = 0; blk < L::kBlocks; ++blk)
+    tma_load(dst + blk * L::kBlockBytes, map, blk * L::kRow / 2, row0, h, b,
+             bar);
+}
+
+// K-major descriptor of a 64-row tile, advanced to k16 slice kk of D
+template <int D>
+__device__ __forceinline__ uint64_t kslice(uint64_t desc, int kk) {
+  using L = Layout<D>;
+  const int blk = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+  return desc + ((blk * L::kBlockBytes + off) >> 4);
+}
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile) {
+  return make_desc(tile, 16, Layout<D>::kSbo, Layout<D>::kSwizzle);
+}
+// MN-major descriptor of a 64-row tile read as a (rows x D) B operand;
+// k16 slice kk is rows 16kk .. 16kk + 15
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
+  return make_desc(tile, Layout<D>::kBlockBytes, Layout<D>::kSbo,
+                   Layout<D>::kSwizzle);
+}
+template <int D>
+__device__ __forceinline__ uint64_t mnslice(uint64_t desc, int kk) {
+  return desc + ((2 * Layout<D>::kSbo * kk) >> 4);
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a 64 x 64 fp32 accumulator as the four bf16 A fragments of its k16
+// slices: register a[kk][r] holds x[8kk + 2r], x[8kk + 2r + 1]
+__device__ __forceinline__ void to_a_frags(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// bar.sync on a named barrier of the two consumer warpgroups
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Pre-pass: Di = rowsum(dO * O) and lse2 = log2(e) * lse for every (b, h,
+// row) of a (B, H, Sp) layout whose rows S .. Sp - 1 are padding (Di = 0,
+// lse2 = kPadLse, so that P = 0 there).  D / 8 lanes a row, 16 bytes each.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ lse2,
+                      float* __restrict__ di, int H, int S, int Sp, Strides os,
+                      Strides dos, long long rows) {
+  constexpr int G = D / 8;                  // lanes a row
+  const long long row = static_cast<long long>(blockIdx.x) * (256 / G) +
+                        threadIdx.x / G;
+  const int c = (threadIdx.x % G) * 8;
+  const bool live = row < rows;
+  const int s = live ? static_cast<int>(row % Sp) : 0;
+  const long long bh = live ? row / Sp : 0;
+  const int h = static_cast<int>(bh % H), b = static_cast<int>(bh / H);
+  const bool in = live && s < S;
+  float acc = 0.f;
+  if (in) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h +
+                                                     s * os.s + c);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        dout + b * dos.b + h * dos.h + s * dos.s + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]), g = __bfloat1622float2(d2[i]);
+      acc += a.x * g.x + a.y * g.y;
+    }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && threadIdx.x % G == 0) {
+    di[row] = in ? acc : 0.f;
+    lse2[row] = in ? lse[bh * S + s] * kLog2e : kPadLse;
+  }
+}
+
+// dK and dV.  A cluster of kSplit blocks owns the 64 keys of kv tile
+// blockIdx.z of one (b, kv head); its work is the group's (q head, q tile)
+// items that see those keys, item j = head-major.  Block rank r of the
+// cluster takes items r, r + kSplit, ...; inside it consumer warpgroup w
+// takes every other one of those, so four warpgroups split the items round
+// robin.  Each sums its items in order into fp32 dK and dV in registers;
+// the sums meet in a fixed order: (rank 0 wg 0 + rank 0 wg 1) + (rank 1 wg
+// 0 + rank 1 wg 1), the second pair read from the peer block's shared
+// memory.
+template <int D>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreadsTC, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ di,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int H, int Hkv, int S, int Sp, int Tk,
+                            Strides dks, Strides dvs, float scale,
+                            int causal) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  // K, V; the ring of (Q, dO) stages; each stage's lse2 and Di rows; the
+  // barriers.  The ring doubles as the buffer of the final reduction.
+  const uint32_t sk = (smem_addr(smem_tc) + 1023) & ~1023u;
+  const uint32_t sv = sk + L::kTile;
+  const uint32_t ring = sv + L::kTile;
+  const uint32_t rows_s = ring + kStages * 2 * L::kTile;
+  const uint32_t bars = rows_s + kStages * 2 * TB * 4;
+  auto stage = [&](int s) { return ring + s * 2 * L::kTile; };  // Q, dO
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t kv_full = bars + 16 * kStages;
+  unsigned char* base = smem_tc + (sk - smem_addr(smem_tc));
+  const float* lse_s = reinterpret_cast<const float*>(base + (rows_s - sk));
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int t = blockIdx.z, k0 = t * TB;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int group = H / Hkv;
+  const int nq = (S + TB - 1) / TB;
+  // q tiles at or below the diagonal: q tile t is the first with a row at
+  // or below this tile's first key
+  const int qt0 = causal ? min(t, nq) : 0;
+  const int per_head = nq - qt0;
+  const int items = group * per_head;
+  const int mine = (items - rank + kSplit - 1) / kSplit;   // this block's
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), 4);             // the consuming warpgroup's warps
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // One if/else, never joined again (each side has its own register
+  // budget); both sides end in the same two cluster barriers.
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid == kConsumers) {
+      mbar_expect_tx(kv_full, 2 * L::kTile);
+      tma_tile<D>(sk, &k_map, k0, hk, b, kv_full);
+      tma_tile<D>(sv, &v_map, k0, hk, b, kv_full);
+      for (int i = 0; i < mine; ++i) {
+        const int j = rank + kSplit * i;
+        const int h = hk * group + j / per_head;
+        const int q0 = (qt0 + j % per_head) * TB;
+        const int s = i % kStages;
+        mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTile + 2 * TB * 4);
+        tma_tile<D>(stage(s), &q_map, q0, h, b, full(s));
+        tma_tile<D>(stage(s) + L::kTile, &do_map, q0, h, b, full(s));
+        const long long r0 = (static_cast<long long>(b) * H + h) * Sp + q0;
+        bulk_load(rows_s + s * 2 * TB * 4, lse2 + r0, TB * 4, full(s));
+        bulk_load(rows_s + s * 2 * TB * 4 + TB * 4, di + r0, TB * 4, full(s));
+      }
+    }
+    __syncwarp();                         // the warp meets again first
+    cluster.sync();
+    cluster.sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int wg = tid / 128, wt = tid % 128;
+    const int warp = wt / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    // this thread's accumulator rows are keys kr[0], kr[1]; its columns
+    // 8j + col0 + e
+    const int kr[2] = {k0 + 16 * warp + lane / 4, k0 + 16 * warp + lane / 4 + 8};
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float st[32], dpt[32];
+    uint32_t pa[4][4], dsa[4][4];
+    const uint64_t kd = kmajor<D>(sk), vd = kmajor<D>(sv);
+
+    mbar_wait(kv_full, 0);
+    for (int i = wg; i < mine; i += 2) {
+      const int s = i % kStages;
+      const int j = rank + kSplit * i;
+      const int q0 = (qt0 + j % per_head) * TB;
+      mbar_wait(full(s), (i / kStages) & 1);
+      const uint32_t sq = stage(s), sdo = stage(s) + L::kTile;
+      // S^T = K Q^T and dP^T = V dO^T over D
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<TB>(st, kslice<D>(kd, kk), kslice<D>(kmajor<D>(sq), kk),
+                     kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<TB>(dpt, kslice<D>(vd, kk), kslice<D>(kmajor<D>(sdo), kk),
+                     kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp2(scale log2(e) S^T - lse2), zero above the diagonal
+      // (only the tile that crosses it has such entries); dS^T = P^T (dP^T
+      // - Di).  st[4jj + 2r + e]: key kr[r], q row q0 + 8jj + col0 + e
+      const float* lrow = lse_s + s * 2 * TB;
+      const float* drow = lrow + TB;
+      const bool diag = causal && k0 + TB - 1 > q0;
+      const float scale2 = scale * kLog2e;
+#pragma unroll
+      for (int jj = 0; jj < TB / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jj + col0 + e;
+          const float l2 = lrow[c], dd = drow[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * jj + 2 * r + e;
+            float p = fast_exp2(fmaf(st[x], scale2, -l2));
+            if (diag && kr[r] > q0 + c) p = 0.f;
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - dd);
+          }
+        }
+      to_a_frags(st, pa);
+      to_a_frags(dpt, dsa);
+
+      // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+      wgmma_fence();
+      const uint64_t dom = mnmajor<D>(sdo), qm = mnmajor<D>(sq);
+#pragma unroll
+      for (int kk = 0; kk < TB / 16; ++kk)
+        wgmma_rs<kTransB>(dv_acc, pa[kk], mnslice<D>(dom, kk));
+#pragma unroll
+      for (int kk = 0; kk < TB / 16; ++kk)
+        wgmma_rs<kTransB>(dk_acc, dsa[kk], mnslice<D>(qm, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      if (lane == 0) mbar_arrive(empty(s));   // this warp is done with s
+    }
+
+    // Every item has landed and been read: the ring is free.  Warpgroup 1
+    // hands its sums to warpgroup 0 through it (one float a thread a slot,
+    // so consecutive threads touch consecutive words), which adds them;
+    // rank 1's warpgroup 0 leaves its block's sums there for rank 0.
+    float* red = reinterpret_cast<float*>(base + (ring - sk));
+    consumers_sync();
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        red[i * 128 + wt] = dv_acc[i];
+        red[(D / 2 + i) * 128 + wt] = dk_acc[i];
+      }
+    }
+    consumers_sync();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dv_acc[i] += red[i * 128 + wt];
+        dk_acc[i] += red[(D / 2 + i) * 128 + wt];
+      }
+      if (rank == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          red[i * 128 + wt] = dv_acc[i];
+          red[(D / 2 + i) * 128 + wt] = dk_acc[i];
+        }
+      }
+    }
+    cluster.sync();
+    if (wg == 0 && rank == 0) {
+      const float* peer = cluster.map_shared_rank(red, 1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dv_acc[i] += peer[i * 128 + wt];
+        dk_acc[i] += peer[(D / 2 + i) * 128 + wt];
+      }
+      // dk_acc[4jj + 2r + e]: key kr[r], column 8jj + col0 + e; keys past
+      // T are not stored, keys no query sees get zeros
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (kr[r] >= Tk) continue;
+        bf16* dkr = dk + b * dks.b + hk * dks.h + kr[r] * dks.s;
+        bf16* dvr = dv + b * dvs.b + hk * dvs.h + kr[r] * dvs.s;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<uint32_t*>(dkr + 8 * jj + col0) =
+              pack_bf16(dk_acc[4 * jj + 2 * r] * scale,
+                        dk_acc[4 * jj + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvr + 8 * jj + col0) =
+              pack_bf16(dv_acc[4 * jj + 2 * r], dv_acc[4 * jj + 2 * r + 1]);
+        }
+      }
+    }
+    cluster.sync();                       // rank 1's buffer stays till read
+  }
+}
+
+// dQ.  A block owns 128 q rows of one (b, q head) as two consumer
+// warpgroups of 64 rows, Q and dO resident, and walks the kv tiles at or
+// left of its diagonal through a TMA ring of (K, V) stages, as the forward
+// does: S = Q K^T, dP = dO V^T, dS = P (dP - Di), dQ += dS K.  Q tiles
+// are launched last first, so the causal blocks with the most tiles start
+// first.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ di,
+                          bf16* __restrict__ dq, int group, int S, int Sp,
+                          int Tk, Strides dqs, float scale, int causal) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  // Q and dO of each warpgroup, the (K, V) ring, the barriers
+  const uint32_t sq = (smem_addr(smem_tc) + 1023) & ~1023u;  // Q0 Q1 dO0 dO1
+  const uint32_t ring = sq + 4 * L::kTile;
+  const uint32_t bars = ring + kStages * 2 * L::kTile;
+  auto stage = [&](int s) { return ring + s * 2 * L::kTile; };  // K, V
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t q_full = bars + 16 * kStages;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int H = gridDim.x;
+  const int q_start = (gridDim.z - 1 - blockIdx.z) * 2 * TB;  // last first
+  const int kvh = h / group;
+  int nk = (Tk + TB - 1) / TB;
+  if (causal) nk = min(nk, (q_start + 2 * TB - 1) / TB + 1);  // k0 <= q_end
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full(i), 1);
+      mbar_init(empty(i), kConsumers / 32);   // one arrival a warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, 4 * L::kTile);
+      tma_tile<D>(sq, &q_map, q_start, h, b, q_full);
+      tma_tile<D>(sq + L::kTile, &q_map, q_start + TB, h, b, q_full);
+      tma_tile<D>(sq + 2 * L::kTile, &do_map, q_start, h, b, q_full);
+      tma_tile<D>(sq + 3 * L::kTile, &do_map, q_start + TB, h, b, q_full);
+      for (int t = 0; t < nk; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTile);
+        tma_tile<D>(stage(s), &k_map, t * TB, kvh, b, full(s));
+        tma_tile<D>(stage(s) + L::kTile, &v_map, t * TB, kvh, b, full(s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int wg_start = q_start + TB * wg;
+    const int row0 = wg_start + 16 * warp + lane / 4;
+    const int rows[2] = {row0, row0 + 8};
+    const int col0 = 2 * (lane % 4);
+    const float scale2 = scale * kLog2e;
+    // rows < Sp always: Sp is a multiple of the block's 128 rows
+    const long long rb = (static_cast<long long>(b) * H + h) * Sp;
+    const float l2[2] = {lse2[rb + rows[0]], lse2[rb + rows[1]]};
+    const float dd[2] = {di[rb + rows[0]], di[rb + rows[1]]};
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    float sc[32], dp[32];
+    uint32_t dsa[4][4];
+    const uint64_t qd = kmajor<D>(sq + wg * L::kTile);
+    const uint64_t dod = kmajor<D>(sq + (2 + wg) * L::kTile);
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages, k_start = t * TB;
+      mbar_wait(full(s), (t / kStages) & 1);
+      const uint32_t sk = stage(s), sv = stage(s) + L::kTile;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<TB>(sc, kslice<D>(qd, kk), kslice<D>(kmajor<D>(sk), kk),
+                     kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<TB>(dp, kslice<D>(dod, kk), kslice<D>(kmajor<D>(sv), kk),
+                     kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // sc[4jj + 2r + e]: row rows[r], key k_start + 8jj + col0 + e
+      const bool edge = k_start + TB > Tk ||
+                        (causal && k_start + TB - 1 > wg_start);
+#pragma unroll
+      for (int jj = 0; jj < TB / 8; ++jj)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * jj + 2 * r + e;
+            const int key = k_start + 8 * jj + col0 + e;
+            float p = fast_exp2(fmaf(sc[x], scale2, -l2[r]));
+            if (edge && (key >= Tk || (causal && key > rows[r]))) p = 0.f;
+            dp[x] = p * (dp[x] - dd[r]);
+          }
+      to_a_frags(dp, dsa);
+
+      fence_regs(dq_acc);
+      fence_regs(dsa);
+      wgmma_fence();
+      const uint64_t km = mnmajor<D>(sk);
+#pragma unroll
+      for (int kk = 0; kk < TB / 16; ++kk)
+        wgmma_rs<kTransB>(dq_acc, dsa[kk], mnslice<D>(km, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= S) continue;
+      bf16* dqr = dq + b * dqs.b + h * dqs.h + rows[r] * dqs.s;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(dqr + 8 * jj + col0) =
+            pack_bf16(dq_acc[4 * jj + 2 * r] * scale,
+                      dq_acc[4 * jj + 2 * r + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  return 1024 + static_cast<size_t>(2 + 2 * kStages) * Layout<D>::kTile +
+         kStages * 2 * TB * 4 + (2 * kStages + 1) * 8;
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + static_cast<size_t>(4 + 2 * kStages) * Layout<D>::kTile +
+         (2 * kStages + 1) * 8;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      float* scratch, void* dq, void* dk, void* dv, int B,
+                      int H, int Hkv, int S, int Tk, Strides qs, Strides ks,
+                      Strides vs, Strides os, Strides dos, Strides dqs,
+                      Strides dks, Strides dvs, float scale, int causal,
+                      cudaStream_t stream) {
+  static bool configured = false;   // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dkdv_smem<D>()));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dq_smem<D>()));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  constexpr int kBox = Layout<D>::kRow / 2;    // columns a swizzle block
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t e = make_map(&q_map, q, B, H, S, D, qs, TB, kBox);
+  if (e == cudaSuccess) e = make_map(&k_map, k, B, Hkv, Tk, D, ks, TB, kBox);
+  if (e == cudaSuccess) e = make_map(&v_map, v, B, Hkv, Tk, D, vs, TB, kBox);
+  if (e == cudaSuccess)
+    e = make_map(&do_map, dout, B, H, S, D, dos, TB, kBox);
+  if (e != cudaSuccess) return e;
+  const int Sp = (S + kRowAlign - 1) / kRowAlign * kRowAlign;
+  const long long rows = static_cast<long long>(B) * H * Sp;
+  float* lse2 = scratch;
+  float* di = scratch + rows;
+  const long long prep_blocks = (rows + 256 / (D / 8) - 1) / (256 / (D / 8));
+  if (prep_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_prep_kernel<D><<<static_cast<unsigned>(prep_blocks), 256, 0,
+                             stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse2,
+      di, H, S, Sp, os, dos, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_wgmma_kernel<D>
+      <<<dim3(kSplit, B * Hkv, (Tk + TB - 1) / TB), kThreadsTC,
+         dkdv_smem<D>(), stream>>>(q_map, k_map, v_map, do_map, lse2, di,
+                                   static_cast<bf16*>(dk),
+                                   static_cast<bf16*>(dv), H, Hkv, S, Sp, Tk,
+                                   dks, dvs, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<dim3(H, B, (S + 2 * TB - 1) / (2 * TB)), kThreadsTC, dq_smem<D>(),
+         stream>>>(q_map, k_map, v_map, do_map, lse2, di,
+                   static_cast<bf16*>(dq), H / Hkv, S, Sp, Tk, dqs, scale,
+                   causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* scratch, void* dq, void* dk, void* dv, int B,
+                        int H, int Hkv, int S, int Tk, Strides qs, Strides ks,
+                        Strides vs, Strides os, Strides dos, Strides dqs,
+                        Strides dks, Strides dvs, float scale, int causal,
+                        cudaStream_t st) {
+#define REPRO_BWD_TC_CASE(DIM)                                                \
+  case DIM:                                                                   \
+    return launch_tc<DIM>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H,   \
+                          Hkv, S, Tk, qs, ks, vs, os, dos, dqs, dks, dvs,     \
+                          scale, causal, st);
+  switch (D) {
+    REPRO_BWD_TC_CASE(16)
+    REPRO_BWD_TC_CASE(32)
+    REPRO_BWD_TC_CASE(64)
+    REPRO_BWD_TC_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_TC_CASE
+}
+
 }  // namespace
 
 // The gradients of repro_flash_attention's o.  q, o, dout, dq: (B, H, S, D)
 // views; k, v, dk, dv: (B, Hkv, T, D) views; each given by its element
 // strides over (b, h, s) with the last axis contiguous, all of one dtype.
-// lse: the forward's contiguous fp32 (B, H, S) logsumexp; delta: a
-// contiguous fp32 (B, H, S) scratch for Di.  Returns the cudaError_t of the
+// lse: the forward's contiguous fp32 (B, H, S) logsumexp; scratch: a
+// contiguous fp32 buffer of 2 * B * H * Sp floats, Sp = S rounded up to a
+// multiple of 128 (the FMA body keeps Di in its first B * H * S; the
+// tensor-core body keeps lse2 and Di there, each (B, H, Sp)).  bf16 runs
+// the tensor-core body at D <= 128 (every row start 16-byte aligned) and
+// the FMA body at D = 160 and 256.  Returns the cudaError_t of the
 // launches (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int H, int Hkv, int S, int Tk, int D,
     const long long* strides, float scale, int causal, int dtype,
     void* stream) {
@@ -454,15 +1110,23 @@ extern "C" int repro_flash_attention_bwd(
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
-  auto* dl = static_cast<float*>(delta);
+  auto* dl = static_cast<float*>(scratch);
   if (dtype == kFloat32)
     return dispatch_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H,
                              Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
                              st[5], st[6], st[7], scale, causal, s);
-  if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv,
-                                     B, H, Hkv, S, Tk, st[0], st[1], st[2],
-                                     st[3], st[4], st[5], st[6], st[7], scale,
-                                     causal, s);
-  return cudaErrorInvalidValue;
+  if (dtype != kBFloat16) return cudaErrorInvalidValue;
+  if (D > 128)
+    return dispatch_d<bf16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H,
+                            Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
+                            st[5], st[6], st[7], scale, causal, s);
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  for (int i = 0; i < 8; ++i)
+    if (!aligned16(ptrs[i], st[i])) return cudaErrorInvalidValue;
+  if (static_cast<long long>(B) * Hkv > 65535 || (Tk + TB - 1) / TB > 65535 ||
+      (S + 2 * TB - 1) / (2 * TB) > 65535)
+    return cudaErrorInvalidValue;
+  return dispatch_tc(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv, S,
+                     Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                     st[7], scale, causal, s);
 }

@@ -72,6 +72,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory at dst, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // order this thread's shared-memory writes before later reads of the same
 // bytes by wgmma or TMA (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {

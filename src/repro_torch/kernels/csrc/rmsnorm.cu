@@ -30,15 +30,30 @@
 // r = rsqrt(mean(x^2) + eps) and xh = x * r, dx = r * (g*s - xh *
 // mean(g*s*xh)) and dscale = sum over rows of g * xh, all in fp32.  The
 // reference defines no backward for its Pallas kernel; this is the
-// gradient of the same function.  It keeps the forward's lane groups: a
-// lane loads its vectors of x, g and scale, the group reduces sum(x^2) and
-// sum(g*s*x) together, and the lane writes dx and adds g * xh to its own
-// dscale partials.  Blocks walk the rows with a stride of the grid
-// (``blocks`` from kernels/rmsnorm.py: bwd_blocks), sum their rows'
-// partials in shared memory in row order and write one row of partials
-// each; the second kernel sums those rows in block order, one thread a
-// column.  No float atomics, so dscale is the same on every run.  Bound:
-// bytes, x, g and dx once each, scale and dscale.
+// gradient of the same function.  Bound: bytes, x, g and dx once each,
+// scale and dscale.
+//   * Rows: the forward's lane groups, at most 4 16-byte vectors a lane
+//     (max_nv_bwd; 8 single elements), so a block of 256 threads keeps
+//     its registers under 128 a thread.  One block an SM of an H100
+//     (kernels/rmsnorm.py: bwd_blocks), each walking its row groups with
+//     the grid's stride; the SM's 8 warps overlap one's loads with
+//     another's math.  Scale is read from the cache where it is used.
+//     Each lane adds g * xh of its rows to its own dscale partials.  On
+//     an H100 neither a second row group loaded ahead into registers, nor
+//     a ring of 4 row groups in shared memory filled by TMA bulk copies,
+//     nor 2 or 3 blocks an SM was faster than this plain form: what
+//     remains is HBM's rate and the latency of the first loads of a
+//     launch that moves some 190 KB an SM at (1024, 4096) bf16.
+//   * Partials: one fp32 row a block (132 rows at most, where the first
+//     design wrote one a 4-row block: 256 at (1024, 4096)).  The block's
+//     row groups meet in shared memory in group order, after one barrier.
+//   * dscale: rmsnorm_dscale_kernel spreads the sum over the card: a
+//     block owns 32 columns, its 8 warps each sum every 8th partial row
+//     in order, and warp 0 sums the 8 in order.  It is launched as a
+//     programmatic dependent of the row kernel (griddepcontrol), so its
+//     blocks are in place and waiting when the row kernel ends.  No float
+//     atomics: the order is a function of the shape alone, so dscale is
+//     the same on every run.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -48,6 +63,17 @@ namespace {
 constexpr int kMaxNV = 8;       // vectors held in registers per lane
 constexpr int kMinBlock = 256;  // threads a block, or LANES if wider
 constexpr int kMaxVecSpan = 1024;  // LANES * VEC of the widest vector build
+constexpr int kMaxVecSpanBwd = 2048;  // the same for the backward
+constexpr int kDscaleCols = 32;    // columns a block of the dscale pass
+constexpr int kDscaleWarps = 8;    // warps a block of the dscale pass
+
+constexpr int kMaxSmemBwd = 32 << 10;  // the backward's group sums, fp32
+
+// vectors a lane holds in the backward: 4 of 16 bytes, or 8 elements
+template <int VEC>
+__host__ __device__ constexpr int max_nv_bwd() {
+  return VEC > 1 ? 4 : 8;
+}
 
 template <int LANES>
 __host__ __device__ constexpr int block_threads() {
@@ -145,46 +171,50 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
   using VS = Vec<TS, VEC>;
   constexpr int kThreads = block_threads<LANES>();
   constexpr int kRows = kThreads / LANES;
-  extern __shared__ float block_sum[];   // d floats: the block's dscale
+  constexpr int NV = max_nv_bwd<VEC>();
+  __shared__ float warp_sums[2][kThreads / 32];   // wide groups' sums
   const int lane = threadIdx.x % LANES;
   const int sub = threadIdx.x / LANES;
   const int nvec = d / VEC;
+  auto has = [&](int i) { return i < nv && lane + i * LANES < nvec; };
+  // scale at this lane's columns, read where it is used (the cache keeps
+  // it: d elements for the whole grid)
   const VS* sr = reinterpret_cast<const VS*>(scale);
 
-  float acc[kMaxNV][VEC];                // this lane's dscale partials
+  float acc[NV][VEC];                    // this lane's dscale partials
 #pragma unroll
-  for (int i = 0; i < kMaxNV; ++i)
+  for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
 
   // the loop runs the same number of times in every thread of the block
+  // the dscale pass may start to take its places on the SMs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   for (long long row0 = static_cast<long long>(blockIdx.x) * kRows;
        row0 < rows; row0 += static_cast<long long>(gridDim.x) * kRows) {
     const long long row = row0 + sub;
     const bool active = row < rows;
-    const V* xr = reinterpret_cast<const V*>(x + (active ? row : 0) * d);
-    const V* gr = reinterpret_cast<const V*>(g + (active ? row : 0) * d);
-    V xb[kMaxNV], gb[kMaxNV];
-    VS sb[kMaxNV];
+    V xb[NV], gb[NV];
+    if (active) {
+      const V* xr = reinterpret_cast<const V*>(x + row * d);
+      const V* gr = reinterpret_cast<const V*>(g + row * d);
 #pragma unroll
-    for (int i = 0; i < kMaxNV; ++i) {
-      const int vi = lane + i * LANES;
-      if (active && i < nv && vi < nvec) {
-        xb[i] = xr[vi];
-        gb[i] = gr[vi];
-        sb[i] = sr[vi];
-      }
+      for (int i = 0; i < NV; ++i)
+        if (has(i)) {
+          xb[i] = xr[lane + i * LANES];
+          gb[i] = gr[lane + i * LANES];
+        }
     }
     float ss = 0.f, gsx = 0.f;           // sum(x^2), sum(g*s*x)
 #pragma unroll
-    for (int i = 0; i < kMaxNV; ++i) {
-      const int vi = lane + i * LANES;
-      if (active && i < nv && vi < nvec) {
+    for (int i = 0; i < NV; ++i) {
+      if (active && has(i)) {
+        const VS sv = sr[lane + i * LANES];
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           const float xf = repro::to_f32(xb[i].v[e]);
           ss += xf * xf;
-          gsx += repro::to_f32(gb[i].v[e]) * repro::to_f32(sb[i].v[e]) * xf;
+          gsx += repro::to_f32(gb[i].v[e]) * repro::to_f32(sv.v[e]) * xf;
         }
       }
     }
@@ -195,7 +225,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
     }
     if constexpr (LANES > 32) {
       constexpr int kWarps = LANES / 32;
-      __shared__ float warp_sums[2][kThreads / 32];
       if (threadIdx.x % 32 == 0) {
         warp_sums[0][threadIdx.x / 32] = ss;
         warp_sums[1][threadIdx.x / 32] = gsx;
@@ -211,58 +240,79 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
     }
     const float r = rsqrtf(ss / static_cast<float>(d) + eps);
     const float mean_gsxh = r * gsx / static_cast<float>(d);
-    if (active) {
-      V* dxr = reinterpret_cast<V*>(dx + row * d);
+    if (!active) continue;
+    V* dxr = reinterpret_cast<V*>(dx + row * d);
 #pragma unroll
-      for (int i = 0; i < kMaxNV; ++i) {
-        const int vi = lane + i * LANES;
-        if (i < nv && vi < nvec) {
-          V out;
+    for (int i = 0; i < NV; ++i) {
+      if (has(i)) {
+        const VS sv = sr[lane + i * LANES];
+        V out;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const float xh = repro::to_f32(xb[i].v[e]) * r;
-            const float gf = repro::to_f32(gb[i].v[e]);
-            out.v[e] = repro::from_f32<T>(
-                r * (gf * repro::to_f32(sb[i].v[e]) - xh * mean_gsxh));
-            acc[i][e] += gf * xh;
-          }
-          dxr[vi] = out;
+        for (int e = 0; e < VEC; ++e) {
+          const float xh = repro::to_f32(xb[i].v[e]) * r;
+          const float gf = repro::to_f32(gb[i].v[e]);
+          out.v[e] = repro::from_f32<T>(
+              r * (gf * repro::to_f32(sv.v[e]) - xh * mean_gsxh));
+          acc[i][e] += gf * xh;
         }
+        dxr[lane + i * LANES] = out;
       }
     }
   }
 
-  // the block's rows in order: group 0, then 1, ... into shared memory
-  for (int s = 0; s < kRows; ++s) {
-    if (sub == s) {
+  // the block's row groups in group order, then one partial row a block
+  float* prow = partial + static_cast<long long>(blockIdx.x) * d;
+  if constexpr (kRows > 1) {
+    extern __shared__ float group_sums[];  // kRows x d
 #pragma unroll
-      for (int i = 0; i < kMaxNV; ++i) {
-        const int vi = lane + i * LANES;
-        if (i < nv && vi < nvec) {
+    for (int i = 0; i < NV; ++i)
+      if (has(i)) {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) {
-            const int col = vi * VEC + e;
-            block_sum[col] = (s > 0 ? block_sum[col] : 0.f) + acc[i][e];
-          }
-        }
+        for (int e = 0; e < VEC; ++e)
+          group_sums[sub * d + (lane + i * LANES) * VEC + e] = acc[i][e];
       }
-    }
     __syncthreads();
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < kRows; ++s) sum += group_sums[s * d + c];
+      prow[c] = sum;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (has(i)) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          prow[(lane + i * LANES) * VEC + e] = acc[i][e];
+      }
   }
-  for (int c = threadIdx.x; c < d; c += kThreads)
-    partial[static_cast<long long>(blockIdx.x) * d + c] = block_sum[c];
 }
 
-// dscale[c] = the sum of the blocks' partials of column c, in block order
+// dscale[c] = the sum of the blocks' partials of column c: a block owns
+// kDscaleCols columns; warp w sums partial rows w, w + kDscaleWarps, ...
+// in order, then the warps' sums are added in warp order
 template <typename TS>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kDscaleCols * kDscaleWarps)
 rmsnorm_dscale_kernel(const float* __restrict__ partial,
                       TS* __restrict__ dscale, int blocks, int d) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= d) return;
+  __shared__ float sums[kDscaleWarps][kDscaleCols];
+  // the row kernel's partials are complete and visible after this
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int lane = threadIdx.x % kDscaleCols, w = threadIdx.x / kDscaleCols;
+  const int c = blockIdx.x * kDscaleCols + lane;
   float sum = 0.f;
-  for (int b = 0; b < blocks; ++b) sum += partial[static_cast<long long>(b) * d + c];
-  dscale[c] = repro::from_f32<TS>(sum);
+  if (c < d)
+    for (int b = w; b < blocks; b += kDscaleWarps)
+      sum += partial[static_cast<long long>(b) * d + c];
+  sums[w][lane] = sum;
+  __syncthreads();
+  if (w == 0 && c < d) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDscaleWarps; ++i) total += sums[i][lane];
+    dscale[c] = repro::from_f32<TS>(total);
+  }
 }
 
 // One launch of either direction.  The forward reads x and scale and
@@ -282,7 +332,7 @@ struct Args {
 };
 
 template <typename T, typename TS, int VEC, int LANES>
-cudaError_t launch(const Args& a) {
+cudaError_t launch_fwd(const Args& a) {
   constexpr int kThreads = block_threads<LANES>();
   // a vector group never spans more than kMaxVecSpan elements (MAX_D =
   // 8192 at 8 vectors a lane): wider ones are not built
@@ -298,26 +348,62 @@ cudaError_t launch(const Args& a) {
     const long long blocks =
         (a.rows + a.rows_per_block - 1) / a.rows_per_block;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    if (a.g == nullptr) {
-      rmsnorm_kernel<T, TS, VEC, LANES>
-          <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
-              static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
-              static_cast<T*>(a.y), a.rows, d, nv, a.eps);
-      return cudaGetLastError();
-    }
-    if (a.blocks < 1 || a.blocks > blocks || a.partial == nullptr)
+    rmsnorm_kernel<T, TS, VEC, LANES>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
+            static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
+            static_cast<T*>(a.y), a.rows, d, nv, a.eps);
+    return cudaGetLastError();
+  }
+}
+
+template <typename T, typename TS, int VEC, int LANES>
+cudaError_t launch_bwd(const Args& a) {
+  constexpr int kThreads = block_threads<LANES>();
+  // at most 4 vectors a lane: MAX_D = 8192 needs vector groups of 2048
+  if constexpr (VEC > 1 && LANES * VEC > kMaxVecSpanBwd) {
+    return cudaErrorInvalidValue;
+  } else {
+    const int d = a.d, nv = a.nv;
+    if (a.rows_per_block != kThreads / LANES || nv < 1 ||
+        nv > max_nv_bwd<VEC>() || d % VEC != 0 || LANES * nv < d / VEC ||
+        LANES * (nv - 1) >= d / VEC)
       return cudaErrorInvalidValue;
+    const long long groups =
+        (a.rows + a.rows_per_block - 1) / a.rows_per_block;
+    if (a.blocks < 1 || a.blocks > groups || a.partial == nullptr)
+      return cudaErrorInvalidValue;
+    constexpr int kRows = kThreads / LANES;
+    const size_t smem = kRows > 1 ? sizeof(float) * kRows * d : 0;
+    if (smem > kMaxSmemBwd) return cudaErrorInvalidValue;
     rmsnorm_bwd_kernel<T, TS, VEC, LANES>
-        <<<a.blocks, kThreads, d * sizeof(float), a.stream>>>(
+        <<<a.blocks, kThreads, smem, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
             static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial,
             a.rows, d, nv, a.eps);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    rmsnorm_dscale_kernel<TS><<<(d + 255) / 256, 256, 0, a.stream>>>(
-        a.partial, static_cast<TS*>(a.dscale), a.blocks, d);
-    return cudaGetLastError();
+    // launched as a programmatic dependent of the row kernel: its blocks
+    // take their places while the row kernel runs and wait for it there
+    // (griddepcontrol.wait), so the launch's latency is hidden
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((d + kDscaleCols - 1) / kDscaleCols);
+    cfg.blockDim = dim3(kDscaleCols * kDscaleWarps);
+    cfg.stream = a.stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, rmsnorm_dscale_kernel<TS>,
+                              static_cast<const float*>(a.partial),
+                              static_cast<TS*>(a.dscale), a.blocks, d);
   }
+}
+
+template <typename T, typename TS, int VEC, int LANES>
+cudaError_t launch(const Args& a) {
+  return a.g == nullptr ? launch_fwd<T, TS, VEC, LANES>(a)
+                        : launch_bwd<T, TS, VEC, LANES>(a);
 }
 
 template <typename T, typename TS, int VEC>

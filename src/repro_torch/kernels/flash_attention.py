@@ -21,9 +21,14 @@ multiples of 8 elements), which the model's layouts give.  fp32 at every
 D, and bf16 at D = 160 and 256, run on an fp32 FMA body.
 
 The backward (the reference has none: it trains through plain attention)
-recomputes P from the forward's row logsumexp and computes dQ, dK and dV
-with fp32 FMA kernels; dK and dV of a kv head sum its group of q heads
-inside one block, so they are deterministic.
+recomputes P from the forward's row logsumexp.  bf16 at D <= 128 runs on
+the tensor cores (the source header has the design): a pre-pass for Di
+and lse in log2 units; a dK/dV kernel whose clusters of two blocks split
+each 64-key tile's (q head, q tile) items over four consumer warpgroups
+(S^T, dP^T, dV and dK as ``wgmma``, P^T and dS^T rounded once to bf16)
+and sum them in a fixed order; a dQ kernel that mirrors the forward.  fp32
+at every D, and bf16 at D = 160 and 256, run fp32 FMA kernels.  No float
+atomics: every call gives the same bits.
 
 ``flash_attention(q, k, v)`` launches the forward for CUDA tensors and
 raises on anything the kernels do not take; when autograd needs its
@@ -47,6 +52,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 # forward's tensor-core body (dispatch_tc), above it the FMA body
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 TENSOR_CORE_MAX_D = 128
+# the backward's scratch holds two fp32 (B, H, Sp) arrays, Sp = S rounded
+# up to this (csrc/flash_attention_bwd.cu: kRowAlign)
+BWD_ROW_ALIGN = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _bwd_fn = None
@@ -122,15 +130,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "contiguous")
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    """Every row start 16-byte aligned (pointer and strides), as TMA reads
+    the tensor-core bodies' tiles."""
+    return all(t.data_ptr() % 16 == 0 and all(x % 8 == 0
+                                              for x in t.stride()[:3])
+               for t in ts)
+
+
+def _tensor_cores(q: torch.Tensor) -> bool:
+    return q.dtype == torch.bfloat16 and q.shape[3] <= TENSOR_CORE_MAX_D
+
+
 def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     """Launch the forward kernel -> (o laid out like q, the rows'
     logsumexp (B, H, S) fp32 or None)."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     o = _like(q)
-    if q.dtype == torch.bfloat16 and D <= TENSOR_CORE_MAX_D and not all(
-            t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
-            for t in (q, k, v, o)):
+    if _tensor_cores(q) and not _aligned(q, k, v, o):
         raise ValueError("flash_attention: bf16 rows must start 16-byte "
                          "aligned (pointers and strides)")
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -151,7 +169,7 @@ def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool):
-    """The backward kernels (Di pre-pass, dK/dV, dQ): q, o, do (B,H,S,D);
+    """The backward kernels (pre-pass, dK/dV, dQ): q, o, do (B,H,S,D);
     k, v (B,Hkv,T,D); lse the forward's (B,H,S) fp32 logsumexp.  Any
     strides with the last axis contiguous.  -> (dq, dk, dv), each laid out
     like its input."""
@@ -171,13 +189,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool):
     dq, dk, dv = _like(q), _like(k), _like(v)
     if S == 0 or B == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if _tensor_cores(q):
+        if not _aligned(do):
+            do = do.contiguous()
+        if not _aligned(q, k, v, o, do, dq, dk, dv):
+            raise ValueError("flash_attention_bwd: bf16 rows must start "
+                             "16-byte aligned (pointers and strides)")
+    rows = -(-S // BWD_ROW_ALIGN) * BWD_ROW_ALIGN
+    scratch = torch.empty(2 * B * H * rows, dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in _bhs(t)))
     lib, fn = _bwd_entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
               dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, T, D, strides,
               scale, int(causal), _DTYPES[q.dtype], stream)
     build.check(lib, code, "flash_attention_bwd launch")

@@ -11,9 +11,11 @@ loaded before any arithmetic; a block holds several rows
 (``launch_shape`` picks the shape, the source's header says why).
 
 The backward (the reference defines none; this is the gradient of the
-same function) keeps the lane groups: dx = r*(g*s - xh*mean(g*s*xh)) per
-row, and dscale = sum over rows of g*xh, summed per block and then over
-the blocks in a fixed order, so it is the same on every run.
+same function) keeps the lane groups with at most 4 vectors a lane
+(``bwd_launch_shape``): dx = r*(g*s - xh*mean(g*s*xh)) per row, on a grid
+of one block an SM whose blocks walk their rows; dscale = sum over rows of
+g*xh, one partial row a block, then summed over the card in a fixed
+order, so it is the same on every run.
 
 ``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
 anything the kernel does not take; when autograd needs its gradient (grad
@@ -36,9 +38,13 @@ VEC_BYTES = 16             # one vector load
 MAX_VECS_PER_LANE = 8      # csrc/rmsnorm.cu: kMaxNV
 MIN_BLOCK = 256            # csrc/rmsnorm.cu: kMinBlock
 LANE_GROUPS = (8, 16, 32, 64, 128, 256, 512, 1024)   # csrc/rmsnorm.cu builds
-# the backward's grid: at most two blocks an SM of an H100, each walking its
-# rows with the grid's stride; each writes one row of dscale partials
-BWD_MAX_BLOCKS = 264
+# the backward's 16-byte vectors a lane (csrc/rmsnorm.cu: max_nv_bwd; 8
+# single elements)
+BWD_MAX_VECS_PER_LANE = 4
+# the backward's grid: at most one block an SM of an H100 (132), each
+# walking its rows with the grid's stride; each writes one row of dscale
+# partials
+BWD_MAX_BLOCKS = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _bwd_fn = None
@@ -52,20 +58,35 @@ def launch_shape(D: int, itemsize: int, aligned: bool = True):
     single elements.  The group is the narrowest that holds the row in at
     most 8 vectors a lane, so a lane has several loads in flight; a block
     has ``max(256, lanes)`` threads."""
+    return _shape(D, itemsize, aligned, MAX_VECS_PER_LANE)
+
+
+def bwd_launch_shape(D: int, itemsize: int, aligned: bool = True):
+    """The backward kernel's launch shape, as ``launch_shape`` but with at
+    most ``BWD_MAX_VECS_PER_LANE`` 16-byte vectors a lane (8 single
+    elements), so that a block of ``max(MIN_BLOCK, lanes)`` threads keeps
+    its registers under 128 a thread."""
+    full = VEC_BYTES // itemsize
+    vec = 1 if D % full or not aligned else full
+    return _shape(D, itemsize, aligned,
+                  BWD_MAX_VECS_PER_LANE if vec > 1 else MAX_VECS_PER_LANE)
+
+
+def _shape(D: int, itemsize: int, aligned: bool, max_vecs: int):
     if not 1 <= D <= MAX_D:
         raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
     vec = VEC_BYTES // itemsize
     if D % vec or not aligned:
         vec = 1
     nvec = D // vec
-    lanes = next(g for g in LANE_GROUPS if g * MAX_VECS_PER_LANE >= nvec)
+    lanes = next(g for g in LANE_GROUPS if g * max_vecs >= nvec)
     return lanes, -(-nvec // lanes), max(MIN_BLOCK, lanes) // lanes, vec
 
 
 def bwd_blocks(rows: int, rows_per_block: int) -> int:
-    """Blocks of the backward's grid: one per ``rows_per_block`` rows, at
-    most ``BWD_MAX_BLOCKS`` (a function of the shape alone, so the order
-    in which dscale is summed is too)."""
+    """Blocks of the backward's grid: one per group of ``rows_per_block``
+    rows, at most ``BWD_MAX_BLOCKS`` (a function of the shape alone, so
+    the order in which dscale is summed is too)."""
     return max(1, min(-(-rows // rows_per_block), BWD_MAX_BLOCKS))
 
 
@@ -156,7 +177,7 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
     aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, g, dx))
-    lanes, per_lane, rows_per_block, vec = launch_shape(
+    lanes, per_lane, rows_per_block, vec = bwd_launch_shape(
         D, x.element_size(), aligned)
     blocks = bwd_blocks(rows, rows_per_block)
     partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)

@@ -19,7 +19,7 @@ the path's shapes: bytes (see the source's header).
 ``ssd_scan(...)`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; for CPU tensors it runs the plain
 version, ``ref.ssd_scan_ref``.  It never falls back from one to the other.
-The kernel has no backward yet (ROADMAP Queue 2 item 1): on CUDA it raises
+The kernel has no backward yet (ROADMAP Queue 1 item 2): on CUDA it raises
 when autograd would need its gradient, rather than return outputs that
 autograd cannot trace back to the inputs.
 """
@@ -80,8 +80,8 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, Bm, Cm, dt, a, h0)):
         raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward yet (ROADMAP Queue 2 "
-            "item 1); run it under torch.no_grad() or inference_mode(), or "
+            "ssd_scan: the CUDA kernel has no backward yet (ROADMAP Queue 1 "
+            "item 2); run it under torch.no_grad() or inference_mode(), or "
             "on the CPU, where the plain scan is differentiable")
     if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan: x/Bm/Cm dtypes {x.dtype}/{Bm.dtype}/"

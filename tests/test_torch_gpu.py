@@ -216,7 +216,7 @@ def test_cuda_ssd_scan_raises_under_grad():
     x = torch.randn((1, 8, 4, 16), device="cuda").requires_grad_()
     bm = torch.randn((1, 8, 1, 32), device="cuda")
     dt = torch.rand((1, 8, 4), device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         tops.ssd_scan(x, bm, bm, dt, -dt)
     with torch.no_grad():
         y, _ = tops.ssd_scan(x, bm, bm, dt, -dt)
@@ -361,9 +361,25 @@ RMSNORM_MUTANTS = {
 }
 
 
-# Wrong backward kernels, each one edit away from its source: the mask
-# dropped (every key visible), dK/dV summed over one q head of the group,
-# Di left out of dS, and dscale taken from the first block's partials only.
+# Wrong backward kernels, each one edit away from its source.  The bf16
+# tensor-core body's (csrc/flash_attention_bwd.cu): the mask dropped in the
+# dK/dV kernel, dK/dV from the items of one q head of the group, Di left
+# out of the pre-pass, lse taken in natural-log units where the kernels
+# want log2, and the peer block's half of the items (cluster rank 1)
+# dropped from the sum.  The fp32 FMA body's: the mask dropped, dK/dV
+# summed over one q head, Di left out of dS.  RMSNorm: dscale from one
+# partial row.
+FLASH_BWD_MUTANTS_BF16 = {
+    "mask dropped": ("if (diag && kr[r] > q0 + c) p = 0.f;", "(void)diag;"),
+    "dK/dV from one q head": ("const int items = group * per_head;",
+                              "const int items = per_head;"),
+    "Di left out": ("di[row] = in ? acc : 0.f;", "di[row] = 0.f;"),
+    "lse in natural log": (
+        "lse2[row] = in ? lse[bh * S + s] * kLog2e : kPadLse;",
+        "lse2[row] = in ? lse[bh * S + s] : kPadLse;"),
+    "peer block's items dropped": ("""        dv_acc[i] += peer[i * 128 + wt];
+        dk_acc[i] += peer[(D / 2 + i) * 128 + wt];""", "(void)peer;"),
+}
 FLASH_BWD_MUTANTS = {
     "mask dropped": (
         "return q_pos < S && k_pos < Tk && (!causal || q_pos >= k_pos);",
@@ -373,8 +389,9 @@ FLASH_BWD_MUTANTS = {
     "Di left out": ("return p * (dp - di);", "return p * dp;"),
 }
 RMSNORM_BWD_MUTANTS = {
-    "dscale from one block": ("for (int b = 0; b < blocks; ++b) sum +=",
-                              "for (int b = 0; b < 1; ++b) sum +="),
+    "dscale from one partial": (
+        "for (int b = w; b < blocks; b += kDscaleWarps)",
+        "for (int b = w; b < 1; b += kDscaleWarps)"),
 }
 
 
@@ -495,8 +512,9 @@ SSD_MUTANTS_FP32 = {
     ("ssd_scan.cu", SSD_MUTANTS_BF16),
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS),
     ("rmsnorm.cu", RMSNORM_BWD_MUTANTS),
+    ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
-        "flash-bwd", "rmsnorm-bwd"])
+        "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -548,14 +566,16 @@ def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
-    """chip_smoke.py's backward check fails every wrong backward kernel in
-    both dtypes, at the train step's shapes: qwen3-8b's attention (B=2,
-    S=512, 32 q heads in groups of 4) and its (1024, 4096) norm rows (256
-    blocks of dscale partials)."""
+    """chip_smoke.py's backward check fails every wrong backward kernel of
+    the body its dtype runs (the flash tensor-core body's in bf16, the FMA
+    body's in fp32; RMSNorm's in both), at the train step's shapes:
+    qwen3-8b's attention (B=2, S=512, 32 q heads in groups of 4) and its
+    (1024, 4096) norm rows."""
     _need_cuda()
     smoke = _smoke()
-    flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu",
-                           FLASH_BWD_MUTANTS)
+    fmut = {("bfloat16", n): m for n, m in FLASH_BWD_MUTANTS_BF16.items()}
+    fmut.update({("float32", n): m for n, m in FLASH_BWD_MUTANTS.items()})
+    flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu", fmut)
     (tmp_path / "r").mkdir()
     rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu", RMSNORM_BWD_MUTANTS)
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -568,7 +588,9 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
                             device="cuda").to(tdt) for _ in range(2))
         refs = [t.clone().requires_grad_() for t in (q, k, v)]
         tref.flash_attention_ref(*refs, scale=D ** -0.5).backward(do)
-        for name, lib in [("kernel", None), *flibs.items()]:
+        for name, lib in [(("kernel", "kernel"), None), *flibs.items()]:
+            if name[0] not in ("kernel", dn):
+                continue
             if lib is not None:
                 monkeypatch.setattr(tfa, "_bwd_fn", tfa.bind_bwd(lib))
             ins = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -576,9 +598,9 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
             torch.cuda.synchronize()
             err, ok, tol = smoke.check_normwise(
                 [t.grad for t in ins], [t.grad for t in refs], dn)
-            print(f"flash_bwd {name} {dn}: max_abs_err {err:.3g} "
+            print(f"flash_bwd {name[1]} {dn}: max_abs_err {err:.3g} "
                   f"({'passes' if ok else 'fails'} {tol})")
-            rejected[name, dn] = not ok
+            rejected["flash " + name[1], dn] = not ok
         monkeypatch.undo()
         x, gy = (torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
                  for _ in range(2))
@@ -594,12 +616,46 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
             err, ok, tol = smoke.check_normwise(got, want, dn)
             print(f"rmsnorm_bwd {name} {dn}: max_abs_err {err:.3g} "
                   f"({'passes' if ok else 'fails'} {tol})")
-            rejected[name, dn] = rejected.get((name, dn), False) or not ok
+            rejected["rmsnorm " + name, dn] = not ok
         monkeypatch.undo()
-    assert not rejected["kernel", "float32"]
-    assert not rejected["kernel", "bfloat16"]
-    for name in list(FLASH_BWD_MUTANTS) + list(RMSNORM_BWD_MUTANTS):
-        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
+    for dn in DTYPES:
+        assert not rejected["flash kernel", dn]
+        assert not rejected["rmsnorm kernel", dn]
+        for name in RMSNORM_BWD_MUTANTS:
+            assert rejected["rmsnorm " + name, dn], name
+    for name in FLASH_BWD_MUTANTS_BF16:
+        assert rejected["flash " + name, "bfloat16"], name
+    for name in FLASH_BWD_MUTANTS:
+        assert rejected["flash " + name, "float32"], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_backward_kernels_are_deterministic(dtype):
+    """No float atomics: two calls of each backward at the train step's
+    shapes (qwen3-8b's attention, B=2 S=512; its (1024, 4096) norm rows)
+    give the same bits."""
+    _need_cuda()
+    tdt = DTYPES[dtype][0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, S, H, Hkv, D = 2, 512, 32, 8, 128
+    q, do = (torch.randn((B, H, S, D), generator=g, device="cuda").to(tdt)
+             for _ in range(2))
+    k, v = (torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(tdt)
+            for _ in range(2))
+    o, lse = tfa._forward(q, k, v, D ** -0.5, True, with_lse=True)
+    first, second = (tfa.flash_attention_bwd(q, k, v, o, lse, do,
+                                             scale=D ** -0.5, causal=True)
+                     for _ in range(2))
+    x, gy = (torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
+             for _ in range(2))
+    s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(tdt)
+    first += trn.rmsnorm_bwd(x, s, gy)
+    second += trn.rmsnorm_bwd(x, s, gy)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dx", "dscale"), first, second):
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -612,23 +612,36 @@ def _flash_lse_tiled(q, k, *, scale, causal, bk):
     return m + torch.log(l.clamp_min(1e-30))
 
 
-def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r,
-                     drop_mask=False, one_head=False, drop_di=False):
-    """csrc/flash_attention_bwd.cu's three kernels in plain fp32 torch, by
-    tiles of ``r`` rows (BQ = BK): Di = rowsum(dO * O); a dK/dV block per
-    (kv head, key tile) that walks the q tiles at or below the diagonal of
-    every q head of its group, P = exp(scale q.k - lse) masked to 0 outside
-    ``visible``, dS = P (dP - Di); a dQ block per (q head, q tile) over the
-    key tiles at or left of the diagonal.  q, o, do: (B,H,S,D); k, v:
-    (B,Hkv,T,D).  The keyword flags are the one-edit wrong kernels of
-    tests/test_torch_gpu.py."""
+def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r, split,
+                     round_bf16=False, drop_mask=False, one_head=False,
+                     drop_di=False, lse_natural=False, drop_peer=False):
+    """csrc/flash_attention_bwd.cu in plain fp32 torch, by tiles of ``r``
+    rows: Di = rowsum(dO * O) and lse2 = log2(e) * lse (the pre-pass); P =
+    exp2(scale log2(e) q.k - lse2), masked to 0 outside the top-left
+    causal window; dS = P (dP - Di).  dK/dV: each (kv head, key tile)'s
+    items, the group's (q head, q tile) pairs at or below the diagonal in
+    head-major order, are dealt to ``split`` units and summed in each unit
+    in order: split = 4 is the tensor-core body (item j to cluster rank j
+    % 2, then warpgroup (j // 2) % 2; the units meet as (rank 0 wg 0 +
+    rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1)), split = 1 the FMA body
+    (one block walks every item; it takes exp of the natural-log lse,
+    equal to this up to rounding).  dQ: each (q head, q tile) over the key
+    tiles at or left of its diagonal, in order.  ``round_bf16`` rounds P^T
+    and dS^T to bf16 where the tensor cores take them (sums stay fp32).
+    q, o, do: (B,H,S,D); k, v: (B,Hkv,T,D).  The other flags are the
+    one-edit wrong kernels of tests/test_torch_gpu.py."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     group = H // Hkv
+    log2e = 1.4426950408889634
     di = (do * o).sum(-1)
     if drop_di:
         di = torch.zeros_like(di)
+    lse2 = lse if lse_natural else lse * log2e
     dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+
+    def bf(t):
+        return t.to(torch.bfloat16).float() if round_bf16 else t
 
     def visible(q0, nq, k0, nk):
         qp = torch.arange(q0, q0 + nq)[:, None]
@@ -643,7 +656,8 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r,
         ks, vs = k[:, hk, k0:k0 + r], v[:, hk, k0:k0 + r]
         s = qs @ ks.transpose(-1, -2)
         p = torch.where(visible(q0, qs.shape[1], k0, ks.shape[1]),
-                        torch.exp(s * scale - lse[:, h, q0:q0 + r, None]),
+                        torch.exp2(s * (scale * log2e)
+                                   - lse2[:, h, q0:q0 + r, None]),
                         torch.zeros(()))
         ds = p * (dos @ vs.transpose(-1, -2) - di[:, h, q0:q0 + r, None])
         return qs, dos, ks, p, ds
@@ -651,18 +665,32 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r,
     for hk in range(Hkv):
         for k0 in range(0, T, r):
             heads = range(hk * group, hk * group + (1 if one_head else group))
-            for h in heads:
-                for q0 in range((k0 // r) * r if causal else 0, S, r):
-                    qs, dos, _, p, ds = scores(h, hk, q0, k0)
-                    dv[:, hk, k0:k0 + r] += p.transpose(-1, -2) @ dos
-                    dk[:, hk, k0:k0 + r] += ds.transpose(-1, -2) @ qs * scale
+            q_first = min(k0 // r, -(-S // r)) * r if causal else 0
+            items = [(h, q0) for h in heads for q0 in range(q_first, S, r)]
+            units = [[torch.zeros_like(dk[:, hk, k0:k0 + r]),
+                      torch.zeros_like(dv[:, hk, k0:k0 + r])]
+                     for _ in range(split)]
+            for j, (h, q0) in enumerate(items):
+                u = 2 * (j % 2) + (j // 2) % 2 if split == 4 else 0
+                qs, dos, _, p, ds = scores(h, hk, q0, k0)
+                units[u][1] += bf(p).transpose(-1, -2) @ dos
+                units[u][0] += bf(ds).transpose(-1, -2) @ qs
+            if split == 4:
+                block0 = [a + b for a, b in zip(units[0], units[1])]
+                block1 = [a + b for a, b in zip(units[2], units[3])]
+                tot = (block0 if drop_peer else
+                       [a + b for a, b in zip(block0, block1)])
+            else:
+                tot = units[0]
+            dk[:, hk, k0:k0 + r] = tot[0] * scale
+            dv[:, hk, k0:k0 + r] = tot[1]
     for h in range(H):
         for q0 in range(0, S, r):
             last = min(T, q0 + r) if causal else T
             for k0 in range(0, last, r):
                 _, _, ks, _, ds = scores(h, h // group, q0, k0)
-                dq[:, h, q0:q0 + r] += ds @ ks * scale
-    return dq, dk, dv
+                dq[:, h, q0:q0 + r] += bf(ds) @ ks
+    return dq * scale, dk, dv
 
 
 def _flash_case(seed, B, S, T, H, Hkv, D):
@@ -681,6 +709,10 @@ def _flash_case(seed, B, S, T, H, Hkv, D):
 ])
 def test_flash_bwd_tiling_matches_autograd_of_the_plain_version(
         B, S, T, H, Hkv, D, causal, r):
+    """The kernels' tiling, split of the dK/dV items and order of
+    summation, in fp32: the tensor-core body's (split over four
+    warpgroups) at D <= 128, the FMA body's at D = 256."""
+    split = 4 if D <= tfa.TENSOR_CORE_MAX_D else 1
     q, k, v, do = _flash_case(6, B, S, T, H, Hkv, D)
     scale = 1.0 / np.sqrt(D)
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -691,17 +723,19 @@ def test_flash_bwd_tiling_matches_autograd_of_the_plain_version(
     lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
                            scale=scale, causal=causal, bk=64)
     got = _flash_bwd_tiled(qh, kh, vh, oh, doh, lse, scale=scale,
-                           causal=causal, r=r)
+                           causal=causal, r=r, split=split)
     for g, t in zip(got, (tq, tk, tv)):
         torch.testing.assert_close(g.transpose(1, 2), t.grad, rtol=1e-5,
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("wrong", ["drop_mask", "one_head", "drop_di"])
+@pytest.mark.parametrize("wrong", ["drop_mask", "one_head", "drop_di",
+                                   "lse_natural", "drop_peer"])
 def test_flash_bwd_emulation_fails_each_wrong_kernel(wrong):
     """Each one-edit wrong backward kernel of tests/test_torch_gpu.py,
-    emulated, misses the plain gradients by far more than the card's
-    fp32 check allows (1e-4 of max |grad|)."""
+    emulated in the tensor-core body's arithmetic (P and dS rounded to
+    bf16 once), misses the plain gradients by far more than the card's
+    bf16 check allows (2e-2 of max |grad|)."""
     B, S, T, H, Hkv, D = 1, 150, 150, 4, 2, 32
     q, k, v, do = _flash_case(7, B, S, T, H, Hkv, D)
     scale = 1.0 / np.sqrt(D)
@@ -713,10 +747,59 @@ def test_flash_bwd_emulation_fails_each_wrong_kernel(wrong):
     lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
                            scale=scale, causal=True, bk=64)
     got = _flash_bwd_tiled(qh, kh, vh, oh, doh, lse, scale=scale,
-                           causal=True, r=64, **{wrong: True})
+                           causal=True, r=64, split=4, round_bf16=True,
+                           **{wrong: True})
     errs = [float((g.transpose(1, 2) - t.grad).abs().max())
             / float(t.grad.abs().max()) for g, t in zip(got, (tq, tk, tv))]
-    assert max(errs) > 1e-2, errs
+    assert max(errs) > 5 * _smoke().BWD_TOL["bfloat16"], errs
+
+
+@pytest.mark.parametrize("S,causal", [(128, True), (150, False)])
+def test_flash_bwd_single_bf16_rounding_of_p_and_ds_stays_inside_bwd_tol(
+        S, causal):
+    """At qwen3-8b's head layout (32 q heads in groups of 4, D = 128) and a
+    short S, from bf16 inputs and the forward's bf16 o: the tensor-core
+    body's arithmetic with P^T and dS^T rounded to bf16 once passes
+    chip_smoke's bf16 backward check against autograd through the plain
+    version (what the card holds the kernel to), with room to spare; so
+    the backward needs no hi + lo split, unlike the forward's PV
+    (test_flash_bf16_needs_p_split_into_hi_and_lo).  Unrounded, the same
+    emulation matches jax.grad of the reference's plain attention in fp32
+    (1e-5 of max |grad|)."""
+    from repro.models import layers as JL
+    smoke = _smoke()
+    B, H, Hkv, D = 1, 32, 8, 128
+    q, k, v, do = (t.to(torch.bfloat16)
+                   for t in _flash_case(10, B, S, S, H, Hkv, D))
+    scale = D ** -0.5
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = tref.flash_attention_ref(*refs, scale=scale, causal=causal)
+    o.backward(do)
+    want = [t.grad for t in refs]                       # bf16, as the card
+    qh, kh, vh, oh, doh = (t.float().transpose(1, 2)
+                           for t in (q, k, v, o.detach(), do))
+    lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
+                           scale=scale, causal=causal, bk=64)
+    got = [g.transpose(1, 2) for g in _flash_bwd_tiled(
+        qh, kh, vh, oh, doh, lse, scale=scale, causal=causal, r=64, split=4,
+        round_bf16=True)]
+    err, ok, tol = smoke.check_normwise(
+        [g.to(torch.bfloat16) for g in got], want, "bfloat16")
+    assert ok, (err, tol)
+    rel = max(float((g.float() - w.float()).abs().max())
+              / float(w.float().abs().max()) for g, w in zip(got, want))
+    assert rel < smoke.BWD_TOL["bfloat16"] / 2, rel
+    # unrounded, from the fp32 o of the same (bf16-valued) inputs, against
+    # jax.grad in fp32
+    o32 = tref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   scale=scale, causal=causal)
+    exact = _flash_bwd_tiled(qh, kh, vh, o32.transpose(1, 2), doh, lse,
+                             scale=scale, causal=causal, r=64, split=4)
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: JL._sdpa(a, b, c, causal=causal,
+                                              scale=scale), jq, jk, jv)
+    for g, j in zip(exact, vjp(jdo)):
+        _close_normwise(g.transpose(1, 2), j, 1e-5)
 
 
 @pytest.mark.parametrize("S,T,causal", [(150, 150, True), (70, 150, True),
@@ -746,8 +829,11 @@ def test_flash_lse_convention_is_logsumexp_of_the_masked_logits(S, T,
 @pytest.mark.parametrize("rows,D", [(37, 128), (1024, 64), (5, 300)])
 def test_rmsnorm_bwd_formula_and_block_partials_match_autograd(rows, D):
     """dx = r (g s - xh mean(g s xh)) per row, and dscale summed as the
-    kernels sum it: each block's rows (a stride of the grid apart) into
-    one partial row, then the partials in block order."""
+    kernels sum it: block b walks row groups b, b + blocks, ... (each
+    ``rows_per_block`` rows, one a lane group), each lane group adds its
+    rows in order, the block's groups meet in group order in one partial
+    row; then the dscale pass's warp w sums partial rows w, w + 8, ... in
+    order and the 8 warps' sums are added in warp order."""
     rng = np.random.default_rng(9)
     x, gy = (torch.from_numpy(rng.standard_normal((rows, D)).astype(
         np.float32)) for _ in range(2))
@@ -758,17 +844,58 @@ def test_rmsnorm_bwd_formula_and_block_partials_match_autograd(rows, D):
     r = torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6)
     xh = x * r
     dx = r * (gy * s - xh * (gy * s * xh).mean(-1, keepdim=True))
-    _, _, rows_per_block, _ = trn.launch_shape(D, 4)
+    _, _, rows_per_block, _ = trn.bwd_launch_shape(D, 4)
     blocks = trn.bwd_blocks(rows, rows_per_block)
+    groups = torch.zeros((blocks, rows_per_block, D))
+    for g0 in range(0, rows, rows_per_block):
+        for sub in range(min(rows_per_block, rows - g0)):
+            row = g0 + sub
+            groups[(g0 // rows_per_block) % blocks, sub] += gy[row] * xh[row]
     partial = torch.zeros((blocks, D))
-    for row in range(rows):
-        partial[(row // rows_per_block) % blocks] += gy[row] * xh[row]
-    dscale = partial.sum(0)
+    for sub in range(rows_per_block):
+        partial += groups[:, sub]
+    warps = torch.zeros((8, D))
+    for b in range(blocks):
+        warps[b % 8] += partial[b]
+    dscale = torch.zeros(D)
+    for w in range(8):
+        dscale += warps[w]
     torch.testing.assert_close(dx, xa.grad, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(dscale, sa.grad, rtol=1e-5, atol=1e-5)
 
 
 def test_rmsnorm_bwd_blocks_are_a_function_of_the_shape():
+    """One block an SM of an H100 at most, whatever card runs it; at the
+    train step's (1024, 4096) bf16 norms (2 rows a block) every SM walks
+    about 4 row groups."""
+    assert trn.bwd_launch_shape(4096, 2)[2] == 2
     assert trn.bwd_blocks(1, 32) == 1
-    assert trn.bwd_blocks(1024, 4) == 256
+    assert trn.bwd_blocks(100, 2) == 50
+    assert trn.bwd_blocks(1024, 2) == trn.BWD_MAX_BLOCKS == 132
     assert trn.bwd_blocks(32768, 32) == trn.BWD_MAX_BLOCKS
+
+
+def test_rmsnorm_bwd_launch_shape_covers_every_width_once():
+    """The backward's shape for every D in [1, 8192] and both item sizes:
+    the row covered once, at most 4 vectors of 16 bytes a lane (8 single
+    elements), a block of max(256, lanes) threads whose row groups' dscale
+    sums fit the shared memory csrc/rmsnorm.cu allows them (kMaxSmemBwd),
+    and vector groups no wider than its backward build (kMaxVecSpanBwd)."""
+    import re
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    span = int(re.search(r"constexpr int kMaxVecSpanBwd = (\d+);", src)[1])
+    smem = int(re.search(r"constexpr int kMaxSmemBwd = (\d+) << 10;",
+                         src)[1]) << 10
+    assert re.search(r"return VEC > 1 \? (\d+) : (\d+);", src).groups() == (
+        str(trn.BWD_MAX_VECS_PER_LANE), str(trn.MAX_VECS_PER_LANE))
+    for itemsize in (2, 4):
+        for D in range(1, trn.MAX_D + 1):
+            lanes, nv, rows, vec = trn.bwd_launch_shape(D, itemsize)
+            assert vec == trn.launch_shape(D, itemsize)[3]
+            assert nv <= (trn.BWD_MAX_VECS_PER_LANE if vec > 1
+                          else trn.MAX_VECS_PER_LANE)
+            assert vec == 1 or lanes * vec <= span
+            assert lanes * rows == max(trn.MIN_BLOCK, lanes) <= 1024
+            assert 4 * rows * D <= smem, (D, itemsize)   # group sums
+            nvec = D // vec
+            assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
