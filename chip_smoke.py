@@ -5,7 +5,8 @@
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
     python3 chip_smoke.py --profile       # plus a traced serve of each model
-                                          # and a traced train step
+                                          # and a traced step of each train
+                                          # phase
 
 Phases, each of which fails the run (exit code 1) on any error:
 
@@ -21,16 +22,18 @@ Phases, each of which fails the run (exit code 1) on any error:
    at this script's settings (``served_cases``), and at larger and ragged
    edge cases; the backward kernels at every shape the train step gives
    them, plus S = T = 2048, ragged, S != T and wide-head (D = 160, 256)
-   cases, held norm-wise against autograd through the plain versions.  Kernel and
+   cases, and the SSD scan's backward at mamba2-780m's train step and at
+   ragged S, h0 / h_final gradient, two-group and S < Q edges, held
+   norm-wise against autograd through the plain versions.  Kernel and
    plain times (and the library call's, where one PyTorch call computes
    the same function) are device times: 20 calls captured in one CUDA
    graph, the median of 5 replays between CUDA events.  A backward row's
    plain and library times are the backward's share: the captured
    forward + backward less the captured forward, each measured here.
-   RMSNorm rows (both directions) and the flash backward's train-shape
-   row also give a cold-L2 time (``cold_ms``): each captured call follows
-   a write of 64 MB, more than the 50 MB L2, and the write's own captured
-   time is subtracted.  The kernel's eager time per call from Python
+   RMSNorm rows (both directions) and the flash and SSD backwards'
+   train-shape rows also give a cold-L2 time (``cold_ms``): each captured
+   call follows a write of 64 MB, more than the 50 MB L2, and the write's
+   own captured time is subtracted.  The kernel's eager time per call from Python
    (``call_ms``) stands beside them: at the decode step's shapes that is
    the host's cost, not the device's.  Each row gives ``ms / library_ms`` (above 1: the kernel
    loses to the PyTorch call) and ``bound_ms / ms``.
@@ -55,11 +58,23 @@ Phases, each of which fails the run (exit code 1) on any error:
 8. Train qwen3-8b: published widths at 4 layers (the serving weights are
    freed first), bf16, seeded weights; step 1's grads through the flash
    kernel and its backward (``impl="pallas"``) held per leaf against the
-   grads through plain attention (``impl="xla"``); then 4 AdamW steps of
+   grads through plain attention (``impl="xla"``), and both paths' grads
+   reported against the same params' in fp32 and the kernels path's
+   against a second run of itself; then 4 AdamW steps of
    ``make_train_step`` on ``SyntheticLM`` batches of 2 x 512 tokens: step
    time (median of steps 2-4, CUDA events), tokens/s, peak memory, the
    launches of every kernel a step (each backward kernel as often as its
    forward), losses and grad norms (finite).
+9. Train mamba2-780m: published widths and all 48 layers, bf16, seeded
+   weights (tied embeddings); step 1's grads through the SSD scan's
+   kernels, forward and backward, held per leaf against the grads through
+   the plain scan (``kernels.ops.ssd_scan`` swapped for
+   ``ref.ssd_scan_ref`` here, for the check alone; RMSNorm is the kernel
+   in both; reported as in phase 8); then 4 AdamW steps on ``SyntheticLM``
+   batches of 2 x 1024
+   tokens (8 chunks of 128 a sequence): step time, tokens/s, peak memory,
+   launches a step (the SSD backward once for each SSD forward, 48 a
+   step), finite losses and grad norms.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -139,21 +154,28 @@ SERVE = {
                 max_len=1024, block_size=16, prefill_chunk=256),
 }
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
-# the train phase: qwen3-8b's widths at 4 of its 36 layers (bf16 params and
-# grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36 layers, 24
-# GB at 4), AdamW on a cosine schedule, SyntheticLM batches
-TRAIN = dict(layers=4, seq_len=512, batch=2, steps=4, peak_lr=3e-4,
-             warmup=1, total=10)
+# the train phases: qwen3-8b's widths at 4 of its 36 layers (bf16 params
+# and grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36
+# layers, 24 GB at 4); mamba2-780m whole (0.78 B params, ~12.5 GB of
+# state); AdamW on a cosine schedule, SyntheticLM batches (mamba2: 8 scan
+# chunks of 128 a sequence, so the state passes between chunks)
+TRAIN = {QWEN: dict(layers=4, seq_len=512, batch=2, steps=4, peak_lr=3e-4,
+                    warmup=1, total=10),
+         MAMBA: dict(layers=48, seq_len=1024, batch=2, steps=4,
+                     peak_lr=3e-4, warmup=1, total=10)}
 # wider head dims the flash kernels take, at their models' attention
 # (zamba2-2.7b's shared block over 2 x d_model, gemma-7b): (path, H, Hkv, D)
 WIDE_HEADS = (("zamba2-2.7b shared_attn", 32, 32, 160),
               ("gemma-7b attn", 16, 16, 256))
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-           "flash_attention_bwd", "ssd_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
 # bf16 body's three (chunk states, state passing, chunk outputs)
 SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel",
                "ssd_out_kernel")
+# and the four of one ssd_scan_bwd call
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_kernel", "ssd_bwd_pass_kernel",
+                   "ssd_bwd_grad_kernel", "ssd_bwd_group_kernel")
 # cuBLAS's kernels in a trace (on Hopper most are named nvjet_*)
 GEMM_NAMES = ("gemm", "gemv", "nvjet")
 
@@ -329,6 +351,33 @@ def ssd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0):
     return nbytes, flops
 
 
+def ssd_bwd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0,
+                 has_dh):
+    """(bytes, flops by type) of the scan's backward, counted as
+    ``ssd_work`` counts the forward: each input (x, B, C, dt, a, h0, dy,
+    dh_final) read once and each gradient written once; every product on
+    the bf16 tensor cores, over the causal triangle of each chunk's real
+    rows.  C.B^T once per group; per head dS = dy.x^T, the intra terms of
+    dx, dB and dC (three more triangle products), and five products of
+    the state's size (the chunk states and the dy.C sums again, dh B_j,
+    dh^T x_j, h^T dy_i), each fp32 factor split into hi + lo as in the
+    forward."""
+    cb = ops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        cb += B * G * 2 * tri * N
+        ops += B * H * (2 * tri * (2 * P + 2 * N) + 10 * q * N * P)
+    bf16 = dtype_name == "bfloat16"
+    flops = {"bfloat16": (1 if bf16 else 3) * cb + (2 if bf16 else 3) * ops}
+    state = B * H * P * N * 4
+    nbytes = (2 * (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
+                   + 2 * B * S * H * 4)
+              + B * S * H * P * 4 + state * (2 if has_h0 else 0)
+              + (state if has_dh else 0))
+    return nbytes, flops
+
+
 def served_cases(name, arch):
     """The shapes each main path of model ``name`` gives the kernels at
     this script's settings, derived from ``SERVE[name]`` and the arch, plus
@@ -391,16 +440,29 @@ def ssd_inputs(torch, gen, B, S, H, P, N, G, dt_bias, dtype, has_h0):
     return x, Bm, Cm, dt, a, h0
 
 
-def train_cases(arch):
-    """The shapes the train phase's step gives the backward kernels (and
-    edges).  RMSNorm: ``(path, use, rows, D)`` (the q/k norms see each
-    token once per q/kv head); flash: ``(path, B, S, T, H, Hkv, D,
-    causal)``: the train step's attention, the same at S = T = 2048 (where
-    the products set the bound), a ragged S, S != T both ways, and the
-    wide head dims."""
-    B, S = TRAIN["batch"], TRAIN["seq_len"]
-    H, Hkv, hd, d = arch.n_heads, arch.n_kv_heads, arch.head_dim, arch.d_model
-    path = f"{arch.name} train"
+def train_cases(name, arch):
+    """The shapes model ``name``'s train phase gives the backward kernels
+    (and edges), as ``served_cases`` gives them for the forward.  RMSNorm:
+    ``(path, use, rows, D)`` (the q/k norms see each token once per q/kv
+    head; a mamba2 block's gated norm is d_inner wide); flash: ``(path,
+    B, S, T, H, Hkv, D, causal)``: the train step's attention, the same at
+    S = T = 2048 (where the products set the bound), a ragged S, S != T
+    both ways, and the wide head dims; SSD: ``(path, B, S, G, h0,
+    dh_final)``: the train step's scan, from h0 = 0 with no h_final
+    gradient, and edges that take both, a ragged S, two groups and S <
+    Q."""
+    B, S = TRAIN[name]["batch"], TRAIN[name]["seq_len"]
+    d, path = arch.d_model, f"{name} train"
+    if name == MAMBA:
+        G = arch.ssm.n_groups
+        norm = [(path, "norm/final_norm", B * S, d),
+                (path, "gated norm", B * S, arch.ssm.expand * d)]
+        ssd = [(path, B, S, G, False, False),
+               ("edge", 1, 1000, G, True, True),    # ragged: 7 x 128 + 104
+               ("edge", 1, 256, 2, True, False),    # two groups
+               ("edge", 1, 100, G, False, True)]    # S < Q
+        return norm, [], ssd
+    H, Hkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
     norm = [(path, "norm1/norm2/final_norm", B * S, d),
             (path, "q_norm", B * S * H, hd), (path, "k_norm", B * S * Hkv, hd),
             ("edge", "ragged rows", 300, d), ("edge", "odd width", 37, 300)]
@@ -411,7 +473,7 @@ def train_cases(arch):
              ("edge", 1, 300, 700, H, Hkv, hd, False)]
     flash += [(f"edge {p}", B, S, S, h, hk, D, True)
               for p, h, hk, D in WIDE_HEADS]
-    return norm, flash
+    return norm, flash, []
 
 
 def flash_work(B, S, Tk, H, HKV, D, causal, itemsize, backward):
@@ -516,11 +578,7 @@ def kernel_phase(torch, archs, iters):
             H = s.expand * arch.d_model // s.head_dim
             P, N, chunk = s.head_dim, s.d_state, s.chunk
             Q = min(chunk, S)
-            # the init's dt_bias: inverse softplus of log-uniform [1e-3, 0.1]
-            u = torch.rand((H,), generator=gen, device="cuda")
-            dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001))
-                            + math.log(0.001))
-            dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+            dt_bias = ssd_init_dt_bias(torch, gen, H)
             for dt, dn in dtypes:
                 x, Bm, Cm, dtv, a, h0 = ssd_inputs(torch, gen, B, S, H, P, N,
                                                    G, dt_bias, dt, has_h0)
@@ -545,13 +603,77 @@ def kernel_phase(torch, archs, iters):
                     plain_ms=time_ms(plain, iters), library_ms=None,
                     bytes=nbytes, flops=sum(flops.values()),
                     **bound(nbytes, flops)))
-    rows += backward_rows(torch, archs[QWEN], iters, gen, dtypes)
+    for name, arch in archs.items():
+        rows += backward_rows(torch, name, arch, iters, gen, dtypes)
     return rows
 
 
-def backward_rows(torch, arch, iters, gen, dtypes):
+def ssd_init_dt_bias(torch, gen, H):
+    """The init's dt_bias: inverse softplus of log-uniform [1e-3, 0.1]."""
+    u = torch.rand((H,), generator=gen, device="cuda")
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    return dt0 + torch.log(-torch.expm1(-dt0))
+
+
+def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes):
+    """The SSD scan's backward kernel against autograd through the plain
+    scan, at ``cases`` (``train_cases``).  No single PyTorch call computes
+    this function (library_ms None); plain_ms is the backward's share of
+    autograd through ``ref.ssd_scan_ref``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SSD
+
+    rows = []
+    for path, B, S, G, has_h0, has_dh in cases:
+        s = arch.ssm
+        H = s.expand * arch.d_model // s.head_dim
+        P, N, chunk = s.head_dim, s.d_state, s.chunk
+        Q = min(chunk, S)
+        dt_bias = ssd_init_dt_bias(torch, gen, H)
+        for dt, dn in dtypes:
+            x, Bm, Cm, dtv, a, h0 = ssd_inputs(torch, gen, B, S, H, P, N, G,
+                                               dt_bias, dt, has_h0)
+            dy = torch.randn((B, S, H, P), generator=gen, device="cuda")
+            dh = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                  if has_dh else None)
+
+            def kernel():
+                return SSD.ssd_scan_bwd(x, Bm, Cm, dtv, a, h0, dy, dh,
+                                        chunk=chunk)
+            ins = [t.clone().requires_grad_() for t in (x, Bm, Cm, dtv, a)]
+            if has_h0:
+                ins.append(h0.clone().requires_grad_())
+
+            def plain():
+                y, hf = ref.ssd_scan_ref(*ins[:5], ins[5] if has_h0 else None,
+                                         chunk=chunk)
+                return ((y, hf) if has_dh else y), ins
+            grad_out = (dy, dh) if has_dh else dy
+            got = [g for g in kernel() if g is not None]
+            want = torch.autograd.grad(*plain(), grad_out)
+            torch.cuda.synchronize()
+            err, ok, tol = check_normwise(got, want, dn)
+            nbytes, flops = ssd_bwd_work(B, S, H, P, N, G, Q, dn,
+                                         x.element_size(), has_h0, has_dh)
+            rows.append(dict(
+                name="ssd_scan_bwd", path=path, use="scan",
+                shape=f"B={B} S={S} H={H} P={P} N={N} G={G} Q={Q}"
+                      f"{' h0' if has_h0 else ''}"
+                      f"{' dh_final' if has_dh else ''}",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                ms=time_ms(kernel, iters),
+                cold_ms=(None if path.startswith("edge")
+                         else time_ms_cold(kernel, iters)),
+                call_ms=call_ms(kernel, iters),
+                plain_ms=bwd_share_ms(plain, grad_out, iters),
+                library_ms=None, bytes=nbytes, flops=sum(flops.values()),
+                **bound(nbytes, flops)))
+    return rows
+
+
+def backward_rows(torch, name, arch, iters, gen, dtypes):
     """The backward kernels against autograd through the plain versions,
-    at ``train_cases(arch)``."""
+    at ``train_cases(name, arch)``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
@@ -564,7 +686,7 @@ def backward_rows(torch, arch, iters, gen, dtypes):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    norm_cases, flash_cases = train_cases(arch)
+    norm_cases, flash_cases, ssd_cases = train_cases(name, arch)
     for path, use, R, D in norm_cases:
         for dt, dn in dtypes:
             x, g = randn(R, D, dtype=dt), randn(R, D, dtype=dt)
@@ -643,7 +765,8 @@ def backward_rows(torch, arch, iters, gen, dtypes):
                 plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
                 library_ms=bwd_share_ms(lib, do.contiguous(), iters),
                 bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
-    return rows
+    return rows + ssd_backward_rows(torch, arch, ssd_cases, iters, gen,
+                                    dtypes)
 
 
 def _wrappers():
@@ -654,7 +777,7 @@ def _wrappers():
     return {"rmsnorm": RN.rmsnorm, "rmsnorm_bwd": RN.rmsnorm_bwd,
             "flash_attention": FA.flash_attention,
             "flash_attention_bwd": FA.flash_attention_bwd,
-            "ssd_scan": SSD.ssd_scan}
+            "ssd_scan": SSD.ssd_scan, "ssd_scan_bwd": SSD.ssd_scan_bwd}
 
 
 def reset_counts():
@@ -788,9 +911,10 @@ def serve_phase(torch, np, report, name, arch):
 def traced(torch, label, fn):
     """Run ``fn`` once under ``torch.profiler`` -> a dict of the window's
     wall time, device busy time and share (the union of kernel intervals
-    in the exported Chrome trace), and device time by kernel (this repo's
+    in the exported Chrome trace), device time by kernel (this repo's
     kernels by name, cuBLAS's as "gemm", the rest by their first 60
-    characters), printed under ``label``.  Tracing adds host cost, so the
+    characters) and by the PyTorch operator that launched it, printed
+    under ``label``.  Tracing adds host cost, so the
     wall time is no end-to-end number."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -828,12 +952,14 @@ def traced(torch, label, fn):
     ssd_parts: dict[str, list] = {}          # the SSD call's CUDA kernels
     for e in kernels:
         n = e["name"]
-        ssd = next((k for k in SSD_KERNELS if k in n), None)
+        ssd = next((k for k in SSD_KERNELS + SSD_BWD_KERNELS if k in n),
+                   None)
         key = ("rmsnorm_bwd" if "rmsnorm_bwd_kernel" in n
                or "rmsnorm_dscale_kernel" in n else
                "rmsnorm" if "rmsnorm_kernel" in n else
                "flash_bwd" if "flash_bwd_" in n else
                "flash" if "flash_fwd" in n else
+               "ssd_scan_bwd" if ssd in SSD_BWD_KERNELS else
                "ssd_scan" if ssd else
                "gemm" if any(g in n.lower() for g in GEMM_NAMES) else
                n[:60])
@@ -843,9 +969,20 @@ def traced(torch, label, fn):
                 t[0] += 1
                 t[1] += e["dur"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # device time by the PyTorch operator that launched it (its self time:
+    # what the templated elementwise kernels' names do not say)
+    by_op = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0 and e.key.startswith("aten::"):
+            by_op.append((e.key, e.count, us))
+    by_op = sorted(by_op, key=lambda t: -t[2])[:12]
     out.update(device_busy_s=busy / 1e6, device_busy_share=busy / 1e6 / wall,
                by_kernel=[{"kernel": k, "count": c, "ms": us / 1e3}
                           for k, (c, us) in top],
+               by_op=[{"op": k, "calls": c, "ms": us / 1e3}
+                      for k, c, us in by_op],
                ssd_parts=[{"kernel": k, "count": c, "ms": us / 1e3}
                           for k, (c, us) in ssd_parts.items()])
     print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
@@ -857,6 +994,8 @@ def traced(torch, label, fn):
     for k, (c, us) in ssd_parts.items():
         print(f"  profile {label} ssd_scan part {k}: {c} launches, "
               f"{us / 1e3:.2f} ms")
+    for k, c, us in by_op:
+        print(f"  profile {label} op {k}: {c} calls, {us / 1e3:.2f} ms")
     return out
 
 
@@ -897,7 +1036,7 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     n_attn, n_mamba = block_counts(arch)
     want = {"rmsnorm": (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1,
             "rmsnorm_bwd": 0, "flash_attention": n_attn,
-            "flash_attention_bwd": 0, "ssd_scan": n_mamba}
+            "flash_attention_bwd": 0, "ssd_scan": n_mamba, "ssd_scan_bwd": 0}
     if counts != want:
         fail(f"{name} forward launches {counts}, want {want}")
     logits = out.logits[:, -1, :arch.vocab]
@@ -931,25 +1070,52 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
              f"{best}, and not a near tie (shortfall {shortfall} > {tol:.4g})")
 
 
-def train_phase(torch, report, arch, card, profile=False):
-    """Phase 8: the training step of qwen3-8b's widths at TRAIN["layers"]
-    layers, through the flash kernel and both backward kernels; with
+def grad_diffs(torch, names, got, want):
+    """-> {leaf name: (cosine, relative L2)} of grads ``got`` against
+    ``want``, leaf by leaf."""
+    out = {}
+    for n, a, b in zip(names, got, want):
+        a, b = a.float().flatten(), b.float().flatten()
+        na, nb = torch.linalg.vector_norm(a), torch.linalg.vector_norm(b)
+        out[n] = (float(torch.dot(a, b) / (na * nb).clamp_min(1e-30)),
+                  float(torch.linalg.vector_norm(a - b) / nb.clamp_min(1e-30)))
+    return out
+
+
+def worst(diffs, text=False):
+    """-> the leaf of ``diffs`` (``grad_diffs``) with the largest relative
+    L2 and that L2, or with ``text`` the two as "L2 at leaf"."""
+    n = max(diffs, key=lambda n: diffs[n][1])
+    return f"{diffs[n][1]:.4g} at {n}" if text else (n, diffs[n][1])
+
+
+def train_phase(torch, report, name, arch, card, profile=False):
+    """Phases 8 and 9: the training step of model ``name`` at its widths
+    and ``TRAIN[name]["layers"]`` layers, through the kernels forward and
+    backward; step 1's grads held against the plain path's (plain
+    attention under impl="xla", and the plain SSD scan); with
     ``profile``, one more step traced."""
     import dataclasses
+
+    from unittest import mock
 
     from repro_torch import tree
     from repro_torch.configs import Segment
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
     from repro_torch.optim import optimizers as O
     from repro_torch.optim import schedules as SC
     from repro_torch.runtime import steps as ST
 
     t_phase = time.perf_counter()
-    L = TRAIN["layers"]
-    arch = dataclasses.replace(arch, n_layers=L,
-                               pattern=(Segment(("attn",), L),))
-    name = f"train {arch.name}"
+    cfg = TRAIN[name]
+    L, full = cfg["layers"], arch.n_layers
+    if L != full:
+        (blocks,) = {seg.blocks for seg in arch.pattern}
+        arch = dataclasses.replace(arch, n_layers=L,
+                                   pattern=(Segment(blocks, L),))
+    label = f"train {arch.name}"
     gc.collect()                  # any reference cycles the serves left
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
@@ -958,52 +1124,74 @@ def train_phase(torch, report, arch, card, profile=False):
                        generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.leaves(params))
-    print(f"train: {arch.name} at {L} layers, d_model {arch.d_model}, "
-          f"{n_params / 1e9:.3f} B params, init "
+    print(f"train: {arch.name} at {L} of {full} layers, d_model "
+          f"{arch.d_model}, {n_params / 1e9:.3f} B params, init "
           f"{time.perf_counter() - t0:.1f} s; {held:.2f} GB held on the card "
           f"before it")
 
     def data():
-        return SyntheticLM(arch.vocab, TRAIN["seq_len"], TRAIN["batch"])
+        return SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"])
     first = next(data())
     tok, lab = (torch.as_tensor(first[k], device="cuda")
                 for k in ("tokens", "labels"))
-    # step 1's grads through the kernels and through plain attention
-    reset_counts()
-    loss_k, _, g_k = ST.loss_and_grads(ST.make_loss_fn(arch, impl="pallas"),
-                                       params, tok, lab)
-    grad_counts = read_counts()
-    loss_p, _, g_p = ST.loss_and_grads(ST.make_loss_fn(arch, impl="xla"),
-                                       params, tok, lab)
+    # step 1's grads through the kernels (twice: how far the same path
+    # moves between runs), through the plain path, and through the plain
+    # path with the same params in fp32: the gradient both bf16 paths
+    # approximate, so that an error of a kernel shows apart from rounding
     names = tree.names(params)
-    worst = {"cos": 1.0, "rel_l2": 0.0}
-    bad = []
-    for n, a, b in zip(names, g_k, g_p):
-        a, b = a.float().flatten(), b.float().flatten()
-        na, nb = torch.linalg.vector_norm(a), torch.linalg.vector_norm(b)
-        cos = float(torch.dot(a, b) / (na * nb).clamp_min(1e-30))
-        rel = float(torch.linalg.vector_norm(a - b) / nb.clamp_min(1e-30))
-        worst["cos"], worst["rel_l2"] = (min(worst["cos"], cos),
-                                         max(worst["rel_l2"], rel))
-        if not (cos >= GRAD_COS_MIN and rel <= GRAD_REL_L2_MAX):
-            bad.append(f"{n}: cos {cos:.6f}, rel L2 {rel:.3g}")
+    kernel_loss = ST.make_loss_fn(arch, impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loss_k, _, g_k = ST.loss_and_grads(kernel_loss, params, tok, lab)
+    grad_counts = read_counts()
+    repeat = grad_diffs(torch, names, g_k,
+                        ST.loss_and_grads(kernel_loss, params, tok, lab)[2])
+    with mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref):
+        loss_p, _, g_p = ST.loss_and_grads(ST.make_loss_fn(arch, impl="xla"),
+                                           params, tok, lab)
+        check_peak = torch.cuda.max_memory_allocated() / 1e9
+        g_f = ST.loss_and_grads(
+            ST.make_loss_fn(dataclasses.replace(arch, dtype="float32"),
+                            impl="xla"),
+            tree.map(lambda t: t.float(), params), tok, lab)[2]
+    diffs = grad_diffs(torch, names, g_k, g_p)
+    k_f, p_f = (grad_diffs(torch, names, g, g_f) for g in (g_k, g_p))
+    bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}" for n, (c, r) in diffs.items()
+           if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+    cos_leaf = min(diffs, key=lambda n: diffs[n][0])
+    rel_leaf, rel = worst(diffs)
+    i = names.index(rel_leaf)     # that leaf layer by layer, if stacked
+    by_layer = ([float(torch.linalg.vector_norm((a - b).float())
+                       / torch.linalg.vector_norm(b.float()))
+                 for a, b in zip(g_k[i], g_p[i])]
+                if rel_leaf.startswith("segments.") else None)
     gn_k, gn_p = float(O.global_norm(g_k)), float(O.global_norm(g_p))
-    del g_k, g_p
+    del g_k, g_p, g_f
     torch.cuda.empty_cache()
     after_check = torch.cuda.memory_allocated() / 1e9
-    print(f"train: step 1's grads, flash kernel + backward kernels vs plain "
-          f"attention: {len(names)} leaves, worst cosine {worst['cos']:.6f} "
-          f"(min {GRAD_COS_MIN}), worst rel L2 {worst['rel_l2']:.4g} (max "
-          f"{GRAD_REL_L2_MAX}); grad norm {gn_k:.6g} vs {gn_p:.6g}; loss "
-          f"{float(loss_k):.6f} vs {float(loss_p):.6f}; launches "
-          f"{grad_counts}; {after_check:.2f} GB held after it")
+    print(f"train: step 1's grads, kernels forward and backward vs the plain "
+          f"path (plain attention and SSD scan): {len(names)} leaves over "
+          f"{L} layers, worst cosine {diffs[cos_leaf][0]:.6f} at {cos_leaf} "
+          f"(min {GRAD_COS_MIN}), worst rel L2 {rel:.4g} at {rel_leaf} (max "
+          f"{GRAD_REL_L2_MAX}); against the fp32 model's grads, worst rel "
+          f"L2 of the kernels {worst(k_f, text=True)}, of the plain path "
+          f"{worst(p_f, text=True)}, at {rel_leaf} "
+          f"{k_f[rel_leaf][1]:.4g} and {p_f[rel_leaf][1]:.4g}; the kernels "
+          f"path against itself: worst rel L2 {worst(repeat, text=True)}; "
+          f"grad norm {gn_k:.6g} vs "
+          f"{gn_p:.6g}; loss {float(loss_k):.6f} vs {float(loss_p):.6f}; "
+          f"launches {grad_counts}; peak memory of the check "
+          f"{check_peak:.2f} GB, {after_check:.2f} GB held after it")
     if bad:
-        fail(f"{name}: kernel grads differ from the plain path's: {bad}")
+        fail(f"{label}: kernel grads differ from the plain path's: {bad}")
+    if not (math.isfinite(gn_k) and math.isfinite(float(loss_k))):
+        fail(f"{label}: step 1's grad norm {gn_k} / loss {float(loss_k)} "
+             f"not finite")
     if not abs(gn_k - gn_p) <= GRAD_NORM_REL_TOL * gn_p:
-        fail(f"{name}: grad norm {gn_k} vs plain {gn_p}")
+        fail(f"{label}: grad norm {gn_k} vs plain {gn_p}")
 
-    opt = O.adamw(SC.cosine_schedule(TRAIN["peak_lr"], TRAIN["warmup"],
-                                     TRAIN["total"]))
+    opt = O.adamw(SC.cosine_schedule(cfg["peak_lr"], cfg["warmup"],
+                                     cfg["total"]))
     state = opt[0](params)
     step = ST.make_train_step(arch, opt, impl="pallas")
     batches = data()
@@ -1012,7 +1200,7 @@ def train_phase(torch, report, arch, card, profile=False):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     marks, metrics = [], []
-    for _ in range(TRAIN["steps"]):
+    for _ in range(cfg["steps"]):
         batch = next(batches)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -1025,48 +1213,52 @@ def train_phase(torch, report, arch, card, profile=False):
     counts = read_counts()
     step_ms = [a.elapsed_time(b) for a, b in marks]
     med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    tokens = cfg["batch"] * cfg["seq_len"]
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    per_step = {k: c / TRAIN["steps"] for k, c in counts.items()}
+    per_step = {k: c / cfg["steps"] for k, c in counts.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    report[name] = dict(
+    report[label] = dict(
         layers=L, params=n_params, tokens_per_step=tokens, step_ms=step_ms,
         step_ms_median=med, tok_per_s=tokens / med * 1e3, peak_mem_gb=peak,
         mem_before_steps_gb=base,
         launches=counts, launches_per_step=per_step, losses=losses,
-        grad_norms=norms, grad_check=dict(worst_cos=worst["cos"],
-                                          worst_rel_l2=worst["rel_l2"],
-                                          grad_norm_kernels=gn_k,
-                                          grad_norm_plain=gn_p))
-    print(f"train: {arch.name} {L} layers, {TRAIN['steps']} AdamW steps of "
-          f"{TRAIN['batch']} x {TRAIN['seq_len']} tokens: step "
+        grad_norms=norms, grad_check=dict(
+            worst_cos=diffs[cos_leaf][0], worst_cos_leaf=cos_leaf,
+            worst_rel_l2=rel, worst_rel_l2_leaf=rel_leaf,
+            worst_leaf_rel_l2_by_layer=by_layer,
+            **{f"rel_l2_{k}": {n: r for n, (_, r) in d.items()}
+               for k, d in (("plain", diffs), ("kernels_fp32", k_f),
+                            ("plain_fp32", p_f), ("repeat", repeat))},
+            grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
+            peak_mem_gb=check_peak))
+    print(f"train: {arch.name} {L} layers, {cfg['steps']} AdamW steps of "
+          f"{cfg['batch']} x {cfg['seq_len']} tokens: step "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, median of steps "
-          f"2-{TRAIN['steps']} {med:.2f} ms = {tokens / med * 1e3:.0f} "
+          f"2-{cfg['steps']} {med:.2f} ms = {tokens / med * 1e3:.0f} "
           f"tok/s, peak memory {peak:.2f} GB ({base:.2f} GB before the "
           f"steps) on {card}; losses "
           f"{[round(x, 5) for x in losses]}, grad norms "
           f"{[round(x, 5) for x in norms]}; launches a step {per_step}")
     if not all(math.isfinite(x) for x in losses + norms):
-        fail(f"{name}: losses {losses} / grad norms {norms} not finite")
-    want = {"rmsnorm": 4 * L + 1, "flash_attention": L,
-            "flash_attention_bwd": L, "ssd_scan": 0}
-    for c in (counts, grad_counts):
-        per = TRAIN["steps"] if c is counts else 1
-        if c["rmsnorm_bwd"] != c["rmsnorm"]:
-            fail(f"{name}: {c['rmsnorm_bwd']} RMSNorm backward launches for "
-                 f"{c['rmsnorm']} forward ones")
+        fail(f"{label}: losses {losses} / grad norms {norms} not finite")
+    n_attn, n_mamba = block_counts(arch)
+    norm_calls = (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1
+    want = {"rmsnorm": norm_calls, "rmsnorm_bwd": norm_calls,
+            "flash_attention": n_attn, "flash_attention_bwd": n_attn,
+            "ssd_scan": n_mamba, "ssd_scan_bwd": n_mamba}
+    for c, per in ((counts, cfg["steps"]), (grad_counts, 1)):
         if any(c[k] != n * per for k, n in want.items()):
-            fail(f"{name}: launches {c}, want {want} a step")
+            fail(f"{label}: launches {c}, want {want} a step")
     if profile:
         batch = next(batches)
 
         def one_step():
             nonlocal params, state
             params, state, _ = step(params, state, batch)
-        report[f"profile {name}"] = traced(torch, name, one_step)
-    report[name]["phase_s"] = time.perf_counter() - t_phase
-    print(f"train: phase done in {report[name]['phase_s']:.1f} s")
+        report[f"profile {label}"] = traced(torch, label, one_step)
+    report[label]["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: phase done in {report[label]['phase_s']:.1f} s")
     del params, state
 
 
@@ -1149,7 +1341,7 @@ def main() -> int:
 
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
-    paths.append(f"train {QWEN}")
+    paths += [f"train {QWEN}", f"train {MAMBA}"]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
     if not args.kernels_only:
         for name, arch in archs.items():
@@ -1162,16 +1354,20 @@ def main() -> int:
                 profile_phase(torch, report, name, arch, params, prompts)
             del params, ref_logits
             torch.cuda.empty_cache()
-        # 8. train, with the serving weights freed
-        train_phase(torch, report, archs[QWEN], card, profile=args.profile)
-        torch.cuda.empty_cache()
+        # 8./9. train, with the serving weights freed
+        for name, arch in archs.items():
+            train_phase(torch, report, name, arch, card,
+                        profile=args.profile)
+            gc.collect()
+            torch.cuda.empty_cache()
         by_path = {p: report[p]["launches"] for p in paths}
 
-    # 9. one entry per kernel, on the main path that runs it most: its
+    # one entry per kernel, on the main path that runs it most: its
     # numbers are the bf16 case of that path with the most launches (the
     # qwen decode step's (slots, d_model) norms; the qwen forward's
-    # attention; the mamba2 prefill chunk's scan; the train step's
-    # (tokens, d_model) norms and attention for the backward kernels), its
+    # attention; the mamba2 prefill chunk's scan; the qwen train step's
+    # (tokens, d_model) norms and attention and the mamba2 train step's
+    # scan for the backward kernels), its
     # launches that path's count, and every path's count beside it.  The
     # backward kernels have no TPU twin (the reference trains through plain
     # jnp): "replaces" names the TPU kernel whose gradient they compute.
@@ -1184,13 +1380,15 @@ def main() -> int:
                             "attention"),
         "flash_attention_bwd": (f"train {QWEN}", f"{QWEN} train",
                                 "attention"),
-        "ssd_scan": (f"serve {MAMBA}", f"{MAMBA} serve prefill", "scan")}
+        "ssd_scan": (f"serve {MAMBA}", f"{MAMBA} serve prefill", "scan"),
+        "ssd_scan_bwd": (f"train {MAMBA}", f"{MAMBA} train", "scan")}
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:20",
                 "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:20",
                 "flash_attention": "src/repro/kernels/flash_attention.py:77",
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:77",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:71"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:71",
+                "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:71"}
     sources = {"rmsnorm_bwd": "rmsnorm"}
     kernels = []
     for name, (path, case_path, use) in headline.items():

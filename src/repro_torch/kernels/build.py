@@ -25,7 +25,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd", "ssd_scan")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,12 +1,12 @@
 """Model-layout adapters over the port's kernels (twin of
 ``repro/kernels/ops.py``).
 
-On CUDA, ``flash_attention`` and ``rmsnorm`` are differentiable: each runs
-as a ``torch.autograd.Function`` whose backward is a hand-written kernel
-(``csrc/flash_attention_bwd.cu``, the backward in ``csrc/rmsnorm.cu``)
-whenever autograd needs it.  ``ssd_scan`` is not: its kernel has no
-backward yet, and on CUDA it raises when an input requires grad.  On the
-CPU all three run their plain versions, which autograd differentiates.
+On CUDA all three are differentiable: each runs as a
+``torch.autograd.Function`` whose backward is a hand-written kernel
+(``csrc/flash_attention_bwd.cu``, the backward in ``csrc/rmsnorm.cu``,
+``csrc/ssd_scan_bwd.cu``) whenever autograd needs it; the adapters below
+hand the gradients through unchanged.  On the CPU all three run their
+plain versions, which autograd differentiates.
 
 The model passes (B, S, H, D) tensors.  The flash kernel wants head-major
 (B, H, S, D): the adapter hands it transposed *views* (the kernel takes

@@ -48,7 +48,12 @@ def ssd_scan_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     dt = a = 0 (decay 1, no input: the state is untouched).  Per chunk:
     y = (C·Bᵀ ⊙ exp(cum_i − cum_j) · dt_j)_{j≤i} @ x + exp(cum) · C·hᵀ and
     h' = exp(cum_Q)·h + Σ_j exp(cum_Q − cum_j)·dt_j·x_j⊗B_j.  exp(seg) above
-    the diagonal may overflow; the mask selects, so it never meets a 0.
+    the diagonal may overflow, so seg is masked to -inf there BEFORE the
+    exp: masking after it (``where(tri, exp(seg), 0)``) gives the same
+    forward but a NaN gradient once exp overflows, because the select's
+    0 cotangent meets exp's inf (0·inf).  Autograd through this function
+    is the port's differentiable path on the CPU, and what the backward
+    kernel is held against.
     Returns (y (B,S,H,P) fp32, h_final (B,H,P,N) fp32)."""
     Bsz, S_orig, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -70,8 +75,12 @@ def ssd_scan_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         dt_c, a_c = dt[:, c0:c0 + Q], a[:, c0:c0 + Q]              # (B,Q,H)
         cum = torch.cumsum(a_c, dim=1)
         seg = cum[:, :, None, :] - cum[:, None, :, :]              # (B,Q,Q,H)
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg),
-                            torch.zeros((), device=x.device))
+        # mask before the exp: exp(-inf) = 0 exactly where a select after
+        # it would choose 0, so the forward is the same, and the gradient
+        # above the diagonal is 0 (a select after an overflowed exp sends
+        # its 0 cotangent into exp's inf: NaN)
+        decay = torch.exp(seg.masked_fill(~tri[None, :, :, None],
+                                          float("-inf")))
         cb = torch.einsum("bign,bjgn->bijg", C_c, B_c)[..., head_group]
         scores = cb * decay * dt_c[:, None, :, :]
         y = torch.einsum("bijh,bjhp->bihp", scores, x_c)

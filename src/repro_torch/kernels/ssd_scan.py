@@ -16,12 +16,22 @@ the source's header has the design) with a chunk-state scratch this
 wrapper allocates; fp32 inputs run the FMA kernel.  Bound on an H100 at
 the path's shapes: bytes (see the source's header).
 
-``ssd_scan(...)`` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take; for CPU tensors it runs the plain
-version, ``ref.ssd_scan_ref``.  It never falls back from one to the other.
-The kernel has no backward yet (ROADMAP Queue 1 item 2): on CUDA it raises
-when autograd would need its gradient, rather than return outputs that
-autograd cannot trace back to the inputs.
+The backward (the reference defines none: it trains through the plain
+jnp scan, ``repro/models/mamba2.py::_ssd_chunked``) is the gradient of
+the same function, four CUDA kernels in ``csrc/ssd_scan_bwd.cu`` (fp32
+FMA bodies for both dtypes; the source's header has the algebra): the
+chunk states again and the dy·C sums in parallel, the two serial passes
+over the chunks (states forward from h0, their gradients back from
+dh_final), every gradient of a chunk in parallel, and dB, dC summed over
+each group's heads in head order.  No atomics: two calls give the same
+bits.  The states are recomputed, not kept from the forward.
+
+``ssd_scan(...)`` launches the forward kernels for CUDA tensors and raises
+on anything they do not take; when autograd needs its gradient (grad mode
+on and an input that requires grad) it runs as ``SSDScanFn``, whose
+backward is ``ssd_scan_bwd``.  For CPU tensors it runs the plain version,
+``ref.ssd_scan_ref``, which autograd differentiates.  It never falls back
+from one to the other.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ MAX_Q = 128              # chunk rows the kernel takes
 MAX_N = 128              # d_state
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 def bind(lib: ctypes.CDLL):
@@ -49,11 +60,28 @@ def bind(lib: ctypes.CDLL):
     return lib, fn
 
 
+def bind_bwd(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_ssd_scan_bwd`` entry point)."""
+    fn = lib.repro_ssd_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 15
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def _entry():
     global _fn
     if _fn is None:
         _fn = bind(build.load("ssd_scan"))
     return _fn
+
+
+def _bwd_entry():
+    global _bwd_fn
+    if _bwd_fn is None:
+        _bwd_fn = bind_bwd(build.load("ssd_scan_bwd"))
+    return _bwd_fn
 
 
 def _bhs(t: torch.Tensor) -> tuple[int, int, int]:
@@ -62,27 +90,10 @@ def _bhs(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(2), t.stride(1)
 
 
-def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
-             dt: torch.Tensor, a: torch.Tensor,
-             h0: torch.Tensor | None = None, *,
-             chunk: int = DEFAULT_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
-    """The model's layout: x (B,S,H,P); Bm, Cm (B,S,G,N) with G | H; dt, a
-    (B,S,H) float32; h0 (B,H,P,N) float32 or None (zeros).  Any strides,
-    with the last axis of x, Bm and Cm contiguous.  x, Bm and Cm share
-    float32 or bfloat16.  Returns y (B,S,H,P) float32 and h_final
-    (B,H,P,N) float32."""
+def _check(x, Bm, Cm, dt, a, h0, chunk) -> int:
+    """Raise on anything the kernels do not take; -> Q."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, Bm, Cm, dt, a, h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: unsupported device {x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, Bm, Cm, dt, a, h0)):
-        raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward yet (ROADMAP Queue 1 "
-            "item 2); run it under torch.no_grad() or inference_mode(), or "
-            "on the CPU, where the plain scan is differentiable")
     if not (x.dtype == Bm.dtype == Cm.dtype) or x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan: x/Bm/Cm dtypes {x.dtype}/{Bm.dtype}/"
                          f"{Cm.dtype} must match and be float32 or bfloat16")
@@ -116,6 +127,12 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise ValueError(f"ssd_scan: h0 must be contiguous float32 "
                          f"{(B, H, P, N)}, got {h0.dtype} "
                          f"{tuple(h0.shape)}")
+    return Q
+
+
+def _forward(x, Bm, Cm, dt, a, h0, Q):
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     hf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     # bf16: the chunk states (B, H, nc, P, N) and each chunk's cum_last
@@ -137,4 +154,103 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return y, hf
 
 
+def ssd_scan_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 dt: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None,
+                 dy: torch.Tensor, dh_final: torch.Tensor | None = None, *,
+                 chunk: int = DEFAULT_CHUNK):
+    """The backward kernel: the gradients of ``ssd_scan``'s (y, h_final)
+    w.r.t. its inputs, given dy (B,S,H,P) and dh_final (B,H,P,N) or None
+    (no gradient).  Inputs as ``ssd_scan`` takes them, on CUDA.  Returns
+    (dx, dBm, dCm) in x's dtype, (ddt, da) float32, and dh0 (B,H,P,N)
+    float32 (None when h0 is None), each a fresh contiguous tensor of its
+    input's shape."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: unsupported device {x.device}")
+    Q = _check(x, Bm, Cm, dt, a, h0, chunk)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if tuple(dy.shape) != (B, S, H, P) or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} on "
+                         f"{dy.device} must be {(B, S, H, P)} on {x.device}")
+    if dh_final is not None and (tuple(dh_final.shape) != (B, H, P, N) or
+                                 dh_final.device != x.device):
+        raise ValueError(f"ssd_scan_bwd: dh_final {tuple(dh_final.shape)} "
+                         f"on {dh_final.device} must be {(B, H, P, N)} on "
+                         f"{x.device}")
+    dy = dy.float().contiguous()
+    if dh_final is not None:
+        dh_final = dh_final.float().contiguous()
+    dev = x.device
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    dBm = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    dCm = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    da = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dh0 = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+           if h0 is not None else None)
+    # the states s_c / h_c and u_c / dh_c (B, H, nc, P, N) each, cum_last
+    # (B, H, nc), and the per-head dB and dC (B, S, H, N) each
+    nc = -(-S // Q)
+    scratch = torch.empty(2 * B * H * nc * P * N + B * H * nc
+                          + 2 * B * S * H * N, dtype=torch.float32,
+                          device=dev)
+    lib, fn = _bwd_entry()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    code = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+              a.data_ptr(), ptr(h0), dy.data_ptr(), ptr(dh_final),
+              dx.data_ptr(), dBm.data_ptr(), dCm.data_ptr(), ddt.data_ptr(),
+              da.data_ptr(), ptr(dh0), scratch.data_ptr(),
+              B, H, G, S, P, N, Q,
+              *_bhs(x), *_bhs(Bm), *_bhs(Cm), *_bhs(dt), *_bhs(a),
+              _DTYPES[x.dtype], stream)
+    build.check(lib, code, "ssd_scan_bwd launch")
+    ssd_scan_bwd.launches += 1
+    return dx, dBm, dCm, ddt, da, dh0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The forward kernels, with the backward kernel as their gradient."""
+
+    @staticmethod
+    def forward(ctx, x, Bm, Cm, dt, a, h0, Q: int):
+        ctx.save_for_backward(x, Bm, Cm, dt, a, h0)
+        ctx.Q = Q
+        ctx.set_materialize_grads(False)
+        return _forward(x, Bm, Cm, dt, a, h0, Q)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, Bm, Cm, dt, a, h0 = ctx.saved_tensors
+        if dy is None:                       # only h_final was used
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, dBm, dCm, ddt, da, dh0 = ssd_scan_bwd(
+            x, Bm, Cm, dt, a, h0, dy, dh_final, chunk=ctx.Q)
+        return dx, dBm, dCm, ddt, da, dh0, None
+
+
+def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             dt: torch.Tensor, a: torch.Tensor,
+             h0: torch.Tensor | None = None, *,
+             chunk: int = DEFAULT_CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """The model's layout: x (B,S,H,P); Bm, Cm (B,S,G,N) with G | H; dt, a
+    (B,S,H) float32; h0 (B,H,P,N) float32 or None (zeros).  Any strides,
+    with the last axis of x, Bm and Cm contiguous.  x, Bm and Cm share
+    float32 or bfloat16.  Returns y (B,S,H,P) float32 and h_final
+    (B,H,P,N) float32; differentiable on CUDA through the backward
+    kernel."""
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, Bm, Cm, dt, a, h0, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    Q = _check(x, Bm, Cm, dt, a, h0, chunk)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, Bm, Cm, dt, a, h0)):
+        return SSDScanFn.apply(x, Bm, Cm, dt, a, h0, Q)
+    return _forward(x, Bm, Cm, dt, a, h0, Q)
+
+
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

@@ -1,11 +1,14 @@
 """Mamba2 block — SSD (state-space duality) form, arXiv:2405.21060 (twin of
 ``repro/models/mamba2.py``).
 
-Prefill and the whole-sequence forward run the chunked SSD scan through
-the port's Hopper kernel (``kernels.ops.ssd_scan``) whatever ``impl`` is,
-as the port does with RMSNorm: the reference computes the same math in
-jnp (``_ssd_chunked``) under ``impl="xla"`` and in its Pallas kernel under
-``impl="pallas"``.  Decode is the O(1) recurrent update carrying
+Prefill, the whole-sequence forward and training run the chunked SSD
+scan through the port's Hopper kernels (``kernels.ops.ssd_scan``) whatever
+``impl`` is, as the port does with RMSNorm: on CUDA the scan is the
+kernel forward and backward (its gradient is ``csrc/ssd_scan_bwd.cu``),
+where the reference computes the same math in jnp (``_ssd_chunked``,
+which it differentiates) under ``impl="xla"`` and in its Pallas kernel
+under ``impl="pallas"``.  On the CPU the scan is the plain version, which
+autograd differentiates.  Decode is the O(1) recurrent update carrying
 ``(conv_state, ssm_state)``, plain PyTorch as in the reference.
 
 Projections stay separate (z/x/B/C/dt, one causal conv per stream), as the
@@ -166,7 +169,8 @@ def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
     may be fed in several chunks.  ``new_lens`` (B,) marks token rows >=
     new_lens[b] as padding: their dt is zeroed (decay 1, zero input) and
     they never enter the carried conv buffer.  ``impl`` is accepted for the
-    reference's signature; the scan is the port's kernel either way."""
+    reference's signature; the scan is the port's kernel either way, and
+    differentiable: under grad its backward is the backward kernel."""
     Bsz, S, _ = x.shape
     H, P, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
     z = L.dense(p["z_proj"], x)

@@ -208,55 +208,105 @@ def test_cuda_flash_attention_wide_head_dims_match_plain(D, dtype):
                                rtol=rtol)
 
 
-@pytest.mark.gpu
-def test_cuda_ssd_scan_raises_under_grad():
-    """The SSD kernel has no backward: asked for a gradient it raises
-    instead of returning outputs that cut autograd; without grad it runs."""
-    _need_cuda()
-    x = torch.randn((1, 8, 4, 16), device="cuda").requires_grad_()
-    bm = torch.randn((1, 8, 1, 32), device="cuda")
-    dt = torch.rand((1, 8, 4), device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tops.ssd_scan(x, bm, bm, dt, -dt)
-    with torch.no_grad():
-        y, _ = tops.ssd_scan(x, bm, bm, dt, -dt)
-    assert y.grad_fn is None and torch.isfinite(y).all()
+def _tiny_ssm():
+    """Pure mamba2 with tied embeddings (as mamba2-780m), two B/C groups
+    and a chunk of 16, so a 150-token sequence spans 10 chunks, the last
+    ragged."""
+    from repro_torch.configs.base import ArchConfig, Segment, SSMSpec
+    return ArchConfig(name="ssm-tiny", family="ssm", n_layers=2,
+                      d_model=128, n_heads=4, n_kv_heads=4, d_ff=256,
+                      vocab=300,
+                      ssm=SSMSpec(d_state=64, head_dim=32, n_groups=2,
+                                  chunk=16),
+                      pattern=(Segment(("mamba2",), 2),),
+                      tie_embeddings=True, dtype="float32",
+                      param_dtype="float32")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl,remat", [("xla", "none"), ("pallas", "none"),
-                                        ("pallas", "full"),
-                                        ("pallas", "selective")])
-def test_cuda_loss_backward_matches_cpu(impl, remat):
-    """loss.backward() through lm_apply on the card (RMSNorm kernels, and
-    under impl="pallas" the flash kernels, forward and backward; with
-    remat, the kernels run again in the backward's recompute) gives every
-    param leaf the CPU plain path's gradient; every norm ``scale`` leaf
-    gets one."""
+@pytest.mark.parametrize("model,impl,remat", [
+    ("qwen", "xla", "none"), ("qwen", "pallas", "none"),
+    ("qwen", "pallas", "full"), ("qwen", "pallas", "selective"),
+    ("ssm", "pallas", "none"), ("ssm", "pallas", "full"),
+    ("ssm", "pallas", "selective")],
+    ids=["xla-none", "pallas-none", "pallas-full", "pallas-selective",
+         "ssm-pallas-none", "ssm-pallas-full", "ssm-pallas-selective"])
+def test_cuda_loss_backward_matches_cpu(model, impl, remat):
+    """loss.backward() through lm_apply on the card (RMSNorm kernels; under
+    impl="pallas" the flash kernels, forward and backward; for the mamba2
+    model the SSD scan's kernels, forward and backward, whatever impl is;
+    with remat, the forward kernels run again in the backward's recompute)
+    gives every param leaf the CPU plain path's gradient; every norm
+    ``scale`` leaf gets one."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.models import transformer as T
     from repro_torch.runtime import steps as ST
-    arch = _tiny_qwen()
+    arch = _tiny_qwen() if model == "qwen" else _tiny_ssm()
     params = T.init_lm(arch, device="cpu", seed=0)
     tokens = torch.randint(0, arch.vocab, (2, 150),
                            generator=torch.Generator().manual_seed(0))
     labels = torch.roll(tokens, -1, dims=1)
     loss_fn = ST.make_loss_fn(arch, impl=impl, remat=remat)
-    before = trn.rmsnorm_bwd.launches
+    before = trn.rmsnorm_bwd.launches, tssd.ssd_scan_bwd.launches
     got = ST.loss_and_grads(loss_fn, _to(params, "cuda"), tokens.cuda(),
                             labels.cuda())
     torch.cuda.synchronize()
-    assert trn.rmsnorm_bwd.launches - before == 4 * arch.n_layers + 1
+    norms = 4 if model == "qwen" else 2       # per layer, + the final one
+    assert trn.rmsnorm_bwd.launches - before[0] == norms * arch.n_layers + 1
+    assert tssd.ssd_scan_bwd.launches - before[1] == \
+        (0 if model == "qwen" else arch.n_layers)
     want = ST.loss_and_grads(loss_fn, params, tokens, labels)
     torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-5, rtol=1e-5)
     names = tree.names(params)
-    # norm1, norm2, q_norm, k_norm (each stacked over the layers), final
-    assert sum(n.endswith("scale") for n in names) == 5
+    # qwen: norm1, norm2, q_norm, k_norm (each stacked over the layers),
+    # final; mamba2: the block's norm, the mixer's gated norm, final
+    assert sum(n.endswith("scale") for n in names) == \
+        (5 if model == "qwen" else 3)
     for n, g, w in zip(names, got[2], want[2]):
         assert g is not None, n
         torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4,
                                    msg=n)
+
+
+@pytest.mark.gpu
+def test_cuda_mamba2_mixer_grads_match_cpu():
+    """The mamba2 mixer under grad from a carried state and conv buffers,
+    with padded rows past new_lens (their dt zeroed by a select), on the
+    card (SSD forward and backward kernels: h0 and h_final both carry a
+    gradient) against the CPU's plain scan: every param's, x's and the
+    carried state's and buffers' grads, fp32."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.models import mamba2 as M2
+    cfg = M2.Mamba2Config(d_model=128, d_state=64, head_dim=32, n_groups=2,
+                          chunk=16)
+    g = torch.Generator().manual_seed(0)
+    p = M2.init_mamba2(cfg, generator=g, device="cpu")
+    B, S = 2, 70
+    x, gy = (torch.randn((B, S, 128), generator=g) for _ in range(2))
+    gh = torch.randn((B, cfg.n_heads, 32, 64), generator=g)
+    cache = {k: torch.randn(v.shape, generator=g)
+             for k, v in M2.init_mamba2_cache(cfg, B, device="cpu").items()}
+    new_lens = torch.tensor([70, 41])
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in tree.leaves(p)]
+        xs = x.to(device).requires_grad_()
+        cs = {k: v.to(device).requires_grad_() for k, v in cache.items()}
+        y, nc = M2.mamba2(tree.unflatten(p, leaves), cfg, xs, cache=cs,
+                          new_lens=new_lens.to(device))
+        loss = (y * gy.to(device)).sum() + (nc["ssm"] * gh.to(device)).sum()
+        ins = leaves + [xs] + [cs[k] for k in sorted(cs)]
+        return [t.cpu() for t in torch.autograd.grad(loss, ins)]
+    before = tssd.ssd_scan_bwd.launches
+    got = grads("cuda")
+    torch.cuda.synchronize()
+    assert tssd.ssd_scan_bwd.launches == before + 1
+    want = grads("cpu")
+    for gg, w in zip(got, want):
+        assert torch.isfinite(gg).all()
+        assert float((gg - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
@@ -388,6 +438,23 @@ FLASH_BWD_MUTANTS = {
                               "for (int h = h0; h < h0 + 1; ++h) {"),
     "Di left out": ("return p * (dp - di);", "return p * dp;"),
 }
+# Wrong SSD backward kernels, each one edit away from csrc/
+# ssd_scan_bwd.cu (one body for both dtypes): the decay not selected
+# above the diagonal, formed as exp(cum_i)·exp(-cum_j), da without its
+# reverse cumsum, dB and dC from one head of each group, the state
+# gradient not carried across chunks.
+SSD_BWD_MUTANTS = {
+    "mask dropped": ("const bool keep = j <= i && i < q;",
+                     "const bool keep = i < q;"),
+    "exp(cum_i) exp(-cum_j)": (
+        "const float l = keep ? expf(cum[i] - cum[j]) : 0.f;",
+        "const float l = keep ? expf(cum[i]) * expf(-cum[j]) : 0.f;"),
+    "da without the reverse cumsum": ("      vdcum[k] = run;",
+                                      "      (void)run;"),
+    "dB, dC from one head": ("for (int k = 0; k < hpg; ++k) {",
+                             "for (int k = 0; k < 1; ++k) {"),
+    "dh not carried": ("dh = e[k] * dh + v[k];", "dh = v[k];"),
+}
 RMSNORM_BWD_MUTANTS = {
     "dscale from one partial": (
         "for (int b = w; b < blocks; b += kDscaleWarps)",
@@ -472,6 +539,68 @@ def test_cuda_ssd_scan_matches_plain(B, S, H, P, N, G, chunk, h0, dtype):
     assert ok, (err, tol)
 
 
+# (B, S, H, P, N, G, chunk, h0, dh_final): chip_smoke.py's ssd_scan_bwd
+# rows (the train step's scan of mamba2-780m, no h0 and no h_final
+# gradient; ragged S = 1000 with h0 and h_final gradients; two groups;
+# S < Q), then the small and odd widths of SSD_CASES
+SSD_BWD_CASES = [
+    (2, 1024, 48, 64, 128, 1, 128, False, False),
+    (1, 1000, 48, 64, 128, 1, 128, True, True),
+    (1, 256, 48, 64, 128, 2, 128, True, False),
+    (1, 100, 48, 64, 128, 1, 128, False, True),
+    (2, 33, 4, 32, 64, 1, 16, True, False),
+    (1, 7, 6, 8, 16, 3, 4, True, True),
+    (2, 150, 6, 12, 24, 2, 64, True, True),
+]
+
+
+def _ssd_grads(scan, x, Bm, Cm, dt, a, h0, dy, dh, chunk):
+    """Autograd of sum(y·dy) (+ sum(h_final·dh)) through ``scan`` -> the
+    grads of (x, Bm, Cm, dt, a[, h0])."""
+    ins = [t.clone().requires_grad_() for t in (x, Bm, Cm, dt, a)]
+    if h0 is not None:
+        ins.append(h0.clone().requires_grad_())
+    y, hf = scan(*ins[:5], ins[5] if h0 is not None else None, chunk=chunk)
+    if dh is None:
+        return torch.autograd.grad(y, ins, dy)
+    return torch.autograd.grad((y, hf), ins, (dy, dh))
+
+
+def _ssd_bwd_case(smoke, B, S, H, P, N, G, dtype, h0, dhf, seed=0):
+    x, Bm, Cm, dt, a, h = _ssd_case(smoke, B, S, H, P, N, G, dtype, h0,
+                                    seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn((B, S, H, P), generator=g, device="cuda")
+    dh = (torch.randn((B, H, P, N), generator=g, device="cuda") if dhf
+          else None)
+    return x, Bm, Cm, dt, a, h, dy, dh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,h0,dhf", SSD_BWD_CASES)
+def test_cuda_ssd_scan_bwd_matches_plain(B, S, H, P, N, G, chunk, h0, dhf,
+                                         dtype):
+    """ssd_scan under grad on the card (forward kernels, then the backward
+    kernel, once each) against autograd through the plain scan: every
+    gradient norm-wise at chip_smoke.py's BWD_TOL, finite."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = _smoke()
+    case = _ssd_bwd_case(smoke, B, S, H, P, N, G, DTYPES[dtype][0], h0, dhf)
+    before = tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches
+    got = _ssd_grads(tops.ssd_scan, *case, chunk)
+    torch.cuda.synchronize()
+    assert (tssd.ssd_scan.launches, tssd.ssd_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = _ssd_grads(tref.ssd_scan_ref, *case, chunk)
+    assert len(got) == len(want) == (6 if h0 else 5)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    err, ok, tol = smoke.check_normwise(got, want, dtype)
+    assert ok, (err, tol)
+
+
 # Wrong SSD kernels, each one edit away from csrc/ssd_scan.cu.  The bf16
 # tensor-core body's: the mask as a multiply (inf * 0 above the diagonal),
 # the state not passed across chunks, the wrong group, the lo term of w
@@ -513,8 +642,9 @@ SSD_MUTANTS_FP32 = {
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS),
     ("rmsnorm.cu", RMSNORM_BWD_MUTANTS),
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16),
+    ("ssd_scan_bwd.cu", SSD_BWD_MUTANTS),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
-        "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16"])
+        "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -568,16 +698,20 @@ def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
 def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's backward check fails every wrong backward kernel of
     the body its dtype runs (the flash tensor-core body's in bf16, the FMA
-    body's in fp32; RMSNorm's in both), at the train step's shapes:
-    qwen3-8b's attention (B=2, S=512, 32 q heads in groups of 4) and its
-    (1024, 4096) norm rows."""
+    body's in fp32; RMSNorm's and the SSD scan's in both), at the train
+    steps' shapes: qwen3-8b's attention (B=2, S=512, 32 q heads in groups
+    of 4) and its (1024, 4096) norm rows, and mamba2-780m's scan (B=2,
+    S=1024, 48 heads in one group, 8 chunks of 128)."""
     _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
     fmut = {("bfloat16", n): m for n, m in FLASH_BWD_MUTANTS_BF16.items()}
     fmut.update({("float32", n): m for n, m in FLASH_BWD_MUTANTS.items()})
     flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu", fmut)
     (tmp_path / "r").mkdir()
     rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu", RMSNORM_BWD_MUTANTS)
+    (tmp_path / "s").mkdir()
+    slibs = _build_mutants(tmp_path / "s", "ssd_scan_bwd.cu", SSD_BWD_MUTANTS)
     g = torch.Generator(device="cuda").manual_seed(4)
     rejected = {}
     B, S, H, Hkv, D = 2, 512, 32, 8, 128
@@ -618,11 +752,27 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
                   f"({'passes' if ok else 'fails'} {tol})")
             rejected["rmsnorm " + name, dn] = not ok
         monkeypatch.undo()
+        case = _ssd_bwd_case(smoke, 2, 1024, 48, 64, 128, 1, tdt, False,
+                             False, seed=6)
+        want = _ssd_grads(tref.ssd_scan_ref, *case, 128)
+        for name, lib in [("kernel", None), *slibs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(tssd, "_bwd_fn", tssd.bind_bwd(lib))
+            got = _ssd_grads(tops.ssd_scan, *case, 128)
+            torch.cuda.synchronize()
+            err, ok, tol = smoke.check_normwise(got, want, dn)
+            print(f"ssd_scan_bwd {name} {dn}: max_abs_err {err:.3g} "
+                  f"({'passes' if ok else 'fails'} {tol})")
+            rejected["ssd " + name, dn] = not ok
+        monkeypatch.undo()
     for dn in DTYPES:
         assert not rejected["flash kernel", dn]
         assert not rejected["rmsnorm kernel", dn]
+        assert not rejected["ssd kernel", dn]
         for name in RMSNORM_BWD_MUTANTS:
             assert rejected["rmsnorm " + name, dn], name
+        for name in SSD_BWD_MUTANTS:
+            assert rejected["ssd " + name, dn], name
     for name in FLASH_BWD_MUTANTS_BF16:
         assert rejected["flash " + name, "bfloat16"], name
     for name in FLASH_BWD_MUTANTS:
@@ -632,9 +782,10 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_backward_kernels_are_deterministic(dtype):
-    """No float atomics: two calls of each backward at the train step's
-    shapes (qwen3-8b's attention, B=2 S=512; its (1024, 4096) norm rows)
-    give the same bits."""
+    """No float atomics: two calls of each backward at the train steps'
+    shapes (qwen3-8b's attention, B=2 S=512; its (1024, 4096) norm rows;
+    mamba2-780m's scan, B=2 S=1024, with h0 and h_final gradients) give
+    the same bits."""
     _need_cuda()
     tdt = DTYPES[dtype][0]
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -652,8 +803,15 @@ def test_cuda_backward_kernels_are_deterministic(dtype):
     s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(tdt)
     first += trn.rmsnorm_bwd(x, s, gy)
     second += trn.rmsnorm_bwd(x, s, gy)
+    case = _ssd_bwd_case(_smoke(), 2, 1024, 48, 64, 128, 1, tdt, True, True,
+                         seed=7)
+    first += tssd.ssd_scan_bwd(*case, chunk=128)
+    second += tssd.ssd_scan_bwd(*case, chunk=128)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv", "dx", "dscale"), first, second):
+    names = ("dq", "dk", "dv", "dx", "dscale", "ssd dx", "ssd dB", "ssd dC",
+             "ssd ddt", "ssd da", "ssd dh0")
+    assert len(first) == len(second) == len(names)
+    for name, a, b in zip(names, first, second):
         assert torch.isfinite(a.float()).all(), name
         assert torch.equal(a, b), name
 

@@ -899,3 +899,292 @@ def test_rmsnorm_bwd_launch_shape_covers_every_width_once():
             assert 4 * rows * D <= smem, (D, itemsize)   # group sums
             nvec = D // vec
             assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's gradient: the plain scan's repaired mask, and the backward
+# kernel's phases emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def _ssd_scan_ref_select_after_exp(x, Bm, Cm, dt, a, *, chunk):
+    """``ref.ssd_scan_ref`` as it was before its mask moved ahead of the
+    exp (no h0): ``where(tri, exp(seg), 0)``.  Same forward; its gradient
+    is NaN once exp(seg) overflows above the diagonal."""
+    Bsz, S, H, P = x.shape
+    G = Bm.shape[2]
+    Q = min(chunk, S)
+    assert S % Q == 0
+    head_group = torch.arange(H) // (H // G)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    h = torch.zeros((Bsz, H, P, Bm.shape[3]))
+    ys = []
+    for c0 in range(0, S, Q):
+        x_c, B_c, C_c = (t[:, c0:c0 + Q] for t in (x, Bm, Cm))
+        dt_c, a_c = dt[:, c0:c0 + Q], a[:, c0:c0 + Q]
+        cum = torch.cumsum(a_c, dim=1)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        decay = torch.where(tri[None, :, :, None], torch.exp(seg),
+                            torch.zeros(()))
+        cb = torch.einsum("bign,bjgn->bijg", C_c, B_c)[..., head_group]
+        y = torch.einsum("bijh,bjhp->bihp", cb * decay * dt_c[:, None], x_c)
+        Ch, Bh = C_c[:, :, head_group], B_c[:, :, head_group]
+        y = y + torch.einsum("bqhn,bhpn->bqhp", Ch, h) * \
+            torch.exp(cum)[..., None]
+        dec_end = torch.exp(cum[:, -1:, :] - cum)
+        bx = torch.einsum("bqh,bqhp,bqhn->bhpn", dec_end * dt_c, x_c, Bh)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + bx
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def _ssd_grad_case(seed, B, S, H, P, N, G, *, decay=None, h0=False,
+                   dh_final=True):
+    """Inputs, h0, dy and dh_final drawn with numpy (``_ssd_inputs``);
+    ``decay`` set, a = decay on every row (strong decay: exp(cum_i -
+    cum_j) overflows above the diagonal within a chunk)."""
+    x, Bm, Cm, dt, a = _ssd_inputs(seed, B, S, H, P, N, G)
+    if decay is not None:
+        a = np.full_like(a, decay)
+    rng = np.random.default_rng(seed + 100)
+    hh = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+          if h0 else None)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dh = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+          if dh_final else None)
+    return (x, Bm, Cm, dt, a), hh, dy, dh
+
+
+def _ssd_torch_grads(fn, arrays, hh, dy, dh, **kw):
+    """Autograd of sum(y·dy) + sum(h_final·dh) through ``fn`` -> grads of
+    (x, Bm, Cm, dt, a[, h0])."""
+    ins = [torch.from_numpy(t).requires_grad_() for t in arrays]
+    if hh is not None:
+        ins.append(torch.from_numpy(hh).requires_grad_())
+        kw["h0"] = ins[-1]
+    y, hf = fn(*ins[:5], **kw)
+    loss = (y * torch.from_numpy(dy)).sum()
+    if dh is not None:
+        loss = loss + (hf * torch.from_numpy(dh)).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+def test_ssd_scan_ref_masks_before_the_exp():
+    """a = -3 on every row of one 64-row chunk: cum falls to -192, so
+    exp(cum_i - cum_j) overflows above the diagonal.  The repaired plain
+    scan's forward equals the old select-after-exp form bit for bit; the
+    old form's grad of a is NaN (0 · inf in the select's backward), the
+    repaired one's is finite and equals jax.grad of the sequential
+    recurrence, which forms no exp(seg), at 1e-5 of its scale.  The
+    forwards are compared on one CPU thread: with several, the CPU's
+    multi-threaded sums may differ in the last bit between two runs of
+    the same function."""
+    arrays, _, dy, dh = _ssd_grad_case(20, 1, 64, 4, 8, 16, 1, decay=-3.0)
+    assert 3.0 * 64 > np.log(np.finfo(np.float32).max)
+    ts = [torch.from_numpy(t) for t in arrays]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        new = tref.ssd_scan_ref(*ts, chunk=64)
+        old = _ssd_scan_ref_select_after_exp(*ts, chunk=64)
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(new[0], old[0]) and torch.equal(new[1], old[1])
+    g_old = _ssd_torch_grads(_ssd_scan_ref_select_after_exp, arrays, None,
+                             dy, dh, chunk=64)
+    assert not torch.isfinite(g_old[4]).all()          # grad a: NaN
+    assert torch.isfinite(g_old[0]).all()              # grad x stays finite
+    got = _ssd_torch_grads(tref.ssd_scan_ref, arrays, None, dy, dh, chunk=64)
+    assert all(torch.isfinite(g).all() for g in got)
+
+    def seq(x, Bm, Cm, dt, a):
+        y, hf = jref.ssd_scan_ref(x, Bm, Cm, dt, a)
+        return jnp.sum(y * dy) + jnp.sum(hf * dh)
+    want = jax.grad(seq, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(t) for t in arrays))
+    for g, w in zip(got, want):
+        _close_scaled(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,decay,h0", [
+    (2, 64, 4, 16, 8, 1, 16, None, False),
+    (1, 100, 4, 8, 16, 2, 32, None, True),     # ragged, two groups, h0
+    (1, 128, 2, 8, 8, 1, 64, -3.0, False),     # strong decay: vs sequential
+    (1, 96, 4, 8, 16, 2, 32, -2.0, True),
+])
+def test_ssd_scan_ref_grads_match_jax_grad(B, S, H, P, N, G, chunk, decay,
+                                           h0):
+    """fp32 grads of the plain scan (x, Bm, Cm, dt, a, h0) at 1e-5 of
+    each one's scale: at mild decay against jax.grad of the reference's
+    chunked ``_ssd_chunked``; at strong decay, where that one's own grad
+    is NaN (its select after the exp, ROADMAP Queue 3), against jax.grad
+    of the sequential recurrence ``repro.kernels.ref.ssd_scan_ref``."""
+    arrays, hh, dy, dh = _ssd_grad_case(21, B, S, H, P, N, G, decay=decay,
+                                        h0=h0)
+    got = _ssd_torch_grads(tref.ssd_scan_ref, arrays, hh, dy, dh,
+                           chunk=chunk)
+    cfg = JM2.Mamba2Config(d_model=H * P // 2, d_state=N, head_dim=P,
+                           n_groups=G, chunk=chunk)
+    hg = np.arange(H) // (H // G)
+
+    def loss(x, Bm, Cm, dt, a, *h):
+        if decay is None:
+            y, hf = JM2._ssd_chunked(cfg, x, Bm, Cm, (dt, a), *h)
+        else:
+            y, hf = jref.ssd_scan_ref(x, Bm[:, :, hg], Cm[:, :, hg], dt, a,
+                                      *h)
+        return jnp.sum(y * dy) + jnp.sum(hf * dh)
+    jin = [jnp.asarray(t) for t in arrays] + (
+        [] if hh is None else [jnp.asarray(hh)])
+    want = jax.grad(loss, argnums=tuple(range(len(jin))))(*jin)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close_scaled(g, w, 1e-5)
+
+
+def _ssd_bwd_phases(x, Bm, Cm, dt, a, h0, dy, dh_final, *, chunk,
+                    wrong=None):
+    """csrc/ssd_scan_bwd.cu's four phases in plain torch, fp32, in its
+    order: (a) each chunk's cum, own state s_c and u_c = Σ_i exp(cum_i)
+    dy_i⊗C_i; (b) the states entering each chunk from h0, then the state
+    gradients leaving each chunk from dh_final, down to dh0; (c) each
+    chunk's gradients per head from K = CB·L and D = dS·L, selected
+    below the diagonal, dcum from its three sources and da its reverse
+    cumsum; (d) dB, dC summed over each group's heads in head order.
+    ``wrong`` makes one of the card's wrong kernels: "drop_mask" (L not
+    selected), "exp_product" (L as exp(cum_i)·exp(-cum_j)),
+    "no_revcumsum" (da = dcum), "one_head" (each group's dB, dC from its
+    first head).  -> (dx, dB, dC, ddt, da, dh0)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    x, Bm, Cm, dt, a, dy = (t.float() for t in (x, Bm, Cm, dt, a, dy))
+    if pad:
+        x, Bm, Cm, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                         for t in (x, Bm, Cm, dy))
+        dt, a = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, a))
+    hpg = H // G
+    hg = torch.arange(H) // hpg
+    Bh, Ch = Bm[:, :, hg], Cm[:, :, hg]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[None, :, :, None]
+
+    def ch(t, c):
+        return t[:, c * Q:(c + 1) * Q]
+    # (a)
+    cums, st, ut = [], [], []
+    for c in range(nc):
+        cum = torch.cumsum(ch(a, c), 1)
+        edec = torch.exp(cum[:, -1:] - cum)
+        st.append(torch.einsum("bqh,bqhp,bqhn->bhpn", edec * ch(dt, c),
+                               ch(x, c), ch(Bh, c)))
+        ut.append(torch.einsum("bqh,bqhp,bqhn->bhpn", torch.exp(cum),
+                               ch(dy, c), ch(Ch, c)))
+        cums.append(cum)
+    # (b)
+    h = torch.zeros((Bsz, H, P, N)) if h0 is None else h0.float()
+    hin = []
+    for c in range(nc):
+        hin.append(h)
+        h = torch.exp(cums[c][:, -1])[..., None, None] * h + st[c]
+    dh = torch.zeros((Bsz, H, P, N)) if dh_final is None else \
+        dh_final.float()
+    dhout = [None] * nc
+    for c in reversed(range(nc)):
+        dhout[c] = dh
+        dh = torch.exp(cums[c][:, -1])[..., None, None] * dh + ut[c]
+    # (c)
+    grads = [torch.zeros_like(t) for t in (x, Bh, Ch, dt, a)]
+    for c in range(nc):
+        cum, hh, dhh = cums[c], hin[c], dhout[c]
+        cl = cum[:, -1]
+        xc, Bc, Cc, dtc, dyc = (ch(t, c) for t in (x, Bh, Ch, dt, dy))
+        seg = cum[:, :, None] - cum[:, None]
+        if wrong == "exp_product":
+            L = torch.where(tri, torch.exp(cum)[:, :, None] *
+                            torch.exp(-cum)[:, None], torch.zeros(()))
+        elif wrong == "drop_mask":
+            L = torch.exp(seg)
+        else:
+            L = torch.exp(seg.masked_fill(~tri, float("-inf")))
+        K = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
+        dS = torch.einsum("bihp,bjhp->bijh", dyc, xc)
+        D = dS * L
+        E = K * dS
+        edec, ecum = torch.exp(cl[:, None] - cum), torch.exp(cum)
+        dhB = torch.einsum("bjhn,bhpn->bjhp", Bc, dhh)
+        dxc = dtc[..., None] * (torch.einsum("bijh,bihp->bjhp", K, dyc)
+                                + edec[..., None] * dhB)
+        dds = edec * (xc * dhB).sum(-1)
+        dBc = dtc[..., None] * (
+            torch.einsum("bijh,bihn->bjhn", D, Cc) + edec[..., None] *
+            torch.einsum("bjhp,bhpn->bjhn", xc, dhh))
+        hdy = torch.einsum("bihp,bhpn->bihn", dyc, hh)
+        dCc = torch.einsum("bijh,bjh,bjhn->bihn", D, dtc, Bc) + \
+            ecum[..., None] * hdy
+        ddtc = E.sum(1) + dds
+        dcum = (E * dtc[:, None]).sum(2) - dtc * ddtc + \
+            ecum * (Cc * hdy).sum(-1)
+        dcum[:, -1] += (dtc * dds).sum(1) + torch.exp(cl) * \
+            (dhh * hh).sum((-1, -2))
+        dac = dcum if wrong == "no_revcumsum" else \
+            dcum.flip(1).cumsum(1).flip(1)
+        for gr, v in zip(grads, (dxc, dBc, dCc, ddtc, dac)):
+            gr[:, c * Q:(c + 1) * Q] = v
+    dx, dBh, dCh, ddt, da = grads
+    # (d)
+    dB = torch.zeros((Bsz, nc * Q, G, N))
+    dC = torch.zeros_like(dB)
+    for g in range(G):
+        for k in range(1 if wrong == "one_head" else hpg):
+            dB[:, :, g] += dBh[:, :, g * hpg + k]
+            dC[:, :, g] += dCh[:, :, g * hpg + k]
+    return (dx[:, :S], dB[:, :S], dC[:, :S], ddt[:, :S], da[:, :S], dh)
+
+
+def _ssd_bwd_phase_errs(case, chunk, wrong=None):
+    """(relative max error of each gradient of the emulated kernel against
+    autograd through the plain scan)."""
+    arrays, hh, dy, dh = case
+    want = _ssd_torch_grads(tref.ssd_scan_ref, arrays, hh, dy, dh,
+                            chunk=chunk)
+    ts = [torch.from_numpy(t) for t in arrays]
+    got = _ssd_bwd_phases(*ts, None if hh is None else torch.from_numpy(hh),
+                          torch.from_numpy(dy),
+                          None if dh is None else torch.from_numpy(dh),
+                          chunk=chunk, wrong=wrong)
+    return [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,h0,dh_final,decay", [
+    (2, 64, 4, 16, 8, 1, 16, False, False, None),
+    (1, 100, 4, 8, 16, 2, 32, True, True, None),    # ragged, G = 2
+    (2, 37, 6, 8, 8, 3, 64, True, False, None),     # S < Q, three groups
+    (1, 130, 4, 8, 16, 1, 64, True, True, -3.0),    # strong decay, ragged
+])
+def test_ssd_bwd_phases_match_autograd_of_the_plain_scan(
+        B, S, H, P, N, G, chunk, h0, dh_final, decay):
+    """The backward kernel's algebra, phase by phase (``_ssd_bwd_phases``),
+    equals autograd through the repaired plain scan for every gradient
+    (x, B, C, dt, a, h0) at 1e-5 of its scale, fp32."""
+    case = _ssd_grad_case(22, B, S, H, P, N, G, decay=decay, h0=h0,
+                          dh_final=dh_final)
+    errs = _ssd_bwd_phase_errs(case, chunk)
+    assert len(errs) == (6 if h0 else 5)
+    assert max(errs) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("wrong", ["drop_mask", "exp_product",
+                                   "no_revcumsum", "one_head"])
+def test_ssd_bwd_emulation_fails_each_wrong_kernel(wrong):
+    """Each one-edit wrong backward kernel, emulated, misses autograd
+    through the plain scan by far more than the card's fp32 check allows
+    (1e-4 of max |grad|), or goes NaN: at strong decay (a = -3 a row,
+    64-row chunks) with two groups of two heads, h0 and dh_final."""
+    case = _ssd_grad_case(23, 1, 130, 4, 8, 16, 2, decay=-3.0, h0=True)
+    assert max(_ssd_bwd_phase_errs(case, 64)) <= 1e-5
+    errs = _ssd_bwd_phase_errs(case, 64, wrong)
+    bad = [e for e in errs if not e <= 10 * _smoke().BWD_TOL["float32"]]
+    assert bad, errs

@@ -269,3 +269,86 @@ def test_greedy_sampler_cuts_padded_vocab():
     torch.testing.assert_close(logp, want)
     with pytest.raises(NotImplementedError, match="stochastic"):
         sample(logits, z + 0.5, z.astype(np.int32), z + 1, z, z)
+
+
+def _mixer_case(seed, cached):
+    """A mamba2 mixer (d_model 64, 8 heads of 16, d_state 16, two groups,
+    chunk 8) with the reference's init, x and the output cotangents from
+    numpy; ``cached``: a random carried state and conv buffers, and rows
+    past new_lens = (20, 13) padding."""
+    cfg = dict(d_model=64, d_state=16, head_dim=16, n_groups=2, chunk=8)
+    jcfg, tcfg = JM2.Mamba2Config(**cfg), TM2.Mamba2Config(**cfg)
+    jp = JM2.init_mamba2(jax.random.PRNGKey(seed), jcfg)
+    rng = np.random.default_rng(seed)
+    B, S = 2, 20
+    arrays = {"x": rng.standard_normal((B, S, 64)).astype(np.float32),
+              "gy": rng.standard_normal((B, S, 64)).astype(np.float32),
+              "gh": rng.standard_normal((B, 8, 16, 16)).astype(np.float32)}
+    cache = None
+    if cached:
+        cache = {k: rng.standard_normal(np.shape(v)).astype(np.float32)
+                 for k, v in JM2.init_mamba2_cache(jcfg, B).items()}
+    return jcfg, tcfg, jp, arrays, cache
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_mamba2_mixer_grads_match_jax_grad(cached):
+    """The mixer under grad, as training runs it (``cached``: also from a
+    carried state and conv buffers, with padded rows past new_lens, whose
+    dt is zeroed by a select): the grads of every param, of x and of the
+    carried state and buffers, with sum(y·gy) (+ sum(h_final·gh)) as the
+    loss, against jax.grad of the reference's mixer at 1e-5."""
+    jcfg, tcfg, jp, arr, cache = _mixer_case(7, cached)
+    nl = np.asarray([20, 13], np.int32) if cached else None
+
+    def jloss(p, x, c):
+        y, nc = JM2.mamba2(p, jcfg, x, cache=c,
+                           new_lens=None if nl is None else jnp.asarray(nl))
+        out = jnp.sum(y * arr["gy"])
+        return out + (jnp.sum(nc["ssm"] * arr["gh"]) if c is not None
+                      else 0.0)
+    jc = None if cache is None else jax.tree.map(jnp.asarray, cache)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jp, jnp.asarray(arr["x"]), jc)
+
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
+    leaves = _flat(tp)
+    for t in leaves.values():
+        t.requires_grad_()
+    x = torch.from_numpy(arr["x"]).requires_grad_()
+    tc = None if cache is None else {
+        k: torch.from_numpy(v).requires_grad_() for k, v in cache.items()}
+    y, nc = TM2.mamba2(tp, tcfg, x, cache=tc,
+                       new_lens=None if nl is None else torch.from_numpy(nl))
+    loss = (y * torch.from_numpy(arr["gy"])).sum()
+    if tc is not None:
+        loss = loss + (nc["ssm"] * torch.from_numpy(arr["gh"])).sum()
+    loss.backward()
+    for k, t in leaves.items():
+        _close_scaled(t.grad, _get(want[0], k), k)
+    _close_scaled(x.grad, want[1], "x")
+    if tc is not None:
+        for k, t in tc.items():
+            _close_scaled(t.grad, want[2][k], k)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _get(tree, dotted):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _close_scaled(got, want, what, tol=TOL):
+    """max |got - want| <= tol * max |want| (grads are sums of many
+    products; an elementwise rtol fails near 0 on summation order)."""
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(_np(got) - want).max())
+    assert err <= tol * float(np.abs(want).max()), (what, err)

@@ -20,6 +20,7 @@ sqrt(v_hat) fell in (0, 10 * eps) at some step (19 of 106,816 elements
 here); those are held at 1e-4 absolute, and at most 0.01 % of all
 elements may leave the allclose bound.
 """
+import dataclasses
 import functools
 
 import jax
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch, reduce_for_smoke
 from repro.configs.base import ArchConfig, Segment
 from repro.data import SyntheticLM as JSyntheticLM
 from repro.models import transformer as JT
@@ -48,6 +50,14 @@ TINY_RT = ArchConfig(name="tiny-rt", family="dense", n_layers=2, d_model=64,
                      pattern=(Segment(("attn",), 2),), dtype="float32",
                      param_dtype="float32")
 ANCHOR_LOSSES = (6.0166, 5.8732, 5.5867, 5.5070, 5.3011)   # ROADMAP
+# mamba2-780m cut to size by the reference's reduce_for_smoke (d_model 128,
+# 16 heads of 16, d_state 16, 2 layers, vocab 512, tied embeddings, fp32)
+# at its smoke chunk of 16
+MAMBA2_SMOKE = reduce_for_smoke(get_arch("mamba2-780m"))
+# the arch of each run and its SyntheticLM(vocab, seq_len, batch)
+RUNS = {"tiny-rt": (TINY_RT, (256, 32, 8)),
+        "mamba2": (MAMBA2_SMOKE, (512, 32, 8)),
+        "mamba2-s128": (MAMBA2_SMOKE, (512, 128, 2))}
 EPS = 1e-8          # adamw's
 
 
@@ -64,23 +74,32 @@ def _np_tree(t):
     return jax.tree.map(np.asarray, t)
 
 
+def _with_chunk(arch: ArchConfig, chunk):
+    return arch if chunk is None else dataclasses.replace(
+        arch, ssm=dataclasses.replace(arch.ssm, chunk=chunk))
+
+
 @functools.cache
 def _run(steps: int, opt: str = "adamw", microbatches: int = 1,
-         clip_norm: float = 1.0, impl: str = "xla", remat: str = "none"):
+         clip_norm: float = 1.0, impl: str = "xla", remat: str = "none",
+         run: str = "tiny-rt", jax_chunk=None, port_chunk=None):
     """Both train steps from the same params over the same batches ->
     {"jax"/"port": (losses, grad norms, params, mu, nu)} as numpy, plus
     "sqrt_vhat_min": the reference's smallest nonzero sqrt(v_hat) per
-    element over the steps (adamw only)."""
+    element over the steps (adamw only).  ``run`` names the arch and data
+    (``RUNS``); ``jax_chunk`` / ``port_chunk`` set each side's SSD chunk."""
+    arch, data = RUNS[run]
+    jarch = _with_chunk(arch, jax_chunk)
     jopt, topt = _opts(opt)
-    jparams = JT.init_lm(jax.random.PRNGKey(0), TINY_RT)
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jarch)
     tparams = convert.to_torch(_np_tree(jparams))
     jstate, tstate = jopt[0](jparams), topt[0](tparams)
     jstep = jit_step("train", j_make_train_step(
-        TINY_RT, jopt, microbatches=microbatches, clip_norm=clip_norm))
-    tstep = ST.make_train_step(port_arch(TINY_RT), topt,
-                               microbatches=microbatches,
+        jarch, jopt, microbatches=microbatches, clip_norm=clip_norm))
+    tstep = ST.make_train_step(port_arch(_with_chunk(arch, port_chunk)),
+                               topt, microbatches=microbatches,
                                clip_norm=clip_norm, impl=impl, remat=remat)
-    jdata, tdata = JSyntheticLM(256, 32, 8), SyntheticLM(256, 32, 8)
+    jdata, tdata = JSyntheticLM(*data), SyntheticLM(*data)
     out = {"jax": ([], []), "port": ([], [])}
     vmin = None
     for _ in range(steps):
@@ -172,11 +191,63 @@ def test_train_step_variant_matches_jax(variant):
     _assert_tree_close(r["jax"][3], r["port"][3])
 
 
-def _grads(remat: str, impl: str = "xla"):
-    arch = port_arch(TINY_RT)
+# ---------------------------------------------------------------------------
+# mamba2: the SSD scan's gradient in the step, against the JAX step
+# ---------------------------------------------------------------------------
+
+def _assert_step_matches(r):
+    """The qwen anchor's tolerances: losses and grad norms at 1e-5
+    relative, params by ``_assert_params_close``, both moments at rtol
+    1e-4, atol 1e-6."""
+    assert all(np.isfinite(r["port"][0])) and all(np.isfinite(r["port"][1]))
+    np.testing.assert_allclose(r["port"][0], r["jax"][0], rtol=1e-5)
+    np.testing.assert_allclose(r["port"][1], r["jax"][1], rtol=1e-5)
+    _assert_params_close(r["jax"][2], r["port"][2], r["sqrt_vhat_min"])
+    _assert_tree_close(r["jax"][3], r["port"][3])
+    _assert_tree_close(r["jax"][4], r["port"][4])
+
+
+def test_mamba2_train_step_matches_jax():
+    """reduce_for_smoke(mamba2-780m) at its chunk of 16, fp32, tied
+    embeddings: 4 AdamW steps of the port's make_train_step against the
+    mesh-free JAX step from the same params."""
+    arch = port_arch(MAMBA2_SMOKE)
+    assert arch.tie_embeddings and arch.ssm.chunk == 16
+    _assert_step_matches(_run(4, run="mamba2"))
+
+
+def test_mamba2_train_step_at_the_published_chunk_matches_jax():
+    """The port's step at the published chunk of 128 (one chunk a 128-token
+    sequence, where init's A = -(1..H) makes exp(cum_i - cum_j) overflow
+    above the diagonal) stays finite and equals the JAX step at chunk 16:
+    the chunked form does not depend on the chunk.  The JAX step itself is
+    NaN at 128 (next test), so it is held at 16."""
+    _assert_step_matches(_run(3, run="mamba2-s128", jax_chunk=16,
+                              port_chunk=128))
+
+
+def test_jax_mamba2_step_at_the_published_chunk_is_nan():
+    """The reference fault this port does not copy (ROADMAP Queue 3):
+    ``repro/models/mamba2.py::_ssd_chunked`` selects after the exp, so its
+    gradient is NaN once exp(cum_i - cum_j) overflows above the diagonal.
+    At chunk 128 the JAX step's first grad norm is NaN; this is why the
+    port's step at 128 is held against the JAX step at 16."""
+    arch = _with_chunk(MAMBA2_SMOKE, 128)
+    jopt = _opts("adamw")[0]
+    params = JT.init_lm(jax.random.PRNGKey(0), arch)
+    step = jit_step("train", j_make_train_step(arch, jopt))
+    batch = next(JSyntheticLM(*RUNS["mamba2-s128"][1]))
+    _, _, m = step(params, jopt[0](params),
+                   {k: jnp.asarray(v) for k, v in batch.items()})
+    assert np.isnan(float(m["grad_norm"]))
+
+
+def _grads(remat: str, impl: str = "xla", run: str = "tiny-rt"):
+    jarch, data = RUNS[run]
+    arch = port_arch(jarch)
     params = convert.to_torch(_np_tree(JT.init_lm(jax.random.PRNGKey(0),
-                                                  TINY_RT)))
-    b = next(SyntheticLM(256, 32, 8))
+                                                  jarch)))
+    b = next(SyntheticLM(*data))
     loss_fn = ST.make_loss_fn(arch, impl=impl, remat=remat)
     return ST.loss_and_grads(loss_fn, params, torch.as_tensor(b["tokens"]),
                              torch.as_tensor(b["labels"]))
@@ -189,6 +260,23 @@ def test_remat_gives_the_grads_of_no_remat(remat):
     assert float(got[0]) == float(base[0])
     for g, w in zip(got[2], base[2]):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("remat", ["full", "selective"])
+def test_mamba2_remat_gives_the_grads_of_no_remat(remat):
+    """The mamba2 block (convs, softplus dt, the scan, D skip, gated norm)
+    checkpointed per layer gives the grads of no remat, on the CPU's plain
+    scan; the card runs the same with the scan's autograd Function
+    (tests/test_torch_gpu.py::test_cuda_loss_backward_matches_cpu).  Each
+    grad is held at 1e-6 of its max |value|: the CPU's multi-threaded
+    sums may differ in the last bits between two runs of the same
+    function, which moves an element near 0 by more than an elementwise
+    rtol allows."""
+    base = _grads("none", run="mamba2")
+    got = _grads(remat, run="mamba2")
+    torch.testing.assert_close(got[0], base[0], rtol=1e-6, atol=0)
+    for g, w in zip(got[2], base[2]):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
 
 
 def test_selective_remat_saves_the_dense_products_only():
