@@ -230,15 +230,66 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// byte offset of 16-byte piece cc of row r in a 1024-byte aligned column
+// block of 128-byte rows, swizzled as TMA's 128-byte mode writes it
+__device__ __forceinline__ int sw128(int r, int cc) {
+  return r * 128 + ((cc ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - smem_addr(p) % 1024) % 1024);
+}
+
+// rows [row0, row0 + R) x columns [col0, col0 + 64) of a bf16 matrix of
+// `rows` x `cols` with row stride ld, into one swizzled column block at
+// dst, by every thread of the block; what lies past either edge is zero,
+// as TMA fills it
+__device__ __forceinline__ void load_block(unsigned char* dst,
+                                           const __nv_bfloat16* src,
+                                           long long ld, int row0, int rows,
+                                           int col0, int cols, int R) {
+  for (int q = threadIdx.x; q < R * 8; q += blockDim.x) {
+    const int r = q >> 3, cc = q & 7, row = row0 + r;
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int col = col0 + cc * 8 + e;
+      v[e] = (row < rows && col < cols) ? src[row * ld + col]
+                                        : __float2bfloat16(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + sw128(r, cc)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// v as bf16 hi + lo, two values a register
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h2);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// one block-wide mbarrier for a single arrival (the thread that arms it)
+__device__ __forceinline__ void init_bar(uint32_t bar) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
 // A 4-D tensor map over a (B, H, rows, cols) bf16 view with element
 // strides st (b, h, row), read in boxes of box_rows rows x box_cols columns
-// (one swizzle block: box_cols * 2 bytes of 32, 64 or 128, the swizzle).
+// (one swizzle block: box_cols * 2 bytes of 32, 64 or 128, the swizzle);
+// with fp32, a view of floats read in row-major boxes, not swizzled.
 // Boxes reaching past rows or cols arrive zero-filled.
 // cuTensorMapEncodeTiled is looked up at run time with
 // cudaGetDriverEntryPoint, so the library needs no link against libcuda.
 inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H,
                             int rows, int cols, Strides st, int box_rows,
-                            int box_cols) {
+                            int box_cols, bool fp32 = false) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -250,23 +301,28 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
-  const int row_bytes = box_cols * 2;
+  const int esize = fp32 ? 4 : 2;
+  const int row_bytes = box_cols * esize;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * esize,
+                                 static_cast<cuuint64_t>(st.h) * esize,
+                                 static_cast<cuuint64_t>(st.b) * esize};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
-      row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      fp32 ? CU_TENSOR_MAP_SWIZZLE_NONE
+      : row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                         : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map,
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

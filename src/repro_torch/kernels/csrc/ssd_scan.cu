@@ -346,45 +346,6 @@ __device__ __forceinline__ int group_of(int h, int H, int G) {
   return h / (H / G);
 }
 
-// byte offset of 16-byte piece cc of row r in a 1024-byte aligned column
-// block of 128-byte rows, swizzled as TMA's 128-byte mode writes it
-__device__ __forceinline__ int sw128(int r, int cc) {
-  return r * 128 + ((cc ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - smem_addr(p) % 1024) % 1024);
-}
-
-// rows [row0, row0 + R) x columns [col0, col0 + 64) of a matrix of `rows`
-// x `cols` with row stride ld, into one swizzled column block at dst, by
-// every thread of the block; what lies past either edge is zero, as TMA
-// fills it
-__device__ void load_block(unsigned char* dst, const bf16* src, long long ld,
-                           int row0, int rows, int col0, int cols, int R) {
-  for (int q = threadIdx.x; q < R * 8; q += blockDim.x) {
-    const int r = q >> 3, cc = q & 7, row = row0 + r;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int col = col0 + cc * 8 + e;
-      v[e] = (row < rows && col < cols) ? src[row * ld + col]
-                                        : __float2bfloat16(0.f);
-    }
-    *reinterpret_cast<uint4*>(dst + sw128(r, cc)) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// v as bf16 hi + lo, two values a register
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h2);
-  hi = *reinterpret_cast<const uint32_t*>(&h2);
-  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
-}
-
 // Warp 0: the chunk's a and dt for rows lane + 32k (0 past its q rows) and
 // cum, their inclusive sum in row order; returns cum of the last row.
 // Each step adds row j's a, broadcast from its lane, to the running sum,
@@ -411,14 +372,6 @@ __device__ __forceinline__ float chunk_cum(const float* ab, long long as,
       if (lane == l) cv[k] = run;
     }
   return run;
-}
-
-__device__ __forceinline__ void init_bar(uint32_t bar) {
-  if (threadIdx.x == 0) {
-    mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 }
 
 // (a) s_c = sum_j w_j (x) B_j over the chunk for 64 rows of P (the M of

@@ -18,13 +18,17 @@ the path's shapes: bytes (see the source's header).
 
 The backward (the reference defines none: it trains through the plain
 jnp scan, ``repro/models/mamba2.py::_ssd_chunked``) is the gradient of
-the same function, four CUDA kernels in ``csrc/ssd_scan_bwd.cu`` (fp32
-FMA bodies for both dtypes; the source's header has the algebra): the
-chunk states again and the dy·C sums in parallel, the two serial passes
-over the chunks (states forward from h0, their gradients back from
-dh_final), every gradient of a chunk in parallel, and dB, dC summed over
-each group's heads in head order.  No atomics: two calls give the same
-bits.  The states are recomputed, not kept from the forward.
+the same function, four CUDA kernels a call in ``csrc/ssd_scan_bwd.cu``
+(the source's header has the algebra): the chunk states again and the
+dy·C sums in parallel, the two serial passes over the chunks (states
+forward from h0, their gradients back from dh_final), every gradient of
+a chunk in parallel, and dB, dC summed over each group's heads.  bf16
+runs the tensor-core body: its gradient kernel takes a slice of a
+group's heads a block, C·Bᵀ once, and dB, dC summed over the slice in
+registers, then the slices' partials summed in slice order.  fp32 runs
+the FMA body (per-head dB, dC summed in head order).  No atomics: two
+calls give the same bits.  The states are recomputed, not kept from the
+forward.
 
 ``ssd_scan(...)`` launches the forward kernels for CUDA tensors and raises
 on anything they do not take; when autograd needs its gradient (grad mode
@@ -61,12 +65,16 @@ def bind(lib: ctypes.CDLL):
 
 
 def bind_bwd(lib: ctypes.CDLL):
-    """-> (lib, its typed ``repro_ssd_scan_bwd`` entry point)."""
+    """-> (lib, its typed ``repro_ssd_scan_bwd`` entry point); the
+    library's ``repro_ssd_scan_bwd_scratch`` (floats of scratch a call
+    needs) is typed too."""
     fn = lib.repro_ssd_scan_bwd
     fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 15
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.repro_ssd_scan_bwd_scratch.argtypes = [ctypes.c_int] * 8
+    lib.repro_ssd_scan_bwd_scratch.restype = ctypes.c_longlong
     return lib, fn
 
 
@@ -188,13 +196,12 @@ def ssd_scan_bwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     da = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     dh0 = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
            if h0 is not None else None)
-    # the states s_c / h_c and u_c / dh_c (B, H, nc, P, N) each, cum_last
-    # (B, H, nc), and the per-head dB and dC (B, S, H, N) each
-    nc = -(-S // Q)
-    scratch = torch.empty(2 * B * H * nc * P * N + B * H * nc
-                          + 2 * B * S * H * N, dtype=torch.float32,
-                          device=dev)
+    # the chunk states, cum_last, and the dB / dC partials: the source's
+    # repro_ssd_scan_bwd_scratch has the layout
     lib, fn = _bwd_entry()
+    scratch = torch.empty(lib.repro_ssd_scan_bwd_scratch(
+        B, H, G, S, P, N, Q, _DTYPES[x.dtype]), dtype=torch.float32,
+        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):

@@ -439,10 +439,14 @@ FLASH_BWD_MUTANTS = {
     "Di left out": ("return p * (dp - di);", "return p * dp;"),
 }
 # Wrong SSD backward kernels, each one edit away from csrc/
-# ssd_scan_bwd.cu (one body for both dtypes): the decay not selected
-# above the diagonal, formed as exp(cum_i)·exp(-cum_j), da without its
-# reverse cumsum, dB and dC from one head of each group, the state
-# gradient not carried across chunks.
+# ssd_scan_bwd.cu.  The fp32 FMA body's: the decay not selected above the
+# diagonal, formed as exp(cum_i)·exp(-cum_j), da without its reverse
+# cumsum, dB and dC from one head of each group, the state gradient not
+# carried across chunks.  The bf16 tensor-core body's: the mask as a
+# multiply (inf * 0 above the diagonal), dy's lo term dropped from dS (dy
+# rounded to bf16 once there), one head slice's dB / dC partial left out
+# of the sum, the state gradient not carried, da without its reverse
+# cumsum.
 SSD_BWD_MUTANTS = {
     "mask dropped": ("const bool keep = j <= i && i < q;",
                      "const bool keep = i < q;"),
@@ -453,7 +457,18 @@ SSD_BWD_MUTANTS = {
                                       "      (void)run;"),
     "dB, dC from one head": ("for (int k = 0; k < hpg; ++k) {",
                              "for (int k = 0; k < 1; ++k) {"),
-    "dh not carried": ("dh = e[k] * dh + v[k];", "dh = v[k];"),
+    "dh not carried": ("dh = decay(e[k], dh, v[k]);", "dh = v[k];"),
+}
+SSD_BWD_MUTANTS_BF16 = {
+    "mask as a multiply": (
+        "const float lv = in ? expf(cum[i] - cj[r]) : 0.f;   // select",
+        "const float lv = expf(cum[i] - cj[r]) * (float)in;"),
+    "lo term of dy dropped": ("wgmma_ss<64>(ds, a, dylK + o, 1);", ""),
+    "one head slice's partial dropped": (
+        "for (int k = 0; k < p.nsl; ++k) {",
+        "for (int k = 1; k < p.nsl; ++k) {"),
+    "dh not carried": ("dh = decay(e[k], dh, v[k]);", "dh = v[k];"),
+    "da without the reverse cumsum": ("rv[k] = run;", "(void)run;"),
 }
 RMSNORM_BWD_MUTANTS = {
     "dscale from one partial": (
@@ -552,6 +567,14 @@ SSD_BWD_CASES = [
     (1, 7, 6, 8, 16, 3, 4, True, True),
     (2, 150, 6, 12, 24, 2, 64, True, True),
 ]
+# head dims past one 64-column tile, which the bf16 body takes in blocks
+# of 64: two full blocks, a ragged second block with three groups, and a
+# ragged one with N = 24 (loaded by every thread, not by TMA)
+SSD_BWD_WIDE_CASES = [
+    (1, 200, 4, 128, 128, 2, 128, True, True),
+    (2, 130, 6, 96, 64, 3, 64, True, False),
+    (1, 77, 4, 72, 24, 1, 32, False, True),
+]
 
 
 def _ssd_grads(scan, x, Bm, Cm, dt, a, h0, dy, dh, chunk):
@@ -578,12 +601,15 @@ def _ssd_bwd_case(smoke, B, S, H, P, N, G, dtype, h0, dhf, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("B,S,H,P,N,G,chunk,h0,dhf", SSD_BWD_CASES)
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,h0,dhf",
+                         SSD_BWD_CASES + SSD_BWD_WIDE_CASES)
 def test_cuda_ssd_scan_bwd_matches_plain(B, S, H, P, N, G, chunk, h0, dhf,
                                          dtype):
     """ssd_scan under grad on the card (forward kernels, then the backward
     kernel, once each) against autograd through the plain scan: every
-    gradient norm-wise at chip_smoke.py's BWD_TOL, finite."""
+    gradient norm-wise at chip_smoke.py's BWD_TOL, finite, and in bf16 the
+    fp32 gradients (ddt, da, dh0) at its SSD_BWD_F32_TOL
+    (``check_ssd_bwd``)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
@@ -597,7 +623,7 @@ def test_cuda_ssd_scan_bwd_matches_plain(B, S, H, P, N, G, chunk, h0, dhf,
     assert len(got) == len(want) == (6 if h0 else 5)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
-    err, ok, tol = smoke.check_normwise(got, want, dtype)
+    err, ok, tol = smoke.check_ssd_bwd(got, want, dtype)
     assert ok, (err, tol)
 
 
@@ -643,8 +669,10 @@ SSD_MUTANTS_FP32 = {
     ("rmsnorm.cu", RMSNORM_BWD_MUTANTS),
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16),
     ("ssd_scan_bwd.cu", SSD_BWD_MUTANTS),
+    ("ssd_scan_bwd.cu", SSD_BWD_MUTANTS_BF16),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
-        "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd"])
+        "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd",
+        "ssd-bwd-bf16"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -697,11 +725,12 @@ def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's backward check fails every wrong backward kernel of
-    the body its dtype runs (the flash tensor-core body's in bf16, the FMA
-    body's in fp32; RMSNorm's and the SSD scan's in both), at the train
+    the body its dtype runs (the flash and SSD tensor-core bodies' in
+    bf16, their FMA bodies' in fp32; RMSNorm's in both), at the train
     steps' shapes: qwen3-8b's attention (B=2, S=512, 32 q heads in groups
     of 4) and its (1024, 4096) norm rows, and mamba2-780m's scan (B=2,
-    S=1024, 48 heads in one group, 8 chunks of 128)."""
+    S=1024, 48 heads in one group, 8 chunks of 128; held by
+    ``check_ssd_bwd``)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
@@ -711,7 +740,9 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     (tmp_path / "r").mkdir()
     rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu", RMSNORM_BWD_MUTANTS)
     (tmp_path / "s").mkdir()
-    slibs = _build_mutants(tmp_path / "s", "ssd_scan_bwd.cu", SSD_BWD_MUTANTS)
+    smut = {("bfloat16", n): m for n, m in SSD_BWD_MUTANTS_BF16.items()}
+    smut.update({("float32", n): m for n, m in SSD_BWD_MUTANTS.items()})
+    slibs = _build_mutants(tmp_path / "s", "ssd_scan_bwd.cu", smut)
     g = torch.Generator(device="cuda").manual_seed(4)
     rejected = {}
     B, S, H, Hkv, D = 2, 512, 32, 8, 128
@@ -755,15 +786,17 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
         case = _ssd_bwd_case(smoke, 2, 1024, 48, 64, 128, 1, tdt, False,
                              False, seed=6)
         want = _ssd_grads(tref.ssd_scan_ref, *case, 128)
-        for name, lib in [("kernel", None), *slibs.items()]:
+        for name, lib in [(("kernel", "kernel"), None), *slibs.items()]:
+            if name[0] not in ("kernel", dn):
+                continue
             if lib is not None:
                 monkeypatch.setattr(tssd, "_bwd_fn", tssd.bind_bwd(lib))
             got = _ssd_grads(tops.ssd_scan, *case, 128)
             torch.cuda.synchronize()
-            err, ok, tol = smoke.check_normwise(got, want, dn)
-            print(f"ssd_scan_bwd {name} {dn}: max_abs_err {err:.3g} "
+            err, ok, tol = smoke.check_ssd_bwd(got, want, dn)
+            print(f"ssd_scan_bwd {name[1]} {dn}: max_abs_err {err:.3g} "
                   f"({'passes' if ok else 'fails'} {tol})")
-            rejected["ssd " + name, dn] = not ok
+            rejected["ssd " + name[1], dn] = not ok
         monkeypatch.undo()
     for dn in DTYPES:
         assert not rejected["flash kernel", dn]
@@ -771,8 +804,10 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
         assert not rejected["ssd kernel", dn]
         for name in RMSNORM_BWD_MUTANTS:
             assert rejected["rmsnorm " + name, dn], name
-        for name in SSD_BWD_MUTANTS:
-            assert rejected["ssd " + name, dn], name
+    for name in SSD_BWD_MUTANTS_BF16:
+        assert rejected["ssd " + name, "bfloat16"], name
+    for name in SSD_BWD_MUTANTS:
+        assert rejected["ssd " + name, "float32"], name
     for name in FLASH_BWD_MUTANTS_BF16:
         assert rejected["flash " + name, "bfloat16"], name
     for name in FLASH_BWD_MUTANTS:

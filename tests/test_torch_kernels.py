@@ -1188,3 +1188,242 @@ def test_ssd_bwd_emulation_fails_each_wrong_kernel(wrong):
     errs = _ssd_bwd_phase_errs(case, 64, wrong)
     bad = [e for e in errs if not e <= 10 * _smoke().BWD_TOL["float32"]]
     assert bad, errs
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernel's arithmetic, emulated: its head slices, the
+# group's Q x Q products once a slice, and each fp32 factor as hi + lo
+# ---------------------------------------------------------------------------
+
+# the fp32 factors of the bf16 backward kernel's products
+SSD_BWD_FACTORS = ("dy", "K", "Mbar", "dh", "xs", "dye", "h", "w")
+
+
+def _terms(v: torch.Tensor, how: str | None) -> list:
+    """A factor as the bf16 tensor cores take it: a bf16 input as it is
+    (``how`` None), an fp32 one as [hi, lo] ("hilo"), [hi] ("single") or
+    unchanged ("fp32")."""
+    if how in (None, "fp32"):
+        return [v]
+    hi = v.to(torch.bfloat16).float()
+    return [hi] if how == "single" else [hi, (v - hi).to(torch.bfloat16)
+                                         .float()]
+
+
+def _mm(eq: str, a, b, how_a, how_b):
+    """einsum ``eq`` of a and b as the kernel takes the product: the terms
+    of each factor, lo·lo left out where both are split (hi·hi + hi·lo +
+    lo·hi)."""
+    out = 0
+    for i, u in enumerate(_terms(a, how_a)):
+        for j, w in enumerate(_terms(b, how_b)):
+            if i + j < 2:
+                out = out + torch.einsum(eq, u, w)
+    return out
+
+
+def _ssd_bwd_slices(B, H, G, S, Q):
+    """The head slices of a group in the bf16 kernel (``head_slices`` in
+    csrc/ssd_scan_bwd.cu): as many as fill one wave of 132 blocks (the
+    H100 SXM's SMs, fixed there so that the slicing is a function of the
+    shape), one head each at most."""
+    return max(1, min(132 // (B * G * -(-S // Q)), H // G))
+
+
+def _ssd_bwd_tc(x, Bm, Cm, dt, a, h0, dy, dh_final, *, chunk, slices=None,
+                how=None):
+    """csrc/ssd_scan_bwd.cu's bf16 body in plain torch, fp32 sums, in its
+    tiling: (a) each chunk's s_c = w^T B and u_c = (exp(cum) dy)^T C; (b)
+    the serial passes; (c) for each (b, chunk, group, slice of the group's
+    heads), its heads in order: dS^T = x dy^T, K^T = CB^T o L^T, dx =
+    dt o (edec o B dh^T + K^T dy), ddt and dcum from E^T = K^T o dS^T, and
+    Mbar^T += diag(dt) D^T; then the slice's dB = Mbar^T C + sum_h xs_h
+    dh_h and dC = Mbar B + sum_h dye_h h_h (xs = dt edec x, dye = exp(cum)
+    dy), dcum's state term exp(cum_i) dy_i . (C h^T)_i, da its reverse
+    cumsum; (d) the slices' dB, dC summed in slice order, cast to x's
+    type.  ``slices``: the slices a group is cut into (the kernel's
+    ``_ssd_bwd_slices`` when None).  ``how`` maps a factor of SSD_BWD_FACTORS to "hilo" (the
+    kernel's, the default), "single" or "fp32".  -> (dx, dB, dC, ddt, da,
+    dh0)."""
+    how = {f: "hilo" for f in SSD_BWD_FACTORS} | (how or {})
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    out_dtype = x.dtype
+    x, Bm, Cm, dt, a, dy = (t.float() for t in (x, Bm, Cm, dt, a, dy))
+    if pad:
+        x, Bm, Cm, dy = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                         for t in (x, Bm, Cm, dy))
+        dt, a = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (dt, a))
+    hpg = H // G
+    hg = torch.arange(H) // hpg
+    xc, dyc = (t.reshape(Bsz, nc, Q, H, P) for t in (x, dy))
+    Bc, Cc = (t.reshape(Bsz, nc, Q, G, N) for t in (Bm, Cm))
+    Bh, Ch = Bc[:, :, :, hg], Cc[:, :, :, hg]               # (B,nc,Q,H,N)
+    dtc, ac = (t.reshape(Bsz, nc, Q, H) for t in (dt, a))
+    cum = torch.cumsum(ac, dim=2)                           # row order
+    cl = cum[:, :, -1]                                      # (B,nc,H)
+    ecum, edec = torch.exp(cum), torch.exp(cl[:, :, None] - cum)
+    # (a)
+    w = (edec * dtc)[..., None] * xc
+    dye = ecum[..., None] * dyc
+    st = _mm("bcqhp,bcqhn->bchpn", w, Bh, how["w"], None)
+    ut = _mm("bcqhp,bcqhn->bchpn", dye, Ch, how["dye"], None)
+    # (b)
+    hs = torch.zeros((Bsz, H, P, N)) if h0 is None else h0.float()
+    hin = []
+    for c in range(nc):
+        hin.append(hs)
+        hs = torch.exp(cl[:, c])[..., None, None] * hs + st[:, c]
+    dh = torch.zeros((Bsz, H, P, N)) if dh_final is None else \
+        dh_final.float()
+    dhl = [None] * nc
+    for c in reversed(range(nc)):
+        dhl[c] = dh
+        dh = torch.exp(cl[:, c])[..., None, None] * dh + ut[:, c]
+    hin, dhl = torch.stack(hin, 1), torch.stack(dhl, 1)     # (B,nc,H,P,N)
+    # (c): rows j of every Q x Q matrix, columns i
+    rows = torch.arange(Q)
+    valid = torch.arange(nc)[:, None] * Q + rows[None] < S  # (nc,Q): i < q
+    sel = (rows[:, None] <= rows[None, :])[None] & valid[:, None, :]
+    seg = cum[:, :, None, :, :] - cum[:, :, :, None, :]     # [j,i] = ci-cj
+    Lt = torch.exp(seg.masked_fill(~sel[None, :, :, :, None],
+                                   float("-inf")))          # (B,nc,Q,Q,H)
+    CBt = torch.einsum("bcjgn,bcign->bcjig", Bc, Cc)[..., hg]
+    Kt = CBt * Lt
+    dSt = _mm("bcjhp,bcihp->bcjih", xc, dyc, None, how["dy"])
+    Bdh = _mm("bcjhn,bchpn->bcjhp", Bh, dhl, None, how["dh"])
+    dds = edec * (xc * Bdh).sum(-1)
+    dx = dtc[..., None] * (edec[..., None] * Bdh +
+                           _mm("bcjih,bcihp->bcjhp", Kt, dyc, how["K"],
+                               how["dy"]))
+    Dt = dSt * Lt
+    Et = CBt * Dt
+    ddt = Et.sum(3) + dds
+    dcum = (Et * dtc[:, :, :, None]).sum(2) - dtc * ddt
+    T = _mm("bcihn,bchpn->bcihp", Ch, hin, None, how["h"])
+    dcum = dcum + ecum * (dyc * T).sum(-1)
+    last = (dtc * dds).sum(2) + torch.exp(cl) * (dhl * hin).sum((-1, -2))
+    qlast = (S - 1) % Q
+    dcum[:, :, Q - 1] += last
+    if pad:                                  # the ragged chunk's last row
+        dcum[:, -1, qlast] += last[:, -1]
+        dcum[:, -1, Q - 1] -= last[:, -1]
+    da = dcum.flip(2).cumsum(2).flip(2)
+    # (c) dB and dC of each slice, (d) their sum in slice order
+    Mt = dtc[:, :, :, None] * Dt                            # (B,nc,j,i,H)
+    xs = (dtc * edec)[..., None] * xc
+    dB = torch.zeros((Bsz, nc, Q, G, N))
+    dC = torch.zeros_like(dB)
+    ns = _ssd_bwd_slices(Bsz, H, G, S, Q) if slices is None else \
+        min(hpg, slices)
+    for g in range(G):
+        for s in range(ns):
+            heads = range(g * hpg + s * hpg // ns,
+                          g * hpg + (s + 1) * hpg // ns)
+            mbar = torch.zeros((Bsz, nc, Q, Q))
+            for h in heads:                  # head order
+                mbar = mbar + Mt[..., h]
+            pb = _mm("bcji,bcin->bcjn", mbar, Cc[:, :, :, g], how["Mbar"],
+                     None)
+            pc = _mm("bcji,bcjn->bcin", mbar, Bc[:, :, :, g], how["Mbar"],
+                     None)
+            for h in heads:
+                pb = pb + _mm("bcjp,bcpn->bcjn", xs[:, :, :, h],
+                              dhl[:, :, h], how["xs"], how["dh"])
+                pc = pc + _mm("bcip,bcpn->bcin", dye[:, :, :, h],
+                              hin[:, :, h], how["dye"], how["h"])
+            dB[:, :, :, g] += pb
+            dC[:, :, :, g] += pc
+
+    def rows_(t):
+        return t.reshape(Bsz, nc * Q, *t.shape[3:])[:, :S]
+    return (rows_(dx).to(out_dtype), rows_(dB).to(out_dtype),
+            rows_(dC).to(out_dtype), rows_(ddt), rows_(da),
+            None if h0 is None else dh)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,G,chunk,slices,h0,dh_final,decay", [
+    (2, 64, 4, 16, 8, 1, 16, 8, False, False, None),
+    (1, 100, 6, 8, 16, 2, 32, 2, True, True, None),   # ragged, 3 / 2 slices
+    (2, 37, 6, 8, 8, 3, 64, 8, True, False, None),    # S < Q, three groups
+    (1, 130, 8, 8, 16, 1, 64, 3, True, True, -3.0),   # strong decay, 8 / 3
+])
+def test_ssd_bwd_tc_algebra_matches_autograd_in_fp32(B, S, H, P, N, G, chunk,
+                                                     slices, h0, dh_final,
+                                                     decay):
+    """The bf16 backward kernel's tiling (``_ssd_bwd_tc``: dB and dC from
+    Mbar summed over each head slice, the state terms added per head,
+    slices summed in order, heads that do not divide evenly into slices)
+    with every factor unrounded equals autograd through the plain scan for
+    every gradient at 1e-5 of its scale, fp32."""
+    arrays, hh, dy, dh = _ssd_grad_case(24, B, S, H, P, N, G, decay=decay,
+                                        h0=h0, dh_final=dh_final)
+    want = _ssd_torch_grads(tref.ssd_scan_ref, arrays, hh, dy, dh,
+                            chunk=chunk)
+    ts = [torch.from_numpy(t) for t in arrays]
+    got = _ssd_bwd_tc(*ts, None if hh is None else torch.from_numpy(hh),
+                      torch.from_numpy(dy),
+                      None if dh is None else torch.from_numpy(dh),
+                      chunk=chunk, slices=slices,
+                      how={f: "fp32" for f in SSD_BWD_FACTORS})
+    got = [g for g in got if g is not None]
+    assert len(got) == len(want) == (6 if h0 else 5)
+    for g, w in zip(got, want):
+        _close_scaled(g, w.numpy(), 1e-5)
+
+
+def _ssd_bwd_mamba2_case():
+    """mamba2-780m's widths (48 heads of 64, d_state 128, chunk 128) with
+    two groups, three chunks (S = 300), h0 and dh_final, bf16 inputs and
+    the decays of the card's mutant tests (dt = softplus(N(0, 1)), A =
+    -(1..H)); -> (inputs, autograd's grads through the plain scan)."""
+    rng = np.random.default_rng(7)
+    B, S, H, P, N, G = 1, 300, 48, 64, 128, 2
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    x, Bm, Cm = (randn(*s).to(torch.bfloat16)
+                 for s in ((B, S, H, P), (B, S, G, N), (B, S, G, N)))
+    dt = torch.nn.functional.softplus(randn(B, S, H))
+    a = dt * -torch.arange(1, H + 1, dtype=torch.float32)
+    h0, dy, dh = randn(B, H, P, N), randn(B, S, H, P), randn(B, H, P, N)
+    ins = [t.clone().requires_grad_() for t in (x, Bm, Cm, dt, a, h0)]
+    y, hf = tref.ssd_scan_ref(*ins, chunk=128)
+    want = torch.autograd.grad((y, hf), ins, (dy, dh))
+    return (x, Bm, Cm, dt, a, h0, dy, dh), want
+
+
+_SSD_BWD_MAMBA2 = []
+
+
+@pytest.mark.parametrize("rounded_once", [None, *SSD_BWD_FACTORS])
+def test_ssd_bwd_bf16_rounding_each_fp32_factor_once(rounded_once):
+    """The bf16 backward kernel's arithmetic (``_ssd_bwd_tc``) at
+    mamba2-780m's widths (``_ssd_bwd_mamba2_case``) against autograd
+    through the plain scan, held by chip_smoke.py's ``check_ssd_bwd``:
+    every gradient within BWD_TOL (2e-2) of max |grad|, and ddt, da and
+    dh0, which stay fp32, within SSD_BWD_F32_TOL (1e-4).  With every fp32
+    factor split into bf16 hi + lo (the kernel's) it passes: ddt 2.4e-6,
+    da 1.6e-6, dh0 2.6e-6 of max |grad| (dx, dB, dC 1.1e-3 to 2.4e-3,
+    their own bf16 rounding).  Rounding one factor to bf16 once instead:
+    dy, dh, dye, h and w fail (the largest of ddt, da, dh0 reads 2.4e-3,
+    1.7e-4, 1.7e-3, 5.0e-4 and 3.4e-4 of max |grad|); K, Mbar and xs
+    still pass (they reach only dx, dB and dC, which move to at most
+    4.7e-3, inside BWD_TOL).  Every gradient stays within BWD_TOL either
+    way.  The kernel keeps every lo term: nothing shows that the phase-9
+    grad check is unmoved without K's, Mbar's or xs's."""
+    check = _smoke().check_ssd_bwd
+    if not _SSD_BWD_MAMBA2:
+        _SSD_BWD_MAMBA2.append(_ssd_bwd_mamba2_case())
+    ins, want = _SSD_BWD_MAMBA2[0]
+    how = {} if rounded_once is None else {rounded_once: "single"}
+    got = _ssd_bwd_tc(*ins, chunk=128, how=how)
+    err, ok, tol = check(got, want, "bfloat16")
+    loose = _smoke()._normwise(got, want, _smoke().BWD_TOL["bfloat16"])[1]
+    assert loose, (rounded_once, err)
+    fails = {"dy", "dh", "dye", "h", "w"}
+    assert ok == (rounded_once not in fails), (rounded_once, err, tol)
