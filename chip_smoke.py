@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything (~3 minutes on an H100)
+    python3 chip_smoke.py                 # everything (~5 minutes on an H100)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
     python3 chip_smoke.py --profile       # plus a traced serve of each model
@@ -18,12 +18,14 @@ Phases, each of which fails the run (exit code 1) on any error:
    spills as ``-Xptxas -v`` reports them.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, in bf16 and fp32, with the tolerance stated: at every shape
-   each model's serve path (decode and prefill steps) and forward give it
-   at this script's settings (``served_cases``), and at larger and ragged
-   edge cases; the backward kernels at every shape the train step gives
-   them, plus S = T = 2048, ragged, S != T and wide-head (D = 160, 256)
-   cases, and the SSD scan's backward at mamba2-780m's train step and at
-   ragged S, h0 / h_final gradient, two-group and S < Q edges, held
+   each model's serve path (decode and prefill steps), forward and train
+   step give it at this script's settings (``served_cases``; zamba2's
+   shared block gives flash D = 160, gemma-7b D = 256, zamba2 the SSD scan
+   at d_state 64), and at larger and ragged edge cases; the backward
+   kernels at every shape the train steps give them, plus S = T = 2048,
+   ragged, S != T and D = 256 cases, and the SSD scan's backward at
+   mamba2-780m's and zamba2-2.7b's train steps and at ragged S, h0 /
+   h_final gradient, two-group and S < Q edges, held
    norm-wise against autograd through the plain versions (the SSD
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
@@ -77,6 +79,34 @@ Phases, each of which fails the run (exit code 1) on any error:
    tokens (8 chunks of 128 a sequence): step time, tokens/s, peak memory,
    launches a step (the SSD backward once for each SSD forward, 48 a
    step), finite losses and grad norms.
+10. Serve zamba2-2.7b: published widths (d 2560; 80 SSD heads of 64,
+    d_state 64; the shared block over 2 x 2560 with 32 heads of 160,
+    GeGLU), all 54 mamba2 layers and 9 applications of the shared block,
+    bf16, seeded weights; phase 6's requests and settings and checks, on
+    slot-state pools and a paged KV pool per application: 54 SSD launches
+    per prefill chunk and no flash launch (the serve path's attention is
+    paged, as in the reference).
+11. Forward zamba2-2.7b: ``lm_apply(impl="pallas")`` over 2 of the prompts
+    (9 flash at D = 160, 54 SSD and 127 RMSNorm launches), held against
+    the engine's chunked prefill as in phase 7.
+12. Serve gemma-7b: published widths (d 3072, 16 heads of 256, GeGLU, a
+    256,000-token tied embedding), all 28 layers, bf16, seeded weights;
+    phase 4's requests and settings and checks.
+13. Forward gemma-7b: ``lm_apply(impl="pallas")`` over 2 of the prompts
+    (28 flash at D = 256, 57 RMSNorm launches), held as in phase 5.
+14. Train zamba2-2.7b: published widths and all 54 + 9 layers (2.62 B
+    params; ~47 GB peak reckoned: bf16 params, grads and fp32 moments
+    plus ~15 GB of activations, so no remat), ``SyntheticLM(32000, 1024,
+    2)``; phase 9's grad check with plain attention and the plain scan both
+    swapped in (the plain and fp32 reference passes under remat "full",
+    which gives the same grads, so that the plain scan's fp32
+    intermediates of 54 layers need not live at once), then 4 AdamW steps:
+    flash, SSD and RMSNorm forward and backward, each as often as phase
+    11 launches it, a step.
+
+The phases run in the order 1-7, 10-13 (each model's serve, then its
+forward), 8, 9, 14 (the trains, with every serving weight freed); each
+phase's seconds and the total are printed before the result lines.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -155,27 +185,33 @@ L2_FLUSH_BYTES = 64 << 20          # written before each call of a cold-L2 time
 
 QWEN = "qwen3-8b"
 MAMBA = "mamba2-780m"
-SERVE = {
-    QWEN: dict(requests=8, prompt_len=512, max_new=32, slots=4, max_len=1024,
-               block_size=16, prefill_chunk=256),
-    # 500 = 256 + 244: the second prefill chunk is padded
-    MAMBA: dict(requests=8, prompt_len=500, max_new=32, slots=4,
-                max_len=1024, block_size=16, prefill_chunk=256),
-}
+ZAMBA = "zamba2-2.7b"
+GEMMA = "gemma-7b"
+# the serve cells; zamba2 takes mamba2's settings, gemma qwen's
+_DENSE_SERVE = dict(requests=8, prompt_len=512, max_new=32, slots=4,
+                    max_len=1024, block_size=16, prefill_chunk=256)
+# 500 = 256 + 244: the second prefill chunk is padded
+_SSM_SERVE = dict(_DENSE_SERVE, prompt_len=500)
+SERVE = {QWEN: _DENSE_SERVE, MAMBA: _SSM_SERVE, ZAMBA: _SSM_SERVE,
+         GEMMA: _DENSE_SERVE}
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # the train phases: qwen3-8b's widths at 4 of its 36 layers (bf16 params
 # and grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36
 # layers, 24 GB at 4); mamba2-780m whole (0.78 B params, ~12.5 GB of
-# state); AdamW on a cosine schedule, SyntheticLM batches (mamba2: 8 scan
-# chunks of 128 a sequence, so the state passes between chunks)
-TRAIN = {QWEN: dict(layers=4, seq_len=512, batch=2, steps=4, peak_lr=3e-4,
-                    warmup=1, total=10),
-         MAMBA: dict(layers=48, seq_len=1024, batch=2, steps=4,
-                     peak_lr=3e-4, warmup=1, total=10)}
-# wider head dims the flash kernels take, at their models' attention
-# (zamba2-2.7b's shared block over 2 x d_model, gemma-7b): (path, H, Hkv, D)
-WIDE_HEADS = (("zamba2-2.7b shared_attn", 32, 32, 160),
-              ("gemma-7b attn", 16, 16, 256))
+# state); zamba2-2.7b whole (2.62 B params: bf16 params and grads, fp32
+# moments and the step's fp32 grads ~42 GB, plus ~15 GB of activations at
+# 2 x 1024 tokens, ~47 GB at the peak, so no remat); AdamW on a cosine
+# schedule, SyntheticLM batches (mamba2, zamba2: 8 scan chunks of 128 a
+# sequence, so the state passes between chunks).  ``check_remat``: the
+# remat of the grad check's plain and fp32 passes (the plain scan keeps
+# ~0.4 GB of fp32 intermediates a zamba2 layer, 23 GB over 54, and the
+# fp32 pass twice that: "full" keeps one layer's at a time and gives the
+# same grads)
+_TRAIN = dict(batch=2, steps=4, peak_lr=3e-4, warmup=1, total=10,
+              check_remat="none")
+TRAIN = {QWEN: dict(_TRAIN, layers=4, seq_len=512),
+         MAMBA: dict(_TRAIN, layers=48, seq_len=1024),
+         ZAMBA: dict(_TRAIN, layers=54, seq_len=1024, check_remat="full")}
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
            "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
@@ -415,49 +451,88 @@ def ssd_bwd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0,
     return nbytes, flops
 
 
+def _kinds(arch):
+    return {k for seg in arch.pattern for k in seg.blocks}
+
+
+def _norm_uses(arch, rows):
+    """``(use, rows, D)`` of every RMSNorm of model ``arch`` over ``rows``
+    tokens; uses at one (rows, D) are merged into one case: the block
+    norms at d_model, the q/k norms once per q/kv head, a mamba2 block's
+    gated norm at d_inner, zamba2's shared-block norms at 2 x d_model."""
+    d, kinds = arch.d_model, _kinds(arch)
+    uses = []
+    if "attn" in kinds:
+        uses.append(("norm1/norm2/final_norm", rows, d))
+        if arch.qk_norm:
+            uses += [("q_norm", rows * arch.n_heads, arch.head_dim),
+                     ("k_norm", rows * arch.n_kv_heads, arch.head_dim)]
+    if "mamba2" in kinds:
+        uses += [("norm/final_norm", rows, d),
+                 ("gated norm", rows, arch.ssm.expand * d)]
+    if "shared_attn" in kinds:
+        uses.append(("shared norm1/norm2", rows, 2 * d))
+    merged: dict = {}
+    for use, r, D in uses:
+        merged.setdefault((r, D), []).append(use)
+    return [(", ".join(u), r, D) for (r, D), u in merged.items()]
+
+
+def _attn_dims(arch):
+    """(H, Hkv, D) of the attention model ``arch`` runs through flash:
+    its own, or zamba2's shared block's over 2 x d_model; None without
+    attention."""
+    from repro_torch.models import blocks
+    kinds = _kinds(arch)
+    if not kinds & {"attn", "shared_attn"}:
+        return None
+    cfg = (blocks.shared_cfg_for(arch) if "shared_attn" in kinds
+           else blocks.attn_cfg_for(arch))
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
 def served_cases(name, arch):
-    """The shapes each main path of model ``name`` gives the kernels at
-    this script's settings, derived from ``SERVE[name]`` and the arch, plus
-    the larger and ragged cases that test the kernels' edges.  RMSNorm:
-    ``(path, use, rows, D)``; flash: ``(path, B, S, T, causal, H, Hkv,
-    D)``, with the wider head dims the kernel takes (``WIDE_HEADS``); SSD:
+    """The shapes each main path of model ``name`` gives the forward
+    kernels at this script's settings, derived from ``SERVE[name]``,
+    ``TRAIN[name]`` and the arch, plus the larger and ragged cases that
+    test the kernels' edges.  RMSNorm: ``(path, use, rows, D)``
+    (``_norm_uses``); flash: ``(path, B, S, T, causal, H, Hkv, D)``; SSD:
     ``(path, B, S, G, h0)``.  The serve path's decode step normalises
     ``slots`` rows, its prefill step ``prefill_chunk`` rows (a padded
-    chunk, scanned from the carried state), and the forward
-    ``FORWARD_PROMPTS * prompt_len`` (scanned from h0 = 0); the q/k norms
-    see each row once per q/kv head, the gated norm of a mamba2 block is
-    d_inner wide."""
+    chunk, scanned from the carried state), the forward
+    ``FORWARD_PROMPTS * prompt_len`` (scanned from h0 = 0), and the train
+    step, where its shape differs from the forward's, ``batch x
+    seq_len`` (flash and SSD)."""
     st = SERVE[name]
-    d = arch.d_model
     tokens = {"serve decode": st["slots"], "serve prefill": st["prefill_chunk"],
               "forward": FORWARD_PROMPTS * st["prompt_len"]}
-    norm, flash, ssd = [], [], []
     S = st["prompt_len"]
+    seqs = [(f"{name} forward", FORWARD_PROMPTS, S)]
+    if name in TRAIN and (TRAIN[name]["batch"], TRAIN[name]["seq_len"]) != \
+            (FORWARD_PROMPTS, S):
+        seqs.append((f"{name} train", TRAIN[name]["batch"],
+                     TRAIN[name]["seq_len"]))
+    norm = [(f"{name} {path}", use, rr, D) for path, r in tokens.items()
+            for use, rr, D in _norm_uses(arch, r)]
+    flash, ssd = [], []
+    dims = _attn_dims(arch)
+    if dims:
+        flash = [(p, B, Sq, Sq, True) + dims for p, B, Sq in seqs]
     if name == QWEN:
-        H, Hkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
-        for path, r in tokens.items():
-            norm += [(f"{name} {path}", "norm1/norm2/final_norm", r, d),
-                     (f"{name} {path}", "q_norm", r * H, hd),
-                     (f"{name} {path}", "k_norm", r * Hkv, hd)]
-        norm += [("edge", "long rows", 2048, d), ("edge", "q_norm", 2048 * H, hd)]
-        flash = [(f"{name} forward", FORWARD_PROMPTS, S, S, True),
-                 ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
-                 ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False)]
-        flash = [c + (H, Hkv, hd) for c in flash] + [
-            (f"edge {p}", FORWARD_PROMPTS, S, S, True, h, hk, D)
-            for p, h, hk, D in WIDE_HEADS]
-    else:
-        d_inner = arch.ssm.expand * d
+        norm += [("edge", "long rows", 2048, arch.d_model),
+                 ("edge", "q_norm", 2048 * arch.n_heads, arch.head_dim)]
+        flash += [c + dims for c in (
+            ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
+            ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
+    if "mamba2" in _kinds(arch):
         G = arch.ssm.n_groups
-        for path, r in tokens.items():
-            norm += [(f"{name} {path}", "norm/final_norm", r, d),
-                     (f"{name} {path}", "gated norm", r, d_inner)]
-        ssd = [(f"{name} serve prefill", 1, st["prefill_chunk"], G, True),
-               (f"{name} forward", FORWARD_PROMPTS, S, G, False),
-               ("edge", 1, 300, G, False),         # ragged: 128 + 128 + 44
-               ("edge", 1, 100, G, False),         # Q = 100 < chunk
-               ("edge", 1, 256, 2, True),          # two groups, h0 != 0
-               ("edge", 2, 300, 2, True)]
+        ssd = [(f"{name} serve prefill", 1, st["prefill_chunk"], G, True)]
+        ssd += [(p, B, Sq, G, False) for p, B, Sq in seqs]
+    if name == MAMBA:
+        ssd += [("edge", 1, 300, G, False),         # ragged: 128 + 128 + 44
+                ("edge", 1, 100, G, False),         # Q = 100 < chunk
+                ("edge", 1, 256, 2, True),          # two groups, h0 != 0
+                ("edge", 2, 300, 2, True)]
     return norm, flash, ssd
 
 
@@ -480,37 +555,38 @@ def ssd_inputs(torch, gen, B, S, H, P, N, G, dt_bias, dtype, has_h0):
 def train_cases(name, arch):
     """The shapes model ``name``'s train phase gives the backward kernels
     (and edges), as ``served_cases`` gives them for the forward.  RMSNorm:
-    ``(path, use, rows, D)`` (the q/k norms see each token once per q/kv
-    head; a mamba2 block's gated norm is d_inner wide); flash: ``(path,
-    B, S, T, H, Hkv, D, causal)``: the train step's attention, the same at
-    S = T = 2048 (where the products set the bound), a ragged S, S != T
-    both ways, and the wide head dims; SSD: ``(path, B, S, G, h0,
-    dh_final)``: the train step's scan, from h0 = 0 with no h_final
-    gradient, and edges that take both, a ragged S, two groups and S <
-    Q."""
+    ``(path, use, rows, D)`` (``_norm_uses``); flash: ``(path, B, S, T,
+    H, Hkv, D, causal)``: the train step's attention, and for qwen3-8b the
+    same at S = T = 2048 (where the products set the bound), a ragged S,
+    S != T both ways, and gemma-7b's D = 256 (no train path runs it);
+    SSD: ``(path, B, S, G, h0, dh_final)``: the train step's scan, from h0
+    = 0 with no h_final gradient, and for mamba2-780m edges that take
+    both, a ragged S, two groups and S < Q."""
     B, S = TRAIN[name]["batch"], TRAIN[name]["seq_len"]
-    d, path = arch.d_model, f"{name} train"
+    path = f"{name} train"
+    norm = [(path, use, r, D) for use, r, D in _norm_uses(arch, B * S)]
+    flash, ssd = [], []
+    dims = _attn_dims(arch)
+    if dims:
+        flash = [(path, B, S, S) + dims + (True,)]
+    if name == QWEN:
+        norm += [("edge", "ragged rows", 300, arch.d_model),
+                 ("edge", "odd width", 37, 300)]
+        flash += [c[:4] + dims + c[4:] for c in (
+            ("edge", B, 2048, 2048, True), ("edge", 1, 300, 300, True),
+            ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
+        from repro_torch.configs import get_arch
+        gemma = get_arch(GEMMA)
+        flash.append((f"edge {GEMMA} attn", B, S, S, gemma.n_heads,
+                      gemma.n_kv_heads, gemma.head_dim, True))
+    if "mamba2" in _kinds(arch):
+        ssd = [(path, B, S, arch.ssm.n_groups, False, False)]
     if name == MAMBA:
         G = arch.ssm.n_groups
-        norm = [(path, "norm/final_norm", B * S, d),
-                (path, "gated norm", B * S, arch.ssm.expand * d)]
-        ssd = [(path, B, S, G, False, False),
-               ("edge", 1, 1000, G, True, True),    # ragged: 7 x 128 + 104
-               ("edge", 1, 256, 2, True, False),    # two groups
-               ("edge", 1, 100, G, False, True)]    # S < Q
-        return norm, [], ssd
-    H, Hkv, hd = arch.n_heads, arch.n_kv_heads, arch.head_dim
-    norm = [(path, "norm1/norm2/final_norm", B * S, d),
-            (path, "q_norm", B * S * H, hd), (path, "k_norm", B * S * Hkv, hd),
-            ("edge", "ragged rows", 300, d), ("edge", "odd width", 37, 300)]
-    flash = [(path, B, S, S, H, Hkv, hd, True),
-             ("edge", B, 2048, 2048, H, Hkv, hd, True),
-             ("edge", 1, 300, 300, H, Hkv, hd, True),
-             ("edge", 1, 256, 700, H, Hkv, hd, True),
-             ("edge", 1, 300, 700, H, Hkv, hd, False)]
-    flash += [(f"edge {p}", B, S, S, h, hk, D, True)
-              for p, h, hk, D in WIDE_HEADS]
-    return norm, flash, []
+        ssd += [("edge", 1, 1000, G, True, True),    # ragged: 7 x 128 + 104
+                ("edge", 1, 256, 2, True, False),    # two groups
+                ("edge", 1, 100, G, False, True)]    # S < Q
+    return norm, flash, ssd
 
 
 def flash_work(B, S, Tk, H, HKV, D, causal, itemsize, backward):
@@ -641,7 +717,8 @@ def kernel_phase(torch, archs, iters):
                     bytes=nbytes, flops=sum(flops.values()),
                     **bound(nbytes, flops)))
     for name, arch in archs.items():
-        rows += backward_rows(torch, name, arch, iters, gen, dtypes)
+        if name in TRAIN:
+            rows += backward_rows(torch, name, arch, iters, gen, dtypes)
     return rows
 
 
@@ -827,9 +904,22 @@ def read_counts():
 
 
 def block_counts(arch):
+    """{block kind: its applications in one forward}."""
     kinds = [k for seg in arch.pattern for k in seg.blocks
              for _ in range(seg.repeat)]
-    return kinds.count("attn"), kinds.count("mamba2")
+    return {k: kinds.count(k) for k in ("attn", "mamba2", "shared_attn")}
+
+
+def forward_launches(arch):
+    """Each forward kernel's launches in one whole-sequence forward under
+    impl="pallas": an attention block's two norms (four with q/k norms)
+    and one flash call, zamba2's shared block the same at 2 x d_model, a
+    mamba2 block's two norms (the block's and the gated one) and one
+    scan, and the final norm."""
+    n = block_counts(arch)
+    attn = n["attn"] + n["shared_attn"]
+    return {"rmsnorm": (4 if arch.qk_norm else 2) * attn + 2 * n["mamba2"]
+            + 1, "flash_attention": attn, "ssd_scan": n["mamba2"]}
 
 
 def serve_phase(torch, np, report, name, arch):
@@ -886,12 +976,15 @@ def serve_phase(torch, np, report, name, arch):
         fail(f"{name}: a slot (and its slot-state row) still held after "
              f"drain")
     s = eng.metrics.summary()
-    n_attn, n_mamba = block_counts(arch)
+    n_mamba = block_counts(arch)["mamba2"]
     if counts["rmsnorm"] == 0:
         fail(f"{name}: the serving path launched no RMSNorm kernel")
     if counts["ssd_scan"] != n_mamba * s["prefill_chunks"]:
         fail(f"{name}: {counts['ssd_scan']} SSD launches, want {n_mamba} "
              f"per prefill chunk x {s['prefill_chunks']}")
+    if counts["flash_attention"] != 0:
+        fail(f"{name}: {counts['flash_attention']} flash launches on the "
+             f"serve path, whose attention is paged")
     total = sum(o.n_tokens for o in outs)
     serve = dict(requests=len(outs), tokens=total, wall_s=wall,
                  tok_per_s=total / wall, ttft_p50_s=s["ttft_p50_s"],
@@ -1070,10 +1163,8 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    n_attn, n_mamba = block_counts(arch)
-    want = {"rmsnorm": (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1,
-            "rmsnorm_bwd": 0, "flash_attention": n_attn,
-            "flash_attention_bwd": 0, "ssd_scan": n_mamba, "ssd_scan_bwd": 0}
+    want = {k: 0 for k in KERNELS}
+    want.update(forward_launches(arch))
     if counts != want:
         fail(f"{name} forward launches {counts}, want {want}")
     logits = out.logits[:, -1, :arch.vocab]
@@ -1127,7 +1218,7 @@ def worst(diffs, text=False):
 
 
 def train_phase(torch, report, name, arch, card, profile=False):
-    """Phases 8 and 9: the training step of model ``name`` at its widths
+    """Phases 8, 9 and 14: the training step of model ``name`` at its widths
     and ``TRAIN[name]["layers"]`` layers, through the kernels forward and
     backward; step 1's grads held against the plain path's (plain
     attention under impl="xla", and the plain SSD scan); with
@@ -1183,14 +1274,16 @@ def train_phase(torch, report, name, arch, card, profile=False):
     grad_counts = read_counts()
     repeat = grad_diffs(torch, names, g_k,
                         ST.loss_and_grads(kernel_loss, params, tok, lab)[2])
+    remat = cfg["check_remat"]
     with mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref):
-        loss_p, _, g_p = ST.loss_and_grads(ST.make_loss_fn(arch, impl="xla"),
-                                           params, tok, lab)
+        loss_p, _, g_p = ST.loss_and_grads(
+            ST.make_loss_fn(arch, impl="xla", remat=remat), params, tok, lab)
         check_peak = torch.cuda.max_memory_allocated() / 1e9
         g_f = ST.loss_and_grads(
             ST.make_loss_fn(dataclasses.replace(arch, dtype="float32"),
-                            impl="xla"),
+                            impl="xla", remat=remat),
             tree.map(lambda t: t.float(), params), tok, lab)[2]
+        fp32_peak = torch.cuda.max_memory_allocated() / 1e9
     diffs = grad_diffs(torch, names, g_k, g_p)
     k_f, p_f = (grad_diffs(torch, names, g, g_f) for g in (g_k, g_p))
     bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}" for n, (c, r) in diffs.items()
@@ -1217,8 +1310,10 @@ def train_phase(torch, report, name, arch, card, profile=False):
           f"path against itself: worst rel L2 {worst(repeat, text=True)}; "
           f"grad norm {gn_k:.6g} vs "
           f"{gn_p:.6g}; loss {float(loss_k):.6f} vs {float(loss_p):.6f}; "
-          f"launches {grad_counts}; peak memory of the check "
-          f"{check_peak:.2f} GB, {after_check:.2f} GB held after it")
+          f"launches {grad_counts}; reference passes under remat "
+          f"{remat!r}; peak memory of the check {check_peak:.2f} GB "
+          f"({fp32_peak:.2f} GB with the fp32 pass), {after_check:.2f} GB "
+          f"held after it")
     if bad:
         fail(f"{label}: kernel grads differ from the plain path's: {bad}")
     if not (math.isfinite(gn_k) and math.isfinite(float(loss_k))):
@@ -1268,7 +1363,8 @@ def train_phase(torch, report, name, arch, card, profile=False):
                for k, d in (("plain", diffs), ("kernels_fp32", k_f),
                             ("plain_fp32", p_f), ("repeat", repeat))},
             grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
-            peak_mem_gb=check_peak))
+            reference_remat=remat, peak_mem_gb=check_peak,
+            peak_mem_fp32_gb=fp32_peak))
     print(f"train: {arch.name} {L} layers, {cfg['steps']} AdamW steps of "
           f"{cfg['batch']} x {cfg['seq_len']} tokens: step "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, median of steps "
@@ -1279,11 +1375,8 @@ def train_phase(torch, report, name, arch, card, profile=False):
           f"{[round(x, 5) for x in norms]}; launches a step {per_step}")
     if not all(math.isfinite(x) for x in losses + norms):
         fail(f"{label}: losses {losses} / grad norms {norms} not finite")
-    n_attn, n_mamba = block_counts(arch)
-    norm_calls = (4 if arch.qk_norm else 2) * n_attn + 2 * n_mamba + 1
-    want = {"rmsnorm": norm_calls, "rmsnorm_bwd": norm_calls,
-            "flash_attention": n_attn, "flash_attention_bwd": n_attn,
-            "ssd_scan": n_mamba, "ssd_scan_bwd": n_mamba}
+    want = forward_launches(arch)           # each backward as its forward
+    want.update({f"{k}_bwd": n for k, n in want.items()})
     for c, per in ((counts, cfg["steps"]), (grad_counts, 1)):
         if any(c[k] != n * per for k, n in want.items()):
             fail(f"{label}: launches {c}, want {want} a step")
@@ -1295,7 +1388,6 @@ def train_phase(torch, report, name, arch, card, profile=False):
             params, state, _ = step(params, state, batch)
         report[f"profile {label}"] = traced(torch, label, one_step)
     report[label]["phase_s"] = time.perf_counter() - t_phase
-    print(f"train: phase done in {report[label]['phase_s']:.1f} s")
     del params, state
 
 
@@ -1311,6 +1403,7 @@ def main() -> int:
                          "torch.profiler (device busy share, time by "
                          "kernel)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1342,8 +1435,9 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     from repro_torch.configs import get_arch
-    archs = {QWEN: get_arch(QWEN), MAMBA: get_arch(MAMBA)}
+    archs = {n: get_arch(n) for n in (QWEN, MAMBA, ZAMBA, GEMMA)}
     report = {"card": card, "build_s": rep["seconds"]}
+    seconds = {"build": rep["seconds"]}             # each phase's
     # 3. kernels vs their plain versions
     t0 = time.perf_counter()
     rows = kernel_phase(torch, archs, TIMED_LAUNCHES)
@@ -1370,6 +1464,7 @@ def main() -> int:
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
               f"{100 * r['bound_share']:.1f}% of it)")
+    seconds["kernels"] = report["kernel_phase_s"]
     print(f"kernels: {len(rows)} cases in {report['kernel_phase_s']:.1f} s")
     bad = [f"{r['name']} {r['shape']} {r['dtype']}" for r in rows
            if not r["ok"]]
@@ -1378,23 +1473,32 @@ def main() -> int:
 
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
-    paths += [f"train {QWEN}", f"train {MAMBA}"]
+    paths += [f"train {n}" for n in TRAIN]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
+
+    def timed(label, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[label] = time.perf_counter() - t
+        print(f"{label}: phase done in {seconds[label]:.1f} s")
+        return out
     if not args.kernels_only:
         for name, arch in archs.items():
-            # 4./6. serve, 5./7. forward
-            params, prompts, ref_logits = serve_phase(torch, np, report,
-                                                      name, arch)
-            forward_phase(torch, np, report, name, arch, params, prompts,
-                          ref_logits)
+            # 4./6./10./12. serve, 5./7./11./13. forward
+            params, prompts, ref_logits = timed(
+                f"serve {name}", serve_phase, torch, np, report, name, arch)
+            timed(f"forward {name}", forward_phase, torch, np, report, name,
+                  arch, params, prompts, ref_logits)
             if args.profile:
-                profile_phase(torch, report, name, arch, params, prompts)
+                timed(f"profile {name}", profile_phase, torch, report, name,
+                      arch, params, prompts)
             del params, ref_logits
+            gc.collect()
             torch.cuda.empty_cache()
-        # 8./9. train, with the serving weights freed
-        for name, arch in archs.items():
-            train_phase(torch, report, name, arch, card,
-                        profile=args.profile)
+        # 8./9./14. train, with the serving weights freed
+        for name in TRAIN:
+            timed(f"train {name}", train_phase, torch, report, name,
+                  archs[name], card, profile=args.profile)
             gc.collect()
             torch.cuda.empty_cache()
         by_path = {p: report[p]["launches"] for p in paths}
@@ -1445,6 +1549,9 @@ def main() -> int:
             "shape": r["shape"], "dtype": r["dtype"], "tol": r["tol"],
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     report["kernels"] = kernels
+    seconds["total"] = time.perf_counter() - t_start
+    report["seconds"] = seconds
+    print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,15 +1,16 @@
-"""Architecture registry: the archs the port serves (``qwen3-8b`` and
-``mamba2-780m`` so far)."""
+"""Architecture registry: the archs the port serves (``qwen3-8b``,
+``mamba2-780m``, ``zamba2-2.7b`` and ``gemma-7b`` so far)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
                                       MoESpec, Segment, SSMSpec)
-from repro_torch.configs import mamba2_780m, qwen3_8b
+from repro_torch.configs import gemma_7b, mamba2_780m, qwen3_8b, zamba2_2_7b
 
 ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH
-                                for m in (qwen3_8b, mamba2_780m)}
+                                for m in (zamba2_2_7b, gemma_7b, qwen3_8b,
+                                          mamba2_780m)}
 
 
 def get_arch(name: str) -> ArchConfig:

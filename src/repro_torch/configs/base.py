@@ -13,8 +13,9 @@ Block kinds named by the schema:
   cross_attn  — gated cross-attention + MLP (llama-vision)
   enc_attn    — bidirectional self-attention + MLP (encoders)
 
-The port serves ``attn`` and ``mamba2`` so far; the serving engine raises
-``NotImplementedError`` naming any other kind at construction.
+The port serves ``attn``, ``mamba2`` and ``shared_attn`` so far; the
+serving engine raises ``NotImplementedError`` naming any other kind at
+construction.
 """
 from __future__ import annotations
 

@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 6 --max-new 8
 
@@ -14,7 +16,8 @@ random, drawn from a generator seeded with 0 on the serving device.
                  prefix of --prompt-len tokens plus 4 unique tokens each,
                  later requests reuse its cached blocks and start prefill at
                  the matched boundary; the report line gains the prefix-cache
-                 hit rate.  Refused for archs with slot state (mamba2).
+                 hit rate.  Refused for archs with slot state (mamba2,
+                 zamba2).
 --metrics-out    write the engine's JSON metrics report there.
 """
 from __future__ import annotations

@@ -1,8 +1,12 @@
 """Block registry: init / apply / paged-cache-init per block kind (twin of
 ``repro/models/blocks.py``).  The port implements kinds ``attn`` —
-RMSNorm, GQA self-attention with RoPE and optional qk-norm, RMSNorm,
-SwiGLU MLP — and ``mamba2`` — RMSNorm, Mamba2 SSD mixer — and raises
-``NotImplementedError`` naming any other kind."""
+RMSNorm, GQA self-attention with RoPE and optional qk-norm, RMSNorm, the
+MLP (SwiGLU, GeGLU, GELU or ReLU) — ``mamba2`` — RMSNorm, Mamba2 SSD
+mixer — and ``shared_attn`` — zamba2's weight-shared transformer block
+over concat(x, x0) at width 2 * d_model, whose weights live once in
+``init_shared`` and whose per-application params are the projection
+``app_proj`` back to d_model — and raises ``NotImplementedError`` naming
+any other kind."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,13 +18,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 
 Params = dict
-PORTED_KINDS = ("attn", "mamba2")
+PORTED_KINDS = ("attn", "mamba2", "shared_attn")
 
 
 def check_arch(arch: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming whatever part of ``arch`` the
     port does not implement yet (block kinds other than ``PORTED_KINDS``,
-    other norms and activations, encoders, frontends, MTP heads)."""
+    norms other than rmsnorm, encoders, frontends, MTP heads).  Every MLP
+    act the reference takes is ported (``layers.MLP_ACTS``)."""
     kinds = sorted({k for seg in arch.pattern for k in seg.blocks})
     missing = [k for k in kinds if k not in PORTED_KINDS]
     if missing:
@@ -30,9 +35,6 @@ def check_arch(arch: ArchConfig) -> None:
     if arch.norm != "rmsnorm":
         raise NotImplementedError(f"{arch.name}: norm {arch.norm!r} is not "
                                   f"ported (rmsnorm only)")
-    if arch.act != "silu":
-        raise NotImplementedError(f"{arch.name}: mlp act {arch.act!r} is not "
-                                  f"ported (silu only)")
     for feature in ("encoder", "frontend", "mtp"):
         if getattr(arch, feature):
             raise NotImplementedError(f"{arch.name}: {feature} is not ported "
@@ -52,14 +54,26 @@ def norm_apply(arch: ArchConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x)
 
 
-def attn_cfg_for(arch: ArchConfig, *, causal=True,
-                 use_rope=True) -> L.AttnConfig:
+def attn_cfg_for(arch: ArchConfig, *, causal=True, use_rope=True,
+                 d_model: Optional[int] = None,
+                 n_heads: Optional[int] = None) -> L.AttnConfig:
+    """The arch's attention; with ``d_model`` given (zamba2's shared block
+    at 2 * d_model) the head dim is ``d_model // n_heads`` and every head
+    has its own KV head."""
+    nh = n_heads or arch.n_heads
+    dm = d_model or arch.d_model
+    hd = arch.resolved_head_dim if d_model is None else dm // nh
+    n_kv = min(arch.n_kv_heads, nh) if d_model is None else nh
     return L.AttnConfig(
-        d_model=arch.d_model, n_heads=arch.n_heads,
-        n_kv_heads=min(arch.n_kv_heads, arch.n_heads),
-        head_dim=arch.resolved_head_dim, rope_theta=arch.rope_theta,
+        d_model=dm, n_heads=nh, n_kv_heads=n_kv, head_dim=hd,
+        rope_theta=arch.rope_theta,
         use_rope=use_rope and arch.rope_theta > 0, qk_norm=arch.qk_norm,
         causal=causal, bias=arch.attn_bias)
+
+
+def shared_cfg_for(arch: ArchConfig) -> L.AttnConfig:
+    """The attention of zamba2's shared block: width 2 * d_model."""
+    return attn_cfg_for(arch, d_model=2 * arch.d_model, n_heads=arch.n_heads)
 
 
 def ssm_cfg_for(arch: ArchConfig) -> M2.Mamba2Config:
@@ -81,11 +95,28 @@ def init_block(kind: str, arch: ArchConfig, *, generator, device, dtype,
         return {"norm": norm_init(arch, d, **kw),
                 "mixer": M2.init_mamba2(ssm_cfg_for(arch),
                                         generator=generator, **kw)}
+    if kind == "shared_attn":
+        # per-application params only (the shared block's 2d-wide output
+        # projected back to d); the shared weights live in init_shared
+        return {"app_proj": L.init_dense(2 * d, d, generator=generator,
+                                         **kw)}
     return {"norm1": norm_init(arch, d, **kw),
             "attn": L.init_attention(attn_cfg_for(arch), generator=generator,
                                      **kw),
             "norm2": norm_init(arch, d, **kw),
             "mlp": L.init_mlp(d, arch.d_ff, generator=generator,
+                              act=arch.act, **kw)}
+
+
+def init_shared(arch: ArchConfig, *, generator, device, dtype) -> Params:
+    """zamba2's shared transformer block over concat(x, x0): width 2d."""
+    d2 = 2 * arch.d_model
+    kw = dict(device=device, dtype=dtype)
+    return {"norm1": norm_init(arch, d2, **kw),
+            "attn": L.init_attention(shared_cfg_for(arch),
+                                     generator=generator, **kw),
+            "norm2": norm_init(arch, d2, **kw),
+            "mlp": L.init_mlp(d2, arch.d_ff, generator=generator,
                               act=arch.act, **kw)}
 
 
@@ -97,10 +128,13 @@ def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
     """Serving cache pool for one block kind (continuous-batching engine).
 
     ``attn`` gets a physical KV *block pool* (length-indexed, paged through
-    block tables).  ``mamba2`` state is O(1) per request, so paging does
-    not apply: it gets a *slot-indexed state pool*, ``slots`` rows plus a
-    trailing reserved null row (see mamba2.mamba2_slot), in float32
-    whatever ``dtype`` is, like the reference's."""
+    block tables), and so does ``shared_attn`` at the shared block's
+    widths: stacked on the segment's ``repeat`` axis, each application of
+    the shared weights pages its own KV.  ``mamba2`` state is O(1) per
+    request, so paging does not apply: it gets a *slot-indexed state
+    pool*, ``slots`` rows plus a trailing reserved null row (see
+    mamba2.mamba2_slot), in float32 whatever ``dtype`` is, like the
+    reference's."""
     if kind == "mamba2":
         if slots <= 0:
             raise ValueError(
@@ -108,15 +142,18 @@ def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
                 f"row per engine slot + the null row)")
         return M2.init_mamba2_cache(ssm_cfg_for(arch), slots + 1,
                                     device=device, repeat=repeat)
-    if kind != "attn":
+    if kind not in ("attn", "shared_attn"):
         raise NotImplementedError(f"no paged serving cache for block kind "
                                   f"{kind!r} in repro_torch yet")
-    return L.init_paged_attention_cache(attn_cfg_for(arch), num_blocks,
-                                        block_size, device=device,
-                                        dtype=dtype, repeat=repeat)
+    cfg = shared_cfg_for(arch) if kind == "shared_attn" else attn_cfg_for(arch)
+    return L.init_paged_attention_cache(cfg, num_blocks, block_size,
+                                        device=device, dtype=dtype,
+                                        repeat=repeat)
 
 
 def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
+                x0: Optional[torch.Tensor] = None,
+                shared: Optional[Params] = None,
                 cache: Optional[Params] = None,
                 positions: Optional[torch.Tensor] = None,
                 block_tables: Optional[torch.Tensor] = None,
@@ -124,8 +161,11 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                 slot_ids: Optional[torch.Tensor] = None,
                 impl: str = "xla"):
     """-> (x, cache).  ``block_tables`` selects the paged-KV path for
-    ``attn``, ``slot_ids`` the slot-state pool path for ``mamba2``; either
-    pool ``cache`` is updated in place and returned."""
+    ``attn`` and ``shared_attn``, ``slot_ids`` the slot-state pool path for
+    ``mamba2``; either pool ``cache`` is updated in place and returned.
+    ``shared_attn`` takes the shared block's params (``shared``) and the
+    scaled embeddings (``x0``); its ``cache`` is this application's slice
+    of the repeat-stacked pool, so two applications never mix their KV."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     if kind == "mamba2":
@@ -142,6 +182,20 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                                           slot_ids=slot_ids,
                                           new_lens=new_lens, impl=impl)
         return x + h, new_cache
+    if kind == "shared_attn":
+        if shared is None or x0 is None:
+            raise ValueError("shared_attn needs the shared block's params "
+                             "(shared=) and the embeddings (x0=)")
+        z = torch.cat([x, x0], dim=-1)
+        h, new_cache = L.attention(shared["attn"], shared_cfg_for(arch),
+                                   norm_apply(arch, shared["norm1"], z),
+                                   cache=cache, positions=positions,
+                                   block_tables=block_tables,
+                                   new_lens=new_lens, impl=impl)
+        z = z + h
+        z = z + L.mlp(shared["mlp"], norm_apply(arch, shared["norm2"], z),
+                      arch.act)
+        return x + L.dense(p["app_proj"], z), new_cache
     h, new_cache = L.attention(p["attn"], attn_cfg_for(arch),
                                norm_apply(arch, p["norm1"], x), cache=cache,
                                positions=positions, block_tables=block_tables,

@@ -1,5 +1,6 @@
-"""Core layers of the dense decoder, in PyTorch (twin of
-``repro/models/layers.py``, the ``attn`` subset).
+"""Core layers of the decoder, in PyTorch (twin of
+``repro/models/layers.py``: RMSNorm, RoPE, self-attention whole-sequence
+and paged, the MLPs, embeddings).
 
 Convention: every layer is an ``init_*(..., generator, device) -> params``
 plus an apply function taking ``(params, x, ...)``.  Params are plain
@@ -363,28 +364,43 @@ def init_paged_attention_cache(cfg: AttnConfig, num_blocks: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP: SwiGLU
+# MLPs: SwiGLU / GeGLU / plain GELU / ReLU
 # ---------------------------------------------------------------------------
+
+MLP_ACTS = ("silu", "geglu", "gelu", "relu")
+GATED_ACTS = ("silu", "geglu")       # these carry a second in-projection
+
 
 def init_mlp(d_model: int, d_ff: int, *, generator, device, act="silu",
              bias=False, dtype=torch.float32,
              repeat: Optional[int] = None) -> Params:
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r} is not ported (silu only)")
+    if act not in MLP_ACTS:
+        raise ValueError(f"mlp act {act!r} not in {MLP_ACTS}")
     kw = dict(generator=generator, device=device, bias=bias, dtype=dtype,
               repeat=repeat)
     # draw order: w_in, w_gate, w_out (the reference's key order)
-    w_in = init_dense(d_model, d_ff, **kw)
-    w_gate = init_dense(d_model, d_ff, **kw)
-    w_out = init_dense(d_ff, d_model, scale=1.0 / math.sqrt(d_ff), **kw)
-    return {"w_in": w_in, "w_out": w_out, "w_gate": w_gate}
+    p = {"w_in": init_dense(d_model, d_ff, **kw)}
+    if act in GATED_ACTS:
+        p["w_gate"] = init_dense(d_model, d_ff, **kw)
+    p["w_out"] = init_dense(d_ff, d_model, scale=1.0 / math.sqrt(d_ff), **kw)
+    return p
 
 
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    if act != "silu":
-        raise NotImplementedError(f"mlp act {act!r} is not ported (silu only)")
+    """SwiGLU (``silu``), GeGLU (``geglu``: gelu(x W_gate) * x W_in), or an
+    ungated GELU / ReLU.  GELU is the tanh form, as the reference's
+    ``jax.nn.gelu(..., approximate=True)``."""
     h = dense(p["w_in"], x)
-    h = F.silu(dense(p["w_gate"], x)) * h
+    if act == "silu":
+        h = F.silu(dense(p["w_gate"], x)) * h
+    elif act == "geglu":
+        h = F.gelu(dense(p["w_gate"], x), approximate="tanh") * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu":
+        h = F.relu(h)
+    else:
+        raise ValueError(f"mlp act {act!r} not in {MLP_ACTS}")
     return dense(p["w_out"], h)
 
 

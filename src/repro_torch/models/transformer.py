@@ -65,6 +65,9 @@ def init_lm(arch: ArchConfig, *, device=None,
         params["head"] = L.init_dense(arch.d_model, arch.padded_vocab,
                                       generator=generator, device=dev,
                                       dtype=dt)
+    if any("shared_attn" in seg.blocks for seg in arch.pattern):
+        params["shared"] = B.init_shared(arch, generator=generator,
+                                         device=dev, dtype=dt)
     params["segments"] = [
         {f"b{i}": B.init_block(kind, arch, generator=generator, device=dev,
                                dtype=dt, repeat=seg.repeat)
@@ -81,7 +84,9 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
       * ``attn`` blocks get paged KV block pools, ``{"k": (R, NB, BS, Hkv,
         D), "v": ...}``: no batch axis — the pool is shared by every
         in-flight request and indexed through per-request block tables
-        (layers.paged_attention);
+        (layers.paged_attention).  So do ``shared_attn`` blocks, at the
+        shared block's widths: the repeat axis gives each application of
+        the shared weights its own pool;
       * ``mamba2`` blocks get slot-indexed state pools, ``{"conv_x": (R,
         slots+1, K, d_inner), ..., "ssm": (R, slots+1, H, P, N)}`` in
         float32: one row per engine slot plus a reserved null row for
@@ -170,7 +175,10 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        place and returned as ``LMOutput.cache``.
     remat: per-layer checkpointing of the whole-sequence forward (one of
        ``REMAT_POLICIES``); the cached forward ignores it, as the
-       reference's does.
+       reference's does.  zamba2's shared block reads ``params["shared"]``
+       and the embeddings ``x0`` from every application; under remat they
+       are closed over by each checkpointed body, and autograd sums their
+       grads over the applications.
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
@@ -181,6 +189,8 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     x = L.embed(params["embed"], tokens.long(), arch.d_model).to(cdt)
     if positions is None and cache is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    x0 = x                     # the scaled embeddings (zamba2's shared block)
+    shared = params.get("shared")
     for si, seg in enumerate(arch.pattern):
         segp = params["segments"][si]
         for r in range(seg.repeat):
@@ -189,6 +199,7 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
                     key = f"b{bi}"
                     c = None if cache is None else _take(cache[si][key], r)
                     x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
+                                         x0=x0, shared=shared,
                                          cache=c, positions=positions,
                                          block_tables=block_tables,
                                          new_lens=new_lens,

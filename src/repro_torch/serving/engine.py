@@ -28,10 +28,11 @@ Engine step = admit -> one prefill chunk -> one decode step:
 
 The steps (runtime/steps.py) run eagerly and write the pools in place;
 the greedy sampler is fused into them, so only a (B,) token vector comes
-back to the host per step.  The port serves archs built of ``attn`` and
-``mamba2`` blocks (serving/cache_manager.py owns both state classes); any
-other block kind raises ``NotImplementedError`` naming it at
-construction.
+back to the host per step.  The port serves archs built of ``attn``,
+``mamba2`` and ``shared_attn`` blocks (serving/cache_manager.py owns both
+state classes; zamba2's shared block pages its KV in a pool per
+application); any other block kind raises ``NotImplementedError`` naming
+it at construction.
 Stochastic sampling (temperature > 0) is refused at submit.  Not ported
 yet: the reference engine's ASA plan / mesh placement, Chrome tracer,
 snapshot writer, StepMonitor and cache sanitizer, per-request frontends,

@@ -80,6 +80,8 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (2, 77, 130, 4, 2, 128, False),
     (1, 2048, 2048, 4, 2, 128, True),
     (1, 129, 1, 4, 2, 128, True),      # one key, one row past a 128-tile
+    (1, 300, 300, 32, 32, 160, True),  # zamba2-2.7b's shared block
+    (1, 300, 300, 16, 16, 256, True),  # gemma-7b
 ])
 def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                             dtype):
@@ -139,6 +141,8 @@ FLASH_BWD_CASES = [
     (1, 300, 300, 8, 2, 160, True),
     (2, 200, 200, 4, 4, 256, True),
     (1, 100, 230, 4, 1, 256, False),
+    (1, 300, 300, 32, 32, 160, True),  # zamba2-2.7b's shared block
+    (1, 300, 300, 16, 16, 256, True),  # gemma-7b
 ]
 
 
@@ -223,46 +227,69 @@ def _tiny_ssm():
                       param_dtype="float32")
 
 
+def _tiny_shared():
+    """zamba2's shape: the weight-shared attention block (2 x 128 wide, 4
+    heads of 64) applied twice, each before a mamba2 layer of d_state 64,
+    GeGLU, tied embeddings."""
+    import dataclasses
+
+    from repro_torch.configs.base import Segment
+    return dataclasses.replace(
+        _tiny_ssm(), name="shared-tiny", family="hybrid", n_layers=4,
+        act="geglu", pattern=(Segment(("shared_attn", "mamba2"), 2),))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("model,impl,remat", [
     ("qwen", "xla", "none"), ("qwen", "pallas", "none"),
     ("qwen", "pallas", "full"), ("qwen", "pallas", "selective"),
     ("ssm", "pallas", "none"), ("ssm", "pallas", "full"),
-    ("ssm", "pallas", "selective")],
+    ("ssm", "pallas", "selective"), ("shared", "pallas", "none"),
+    ("shared", "pallas", "full")],
     ids=["xla-none", "pallas-none", "pallas-full", "pallas-selective",
-         "ssm-pallas-none", "ssm-pallas-full", "ssm-pallas-selective"])
+         "ssm-pallas-none", "ssm-pallas-full", "ssm-pallas-selective",
+         "shared-pallas-none", "shared-pallas-full"])
 def test_cuda_loss_backward_matches_cpu(model, impl, remat):
     """loss.backward() through lm_apply on the card (RMSNorm kernels; under
     impl="pallas" the flash kernels, forward and backward; for the mamba2
-    model the SSD scan's kernels, forward and backward, whatever impl is;
-    with remat, the forward kernels run again in the backward's recompute)
-    gives every param leaf the CPU plain path's gradient; every norm
-    ``scale`` leaf gets one."""
+    and shared-block models the SSD scan's kernels, forward and backward,
+    whatever impl is; with remat, the forward kernels run again in the
+    backward's recompute) gives every param leaf the CPU plain path's
+    gradient; every norm ``scale`` leaf gets one, and the shared block's
+    params the sum over its applications."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.models import transformer as T
     from repro_torch.runtime import steps as ST
-    arch = _tiny_qwen() if model == "qwen" else _tiny_ssm()
+    arch = {"qwen": _tiny_qwen, "ssm": _tiny_ssm,
+            "shared": _tiny_shared}[model]()
     params = T.init_lm(arch, device="cpu", seed=0)
     tokens = torch.randint(0, arch.vocab, (2, 150),
                            generator=torch.Generator().manual_seed(0))
     labels = torch.roll(tokens, -1, dims=1)
     loss_fn = ST.make_loss_fn(arch, impl=impl, remat=remat)
-    before = trn.rmsnorm_bwd.launches, tssd.ssd_scan_bwd.launches
+    before = (trn.rmsnorm_bwd.launches, tssd.ssd_scan_bwd.launches,
+              tfa.flash_attention_bwd.launches)
     got = ST.loss_and_grads(loss_fn, _to(params, "cuda"), tokens.cuda(),
                             labels.cuda())
     torch.cuda.synchronize()
-    norms = 4 if model == "qwen" else 2       # per layer, + the final one
+    # norms a block (qwen's q/k norms too; the shared block's two at 2d),
+    # + the final one; SSD and flash backwards, one a mamba2 block and one
+    # an attention block (under impl="pallas")
+    norms, scans, attns = {"qwen": (4, 0, 2), "ssm": (2, 2, 0),
+                           "shared": (2, 2, 2)}[model]
     assert trn.rmsnorm_bwd.launches - before[0] == norms * arch.n_layers + 1
-    assert tssd.ssd_scan_bwd.launches - before[1] == \
-        (0 if model == "qwen" else arch.n_layers)
+    assert tssd.ssd_scan_bwd.launches - before[1] == scans
+    assert tfa.flash_attention_bwd.launches - before[2] == \
+        (attns if impl == "pallas" else 0)
     want = ST.loss_and_grads(loss_fn, params, tokens, labels)
     torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-5, rtol=1e-5)
     names = tree.names(params)
     # qwen: norm1, norm2, q_norm, k_norm (each stacked over the layers),
-    # final; mamba2: the block's norm, the mixer's gated norm, final
+    # final; mamba2: the block's norm, the mixer's gated norm, final; the
+    # shared-block model: those of mamba2 and the shared norm1, norm2
     assert sum(n.endswith("scale") for n in names) == \
-        (5 if model == "qwen" else 3)
+        {"qwen": 5, "ssm": 3, "shared": 5}[model]
     for n, g, w in zip(names, got[2], want[2]):
         assert g is not None, n
         torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=1e-4,
@@ -521,8 +548,9 @@ def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
 # (B, S, H, P, N, G, chunk, h0): the served prefill chunk and forward of
 # mamba2-780m, then ragged S, Q < chunk, two groups, a small chunk, a
 # head_dim narrower than the fp32 kernel's 16-row tile with three groups,
-# and widths whose rows are no 16-byte multiple (P = 12, N = 24: the bf16
-# kernel loads its tiles itself instead of by TMA)
+# widths whose rows are no 16-byte multiple (P = 12, N = 24: the bf16
+# kernel loads its tiles itself instead of by TMA), and zamba2-2.7b's
+# served prefill chunk and forward (80 heads, d_state 64)
 SSD_CASES = [
     (1, 256, 48, 64, 128, 1, 128, True),
     (2, 500, 48, 64, 128, 1, 128, False),
@@ -532,6 +560,8 @@ SSD_CASES = [
     (2, 33, 4, 32, 64, 1, 16, True),
     (1, 7, 6, 8, 16, 3, 4, True),
     (2, 150, 6, 12, 24, 2, 64, True),
+    (1, 256, 80, 64, 64, 1, 128, True),    # zamba2-2.7b: d_state 64
+    (2, 500, 80, 64, 64, 1, 128, False),
 ]
 
 
@@ -557,7 +587,10 @@ def test_cuda_ssd_scan_matches_plain(B, S, H, P, N, G, chunk, h0, dtype):
 # (B, S, H, P, N, G, chunk, h0, dh_final): chip_smoke.py's ssd_scan_bwd
 # rows (the train step's scan of mamba2-780m, no h0 and no h_final
 # gradient; ragged S = 1000 with h0 and h_final gradients; two groups;
-# S < Q), then the small and odd widths of SSD_CASES
+# S < Q), then the small and odd widths of SSD_CASES, and zamba2-2.7b's
+# train step's scan and a ragged S with h0 and h_final gradients at its
+# d_state of 64 (the states' rows loaded by every thread, not by bulk
+# copies)
 SSD_BWD_CASES = [
     (2, 1024, 48, 64, 128, 1, 128, False, False),
     (1, 1000, 48, 64, 128, 1, 128, True, True),
@@ -566,6 +599,8 @@ SSD_BWD_CASES = [
     (2, 33, 4, 32, 64, 1, 16, True, False),
     (1, 7, 6, 8, 16, 3, 4, True, True),
     (2, 150, 6, 12, 24, 2, 64, True, True),
+    (2, 1024, 80, 64, 64, 1, 128, False, False),   # zamba2-2.7b: N = 64
+    (1, 300, 80, 64, 64, 1, 128, True, True),
 ]
 # head dims past one 64-column tile, which the bf16 body takes in blocks
 # of 64: two full blocks, a ragged second block with three groups, and a

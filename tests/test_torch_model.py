@@ -4,29 +4,41 @@ against the JAX reference on the same params and the same inputs.
 Params come from the JAX ``init_lm`` and are converted leaf for leaf
 (``repro_torch.convert``); token and activation inputs are made with numpy
 from a fixed seed.  Everything is float32, so logits and updated KV and
-slot-state pools are held to 1e-5.
+slot-state pools are held to 1e-5.  The archs: the dense and mamba2
+shapes, zamba2's (``tiny-shared`` and ``reduce_for_smoke(zamba2-2.7b)``:
+the weight-shared attention block over concat(x, x0) with per-application
+KV pools, GeGLU) and gemma's (``gemma-tiny``: GeGLU, tied embeddings,
+heads x head_dim wider than d_model).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as j_get_arch
+from repro.configs import reduce_for_smoke as j_reduce_for_smoke
 from repro.models import layers as JL
 from repro.models import mamba2 as JM2
 from repro.models import transformer as JT
 from repro.runtime import steps as JST
+from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.models import layers as TL
 from repro_torch.models import mamba2 as TM2
 from repro_torch.models import transformer as TT
 from repro_torch.runtime import steps as TST
-from serving_fixtures import TINY, TINY_HYBRID, TINY_SSM
-from torch_port_fixtures import (QWEN_TINY, SSM_G2_TINY, jax_params,
-                                 port_arch, torch_params)
+from serving_fixtures import TINY, TINY_HYBRID, TINY_SHARED, TINY_SSM
+from torch_port_fixtures import (GEMMA_TINY, QWEN_TINY, SSM_G2_TINY,
+                                 jax_params, port_arch, torch_params)
 
+ZAMBA2_SMOKE = j_reduce_for_smoke(j_get_arch("zamba2-2.7b"))
 ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY, "tiny-ssm": TINY_SSM,
-         "tiny-hybrid": TINY_HYBRID, "tiny-ssm-g2": SSM_G2_TINY}
+         "tiny-hybrid": TINY_HYBRID, "tiny-ssm-g2": SSM_G2_TINY,
+         "tiny-shared": TINY_SHARED, "zamba2-smoke": ZAMBA2_SMOKE,
+         "gemma-tiny": GEMMA_TINY}
 TOL = 1e-5
 
 
@@ -68,6 +80,23 @@ def test_convert_round_trip_is_bit_exact(param_dtype):
     _same_tree(cache, convert.to_numpy(convert.to_torch(cache)))
 
 
+def test_convert_carries_the_shared_block_and_its_pools():
+    """zamba2's ``shared`` subtree and the per-application ``app_proj``,
+    stacked on the segment's repeat axis, and the per-application KV pools
+    convert as they are, bit for bit, in bf16."""
+    arch = TINY_SHARED.scaled(param_dtype="bfloat16")
+    host = jax.tree.map(lambda a: np.asarray(a.astype(jnp.bfloat16)),
+                        jax_params(TINY_SHARED))
+    tp = convert.to_torch(host)
+    assert tp["shared"]["attn"]["wq"]["w"].shape == (128, 128)   # 2d wide
+    assert tp["segments"][0]["b0"]["app_proj"]["w"].shape == (2, 128, 64)
+    _same_tree(host, convert.to_numpy(tp))
+    cache = jax.tree.map(np.asarray,
+                         JT.init_paged_cache(arch, 5, 4, slots=2))
+    assert cache[0]["b0"]["k"].shape == (2, 5, 4, 4, 32)   # (R, NB, BS, H, D)
+    _same_tree(cache, convert.to_numpy(convert.to_torch(cache)))
+
+
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_init_lm_matches_reference_tree(name):
     """Same nesting, shapes and dtypes as the reference init (values are
@@ -90,8 +119,20 @@ def test_init_lm_matches_reference_tree(name):
             assert str(a.dtype) == str(b.dtype).replace("torch.", "")
     walk(want, got)
     b0 = got["segments"][0]["b0"]
-    w = (b0["mlp"]["w_in"] if "mlp" in b0 else b0["mixer"]["x_proj"])["w"]
-    assert float(w.abs().max()) <= 2.0 / arch.d_model ** 0.5   # truncated
+    w = (b0["mlp"]["w_in"] if "mlp" in b0 else b0["app_proj"]
+         if "app_proj" in b0 else b0["mixer"]["x_proj"])["w"]
+    assert float(w.abs().max()) <= 2.0 / w.shape[-2] ** 0.5    # truncated
+
+
+@pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-780m", "zamba2-2.7b",
+                                  "gemma-7b"])
+def test_configs_and_smoke_reductions_equal_the_reference(name):
+    """The port's copy of each served config, and its reduce_for_smoke,
+    field for field the reference's."""
+    want = j_get_arch(name)
+    assert tconfigs.get_arch(name) == port_arch(want)
+    assert tconfigs.reduce_for_smoke(tconfigs.get_arch(name)) == \
+        port_arch(j_reduce_for_smoke(want))
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -106,6 +147,54 @@ def test_lm_apply_matches_reference(name, impl):
     assert got.shape == (2, 11, arch.padded_vocab)
     assert got.dtype == torch.float32
     _close(got, want)
+
+
+@pytest.mark.parametrize("act", ["silu", "geglu", "gelu", "relu"])
+def test_mlp_matches_reference(act):
+    """Each act the reference's ``mlp`` takes, on its own init (gated acts
+    carry ``w_gate``); GELU is the tanh form in both."""
+    jp = JL.init_mlp(jax.random.PRNGKey(1), 48, 80, act=act)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
+    assert ("w_gate" in tp) == (act in ("silu", "geglu"))
+    x = np.random.default_rng(8).standard_normal((2, 5, 48)).astype(np.float32)
+    want = JL.mlp(jp, jnp.asarray(x) * 3, act)
+    _close(TL.mlp(tp, torch.from_numpy(x) * 3, act), want)
+    tinit = TL.init_mlp(48, 80, act=act, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert sorted(tinit) == sorted(tp)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_shared_block_grads_match_jax_grad(remat):
+    """zamba2's shared block (one set of weights, two applications on
+    TINY_SHARED) under grad: the grads of the shared params, and of each
+    application's app_proj, with sum(logits * cotangent) as the loss,
+    against jax.grad of the reference's lm_apply at 1e-5 of each grad's
+    max; under remat="full" each application's checkpointed body closes
+    over the shared params, and autograd still sums their grads."""
+    arch = TINY_SHARED
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, arch.vocab, (2, 9))
+    cot = rng.standard_normal((2, 9, arch.padded_vocab)).astype(np.float32)
+
+    def jloss(p):
+        out = JT.lm_apply(p, arch, jnp.asarray(tokens, jnp.int32))
+        return jnp.sum(out.logits * cot)
+    want = jax.grad(jloss)(jax_params(arch))
+
+    tp = convert.to_torch(jax.tree.map(np.asarray, jax_params(arch)))
+    shared = _flat(tp["shared"])
+    proj = tp["segments"][0]["b0"]["app_proj"]["w"]
+    for t in list(shared.values()) + [proj]:
+        t.requires_grad_()
+    logits = TT.lm_apply(tp, port_arch(arch), torch.from_numpy(tokens),
+                         remat=remat).logits
+    (logits * torch.from_numpy(cot)).sum().backward()
+    assert len(shared) == 9     # 2 norms, wq/wk/wv/wo, w_in/w_gate/w_out
+    for k, t in shared.items():
+        _close_scaled(t.grad, _get(want["shared"], k), k)
+    _close_scaled(proj.grad, want["segments"][0]["b0"]["app_proj"]["w"],
+                  "app_proj")
 
 
 @pytest.mark.parametrize("S,T", [(7, 7), (5, 9), (1100, 1100)])

@@ -5,7 +5,9 @@ engine, with the reference's params converted leaf for leaf.
 The goldens were frozen under the old threefry RNG, so the params are built
 inside ``jax.threefry_partitionable(False)`` (tests/torch_port_fixtures.py).
 The engine kwargs are those of tests/test_serving.py for the same
-scenarios; tokens must match exactly.
+scenarios; tokens must match exactly.  The ``shared/*`` scenarios serve
+zamba2's shape (TINY_SHARED: the weight-shared attention block with a
+paged KV pool per application, mamba2 slot state, GeGLU).
 """
 import numpy as np
 import pytest
@@ -13,7 +15,8 @@ import pytest
 from repro_torch.configs.base import ArchConfig, Segment
 from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 from repro_torch.serving.sampling import SamplingParams
-from serving_fixtures import TINY, TINY_SSM, load_goldens, scenario_requests
+from serving_fixtures import (TINY, TINY_SHARED, TINY_SSM, load_goldens,
+                              scenario_requests)
 from torch_port_fixtures import (QWEN_TINY, SSM_G2_TINY, jax_params,
                                  port_arch, torch_params)
 
@@ -40,6 +43,9 @@ GOLDEN_CASES = [
     ("ssm/base",     dict(block_size=4, prefill_chunk=3), False),
     ("hybrid/base",  dict(block_size=4, prefill_chunk=4), False),
     ("hybrid/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8),
+     True),
+    ("shared/base",  dict(block_size=4, prefill_chunk=3), False),
+    ("shared/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8),
      True),
 ]
 
@@ -162,9 +168,49 @@ def test_matches_jax_engine_on_grouped_ssm_config():
     assert teng.cache.allocator.num_used == 0
 
 
+def test_matches_jax_engine_on_shared_block_config():
+    """zamba2's shape (TINY_SHARED): the port's engine and the JAX engine
+    emit the same greedy tokens, logprobs to 1e-5 and the same preemption
+    count under chunked prefill and forced preemption (each application
+    of the shared block re-prefills its own KV pool)."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.serving import ContinuousBatchingEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    from repro.serving import SamplingParams as JaxSamplingParams
+
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, TINY_SHARED.vocab, size=n).astype(np.int32)
+               for n in (9, 5, 13, 7)]
+    kw = dict(slots=2, max_len=32, block_size=4, num_blocks=7,
+              prefill_chunk=5)
+    jeng = JaxEngine(TINY_SHARED, jax_params(TINY_SHARED), make_host_mesh(),
+                     **kw)
+    want = jeng.generate([
+        JaxRequest(id=i, prompt=p, max_new_tokens=8,
+                   sampling=JaxSamplingParams(logprobs=True))
+        for i, p in enumerate(prompts)])
+    teng = _engine(TINY_SHARED, **kw)
+    got = teng.generate([Request(id=i, prompt=p, max_new_tokens=8,
+                                 sampling=SamplingParams(logprobs=True))
+                         for i, p in enumerate(prompts)])
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-5)
+    assert teng.metrics.preemptions == jeng.metrics.preemptions > 0
+    assert teng.cache.allocator.num_used == 0
+
+
 def test_prefix_sharing_is_refused_for_slot_state_archs():
     with pytest.raises(ValueError, match="prefix sharing cannot serve"):
         _engine(TINY_SSM, slots=2, max_len=64, share_prefix=True)
+
+
+def test_prefix_sharing_is_refused_for_the_shared_block_arch():
+    """zamba2's shape carries mamba2 slot state beside its paged pools, so
+    prefix sharing is refused, as the reference refuses it."""
+    with pytest.raises(ValueError, match=r"prefix sharing cannot serve.*"
+                                         r"\['mamba2'\]"):
+        _engine(TINY_SHARED, slots=2, max_len=64, share_prefix=True)
 
 
 def test_stochastic_sampling_is_refused_at_submit():
@@ -178,7 +224,7 @@ def test_stochastic_sampling_is_refused_at_submit():
                            sampling=SamplingParams(temperature=-1.0)))
 
 
-@pytest.mark.parametrize("blocks", [("shared_attn", "mamba2"), ("mla",),
+@pytest.mark.parametrize("blocks", [("moe_attn",), ("mla",),
                                     ("cross_attn",)])
 def test_unported_block_kinds_raise_at_construction(blocks):
     arch = ArchConfig(name="mixed", family="hybrid", n_layers=2, d_model=64,

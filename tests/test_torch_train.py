@@ -54,10 +54,16 @@ ANCHOR_LOSSES = (6.0166, 5.8732, 5.5867, 5.5070, 5.3011)   # ROADMAP
 # 16 heads of 16, d_state 16, 2 layers, vocab 512, tied embeddings, fp32)
 # at its smoke chunk of 16
 MAMBA2_SMOKE = reduce_for_smoke(get_arch("mamba2-780m"))
+# zamba2-2.7b cut to size the same way (d_model 128, 2 applications of the
+# shared block at width 256 with 4 heads of 64, 12 mamba2 layers of 16
+# heads of 16, d_state 16, GeGLU, tied embeddings, fp32) at its smoke
+# chunk of 16
+ZAMBA2_SMOKE = reduce_for_smoke(get_arch("zamba2-2.7b"))
 # the arch of each run and its SyntheticLM(vocab, seq_len, batch)
 RUNS = {"tiny-rt": (TINY_RT, (256, 32, 8)),
         "mamba2": (MAMBA2_SMOKE, (512, 32, 8)),
-        "mamba2-s128": (MAMBA2_SMOKE, (512, 128, 2))}
+        "mamba2-s128": (MAMBA2_SMOKE, (512, 128, 2)),
+        "zamba2": (ZAMBA2_SMOKE, (512, 32, 4))}
 EPS = 1e-8          # adamw's
 
 
@@ -242,6 +248,17 @@ def test_jax_mamba2_step_at_the_published_chunk_is_nan():
     assert np.isnan(float(m["grad_norm"]))
 
 
+def test_zamba2_train_step_matches_jax():
+    """reduce_for_smoke(zamba2-2.7b) at its chunk of 16: 3 AdamW steps of
+    the port's make_train_step against the mesh-free JAX step from the
+    same params.  The shared block's params take the sum of their grads
+    over both applications, its attention runs the flash kernel's plain
+    version under impl="pallas"."""
+    arch = port_arch(ZAMBA2_SMOKE)
+    assert arch.act == "geglu" and arch.ssm.chunk == 16
+    _assert_step_matches(_run(3, run="zamba2", impl="pallas"))
+
+
 def _grads(remat: str, impl: str = "xla", run: str = "tiny-rt"):
     jarch, data = RUNS[run]
     arch = port_arch(jarch)
@@ -274,6 +291,20 @@ def test_mamba2_remat_gives_the_grads_of_no_remat(remat):
     rtol allows."""
     base = _grads("none", run="mamba2")
     got = _grads(remat, run="mamba2")
+    torch.testing.assert_close(got[0], base[0], rtol=1e-6, atol=0)
+    for g, w in zip(got[2], base[2]):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("remat", ["full", "selective"])
+def test_zamba2_remat_gives_the_grads_of_no_remat(remat):
+    """zamba2's shape checkpointed per layer: each application's body
+    closes over the shared block's params and the embeddings x0, and the
+    grads of every leaf (the shared ones summed over the applications)
+    equal those of no remat, each at 1e-6 of its max |value| (as the
+    mamba2 case)."""
+    base = _grads("none", impl="pallas", run="zamba2")
+    got = _grads(remat, impl="pallas", run="zamba2")
     torch.testing.assert_close(got[0], base[0], rtol=1e-6, atol=0)
     for g, w in zip(got[2], base[2]):
         assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())

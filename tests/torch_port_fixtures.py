@@ -38,6 +38,15 @@ SSM_G2_TINY = ArchConfig(name="tiny-ssm-g2", family="ssm", n_layers=2,
                          pattern=(Segment(("mamba2",), 2),),
                          dtype="float32", param_dtype="float32")
 
+# gemma-shaped tiny config: GeGLU, tied embeddings, and heads x head_dim
+# (4 x 32 = 128) wider than d_model (64), as gemma-7b's 16 x 256 > 3072
+GEMMA_TINY = ArchConfig(name="gemma-tiny", family="dense", n_layers=2,
+                        d_model=64, n_heads=4, n_kv_heads=4, head_dim=32,
+                        d_ff=128, vocab=300, act="geglu",
+                        tie_embeddings=True,
+                        pattern=(Segment(("attn",), 2),), dtype="float32",
+                        param_dtype="float32")
+
 _JAX_PARAMS: dict[str, dict] = {}
 _TORCH_PARAMS: dict[str, dict] = {}
 
