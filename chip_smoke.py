@@ -25,7 +25,10 @@ Phases, each of which fails the run (exit code 1) on any error:
    kernels at every shape the train steps give them, plus S = T = 2048,
    ragged, S != T and D = 256 cases, and the SSD scan's backward at
    mamba2-780m's and zamba2-2.7b's train steps and at ragged S, h0 /
-   h_final gradient, two-group and S < Q edges, held
+   h_final gradient, two-group and S < Q edges (RMSNorm also at
+   command-r-plus-104b's 12,288 and on its looped body past 16,384 and at
+   an odd width; flash at D = 160 and 256 with GQA at a ragged S, and its
+   backward at D = 160 with S != T), held
    norm-wise against autograd through the plain versions (the SSD
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
@@ -226,8 +229,17 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_wgmma_kernel", "ssd_bwd_grad_wgmma_kernel",
                    "ssd_bwd_slice_sum_kernel", "ssd_bwd_pass_kernel",
                    "ssd_bwd_chunk_kernel", "ssd_bwd_grad_kernel",
                    "ssd_bwd_group_kernel")
+# this repo's kernels in a trace, as ``traced`` names them
+OWN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash", "flash_bwd", "ssd_scan",
+               "ssd_scan_bwd")
 # cuBLAS's kernels in a trace (on Hopper most are named nvjet_*)
 GEMM_NAMES = ("gemm", "gemv", "nvjet")
+# RMSNorm rows past 8,192, forward and backward: command-r-plus-104b's
+# d_model (12,288) on the register-held body, and the looped body at a
+# vector width past the register-held 16,384 and at an odd width
+NORM_WIDE_EDGES = [("edge", "command-r-plus-104b d_model", 1024, 12288),
+                   ("edge", "looped: past 16,384", 256, 16392),
+                   ("edge", "looped: odd width", 256, 12289)]
 
 
 def fail(msg: str) -> None:
@@ -521,9 +533,13 @@ def served_cases(name, arch):
     if name == QWEN:
         norm += [("edge", "long rows", 2048, arch.d_model),
                  ("edge", "q_norm", 2048 * arch.n_heads, arch.head_dim)]
+        norm += NORM_WIDE_EDGES
         flash += [c + dims for c in (
             ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
             ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
+    if name in (ZAMBA, GEMMA):
+        # the wide heads with GQA (the paths' are MHA) at a ragged S
+        flash.append(("edge", 1, 300, 300, True, 8, 4, dims[2]))
     if "mamba2" in _kinds(arch):
         G = arch.ssm.n_groups
         ssd = [(f"{name} serve prefill", 1, st["prefill_chunk"], G, True)]
@@ -572,6 +588,7 @@ def train_cases(name, arch):
     if name == QWEN:
         norm += [("edge", "ragged rows", 300, arch.d_model),
                  ("edge", "odd width", 37, 300)]
+        norm += NORM_WIDE_EDGES
         flash += [c[:4] + dims + c[4:] for c in (
             ("edge", B, 2048, 2048, True), ("edge", 1, 300, 300, True),
             ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
@@ -579,6 +596,10 @@ def train_cases(name, arch):
         gemma = get_arch(GEMMA)
         flash.append((f"edge {GEMMA} attn", B, S, S, gemma.n_heads,
                       gemma.n_kv_heads, gemma.head_dim, True))
+    if name == ZAMBA:
+        # D = 160 with S != T, both ways of the causal mask
+        flash += [("edge", 1, 256, 700) + dims + (True,),
+                  ("edge", 1, 300, 700) + dims + (False,)]
     if "mamba2" in _kinds(arch):
         ssd = [(path, B, S, arch.ssm.n_groups, False, False)]
     if name == MAMBA:
@@ -1043,7 +1064,8 @@ def traced(torch, label, fn):
     wall time, device busy time and share (the union of kernel intervals
     in the exported Chrome trace), device time by kernel (this repo's
     kernels by name, cuBLAS's as "gemm", the rest by their first 60
-    characters) and by the PyTorch operator that launched it, printed
+    characters; the 12 largest and every one of this repo's) and by the
+    PyTorch operator that launched it, printed
     under ``label``.  Tracing adds host cost, so the
     wall time is no end-to-end number."""
     from torch.profiler import ProfilerActivity, profile
@@ -1098,7 +1120,8 @@ def traced(torch, label, fn):
                 t = d.setdefault(k, [0, 0.0])
                 t[0] += 1
                 t[1] += e["dur"]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:12] + [kv for kv in ranked[12:] if kv[0] in OWN_KERNELS]
     # device time by the PyTorch operator that launched it (its self time:
     # what the templated elementwise kernels' names do not say)
     by_op = []

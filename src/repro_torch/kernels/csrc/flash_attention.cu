@@ -22,23 +22,27 @@
 // (head, batch, q tile) and walks the kv tiles in a loop, m, l and acc in
 // registers.
 //
-// bf16: the tensor-core body (flash_fwd_wgmma_kernel).
+// bf16: the tensor-core body (flash_fwd_wgmma_kernel<D>), at every D in
+// {16, 32, 64, 128, 160, 256}.
 //   * Tiles: a block owns BQ = 128 q rows as two consumer warpgroups of 64
 //     rows and walks kv tiles of BK = 64 keys.  Q tiles are launched last
 //     first (grid z reversed), so the causal blocks with the most work
 //     start first.
 //   * Copies: one producer warpgroup; one of its threads keeps a ring of four
-//     K/V stages full with TMA (cp.async.bulk.tensor over 4-D tensor maps
-//     of the strided (B, H, S, D) views, completion on an mbarrier per
-//     stage; rows past S or T arrive as zeros).  A consumer warp releases
-//     a stage on a second mbarrier once its PV product has read it.  No
-//     block barrier runs inside the loop.
+//     K/V stages (two at D = 256) full with TMA (cp.async.bulk.tensor over
+//     4-D tensor maps of the strided (B, H, S, D) views, completion on an
+//     mbarrier per stage; rows past S or T arrive as zeros).  A consumer
+//     warp releases a stage on a second mbarrier once its PV product has
+//     read it.  No block barrier runs inside the loop.
 //   * Shared memory, all bf16: the ring (BK x D a K or V tile) and Q (BQ x
-//     D) for the whole block, 160 KB at D = 128.  A tile is stored in
-//     column blocks of 128-byte rows (64-byte and 32-byte at D = 32 and
-//     16), swizzled as TMA writes them, so K serves QK^T as a K-major
-//     operand and the same V layout serves PV as an MN-major (transposed)
-//     one.
+//     D) for the whole block: 160 KB at D = 128, 200 KB at D = 160 (four
+//     stages), 192 KB at D = 256 (two stages), of a block's 227 KB.  A
+//     tile is stored in column blocks of kRow-byte rows, kRow the largest
+//     of 128, 64 and 32 that divides a row (D = 160: five blocks of 32
+//     columns in the 64-byte swizzle, TMA boxes 32 columns wide), swizzled
+//     as TMA writes them, so K serves QK^T as a K-major operand and the
+//     same V layout serves PV as an MN-major (transposed) one, the column
+//     blocks its leading byte offset.
 //   * QK^T: wgmma m64n64k16, A = Q and B = the K tile, both from shared
 //     memory through descriptors, fp32 accumulators in registers (a bf16
 //     product summed in fp32 is exact, so this matches the fp32
@@ -48,7 +52,9 @@
 //     shuffles, exp2 (ex2.approx) with log2(e) folded into the scale.
 //   * PV: wgmma m64n{D}k16 with A = P from registers (the m64nN
 //     accumulator layout of S is the register-A layout of the m64k16
-//     slices) and B = the V tile from shared memory, transposed.  P is
+//     slices) and B = the V tile from shared memory, transposed; at D =
+//     160 and 256 two products into one accumulator, n128 + n32 and n128 +
+//     n128 (wgmma_rs_wide).  P is
 //     split into hi = bf16(P) and lo = bf16(P - hi), two wgmmas into the
 //     same fp32 accumulator: P keeps about 16 significant bits, as the
 //     reference's fp32 P needs (a single bf16 P moves outputs by about one
@@ -58,14 +64,13 @@
 //     is still on them.  The wgmma calls sit on straight-line code, never
 //     under a branch, so the compiler keeps them asynchronous.
 //   * Registers: the producer warpgroup gives all but 40 of its registers
-//     to the consumers (setmaxnreg), which may use 232 each.
+//     to the consumers (setmaxnreg), which may use 232 each: the output's
+//     D / 2 fp32 accumulators a thread (80 at D = 160, 128 at D = 256), S
+//     (32) and P as hi + lo (32).
 // fp32: the FMA body (flash_fwd_kernel): BQ = BK = 64, 256 threads, each
 // owning a 4x4 block of scores and a 4 x D/16 block of the output, the
 // products as fp32 FMAs from shared memory.  A TF32 tensor-core path would
-// miss the fp32 specification by design.  The FMA body also serves bf16 at
-// D = 160 and 256: 160 is no multiple of the 64-column swizzle block the
-// wgmma body's tiles are cut in, and at 256 four K/V stages and Q would
-// need 320 KB of shared memory, more than a block has (227 KB).
+// miss the fp32 specification by design.
 //
 // Both bodies can write each row's logsumexp, lse = m + log(max(l, 1e-30))
 // in natural log and fp32, into a (B, H, S) array: the backward
@@ -279,7 +284,10 @@ constexpr int kConsumers = 256;           // 2 consumer warpgroups
 constexpr int kThreadsTC = kConsumers + 128;  // + 1 producer warpgroup
 // registers a thread after the producer hands most of its own over
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kStages = 4;                // K/V ring
+// the K/V ring: four stages, two at D = 256 (Q and four stages of 64 KB
+// would be 320 KB, more than a block's 227 KB)
+template <int D>
+constexpr int kStages = D > 160 ? 2 : 4;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // V is read by PV as an MN-major (transposed) B operand
@@ -287,10 +295,13 @@ constexpr int kTransV = 1;
 
 // A tile of R rows x D bf16 lies in shared memory as D*2/kRow column
 // blocks, each R rows of kRow bytes, swizzled the way TMA writes them (and
-// wgmma reads them) for a kRow-byte swizzle: 128 bytes at D >= 64.
+// wgmma reads them) for a kRow-byte swizzle: the largest of 128, 64 and 32
+// bytes that divides a row (128 at D = 64, 128 and 256; 64 at D = 32 and
+// 160, five blocks of 32 columns; 32 at D = 16).
 template <int D>
 struct Layout {
-  static constexpr int kRow = D * 2 < 128 ? D * 2 : 128;   // bytes
+  static constexpr int kRow = D * 2 % 128 == 0 ? 128
+                              : D * 2 % 64 == 0 ? 64 : 32;   // bytes
   static constexpr int kBlocks = D * 2 / kRow;             // column blocks
   static constexpr int kSlices = kRow / 32;     // k16 slices a block row
   static constexpr uint64_t kSwizzle = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
@@ -306,8 +317,8 @@ template <int D>
 __host__ __device__ constexpr size_t smem_bytes_tc() {
   return 1024 +                           // room to align the base
          static_cast<size_t>(Layout<D>::bytes(TBQ)) +
-         static_cast<size_t>(kStages) * 2 * Layout<D>::bytes(TBK) +
-         (2 * kStages + 1) * 8;           // mbarriers
+         static_cast<size_t>(kStages<D>) * 2 * Layout<D>::bytes(TBK) +
+         (2 * kStages<D> + 1) * 8;        // mbarriers
 }
 
 // rows [row0, row0 + R) of one head's matrix, every column block
@@ -340,17 +351,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   using L = Layout<D>;
   constexpr int kSbo = 8 * L::kRow;       // bytes between 8-row groups
   constexpr int kTile = L::bytes(TBK);
+  constexpr int kSt = kStages<D>;
+  // V's column 128 (the second PV product at D = 160 and 256), 16-byte units
+  constexpr uint32_t kRest = (256 / L::kRow) * L::block_bytes(TBK) >> 4;
   extern __shared__ __align__(1024) unsigned char smem_tc[];
   // swizzled tiles need 1024-byte aligned column blocks; the ring comes
   // first, then Q, then the barriers
   const uint32_t skv = (smem_addr(smem_tc) + 1023) & ~1023u;
-  const uint32_t sq = skv + kStages * 2 * kTile;
+  const uint32_t sq = skv + kSt * 2 * kTile;
   const uint32_t bars = sq + L::bytes(TBQ);
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
-  const uint32_t q_full = bars + 16 * kStages;
+  auto empty = [&](int s) { return bars + 8 * (kSt + s); };
+  const uint32_t q_full = bars + 16 * kSt;
   // tile t's stage: its K tile, then its V tile
-  auto stage = [&](int t) { return skv + (t % kStages) * 2 * kTile; };
+  auto stage = [&](int t) { return skv + (t % kSt) * 2 * kTile; };
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -360,7 +374,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (causal) nk = min(nk, (q_start + TBQ - 1) / TBK + 1);  // k_start <= q_end
 
   if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kSt; ++i) {
       mbar_init(full(i), 1);
       mbar_init(empty(i), kConsumers / 32);   // one arrival a warp
     }
@@ -379,8 +393,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_expect_tx(q_full, L::bytes(TBQ));
       tma_tile<D, TBQ>(sq, &q_map, q_start, h, b, q_full);
       for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);   // stage free
+        const int s = t % kSt;
+        mbar_wait(empty(s), ((t / kSt) & 1) ^ 1);   // stage free
         mbar_expect_tx(full(s), 2 * kTile);
         tma_tile<D, TBK>(stage(t), &k_map, t * TBK, kvh, b, full(s));
         tma_tile<D, TBK>(stage(t) + kTile, &v_map, t * TBK, kvh, b,
@@ -434,8 +448,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                     kSbo, L::kSwizzle);
 #pragma unroll
       for (int kk = 0; kk < TBK / 16; ++kk) {
-        wgmma_rs<kTransV>(acc, p_hi[kk], vd + ((2 * kSbo * kk) >> 4));
-        wgmma_rs<kTransV>(acc, p_lo[kk], vd + ((2 * kSbo * kk) >> 4));
+        const uint64_t vk = vd + ((2 * kSbo * kk) >> 4);
+        wgmma_rs_wide<kTransV>(acc, p_hi[kk], vk, kRest);
+        wgmma_rs_wide<kTransV>(acc, p_lo[kk], vk, kRest);
       }
       wgmma_commit();
     };
@@ -503,7 +518,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     };
     // this warp is done with stage t (its PV has completed)
     auto release = [&](int t) {
-      if (lane == 0) mbar_arrive(empty(t % kStages));
+      if (lane == 0) mbar_arrive(empty(t % kSt));
     };
 
     mbar_wait(q_full, 0);
@@ -520,7 +535,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // together; tile t's softmax runs while the PV product is still on them,
     // and O is rescaled once it is done.
     for (int t = 1; t < nk; ++t) {
-      mbar_wait(full(t % kStages), (t / kStages) & 1);
+      mbar_wait(full(t % kSt), (t / kSt) & 1);
       fence_regs(s);
       fence_regs(acc);
       fence_regs(p_hi);
@@ -605,6 +620,8 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
     case 32:  return launch_tc<32>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 64:  return launch_tc<64>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 128: return launch_tc<128>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 160: return launch_tc<160>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 256: return launch_tc<256>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -614,9 +631,9 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 // q, o: (B, H, S, D) views; k, v: (B, Hkv, T, D) views, each given by its
 // element strides over (b, h, s) with the last axis contiguous.  All four
 // share one dtype.  lse: a contiguous fp32 (B, H, S) array for the rows'
-// logsumexp, or null.  bf16 runs the tensor-core body at D <= 128 and the
-// FMA body at D = 160 and 256.  Returns the cudaError_t of the launch (0 on
-// success).
+// logsumexp, or null.  bf16 runs the tensor-core body at every D (every
+// row start 16-byte aligned), fp32 the FMA body.  Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Hkv, int S, int Tk, int D, long long q_sb, long long q_sh,
@@ -634,9 +651,6 @@ extern "C" int repro_flash_attention(
     return dispatch_d<float>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs,
                              os, scale, causal, s);
   if (dtype == repro::kBFloat16) {
-    if (D > 128)
-      return dispatch_d<bf16>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs,
-                              os, scale, causal, s);
     if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) ||
         !aligned16(o, os) || B > 65535 || S > 65535 * TBQ)
       return cudaErrorInvalidValue;

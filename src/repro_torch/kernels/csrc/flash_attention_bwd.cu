@@ -20,12 +20,12 @@
 // (S and dP twice, dV, dK, dQ) at 989 TFLOP/s bf16 or 67 fp32; the bytes
 // are small beside them at the model's shapes.
 //
-// bf16 at D <= 128: the tensor-core body, three kernels a call.
+// bf16 at D <= 160: the tensor-core body, three kernels a call.
 //   1. flash_bwd_prep_kernel: Di = rowsum(dO * O) and lse2 = log2(e) * lse
 //      into (B, H, Sp) arrays of the scratch (Sp = S rounded up to 128;
 //      the padding rows get Di = 0 and lse2 = 1e30, so P = 0 there), D / 8
-//      lanes a row, 16-byte loads.  A pre-pass, not folded into a
-//      prologue, because both later kernels read it.
+//      lanes a row (16 at D = 160), 16-byte loads.  A pre-pass, not folded
+//      into a prologue, because both later kernels read it.
 //   2. flash_bwd_dkdv_wgmma_kernel: a cluster of two blocks owns 64 keys
 //      of one (b, kv head); K and V stay resident in swizzled shared
 //      memory.  The work is the group's (q head, q tile) items that see
@@ -45,11 +45,29 @@
 //      rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1): warpgroup 1 hands its
 //      sums to warpgroup 0 through the (then idle) ring, and rank 0 reads
 //      rank 1's through distributed shared memory.
+//      At D = 160 dK and dV as m64n160 would take 80 + 80 fp32 registers a
+//      thread, with S^T, dP^T and the fragments over the 240 a consumer
+//      has.  So the two warpgroups of a block take every item of the block
+//      together, split by product: warpgroup 0 forms S^T and P^T, writes
+//      P^T (fp32, 16 KB) into shared memory and sums dV += P^T dO;
+//      warpgroup 1 forms dP^T, waits for P^T (named barrier 2; it frees
+//      the buffer on barrier 3), forms dS^T and sums dK += dS^T Q.  Each
+//      does two of the item's four products, none twice (the other split
+//      the design weighed, dV and dK in separate warpgroups that each form
+//      S^T, does five); each holds 80 accumulators.  The wgmma calls stay
+//      on straight-line code: which operands a warpgroup reads is a select
+//      on its index, not a branch.  The blocks' sums meet as rank 0 + rank
+//      1.  Shared memory: K, V and four (Q, dO) stages of 40 KB, the lse2
+//      and Di rows, the P^T buffer: 219 KB of 227.
 //   3. flash_bwd_dq_wgmma_kernel: mirrors the forward: 128 q rows of one
 //      (b, q head) as two consumer warpgroups of 64 rows, Q and dO
-//      resident, a four-stage TMA ring of (K, V) tiles; S = Q K^T and dP =
-//      dO V^T as wgmma from shared memory, dS in registers, dQ += dS K
-//      with K read MN-major.  Q tiles launch last first (heaviest first).
+//      resident, a four-stage TMA ring of (K, V) tiles (three at D = 160:
+//      80 KB of Q and dO, 120 KB of ring); S = Q K^T and dP = dO V^T as
+//      wgmma from shared memory, dS in registers, dQ += dS K with K read
+//      MN-major (n128 + n32 at D = 160).  Q tiles launch last first
+//      (heaviest first).
+//   Tiles at D = 160 are cut in 64-byte swizzle blocks of 32 columns, as
+//   the forward's (flash_attention.cu).
 //   Grid balance: the causal work of a key tile falls with its index (at
 //   B=2 S=T=512 Hkv=8, key tile t has 4 (8 - t) items), so the dK/dV grid
 //   splits each key tile over four warpgroups and launches key tile 0
@@ -58,20 +76,27 @@
 //   a makespan of 9 item steps against the ideal 8.73 (1.03).  A block
 //   that owned a whole key tile for all four heads would walk 16 (the
 //   previous design's grid: 32 q tiles for the first block, 4 for the
-//   last).
+//   last).  zamba2-2.7b's shared block (D = 160, MHA: H = Hkv = 32, B=2
+//   S=T=1024) gives key tile t 16 - t items, one head; its 2,048 blocks
+//   walk at most 8 items against a mean of 4.25 (1.88), and heaviest-first
+//   scheduling on 132 SMs gives a makespan of 66 item steps against the
+//   ideal 65.94 (1.00).
 //   Precision: P^T and dS^T enter the tensor cores rounded once to bf16,
 //   as FlashAttention does, with fp32 sums; S, dP, dK, dV and dQ are fp32
-//   until the final store.  The CPU emulation
-//   (tests/test_torch_kernels.py) shows one rounding stays inside the bf16
-//   backward tolerance at qwen3-8b's head layout, so no hi + lo split.
+//   until the final store (P^T crosses between warpgroups in fp32).  The
+//   CPU emulation (tests/test_torch_kernels.py) shows one rounding stays
+//   inside the bf16 backward tolerance at qwen3-8b's and zamba2-2.7b's
+//   head layouts, so no hi + lo split.
 //   Registers: the consumers take 240 (setmaxnreg; the producer keeps 24):
-//   dK and dV take 128 fp32 a thread at D = 128, S^T and dP^T 64 more.
+//   dK and dV take 128 fp32 a thread at D = 128, S^T and dP^T 64 more; at
+//   D = 160 a warpgroup holds 80 accumulators, one 32-register score tile
+//   and its fragments; the dQ kernel 80, S and dP.
 //   ptxas reports 168 for both kernels (a 384-thread block's launch
 //   share), no spills, and no warning that it serialised a wgmma: the
 //   wgmma calls sit on straight-line code, never under a branch.
-// fp32 at every D, and bf16 at D = 160 and 256, keep the FMA body (a TF32
-// body would miss the fp32 specification, and 160 / 256 do not fit the
-// 64-column swizzle tiles):
+// fp32 at every D, and bf16 at D = 256, keep the FMA body (a TF32 body
+// would miss the fp32 specification; no train path runs D = 256, and its
+// dK and dV, 128 + 128 accumulators a thread, fit neither split):
 //   1. flash_bwd_dot_kernel: Di for every (b, h, row), one warp a row;
 //   2. flash_bwd_dkdv_kernel: a block owns BK keys of one (b, kv head) and
 //      walks the q tiles of each q head of its group: S^T = K Q^T and
@@ -483,7 +508,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body (D <= 128)
+// bf16 tensor-core body (D <= 160)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -493,7 +518,11 @@ constexpr int TB = 64;                    // rows of every tile (q or kv)
 constexpr int kConsumers = 256;           // 2 consumer warpgroups
 constexpr int kThreadsTC = kConsumers + 128;  // + 1 producer warpgroup
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kStages = 4;                // the ring of either kernel
+constexpr int kStages = 4;                // the dK/dV kernel's ring
+// the dQ kernel's ring: three stages at D = 160, where Q and dO of 128
+// rows take 80 KB and four stages of K and V would take 160 KB more
+template <int D>
+constexpr int kDqStages = D > 128 ? 3 : 4;
 constexpr int kSplit = 2;                 // blocks a cluster (dK/dV kernel)
 constexpr int kRowAlign = 128;            // rows of the padded lse2 and Di
 constexpr float kLog2e = 1.4426950408889634f;
@@ -503,17 +532,22 @@ constexpr float kPadLse = 1e30f;          // lse2 of a row past S: P = 0
 constexpr int kTransB = 1;
 
 // A tile of R rows x D bf16 in shared memory, as flash_attention.cu lays
-// it out: D*2/kRow column blocks of R rows of kRow bytes, swizzled as TMA
-// writes them.
+// it out: D*2/kRow column blocks of R rows of kRow bytes (kRow the largest
+// of 128, 64 and 32 that divides a row: 64 at D = 160, five blocks),
+// swizzled as TMA writes them.
 template <int D>
 struct Layout {
-  static constexpr int kRow = D * 2 < 128 ? D * 2 : 128;   // bytes
+  static constexpr int kRow = D * 2 % 128 == 0 ? 128
+                              : D * 2 % 64 == 0 ? 64 : 32;   // bytes
   static constexpr int kBlocks = D * 2 / kRow;
   static constexpr int kSlices = kRow / 32;     // k16 slices a block row
   static constexpr uint64_t kSwizzle = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
   static constexpr int kSbo = 8 * kRow;         // bytes between 8-row groups
   static constexpr int kTile = TB * D * 2;      // bytes of a 64-row tile
   static constexpr int kBlockBytes = TB * kRow; // one column block of it
+  // column 128 of a tile read MN-major (the second product at D = 160),
+  // 16-byte units
+  static constexpr uint32_t kRest = (256 / kRow) * kBlockBytes >> 4;
 };
 
 // the 64-row tile at row0 of one head's matrix, every column block
@@ -573,10 +607,50 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[32],
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
+// the dK/dV kernel's hand-over of P^T from warpgroup 0 to warpgroup 1 (D =
+// 160): named barriers 2 (P^T written) and 3 (P^T read, the buffer free)
+constexpr int kXchFull = 2, kXchFree = 3;
+template <int kId>
+__device__ __forceinline__ void consumers_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(kId), "n"(kConsumers) : "memory");
+}
+template <int kId>
+__device__ __forceinline__ void consumers_wait() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kId), "n"(kConsumers) : "memory");
+}
+
+// P^T = exp2(scale log2(e) S^T - lse2) in place, zeroed above the diagonal
+// (only the tile that crosses it, diag, has such entries).  st[4jj + 2r +
+// e]: key kr[r], q row q0 + 8jj + col0 + e; lrow: the q tile's lse2.
+__device__ __forceinline__ void p_transposed(float (&st)[32],
+                                             const float* lrow,
+                                             const int (&kr)[2], int q0,
+                                             int col0, bool diag,
+                                             float scale2) {
+#pragma unroll
+  for (int jj = 0; jj < TB / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jj + col0 + e;
+      const float l2 = lrow[c];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int x = 4 * jj + 2 * r + e;
+        float p = fast_exp2(fmaf(st[x], scale2, -l2));
+        if (diag && kr[r] > q0 + c) p = 0.f;
+        st[x] = p;
+      }
+    }
+}
+
+// lanes a row of the pre-pass, a power of two: D / 8 (one 16-byte load of
+// o and of dO each), 16 at D = 160 (lanes 0 - 3 take a second one)
+template <int D>
+constexpr int kPrepLanes = D > 128 ? 16 : D / 8;
 
 // Pre-pass: Di = rowsum(dO * O) and lse2 = log2(e) * lse for every (b, h,
 // row) of a (B, H, Sp) layout whose rows S .. Sp - 1 are padding (Di = 0,
-// lse2 = kPadLse, so that P = 0 there).  D / 8 lanes a row, 16 bytes each.
+// lse2 = kPadLse, so that P = 0 there).  kPrepLanes lanes a row.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_kernel(const bf16* __restrict__ o,
@@ -584,10 +658,9 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
                       const float* __restrict__ lse, float* __restrict__ lse2,
                       float* __restrict__ di, int H, int S, int Sp, Strides os,
                       Strides dos, long long rows) {
-  constexpr int G = D / 8;                  // lanes a row
+  constexpr int G = kPrepLanes<D>;
   const long long row = static_cast<long long>(blockIdx.x) * (256 / G) +
                         threadIdx.x / G;
-  const int c = (threadIdx.x % G) * 8;
   const bool live = row < rows;
   const int s = live ? static_cast<int>(row % Sp) : 0;
   const long long bh = live ? row / Sp : 0;
@@ -595,16 +668,19 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
   const bool in = live && s < S;
   float acc = 0.f;
   if (in) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h +
-                                                     s * os.s + c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(
-        dout + b * dos.b + h * dos.h + s * dos.s + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+    for (int c = (threadIdx.x % G) * 8; c < D; c += 8 * G) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          o + b * os.b + h * os.h + s * os.s + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(
+          dout + b * dos.b + h * dos.h + s * dos.s + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(o2[i]), g = __bfloat1622float2(d2[i]);
-      acc += a.x * g.x + a.y * g.y;
+      for (int i = 0; i < 4; ++i) {
+        const float2 a = __bfloat1622float2(o2[i]);
+        const float2 g = __bfloat1622float2(d2[i]);
+        acc += a.x * g.x + a.y * g.y;
+      }
     }
   }
 #pragma unroll
@@ -619,12 +695,18 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o,
 // dK and dV.  A cluster of kSplit blocks owns the 64 keys of kv tile
 // blockIdx.z of one (b, kv head); its work is the group's (q head, q tile)
 // items that see those keys, item j = head-major.  Block rank r of the
-// cluster takes items r, r + kSplit, ...; inside it consumer warpgroup w
-// takes every other one of those, so four warpgroups split the items round
-// robin.  Each sums its items in order into fp32 dK and dV in registers;
-// the sums meet in a fixed order: (rank 0 wg 0 + rank 0 wg 1) + (rank 1 wg
-// 0 + rank 1 wg 1), the second pair read from the peer block's shared
-// memory.
+// cluster takes items r, r + kSplit, ...
+//   D <= 128: consumer warpgroup w takes every other one of those, so four
+//   warpgroups split the items round robin.  Each sums its items in order
+//   into fp32 dK and dV in registers; the sums meet in a fixed order: (rank
+//   0 wg 0 + rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1), the second pair
+//   read from the peer block's shared memory.
+//   D = 160 (kPair): dK and dV together would take 160 fp32 registers a
+//   thread, so the block's two warpgroups take every item of the block
+//   together, one product each a step: warpgroup 0 forms S^T = K Q^T and
+//   P^T, hands P^T (fp32) to warpgroup 1 through shared memory and sums dV
+//   += P^T dO; warpgroup 1 forms dP^T = V dO^T, dS^T = P^T (dP^T - Di) and
+//   sums dK += dS^T Q.  The blocks' sums meet as rank 0 + rank 1.
 template <int D>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreadsTC, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -638,14 +720,17 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             Strides dks, Strides dvs, float scale,
                             int causal) {
   using L = Layout<D>;
+  constexpr bool kPair = D > 128;
   extern __shared__ __align__(1024) unsigned char smem_tc[];
   // K, V; the ring of (Q, dO) stages; each stage's lse2 and Di rows; the
-  // barriers.  The ring doubles as the buffer of the final reduction.
+  // P^T buffer (kPair); the barriers.  The ring doubles as the buffer of
+  // the final reduction.
   const uint32_t sk = (smem_addr(smem_tc) + 1023) & ~1023u;
   const uint32_t sv = sk + L::kTile;
   const uint32_t ring = sv + L::kTile;
   const uint32_t rows_s = ring + kStages * 2 * L::kTile;
-  const uint32_t bars = rows_s + kStages * 2 * TB * 4;
+  const uint32_t xch_s = rows_s + kStages * 2 * TB * 4;
+  const uint32_t bars = xch_s + (kPair ? TB * TB * 4 : 0);
   auto stage = [&](int s) { return ring + s * 2 * L::kTile; };  // Q, dO
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kStages + s); };
@@ -670,7 +755,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
       mbar_init(full(i), 1);
-      mbar_init(empty(i), 4);             // the consuming warpgroup's warps
+      // the consuming warps: one warpgroup's, both with kPair
+      mbar_init(empty(i), kPair ? 8 : 4);
     }
     mbar_init(kv_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -703,7 +789,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     __syncwarp();                         // the warp meets again first
     cluster.sync();
     cluster.sync();
-  } else {
+  } else if constexpr (!kPair) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
     const int wg = tid / 128, wt = tid % 128;
@@ -743,28 +829,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_regs(st);
       fence_regs(dpt);
 
-      // P^T = exp2(scale log2(e) S^T - lse2), zero above the diagonal
-      // (only the tile that crosses it has such entries); dS^T = P^T (dP^T
-      // - Di).  st[4jj + 2r + e]: key kr[r], q row q0 + 8jj + col0 + e
+      // P^T, then dS^T = P^T (dP^T - Di)
       const float* lrow = lse_s + s * 2 * TB;
       const float* drow = lrow + TB;
-      const bool diag = causal && k0 + TB - 1 > q0;
-      const float scale2 = scale * kLog2e;
+      p_transposed(st, lrow, kr, q0, col0, causal && k0 + TB - 1 > q0,
+                   scale * kLog2e);
 #pragma unroll
-      for (int jj = 0; jj < TB / 8; ++jj)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * jj + col0 + e;
-          const float l2 = lrow[c], dd = drow[c];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int x = 4 * jj + 2 * r + e;
-            float p = fast_exp2(fmaf(st[x], scale2, -l2));
-            if (diag && kr[r] > q0 + c) p = 0.f;
-            st[x] = p;
-            dpt[x] = p * (dpt[x] - dd);
-          }
-        }
+      for (int x = 0; x < 32; ++x)
+        dpt[x] = st[x] * (dpt[x] - drow[8 * (x / 4) + col0 + x % 2]);
       to_a_frags(st, pa);
       to_a_frags(dpt, dsa);
 
@@ -842,6 +914,105 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     cluster.sync();                       // rank 1's buffer stays till read
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
+    // warpgroup 0 sums dV, warpgroup 1 dK, each over every item of the
+    // block; acc[4jj + 2r + e]: key kr[r], column 8jj + col0 + e
+    const int wg = tid / 128, wt = tid % 128;
+    const int warp = wt / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int kr[2] = {k0 + 16 * warp + lane / 4, k0 + 16 * warp + lane / 4 + 8};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[32];                 // S^T (wg 0) or dP^T (wg 1), then P^T or dS^T
+    uint32_t frag[4][4];
+    // P^T, one float a thread a slot: thread wt of warpgroup 1 holds the
+    // same (key, q row) places in dP^T as thread wt of warpgroup 0 in S^T
+    float* xch = reinterpret_cast<float*>(base + (xch_s - sk));
+    // the first product's A (K or V, resident) and which tile of a stage
+    // is its B (Q or dO) and the second product's (dO or Q)
+    const uint64_t ad = kmajor<D>(wg == 0 ? sk : sv);
+    const int first = wg, second = 1 - wg;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < mine; ++i) {
+      const int s = i % kStages;
+      const int j = rank + kSplit * i;
+      const int q0 = (qt0 + j % per_head) * TB;
+      mbar_wait(full(s), (i / kStages) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      const uint64_t bd = kmajor<D>(stage(s) + first * L::kTile);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<TB>(sc, kslice<D>(ad, kk), kslice<D>(bd, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const float* lrow = lse_s + s * 2 * TB;
+      const float* drow = lrow + TB;
+      if (wg == 0) {
+        p_transposed(sc, lrow, kr, q0, col0, causal && k0 + TB - 1 > q0,
+                     scale * kLog2e);
+        if (i > 0) consumers_wait<kXchFree>();   // the last P^T was read
+#pragma unroll
+        for (int x = 0; x < 32; ++x) xch[x * 128 + wt] = sc[x];
+        consumers_arrive<kXchFull>();
+      } else {
+        consumers_wait<kXchFull>();
+#pragma unroll
+        for (int x = 0; x < 32; ++x)
+          sc[x] = xch[x * 128 + wt] *
+                  (sc[x] - drow[8 * (x / 4) + col0 + x % 2]);
+        if (i + 1 < mine) consumers_arrive<kXchFree>();
+      }
+      to_a_frags(sc, frag);
+
+      // dV += P^T dO (wg 0) or dK += dS^T Q (wg 1) over the tile's q rows
+      fence_regs(acc);
+      fence_regs(frag);
+      wgmma_fence();
+      const uint64_t bm = mnmajor<D>(stage(s) + second * L::kTile);
+#pragma unroll
+      for (int kk = 0; kk < TB / 16; ++kk)
+        wgmma_rs_wide<kTransB>(acc, frag[kk], mnslice<D>(bm, kk), L::kRest);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty(s));   // this warp is done with s
+    }
+
+    // Both warpgroups are done with the ring: rank 1 leaves its sums there
+    // (warpgroup w's at [w D / 2, (w + 1) D / 2) slots) for rank 0, which
+    // adds them to its own and stores.
+    float* red = reinterpret_cast<float*>(base + (ring - sk));
+    consumers_sync();
+    if (rank == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) red[(wg * D / 2 + i) * 128 + wt] = acc[i];
+    }
+    cluster.sync();
+    if (rank == 0) {
+      const float* peer = cluster.map_shared_rank(red, 1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += peer[(wg * D / 2 + i) * 128 + wt];
+      const float f = wg == 0 ? 1.f : scale;
+      bf16* out = wg == 0 ? dv : dk;
+      const Strides os = wg == 0 ? dvs : dks;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (kr[r] >= Tk) continue;
+        bf16* orow = out + b * os.b + hk * os.h + kr[r] * os.s;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(orow + 8 * jj + col0) =
+              pack_bf16(acc[4 * jj + 2 * r] * f, acc[4 * jj + 2 * r + 1] * f);
+      }
+    }
+    cluster.sync();                       // rank 1's buffer stays till read
   }
 }
 
@@ -862,15 +1033,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           bf16* __restrict__ dq, int group, int S, int Sp,
                           int Tk, Strides dqs, float scale, int causal) {
   using L = Layout<D>;
+  constexpr int kSt = kDqStages<D>;
   extern __shared__ __align__(1024) unsigned char smem_tc[];
   // Q and dO of each warpgroup, the (K, V) ring, the barriers
   const uint32_t sq = (smem_addr(smem_tc) + 1023) & ~1023u;  // Q0 Q1 dO0 dO1
   const uint32_t ring = sq + 4 * L::kTile;
-  const uint32_t bars = ring + kStages * 2 * L::kTile;
+  const uint32_t bars = ring + kSt * 2 * L::kTile;
   auto stage = [&](int s) { return ring + s * 2 * L::kTile; };  // K, V
   auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
-  const uint32_t q_full = bars + 16 * kStages;
+  auto empty = [&](int s) { return bars + 8 * (kSt + s); };
+  const uint32_t q_full = bars + 16 * kSt;
 
   const int tid = threadIdx.x;
   const int h = blockIdx.x, b = blockIdx.y;
@@ -881,7 +1053,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (causal) nk = min(nk, (q_start + 2 * TB - 1) / TB + 1);  // k0 <= q_end
 
   if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < kSt; ++i) {
       mbar_init(full(i), 1);
       mbar_init(empty(i), kConsumers / 32);   // one arrival a warp
     }
@@ -900,8 +1072,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       tma_tile<D>(sq + 2 * L::kTile, &do_map, q_start, h, b, q_full);
       tma_tile<D>(sq + 3 * L::kTile, &do_map, q_start + TB, h, b, q_full);
       for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);
+        const int s = t % kSt;
+        mbar_wait(empty(s), ((t / kSt) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * L::kTile);
         tma_tile<D>(stage(s), &k_map, t * TB, kvh, b, full(s));
         tma_tile<D>(stage(s) + L::kTile, &v_map, t * TB, kvh, b, full(s));
@@ -931,8 +1103,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < nk; ++t) {
-      const int s = t % kStages, k_start = t * TB;
-      mbar_wait(full(s), (t / kStages) & 1);
+      const int s = t % kSt, k_start = t * TB;
+      mbar_wait(full(s), (t / kSt) & 1);
       const uint32_t sk = stage(s), sv = stage(s) + L::kTile;
       fence_regs(sc);
       fence_regs(dp);
@@ -973,7 +1145,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint64_t km = mnmajor<D>(sk);
 #pragma unroll
       for (int kk = 0; kk < TB / 16; ++kk)
-        wgmma_rs<kTransB>(dq_acc, dsa[kk], mnslice<D>(km, kk));
+        wgmma_rs_wide<kTransB>(dq_acc, dsa[kk], mnslice<D>(km, kk),
+                                L::kRest);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq_acc);
@@ -996,13 +1169,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D>
 constexpr size_t dkdv_smem() {
   return 1024 + static_cast<size_t>(2 + 2 * kStages) * Layout<D>::kTile +
-         kStages * 2 * TB * 4 + (2 * kStages + 1) * 8;
+         kStages * 2 * TB * 4 + (D > 128 ? TB * TB * 4 : 0) +
+         (2 * kStages + 1) * 8;
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return 1024 + static_cast<size_t>(4 + 2 * kStages) * Layout<D>::kTile +
-         (2 * kStages + 1) * 8;
+  return 1024 +
+         static_cast<size_t>(4 + 2 * kDqStages<D>) * Layout<D>::kTile +
+         (2 * kDqStages<D> + 1) * 8;
 }
+static_assert(dkdv_smem<160>() <= 232448 && dq_smem<160>() <= 232448,
+              "a block's shared memory is 227 KB");
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
@@ -1037,7 +1214,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const long long rows = static_cast<long long>(B) * H * Sp;
   float* lse2 = scratch;
   float* di = scratch + rows;
-  const long long prep_blocks = (rows + 256 / (D / 8) - 1) / (256 / (D / 8));
+  constexpr int kPrepRows = 256 / kPrepLanes<D>;    // rows a block
+  const long long prep_blocks = (rows + kPrepRows - 1) / kPrepRows;
   if (prep_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_bwd_prep_kernel<D><<<static_cast<unsigned>(prep_blocks), 256, 0,
                              stream>>>(
@@ -1078,6 +1256,7 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
     REPRO_BWD_TC_CASE(32)
     REPRO_BWD_TC_CASE(64)
     REPRO_BWD_TC_CASE(128)
+    REPRO_BWD_TC_CASE(160)
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_BWD_TC_CASE
@@ -1092,8 +1271,8 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 // contiguous fp32 buffer of 2 * B * H * Sp floats, Sp = S rounded up to a
 // multiple of 128 (the FMA body keeps Di in its first B * H * S; the
 // tensor-core body keeps lse2 and Di there, each (B, H, Sp)).  bf16 runs
-// the tensor-core body at D <= 128 (every row start 16-byte aligned) and
-// the FMA body at D = 160 and 256.  Returns the cudaError_t of the
+// the tensor-core body at D <= 160 (every row start 16-byte aligned) and
+// the FMA body at D = 256.  Returns the cudaError_t of the
 // launches (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
@@ -1116,10 +1295,10 @@ extern "C" int repro_flash_attention_bwd(
                              Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
                              st[5], st[6], st[7], scale, causal, s);
   if (dtype != kBFloat16) return cudaErrorInvalidValue;
-  if (D > 128)
-    return dispatch_d<bf16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H,
-                            Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
-                            st[5], st[6], st[7], scale, causal, s);
+  if (D == 256)
+    return launch<bf16, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv,
+                             S, Tk, st[0], st[1], st[2], st[3], st[4], st[5],
+                             st[6], st[7], scale, causal, s);
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (int i = 0; i < 8; ++i)
     if (!aligned16(ptrs[i], st[i])) return cudaErrorInvalidValue;

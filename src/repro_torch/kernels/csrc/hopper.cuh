@@ -225,6 +225,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "n"(TransB));
 }
 
+// D += A B for one m64k16 slice over N = 2 R columns (N <= 256), A from
+// registers, B from shared memory (MN-major when TransB = 1).  N above 128
+// is two products into the two parts of the same accumulator: columns 0 ..
+// 127 from db, the rest from db + rest (16-byte units: the byte offset of
+// column 128 in B's layout, >> 4).
+template <int TransB, int R>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[R],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, uint32_t rest) {
+  if constexpr (R <= 64) {
+    wgmma_rs<TransB>(d, a, db);
+  } else {
+    static_assert(R == 80 || R == 128, "wgmma_rs_wide: N = 160 or 256");
+    wgmma_rs<TransB>(*reinterpret_cast<float(*)[64]>(&d[0]), a, db);
+    wgmma_rs<TransB>(*reinterpret_cast<float(*)[R - 64]>(&d[64]), a,
+                     db + rest);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<const uint32_t*>(&v);

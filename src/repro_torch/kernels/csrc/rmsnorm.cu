@@ -14,7 +14,11 @@
 // two), each lane holding up to 8 16-byte vectors of the row (vector vi of
 // the row sits at lane vi % LANES, slot vi / LANES, so a warp's loads are
 // contiguous).  The group is the narrowest that gives a lane at most 8
-// vectors, so a lane keeps several loads in flight.  A lane starts all its
+// vectors, so a lane keeps several loads in flight.  Vector groups span at
+// most kMaxVecSpan = 2048 elements, so this register-held body takes rows of
+// up to 16,384 elements in vectors (bf16 256 lanes x 8, fp32 512 x 8; at
+// command-r-plus's 12,288: 256 x 6 and 512 x 6) and 8,192 in single
+// elements (1024 lanes x 8).  A lane starts all its
 // loads (the row's vectors, then scale's at the same positions, kept in
 // registers) before any arithmetic, and sums squares one partial a vector,
 // so the adds are not one long chain.  A block has max(256, LANES) threads
@@ -26,6 +30,15 @@
 // chosen in Python (kernels/rmsnorm.py: launch_shape) and checked here: a
 // shape this file was not built for is refused, never replaced.
 //
+// Wider rows (past 16,384 in vectors, past 8,192 in single elements, as a
+// width that is no multiple of the vector or an unaligned pointer gives)
+// walk the looped body, rmsnorm_loop_kernel: a block of kLoopLanes = 1024
+// threads a row, the sum of squares in one pass over the row, then the
+// scale pass reading the row again (from L2: a row is at most tens of KB);
+// the block's sums meet in a fixed order (block_sum2).  It moves the row
+// twice through L2, once from HBM; ptxas gives it 28 registers (its
+// backward 32), no spills.
+//
 // Backward (rmsnorm_bwd_kernel, then rmsnorm_dscale_kernel): with
 // r = rsqrt(mean(x^2) + eps) and xh = x * r, dx = r * (g*s - xh *
 // mean(g*s*xh)) and dscale = sum over rows of g * xh, all in fp32.  The
@@ -34,16 +47,21 @@
 // scale and dscale.
 //   * Rows: the forward's lane groups, at most 4 16-byte vectors a lane
 //     (max_nv_bwd; 8 single elements), so a block of 256 threads keeps
-//     its registers under 128 a thread.  One block an SM of an H100
-//     (kernels/rmsnorm.py: bwd_blocks), each walking its row groups with
-//     the grid's stride; the SM's 8 warps overlap one's loads with
-//     another's math.  Scale is read from the cache where it is used.
-//     Each lane adds g * xh of its rows to its own dscale partials.  On
-//     an H100 neither a second row group loaded ahead into registers, nor
-//     a ring of 4 row groups in shared memory filled by TMA bulk copies,
-//     nor 2 or 3 blocks an SM was faster than this plain form: what
-//     remains is HBM's rate and the latency of the first loads of a
-//     launch that moves some 190 KB an SM at (1024, 4096) bf16.
+//     its registers under 128 a thread; vector groups span at most
+//     kMaxVecSpanBwd = 4096 elements, rows up to 16,384 (bf16 512 lanes x
+//     4 vectors, fp32 1024 x 4, both one row a block).  Wider rows walk
+//     rmsnorm_bwd_loop_kernel: 1024 threads a row, two passes over it as
+//     the looped forward, each thread adding g * xh of its own columns to
+//     the block's partial row in device memory, rows in order.  One
+//     block an SM of an H100 (kernels/rmsnorm.py: bwd_blocks), each
+//     walking its row groups with the grid's stride; the SM's 8 warps
+//     overlap one's loads with another's math.  Scale is read from the
+//     cache where it is used.  Each lane adds g * xh of its rows to its own
+//     dscale partials.  On an H100 neither a second row group loaded ahead
+//     into registers, nor a ring of 4 row groups in shared memory filled
+//     by TMA bulk copies, nor 2 or 3 blocks an SM was faster than this
+//     plain form: what remains is HBM's rate and the latency of the first
+//     loads of a launch that moves some 190 KB an SM at (1024, 4096) bf16.
 //   * Partials: one fp32 row a block (132 rows at most, where the first
 //     design wrote one a 4-row block: 256 at (1024, 4096)).  The block's
 //     row groups meet in shared memory in group order, after one barrier.
@@ -62,8 +80,10 @@ namespace {
 
 constexpr int kMaxNV = 8;       // vectors held in registers per lane
 constexpr int kMinBlock = 256;  // threads a block, or LANES if wider
-constexpr int kMaxVecSpan = 1024;  // LANES * VEC of the widest vector build
-constexpr int kMaxVecSpanBwd = 2048;  // the same for the backward
+constexpr int kMaxVecSpan = 2048;  // LANES * VEC of the widest vector build
+constexpr int kMaxVecSpanBwd = 4096;  // the same for the backward
+constexpr int kMaxLanes = 1024;    // the widest lane group
+constexpr int kLoopLanes = 1024;   // threads a block of the looped bodies
 constexpr int kDscaleCols = 32;    // columns a block of the dscale pass
 constexpr int kDscaleWarps = 8;    // warps a block of the dscale pass
 
@@ -73,6 +93,15 @@ constexpr int kMaxSmemBwd = 32 << 10;  // the backward's group sums, fp32
 template <int VEC>
 __host__ __device__ constexpr int max_nv_bwd() {
   return VEC > 1 ? 4 : 8;
+}
+
+// the widest row the register-held bodies take (16,384 in vectors of 16
+// bytes, 8,192 in single elements); wider rows walk the looped bodies
+template <int VEC, bool kBwd>
+constexpr long long max_register_d() {
+  return VEC == 1 ? static_cast<long long>(kMaxLanes) * kMaxNV
+         : kBwd   ? static_cast<long long>(kMaxVecSpanBwd) * max_nv_bwd<VEC>()
+                  : static_cast<long long>(kMaxVecSpan) * kMaxNV;
 }
 
 template <int LANES>
@@ -315,6 +344,142 @@ rmsnorm_dscale_kernel(const float* __restrict__ partial,
   }
 }
 
+// The sums of v.x and v.y over a block of kLoopLanes threads in a fixed
+// order: each warp's by shuffles (lane 0's result kept), then the warps'
+// in warp order; every thread gets the same two sums.
+__device__ __forceinline__ float2 block_sum2(float2 v, float2* warp_sums) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = v;
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll 8
+  for (int w = 0; w < kLoopLanes / 32; ++w) {
+    s.x += warp_sums[w].x;
+    s.y += warp_sums[w].y;
+  }
+  __syncthreads();                       // read before the next row writes
+  return s;
+}
+
+// The looped forward, for rows wider than the register-held body takes: a
+// block a row, its threads walking the row's vectors; the scale pass reads
+// the row again (from L2: a row is at most a few tens of KB).
+template <typename T, typename TS, int VEC>
+__global__ void __launch_bounds__(kLoopLanes)
+rmsnorm_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
+                    T* __restrict__ y, int d, float eps) {
+  using V = Vec<T, VEC>;
+  using VS = Vec<TS, VEC>;
+  __shared__ float2 warp_sums[kLoopLanes / 32];
+  const long long row = blockIdx.x;
+  const int nvec = d / VEC;
+  const V* xr = reinterpret_cast<const V*>(x + row * d);
+  const VS* sr = reinterpret_cast<const VS*>(scale);
+  float ss = 0.f;
+  for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+    const V b = xr[vi];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float f = repro::to_f32(b.v[e]);
+      ss += f * f;
+    }
+  }
+  const float r = rsqrtf(
+      block_sum2(make_float2(ss, 0.f), warp_sums).x / static_cast<float>(d) +
+      eps);
+  V* yr = reinterpret_cast<V*>(y + row * d);
+  for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+    const V b = xr[vi];
+    const VS sv = sr[vi];
+    V out;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      out.v[e] = repro::from_f32<T>(repro::to_f32(b.v[e]) * r *
+                                    repro::to_f32(sv.v[e]));
+    yr[vi] = out;
+  }
+}
+
+// p[0 .. VEC) += v, in 16-byte pieces where VEC allows (p 16-byte aligned)
+template <int VEC>
+__device__ __forceinline__ void add_to(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      float4 a = *reinterpret_cast<float4*>(p + e);
+      a.x += v[e];
+      a.y += v[e + 1];
+      a.z += v[e + 2];
+      a.w += v[e + 3];
+      *reinterpret_cast<float4*>(p + e) = a;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) p[e] += v[e];
+  }
+}
+
+// The looped backward: blocks walk their rows with the grid's stride as the
+// register-held backward does, a row at a time; each thread adds g * xh of
+// its columns to the block's partial row in device memory (its own
+// columns only, rows in order, so the sums keep a fixed order).
+template <typename T, typename TS, int VEC>
+__global__ void __launch_bounds__(kLoopLanes)
+rmsnorm_bwd_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
+                        const T* __restrict__ g, T* __restrict__ dx,
+                        float* __restrict__ partial, long long rows, int d,
+                        float eps) {
+  using V = Vec<T, VEC>;
+  using VS = Vec<TS, VEC>;
+  __shared__ float2 warp_sums[kLoopLanes / 32];
+  const int nvec = d / VEC;
+  const VS* sr = reinterpret_cast<const VS*>(scale);
+  float* prow = partial + static_cast<long long>(blockIdx.x) * d;
+  for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) prow[vi * VEC + e] = 0.f;
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const V* xr = reinterpret_cast<const V*>(x + row * d);
+    const V* gr = reinterpret_cast<const V*>(g + row * d);
+    float ss = 0.f, gsx = 0.f;             // sum(x^2), sum(g*s*x)
+    for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+      const V xb = xr[vi], gb = gr[vi];
+      const VS sv = sr[vi];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xf = repro::to_f32(xb.v[e]);
+        ss += xf * xf;
+        gsx += repro::to_f32(gb.v[e]) * repro::to_f32(sv.v[e]) * xf;
+      }
+    }
+    const float2 t = block_sum2(make_float2(ss, gsx), warp_sums);
+    const float r = rsqrtf(t.x / static_cast<float>(d) + eps);
+    const float mean_gsxh = r * t.y / static_cast<float>(d);
+    V* dxr = reinterpret_cast<V*>(dx + row * d);
+    for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+      const V xb = xr[vi], gb = gr[vi];
+      const VS sv = sr[vi];
+      V out;
+      float gxh[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = repro::to_f32(xb.v[e]) * r;
+        const float gf = repro::to_f32(gb.v[e]);
+        out.v[e] = repro::from_f32<T>(
+            r * (gf * repro::to_f32(sv.v[e]) - xh * mean_gsxh));
+        gxh[e] = gf * xh;
+      }
+      dxr[vi] = out;
+      add_to(prow + vi * VEC, gxh);
+    }
+  }
+}
+
 // One launch of either direction.  The forward reads x and scale and
 // writes y; the backward (g != nullptr) also reads g, writes dx into y,
 // the blocks' partials and dscale.
@@ -331,19 +496,54 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the shape must cover the row once: every vector has a slot, and no
+// lane's last slot lies wholly past the row
+inline bool covers(const Args& a, int lanes, int rows_per_block, int max_nv,
+                   int vec) {
+  const int nvec = a.d / vec;
+  return a.rows_per_block == rows_per_block && a.nv >= 1 &&
+         a.nv <= max_nv && a.d % vec == 0 &&
+         static_cast<long long>(lanes) * a.nv >= nvec &&
+         static_cast<long long>(lanes) * (a.nv - 1) < nvec;
+}
+
+// the dscale pass over the backward's partial rows, launched as a
+// programmatic dependent of the row kernel: its blocks take their places
+// while the row kernel runs and wait for it there (griddepcontrol.wait),
+// so the launch's latency is hidden
+template <typename TS>
+cudaError_t launch_dscale(const Args& a) {
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.d + kDscaleCols - 1) / kDscaleCols);
+  cfg.blockDim = dim3(kDscaleCols * kDscaleWarps);
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, rmsnorm_dscale_kernel<TS>,
+                            static_cast<const float*>(a.partial),
+                            static_cast<TS*>(a.dscale), a.blocks, a.d);
+}
+
+// the backward's grid: at least one block, at most one a row group
+inline bool bwd_grid_ok(const Args& a) {
+  const long long groups = (a.rows + a.rows_per_block - 1) / a.rows_per_block;
+  return a.blocks >= 1 && a.blocks <= groups && a.partial != nullptr;
+}
+
 template <typename T, typename TS, int VEC, int LANES>
 cudaError_t launch_fwd(const Args& a) {
   constexpr int kThreads = block_threads<LANES>();
-  // a vector group never spans more than kMaxVecSpan elements (MAX_D =
-  // 8192 at 8 vectors a lane): wider ones are not built
+  // a vector group never spans more than kMaxVecSpan elements (16,384 at 8
+  // vectors a lane): wider ones are not built
   if constexpr (VEC > 1 && LANES * VEC > kMaxVecSpan) {
     return cudaErrorInvalidValue;
   } else {
-    const int d = a.d, nv = a.nv;
-    // the shape must cover the row once: every vector has a slot, and no
-    // lane's last slot lies wholly past the row
-    if (a.rows_per_block != kThreads / LANES || nv < 1 || nv > kMaxNV ||
-        d % VEC != 0 || LANES * nv < d / VEC || LANES * (nv - 1) >= d / VEC)
+    if (!covers(a, LANES, kThreads / LANES, kMaxNV, VEC))
       return cudaErrorInvalidValue;
     const long long blocks =
         (a.rows + a.rows_per_block - 1) / a.rows_per_block;
@@ -351,7 +551,7 @@ cudaError_t launch_fwd(const Args& a) {
     rmsnorm_kernel<T, TS, VEC, LANES>
         <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
-            static_cast<T*>(a.y), a.rows, d, nv, a.eps);
+            static_cast<T*>(a.y), a.rows, a.d, a.nv, a.eps);
     return cudaGetLastError();
   }
 }
@@ -359,44 +559,22 @@ cudaError_t launch_fwd(const Args& a) {
 template <typename T, typename TS, int VEC, int LANES>
 cudaError_t launch_bwd(const Args& a) {
   constexpr int kThreads = block_threads<LANES>();
-  // at most 4 vectors a lane: MAX_D = 8192 needs vector groups of 2048
+  // at most 4 vectors a lane: 16,384 needs vector groups of 4096
   if constexpr (VEC > 1 && LANES * VEC > kMaxVecSpanBwd) {
     return cudaErrorInvalidValue;
   } else {
-    const int d = a.d, nv = a.nv;
-    if (a.rows_per_block != kThreads / LANES || nv < 1 ||
-        nv > max_nv_bwd<VEC>() || d % VEC != 0 || LANES * nv < d / VEC ||
-        LANES * (nv - 1) >= d / VEC)
-      return cudaErrorInvalidValue;
-    const long long groups =
-        (a.rows + a.rows_per_block - 1) / a.rows_per_block;
-    if (a.blocks < 1 || a.blocks > groups || a.partial == nullptr)
+    if (!covers(a, LANES, kThreads / LANES, max_nv_bwd<VEC>(), VEC) ||
+        !bwd_grid_ok(a))
       return cudaErrorInvalidValue;
     constexpr int kRows = kThreads / LANES;
-    const size_t smem = kRows > 1 ? sizeof(float) * kRows * d : 0;
+    const size_t smem = kRows > 1 ? sizeof(float) * kRows * a.d : 0;
     if (smem > kMaxSmemBwd) return cudaErrorInvalidValue;
     rmsnorm_bwd_kernel<T, TS, VEC, LANES>
         <<<a.blocks, kThreads, smem, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
             static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial,
-            a.rows, d, nv, a.eps);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    // launched as a programmatic dependent of the row kernel: its blocks
-    // take their places while the row kernel runs and wait for it there
-    // (griddepcontrol.wait), so the launch's latency is hidden
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((d + kDscaleCols - 1) / kDscaleCols);
-    cfg.blockDim = dim3(kDscaleCols * kDscaleWarps);
-    cfg.stream = a.stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, rmsnorm_dscale_kernel<TS>,
-                              static_cast<const float*>(a.partial),
-                              static_cast<TS*>(a.dscale), a.blocks, d);
+            a.rows, a.d, a.nv, a.eps);
+    return launch_dscale<TS>(a);
   }
 }
 
@@ -406,8 +584,33 @@ cudaError_t launch(const Args& a) {
                         : launch_bwd<T, TS, VEC, LANES>(a);
 }
 
+// rows wider than the register-held bodies take: kLoopLanes threads a row,
+// one row a block
+template <typename T, typename TS, int VEC>
+cudaError_t launch_loop(int lanes, const Args& a) {
+  if (lanes != kLoopLanes || !covers(a, kLoopLanes, 1, 1 << 30, VEC))
+    return cudaErrorInvalidValue;
+  if (a.g == nullptr) {
+    if (a.rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_loop_kernel<T, TS, VEC>
+        <<<static_cast<unsigned>(a.rows), kLoopLanes, 0, a.stream>>>(
+            static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
+            static_cast<T*>(a.y), a.d, a.eps);
+    return cudaGetLastError();
+  }
+  if (!bwd_grid_ok(a)) return cudaErrorInvalidValue;
+  rmsnorm_bwd_loop_kernel<T, TS, VEC><<<a.blocks, kLoopLanes, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
+      static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial, a.rows,
+      a.d, a.eps);
+  return launch_dscale<TS>(a);
+}
+
 template <typename T, typename TS, int VEC>
 cudaError_t dispatch_lanes(int lanes, const Args& a) {
+  const long long widest = a.g == nullptr ? max_register_d<VEC, false>()
+                                          : max_register_d<VEC, true>();
+  if (a.d > widest) return launch_loop<T, TS, VEC>(lanes, a);
   switch (lanes) {
     case 8:    return launch<T, TS, VEC, 8>(a);
     case 16:   return launch<T, TS, VEC, 16>(a);

@@ -10,25 +10,31 @@ denominator clamped at 1e-30.  Unlike the TPU wrapper it takes GQA kv
 
 Head dims: every D in ``HEAD_DIMS`` (16, 32, 64, 128, 160, 256), in fp32
 and bf16, forward and backward.  Bound on an H100: operations,
-4*B*H*D*(unmasked pairs) forward at 989 TFLOP/s bf16.  bf16 at D <= 128
-runs on the tensor cores (the source header has the design): blocks of
-128 q rows as two consumer warpgroups, kv tiles of 64 keys brought by a
-TMA producer warpgroup into a four-stage mbarrier ring, QK^T and PV as
-``wgmma`` from swizzled bf16 shared memory, softmax in registers, and P
+4*B*H*D*(unmasked pairs) forward at 989 TFLOP/s bf16 (at the model's
+shapes often the bytes, q, k, v and o once each at 3.35 TB/s).  bf16
+runs on the tensor cores at every D (``FWD_TENSOR_CORE_DIMS``; the
+source header has the design): blocks of 128 q rows as two consumer
+warpgroups, kv tiles of 64 keys brought by a TMA producer warpgroup into
+an mbarrier ring (four stages, two at D = 256: 192 KB of shared memory),
+QK^T and PV as ``wgmma`` from swizzled bf16 shared memory (64-byte
+swizzle blocks of 32 columns at D = 160), softmax in registers, and P
 split into bf16 hi + lo so that PV keeps P to about 16 bits, as the fp32
 specification needs; it needs every row start 16-byte aligned (strides
-multiples of 8 elements), which the model's layouts give.  fp32 at every
-D, and bf16 at D = 160 and 256, run on an fp32 FMA body.
+multiples of 8 elements), which the model's layouts give.  fp32 runs on
+an fp32 FMA body.
 
 The backward (the reference has none: it trains through plain attention)
-recomputes P from the forward's row logsumexp.  bf16 at D <= 128 runs on
-the tensor cores (the source header has the design): a pre-pass for Di
-and lse in log2 units; a dK/dV kernel whose clusters of two blocks split
-each 64-key tile's (q head, q tile) items over four consumer warpgroups
-(S^T, dP^T, dV and dK as ``wgmma``, P^T and dS^T rounded once to bf16)
-and sum them in a fixed order; a dQ kernel that mirrors the forward.  fp32
-at every D, and bf16 at D = 160 and 256, run fp32 FMA kernels.  No float
-atomics: every call gives the same bits.
+recomputes P from the forward's row logsumexp.  bf16 at D <= 160
+(``BWD_TENSOR_CORE_DIMS``) runs on the tensor cores (the source header
+has the design): a pre-pass for Di and lse in log2 units; a dK/dV kernel
+whose clusters of two blocks split each 64-key tile's (q head, q tile)
+items, over four consumer warpgroups at D <= 128 (S^T, dP^T, dV and dK as
+``wgmma``, P^T and dS^T rounded once to bf16), and at D = 160 over the
+two blocks with each block's two warpgroups split by product (one forms
+P^T and sums dV, the other dS^T and dK); the sums meet in a fixed order;
+a dQ kernel that mirrors the forward.  fp32 at every D, and bf16 at D =
+256, run fp32 FMA kernels.  No float atomics: every call gives the same
+bits.
 
 ``flash_attention(q, k, v)`` launches the forward for CUDA tensors and
 raises on anything the kernels do not take; when autograd needs its
@@ -48,10 +54,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 # the head dims both sources are built for (csrc/flash_attention.cu and
-# csrc/flash_attention_bwd.cu: dispatch_d); bf16 at D <= 128 takes the
-# forward's tensor-core body (dispatch_tc), above it the FMA body
+# csrc/flash_attention_bwd.cu: dispatch_d); bf16 takes the tensor-core
+# bodies (dispatch_tc) at these, the backward's FMA body at D = 256
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
-TENSOR_CORE_MAX_D = 128
+FWD_TENSOR_CORE_DIMS = HEAD_DIMS
+BWD_TENSOR_CORE_DIMS = (16, 32, 64, 128, 160)
 # the backward's scratch holds two fp32 (B, H, Sp) arrays, Sp = S rounded
 # up to this (csrc/flash_attention_bwd.cu: kRowAlign)
 BWD_ROW_ALIGN = 128
@@ -138,8 +145,10 @@ def _aligned(*ts: torch.Tensor) -> bool:
                for t in ts)
 
 
-def _tensor_cores(q: torch.Tensor) -> bool:
-    return q.dtype == torch.bfloat16 and q.shape[3] <= TENSOR_CORE_MAX_D
+def _tensor_cores(q: torch.Tensor, dims: tuple) -> bool:
+    """Whether ``q``'s dtype and head dim take a tensor-core body whose
+    head dims are ``dims``."""
+    return q.dtype == torch.bfloat16 and q.shape[3] in dims
 
 
 def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
@@ -148,7 +157,7 @@ def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     o = _like(q)
-    if _tensor_cores(q) and not _aligned(q, k, v, o):
+    if _tensor_cores(q, FWD_TENSOR_CORE_DIMS) and not _aligned(q, k, v, o):
         raise ValueError("flash_attention: bf16 rows must start 16-byte "
                          "aligned (pointers and strides)")
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -189,7 +198,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool):
     dq, dk, dv = _like(q), _like(k), _like(v)
     if S == 0 or B == 0:
         return dq, dk.zero_(), dv.zero_()
-    if _tensor_cores(q):
+    if _tensor_cores(q, BWD_TENSOR_CORE_DIMS):
         if not _aligned(do):
             do = do.contiguous()
         if not _aligned(q, k, v, o, do, dq, dk, dv):

@@ -8,14 +8,20 @@ between the sum of squares and the write, so it moves nothing twice.
 
 Each row gets a group of lanes, each lane a few vectors of 16 bytes, all
 loaded before any arithmetic; a block holds several rows
-(``launch_shape`` picks the shape, the source's header says why).
+(``launch_shape`` picks the shape, the source's header says why).  This
+register-held body takes rows of up to 16,384 elements in 16-byte vectors
+and 8,192 in single elements (``max_register_d``); wider rows, as the
+reference's whole-row blocks take them, walk a looped body: a block of
+1,024 threads a row, which reads the row twice (the second time from L2).
+Every D >= 1 is taken.
 
 The backward (the reference defines none; this is the gradient of the
 same function) keeps the lane groups with at most 4 vectors a lane
 (``bwd_launch_shape``): dx = r*(g*s - xh*mean(g*s*xh)) per row, on a grid
-of one block an SM whose blocks walk their rows; dscale = sum over rows of
-g*xh, one partial row a block, then summed over the card in a fixed
-order, so it is the same on every run.
+of one block an SM whose blocks walk their rows (a looped twin for rows
+past ``max_register_d``); dscale = sum over rows of g*xh, one partial row
+a block, then summed over the card in a fixed order, so it is the same on
+every run.
 
 ``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
 anything the kernel does not take; when autograd needs its gradient (grad
@@ -33,14 +39,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rmsnorm_ref
 
-MAX_D = 8192
 VEC_BYTES = 16             # one vector load
 MAX_VECS_PER_LANE = 8      # csrc/rmsnorm.cu: kMaxNV
 MIN_BLOCK = 256            # csrc/rmsnorm.cu: kMinBlock
 LANE_GROUPS = (8, 16, 32, 64, 128, 256, 512, 1024)   # csrc/rmsnorm.cu builds
+# elements a vector group spans at most (lanes x elements a vector), in the
+# forward and the backward (csrc/rmsnorm.cu: kMaxVecSpan, kMaxVecSpanBwd)
+MAX_VEC_SPAN = 2048
+BWD_MAX_VEC_SPAN = 4096
 # the backward's 16-byte vectors a lane (csrc/rmsnorm.cu: max_nv_bwd; 8
 # single elements)
 BWD_MAX_VECS_PER_LANE = 4
+# threads a row (and a block) of the looped bodies (csrc/rmsnorm.cu:
+# kLoopLanes)
+LOOP_LANES = 1024
 # the backward's grid: at most one block an SM of an H100 (132), each
 # walking its rows with the grid's stride; each writes one row of dscale
 # partials
@@ -58,7 +70,7 @@ def launch_shape(D: int, itemsize: int, aligned: bool = True):
     single elements.  The group is the narrowest that holds the row in at
     most 8 vectors a lane, so a lane has several loads in flight; a block
     has ``max(256, lanes)`` threads."""
-    return _shape(D, itemsize, aligned, MAX_VECS_PER_LANE)
+    return _shape(D, itemsize, aligned, backward=False)
 
 
 def bwd_launch_shape(D: int, itemsize: int, aligned: bool = True):
@@ -66,19 +78,32 @@ def bwd_launch_shape(D: int, itemsize: int, aligned: bool = True):
     most ``BWD_MAX_VECS_PER_LANE`` 16-byte vectors a lane (8 single
     elements), so that a block of ``max(MIN_BLOCK, lanes)`` threads keeps
     its registers under 128 a thread."""
-    full = VEC_BYTES // itemsize
-    vec = 1 if D % full or not aligned else full
-    return _shape(D, itemsize, aligned,
-                  BWD_MAX_VECS_PER_LANE if vec > 1 else MAX_VECS_PER_LANE)
+    return _shape(D, itemsize, aligned, backward=True)
 
 
-def _shape(D: int, itemsize: int, aligned: bool, max_vecs: int):
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
+def max_register_d(vec: int, backward: bool = False) -> int:
+    """The widest row the register-held body takes in vectors of ``vec``
+    elements (csrc/rmsnorm.cu: max_register_d): 16,384 in 16-byte
+    vectors, 8,192 in single elements.  Wider rows take the looped body,
+    whose launch shape is ``(LOOP_LANES, vectors a thread, 1, vec)``."""
+    if vec == 1:
+        return LANE_GROUPS[-1] * MAX_VECS_PER_LANE
+    if backward:
+        return BWD_MAX_VEC_SPAN * BWD_MAX_VECS_PER_LANE
+    return MAX_VEC_SPAN * MAX_VECS_PER_LANE
+
+
+def _shape(D: int, itemsize: int, aligned: bool, backward: bool):
+    if D < 1:
+        raise ValueError(f"rmsnorm: D={D} must be at least 1")
     vec = VEC_BYTES // itemsize
     if D % vec or not aligned:
         vec = 1
     nvec = D // vec
+    if D > max_register_d(vec, backward):
+        return LOOP_LANES, -(-nvec // LOOP_LANES), 1, vec
+    max_vecs = (BWD_MAX_VECS_PER_LANE if backward and vec > 1
+                else MAX_VECS_PER_LANE)
     lanes = next(g for g in LANE_GROUPS if g * max_vecs >= nvec)
     return lanes, -(-nvec // lanes), max(MIN_BLOCK, lanes) // lanes, vec
 
@@ -138,8 +163,8 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
                          f"{tuple(scale.shape)} on {scale.device}")
     if not x.is_contiguous() or not scale.is_contiguous():
         raise ValueError("rmsnorm: x and scale must be contiguous")
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"rmsnorm: D={D} outside [1, {MAX_D}]")
+    if D < 1:
+        raise ValueError(f"rmsnorm: D={D} must be at least 1")
 
 
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float):

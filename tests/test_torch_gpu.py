@@ -52,10 +52,16 @@ def _smoke():
     return smoke
 
 
+# rows past 8,192: command-r-plus-104b's d_model on the register-held body
+# (a decode step's rows and a forward's), an odd width on the looped body in
+# single elements, and a vector width past the register-held 16,384
+RMSNORM_WIDE_SHAPES = [(4, 12288), (1024, 12288), (5, 12289), (3, 16392)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
-                                   (2, 8192)])
+                                   (2, 8192), *RMSNORM_WIDE_SHAPES])
 def test_cuda_rmsnorm_matches_plain(shape, dtype):
     _need_cuda()
     tdt, atol, rtol = DTYPES[dtype]
@@ -104,7 +110,8 @@ def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
-                                   (1024, 4096), (2, 8192)])
+                                   (1024, 4096), (2, 8192),
+                                   *RMSNORM_WIDE_SHAPES])
 def test_cuda_rmsnorm_bwd_matches_plain(shape, dtype):
     """dx and dscale through RMSNormFn (the backward kernel) against
     autograd through the plain version."""
@@ -143,6 +150,8 @@ FLASH_BWD_CASES = [
     (1, 100, 230, 4, 1, 256, False),
     (1, 300, 300, 32, 32, 160, True),  # zamba2-2.7b's shared block
     (1, 300, 300, 16, 16, 256, True),  # gemma-7b
+    (1, 200, 333, 4, 4, 160, True),    # D = 160, S < T
+    (1, 300, 150, 4, 4, 160, False),   # D = 160, S > T, not causal
 ]
 
 
@@ -194,16 +203,17 @@ def test_cuda_flash_attention_bwd_matches_plain(B, S, T, H, Hkv, D, causal,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("H,Hkv", [(8, 4), (8, 8)])
 @pytest.mark.parametrize("D", [160, 256])
-def test_cuda_flash_attention_wide_head_dims_match_plain(D, dtype):
+def test_cuda_flash_attention_wide_head_dims_match_plain(D, H, Hkv, dtype):
     """The forward at the head dims of zamba2's shared block and gemma-7b
-    (the FMA body in both dtypes), with the tolerance of the other
-    widths."""
+    (the tensor-core body in bf16, the FMA body in fp32), with GQA and
+    MHA, at a ragged S, with the tolerance of the other widths."""
     _need_cuda()
     tdt, atol, rtol = DTYPES[dtype]
     g = torch.Generator(device="cuda").manual_seed(3)
-    q = torch.randn((2, 300, 8, D), generator=g, device="cuda").to(tdt)
-    k, v = (torch.randn((2, 300, 4, D), generator=g, device="cuda").to(tdt)
+    q = torch.randn((2, 300, H, D), generator=g, device="cuda").to(tdt)
+    k, v = (torch.randn((2, 300, Hkv, D), generator=g, device="cuda").to(tdt)
             for _ in range(2))
     got = tops.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -372,7 +382,7 @@ FLASH_MUTANTS_BF16 = {
         acc[4 * j + 2] *= alpha[1];
         acc[4 * j + 3] *= alpha[1];""", "(void)alpha;"),
     "lo term of P dropped": (
-        "wgmma_rs<kTransV>(acc, p_lo[kk], vd + ((2 * kSbo * kk) >> 4));", ""),
+        "wgmma_rs_wide<kTransV>(acc, p_lo[kk], vk, kRest);", ""),
     "V read untransposed": ("constexpr int kTransV = 1;",
                             "constexpr int kTransV = 0;"),
 }
@@ -390,9 +400,11 @@ FLASH_MUTANTS_FP32 = {
 
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
-    """chip_smoke.py's kernel check, at the forward's shape, fails every
-    mutant of the body its dtype runs: the bf16 body's in bf16, the fp32
-    body's in fp32."""
+    """chip_smoke.py's kernel check fails every mutant of the body its
+    dtype runs (the bf16 body's in bf16, the fp32 body's in fp32), at the
+    qwen3-8b forward's attention and at D = 160 and 256 (zamba2-2.7b's
+    and gemma-7b's head dims, with GQA so that a wrong kv head shows, and
+    a ragged S)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
@@ -400,32 +412,39 @@ def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
     mutants.update({("float32", n): m for n, m in FLASH_MUTANTS_FP32.items()})
     libs = _build_mutants(tmp_path, "flash_attention.cu", mutants)
 
-    B, S, H, Hkv, D = 2, 512, 32, 8, 128        # the forward's attention
     g = torch.Generator(device="cuda").manual_seed(0)
     rejected = {}
-    for dn, (tdt, _, _) in DTYPES.items():
-        q = torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
-        k = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
-        v = torch.randn((B, S, Hkv, D), generator=g, device="cuda").to(tdt)
-        want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
-        for name, lib in [(("kernel", "kernel"), None), *libs.items()]:
-            if name[0] not in ("kernel", dn):
-                continue
-            if lib is not None:
-                monkeypatch.setattr(tfa, "_fn", tfa.bind(lib))
-            got = tops.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            err, ok, tol = smoke.check_close(got, want, dn)
-            print(f"flash {name[1]} {dn}: max_abs_err {err:.3g} "
-                  f"({'passes' if ok else 'fails'} {tol})")
-            rejected[name[1], dn] = not ok
-        monkeypatch.undo()
-    assert not rejected["kernel", "float32"]
-    assert not rejected["kernel", "bfloat16"]
-    for name in FLASH_MUTANTS_BF16:
-        assert rejected[name, "bfloat16"], name
-    for name in FLASH_MUTANTS_FP32:
-        assert rejected[name, "float32"], name
+    # (B, S, H, Hkv, D): the qwen3-8b forward's attention, then D = 160
+    # and 256
+    for shape in ((2, 512, 32, 8, 128), (2, 500, 8, 4, 160),
+                  (2, 300, 8, 4, 256)):
+        B, S, H, Hkv, D = shape
+        for dn, (tdt, _, _) in DTYPES.items():
+            q = torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
+            k = torch.randn((B, S, Hkv, D), generator=g,
+                            device="cuda").to(tdt)
+            v = torch.randn((B, S, Hkv, D), generator=g,
+                            device="cuda").to(tdt)
+            want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
+            for name, lib in [(("kernel", "kernel"), None), *libs.items()]:
+                if name[0] not in ("kernel", dn):
+                    continue
+                if lib is not None:
+                    monkeypatch.setattr(tfa, "_fn", tfa.bind(lib))
+                got = tops.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                err, ok, tol = smoke.check_close(got, want, dn)
+                print(f"flash {name[1]} {dn} D={D}: max_abs_err {err:.3g} "
+                      f"({'passes' if ok else 'fails'} {tol})")
+                rejected[name[1], dn, D] = not ok
+            monkeypatch.undo()
+    for D in (128, 160, 256):
+        assert not rejected["kernel", "float32", D]
+        assert not rejected["kernel", "bfloat16", D]
+        for name in FLASH_MUTANTS_BF16:
+            assert rejected[name, "bfloat16", D], (name, D)
+        for name in FLASH_MUTANTS_FP32:
+            assert rejected[name, "float32", D], (name, D)
 
 
 # Wrong RMSNorm kernels, each one edit away from csrc/rmsnorm.cu
@@ -435,6 +454,14 @@ RMSNORM_MUTANTS = {
         "if (2 * i < nv && vi < nvec && active)"),
     "scale at the wrong lane offset": (
         "sbuf[i] = sr[vi];", "sbuf[i] = sr[(vi + 1) % nvec];"),
+}
+# and of its looped body (rows past the register-held widths)
+RMSNORM_LOOP_MUTANTS = {
+    "looped: squares of half the vectors": (
+        "ss += f * f;", "ss += (vi & 1) ? 0.f : f * f;"),
+    "looped: scale at the wrong offset": (
+        "const VS sv = sr[vi];\n    V out;",
+        "const VS sv = sr[(vi + 1) % nvec];\n    V out;"),
 }
 
 
@@ -456,6 +483,16 @@ FLASH_BWD_MUTANTS_BF16 = {
         "lse2[row] = in ? lse[bh * S + s] : kPadLse;"),
     "peer block's items dropped": ("""        dv_acc[i] += peer[i * 128 + wt];
         dk_acc[i] += peer[(D / 2 + i) * 128 + wt];""", "(void)peer;"),
+}
+# the mutants above that edit code the D = 160 body does not run
+FLASH_BWD_MUTANTS_BF16_NARROW = ("peer block's items dropped",)
+# and of the D = 160 body's dK/dV split by product: warpgroup 1 reading
+# P^T from another thread's slot, the peer block's sums dropped
+FLASH_BWD_MUTANTS_BF16_WIDE = {
+    "P^T read from another thread's slot": (
+        "sc[x] = xch[x * 128 + wt] *", "sc[x] = xch[x * 128 + (wt ^ 4)] *"),
+    "peer block's sums dropped (D = 160)": (
+        "acc[i] += peer[(wg * D / 2 + i) * 128 + wt];", "(void)peer;"),
 }
 FLASH_BWD_MUTANTS = {
     "mask dropped": (
@@ -502,36 +539,51 @@ RMSNORM_BWD_MUTANTS = {
         "for (int b = w; b < blocks; b += kDscaleWarps)",
         "for (int b = w; b < 1; b += kDscaleWarps)"),
 }
+# the looped backward's: its rows' g * xh left out of dscale
+RMSNORM_BWD_LOOP_MUTANTS = {
+    "looped: g * xh never added to the partial row": (
+        "add_to(prow + vi * VEC, gxh);", "(void)gxh;"),
+}
 
 
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_rmsnorm_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's kernel check fails every RMSNorm mutant in both
-    dtypes at the qwen3-8b forward's (1024, 4096) rows."""
+    dtypes: the register-held body's at the qwen3-8b forward's (1024, 4096)
+    rows and at command-r-plus-104b's (1024, 12288), the looped body's at
+    (256, 12289)."""
     _need_cuda()
     smoke = _smoke()
-    libs = _build_mutants(tmp_path, "rmsnorm.cu", RMSNORM_MUTANTS)
+    mutants = dict(RMSNORM_MUTANTS, **RMSNORM_LOOP_MUTANTS)
+    libs = _build_mutants(tmp_path, "rmsnorm.cu", mutants)
     g = torch.Generator(device="cuda").manual_seed(0)
     rejected = {}
-    for dn, (tdt, _, _) in DTYPES.items():
-        x = torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
-        s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
-             ).to(tdt)
-        want = tref.rmsnorm_ref(x, s)
-        for name, lib in [("kernel", None), *libs.items()]:
-            if lib is not None:
-                monkeypatch.setattr(trn, "_fn", trn.bind(lib))
-            got = trn.rmsnorm(x, s)
-            torch.cuda.synchronize()
-            err, ok, tol = smoke.check_close(got, want, dn)
-            print(f"rmsnorm {name} {dn}: max_abs_err {err:.3g} "
-                  f"({'passes' if ok else 'fails'} {tol})")
-            rejected[name, dn] = not ok
-        monkeypatch.undo()
-    assert not rejected["kernel", "float32"]
-    assert not rejected["kernel", "bfloat16"]
-    for name in RMSNORM_MUTANTS:
-        assert rejected[name, "float32"] and rejected[name, "bfloat16"], name
+    cases = {(1024, 4096): RMSNORM_MUTANTS, (1024, 12288): RMSNORM_MUTANTS,
+             (256, 12289): RMSNORM_LOOP_MUTANTS}
+    for (R, D), wrong in cases.items():
+        for dn, (tdt, _, _) in DTYPES.items():
+            x = torch.randn((R, D), generator=g, device="cuda").to(tdt)
+            s = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+                 ).to(tdt)
+            want = tref.rmsnorm_ref(x, s)
+            for name, lib in [("kernel", None), *libs.items()]:
+                if lib is not None:
+                    if name not in wrong:
+                        continue
+                    monkeypatch.setattr(trn, "_fn", trn.bind(lib))
+                got = trn.rmsnorm(x, s)
+                torch.cuda.synchronize()
+                err, ok, tol = smoke.check_close(got, want, dn)
+                print(f"rmsnorm {name} {dn} ({R}, {D}): max_abs_err "
+                      f"{err:.3g} ({'passes' if ok else 'fails'} {tol})")
+                rejected[name, dn, D] = not ok
+            monkeypatch.undo()
+    for (R, D), wrong in cases.items():
+        assert not rejected["kernel", "float32", D]
+        assert not rejected["kernel", "bfloat16", D]
+        for name in wrong:
+            assert rejected[name, "float32", D], (name, D)
+            assert rejected[name, "bfloat16", D], (name, D)
 
 
 def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
@@ -705,9 +757,13 @@ SSD_MUTANTS_FP32 = {
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16),
     ("ssd_scan_bwd.cu", SSD_BWD_MUTANTS),
     ("ssd_scan_bwd.cu", SSD_BWD_MUTANTS_BF16),
+    ("rmsnorm.cu", RMSNORM_LOOP_MUTANTS),
+    ("rmsnorm.cu", RMSNORM_BWD_LOOP_MUTANTS),
+    ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16_WIDE),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
         "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd",
-        "ssd-bwd-bf16"])
+        "ssd-bwd-bf16", "rmsnorm-loop", "rmsnorm-bwd-loop",
+        "flash-bwd-bf16-wide"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -765,59 +821,78 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     steps' shapes: qwen3-8b's attention (B=2, S=512, 32 q heads in groups
     of 4) and its (1024, 4096) norm rows, and mamba2-780m's scan (B=2,
     S=1024, 48 heads in one group, 8 chunks of 128; held by
-    ``check_ssd_bwd``)."""
+    ``check_ssd_bwd``); and at D = 160 (B=2, S=512, 8 q heads in groups of
+    2, so that a wrong head shows), command-r-plus-104b's (1024, 12288)
+    norm rows and the looped body's (256, 12289)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
     fmut = {("bfloat16", n): m for n, m in FLASH_BWD_MUTANTS_BF16.items()}
+    fmut.update({("bfloat16", n): m
+                 for n, m in FLASH_BWD_MUTANTS_BF16_WIDE.items()})
     fmut.update({("float32", n): m for n, m in FLASH_BWD_MUTANTS.items()})
     flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu", fmut)
     (tmp_path / "r").mkdir()
-    rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu", RMSNORM_BWD_MUTANTS)
+    rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu",
+                           dict(RMSNORM_BWD_MUTANTS,
+                                **RMSNORM_BWD_LOOP_MUTANTS))
     (tmp_path / "s").mkdir()
     smut = {("bfloat16", n): m for n, m in SSD_BWD_MUTANTS_BF16.items()}
     smut.update({("float32", n): m for n, m in SSD_BWD_MUTANTS.items()})
     slibs = _build_mutants(tmp_path / "s", "ssd_scan_bwd.cu", smut)
     g = torch.Generator(device="cuda").manual_seed(4)
     rejected = {}
-    B, S, H, Hkv, D = 2, 512, 32, 8, 128
+    # which mutants each shape must reject, beyond those of the body's
+    # dtype: the D = 160 body runs neither the D <= 128 reduction nor the
+    # other way round
+    flash_shapes = {
+        (2, 512, 32, 8, 128): set(FLASH_BWD_MUTANTS_BF16),
+        (2, 512, 8, 4, 160): (set(FLASH_BWD_MUTANTS_BF16)
+                              - set(FLASH_BWD_MUTANTS_BF16_NARROW)
+                              | set(FLASH_BWD_MUTANTS_BF16_WIDE))}
+    norm_shapes = {(1024, 4096): set(RMSNORM_BWD_MUTANTS),
+                   (1024, 12288): set(RMSNORM_BWD_MUTANTS),
+                   (256, 12289): set(RMSNORM_BWD_MUTANTS)
+                   | set(RMSNORM_BWD_LOOP_MUTANTS)}
     for dn, (tdt, _, _) in DTYPES.items():
-        q, do = (torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
-                 for _ in range(2))
-        k, v = (torch.randn((B, S, Hkv, D), generator=g,
-                            device="cuda").to(tdt) for _ in range(2))
-        refs = [t.clone().requires_grad_() for t in (q, k, v)]
-        tref.flash_attention_ref(*refs, scale=D ** -0.5).backward(do)
-        for name, lib in [(("kernel", "kernel"), None), *flibs.items()]:
-            if name[0] not in ("kernel", dn):
-                continue
-            if lib is not None:
-                monkeypatch.setattr(tfa, "_bwd_fn", tfa.bind_bwd(lib))
-            ins = [t.clone().requires_grad_() for t in (q, k, v)]
-            tops.flash_attention(*ins).backward(do)
-            torch.cuda.synchronize()
-            err, ok, tol = smoke.check_normwise(
-                [t.grad for t in ins], [t.grad for t in refs], dn)
-            print(f"flash_bwd {name[1]} {dn}: max_abs_err {err:.3g} "
-                  f"({'passes' if ok else 'fails'} {tol})")
-            rejected["flash " + name[1], dn] = not ok
-        monkeypatch.undo()
-        x, gy = (torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
-                 for _ in range(2))
-        s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
-             ).to(tdt)
-        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
-        want = torch.autograd.grad(tref.rmsnorm_ref(xr, sr), (xr, sr), gy)
-        for name, lib in [("kernel", None), *rlibs.items()]:
-            if lib is not None:
-                monkeypatch.setattr(trn, "_bwd_fn", trn.bind_bwd(lib))
-            got = trn.rmsnorm_bwd(x, s, gy)
-            torch.cuda.synchronize()
-            err, ok, tol = smoke.check_normwise(got, want, dn)
-            print(f"rmsnorm_bwd {name} {dn}: max_abs_err {err:.3g} "
-                  f"({'passes' if ok else 'fails'} {tol})")
-            rejected["rmsnorm " + name, dn] = not ok
-        monkeypatch.undo()
+        for (B, S, H, Hkv, D) in flash_shapes:
+            q, do = (torch.randn((B, S, H, D), generator=g,
+                                 device="cuda").to(tdt) for _ in range(2))
+            k, v = (torch.randn((B, S, Hkv, D), generator=g,
+                                device="cuda").to(tdt) for _ in range(2))
+            refs = [t.clone().requires_grad_() for t in (q, k, v)]
+            tref.flash_attention_ref(*refs, scale=D ** -0.5).backward(do)
+            for name, lib in [(("kernel", "kernel"), None), *flibs.items()]:
+                if name[0] not in ("kernel", dn):
+                    continue
+                if lib is not None:
+                    monkeypatch.setattr(tfa, "_bwd_fn", tfa.bind_bwd(lib))
+                ins = [t.clone().requires_grad_() for t in (q, k, v)]
+                tops.flash_attention(*ins).backward(do)
+                torch.cuda.synchronize()
+                err, ok, tol = smoke.check_normwise(
+                    [t.grad for t in ins], [t.grad for t in refs], dn)
+                print(f"flash_bwd {name[1]} {dn} D={D}: max_abs_err "
+                      f"{err:.3g} ({'passes' if ok else 'fails'} {tol})")
+                rejected["flash " + name[1], dn, D] = not ok
+            monkeypatch.undo()
+        for (R, D) in norm_shapes:
+            x, gy = (torch.randn((R, D), generator=g, device="cuda").to(tdt)
+                     for _ in range(2))
+            s = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+                 ).to(tdt)
+            xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+            want = torch.autograd.grad(tref.rmsnorm_ref(xr, sr), (xr, sr), gy)
+            for name, lib in [("kernel", None), *rlibs.items()]:
+                if lib is not None:
+                    monkeypatch.setattr(trn, "_bwd_fn", trn.bind_bwd(lib))
+                got = trn.rmsnorm_bwd(x, s, gy)
+                torch.cuda.synchronize()
+                err, ok, tol = smoke.check_normwise(got, want, dn)
+                print(f"rmsnorm_bwd {name} {dn} ({R}, {D}): max_abs_err "
+                      f"{err:.3g} ({'passes' if ok else 'fails'} {tol})")
+                rejected["rmsnorm " + name, dn, D] = not ok
+            monkeypatch.undo()
         case = _ssd_bwd_case(smoke, 2, 1024, 48, 64, 128, 1, tdt, False,
                              False, seed=6)
         want = _ssd_grads(tref.ssd_scan_ref, *case, 128)
@@ -834,19 +909,23 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
             rejected["ssd " + name[1], dn] = not ok
         monkeypatch.undo()
     for dn in DTYPES:
-        assert not rejected["flash kernel", dn]
-        assert not rejected["rmsnorm kernel", dn]
         assert not rejected["ssd kernel", dn]
-        for name in RMSNORM_BWD_MUTANTS:
-            assert rejected["rmsnorm " + name, dn], name
+        for (R, D), names in norm_shapes.items():
+            assert not rejected["rmsnorm kernel", dn, D]
+            for name in names:
+                assert rejected["rmsnorm " + name, dn, D], (name, D)
+        for (B, S, H, Hkv, D) in flash_shapes:
+            assert not rejected["flash kernel", dn, D]
+            for name in FLASH_BWD_MUTANTS:
+                if dn == "float32":
+                    assert rejected["flash " + name, dn, D], (name, D)
     for name in SSD_BWD_MUTANTS_BF16:
         assert rejected["ssd " + name, "bfloat16"], name
     for name in SSD_BWD_MUTANTS:
         assert rejected["ssd " + name, "float32"], name
-    for name in FLASH_BWD_MUTANTS_BF16:
-        assert rejected["flash " + name, "bfloat16"], name
-    for name in FLASH_BWD_MUTANTS:
-        assert rejected["flash " + name, "float32"], name
+    for (B, S, H, Hkv, D), names in flash_shapes.items():
+        for name in names:
+            assert rejected["flash " + name, "bfloat16", D], (name, D)
 
 
 @pytest.mark.gpu

@@ -51,6 +51,8 @@ def _close(t: torch.Tensor, j, tol: float):
     (1, 150, 2, 2, 32),      # non-multiple-of-block seq (ragged)
     (2, 64, 8, 1, 32),       # MQA
     (1, 256, 4, 4, 16),      # two kv tiles
+    (1, 150, 4, 4, 160),     # zamba2-2.7b's shared block: MHA, D = 160
+    (1, 130, 4, 2, 256),     # gemma-7b's head dim, GQA
 ])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_flash_attention_matches_pallas_and_ref(B, S, H, Hkv, D, dtype):
@@ -87,7 +89,8 @@ def test_flash_attention_s_ne_t_top_left_mask(S, T, causal):
     _close(got, want, 2e-5)
 
 
-@pytest.mark.parametrize("shape", [(4, 37, 128), (2, 256), (1, 7, 512)])
+@pytest.mark.parametrize("shape", [(4, 37, 128), (2, 256), (1, 7, 512),
+                                   (2, 12288)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     rng = np.random.default_rng(2)
@@ -299,16 +302,18 @@ def _flash_tiled_bf16(q, k, v, *, scale, causal, bk, split):
     return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
 
 
+@pytest.mark.parametrize("D", [128, 160, 256])
 @pytest.mark.parametrize("S,T,causal", [(512, 512, True), (300, 700, False)])
-def test_flash_bf16_needs_p_split_into_hi_and_lo(S, T, causal):
-    """At the forward's shape (fewer heads) and a ragged one: with P as
-    bf16 hi + lo the tiled kernel arithmetic stays within ~1e-5 of the fp32
-    plain version and passes chip_smoke's bf16 check after the cast; with
-    P rounded to bf16 once, its error is over 100x larger and the check
-    fails.  BK = 64, the kernel's kv tile."""
+def test_flash_bf16_needs_p_split_into_hi_and_lo(S, T, causal, D):
+    """At the forward's shape (fewer heads) and a ragged one, at qwen3-8b's,
+    zamba2-2.7b's and gemma-7b's head dims: with P as bf16 hi + lo the
+    tiled kernel arithmetic stays within ~1e-5 of the fp32 plain version
+    and passes chip_smoke's bf16 check after the cast; with P rounded to
+    bf16 once, its error is over 100x larger and the check fails.  BK =
+    64, the kernel's kv tile at every D."""
     check_close = _smoke_check_close()
     rng = np.random.default_rng(0)
-    B, H, Hkv, D = 1, 4, 1, 128
+    B, H, Hkv = 1, 4, 1
     q, k, v = (torch.from_numpy(rng.standard_normal((B, n, h, D))
                                 .astype(np.float32)).to(torch.bfloat16)
                for n, h in ((S, H), (T, Hkv), (T, Hkv)))
@@ -463,47 +468,94 @@ def _rmsnorm_source_constants():
     min_block = int(re.search(r"constexpr int kMinBlock = (\d+);", src)[1])
     max_nv = int(re.search(r"constexpr int kMaxNV = (\d+);", src)[1])
     span = int(re.search(r"constexpr int kMaxVecSpan = (\d+);", src)[1])
+    loop = int(re.search(r"constexpr int kLoopLanes = (\d+);", src)[1])
     lanes = tuple(int(n) for n in re.findall(
         r"case (\d+): +return launch<T, TS, VEC, \1>", src))
-    return min_block, max_nv, span, lanes
+    return min_block, max_nv, span, lanes, loop
+
+
+def _rmsnorm_covered(shape, D, itemsize, max_nv, span):
+    """Assert that a launch shape covers a row of D elements once: every
+    vector a slot (vector vi at lane vi % lanes, slot vi // lanes) and no
+    lane's last slot wholly past the row; register-held up to
+    ``trn.max_register_d`` (at most ``max_nv`` vectors a lane, vector
+    groups no wider than ``span``), the looped body past it (LOOP_LANES
+    threads, one row a block)."""
+    lanes, nv, rows, vec = shape
+    full = 16 // itemsize
+    assert vec == (full if D % full == 0 else 1), (D, itemsize)
+    nvec = D // vec
+    assert nvec * vec == D
+    assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
+    if D > trn.max_register_d(vec, backward=max_nv < trn.MAX_VECS_PER_LANE):
+        assert (lanes, rows) == (trn.LOOP_LANES, 1), (D, itemsize)
+        return
+    assert lanes in trn.LANE_GROUPS and 1 <= nv <= max_nv
+    # the narrowest group that holds the row (the rule at every width the
+    # kernel took before rows past 8,192 were taken, so theirs hold)
+    assert lanes == trn.LANE_GROUPS[0] or (lanes // 2) * max_nv < nvec
+    assert vec == 1 or lanes * vec <= span
+    assert lanes * rows == max(trn.MIN_BLOCK, lanes) <= 1024
+    slots = (np.arange(lanes)[:, None]
+             + lanes * np.arange(nv)[None, :]).ravel()
+    used = np.sort(slots[slots < nvec])
+    assert np.array_equal(used, np.arange(nvec)), (D, itemsize)
+
+
+# every width up to 8,192, then every 8th (the vectors' step) and its odd
+# neighbour up to twice that, past the register-held maximum of 16,384
+RMSNORM_WIDTHS = [*range(1, 8193), *(d + e for d in range(8200, 16401, 8)
+                                     for e in (0, 1)), 24576, 49152]
 
 
 def test_rmsnorm_launch_shape_covers_every_width_once():
-    """For every D in [1, 8192] and both item sizes: the lane group,
-    vectors a lane and vector width cover the row's D elements exactly
-    once, with no lane's last vector wholly past the row; the block has at
-    most 1024 threads, exactly the count the C build's
-    ``__launch_bounds__(max(kMinBlock, LANES))`` was made for; and the
-    constants match csrc/rmsnorm.cu, whose vector builds span at most
-    ``kMaxVecSpan`` elements a row group."""
-    min_block, max_nv, span, built_lanes = _rmsnorm_source_constants()
+    """For every width of ``RMSNORM_WIDTHS`` and both item sizes: the lane
+    group, vectors a lane and vector width cover the row's D elements
+    exactly once, with no lane's last vector wholly past the row; the
+    register-held body's block has at most 1024 threads, exactly the count
+    the C build's ``__launch_bounds__(max(kMinBlock, LANES))`` was made
+    for, and takes rows up to 16,384 in vectors (8,192 in elements); wider
+    rows take the looped body; and the constants match csrc/rmsnorm.cu,
+    whose vector builds span at most ``kMaxVecSpan`` elements a row
+    group."""
+    min_block, max_nv, span, built_lanes, loop = _rmsnorm_source_constants()
     assert (min_block, max_nv) == (trn.MIN_BLOCK, trn.MAX_VECS_PER_LANE)
+    assert (span, loop) == (trn.MAX_VEC_SPAN, trn.LOOP_LANES)
     assert built_lanes == trn.LANE_GROUPS
+    assert trn.max_register_d(8) == trn.max_register_d(4) == 16384
+    assert trn.max_register_d(1) == 8192
     for itemsize in (2, 4):
-        full = 16 // itemsize
-        for D in range(1, trn.MAX_D + 1):
-            lanes, nv, rows, vec = trn.launch_shape(D, itemsize)
-            assert vec == (full if D % full == 0 else 1), (D, itemsize)
-            assert lanes in built_lanes and 1 <= nv <= max_nv
-            assert vec == 1 or lanes * vec <= span
-            threads = lanes * rows
-            assert threads == max(min_block, lanes) <= 1024
-            nvec = D // vec
-            assert nvec * vec == D
-            assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
-            # vector vi sits at lane vi % lanes, slot vi // lanes
-            slots = (np.arange(lanes)[:, None]
-                     + lanes * np.arange(nv)[None, :]).ravel()
-            used = np.sort(slots[slots < nvec])
-            assert np.array_equal(used, np.arange(nvec)), (D, itemsize)
+        for D in RMSNORM_WIDTHS:
+            _rmsnorm_covered(trn.launch_shape(D, itemsize), D, itemsize,
+                             max_nv, span)
 
 
-@pytest.mark.parametrize("D", [128, 4096])
+# the launch shapes of the paths' widths, (forward, backward) in bf16 and
+# fp32, as the kernel had them before rows past 8,192 were taken: the
+# widths' rows keep their times
+RMSNORM_PATH_SHAPES = {
+    128: [(8, 2, 32, 8), (8, 4, 32, 4), (8, 2, 32, 8), (8, 4, 32, 4)],
+    1536: [(32, 6, 8, 8), (64, 6, 4, 4), (64, 3, 4, 8), (128, 3, 2, 4)],
+    2560: [(64, 5, 4, 8), (128, 5, 2, 4), (128, 3, 2, 8), (256, 3, 1, 4)],
+    3072: [(64, 6, 4, 8), (128, 6, 2, 4), (128, 3, 2, 8), (256, 3, 1, 4)],
+    4096: [(64, 8, 4, 8), (128, 8, 2, 4), (128, 4, 2, 8), (256, 4, 1, 4)],
+    5120: [(128, 5, 2, 8), (256, 5, 1, 4), (256, 3, 1, 8), (512, 3, 1, 4)],
+    12288: [(256, 6, 1, 8), (512, 6, 1, 4), (512, 3, 1, 8), (1024, 3, 1, 4)],
+}
+
+
+@pytest.mark.parametrize("D", sorted(RMSNORM_PATH_SHAPES))
 def test_rmsnorm_launch_shape_idles_no_lane_at_the_model_widths(D):
-    """q/k norms (128) and qwen3-8b's d_model (4096) in bf16: every lane
-    slot holds a vector of the row."""
+    """The models' widths (q/k norms 128; d_model and d_inner of
+    mamba2-780m, zamba2-2.7b, gemma-7b and qwen3-8b; command-r-plus-104b's
+    12,288) in bf16: every lane slot holds a vector of the row, and the
+    shapes are the ones these widths have run at (both dtypes, forward
+    and backward)."""
     lanes, nv, _, vec = trn.launch_shape(D, 2)
     assert vec == 8 and lanes * nv * vec == D
+    assert [trn.launch_shape(D, 2), trn.launch_shape(D, 4),
+            trn.bwd_launch_shape(D, 2), trn.bwd_launch_shape(D, 4)] == \
+        RMSNORM_PATH_SHAPES[D]
 
 
 def test_rmsnorm_launch_shape_falls_back_to_elements():
@@ -514,9 +566,16 @@ def test_rmsnorm_launch_shape_falls_back_to_elements():
     assert trn.launch_shape(4098, 4)[3] == 1
     assert trn.launch_shape(4096, 2, aligned=False)[3] == 1
     assert trn.launch_shape(4096, 4)[3] == 4
-    for D in (0, trn.MAX_D + 1):
-        with pytest.raises(ValueError, match="outside"):
-            trn.launch_shape(D, 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        trn.launch_shape(0, 2)
+    # rows wider than 8,192 are taken (the reference's kernel takes any D):
+    # command-r-plus-104b's 12,288 on the register-held body, an odd width
+    # past 8,192 on the looped one in single elements
+    assert trn.launch_shape(12288, 2) == (256, 6, 1, 8)
+    assert trn.launch_shape(12288, 4) == (512, 6, 1, 4)
+    assert trn.bwd_launch_shape(12288, 2) == (512, 3, 1, 8)
+    assert trn.launch_shape(8193, 2) == (trn.LOOP_LANES, 9, 1, 1)
+    assert trn.bwd_launch_shape(8193, 4) == (trn.LOOP_LANES, 9, 1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -621,11 +680,13 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r, split,
     causal window; dS = P (dP - Di).  dK/dV: each (kv head, key tile)'s
     items, the group's (q head, q tile) pairs at or below the diagonal in
     head-major order, are dealt to ``split`` units and summed in each unit
-    in order: split = 4 is the tensor-core body (item j to cluster rank j
-    % 2, then warpgroup (j // 2) % 2; the units meet as (rank 0 wg 0 +
-    rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1)), split = 1 the FMA body
-    (one block walks every item; it takes exp of the natural-log lse,
-    equal to this up to rounding).  dQ: each (q head, q tile) over the key
+    in order: split = 4 is the tensor-core body at D <= 128 (item j to
+    cluster rank j % 2, then warpgroup (j // 2) % 2; the units meet as
+    (rank 0 wg 0 + rank 0 wg 1) + (rank 1 wg 0 + rank 1 wg 1)), split = 2
+    the one at D = 160 (item j to cluster rank j % 2, whose warpgroups
+    split it by product, one summing dV and one dK; the units meet as rank
+    0 + rank 1), split = 1 the FMA body (one block walks every item; it
+    takes exp of the natural-log lse, equal to this up to rounding).  dQ: each (q head, q tile) over the key
     tiles at or left of its diagonal, in order.  ``round_bf16`` rounds P^T
     and dS^T to bf16 where the tensor cores take them (sums stay fp32).
     q, o, do: (B,H,S,D); k, v: (B,Hkv,T,D).  The other flags are the
@@ -671,7 +732,8 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r, split,
                       torch.zeros_like(dv[:, hk, k0:k0 + r])]
                      for _ in range(split)]
             for j, (h, q0) in enumerate(items):
-                u = 2 * (j % 2) + (j // 2) % 2 if split == 4 else 0
+                u = (2 * (j % 2) + (j // 2) % 2 if split == 4 else
+                     j % 2 if split == 2 else 0)
                 qs, dos, _, p, ds = scores(h, hk, q0, k0)
                 units[u][1] += bf(p).transpose(-1, -2) @ dos
                 units[u][0] += bf(ds).transpose(-1, -2) @ qs
@@ -680,6 +742,9 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r, split,
                 block1 = [a + b for a, b in zip(units[2], units[3])]
                 tot = (block0 if drop_peer else
                        [a + b for a, b in zip(block0, block1)])
+            elif split == 2:
+                tot = (units[0] if drop_peer else
+                       [a + b for a, b in zip(units[0], units[1])])
             else:
                 tot = units[0]
             dk[:, hk, k0:k0 + r] = tot[0] * scale
@@ -691,6 +756,15 @@ def _flash_bwd_tiled(q, k, v, o, do, lse, *, scale, causal, r, split,
                 _, _, ks, _, ds = scores(h, h // group, q0, k0)
                 dq[:, h, q0:q0 + r] += bf(ds) @ ks
     return dq * scale, dk, dv
+
+
+def _bwd_split(D):
+    """The units the bf16 backward deals a key tile's items to at head
+    dim D (``_flash_bwd_tiled``): four warpgroups at D <= 128, two blocks
+    at D = 160, one block (the FMA body) at D = 256."""
+    if D not in tfa.BWD_TENSOR_CORE_DIMS:
+        return 1
+    return 4 if D <= 128 else 2
 
 
 def _flash_case(seed, B, S, T, H, Hkv, D):
@@ -706,13 +780,16 @@ def _flash_case(seed, B, S, T, H, Hkv, D):
     (1, 150, 70, 2, 2, 16, True, 64),      # S > T: keys past T masked
     (1, 90, 130, 4, 2, 32, False, 64),
     (1, 70, 70, 2, 1, 256, True, 32),      # D = 256 tiles
+    (1, 150, 150, 4, 4, 160, True, 64),    # D = 160: MHA, as zamba2's
+    (1, 70, 150, 2, 2, 160, False, 64),    # D = 160, S < T
 ])
 def test_flash_bwd_tiling_matches_autograd_of_the_plain_version(
         B, S, T, H, Hkv, D, causal, r):
     """The kernels' tiling, split of the dK/dV items and order of
-    summation, in fp32: the tensor-core body's (split over four
-    warpgroups) at D <= 128, the FMA body's at D = 256."""
-    split = 4 if D <= tfa.TENSOR_CORE_MAX_D else 1
+    summation, in fp32: the tensor-core body's at D <= 128 (split over four
+    warpgroups) and at D = 160 (over the cluster's two blocks, each block's
+    warpgroups split by product), the FMA body's at D = 256."""
+    split = _bwd_split(D)
     q, k, v, do = _flash_case(6, B, S, T, H, Hkv, D)
     scale = 1.0 / np.sqrt(D)
     tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -754,11 +831,15 @@ def test_flash_bwd_emulation_fails_each_wrong_kernel(wrong):
     assert max(errs) > 5 * _smoke().BWD_TOL["bfloat16"], errs
 
 
-@pytest.mark.parametrize("S,causal", [(128, True), (150, False)])
+@pytest.mark.parametrize("H,Hkv,D,S,causal", [
+    (32, 8, 128, 128, True), (32, 8, 128, 150, False),     # qwen3-8b
+    (4, 4, 160, 150, True), (4, 4, 160, 150, False),       # zamba2-2.7b
+])
 def test_flash_bwd_single_bf16_rounding_of_p_and_ds_stays_inside_bwd_tol(
-        S, causal):
-    """At qwen3-8b's head layout (32 q heads in groups of 4, D = 128) and a
-    short S, from bf16 inputs and the forward's bf16 o: the tensor-core
+        H, Hkv, D, S, causal):
+    """At qwen3-8b's head layout (32 q heads in groups of 4, D = 128) and
+    zamba2-2.7b's (MHA at D = 160, a few of its 32 heads) and a short S,
+    from bf16 inputs and the forward's bf16 o: the tensor-core
     body's arithmetic with P^T and dS^T rounded to bf16 once passes
     chip_smoke's bf16 backward check against autograd through the plain
     version (what the card holds the kernel to), with room to spare; so
@@ -768,7 +849,7 @@ def test_flash_bwd_single_bf16_rounding_of_p_and_ds_stays_inside_bwd_tol(
     (1e-5 of max |grad|)."""
     from repro.models import layers as JL
     smoke = _smoke()
-    B, H, Hkv, D = 1, 32, 8, 128
+    B = 1
     q, k, v, do = (t.to(torch.bfloat16)
                    for t in _flash_case(10, B, S, S, H, Hkv, D))
     scale = D ** -0.5
@@ -781,7 +862,7 @@ def test_flash_bwd_single_bf16_rounding_of_p_and_ds_stays_inside_bwd_tol(
     lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
                            scale=scale, causal=causal, bk=64)
     got = [g.transpose(1, 2) for g in _flash_bwd_tiled(
-        qh, kh, vh, oh, doh, lse, scale=scale, causal=causal, r=64, split=4,
+        qh, kh, vh, oh, doh, lse, scale=scale, causal=causal, r=64, split=_bwd_split(D),
         round_bf16=True)]
     err, ok, tol = smoke.check_normwise(
         [g.to(torch.bfloat16) for g in got], want, "bfloat16")
@@ -794,7 +875,8 @@ def test_flash_bwd_single_bf16_rounding_of_p_and_ds_stays_inside_bwd_tol(
     o32 = tref.flash_attention_ref(q.float(), k.float(), v.float(),
                                    scale=scale, causal=causal)
     exact = _flash_bwd_tiled(qh, kh, vh, o32.transpose(1, 2), doh, lse,
-                             scale=scale, causal=causal, r=64, split=4)
+                             scale=scale, causal=causal, r=64,
+                             split=_bwd_split(D))
     jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
     _, vjp = jax.vjp(lambda a, b, c: JL._sdpa(a, b, c, causal=causal,
                                               scale=scale), jq, jk, jv)
@@ -826,7 +908,8 @@ def test_flash_lse_convention_is_logsumexp_of_the_masked_logits(S, T,
 # the RMSNorm backward's design: csrc/rmsnorm.cu rmsnorm_bwd_kernel
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rows,D", [(37, 128), (1024, 64), (5, 300)])
+@pytest.mark.parametrize("rows,D", [(37, 128), (1024, 64), (5, 300),
+                                    (140, 8200)])
 def test_rmsnorm_bwd_formula_and_block_partials_match_autograd(rows, D):
     """dx = r (g s - xh mean(g s xh)) per row, and dscale summed as the
     kernels sum it: block b walks row groups b, b + blocks, ... (each
@@ -876,11 +959,13 @@ def test_rmsnorm_bwd_blocks_are_a_function_of_the_shape():
 
 
 def test_rmsnorm_bwd_launch_shape_covers_every_width_once():
-    """The backward's shape for every D in [1, 8192] and both item sizes:
-    the row covered once, at most 4 vectors of 16 bytes a lane (8 single
-    elements), a block of max(256, lanes) threads whose row groups' dscale
-    sums fit the shared memory csrc/rmsnorm.cu allows them (kMaxSmemBwd),
-    and vector groups no wider than its backward build (kMaxVecSpanBwd)."""
+    """The backward's shape for every width of ``RMSNORM_WIDTHS`` and both
+    item sizes: the row covered once, at most 4 vectors of 16 bytes a lane
+    (8 single elements), a block of max(256, lanes) threads whose row
+    groups' dscale sums (a block of several rows) fit the shared memory
+    csrc/rmsnorm.cu allows them (kMaxSmemBwd), vector groups no wider than
+    its backward build (kMaxVecSpanBwd), and the looped body past 16,384
+    (8,192 in elements)."""
     import re
     src = (build.CSRC / "rmsnorm.cu").read_text()
     span = int(re.search(r"constexpr int kMaxVecSpanBwd = (\d+);", src)[1])
@@ -888,17 +973,15 @@ def test_rmsnorm_bwd_launch_shape_covers_every_width_once():
                          src)[1]) << 10
     assert re.search(r"return VEC > 1 \? (\d+) : (\d+);", src).groups() == (
         str(trn.BWD_MAX_VECS_PER_LANE), str(trn.MAX_VECS_PER_LANE))
+    assert span == trn.BWD_MAX_VEC_SPAN
     for itemsize in (2, 4):
-        for D in range(1, trn.MAX_D + 1):
-            lanes, nv, rows, vec = trn.bwd_launch_shape(D, itemsize)
+        for D in RMSNORM_WIDTHS:
+            shape = trn.bwd_launch_shape(D, itemsize)
+            lanes, nv, rows, vec = shape
             assert vec == trn.launch_shape(D, itemsize)[3]
-            assert nv <= (trn.BWD_MAX_VECS_PER_LANE if vec > 1
-                          else trn.MAX_VECS_PER_LANE)
-            assert vec == 1 or lanes * vec <= span
-            assert lanes * rows == max(trn.MIN_BLOCK, lanes) <= 1024
-            assert 4 * rows * D <= smem, (D, itemsize)   # group sums
-            nvec = D // vec
-            assert lanes * nv >= nvec > lanes * (nv - 1), (D, itemsize)
+            _rmsnorm_covered(shape, D, itemsize, trn.BWD_MAX_VECS_PER_LANE
+                             if vec > 1 else trn.MAX_VECS_PER_LANE, span)
+            assert rows == 1 or 4 * rows * D <= smem, (D, itemsize)
 
 
 # ---------------------------------------------------------------------------
