@@ -65,7 +65,9 @@ Phases, each of which fails the run (exit code 1) on any error:
 8. Train qwen3-8b: published widths at 4 layers (the serving weights are
    freed first), bf16, seeded weights; step 1's grads through the flash
    kernel and its backward (``impl="pallas"``) held per leaf against the
-   grads through plain attention (``impl="xla"``), and both paths' grads
+   grads through plain attention (``impl="xla"``) and plain RMSNorm
+   (``kernels.ops.rmsnorm`` swapped for ``ref.rmsnorm_ref``, as every
+   train phase's plain pass does), and both paths' grads
    reported against the same params' in fp32 and the kernels path's
    against a second run of itself; then 4 AdamW steps of
    ``make_train_step`` on ``SyntheticLM`` batches of 2 x 512 tokens: step
@@ -76,8 +78,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    weights (tied embeddings); step 1's grads through the SSD scan's
    kernels, forward and backward, held per leaf against the grads through
    the plain scan (``kernels.ops.ssd_scan`` swapped for
-   ``ref.ssd_scan_ref`` here, for the check alone; RMSNorm is the kernel
-   in both; reported as in phase 8); then 4 AdamW steps on ``SyntheticLM``
+   ``ref.ssd_scan_ref`` here, for the check alone, and RMSNorm for its
+   plain version as in phase 8; reported as in phase 8); then 4 AdamW
+   steps on ``SyntheticLM``
    batches of 2 x 1024
    tokens (8 chunks of 128 a sequence): step time, tokens/s, peak memory,
    launches a step (the SSD backward once for each SSD forward, 48 a
@@ -107,9 +110,50 @@ Phases, each of which fails the run (exit code 1) on any error:
     flash, SSD and RMSNorm forward and backward, each as often as phase
     11 launches it, a step.
 
-The phases run in the order 1-7, 10-13 (each model's serve, then its
-forward), 8, 9, 14 (the trains, with every serving weight freed); each
-phase's seconds and the total are printed before the result lines.
+15. Serve minitron-4b: published widths (d 3072, 24 heads of 128 over 8
+    KV heads, GQA ratio 3, untied 256,000-token embedding and head), all
+    32 layers, bf16, seeded weights; phase 4's requests, settings and
+    checks.
+16. Forward minitron-4b (32 flash, 65 RMSNorm launches), held as in phase
+    5.
+17. Serve command-r-plus-104b: published widths (d 12,288: RMSNorm at
+    12,288; 96 heads of 128 over 8, GQA ratio 12; a tied 256,000-token
+    embedding) at 16 of its 64 layers (``SERVE_LAYERS``); phase 4's
+    requests, settings and checks.
+18. Forward command-r-plus-104b (16 flash, 33 RMSNorm), held as in phase
+    5.
+19. Serve deepseek-v3-671b: published widths (MLA with q / kv LoRA ranks
+    1,536 / 512 on paged latent pools; 256 routed experts top-8 with
+    sigmoid routing and a shared expert, all kept) at its 3 ``mla_dense``
+    layers and 2 of its 58 ``mla`` layers; phase 4's requests, settings
+    and checks.
+20. Forward deepseek-v3-671b (0 flash: MLA's attention is a latent einsum,
+    as in the reference; 21 RMSNorm, 4 a block and the final one).  A MoE
+    layer's capacity C = int(1.25 K S / E) depends on the tokens of the
+    call (20 at S = 512, 10 at a 256-token chunk), so the reference
+    itself drops other assignments in a forward than in a chunked
+    prefill: the forward is held instead against the same call with the
+    kernels' plain versions patched in (``ref.rmsnorm_ref``,
+    ``ref.flash_attention_ref``), at the same S, under FORWARD_REL_TOL;
+    each MoE layer's top-k choices in the two runs are compared and the
+    tokens whose expert set differs are reported.
+21. Serve arctic-480b: published widths (56 heads of 128 over 8, GQA
+    ratio 7; 128 experts top-2 with softmax routing, all kept, beside a
+    dense residual FFN) at 2 of its 35 layers; phase 4's requests,
+    settings and checks.
+22. Forward arctic-480b (2 flash, 5 RMSNorm), held as in phase 20.
+23. Train deepseek-v3-671b: published widths at 1 ``mla_dense`` layer and
+    no MoE layer, plus the MTP head (3.14 B params; a MoE layer's training
+    state does not fit one card), ``SyntheticLM(129280, 512, 2)``; phase
+    8's grad check (the plain path's RMSNorm patched to its plain version
+    too, as in every train phase: this model runs no flash and no SSD)
+    and steps; the loss adds the MTP term, RMSNorm and its backward run 8
+    times a step (5 in the model, 3 in the MTP head).
+
+The phases run in the order 1-7, 10-13, 15-22 (each model's serve, then
+its forward, each model freed before the next), 8, 9, 14, 23 (the trains,
+with every serving weight freed); each phase's seconds and the total are
+printed before the result lines.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -190,13 +234,33 @@ QWEN = "qwen3-8b"
 MAMBA = "mamba2-780m"
 ZAMBA = "zamba2-2.7b"
 GEMMA = "gemma-7b"
-# the serve cells; zamba2 takes mamba2's settings, gemma qwen's
+MINITRON = "minitron-4b"
+CMDR = "command-r-plus-104b"
+DEEPSEEK = "deepseek-v3-671b"
+ARCTIC = "arctic-480b"
+# the serve cells; zamba2 takes mamba2's settings, every other model
+# qwen's
 _DENSE_SERVE = dict(requests=8, prompt_len=512, max_new=32, slots=4,
                     max_len=1024, block_size=16, prefill_chunk=256)
 # 500 = 256 + 244: the second prefill chunk is padded
 _SSM_SERVE = dict(_DENSE_SERVE, prompt_len=500)
 SERVE = {QWEN: _DENSE_SERVE, MAMBA: _SSM_SERVE, ZAMBA: _SSM_SERVE,
-         GEMMA: _DENSE_SERVE}
+         GEMMA: _DENSE_SERVE, MINITRON: _DENSE_SERVE, CMDR: _DENSE_SERVE,
+         DEEPSEEK: _DENSE_SERVE, ARCTIC: _DENSE_SERVE}
+# the serve cells' depth cuts: each segment's repeat (bf16, 2 bytes a
+# parameter; every width, expert count and vocabulary as published).
+# minitron-4b serves whole (5.1 B params, 10.2 GB). command-r-plus-104b:
+# 1.573 B a layer (attention 327 M, MLP 3 x 12,288 x 33,792) and a tied
+# 256,000 x 12,288 embedding (3.1 B): 16 of 64 layers, 28.3 B = 56.6 GB.
+# deepseek-v3-671b: an mla layer 11.5 B (256 routed experts and 1 shared at
+# 3 x 7,168 x 2,048 each, MLA 187 M), an mla_dense layer 0.58 B, untied
+# embedding and head 1.85 B: its 3 mla_dense layers and 2 of its 58 mla
+# layers, 27.3 B = 54.6 GB (the MTP head does not serve).  arctic-480b: a
+# moe_attn layer 13.6 B (128 experts at 3 x 7,168 x 4,864, the dense
+# residual FFN, attention): 2 of 35 layers, 27.5 B = 55 GB.  A depth cut
+# keeps each layer's shapes: a cut in experts would change the capacity
+# int(1.25 K S / E), the (E, C) buffers and the tokens each expert sees.
+SERVE_LAYERS = {CMDR: (16,), DEEPSEEK: (3, 2), ARCTIC: (2,)}
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # the train phases: qwen3-8b's widths at 4 of its 36 layers (bf16 params
 # and grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36
@@ -210,11 +274,16 @@ FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # ~0.4 GB of fp32 intermediates a zamba2 layer, 23 GB over 54, and the
 # fp32 pass twice that: "full" keeps one layer's at a time and gives the
 # same grads)
+# same grads).  deepseek-v3-671b at 1 mla_dense layer, no mla layer (an
+# mla layer's 11.5 B params take ~184 GB of training state), and the MTP
+# head: 3.14 B params, ~38 GB at 12 bytes a parameter plus 12.6 GB of the
+# step's fp32 grads.  ``depth``: each segment's repeat (None: whole)
 _TRAIN = dict(batch=2, steps=4, peak_lr=3e-4, warmup=1, total=10,
-              check_remat="none")
-TRAIN = {QWEN: dict(_TRAIN, layers=4, seq_len=512),
-         MAMBA: dict(_TRAIN, layers=48, seq_len=1024),
-         ZAMBA: dict(_TRAIN, layers=54, seq_len=1024, check_remat="full")}
+              check_remat="none", depth=None)
+TRAIN = {QWEN: dict(_TRAIN, depth=(4,), seq_len=512),
+         MAMBA: dict(_TRAIN, seq_len=1024),
+         ZAMBA: dict(_TRAIN, seq_len=1024, check_remat="full"),
+         DEEPSEEK: dict(_TRAIN, depth=(1, 0), seq_len=512)}
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
            "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
@@ -234,6 +303,10 @@ OWN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash", "flash_bwd", "ssd_scan",
                "ssd_scan_bwd")
 # cuBLAS's kernels in a trace (on Hopper most are named nvjet_*)
 GEMM_NAMES = ("gemm", "gemv", "nvjet")
+# the flash backward at the GQA ratios of the new paths' forwards (no
+# train path runs them): the dK/dV kernel deals a group's (q head, q tile)
+# items to four warpgroups, and groups of 3, 7 and 12 run there
+BWD_GQA_EDGES = (MINITRON, ARCTIC, CMDR)
 # RMSNorm rows past 8,192, forward and backward: command-r-plus-104b's
 # d_model (12,288) on the register-held body, and the looped body at a
 # vector width past the register-held 16,384 and at an odd width
@@ -467,23 +540,31 @@ def _kinds(arch):
     return {k for seg in arch.pattern for k in seg.blocks}
 
 
-def _norm_uses(arch, rows):
+def _norm_uses(arch, rows, mtp=False):
     """``(use, rows, D)`` of every RMSNorm of model ``arch`` over ``rows``
     tokens; uses at one (rows, D) are merged into one case: the block
-    norms at d_model, the q/k norms once per q/kv head, a mamba2 block's
-    gated norm at d_inner, zamba2's shared-block norms at 2 x d_model."""
+    norms at d_model, the q/k norms once per q/kv head, MLA's q and kv
+    norms at the LoRA ranks, a mamba2 block's gated norm at d_inner,
+    zamba2's shared-block norms at 2 x d_model, and with ``mtp`` (the
+    train step of an MTP arch) the MTP head's three norms at d_model."""
     d, kinds = arch.d_model, _kinds(arch)
     uses = []
-    if "attn" in kinds:
+    if kinds & {"attn", "moe_attn"}:
         uses.append(("norm1/norm2/final_norm", rows, d))
         if arch.qk_norm:
             uses += [("q_norm", rows * arch.n_heads, arch.head_dim),
                      ("k_norm", rows * arch.n_kv_heads, arch.head_dim)]
+    if kinds & {"mla", "mla_dense"}:
+        uses += [("norm1/norm2/final_norm", rows, d),
+                 ("mla q_norm", rows, arch.mla.q_lora_rank),
+                 ("mla kv_norm", rows, arch.mla.kv_lora_rank)]
     if "mamba2" in kinds:
         uses += [("norm/final_norm", rows, d),
                  ("gated norm", rows, arch.ssm.expand * d)]
     if "shared_attn" in kinds:
         uses.append(("shared norm1/norm2", rows, 2 * d))
+    if mtp:
+        uses.append(("mtp norms", rows, d))
     merged: dict = {}
     for use, r, D in uses:
         merged.setdefault((r, D), []).append(use)
@@ -492,15 +573,30 @@ def _norm_uses(arch, rows):
 
 def _attn_dims(arch):
     """(H, Hkv, D) of the attention model ``arch`` runs through flash:
-    its own, or zamba2's shared block's over 2 x d_model; None without
-    attention."""
+    its own (``attn`` and ``moe_attn``), or zamba2's shared block's over 2
+    x d_model; None without (MLA's latent attention runs no flash)."""
     from repro_torch.models import blocks
     kinds = _kinds(arch)
-    if not kinds & {"attn", "shared_attn"}:
+    if not kinds & {"attn", "moe_attn", "shared_attn"}:
         return None
     cfg = (blocks.shared_cfg_for(arch) if "shared_attn" in kinds
            else blocks.attn_cfg_for(arch))
     return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+
+def cut_depth(arch, depth):
+    """``arch`` with each segment's repeat set to ``depth``'s (segments at
+    0 dropped), or ``arch`` itself for ``depth`` None; widths unchanged."""
+    import dataclasses
+
+    from repro_torch.configs import Segment
+    if depth is None:
+        return arch
+    pattern = tuple(Segment(seg.blocks, r)
+                    for seg, r in zip(arch.pattern, depth) if r)
+    return dataclasses.replace(
+        arch, pattern=pattern,
+        n_layers=sum(len(seg.blocks) * seg.repeat for seg in pattern))
 
 
 def served_cases(name, arch):
@@ -575,12 +671,16 @@ def train_cases(name, arch):
     H, Hkv, D, causal)``: the train step's attention, and for qwen3-8b the
     same at S = T = 2048 (where the products set the bound), a ragged S,
     S != T both ways, and gemma-7b's D = 256 (no train path runs it);
+    the flash backward also at the forward paths' GQA ratios 3, 7 and 12
+    (minitron-4b, arctic-480b, command-r-plus-104b heads at qwen3-8b's
+    train S; ``BWD_GQA_EDGES``);
     SSD: ``(path, B, S, G, h0, dh_final)``: the train step's scan, from h0
     = 0 with no h_final gradient, and for mamba2-780m edges that take
     both, a ragged S, two groups and S < Q."""
     B, S = TRAIN[name]["batch"], TRAIN[name]["seq_len"]
     path = f"{name} train"
-    norm = [(path, use, r, D) for use, r, D in _norm_uses(arch, B * S)]
+    norm = [(path, use, r, D)
+            for use, r, D in _norm_uses(arch, B * S, mtp=arch.mtp)]
     flash, ssd = [], []
     dims = _attn_dims(arch)
     if dims:
@@ -593,9 +693,10 @@ def train_cases(name, arch):
             ("edge", B, 2048, 2048, True), ("edge", 1, 300, 300, True),
             ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
         from repro_torch.configs import get_arch
-        gemma = get_arch(GEMMA)
-        flash.append((f"edge {GEMMA} attn", B, S, S, gemma.n_heads,
-                      gemma.n_kv_heads, gemma.head_dim, True))
+        for other in (GEMMA,) + BWD_GQA_EDGES:
+            a = get_arch(other)
+            flash.append((f"edge {other} attn", B, S, S, a.n_heads,
+                          a.n_kv_heads, a.resolved_head_dim, True))
     if name == ZAMBA:
         # D = 160 with S != T, both ways of the causal mask
         flash += [("edge", 1, 256, 700) + dims + (True,),
@@ -928,19 +1029,35 @@ def block_counts(arch):
     """{block kind: its applications in one forward}."""
     kinds = [k for seg in arch.pattern for k in seg.blocks
              for _ in range(seg.repeat)]
-    return {k: kinds.count(k) for k in ("attn", "mamba2", "shared_attn")}
+    return {k: kinds.count(k) for k in ("attn", "moe_attn", "mla",
+                                        "mla_dense", "mamba2",
+                                        "shared_attn")}
 
 
 def forward_launches(arch):
     """Each forward kernel's launches in one whole-sequence forward under
-    impl="pallas": an attention block's two norms (four with q/k norms)
-    and one flash call, zamba2's shared block the same at 2 x d_model, a
-    mamba2 block's two norms (the block's and the gated one) and one
-    scan, and the final norm."""
+    impl="pallas": an attention block's (``attn``, ``moe_attn``) two norms
+    (four with q/k norms) and one flash call, zamba2's shared block the
+    same at 2 x d_model, an MLA block's four norms (norm1, q_norm,
+    kv_norm, norm2) and no flash, a mamba2 block's two norms (the block's
+    and the gated one) and one scan, and the final norm."""
     n = block_counts(arch)
-    attn = n["attn"] + n["shared_attn"]
-    return {"rmsnorm": (4 if arch.qk_norm else 2) * attn + 2 * n["mamba2"]
-            + 1, "flash_attention": attn, "ssd_scan": n["mamba2"]}
+    attn = n["attn"] + n["moe_attn"] + n["shared_attn"]
+    return {"rmsnorm": (4 if arch.qk_norm else 2) * attn
+            + 4 * (n["mla"] + n["mla_dense"]) + 2 * n["mamba2"] + 1,
+            "flash_attention": attn, "ssd_scan": n["mamba2"]}
+
+
+def train_launches(arch):
+    """Each kernel's launches in one train step: the forward's
+    (``forward_launches``) plus, for an MTP arch, the MTP head's three
+    norms (its own and its attn block's two; its attention is plain, as
+    in the reference), each backward kernel as often as its forward."""
+    want = forward_launches(arch)
+    if arch.mtp:
+        want["rmsnorm"] += 3
+    want.update({f"{k}_bwd": n for k, n in want.items()})
+    return want
 
 
 def serve_phase(torch, np, report, name, arch):
@@ -956,9 +1073,11 @@ def serve_phase(torch, np, report, name, arch):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
-    print(f"serve: {name}, {arch.n_layers} layers, d_model {arch.d_model}, "
-          f"{n_params / 1e9:.3f} B params ({n_bytes / 1e9:.2f} GB bf16), "
-          f"init {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs import get_arch
+    print(f"serve: {name}, {arch.n_layers} of {get_arch(name).n_layers} "
+          f"layers, d_model {arch.d_model}, {n_params / 1e9:.3f} B params "
+          f"({n_bytes / 1e9:.2f} GB bf16), init "
+          f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
@@ -1175,14 +1294,42 @@ def profile_phase(torch, report, name, arch, params, prompts):
     report[f"profile {name}"] = out
 
 
-def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
+def forward_phase(torch, np, report, name, arch, params, prompts,
+                  ref_logits):
+    """``lm_apply(impl="pallas")`` over ``FORWARD_PROMPTS`` prompts:
+    exact launch counts, finite logits of the right shape, and the
+    last-position logits held under FORWARD_REL_TOL against
+    ``ref_logits`` (the engine's chunked prefill), or, for a MoE arch
+    (``ref_logits`` None), against the same call with the kernels' plain
+    versions patched in: a MoE layer's capacity depends on the tokens of
+    the call, so a chunked prefill routes other assignments to the
+    experts' buffers than one forward over the prompt.  Each MoE layer's
+    top-k choices are recorded in both runs and the tokens whose expert
+    set differs are reported (a bf16 rounding that flips a near-tied
+    router score moves that token's output)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
 
     B, S = FORWARD_PROMPTS, SERVE[name]["prompt_len"]
     tokens = torch.as_tensor(np.stack(prompts[:B]), device="cuda")
+    routes = []            # per run: each MoE layer's (B, S, K) expert ids
+    real_moe = MOE.moe
+
+    def recording_moe(p, cfg, x):
+        routes[-1].append(MOE.route(p, cfg, x)[2])
+        return real_moe(p, cfg, x)
+
+    def forward():
+        routes.append([])
+        with mock.patch.object(MOE, "moe", recording_moe):
+            return T.lm_apply(params, arch, tokens, impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    out = T.lm_apply(params, arch, tokens, impl="pallas")
+    out = forward()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1190,6 +1337,17 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     want.update(forward_launches(arch))
     if counts != want:
         fail(f"{name} forward launches {counts}, want {want}")
+    against = "chunked prefill"
+    flipped = None
+    if ref_logits is None:
+        against = "plain kernels"
+        with mock.patch.object(ops, "rmsnorm", ref.rmsnorm_ref), \
+                mock.patch.object(ops, "flash_attention",
+                                  ref.flash_attention_ref):
+            ref_logits = forward().logits[:, -1]
+        flipped = [int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                       .sum()) for a, b in zip(*routes)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
     logits = out.logits[:, -1, :arch.vocab]
     refl = ref_logits[:, :arch.vocab]
     if out.logits.shape != (B, S, arch.padded_vocab) or \
@@ -1201,23 +1359,28 @@ def forward_phase(torch, np, report, name, arch, params, prompts, ref_logits):
     tol = FORWARD_REL_TOL * scale
     picks = [int(torch.argmax(logits[i])) for i in range(B)]
     best = [int(torch.argmax(refl[i])) for i in range(B)]
-    # how far below the chunked prefill's top logit the forward's pick sits
-    # (0 when the two argmaxes agree)
+    # how far below the reference's top logit the forward's pick sits (0
+    # when the two argmaxes agree)
     shortfall = [float(refl[i, best[i]] - refl[i, picks[i]]) for i in range(B)]
     report[f"forward {name}"] = dict(
-        wall_s=wall, launches=counts, max_abs_err=err, max_abs_logit=scale,
-        rel_tol=FORWARD_REL_TOL,
+        wall_s=wall, launches=counts, against=against, max_abs_err=err,
+        max_abs_logit=scale, rel_tol=FORWARD_REL_TOL,
         argmax_agree=[p == b for p, b in zip(picks, best)],
-        argmax_shortfall=shortfall)
+        argmax_shortfall=shortfall, moe_tokens_rerouted=flipped,
+        peak_mem_gb=peak)
+    moe_txt = ("" if flipped is None else
+               f"; tokens whose expert set differs, by MoE layer: "
+               f"{flipped} of {B * S}")
     print(f"forward: {name}: lm_apply(impl='pallas') B={B} S={S} in "
           f"{wall * 1e3:.1f} ms, launches {counts}; last-position logits vs "
-          f"chunked prefill: max |diff| {err:.4g} (max |logit| {scale:.4g}, "
-          f"tol {FORWARD_REL_TOL}*max = {tol:.4g}), argmax {picks} vs {best}")
+          f"{against}: max |diff| {err:.4g} (max |logit| {scale:.4g}, "
+          f"tol {FORWARD_REL_TOL}*max = {tol:.4g}), argmax {picks} vs "
+          f"{best}{moe_txt}; peak memory {peak:.2f} GB")
     if not err <= tol:
-        fail(f"{name} forward logits differ from the chunked prefill by "
+        fail(f"{name} forward logits differ from the {against} by "
              f"{err:.4g} > {tol:.4g}")
     if any(s > tol for s in shortfall):
-        fail(f"{name} forward argmax {picks} != chunked prefill argmax "
+        fail(f"{name} forward argmax {picks} != {against} argmax "
              f"{best}, and not a near tie (shortfall {shortfall} > {tol:.4g})")
 
 
@@ -1241,17 +1404,16 @@ def worst(diffs, text=False):
 
 
 def train_phase(torch, report, name, arch, card, profile=False):
-    """Phases 8, 9 and 14: the training step of model ``name`` at its widths
-    and ``TRAIN[name]["layers"]`` layers, through the kernels forward and
+    """Phases 8, 9, 14 and 23: the training step of model ``name`` at its
+    widths and ``TRAIN[name]["depth"]``, through the kernels forward and
     backward; step 1's grads held against the plain path's (plain
-    attention under impl="xla", and the plain SSD scan); with
-    ``profile``, one more step traced."""
+    attention under impl="xla", the plain SSD scan and plain RMSNorm);
+    with ``profile``, one more step traced."""
     import dataclasses
 
     from unittest import mock
 
     from repro_torch import tree
-    from repro_torch.configs import Segment
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
@@ -1261,11 +1423,9 @@ def train_phase(torch, report, name, arch, card, profile=False):
 
     t_phase = time.perf_counter()
     cfg = TRAIN[name]
-    L, full = cfg["layers"], arch.n_layers
-    if L != full:
-        (blocks,) = {seg.blocks for seg in arch.pattern}
-        arch = dataclasses.replace(arch, n_layers=L,
-                                   pattern=(Segment(blocks, L),))
+    full = arch.n_layers
+    arch = cut_depth(arch, cfg["depth"])
+    L = arch.n_layers
     label = f"train {arch.name}"
     gc.collect()                  # any reference cycles the serves left
     torch.cuda.empty_cache()
@@ -1275,7 +1435,8 @@ def train_phase(torch, report, name, arch, card, profile=False):
                        generator=torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.leaves(params))
-    print(f"train: {arch.name} at {L} of {full} layers, d_model "
+    print(f"train: {arch.name} at {L} of {full} layers"
+          f"{' plus the MTP head' if arch.mtp else ''}, d_model "
           f"{arch.d_model}, {n_params / 1e9:.3f} B params, init "
           f"{time.perf_counter() - t0:.1f} s; {held:.2f} GB held on the card "
           f"before it")
@@ -1298,7 +1459,8 @@ def train_phase(torch, report, name, arch, card, profile=False):
     repeat = grad_diffs(torch, names, g_k,
                         ST.loss_and_grads(kernel_loss, params, tok, lab)[2])
     remat = cfg["check_remat"]
-    with mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref):
+    with mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref), \
+            mock.patch.object(ops, "rmsnorm", ref.rmsnorm_ref):
         loss_p, _, g_p = ST.loss_and_grads(
             ST.make_loss_fn(arch, impl="xla", remat=remat), params, tok, lab)
         check_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1323,7 +1485,8 @@ def train_phase(torch, report, name, arch, card, profile=False):
     torch.cuda.empty_cache()
     after_check = torch.cuda.memory_allocated() / 1e9
     print(f"train: step 1's grads, kernels forward and backward vs the plain "
-          f"path (plain attention and SSD scan): {len(names)} leaves over "
+          f"path (plain attention, SSD scan and RMSNorm): {len(names)} "
+          f"leaves over "
           f"{L} layers, worst cosine {diffs[cos_leaf][0]:.6f} at {cos_leaf} "
           f"(min {GRAD_COS_MIN}), worst rel L2 {rel:.4g} at {rel_leaf} (max "
           f"{GRAD_REL_L2_MAX}); against the fp32 model's grads, worst rel "
@@ -1398,8 +1561,7 @@ def train_phase(torch, report, name, arch, card, profile=False):
           f"{[round(x, 5) for x in norms]}; launches a step {per_step}")
     if not all(math.isfinite(x) for x in losses + norms):
         fail(f"{label}: losses {losses} / grad norms {norms} not finite")
-    want = forward_launches(arch)           # each backward as its forward
-    want.update({f"{k}_bwd": n for k, n in want.items()})
+    want = train_launches(arch)
     for c, per in ((counts, cfg["steps"]), (grad_counts, 1)):
         if any(c[k] != n * per for k, n in want.items()):
             fail(f"{label}: launches {c}, want {want} a step")
@@ -1458,7 +1620,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     from repro_torch.configs import get_arch
-    archs = {n: get_arch(n) for n in (QWEN, MAMBA, ZAMBA, GEMMA)}
+    archs = {n: get_arch(n) for n in SERVE}
     report = {"card": card, "build_s": rep["seconds"]}
     seconds = {"build": rep["seconds"]}             # each phase's
     # 3. kernels vs their plain versions
@@ -1507,18 +1669,20 @@ def main() -> int:
         return out
     if not args.kernels_only:
         for name, arch in archs.items():
-            # 4./6./10./12. serve, 5./7./11./13. forward
+            # 4./6./10./12./15./17./19./21. serve, 5./7./11./13./16./18./
+            # 20./22. forward, at the serve cell's depth
+            arch = cut_depth(arch, SERVE_LAYERS.get(name))
             params, prompts, ref_logits = timed(
                 f"serve {name}", serve_phase, torch, np, report, name, arch)
             timed(f"forward {name}", forward_phase, torch, np, report, name,
-                  arch, params, prompts, ref_logits)
+                  arch, params, prompts, None if arch.moe else ref_logits)
             if args.profile:
                 timed(f"profile {name}", profile_phase, torch, report, name,
                       arch, params, prompts)
             del params, ref_logits
             gc.collect()
             torch.cuda.empty_cache()
-        # 8./9./14. train, with the serving weights freed
+        # 8./9./14./23. train, with the serving weights freed
         for name in TRAIN:
             timed(f"train {name}", train_phase, torch, report, name,
                   archs[name], card, profile=args.profile)

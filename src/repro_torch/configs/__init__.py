@@ -1,16 +1,22 @@
 """Architecture registry: the archs the port serves (``qwen3-8b``,
-``mamba2-780m``, ``zamba2-2.7b`` and ``gemma-7b`` so far)."""
+``mamba2-780m``, ``zamba2-2.7b``, ``gemma-7b``, ``minitron-4b``,
+``command-r-plus-104b``, ``deepseek-v3-671b`` and ``arctic-480b`` so
+far)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
                                       MoESpec, Segment, SSMSpec)
-from repro_torch.configs import gemma_7b, mamba2_780m, qwen3_8b, zamba2_2_7b
+from repro_torch.configs import (arctic_480b, command_r_plus_104b,
+                                 deepseek_v3_671b, gemma_7b, mamba2_780m,
+                                 minitron_4b, qwen3_8b, zamba2_2_7b)
 
 ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH
                                 for m in (zamba2_2_7b, gemma_7b, qwen3_8b,
-                                          mamba2_780m)}
+                                          mamba2_780m, minitron_4b,
+                                          command_r_plus_104b,
+                                          deepseek_v3_671b, arctic_480b)}
 
 
 def get_arch(name: str) -> ArchConfig:

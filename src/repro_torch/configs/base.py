@@ -13,7 +13,8 @@ Block kinds named by the schema:
   cross_attn  — gated cross-attention + MLP (llama-vision)
   enc_attn    — bidirectional self-attention + MLP (encoders)
 
-The port serves ``attn``, ``mamba2`` and ``shared_attn`` so far; the
+The port serves ``attn``, ``mla``, ``moe_attn``, ``mamba2`` and
+``shared_attn`` (and ``mla_dense``, MLA with a dense MLP) so far; the
 serving engine raises ``NotImplementedError`` naming any other kind at
 construction.
 """

@@ -1,12 +1,14 @@
 """Block registry: init / apply / paged-cache-init per block kind (twin of
 ``repro/models/blocks.py``).  The port implements kinds ``attn`` —
 RMSNorm, GQA self-attention with RoPE and optional qk-norm, RMSNorm, the
-MLP (SwiGLU, GeGLU, GELU or ReLU) — ``mamba2`` — RMSNorm, Mamba2 SSD
-mixer — and ``shared_attn`` — zamba2's weight-shared transformer block
-over concat(x, x0) at width 2 * d_model, whose weights live once in
-``init_shared`` and whose per-application params are the projection
-``app_proj`` back to d_model — and raises ``NotImplementedError`` naming
-any other kind."""
+MLP (SwiGLU, GeGLU, GELU or ReLU) — ``moe_attn`` — the same attention,
+then the MoE FFN (``moe.py``) — ``mla`` and ``mla_dense`` — multi-head
+latent attention (``mla.py``), then the MoE FFN or the dense MLP —
+``mamba2`` — RMSNorm, Mamba2 SSD mixer — and ``shared_attn`` — zamba2's
+weight-shared transformer block over concat(x, x0) at width 2 * d_model,
+whose weights live once in ``init_shared`` and whose per-application
+params are the projection ``app_proj`` back to d_model — and raises
+``NotImplementedError`` naming any other kind."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,16 +18,25 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
 Params = dict
-PORTED_KINDS = ("attn", "mamba2", "shared_attn")
+PORTED_KINDS = ("attn", "moe_attn", "mla", "mla_dense", "mamba2",
+                "shared_attn")
+# the kinds that run GQA self-attention (``layers.attention``), those that
+# run latent attention (``mla.py``), and those whose FFN is the MoE layer
+ATTN_KINDS = ("attn", "moe_attn")
+MLA_KINDS = ("mla", "mla_dense")
+MOE_KINDS = ("moe_attn", "mla")
 
 
 def check_arch(arch: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming whatever part of ``arch`` the
     port does not implement yet (block kinds other than ``PORTED_KINDS``,
-    norms other than rmsnorm, encoders, frontends, MTP heads).  Every MLP
-    act the reference takes is ported (``layers.MLP_ACTS``)."""
+    norms other than rmsnorm, encoders, frontends).  Every MLP act the
+    reference takes is ported (``layers.MLP_ACTS``), and so is the MTP
+    head (``transformer.mtp_logits``)."""
     kinds = sorted({k for seg in arch.pattern for k in seg.blocks})
     missing = [k for k in kinds if k not in PORTED_KINDS]
     if missing:
@@ -35,7 +46,7 @@ def check_arch(arch: ArchConfig) -> None:
     if arch.norm != "rmsnorm":
         raise NotImplementedError(f"{arch.name}: norm {arch.norm!r} is not "
                                   f"ported (rmsnorm only)")
-    for feature in ("encoder", "frontend", "mtp"):
+    for feature in ("encoder", "frontend"):
         if getattr(arch, feature):
             raise NotImplementedError(f"{arch.name}: {feature} is not ported "
                                       f"to repro_torch yet")
@@ -76,6 +87,25 @@ def shared_cfg_for(arch: ArchConfig) -> L.AttnConfig:
     return attn_cfg_for(arch, d_model=2 * arch.d_model, n_heads=arch.n_heads)
 
 
+def moe_cfg_for(arch: ArchConfig) -> MOE.MoEConfig:
+    m = arch.moe
+    return MOE.MoEConfig(
+        d_model=arch.d_model, d_ff=m.d_ff, n_experts=m.n_experts,
+        top_k=m.top_k, router=m.router, capacity_factor=m.capacity_factor,
+        n_shared_experts=m.n_shared_experts, shared_d_ff=m.shared_d_ff,
+        dense_d_ff=m.dense_d_ff, act=arch.act)
+
+
+def mla_cfg_for(arch: ArchConfig) -> MLA.MLAConfig:
+    m = arch.mla
+    return MLA.MLAConfig(d_model=arch.d_model, n_heads=arch.n_heads,
+                         q_lora_rank=m.q_lora_rank,
+                         kv_lora_rank=m.kv_lora_rank,
+                         qk_nope_head_dim=m.qk_nope_head_dim,
+                         qk_rope_head_dim=m.qk_rope_head_dim,
+                         v_head_dim=m.v_head_dim, rope_theta=arch.rope_theta)
+
+
 def ssm_cfg_for(arch: ArchConfig) -> M2.Mamba2Config:
     s = arch.ssm
     return M2.Mamba2Config(d_model=arch.d_model, d_state=s.d_state,
@@ -100,12 +130,16 @@ def init_block(kind: str, arch: ArchConfig, *, generator, device, dtype,
         # projected back to d); the shared weights live in init_shared
         return {"app_proj": L.init_dense(2 * d, d, generator=generator,
                                          **kw)}
-    return {"norm1": norm_init(arch, d, **kw),
-            "attn": L.init_attention(attn_cfg_for(arch), generator=generator,
-                                     **kw),
-            "norm2": norm_init(arch, d, **kw),
-            "mlp": L.init_mlp(d, arch.d_ff, generator=generator,
-                              act=arch.act, **kw)}
+    attn = (MLA.init_mla(mla_cfg_for(arch), generator=generator, **kw)
+            if kind in MLA_KINDS else
+            L.init_attention(attn_cfg_for(arch), generator=generator, **kw))
+    ffn = ({"moe": MOE.init_moe(moe_cfg_for(arch), generator=generator,
+                                **kw)}
+           if kind in MOE_KINDS else
+           {"mlp": L.init_mlp(d, arch.d_ff, generator=generator,
+                              act=arch.act, **kw)})
+    return {"norm1": norm_init(arch, d, **kw), "attn": attn,
+            "norm2": norm_init(arch, d, **kw), **ffn}
 
 
 def init_shared(arch: ArchConfig, *, generator, device, dtype) -> Params:
@@ -127,8 +161,10 @@ def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
                            slots: int = 0) -> Params:
     """Serving cache pool for one block kind (continuous-batching engine).
 
-    ``attn`` gets a physical KV *block pool* (length-indexed, paged through
-    block tables), and so does ``shared_attn`` at the shared block's
+    ``attn`` and ``moe_attn`` get a physical KV *block pool*
+    (length-indexed, paged through block tables); ``mla`` and
+    ``mla_dense`` a latent (c_kv, k_rope) block pool paged the same way;
+    and so does ``shared_attn`` get a KV pool at the shared block's
     widths: stacked on the segment's ``repeat`` axis, each application of
     the shared weights pages its own KV.  ``mamba2`` state is O(1) per
     request, so paging does not apply: it gets a *slot-indexed state
@@ -142,7 +178,11 @@ def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
                 f"row per engine slot + the null row)")
         return M2.init_mamba2_cache(ssm_cfg_for(arch), slots + 1,
                                     device=device, repeat=repeat)
-    if kind not in ("attn", "shared_attn"):
+    if kind in MLA_KINDS:
+        return MLA.init_paged_mla_cache(mla_cfg_for(arch), num_blocks,
+                                        block_size, device=device,
+                                        dtype=dtype, repeat=repeat)
+    if kind not in ATTN_KINDS + ("shared_attn",):
         raise NotImplementedError(f"no paged serving cache for block kind "
                                   f"{kind!r} in repro_torch yet")
     cfg = shared_cfg_for(arch) if kind == "shared_attn" else attn_cfg_for(arch)
@@ -160,12 +200,17 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                 new_lens: Optional[torch.Tensor] = None,
                 slot_ids: Optional[torch.Tensor] = None,
                 impl: str = "xla"):
-    """-> (x, cache).  ``block_tables`` selects the paged-KV path for
-    ``attn`` and ``shared_attn``, ``slot_ids`` the slot-state pool path for
-    ``mamba2``; either pool ``cache`` is updated in place and returned.
-    ``shared_attn`` takes the shared block's params (``shared``) and the
-    scaled embeddings (``x0``); its ``cache`` is this application's slice
-    of the repeat-stacked pool, so two applications never mix their KV."""
+    """-> (x, cache, aux).  ``aux`` is the MoE layer's load-balance loss
+    (a 0-d fp32 tensor) for ``moe_attn`` and ``mla``, and 0.0 for the other
+    kinds.  ``block_tables`` selects the paged path for the attention
+    kinds (KV pools; latent pools for ``mla`` / ``mla_dense``),
+    ``slot_ids`` the slot-state pool path for ``mamba2``; either pool
+    ``cache`` is updated in place and returned.  ``shared_attn`` takes the
+    shared block's params (``shared``) and the scaled embeddings (``x0``);
+    its ``cache`` is this application's slice of the repeat-stacked pool,
+    so two applications never mix their KV.  ``impl="pallas"`` runs the
+    flash kernel in the whole-sequence GQA attention; latent attention has
+    no kernel (nor has the reference's)."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     if kind == "mamba2":
@@ -181,7 +226,7 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                                           normed, pool=cache,
                                           slot_ids=slot_ids,
                                           new_lens=new_lens, impl=impl)
-        return x + h, new_cache
+        return x + h, new_cache, 0.0
     if kind == "shared_attn":
         if shared is None or x0 is None:
             raise ValueError("shared_attn needs the shared block's params "
@@ -195,11 +240,25 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
         z = z + h
         z = z + L.mlp(shared["mlp"], norm_apply(arch, shared["norm2"], z),
                       arch.act)
-        return x + L.dense(p["app_proj"], z), new_cache
-    h, new_cache = L.attention(p["attn"], attn_cfg_for(arch),
-                               norm_apply(arch, p["norm1"], x), cache=cache,
-                               positions=positions, block_tables=block_tables,
-                               new_lens=new_lens, impl=impl)
+        return x + L.dense(p["app_proj"], z), new_cache, 0.0
+    normed = norm_apply(arch, p["norm1"], x)
+    if kind in MLA_KINDS and block_tables is not None:
+        h, new_cache = MLA.mla_paged_attention(
+            p["attn"], mla_cfg_for(arch), normed, cache=cache,
+            positions=positions, block_tables=block_tables,
+            new_lens=new_lens)
+    elif kind in MLA_KINDS:
+        h, new_cache = MLA.mla_attention(p["attn"], mla_cfg_for(arch),
+                                         normed, cache=cache,
+                                         positions=positions)
+    else:
+        h, new_cache = L.attention(p["attn"], attn_cfg_for(arch), normed,
+                                   cache=cache, positions=positions,
+                                   block_tables=block_tables,
+                                   new_lens=new_lens, impl=impl)
     x = x + h
-    h = L.mlp(p["mlp"], norm_apply(arch, p["norm2"], x), arch.act)
-    return x + h, new_cache
+    normed = norm_apply(arch, p["norm2"], x)
+    if kind in MOE_KINDS:
+        h, aux = MOE.moe(p["moe"], moe_cfg_for(arch), normed)
+        return x + h, new_cache, aux
+    return x + L.mlp(p["mlp"], normed, arch.act), new_cache, 0.0

@@ -11,6 +11,7 @@ Entry points:
   init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
   admit_slot(params, arch, pools, slot_id)            -> pools (row reset)
   lm_apply(params, arch, tokens, ...)                 -> LMOutput
+  mtp_logits(params, arch, hidden, tokens)            -> MTP head's logits
   lm_loss(logits, labels, vocab, mask=None)           -> mean cross-entropy
 """
 from __future__ import annotations
@@ -32,6 +33,8 @@ Params = dict
 class LMOutput(NamedTuple):
     logits: torch.Tensor
     cache: Optional[Any]
+    aux: torch.Tensor                        # 0-d fp32: MoE balance losses
+    hidden: Optional[torch.Tensor] = None    # pre-head hidden (for MTP)
 
 
 def compute_dtype(arch: ArchConfig) -> torch.dtype:
@@ -68,6 +71,12 @@ def init_lm(arch: ArchConfig, *, device=None,
     if any("shared_attn" in seg.blocks for seg in arch.pattern):
         params["shared"] = B.init_shared(arch, generator=generator,
                                          device=dev, dtype=dt)
+    if arch.mtp:
+        kw = dict(generator=generator, device=dev, dtype=dt)
+        params["mtp"] = {
+            "proj": L.init_dense(2 * arch.d_model, arch.d_model, **kw),
+            "block": B.init_block("attn", arch, **kw),
+            "norm": B.norm_init(arch, arch.d_model, device=dev, dtype=dt)}
     params["segments"] = [
         {f"b{i}": B.init_block(kind, arch, generator=generator, device=dev,
                                dtype=dt, repeat=seg.repeat)
@@ -81,12 +90,16 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
     """Per-segment serving cache pools, stacked on the segment's repeat
     axis.  Two state classes, side by side (serving/cache_manager.py is
     the host side of both):
-      * ``attn`` blocks get paged KV block pools, ``{"k": (R, NB, BS, Hkv,
-        D), "v": ...}``: no batch axis — the pool is shared by every
-        in-flight request and indexed through per-request block tables
-        (layers.paged_attention).  So do ``shared_attn`` blocks, at the
-        shared block's widths: the repeat axis gives each application of
-        the shared weights its own pool;
+      * ``attn`` and ``moe_attn`` blocks get paged KV block pools,
+        ``{"k": (R, NB, BS, Hkv, D), "v": ...}``: no batch axis — the pool
+        is shared by every in-flight request and indexed through
+        per-request block tables (layers.paged_attention).  So do
+        ``shared_attn`` blocks, at the shared block's widths: the repeat
+        axis gives each application of the shared weights its own pool;
+        ``mla`` and ``mla_dense`` blocks get latent block pools,
+        ``{"c_kv": (R, NB, BS, kv_lora_rank), "k_rope": (R, NB, BS,
+        qk_rope_head_dim)}``, paged the same way
+        (mla.mla_paged_attention);
       * ``mamba2`` blocks get slot-indexed state pools, ``{"conv_x": (R,
         slots+1, K, d_inner), ..., "ssm": (R, slots+1, H, P, N)}`` in
         float32: one row per engine slot plus a reserved null row for
@@ -103,8 +116,8 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
 def admit_slot(params: Params, arch: ArchConfig, pools: list,
                slot_id: int) -> list:
     """Reset one engine slot's rows across every slot-state pool, in place
-    (paged KV block pools pass through untouched — block reuse is the
-    allocator's business).  mamba2 rows are zeroed: a fresh recurrent
+    (paged KV and latent block pools pass through untouched — block reuse
+    is the allocator's business).  mamba2 rows are zeroed: a fresh recurrent
     state for the admitted request; recompute-style preemption re-admits
     through here, so the re-prefill starts from a clean h0.  The
     reference's other slot-state kinds (cross_attn, wdec) are not ported
@@ -160,8 +173,9 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
              block_tables: Optional[torch.Tensor] = None,
              new_lens: Optional[torch.Tensor] = None,
              slot_ids: Optional[torch.Tensor] = None,
-             impl: str = "xla", remat: str = "none") -> LMOutput:
-    """Forward pass.
+             impl: str = "xla", remat: str = "none",
+             return_hidden: bool = False) -> LMOutput:
+    """Forward pass -> LMOutput(logits, cache, aux, hidden).
 
     tokens: (B, S) integer tokens.
     cache:  None => whole-sequence forward (causal self-attention over the
@@ -179,6 +193,10 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        and the embeddings ``x0`` from every application; under remat they
        are closed over by each checkpointed body, and autograd sums their
        grads over the applications.
+    aux: the MoE layers' load-balance losses summed over every layer (0
+       without MoE), a 0-d fp32 tensor.
+    return_hidden: also return the final-normed hidden states (B, S, D)
+       that the head reads (``mtp_logits`` takes them).
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
@@ -191,27 +209,58 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
         positions = torch.arange(x.shape[1], device=x.device)
     x0 = x                     # the scaled embeddings (zamba2's shared block)
     shared = params.get("shared")
+    aux = 0.0
     for si, seg in enumerate(arch.pattern):
         segp = params["segments"][si]
         for r in range(seg.repeat):
             def body(x, si=si, r=r, seg=seg, segp=segp):
+                aux = 0.0
                 for bi, kind in enumerate(seg.blocks):
                     key = f"b{bi}"
                     c = None if cache is None else _take(cache[si][key], r)
-                    x, _ = B.apply_block(_take(segp[key], r), kind, arch, x,
-                                         x0=x0, shared=shared,
-                                         cache=c, positions=positions,
-                                         block_tables=block_tables,
-                                         new_lens=new_lens,
-                                         slot_ids=slot_ids, impl=impl)
-                return x
-            x = _remat(body, remat if cache is None else "none")(x)
+                    x, _, a = B.apply_block(_take(segp[key], r), kind, arch,
+                                            x, x0=x0, shared=shared,
+                                            cache=c, positions=positions,
+                                            block_tables=block_tables,
+                                            new_lens=new_lens,
+                                            slot_ids=slot_ids, impl=impl)
+                    aux = aux + a
+                return x, aux
+            x, a = _remat(body, remat if cache is None else "none")(x)
+            aux = aux + a
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = B.norm_apply(arch, params["final_norm"], x)
+    return LMOutput(_head(params, arch, hidden), cache, aux,
+                    hidden if return_hidden else None)
+
+
+def _head(params: Params, arch: ArchConfig,
+          hidden: torch.Tensor) -> torch.Tensor:
+    """fp32 logits: the tied embedding's transpose or the untied head."""
     if arch.tie_embeddings:
-        logits = L.unembed(params["embed"], hidden)
-    else:
-        logits = L.dense(params["head"], hidden).to(torch.float32)
-    return LMOutput(logits, cache)
+        return L.unembed(params["embed"], hidden)
+    return L.dense(params["head"], hidden).to(torch.float32)
+
+
+def mtp_logits(params: Params, arch: ArchConfig, hidden: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction head (depth 1): the normed
+    final hidden state at position t, concatenated with the embedding of
+    token t+1 and projected back to d_model, goes through one ``attn``
+    block at positions 0..S-1 (plain attention: the reference passes no
+    ``impl`` there) and the head, so that logits[:, t] predict
+    tokens[:, t+2].  -> (B, S, V) fp32."""
+    mtp = params["mtp"]
+    emb_next = L.embed(params["embed"],
+                       torch.roll(tokens.long(), -1, dims=1),
+                       arch.d_model).to(hidden.dtype)
+    h = L.dense(mtp["proj"], torch.cat(
+        [B.norm_apply(arch, mtp["norm"], hidden), emb_next], dim=-1))
+    h, _, _ = B.apply_block(mtp["block"], "attn", arch, h,
+                            positions=torch.arange(h.shape[1],
+                                                   device=h.device))
+    return _head(params, arch, h)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,

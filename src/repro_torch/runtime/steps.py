@@ -32,19 +32,25 @@ from repro_torch.optim import optimizers as O
 def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
                  mtp_weight: float = 0.3):
     """-> loss_fn(params, tokens (B,S), labels (B,S)) -> (total, ce), both
-    0-d fp32: the mean next-token cross-entropy (``transformer.lm_loss``).
-    The ported block kinds add no auxiliary loss, so total == ce.  MTP
-    heads are not ported (``mtp_weight`` is kept for the reference's
-    signature)."""
-    if arch.mtp:
-        raise NotImplementedError(
-            f"{arch.name}: the MTP loss term is not ported yet (ROADMAP "
-            f"Queue 1 item 7)")
-
+    0-d fp32, as the reference's: ce is the mean next-token cross-entropy
+    (``transformer.lm_loss``), plus for an MTP arch ``mtp_weight`` times
+    the MTP head's cross-entropy against the labels shifted left by one
+    (the wrapped last column masked out); total adds the MoE layers' aux
+    loss to it, and is what the train step differentiates."""
     def loss_fn(params, tokens, labels):
-        out = T.lm_apply(params, arch, tokens, impl=impl, remat=remat)
+        out = T.lm_apply(params, arch, tokens, impl=impl, remat=remat,
+                         return_hidden=arch.mtp)
         loss = T.lm_loss(out.logits, labels, arch.vocab)
-        return loss, loss
+        if arch.mtp:
+            # depth-1 MTP: hidden_t + emb(token_{t+1}) predicts token_{t+2}
+            mtp_lg = T.mtp_logits(params, arch, out.hidden, tokens)
+            tgt = torch.roll(labels, -1, dims=1)
+            mask = torch.ones(tgt.shape, dtype=torch.float32,
+                              device=tgt.device)
+            mask[:, -1] = 0.0
+            loss = loss + mtp_weight * T.lm_loss(mtp_lg, tgt, arch.vocab,
+                                                 mask)
+        return loss + out.aux, loss
     return loss_fn
 
 

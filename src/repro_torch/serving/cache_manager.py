@@ -4,10 +4,11 @@
 The continuous-batching engine juggles two classes of per-request state,
 and this module is the single host-side owner of both:
 
-  * **length-indexed** — attention KV (``attn``, and zamba2's
-    ``shared_attn``, whose pool is stacked per application of the shared
-    weights) grows one entry per token.  It lives in fixed-size physical
-    blocks (paged_cache.py: free-list allocator +
+  * **length-indexed** — attention KV (``attn``, ``moe_attn``, and
+    zamba2's ``shared_attn``, whose pool is stacked per application of the
+    shared weights) and MLA's latent rows (``mla``, ``mla_dense``: c_kv
+    and k_rope, no KV heads) grow one entry per token.  They live in
+    fixed-size physical blocks (paged_cache.py: free-list allocator +
     per-request block tables over the pools from
     models/transformer.init_paged_cache).  Block 0 is the reserved null
     block for idle slots / padded table tails / overrun writes.
@@ -47,9 +48,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.serving.paged_cache import PagedCacheConfig, PagedKVCache
 
-# O(1)-per-request state, slot-indexed: of the ported kinds, mamba2 (attn
-# and shared_attn are length-indexed, block-paged through per-request
-# tables)
+# O(1)-per-request state, slot-indexed: of the ported kinds, mamba2 (the
+# attention kinds, MLA's latents included, are length-indexed, block-paged
+# through per-request tables)
 SLOT_STATE_KINDS = {"mamba2"}
 
 

@@ -29,10 +29,11 @@ Engine step = admit -> one prefill chunk -> one decode step:
 The steps (runtime/steps.py) run eagerly and write the pools in place;
 the greedy sampler is fused into them, so only a (B,) token vector comes
 back to the host per step.  The port serves archs built of ``attn``,
-``mamba2`` and ``shared_attn`` blocks (serving/cache_manager.py owns both
-state classes; zamba2's shared block pages its KV in a pool per
-application); any other block kind raises ``NotImplementedError`` naming
-it at construction.
+``moe_attn``, ``mla``, ``mla_dense``, ``mamba2`` and ``shared_attn``
+blocks (serving/cache_manager.py owns both state classes; zamba2's shared
+block pages its KV in a pool per application, MLA blocks page latent
+(c_kv, k_rope) pools); any other block kind raises
+``NotImplementedError`` naming it at construction.
 Stochastic sampling (temperature > 0) is refused at submit.  Not ported
 yet: the reference engine's ASA plan / mesh placement, Chrome tracer,
 snapshot writer, StepMonitor and cache sanitizer, per-request frontends,

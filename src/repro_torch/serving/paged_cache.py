@@ -5,8 +5,9 @@ block tables, and cross-request shared-prefix block reuse (twin of
 The device side is a *physical block pool* per attention layer
 (models/transformer.init_paged_cache — torch tensors of shape (repeat,
 num_blocks, block_size, Hkv, head_dim) on the engine's device, no batch
-axis), and a slot-state pool per mamba2 layer, both written in place by
-the paged steps.  The host side is a copy of
+axis; an MLA layer's latent pools are (repeat, num_blocks, block_size,
+kv_lora_rank) and (..., qk_rope_head_dim)), and a slot-state pool per
+mamba2 layer, all written in place by the paged steps.  The host side is a copy of
 the reference's bookkeeping: which physical blocks belong to which
 request, how many are free, and — with ``share_prefix`` — which blocks
 hold which *content*.
@@ -14,7 +15,8 @@ hold which *content*.
 Block 0 is the reserved **null block**: it is never allocated, idle batch
 slots point every block-table entry at it, and the padded tail of short
 tables also maps there, so stray writes land in a scratch page that no
-live request ever reads (layers.paged_attention masks it out).
+live request ever reads (layers.paged_attention and
+mla.mla_paged_attention mask it out).
 
 Prefix sharing: every *full* block a request has written can be registered
 in a content index keyed by a hash chain over its ``block_size``-token

@@ -8,7 +8,13 @@ slot-state pools are held to 1e-5.  The archs: the dense and mamba2
 shapes, zamba2's (``tiny-shared`` and ``reduce_for_smoke(zamba2-2.7b)``:
 the weight-shared attention block over concat(x, x0) with per-application
 KV pools, GeGLU) and gemma's (``gemma-tiny``: GeGLU, tied embeddings,
-heads x head_dim wider than d_model).
+heads x head_dim wider than d_model), GQA at ratio 3 (``gqa3-tiny``),
+and the MoE family: ``tiny-mla`` (the goldens' MLA + MoE shape) and
+``reduce_for_smoke`` of deepseek-v3-671b (MLA, sigmoid routing, a shared
+expert, the MTP head) and of arctic-480b (``moe_attn``: softmax routing, a
+dense residual FFN).  ``moe``, ``mla_attention`` and
+``mla_paged_attention`` are also held alone, the MoE layer at a capacity
+that drops tokens and under ``jax.grad``.
 """
 import dataclasses
 
@@ -22,23 +28,33 @@ from repro.configs import get_arch as j_get_arch
 from repro.configs import reduce_for_smoke as j_reduce_for_smoke
 from repro.models import layers as JL
 from repro.models import mamba2 as JM2
+from repro.models import mla as JMLA
+from repro.models import moe as JMOE
 from repro.models import transformer as JT
 from repro.runtime import steps as JST
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.models import layers as TL
 from repro_torch.models import mamba2 as TM2
+from repro_torch.models import mla as TMLA
+from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.runtime import steps as TST
-from serving_fixtures import TINY, TINY_HYBRID, TINY_SHARED, TINY_SSM
-from torch_port_fixtures import (GEMMA_TINY, QWEN_TINY, SSM_G2_TINY,
-                                 jax_params, port_arch, torch_params)
+from serving_fixtures import (TINY, TINY_HYBRID, TINY_MLA, TINY_SHARED,
+                              TINY_SSM)
+from torch_port_fixtures import (GEMMA_TINY, GQA3_TINY, QWEN_TINY,
+                                 SSM_G2_TINY, jax_params, port_arch,
+                                 torch_params)
 
 ZAMBA2_SMOKE = j_reduce_for_smoke(j_get_arch("zamba2-2.7b"))
+DEEPSEEK_SMOKE = j_reduce_for_smoke(j_get_arch("deepseek-v3-671b"))
+ARCTIC_SMOKE = j_reduce_for_smoke(j_get_arch("arctic-480b"))
 ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY, "tiny-ssm": TINY_SSM,
          "tiny-hybrid": TINY_HYBRID, "tiny-ssm-g2": SSM_G2_TINY,
          "tiny-shared": TINY_SHARED, "zamba2-smoke": ZAMBA2_SMOKE,
-         "gemma-tiny": GEMMA_TINY}
+         "gemma-tiny": GEMMA_TINY, "gqa3-tiny": GQA3_TINY,
+         "tiny-mla": TINY_MLA, "deepseek-smoke": DEEPSEEK_SMOKE,
+         "arctic-smoke": ARCTIC_SMOKE}
 TOL = 1e-5
 
 
@@ -119,13 +135,21 @@ def test_init_lm_matches_reference_tree(name):
             assert str(a.dtype) == str(b.dtype).replace("torch.", "")
     walk(want, got)
     b0 = got["segments"][0]["b0"]
-    w = (b0["mlp"]["w_in"] if "mlp" in b0 else b0["app_proj"]
-         if "app_proj" in b0 else b0["mixer"]["x_proj"])["w"]
+    w = (b0["mlp"]["w_in"]["w"] if "mlp" in b0 else b0["moe"]["w_in"]
+         if "moe" in b0 else b0["app_proj"]["w"] if "app_proj" in b0
+         else b0["mixer"]["x_proj"]["w"])
     assert float(w.abs().max()) <= 2.0 / w.shape[-2] ** 0.5    # truncated
+    if "moe" in b0:             # the router stays fp32 in a bf16 model
+        bf = TT.init_lm(port_arch(arch.scaled(param_dtype="bfloat16")),
+                        device="cpu", seed=0)["segments"][0]["b0"]["moe"]
+        assert bf["router"]["w"].dtype == torch.float32
+        assert bf["w_in"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-780m", "zamba2-2.7b",
-                                  "gemma-7b"])
+                                  "gemma-7b", "minitron-4b",
+                                  "command-r-plus-104b", "deepseek-v3-671b",
+                                  "arctic-480b"])
 def test_configs_and_smoke_reductions_equal_the_reference(name):
     """The port's copy of each served config, and its reduce_for_smoke,
     field for field the reference's."""
@@ -138,15 +162,27 @@ def test_configs_and_smoke_reductions_equal_the_reference(name):
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_lm_apply_matches_reference(name, impl):
+    """Logits, the final-normed hidden states, the MoE aux loss (0
+    without MoE) and, for an MTP arch, the MTP head's logits."""
     arch = ARCHS[name]
     tokens = np.random.default_rng(0).integers(0, arch.vocab, (2, 11))
     want = JT.lm_apply(jax_params(arch), arch, jnp.asarray(tokens, jnp.int32),
-                       impl=impl).logits
+                       impl=impl, return_hidden=True)
     got = TT.lm_apply(torch_params(arch), port_arch(arch),
-                      torch.from_numpy(tokens), impl=impl).logits
-    assert got.shape == (2, 11, arch.padded_vocab)
-    assert got.dtype == torch.float32
-    _close(got, want)
+                      torch.from_numpy(tokens), impl=impl,
+                      return_hidden=True)
+    assert got.logits.shape == (2, 11, arch.padded_vocab)
+    assert got.logits.dtype == torch.float32
+    _close(got.logits, want.logits)
+    _close(got.hidden, want.hidden)
+    assert got.aux.shape == () and got.aux.dtype == torch.float32
+    _close(got.aux, want.aux)
+    assert (float(got.aux) > 0) == (arch.moe is not None)
+    if arch.mtp:
+        _close(TT.mtp_logits(torch_params(arch), port_arch(arch), got.hidden,
+                             torch.from_numpy(tokens)),
+               JT.mtp_logits(jax_params(arch), arch, want.hidden,
+                             jnp.asarray(tokens, jnp.int32)))
 
 
 @pytest.mark.parametrize("act", ["silu", "geglu", "gelu", "relu"])
@@ -262,8 +298,8 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
         and idle rows write scratch there in any order."""
         for js, ts in zip(jcache, tcache):
             for key, pool in ts.items():
-                skip = (slice(1, None) if "k" in pool
-                        else slice(None, -1))
+                paged = "k" in pool or "c_kv" in pool
+                skip = slice(1, None) if paged else slice(None, -1)
                 for leaf, t in pool.items():
                     _close(t[:, skip], np.asarray(js[key][leaf])[:, skip])
 
@@ -441,3 +477,129 @@ def _close_scaled(got, want, what, tol=TOL):
     want = np.asarray(want, np.float32)
     err = float(np.abs(_np(got) - want).max())
     assert err <= tol * float(np.abs(want).max()), (what, err)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA alone
+# ---------------------------------------------------------------------------
+
+# (router, capacity factor, shared expert, dense residual): arctic's and
+# deepseek's layers at a capacity of a whole row (C = S, nothing dropped),
+# and at the published 1.25 and at 0.5, which drop assignments
+MOE_CASES = {"softmax-dense": ("softmax", 2.0, False, True),
+             "sigmoid-shared": ("sigmoid", 2.0, True, False),
+             "softmax-drops": ("softmax", 1.25, False, True),
+             "sigmoid-drops": ("sigmoid", 0.5, True, False)}
+
+
+def _moe_case(name, seed=4):
+    router, cf, shared, dense = MOE_CASES[name]
+    cfg = dict(d_model=32, d_ff=24, n_experts=4, top_k=2, router=router,
+               capacity_factor=cf, n_shared_experts=int(shared),
+               shared_d_ff=16 if shared else 0,
+               dense_d_ff=20 if dense else 0)
+    jcfg, tcfg = JMOE.MoEConfig(**cfg), TMOE.MoEConfig(**cfg)
+    jp = JMOE.init_moe(jax.random.PRNGKey(seed), jcfg)
+    x = np.random.default_rng(seed).standard_normal((2, 9, 32)).astype(
+        np.float32)
+    return jcfg, tcfg, jp, convert.to_torch(jax.tree.map(np.asarray, jp)), x
+
+
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_matches_reference(name):
+    """Output and aux loss at 1e-5 in fp32.  At capacity factors 1.25 and
+    0.5 (C = 5 and 2 slots an expert for a row's 9 x 2 assignments over 4
+    experts) assignments are dropped, and the outputs agree only if the
+    port drops the same ones; at 2.0 (C = 9) none is."""
+    jcfg, tcfg, jp, tp, x = _moe_case(name)
+    want, jaux = JMOE.moe(jp, jcfg, jnp.asarray(x))
+    got, aux = TMOE.moe(tp, tcfg, torch.from_numpy(x))
+    _close(got, want)
+    _close(aux, jaux)
+    assert sorted(tp) == sorted(TMOE.init_moe(
+        tcfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+    _, _, idx = TMOE.route(tp, tcfg, torch.from_numpy(x))
+    C = max(1, int(tcfg.capacity_factor * 2 * 9 / 4))
+    counts = torch.nn.functional.one_hot(idx, 4).sum(dim=(1, 2))  # (B, E)
+    kept = int(torch.clamp(counts, max=C).sum())
+    assert (kept < idx.numel()) == name.endswith("drops")
+
+
+@pytest.mark.parametrize("name", ["softmax-drops", "sigmoid-shared"])
+def test_moe_grads_match_jax_grad(name):
+    """Grads of every leaf and of x for sum(out * cot) + aux against
+    jax.grad, each at 1e-5 of its max |grad|: the aux term reaches the
+    router through p_e only, and dropped assignments take no gradient."""
+    jcfg, tcfg, jp, tp, x = _moe_case(name, seed=5)
+    cot = np.random.default_rng(6).standard_normal(x.shape).astype(
+        np.float32)
+
+    def jloss(p, xx):
+        out, aux = JMOE.moe(p, jcfg, xx)
+        return jnp.sum(out * cot) + aux
+    gp, gx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    leaves = _flat(tp)
+    for t in leaves.values():
+        t.requires_grad_()
+    tx = torch.from_numpy(x).requires_grad_()
+    out, aux = TMOE.moe(tp, tcfg, tx)
+    ((out * torch.from_numpy(cot)).sum() + aux).backward()
+    for k, t in leaves.items():
+        _close_scaled(t.grad, _get(gp, k), k)
+    _close_scaled(tx.grad, gx, "x")
+
+
+def _mla_case(seed=7, r=16, H=2):
+    cfg = dict(d_model=32, n_heads=H, q_lora_rank=24, kv_lora_rank=r,
+               qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8,
+               rope_theta=1e4)
+    jcfg, tcfg = JMLA.MLAConfig(**cfg), TMLA.MLAConfig(**cfg)
+    jp = JMLA.init_mla(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, tcfg, jp, convert.to_torch(jax.tree.map(np.asarray, jp))
+
+
+@pytest.mark.parametrize("S", [7, 1100])
+def test_mla_attention_matches_reference(S):
+    """Whole-sequence latent attention at 1e-5; S = T = 1100 (S*T > 1024^2,
+    S > MLA_CHUNK) takes the q-block scan, the last block padded."""
+    jcfg, tcfg, jp, tp = _mla_case()
+    x = np.random.default_rng(S).standard_normal((1, S, 32)).astype(
+        np.float32)
+    want, _ = JMLA.mla_attention(jp, jcfg, jnp.asarray(x))
+    got, cache = TMLA.mla_attention(tp, tcfg, torch.from_numpy(x))
+    assert cache is None
+    _close(got, want)
+    with pytest.raises(NotImplementedError, match="paged"):
+        TMLA.mla_attention(tp, tcfg, torch.from_numpy(x), cache={})
+
+
+def test_mla_paged_attention_matches_reference():
+    """Two calls over shuffled block tables: a padded prompt chunk (row 0
+    padded past new_lens) and then a step in which row 1 runs past its
+    3-block table (its overrun row diverts to the null block).  Outputs
+    and the latent pools (null block excluded) at 1e-5; the pools are
+    written in place."""
+    jcfg, tcfg, jp, tp = _mla_case(seed=8)
+    NB, BS = 9, 4
+    jcache = JMLA.init_paged_mla_cache(jcfg, NB, BS, jnp.float32)
+    tcache = TMLA.init_paged_mla_cache(tcfg, NB, BS, device="cpu",
+                                       dtype=torch.float32)
+    tables = np.asarray([[4, 2, 7], [1, 5, 3]], np.int32)
+    rng = np.random.default_rng(9)
+    for positions, new_lens, S in (([0, 0], [3, 5], 5), ([3, 9], None, 4)):
+        x = rng.standard_normal((2, S, 32)).astype(np.float32)
+        pos = np.asarray(positions, np.int32)
+        nl = None if new_lens is None else np.asarray(new_lens, np.int32)
+        want, jcache = JMLA.mla_paged_attention(
+            jp, jcfg, jnp.asarray(x), cache=jcache,
+            positions=jnp.asarray(pos), block_tables=jnp.asarray(tables),
+            new_lens=None if nl is None else jnp.asarray(nl))
+        got, out = TMLA.mla_paged_attention(
+            tp, tcfg, torch.from_numpy(x), cache=tcache,
+            positions=torch.from_numpy(pos),
+            block_tables=torch.from_numpy(tables),
+            new_lens=None if nl is None else torch.from_numpy(nl))
+        assert out is tcache
+        _close(got, want)
+        for leaf in ("c_kv", "k_rope"):
+            _close(tcache[leaf][1:], np.asarray(jcache[leaf])[1:])

@@ -7,7 +7,9 @@ inside ``jax.threefry_partitionable(False)`` (tests/torch_port_fixtures.py).
 The engine kwargs are those of tests/test_serving.py for the same
 scenarios; tokens must match exactly.  The ``shared/*`` scenarios serve
 zamba2's shape (TINY_SHARED: the weight-shared attention block with a
-paged KV pool per application, mamba2 slot state, GeGLU).
+paged KV pool per application, mamba2 slot state, GeGLU), the ``mla/*``
+scenarios deepseek's (TINY_MLA: latent attention on paged c_kv / k_rope
+pools, an ``mla_dense`` then an ``mla`` block with a MoE FFN).
 """
 import numpy as np
 import pytest
@@ -15,8 +17,8 @@ import pytest
 from repro_torch.configs.base import ArchConfig, Segment
 from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 from repro_torch.serving.sampling import SamplingParams
-from serving_fixtures import (TINY, TINY_SHARED, TINY_SSM, load_goldens,
-                              scenario_requests)
+from serving_fixtures import (TINY, TINY_MLA, TINY_SHARED, TINY_SSM,
+                              load_goldens, scenario_requests)
 from torch_port_fixtures import (QWEN_TINY, SSM_G2_TINY, jax_params,
                                  port_arch, torch_params)
 
@@ -47,6 +49,9 @@ GOLDEN_CASES = [
     ("shared/base",  dict(block_size=4, prefill_chunk=3), False),
     ("shared/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8),
      True),
+    ("mla/base",     dict(block_size=4, prefill_chunk=3), False),
+    ("mla/preempt",  dict(block_size=4, num_blocks=8, prefill_chunk=8),
+     True),
 ]
 
 
@@ -64,6 +69,8 @@ def test_greedy_goldens(scenario, kw, preempts):
 SHARING_CASES = [
     ("tiny/base",    dict(block_size=4, prefill_chunk=3)),
     ("tiny/preempt", dict(block_size=4, num_blocks=8, prefill_chunk=8)),
+    ("mla/base",     dict(block_size=4, prefill_chunk=3)),
+    ("mla/preempt",  dict(block_size=4, num_blocks=8, prefill_chunk=8)),
 ]
 
 
@@ -224,8 +231,8 @@ def test_stochastic_sampling_is_refused_at_submit():
                            sampling=SamplingParams(temperature=-1.0)))
 
 
-@pytest.mark.parametrize("blocks", [("moe_attn",), ("mla",),
-                                    ("cross_attn",)])
+@pytest.mark.parametrize("blocks", [("cross_attn",), ("wdec",),
+                                    ("attn", "enc_attn")])
 def test_unported_block_kinds_raise_at_construction(blocks):
     arch = ArchConfig(name="mixed", family="hybrid", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=128, vocab=256,
@@ -234,6 +241,39 @@ def test_unported_block_kinds_raise_at_construction(blocks):
     bad = [k for k in blocks if k != "attn"]
     with pytest.raises(NotImplementedError, match=bad[0]):
         ContinuousBatchingEngine(arch, {}, device="cpu")
+
+
+def test_matches_jax_engine_on_mla_config():
+    """deepseek's shape (TINY_MLA: latent pools, MoE): the port's engine
+    and the JAX engine emit the same greedy tokens, logprobs to 1e-5 and
+    the same preemption count under chunked prefill and forced preemption
+    (the re-prefill rewrites the latent rows); every pool is a block pool,
+    so no slot-state kind is reported."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.serving import ContinuousBatchingEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    from repro.serving import SamplingParams as JaxSamplingParams
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, TINY_MLA.vocab, size=n).astype(np.int32)
+               for n in (9, 5, 13, 7)]
+    kw = dict(slots=2, max_len=32, block_size=4, num_blocks=7,
+              prefill_chunk=5)
+    jeng = JaxEngine(TINY_MLA, jax_params(TINY_MLA), make_host_mesh(), **kw)
+    want = jeng.generate([
+        JaxRequest(id=i, prompt=p, max_new_tokens=8,
+                   sampling=JaxSamplingParams(logprobs=True))
+        for i, p in enumerate(prompts)])
+    teng = _engine(TINY_MLA, **kw)
+    got = teng.generate([Request(id=i, prompt=p, max_new_tokens=8,
+                                 sampling=SamplingParams(logprobs=True))
+                         for i, p in enumerate(prompts)])
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=1e-5)
+    assert teng.metrics.preemptions == jeng.metrics.preemptions > 0
+    assert teng.cache.stats()["slot_state_kinds"] == []
+    assert teng.cache.pool_bytes == 2 * 7 * 4 * (16 + 8) * 4   # 2 layers
 
 
 def test_prefill_serves_oldest_request_first():

@@ -59,11 +59,19 @@ MAMBA2_SMOKE = reduce_for_smoke(get_arch("mamba2-780m"))
 # heads of 16, d_state 16, GeGLU, tied embeddings, fp32) at its smoke
 # chunk of 16
 ZAMBA2_SMOKE = reduce_for_smoke(get_arch("zamba2-2.7b"))
+# deepseek-v3-671b cut the same way (2 mla_dense + 2 mla layers of MLA at
+# LoRA ranks 64 / 32, 4 experts top-2 with sigmoid routing and a shared
+# expert, the MTP head; capacity factor 2.0) and arctic-480b (2 moe_attn
+# layers, 4 experts top-2 with softmax routing and a dense residual FFN)
+DEEPSEEK_SMOKE = reduce_for_smoke(get_arch("deepseek-v3-671b"))
+ARCTIC_SMOKE = reduce_for_smoke(get_arch("arctic-480b"))
 # the arch of each run and its SyntheticLM(vocab, seq_len, batch)
 RUNS = {"tiny-rt": (TINY_RT, (256, 32, 8)),
         "mamba2": (MAMBA2_SMOKE, (512, 32, 8)),
         "mamba2-s128": (MAMBA2_SMOKE, (512, 128, 2)),
-        "zamba2": (ZAMBA2_SMOKE, (512, 32, 4))}
+        "zamba2": (ZAMBA2_SMOKE, (512, 32, 4)),
+        "deepseek": (DEEPSEEK_SMOKE, (512, 32, 4)),
+        "arctic": (ARCTIC_SMOKE, (512, 32, 4))}
 EPS = 1e-8          # adamw's
 
 
@@ -259,6 +267,39 @@ def test_zamba2_train_step_matches_jax():
     _assert_step_matches(_run(3, run="zamba2", impl="pallas"))
 
 
+@pytest.mark.parametrize("run", ["deepseek", "arctic"])
+def test_moe_train_step_matches_jax(run):
+    """4 AdamW steps of the port's make_train_step against the mesh-free
+    JAX step from the same params: deepseek's smoke shape (MLA, sigmoid
+    routing, a shared expert, the MTP loss term at weight 0.3 and the aux
+    loss) and arctic's (softmax routing, a dense residual FFN, the aux
+    loss; flash's plain version under impl="pallas").  loss - ce is the
+    aux loss, > 0 on both sides."""
+    r = _run(4, run=run, impl="pallas" if run == "arctic" else "xla")
+    _assert_step_matches(r)
+    arch = RUNS[run][0]
+    assert arch.moe is not None and arch.mtp == (run == "deepseek")
+
+
+@pytest.mark.parametrize("run", ["deepseek", "arctic"])
+def test_loss_fn_terms_match_jax(run):
+    """(total, ce) of make_loss_fn against the reference's on one batch:
+    ce holds the MTP term for deepseek, total - ce is the MoE aux loss;
+    both at 1e-6 relative."""
+    from repro.runtime.steps import make_loss_fn as j_make_loss_fn
+    jarch, data = RUNS[run]
+    jparams = JT.init_lm(jax.random.PRNGKey(0), jarch)
+    b = next(SyntheticLM(*data))
+    jt, jc = j_make_loss_fn(jarch)(jparams, jnp.asarray(b["tokens"]),
+                                   jnp.asarray(b["labels"]))
+    tt, tc = ST.make_loss_fn(port_arch(jarch))(
+        convert.to_torch(_np_tree(jparams)), torch.as_tensor(b["tokens"]),
+        torch.as_tensor(b["labels"]))
+    np.testing.assert_allclose(float(tt), float(jt), rtol=1e-6)
+    np.testing.assert_allclose(float(tc), float(jc), rtol=1e-6)
+    assert float(tt) > float(tc)
+
+
 def _grads(remat: str, impl: str = "xla", run: str = "tiny-rt"):
     jarch, data = RUNS[run]
     arch = port_arch(jarch)
@@ -327,9 +368,6 @@ def test_unknown_remat_and_unported_options_raise():
                    remat="dots")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         O.adamw(1e-3, quantized=True)
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ST.make_loss_fn(dataclasses.replace(arch, mtp=True))
     step = ST.make_train_step(arch, O.adamw(1e-3), microbatches=3)
     batch = next(SyntheticLM(256, 8, 4))
     with pytest.raises(ValueError, match="microbatches"):

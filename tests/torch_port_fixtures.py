@@ -47,6 +47,14 @@ GEMMA_TINY = ArchConfig(name="gemma-tiny", family="dense", n_layers=2,
                         pattern=(Segment(("attn",), 2),), dtype="float32",
                         param_dtype="float32")
 
+# minitron-shaped tiny config: GQA at ratio 3 (6 query heads over 2 KV
+# heads), as minitron-4b's 24 over 8
+GQA3_TINY = ArchConfig(name="gqa3-tiny", family="dense", n_layers=2,
+                       d_model=96, n_heads=6, n_kv_heads=2, head_dim=16,
+                       d_ff=128, vocab=300,
+                       pattern=(Segment(("attn",), 2),), dtype="float32",
+                       param_dtype="float32")
+
 _JAX_PARAMS: dict[str, dict] = {}
 _TORCH_PARAMS: dict[str, dict] = {}
 
