@@ -47,7 +47,10 @@ Phases, each of which fails the run (exit code 1) on any error:
 4. Serve qwen3-8b: published widths and all 36 layers, bf16, random weights
    from a seeded generator, 8 greedy requests of 512 prompt tokens and 32
    new tokens through ``ContinuousBatchingEngine.generate``.  Every launch
-   counter is set to 0 just before and read just after.
+   counter is set to 0 just before and read just after: no flash launch
+   (the serve path's attention is paged, as in the reference), and
+   exactly ``forward_launches`` RMSNorm launches a model call (prefill
+   chunk or decode step), in this and every serve phase.
 5. Forward qwen3-8b: ``lm_apply(impl="pallas")`` over 2 of the prompts
    (the flash kernel's path): exact launch counts (36 flash, 145 RMSNorm);
    the last-position logits and their argmax are held against the
@@ -149,11 +152,40 @@ Phases, each of which fails the run (exit code 1) on any error:
     too, as in every train phase: this model runs no flash and no SSD)
     and steps; the loss adds the MTP term, RMSNorm and its backward run 8
     times a step (5 in the model, 3 in the MTP head).
+24. Serve whisper-medium: published widths and all 24 encoder and 24
+    decoder layers (d 1,024, 16 heads of 64, LayerNorm, GELU, attention
+    biases, a tied 51,865-token embedding), bf16, seeded weights; 8
+    greedy requests of 384 prompt tokens (a 256-token chunk, then a
+    padded one of 128) and 32 new within its 448-token decoder context,
+    each with its own seeded frame embeddings (1, 1500, 1024).  phase 4's
+    checks, and: the encoder runs once an admission (counted, and timed
+    between CUDA events), the cross K/V are written once an admission, no
+    flash and no RMSNorm launch (paged self-attention, LayerNorm), and slot 0's
+    cross-K rows equal the direct projection of that request's encoder
+    output (``check_cross_rows``); the same requests served without
+    frontends give the TTFT without the encoder.
+25. Forward whisper-medium: ``lm_apply(impl="pallas", frontend=...)`` over
+    2 of the prompts and their frontends (the encoder in the forward):
+    exactly 24 flash launches at D = 64 and no RMSNorm, held against the
+    engine's paged prefill as in phase 5.
+26. Serve llama-3.2-vision-90b: published widths (d 8,192, 64 heads of 128
+    over 8, GQA ratio 8, d_ff 28,672, 128,256-token vocabulary) at 5 of
+    its 20 segments (20 ``attn`` + 5 ``cross_attn`` layers,
+    ``SERVE_LAYERS``), every tanh gate opened to ``GATE``, each request
+    with its own seeded patch embeddings (1, 1601, 8192); phase 4's
+    requests, settings and checks, 51 RMSNorm launches a step, and slot
+    0's cross-K rows against the direct projection of its patches.
+27. Forward llama-3.2-vision-90b (20 flash at GQA 8, 51 RMSNorm at 8,192),
+    held as in phase 5.
+28. Train whisper-medium whole (0.76 B params), ``SyntheticLM`` batches of
+    2 x 448 decoder tokens, each with seeded frame embeddings (2, 1500,
+    1024) through the encoder; phase 8's grad check and steps: flash and
+    its backward 24 times a step each, no RMSNorm.
 
-The phases run in the order 1-7, 10-13, 15-22 (each model's serve, then
-its forward, each model freed before the next), 8, 9, 14, 23 (the trains,
-with every serving weight freed); each phase's seconds and the total are
-printed before the result lines.
+The phases run in the order 1-7, 10-13, 15-22, 24-27 (each model's serve,
+then its forward, each model freed before the next), 8, 9, 14, 23, 28 (the
+trains, with every serving weight freed); each phase's seconds and the
+total are printed before the result lines.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -226,6 +258,16 @@ SSD_BWD_F32_TOL = 1e-4
 GRAD_COS_MIN = 0.999
 GRAD_REL_L2_MAX = 2e-2
 GRAD_NORM_REL_TOL = 2e-2
+# leaves whose gradient is 0 in exact arithmetic: an attention's key bias
+# (whisper's ``wk.b``) adds q.b to every logit of a query's row, which the
+# softmax cancels, so each path's grad there is rounding noise (~4e-6 of
+# the global grad norm in bf16 and ~4e-10 in fp32, measured on the CPU at
+# whisper's smoke widths) and a cosine or relative L2 between two noises
+# means nothing.  They are held instead to a norm of at most
+# ZERO_GRAD_REL_MAX of the global grad norm, on both paths: a backward
+# whose dS rows stopped summing to 0 would break it.
+ZERO_GRAD_LEAF = ".wk.b"
+ZERO_GRAD_REL_MAX = 1e-4
 
 TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
 L2_FLUSH_BYTES = 64 << 20          # written before each call of a cold-L2 time
@@ -238,15 +280,24 @@ MINITRON = "minitron-4b"
 CMDR = "command-r-plus-104b"
 DEEPSEEK = "deepseek-v3-671b"
 ARCTIC = "arctic-480b"
-# the serve cells; zamba2 takes mamba2's settings, every other model
-# qwen's
+WHISPER = "whisper-medium"
+VISION = "llama-3.2-vision-90b"
+# the serve cells; zamba2 takes mamba2's settings, whisper its own (its
+# published decoder context is 448 tokens), every other model qwen's
 _DENSE_SERVE = dict(requests=8, prompt_len=512, max_new=32, slots=4,
                     max_len=1024, block_size=16, prefill_chunk=256)
 # 500 = 256 + 244: the second prefill chunk is padded
 _SSM_SERVE = dict(_DENSE_SERVE, prompt_len=500)
+# 384 = 256 + 128 (a padded chunk); 384 + 32 new tokens within 448
+_WHISPER_SERVE = dict(_DENSE_SERVE, prompt_len=384, max_len=448)
 SERVE = {QWEN: _DENSE_SERVE, MAMBA: _SSM_SERVE, ZAMBA: _SSM_SERVE,
          GEMMA: _DENSE_SERVE, MINITRON: _DENSE_SERVE, CMDR: _DENSE_SERVE,
-         DEEPSEEK: _DENSE_SERVE, ARCTIC: _DENSE_SERVE}
+         DEEPSEEK: _DENSE_SERVE, ARCTIC: _DENSE_SERVE,
+         WHISPER: _WHISPER_SERVE, VISION: _DENSE_SERVE}
+# llama-3.2-vision's tanh gates (each cross_attn block's attn.gate and
+# mlp_gate) start at 0, which makes those blocks the identity: every phase
+# opens them to this value, so that a fault in them shows
+GATE = 0.5
 # the serve cells' depth cuts: each segment's repeat (bf16, 2 bytes a
 # parameter; every width, expert count and vocabulary as published).
 # minitron-4b serves whole (5.1 B params, 10.2 GB). command-r-plus-104b:
@@ -260,7 +311,12 @@ SERVE = {QWEN: _DENSE_SERVE, MAMBA: _SSM_SERVE, ZAMBA: _SSM_SERVE,
 # residual FFN, attention): 2 of 35 layers, 27.5 B = 55 GB.  A depth cut
 # keeps each layer's shapes: a cut in experts would change the capacity
 # int(1.25 K S / E), the (E, C) buffers and the tokens each expert sees.
-SERVE_LAYERS = {CMDR: (16,), DEEPSEEK: (3, 2), ARCTIC: (2,)}
+# llama-3.2-vision-90b: an attn or a cross_attn layer 0.856 B (attention
+# 151 M at 64 heads over 8, MLP 3 x 8,192 x 28,672 = 705 M), untied
+# 128,256 x 8,192 embedding and head 2.1 B: 5 of its 20 segments (4 attn
+# + 1 cross_attn each), 23.5 B = 47 GB.  whisper-medium serves whole
+# (0.76 B params).
+SERVE_LAYERS = {CMDR: (16,), DEEPSEEK: (3, 2), ARCTIC: (2,), VISION: (5,)}
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # the train phases: qwen3-8b's widths at 4 of its 36 layers (bf16 params
 # and grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36
@@ -277,13 +333,19 @@ FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # same grads).  deepseek-v3-671b at 1 mla_dense layer, no mla layer (an
 # mla layer's 11.5 B params take ~184 GB of training state), and the MTP
 # head: 3.14 B params, ~38 GB at 12 bytes a parameter plus 12.6 GB of the
-# step's fp32 grads.  ``depth``: each segment's repeat (None: whole)
+# step's fp32 grads.  whisper-medium whole, its 448-token decoder context,
+# a frame-embedding frontend (2, 1500, 1024) in every batch: 0.76 B params,
+# ~12 GB of training state (bf16 params and grads, fp32 moments and the
+# step's fp32 grads) plus ~17 GB of activations (the encoder's plain
+# attention over 1,500 frames keeps ~0.45 GB of softmax a layer), ~30 GB,
+# so no remat.  ``depth``: each segment's repeat (None: whole)
 _TRAIN = dict(batch=2, steps=4, peak_lr=3e-4, warmup=1, total=10,
               check_remat="none", depth=None)
 TRAIN = {QWEN: dict(_TRAIN, depth=(4,), seq_len=512),
          MAMBA: dict(_TRAIN, seq_len=1024),
          ZAMBA: dict(_TRAIN, seq_len=1024, check_remat="full"),
-         DEEPSEEK: dict(_TRAIN, depth=(1, 0), seq_len=512)}
+         DEEPSEEK: dict(_TRAIN, depth=(1, 0), seq_len=512),
+         WHISPER: dict(_TRAIN, seq_len=448)}
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
            "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
@@ -546,10 +608,15 @@ def _norm_uses(arch, rows, mtp=False):
     norms at d_model, the q/k norms once per q/kv head, MLA's q and kv
     norms at the LoRA ranks, a mamba2 block's gated norm at d_inner,
     zamba2's shared-block norms at 2 x d_model, and with ``mtp`` (the
-    train step of an MTP arch) the MTP head's three norms at d_model."""
+    train step of an MTP arch) the MTP head's three norms at d_model.  A
+    LayerNorm arch (whisper) has none: LayerNorm has no kernel (plain jnp
+    in the reference); llama-vision's cross_attn blocks norm at d_model
+    as its attn blocks do."""
     d, kinds = arch.d_model, _kinds(arch)
     uses = []
-    if kinds & {"attn", "moe_attn"}:
+    if arch.norm == "layernorm":
+        return uses
+    if kinds & {"attn", "moe_attn", "cross_attn"}:
         uses.append(("norm1/norm2/final_norm", rows, d))
         if arch.qk_norm:
             uses += [("q_norm", rows * arch.n_heads, arch.head_dim),
@@ -573,11 +640,13 @@ def _norm_uses(arch, rows, mtp=False):
 
 def _attn_dims(arch):
     """(H, Hkv, D) of the attention model ``arch`` runs through flash:
-    its own (``attn`` and ``moe_attn``), or zamba2's shared block's over 2
-    x d_model; None without (MLA's latent attention runs no flash)."""
+    its own (``attn``, ``moe_attn`` and whisper's ``wdec`` self-attention),
+    or zamba2's shared block's over 2 x d_model; None without (MLA's
+    latent attention runs no flash, nor do the encoder's bidirectional and
+    every cross attention, as in the reference)."""
     from repro_torch.models import blocks
     kinds = _kinds(arch)
-    if not kinds & {"attn", "moe_attn", "shared_attn"}:
+    if not kinds & {"attn", "moe_attn", "shared_attn", "wdec"}:
         return None
     cfg = (blocks.shared_cfg_for(arch) if "shared_attn" in kinds
            else blocks.attn_cfg_for(arch))
@@ -1026,26 +1095,33 @@ def read_counts():
 
 
 def block_counts(arch):
-    """{block kind: its applications in one forward}."""
+    """{block kind: its applications in one forward of the decoder}."""
     kinds = [k for seg in arch.pattern for k in seg.blocks
              for _ in range(seg.repeat)]
     return {k: kinds.count(k) for k in ("attn", "moe_attn", "mla",
                                         "mla_dense", "mamba2",
-                                        "shared_attn")}
+                                        "shared_attn", "cross_attn",
+                                        "wdec")}
 
 
 def forward_launches(arch):
-    """Each forward kernel's launches in one whole-sequence forward under
-    impl="pallas": an attention block's (``attn``, ``moe_attn``) two norms
-    (four with q/k norms) and one flash call, zamba2's shared block the
-    same at 2 x d_model, an MLA block's four norms (norm1, q_norm,
-    kv_norm, norm2) and no flash, a mamba2 block's two norms (the block's
-    and the gated one) and one scan, and the final norm."""
+    """Each forward kernel's launches in one forward under impl="pallas"
+    (the whole-sequence one; a paged step's are the same): an attention
+    block's (``attn``, ``moe_attn``) two norms (four with q/k norms) and
+    one flash call, zamba2's shared block the same at 2 x d_model, an MLA
+    block's four norms (norm1, q_norm, kv_norm, norm2) and no flash, a
+    mamba2 block's two norms (the block's and the gated one) and one scan,
+    a ``cross_attn`` block's two norms and no flash (its attention is
+    cross attention, plain), a ``wdec`` block's one flash call (its
+    self-attention), and the final norm.  A LayerNorm arch (whisper)
+    launches no RMSNorm; its encoder's attention is bidirectional and
+    launches no flash."""
     n = block_counts(arch)
     attn = n["attn"] + n["moe_attn"] + n["shared_attn"]
-    return {"rmsnorm": (4 if arch.qk_norm else 2) * attn
-            + 4 * (n["mla"] + n["mla_dense"]) + 2 * n["mamba2"] + 1,
-            "flash_attention": attn, "ssd_scan": n["mamba2"]}
+    norms = ((4 if arch.qk_norm else 2) * attn + 2 * n["cross_attn"]
+             + 4 * (n["mla"] + n["mla_dense"]) + 2 * n["mamba2"] + 1)
+    return {"rmsnorm": 0 if arch.norm == "layernorm" else norms,
+            "flash_attention": attn + n["wdec"], "ssd_scan": n["mamba2"]}
 
 
 def train_launches(arch):
@@ -1060,6 +1136,57 @@ def train_launches(arch):
     return want
 
 
+def open_gates(params, arch):
+    """Set every cross_attn block's attn.gate and mlp_gate to GATE."""
+    for seg, segp in zip(arch.pattern, params["segments"]):
+        for bi, kind in enumerate(seg.blocks):
+            if kind == "cross_attn":
+                segp[f"b{bi}"]["attn"]["gate"].fill_(GATE)
+                segp[f"b{bi}"]["mlp_gate"].fill_(GATE)
+
+
+def make_frontends(torch, arch, n):
+    """``n`` seeded frontends (1, T, d_model) in the compute dtype: frame
+    embeddings for whisper's encoder (T = 1,500), patch embeddings for
+    llama-vision's cross attention (T = 1,601); [] without a frontend."""
+    if not arch.frontend:
+        return []
+    T = arch.encoder.seq_len if arch.encoder else arch.n_img_tokens
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return [torch.randn((1, T, arch.d_model), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(n)]
+
+
+class Counting:
+    """Counts the calls of ``module.name`` while it is entered (and, with
+    ``timed``, their device time by CUDA events, in ms)."""
+
+    def __init__(self, torch, module, name, timed=False):
+        self.torch, self.module, self.name = torch, module, name
+        self.timed, self.calls, self.ms = timed, 0, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            self.calls += 1
+            if not self.timed:
+                return self.real(*a, **k)
+            e0 = self.torch.cuda.Event(enable_timing=True)
+            e1 = self.torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.real(*a, **k)
+            e1.record()
+            e1.synchronize()
+            self.ms.append(e0.elapsed_time(e1))
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
 def serve_phase(torch, np, report, name, arch):
     from repro_torch import tree
     from repro_torch.models import transformer as T
@@ -1070,6 +1197,7 @@ def serve_phase(torch, np, report, name, arch):
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_lm(arch, device="cuda", generator=gen)
+    open_gates(params, arch)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree.leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(params))
@@ -1082,24 +1210,34 @@ def serve_phase(torch, np, report, name, arch):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
                .astype(np.int32) for _ in range(st["requests"])]
+    # each request's own frontend (whisper's frames, llama-vision's patches)
+    fronts = make_frontends(torch, arch, st["requests"])
     engine_kw = dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
                      block_size=st["block_size"],
                      prefill_chunk=st["prefill_chunk"])
     # warm-up engine (not timed, not counted): first cuBLAS calls
     warm = ContinuousBatchingEngine(arch, params, **engine_kw)
-    warm.generate([Request(id=0, prompt=prompts[0][:16], max_new_tokens=2)])
+    warm.generate([Request(id=0, prompt=prompts[0][:16], max_new_tokens=2,
+                           frontend=fronts[0] if fronts else None)])
     del warm
     torch.cuda.synchronize()
 
+    def requests(with_frontends=True):
+        return [Request(id=i, prompt=p, max_new_tokens=st["max_new"],
+                        frontend=fronts[i] if fronts and with_frontends
+                        else None)
+                for i, p in enumerate(prompts)]
     eng = ContinuousBatchingEngine(arch, params, **engine_kw)
-    reqs = [Request(id=i, prompt=p, max_new_tokens=st["max_new"])
-            for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # the encoder's runs (each timed between CUDA events on the stream)
+    # and the cross-K/V writes, which must come once an admission
+    with Counting(torch, T, "encode_frontend", timed=True) as enc, \
+            Counting(torch, T, "_scatter_cross_kv") as scatter:
+        t0 = time.perf_counter()
+        outs = eng.generate(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = read_counts()
 
     for o in outs:
@@ -1117,8 +1255,20 @@ def serve_phase(torch, np, report, name, arch):
              f"drain")
     s = eng.metrics.summary()
     n_mamba = block_counts(arch)["mamba2"]
-    if counts["rmsnorm"] == 0:
-        fail(f"{name}: the serving path launched no RMSNorm kernel")
+    calls = s["prefill_chunks"] + s["decode_steps"]   # model calls
+    want_norms = forward_launches(arch)["rmsnorm"] * calls
+    if counts["rmsnorm"] != want_norms:
+        fail(f"{name}: {counts['rmsnorm']} RMSNorm launches on the serve "
+             f"path, want {forward_launches(arch)['rmsnorm']} per step x "
+             f"{calls}")
+    admissions = len(outs) + s["preemptions"]
+    n_cross = sum(k in ("cross_attn", "wdec") for seg in arch.pattern
+                  for k in seg.blocks)
+    want_enc = admissions if arch.encoder else 0
+    if enc.calls != want_enc or scatter.calls != n_cross * admissions:
+        fail(f"{name}: {enc.calls} encoder runs and {scatter.calls} cross-K/V "
+             f"writes for {admissions} admissions (want {want_enc} and "
+             f"{n_cross * admissions})")
     if counts["ssd_scan"] != n_mamba * s["prefill_chunks"]:
         fail(f"{name}: {counts['ssd_scan']} SSD launches, want {n_mamba} "
              f"per prefill chunk x {s['prefill_chunks']}")
@@ -1135,7 +1285,28 @@ def serve_phase(torch, np, report, name, arch):
                  preemptions=s["preemptions"], launches=counts,
                  phases_host_s=s["phases"],
                  pool_gb=eng.cache.pool_bytes / 1e9,
-                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 admissions=admissions, encoder_runs=enc.calls,
+                 encoder_ms=enc.ms, cross_kv_writes=scatter.calls)
+    enc_txt = ""
+    if arch.encoder:
+        # the same requests without frontends: TTFT without the encoder
+        # (their rows zeroed at admission)
+        bare = ContinuousBatchingEngine(arch, params, **engine_kw)
+        bare.generate(requests(with_frontends=False))
+        torch.cuda.synchronize()
+        bs = bare.metrics.summary()
+        serve.update(ttft_p50_no_encoder_s=bs["ttft_p50_s"],
+                     ttft_max_no_encoder_s=bs["ttft_max_s"])
+        med = sorted(enc.ms)[len(enc.ms) // 2]
+        enc_txt = (f", encoder {enc.calls} runs for {admissions} "
+                   f"admissions (median {med:.2f} ms each between CUDA "
+                   f"events, the host's launch gaps included); "
+                   f"TTFT p50 without frontends (no encoder) "
+                   f"{bs['ttft_p50_s'] * 1e3:.1f} ms")
+        del bare
+    elif n_cross:
+        enc_txt = f", cross-K/V written {scatter.calls} times"
     report[f"serve {name}"] = serve
     print(f"serve: {name}: {len(outs)} requests, {total} tokens in "
           f"{wall:.3f} s = {total / wall:.2f} tok/s, TTFT p50 "
@@ -1143,7 +1314,7 @@ def serve_phase(torch, np, report, name, arch):
           f"{s['tpot_p50_s'] * 1e3:.2f} ms, {s['decode_steps']} decode steps "
           f"/ {s['prefill_chunks']} prefill chunks, launches {counts}, "
           f"blocks and slots freed, cache pools {serve['pool_gb']:.2f} GB, "
-          f"peak memory {serve['peak_mem_gb']:.2f} GB")
+          f"peak memory {serve['peak_mem_gb']:.2f} GB{enc_txt}")
 
     # the engine's own chunked prefill (its step, its cache, slot row 0
     # reset as admission does) for 2 prompts, without the fused sampler, to
@@ -1158,7 +1329,10 @@ def serve_phase(torch, np, report, name, arch):
         ctx = prompts[rid]
         if not eng.cache.reserve(1000 + rid, len(ctx)):
             fail("cannot reserve blocks for the reference prefill")
-        admit(params, eng.cache.pools, 0)
+        admit(params, eng.cache.pools, 0, fronts[rid] if fronts else None)
+        if fronts and rid == 0:
+            check_cross_rows(torch, T, name, arch, params, eng.cache.pools,
+                             fronts[0], report)
         table = torch.as_tensor(eng.cache.table_array([1000 + rid]),
                                 device="cuda")
         for p0 in range(0, len(ctx), C):
@@ -1175,7 +1349,36 @@ def serve_phase(torch, np, report, name, arch):
         if first != outs[rid].token_ids[0]:
             fail(f"{name} request {rid}: chunked prefill argmax {first} != "
                  f"the engine's first token {outs[rid].token_ids[0]}")
-    return params, prompts, torch.stack(ref_logits)
+    return params, prompts, fronts, torch.stack(ref_logits)
+
+
+def check_cross_rows(torch, T, name, arch, params, pools, front, report):
+    """Slot 0's cross-K rows in the first cross_attn / wdec layer, just
+    admitted with ``front``, against the direct projection of the frontend
+    (llama-vision) or of the encoder's output over it (whisper) through
+    that layer's wk, under the bf16 tolerance."""
+    from repro_torch.models import blocks
+    from repro_torch.models import layers as L
+    si, bi, kind = next((si, bi, k) for si, seg in enumerate(arch.pattern)
+                        for bi, k in enumerate(seg.blocks)
+                        if k in ("cross_attn", "wdec"))
+    blk = params["segments"][si][f"b{bi}"]
+    wk = {k: v[0] for k, v in
+          blk["xattn" if kind == "wdec" else "attn"]["wk"].items()}
+    src = (T.encode_frontend(params, arch, front)[0] if kind == "wdec"
+           else front[0].to(T.compute_dtype(arch)))
+    cfg = blocks.cross_cfg_for(arch, kind)
+    want = L.dense(wk, src).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+    pool = pools[si][f"b{bi}"]
+    got = (pool["cross"] if kind == "wdec" else pool)["k"][0, 0]
+    err, ok, tol = check_close(got, want, "bfloat16")
+    report[f"cross rows {name}"] = dict(max_abs_err=err, ok=ok, tol=tol,
+                                        shape=list(got.shape))
+    print(f"serve: {name}: slot 0's cross-K rows {tuple(got.shape)} vs the "
+          f"direct projection: max_abs_err {err:.3g} (tol {tol})")
+    if not ok:
+        fail(f"{name}: slot 0's cross-K rows differ from the direct "
+             f"projection by {err:.4g}")
 
 
 def traced(torch, label, fn):
@@ -1271,7 +1474,7 @@ def traced(torch, label, fn):
     return out
 
 
-def profile_phase(torch, report, name, arch, params, prompts):
+def profile_phase(torch, report, name, arch, params, prompts, fronts):
     """A traced serve of one full batch (``slots`` requests, 8 new tokens
     each): device busy share of the window and device time by kernel.  The
     untraced serve phase gives the end-to-end numbers."""
@@ -1282,7 +1485,8 @@ def profile_phase(torch, report, name, arch, params, prompts):
         arch, params, device="cuda", slots=st["slots"],
         max_len=st["max_len"], block_size=st["block_size"],
         prefill_chunk=st["prefill_chunk"])
-    reqs = [Request(id=i, prompt=p, max_new_tokens=8)
+    reqs = [Request(id=i, prompt=p, max_new_tokens=8,
+                    frontend=fronts[i] if fronts else None)
             for i, p in enumerate(prompts[:st["slots"]])]
     out = traced(torch, name, lambda: eng.generate(reqs))
     s = eng.metrics.summary()
@@ -1294,7 +1498,7 @@ def profile_phase(torch, report, name, arch, params, prompts):
     report[f"profile {name}"] = out
 
 
-def forward_phase(torch, np, report, name, arch, params, prompts,
+def forward_phase(torch, np, report, name, arch, params, prompts, fronts,
                   ref_logits):
     """``lm_apply(impl="pallas")`` over ``FORWARD_PROMPTS`` prompts:
     exact launch counts, finite logits of the right shape, and the
@@ -1315,6 +1519,9 @@ def forward_phase(torch, np, report, name, arch, params, prompts,
 
     B, S = FORWARD_PROMPTS, SERVE[name]["prompt_len"]
     tokens = torch.as_tensor(np.stack(prompts[:B]), device="cuda")
+    # the requests' own frontends, batched (whisper's encoder runs in the
+    # forward, llama-vision's cross attention reads the patches)
+    front = torch.cat(fronts[:B]) if fronts else None
     routes = []            # per run: each MoE layer's (B, S, K) expert ids
     real_moe = MOE.moe
 
@@ -1325,7 +1532,8 @@ def forward_phase(torch, np, report, name, arch, params, prompts,
     def forward():
         routes.append([])
         with mock.patch.object(MOE, "moe", recording_moe):
-            return T.lm_apply(params, arch, tokens, impl="pallas")
+            return T.lm_apply(params, arch, tokens, frontend=front,
+                              impl="pallas")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1404,7 +1612,7 @@ def worst(diffs, text=False):
 
 
 def train_phase(torch, report, name, arch, card, profile=False):
-    """Phases 8, 9, 14 and 23: the training step of model ``name`` at its
+    """Phases 8, 9, 14, 23 and 28: the training step of model ``name`` at its
     widths and ``TRAIN[name]["depth"]``, through the kernels forward and
     backward; step 1's grads held against the plain path's (plain
     attention under impl="xla", the plain SSD scan and plain RMSNorm);
@@ -1442,10 +1650,21 @@ def train_phase(torch, report, name, arch, card, profile=False):
           f"before it")
 
     def data():
-        return SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"])
+        """SyntheticLM batches; an arch with a frontend gets a seeded one,
+        (batch, T, d_model) in bf16, in every batch."""
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for batch in SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"]):
+            if arch.frontend:
+                T = arch.encoder.seq_len if arch.encoder else \
+                    arch.n_img_tokens
+                batch["frontend"] = torch.randn(
+                    (cfg["batch"], T, arch.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+            yield batch
     first = next(data())
     tok, lab = (torch.as_tensor(first[k], device="cuda")
                 for k in ("tokens", "labels"))
+    fe = first.get("frontend")
     # step 1's grads through the kernels (twice: how far the same path
     # moves between runs), through the plain path, and through the plain
     # path with the same params in fp32: the gradient both bf16 paths
@@ -1454,25 +1673,36 @@ def train_phase(torch, report, name, arch, card, profile=False):
     kernel_loss = ST.make_loss_fn(arch, impl="pallas")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    loss_k, _, g_k = ST.loss_and_grads(kernel_loss, params, tok, lab)
+    loss_k, _, g_k = ST.loss_and_grads(kernel_loss, params, tok, lab, fe)
     grad_counts = read_counts()
-    repeat = grad_diffs(torch, names, g_k,
-                        ST.loss_and_grads(kernel_loss, params, tok, lab)[2])
+    repeat = grad_diffs(torch, names, g_k, ST.loss_and_grads(
+        kernel_loss, params, tok, lab, fe)[2])
     remat = cfg["check_remat"]
     with mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref), \
             mock.patch.object(ops, "rmsnorm", ref.rmsnorm_ref):
         loss_p, _, g_p = ST.loss_and_grads(
-            ST.make_loss_fn(arch, impl="xla", remat=remat), params, tok, lab)
+            ST.make_loss_fn(arch, impl="xla", remat=remat), params, tok, lab,
+            fe)
         check_peak = torch.cuda.max_memory_allocated() / 1e9
         g_f = ST.loss_and_grads(
             ST.make_loss_fn(dataclasses.replace(arch, dtype="float32"),
                             impl="xla", remat=remat),
-            tree.map(lambda t: t.float(), params), tok, lab)[2]
+            tree.map(lambda t: t.float(), params), tok, lab,
+            None if fe is None else fe.float())[2]
         fp32_peak = torch.cuda.max_memory_allocated() / 1e9
-    diffs = grad_diffs(torch, names, g_k, g_p)
-    k_f, p_f = (grad_diffs(torch, names, g, g_f) for g in (g_k, g_p))
+    gn_k, gn_p = float(O.global_norm(g_k)), float(O.global_norm(g_p))
+    zero = {n: max(float(torch.linalg.vector_norm(g[i].float())) / gn
+                   for g, gn in ((g_k, gn_k), (g_p, gn_p)))
+            for i, n in enumerate(names) if n.endswith(ZERO_GRAD_LEAF)}
+    diffs, k_f, p_f = ({n: d for n, d in dd.items() if n not in zero}
+                       for dd in (grad_diffs(torch, names, g_k, g_p),
+                                  grad_diffs(torch, names, g_k, g_f),
+                                  grad_diffs(torch, names, g_p, g_f)))
     bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}" for n, (c, r) in diffs.items()
            if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+    bad += [f"{n}: |grad| {z:.3g} of the global norm (its gradient is 0 in "
+            f"exact arithmetic)" for n, z in zero.items()
+            if not z <= ZERO_GRAD_REL_MAX]
     cos_leaf = min(diffs, key=lambda n: diffs[n][0])
     rel_leaf, rel = worst(diffs)
     i = names.index(rel_leaf)     # that leaf layer by layer, if stacked
@@ -1480,7 +1710,10 @@ def train_phase(torch, report, name, arch, card, profile=False):
                        / torch.linalg.vector_norm(b.float()))
                  for a, b in zip(g_k[i], g_p[i])]
                 if rel_leaf.startswith("segments.") else None)
-    gn_k, gn_p = float(O.global_norm(g_k)), float(O.global_norm(g_p))
+    zero_txt = ("" if not zero else
+                f"; key biases (grad 0 in exact arithmetic, held apart): "
+                f"largest |grad| {max(zero.values()):.3g} of the global norm "
+                f"(max {ZERO_GRAD_REL_MAX:g})")
     del g_k, g_p, g_f
     torch.cuda.empty_cache()
     after_check = torch.cuda.memory_allocated() / 1e9
@@ -1499,7 +1732,7 @@ def train_phase(torch, report, name, arch, card, profile=False):
           f"launches {grad_counts}; reference passes under remat "
           f"{remat!r}; peak memory of the check {check_peak:.2f} GB "
           f"({fp32_peak:.2f} GB with the fp32 pass), {after_check:.2f} GB "
-          f"held after it")
+          f"held after it{zero_txt}")
     if bad:
         fail(f"{label}: kernel grads differ from the plain path's: {bad}")
     if not (math.isfinite(gn_k) and math.isfinite(float(loss_k))):
@@ -1550,7 +1783,7 @@ def train_phase(torch, report, name, arch, card, profile=False):
                             ("plain_fp32", p_f), ("repeat", repeat))},
             grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
             reference_remat=remat, peak_mem_gb=check_peak,
-            peak_mem_fp32_gb=fp32_peak))
+            peak_mem_fp32_gb=fp32_peak, zero_grad_leaves=zero))
     print(f"train: {arch.name} {L} layers, {cfg['steps']} AdamW steps of "
           f"{cfg['batch']} x {cfg['seq_len']} tokens: step "
           f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, median of steps "
@@ -1669,20 +1902,21 @@ def main() -> int:
         return out
     if not args.kernels_only:
         for name, arch in archs.items():
-            # 4./6./10./12./15./17./19./21. serve, 5./7./11./13./16./18./
-            # 20./22. forward, at the serve cell's depth
+            # 4./6./10./12./15./17./19./21./24./26. serve, 5./7./11./13./
+            # 16./18./20./22./25./27. forward, at the serve cell's depth
             arch = cut_depth(arch, SERVE_LAYERS.get(name))
-            params, prompts, ref_logits = timed(
+            params, prompts, fronts, ref_logits = timed(
                 f"serve {name}", serve_phase, torch, np, report, name, arch)
             timed(f"forward {name}", forward_phase, torch, np, report, name,
-                  arch, params, prompts, None if arch.moe else ref_logits)
+                  arch, params, prompts, fronts,
+                  None if arch.moe else ref_logits)
             if args.profile:
                 timed(f"profile {name}", profile_phase, torch, report, name,
-                      arch, params, prompts)
-            del params, ref_logits
+                      arch, params, prompts, fronts)
+            del params, fronts, ref_logits
             gc.collect()
             torch.cuda.empty_cache()
-        # 8./9./14./23. train, with the serving weights freed
+        # 8./9./14./23./28. train, with the serving weights freed
         for name in TRAIN:
             timed(f"train {name}", train_phase, torch, report, name,
                   archs[name], card, profile=args.profile)

@@ -1,7 +1,8 @@
-"""Architecture registry: the archs the port serves (``qwen3-8b``,
-``mamba2-780m``, ``zamba2-2.7b``, ``gemma-7b``, ``minitron-4b``,
-``command-r-plus-104b``, ``deepseek-v3-671b`` and ``arctic-480b`` so
-far)."""
+"""Architecture registry: the ten reference configs, every one of which
+the port serves (``qwen3-8b``, ``mamba2-780m``, ``zamba2-2.7b``,
+``gemma-7b``, ``minitron-4b``, ``command-r-plus-104b``,
+``deepseek-v3-671b``, ``arctic-480b``, ``whisper-medium`` and
+``llama-3.2-vision-90b``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,14 +10,18 @@ import dataclasses
 from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
                                       MoESpec, Segment, SSMSpec)
 from repro_torch.configs import (arctic_480b, command_r_plus_104b,
-                                 deepseek_v3_671b, gemma_7b, mamba2_780m,
-                                 minitron_4b, qwen3_8b, zamba2_2_7b)
+                                 deepseek_v3_671b, gemma_7b,
+                                 llama_3_2_vision_90b, mamba2_780m,
+                                 minitron_4b, qwen3_8b, whisper_medium,
+                                 zamba2_2_7b)
 
 ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH
                                 for m in (zamba2_2_7b, gemma_7b, qwen3_8b,
                                           mamba2_780m, minitron_4b,
                                           command_r_plus_104b,
-                                          deepseek_v3_671b, arctic_480b)}
+                                          deepseek_v3_671b, arctic_480b,
+                                          whisper_medium,
+                                          llama_3_2_vision_90b)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -12,11 +12,13 @@ Block kinds named by the schema:
   shared_attn — zamba2-style *shared-weight* attention block
   cross_attn  — gated cross-attention + MLP (llama-vision)
   enc_attn    — bidirectional self-attention + MLP (encoders)
+  wdec        — whisper decoder block: causal self-attention, cross
+                attention over the encoder output, MLP
 
-The port serves ``attn``, ``mla``, ``moe_attn``, ``mamba2`` and
-``shared_attn`` (and ``mla_dense``, MLA with a dense MLP) so far; the
-serving engine raises ``NotImplementedError`` naming any other kind at
-construction.
+The port runs every kind named here (and ``mla_dense``, MLA with a dense
+MLP); the serving engine serves them all but ``enc_attn``, which runs in
+the encoder only, and raises ``NotImplementedError`` naming an unknown
+kind at construction.
 """
 from __future__ import annotations
 

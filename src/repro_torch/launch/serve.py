@@ -7,6 +7,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
         --smoke --device cpu --requests 6 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --device cpu
+
+Every arch of the registry serves.  Like the reference's launcher it
+passes no frontend: whisper's cross K/V rows and llama-3.2-vision's are
+zeroed at admission (``Request.frontend`` carries one).
 
 Runs on CUDA unless ``--device cpu`` is given; with no CUDA device and no
 ``--device`` it fails instead of falling back to the host.  Weights are
@@ -17,7 +23,7 @@ random, drawn from a generator seeded with 0 on the serving device.
                  later requests reuse its cached blocks and start prefill at
                  the matched boundary; the report line gains the prefix-cache
                  hit rate.  Refused for archs with slot state (mamba2,
-                 zamba2).
+                 zamba2, whisper, llama-vision).
 --metrics-out    write the engine's JSON metrics report there.
 """
 from __future__ import annotations

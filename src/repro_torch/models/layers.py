@@ -1,6 +1,6 @@
-"""Core layers of the decoder, in PyTorch (twin of
-``repro/models/layers.py``: RMSNorm, RoPE, self-attention whole-sequence
-and paged, the MLPs, embeddings).
+"""Core layers, in PyTorch (twin of ``repro/models/layers.py``: RMSNorm,
+LayerNorm, RoPE, self-attention whole-sequence and paged, cross
+attention, the MLPs, embeddings).
 
 Convention: every layer is an ``init_*(..., generator, device) -> params``
 plus an apply function taking ``(params, x, ...)``.  Params are plain
@@ -10,7 +10,10 @@ converts leaf for leaf (``repro_torch.convert``).
 Every RMSNorm goes through the port's Hopper kernel (``kernels.ops``); the
 large matrix products stay ``torch.matmul``, as the reference left them to
 XLA.  Paged attention (``_paged_sdpa``) has no kernel in the reference
-either and stays plain PyTorch.
+either and stays plain PyTorch, and so do LayerNorm (plain jnp in the
+reference), bidirectional self-attention and cross attention: the
+reference runs its Pallas flash kernel only in causal self-attention
+over a whole sequence.
 """
 from __future__ import annotations
 
@@ -79,6 +82,26 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return kops.rmsnorm(x, p["scale"], eps)
 
 
+def init_layernorm(d: int, *, device, dtype=torch.float32,
+                   repeat: Optional[int] = None) -> Params:
+    lead = () if repeat is None else (repeat,)
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis, cast back to x.dtype.  The
+    variance is the population one (``jnp.var``'s), not torch's default
+    sample variance, which is d / (d - 1) times larger."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    return y.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embedding
 # ---------------------------------------------------------------------------
@@ -106,7 +129,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# attention (MHA / GQA / MQA, optional qk-norm, causal)
+# attention (MHA / GQA / MQA, optional qk-norm, causal or bidirectional,
+# optional cross-attention, optional output gate)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +144,7 @@ class AttnConfig:
     qk_norm: bool = False
     causal: bool = True
     bias: bool = False
+    gated: bool = False          # tanh-gated output (llama-vision cross blocks)
     softmax_scale: Optional[float] = None
 
     @property
@@ -145,6 +170,9 @@ def init_attention(cfg: AttnConfig, *, generator, device,
                                    repeat=repeat)
         p["k_norm"] = init_rmsnorm(cfg.head_dim, device=device, dtype=dtype,
                                    repeat=repeat)
+    if cfg.gated:
+        lead = () if repeat is None else (repeat,)
+        p["gate"] = torch.zeros(lead, dtype=dtype, device=device)
     return p
 
 
@@ -311,44 +339,80 @@ def paged_attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
 
 
 def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
+              kv_input: Optional[torch.Tensor] = None,
               cache: Optional[Params] = None,
               positions: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
               new_lens: Optional[torch.Tensor] = None,
               impl: str = "xla"):
-    """Self-attention: whole-sequence (``cache is None``), or paged over a
-    block pool when ``block_tables`` is given.
+    """Self- or cross-attention -> (y, cache).
 
-    In the whole-sequence causal branch ``impl="pallas"`` runs the port's
-    Hopper flash kernel (the reference runs its Pallas kernel there), and
-    any other value the plain PyTorch ``_sdpa``."""
+    Self-attention runs over the whole sequence (``cache is None``), or
+    paged over a block pool when ``block_tables`` is given.  In the
+    whole-sequence causal branch ``impl="pallas"`` runs the port's Hopper
+    flash kernel (the reference runs its Pallas kernel there), and any
+    other value, or a bidirectional config, the plain PyTorch ``_sdpa``.
+
+    Cross attention is taken when ``kv_input`` (B, T, d_model) is given —
+    its K/V are projected here — or when ``cache`` is a dict of
+    precomputed cross K/V rows {"k", "v": (B, T, Hkv, D)} without ``"pos"``
+    (the serving path's slot-state rows, returned as they are); it is
+    plain ``_sdpa``, unmasked.  The reference's contiguous decode caches
+    (a self-attention cache with ``"pos"``, or cross rows written from
+    ``kv_input``) are not ported: the port serves through the paged path.
+    With ``cfg.gated`` the output is scaled by tanh(p["gate"])."""
     if block_tables is not None:
         if cache is None or positions is None:
             raise ValueError("paged attention needs cache and positions")
         return paged_attention(p, cfg, x, cache=cache, positions=positions,
                                block_tables=block_tables, new_lens=new_lens)
-    if cache is not None:
+    is_cross = kv_input is not None or cache is not None
+    if cache is not None and ("pos" in cache or kv_input is not None):
         raise NotImplementedError(
             "the port has no contiguous decode cache; serve through the "
             "paged path (block_tables)")
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
     scale = cfg.softmax_scale or (1.0 / math.sqrt(cfg.head_dim))
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    if impl == "pallas" and cfg.causal:
-        out = kops.flash_attention(q, k, v, scale=scale)
+    new_cache = None
+    if is_cross:
+        if kv_input is not None:       # project the cross K/V
+            T = kv_input.shape[1]
+            k = dense(p["wk"], kv_input).reshape(B, T, cfg.n_kv_heads,
+                                                 cfg.head_dim)
+            v = dense(p["wv"], kv_input).reshape(B, T, cfg.n_kv_heads,
+                                                 cfg.head_dim)
+            if cfg.qk_norm:
+                k = rmsnorm(p["k_norm"], k)
+        else:                          # precomputed cross K/V rows
+            k, v = cache["k"], cache["v"]
+            new_cache = cache
+        if cfg.use_rope:
+            q = apply_rope(q, positions if positions is not None
+                           else torch.arange(S, device=x.device),
+                           cfg.rope_theta)
+        out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), causal=False,
+                    scale=scale)
     else:
-        out = _sdpa(q, k, v, causal=cfg.causal, scale=scale)
-    return dense(p["wo"], out.reshape(B, S, cfg.q_dim)), None
+        k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            k = rmsnorm(p["k_norm"], k)
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if impl == "pallas" and cfg.causal:
+            out = kops.flash_attention(q, k, v, scale=scale)
+        else:
+            out = _sdpa(q, k, v, causal=cfg.causal, scale=scale)
+    y = dense(p["wo"], out.reshape(B, S, cfg.q_dim))
+    if cfg.gated:
+        y = torch.tanh(p["gate"].to(y.dtype)) * y
+    return y, new_cache
 
 
 def init_paged_attention_cache(cfg: AttnConfig, num_blocks: int,

@@ -9,8 +9,9 @@ Python loop that indexes the stacked tensors (views, no copies).
 Entry points:
   init_lm(arch, device=..., generator=...)            -> params
   init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
-  admit_slot(params, arch, pools, slot_id)            -> pools (row reset)
-  lm_apply(params, arch, tokens, ...)                 -> LMOutput
+  admit_slot(params, arch, pools, slot_id, frontend)  -> pools (slot rows)
+  encode_frontend(params, arch, frontend)             -> encoder output
+  lm_apply(params, arch, tokens, frontend=..., ...)   -> LMOutput
   mtp_logits(params, arch, hidden, tokens)            -> MTP head's logits
   lm_loss(logits, labels, vocab, mask=None)           -> mean cross-entropy
 """
@@ -23,6 +24,7 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -43,6 +45,26 @@ def compute_dtype(arch: ArchConfig) -> torch.dtype:
 
 def param_dtype(arch: ArchConfig) -> torch.dtype:
     return torch.float32 if arch.param_dtype == "float32" else torch.bfloat16
+
+
+def sinusoidal_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """fp32 sinusoidal embeddings of integer positions of any shape ->
+    positions.shape + (d_model,): sin in the even columns, cos in the odd
+    ones (an odd d_model has one sin column more than cos columns)."""
+    pos = positions.to(torch.float32)[..., None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=positions.device)
+    angle = pos / 10000.0 ** (dim / d_model)
+    pe = torch.zeros(positions.shape + (d_model,), dtype=torch.float32,
+                     device=positions.device)
+    pe[..., 0::2] = torch.sin(angle)
+    pe[..., 1::2] = torch.cos(angle[..., :d_model // 2])
+    return pe
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, *,
+                         device=None) -> torch.Tensor:
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
 
 
 def init_lm(arch: ArchConfig, *, device=None,
@@ -71,6 +93,13 @@ def init_lm(arch: ArchConfig, *, device=None,
     if any("shared_attn" in seg.blocks for seg in arch.pattern):
         params["shared"] = B.init_shared(arch, generator=generator,
                                          device=dev, dtype=dt)
+    if arch.encoder is not None:
+        params["encoder"] = {
+            "segments": [{"b0": B.init_block(
+                "enc_attn", arch, generator=generator, device=dev, dtype=dt,
+                repeat=arch.encoder.n_layers)}],
+            "final_norm": B.norm_init(arch, arch.d_model, device=dev,
+                                      dtype=dt)}
     if arch.mtp:
         kw = dict(generator=generator, device=dev, dtype=dt)
         params["mtp"] = {
@@ -103,7 +132,10 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
       * ``mamba2`` blocks get slot-indexed state pools, ``{"conv_x": (R,
         slots+1, K, d_inner), ..., "ssm": (R, slots+1, H, P, N)}`` in
         float32: one row per engine slot plus a reserved null row for
-        inactive batch rows.  ``slots`` must be > 0 for such archs."""
+        inactive batch rows.  ``slots`` must be > 0 for such archs.
+        ``cross_attn`` blocks get slot rows of cross K/V (the frontend's
+        projections), and ``wdec`` blocks both classes: a paged
+        self-attention pool and slot rows of the encoder's cross K/V."""
     dev = _device.resolve(device)
     return [{f"b{i}": B.init_paged_block_cache(kind, arch, num_blocks,
                                                block_size, device=dev,
@@ -113,23 +145,105 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
             for seg in arch.pattern]
 
 
-def admit_slot(params: Params, arch: ArchConfig, pools: list,
-               slot_id: int) -> list:
+def _apply_segment(segp: Params, blocks: tuple, repeat: int,
+                   arch: ArchConfig, x: torch.Tensor, *, cache=None,
+                   remat: str = "none", **kw):
+    """Every application of one segment's blocks in order -> (x, aux);
+    ``remat`` checkpoints each application's body (the reference's
+    checkpointed scan body), and only the whole-sequence forward takes
+    it."""
+    aux = 0.0
+    for r in range(repeat):
+        def body(x, r=r):
+            aux = 0.0
+            for bi, kind in enumerate(blocks):
+                key = f"b{bi}"
+                c = None if cache is None else _take(cache[key], r)
+                x, _, a = B.apply_block(_take(segp[key], r), kind, arch, x,
+                                        cache=c, **kw)
+                aux = aux + a
+            return x, aux
+        x, a = _remat(body, remat if cache is None else "none")(x)
+        aux = aux + a
+    return x, aux
+
+
+def encode_frontend(params: Params, arch: ArchConfig,
+                    frontend: torch.Tensor, *, impl: str = "xla",
+                    remat: str = "none") -> torch.Tensor:
+    """The encoder stack over precomputed frame embeddings (B, enc_len,
+    d_model) -> its output (B, enc_len, d_model) in the compute dtype:
+    sinusoidal positions added, every ``enc_attn`` layer (bidirectional,
+    so never the flash kernel), the final norm.  Shared by the forward's
+    audio branch and by serving admission, which runs it ONCE per
+    request (``admit_slot``), never per step."""
+    cdt = compute_dtype(arch)
+    enc = frontend.to(cdt)
+    enc = enc + sinusoidal_positions(enc.shape[1], arch.d_model,
+                                     device=enc.device).to(cdt)
+    enc_p = params["encoder"]
+    for segp in enc_p["segments"]:
+        enc, _ = _apply_segment(segp, ("enc_attn",), arch.encoder.n_layers,
+                                arch, enc, remat=remat, impl=impl)
+    return B.norm_apply(arch, enc_p["final_norm"], enc)
+
+
+def _scatter_cross_kv(pool: Params, slot_id: int, attn_stack: Params,
+                      cfg, src: torch.Tensor) -> None:
+    """Project ``src`` (T, d_model) through each application's wk / wv
+    (params stacked on the segment's repeat axis) and write the result
+    into this slot's rows of a (repeat, slots+1, T, Hkv, D) cross-K/V
+    pool, in place, in the pool's dtype.  Shared by the cross_attn and
+    wdec admission branches."""
+    for r in range(pool["k"].shape[0]):
+        p = _take(attn_stack, r)
+        k = L.dense(p["wk"], src).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        v = L.dense(p["wv"], src).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            k = L.rmsnorm(p["k_norm"], k)
+        pool["k"][r, slot_id] = k.to(pool["k"].dtype)
+        pool["v"][r, slot_id] = v.to(pool["v"].dtype)
+
+
+def admit_slot(params: Params, arch: ArchConfig, pools: list, slot_id: int,
+               frontend: Optional[torch.Tensor] = None) -> list:
     """Reset one engine slot's rows across every slot-state pool, in place
     (paged KV and latent block pools pass through untouched — block reuse
-    is the allocator's business).  mamba2 rows are zeroed: a fresh recurrent
-    state for the admitted request; recompute-style preemption re-admits
-    through here, so the re-prefill starts from a clean h0.  The
-    reference's other slot-state kinds (cross_attn, wdec) are not ported
-    and raise."""
+    is the allocator's business).  Recompute-style preemption re-admits
+    through here, so a resumed request gets its rows anew.
+
+    mamba2 rows are zeroed: a fresh recurrent state, so the re-prefill
+    starts from h0 = 0.  cross_attn rows are zeroed, or — when the
+    admitted request carries ``frontend`` patch embeddings (1, T, d_model)
+    — filled with each layer's cross K/V projections of them, computed
+    here once, never per step.  wdec rows get the encoder's cross K/V: the
+    ``frontend`` frame embeddings (1, enc_len, d_model) go through the
+    encoder once, then every decoder layer's cross projections of its
+    output are written into this slot's rows; without a frontend they are
+    zeroed."""
+    cdt = compute_dtype(arch)
+    srcs = {}          # what each kind's cross K/V are projected from
+    if frontend is not None:
+        frontend = torch.as_tensor(frontend,
+                                   device=tree.leaves(pools)[0].device)
+        srcs["cross_attn"] = frontend[0].to(cdt)
+        if any("wdec" in seg.blocks for seg in arch.pattern):
+            srcs["wdec"] = encode_frontend(params, arch, frontend)[0]
     for si, seg in enumerate(arch.pattern):
+        segp = params["segments"][si]
         for bi, kind in enumerate(seg.blocks):
-            if kind == "mamba2":
-                for t in pools[si][f"b{bi}"].values():
+            key = f"b{bi}"
+            if kind not in ("mamba2", "cross_attn", "wdec"):
+                continue
+            pool = pools[si][key]["cross"] if kind == "wdec" \
+                else pools[si][key]
+            if kind in srcs:
+                _scatter_cross_kv(pool, slot_id, segp[key][
+                    "attn" if kind == "cross_attn" else "xattn"],
+                    B.cross_cfg_for(arch, kind), srcs[kind])
+            else:
+                for t in pool.values():
                     t[:, slot_id].zero_()
-            elif kind not in B.PORTED_KINDS:
-                raise NotImplementedError(f"admit_slot: block kind {kind!r} "
-                                          f"is not ported")
     return pools
 
 
@@ -169,6 +283,7 @@ def _remat(fn, remat: str):
 
 def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
              cache: Optional[list] = None,
+             frontend: Optional[torch.Tensor] = None,
              positions: Optional[torch.Tensor] = None,
              block_tables: Optional[torch.Tensor] = None,
              new_lens: Optional[torch.Tensor] = None,
@@ -187,6 +302,15 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        blocks, ``slot_ids`` (B,) — each row's slot-state pool row, the
        null row (= slots) for inactive rows.  The pools are updated in
        place and returned as ``LMOutput.cache``.
+    frontend: the whole-sequence forward's precomputed modality
+       embeddings: for a vision arch (B, n_img_tokens, d_model) patch
+       embeddings, the cross_attn blocks' K/V input; for an audio arch
+       (B, enc_len, d_model) frame embeddings, run through the encoder
+       (``encode_frontend``) whose output the wdec blocks attend to.  The
+       serving path reads the slot rows admission wrote instead.  An arch
+       with an encoder adds sinusoidal positions to the decoder's
+       embeddings: of 0..S-1 in the forward, of each row's own
+       positions[b] + 0..S-1 on the paged path.
     remat: per-layer checkpointing of the whole-sequence forward (one of
        ``REMAT_POLICIES``); the cached forward ignores it, as the
        reference's does.  zamba2's shared block reads ``params["shared"]``
@@ -204,30 +328,33 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
         raise NotImplementedError("the port's cached forward is paged: pass "
                                   "block_tables with the pools")
     cdt = compute_dtype(arch)
+    cross_input = None
+    if frontend is not None and arch.frontend == "vision":
+        cross_input = frontend.to(cdt)
+    elif frontend is not None and arch.frontend == "audio":
+        cross_input = encode_frontend(params, arch, frontend, impl=impl,
+                                      remat=remat)
     x = L.embed(params["embed"], tokens.long(), arch.d_model).to(cdt)
+    if arch.encoder is not None:   # whisper's decoder: absolute positions
+        S = x.shape[1]
+        if cache is None:
+            pe = sinusoidal_positions(S, arch.d_model, device=x.device)
+        else:                      # each row at its own offset: (B, S, D)
+            pe = sinusoidal_at(positions[:, None] + torch.arange(
+                S, device=x.device), arch.d_model)
+        x = x + pe.to(cdt)
     if positions is None and cache is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x0 = x                     # the scaled embeddings (zamba2's shared block)
-    shared = params.get("shared")
     aux = 0.0
     for si, seg in enumerate(arch.pattern):
-        segp = params["segments"][si]
-        for r in range(seg.repeat):
-            def body(x, si=si, r=r, seg=seg, segp=segp):
-                aux = 0.0
-                for bi, kind in enumerate(seg.blocks):
-                    key = f"b{bi}"
-                    c = None if cache is None else _take(cache[si][key], r)
-                    x, _, a = B.apply_block(_take(segp[key], r), kind, arch,
-                                            x, x0=x0, shared=shared,
-                                            cache=c, positions=positions,
-                                            block_tables=block_tables,
-                                            new_lens=new_lens,
-                                            slot_ids=slot_ids, impl=impl)
-                    aux = aux + a
-                return x, aux
-            x, a = _remat(body, remat if cache is None else "none")(x)
-            aux = aux + a
+        x, a = _apply_segment(
+            params["segments"][si], seg.blocks, seg.repeat, arch, x,
+            cache=None if cache is None else cache[si], remat=remat, x0=x0,
+            cross_input=cross_input, shared=params.get("shared"),
+            positions=positions, block_tables=block_tables,
+            new_lens=new_lens, slot_ids=slot_ids, impl=impl)
+        aux = aux + a
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hidden = B.norm_apply(arch, params["final_norm"], x)

@@ -61,7 +61,7 @@ def adamw(lr: Callable | float, *, b1=0.9, b2=0.95, eps=1e-8,
     if quantized:
         raise NotImplementedError(
             "adamw(quantized=True): int8 moments (optim/quantized.py) are "
-            "not ported yet (ROADMAP Queue 1 item 12)")
+            "not ported yet (int8 moments, ROADMAP Queue 1 'Remainder')")
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params) -> OptState:

@@ -31,15 +31,18 @@ from repro_torch.optim import optimizers as O
 
 def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
                  mtp_weight: float = 0.3):
-    """-> loss_fn(params, tokens (B,S), labels (B,S)) -> (total, ce), both
-    0-d fp32, as the reference's: ce is the mean next-token cross-entropy
+    """-> loss_fn(params, tokens (B,S), labels (B,S), frontend=None) ->
+    (total, ce), both 0-d fp32, as the reference's (``frontend``: the
+    batch's modality embeddings, which ``lm_apply`` takes; the encoder
+    runs inside the forward, under autograd and ``remat``): ce is the mean
+    next-token cross-entropy
     (``transformer.lm_loss``), plus for an MTP arch ``mtp_weight`` times
     the MTP head's cross-entropy against the labels shifted left by one
     (the wrapped last column masked out); total adds the MoE layers' aux
     loss to it, and is what the train step differentiates."""
-    def loss_fn(params, tokens, labels):
-        out = T.lm_apply(params, arch, tokens, impl=impl, remat=remat,
-                         return_hidden=arch.mtp)
+    def loss_fn(params, tokens, labels, frontend=None):
+        out = T.lm_apply(params, arch, tokens, frontend=frontend, impl=impl,
+                         remat=remat, return_hidden=arch.mtp)
         loss = T.lm_loss(out.logits, labels, arch.vocab)
         if arch.mtp:
             # depth-1 MTP: hidden_t + emb(token_{t+1}) predicts token_{t+2}
@@ -54,13 +57,14 @@ def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
     return loss_fn
 
 
-def loss_and_grads(loss_fn, params, tokens, labels):
+def loss_and_grads(loss_fn, params, tokens, labels, frontend=None):
     """-> (total, ce, grads): the loss and its gradient with respect to
     every leaf of ``params`` (a list in ``tree.leaves`` order, each in its
     leaf's dtype).  The params are taken as detached leaves that require
     grad, so the caller's tensors need not."""
     live = [p.detach().requires_grad_() for p in tree.leaves(params)]
-    total, ce = loss_fn(tree.unflatten(params, live), tokens, labels)
+    total, ce = loss_fn(tree.unflatten(params, live), tokens, labels,
+                        frontend)
     grads = torch.autograd.grad(total, live)
     return total.detach(), ce.detach(), list(grads)
 
@@ -71,9 +75,11 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).
 
-    batch = {"tokens": (B,S), "labels": (B,S)}, numpy arrays or tensors;
-    they are moved to the params' device.  With ``microbatches`` > 1 the
-    batch is cut into that many slices along B, and each slice's grads are
+    batch = {"tokens": (B,S), "labels": (B,S)[, "frontend": (B,T,D)]},
+    numpy arrays or tensors; they are moved to the params' device (the
+    frontend: the arch's patch or frame embeddings, see ``lm_apply``).
+    With ``microbatches`` > 1 the batch is cut into that many slices along
+    B, and each slice's grads are
     added in fp32 as g / microbatches (one slice's activations live at a
     time).  Then: clip to global norm ``clip_norm``, the optimizer's
     update, and p = (p.float() + u).to(p.dtype), leaf by leaf, in place.
@@ -90,21 +96,26 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
         dev = tree.leaves(params)[0].device
         tokens, labels = (torch.as_tensor(batch[k]).to(dev)
                           for k in ("tokens", "labels"))
+        frontend = batch.get("frontend")
+        if frontend is not None:
+            frontend = torch.as_tensor(frontend).to(dev)
         if tokens.shape[0] % microbatches:
             raise ValueError(f"batch of {tokens.shape[0]} rows does not "
                              f"split into {microbatches} microbatches")
         if microbatches == 1:
             total, ce, grads = loss_and_grads(loss_fn, params, tokens,
-                                              labels)
+                                              labels, frontend)
             for i, g in enumerate(grads):     # each leaf's own dtype freed
                 grads[i] = g.float()          # as its fp32 copy is made
         else:
             total = ce = torch.zeros((), dtype=torch.float32, device=dev)
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                      for p in tree.leaves(params)]
-            for tok, lab in zip(tokens.chunk(microbatches),
-                                labels.chunk(microbatches)):
-                t, c, g = loss_and_grads(loss_fn, params, tok, lab)
+            fronts = (frontend.chunk(microbatches) if frontend is not None
+                      else [None] * microbatches)
+            for tok, lab, fe in zip(tokens.chunk(microbatches),
+                                    labels.chunk(microbatches), fronts):
+                t, c, g = loss_and_grads(loss_fn, params, tok, lab, fe)
                 for acc, x in zip(grads, g):
                     acc.add_(x.float() / microbatches)
                 del g
@@ -191,9 +202,14 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
 
 
 def make_slot_admit_step(arch: ArchConfig):
-    """-> admit(params, cache, slot_id) -> cache.  Resets one engine slot's
-    rows in every slot-state pool on admission (mamba2 state zeroed, in
-    place — see transformer.admit_slot).  No-op for paged block pools."""
-    def slot_admit_step(params, cache, slot_id):
-        return T.admit_slot(params, arch, cache, int(slot_id))
+    """-> admit(params, cache, slot_id[, frontend]) -> cache.  Resets one
+    engine slot's rows in every slot-state pool on admission, in place:
+    mamba2 state zeroed; cross-attn K/V zeroed or computed once from the
+    request's ``frontend`` patch embeddings (1, T, d_model); wdec encoder
+    K/V zeroed or computed by running the encoder ONCE over the request's
+    frame embeddings (see transformer.admit_slot).  No-op for paged block
+    pools."""
+    def slot_admit_step(params, cache, slot_id, frontend=None):
+        return T.admit_slot(params, arch, cache, int(slot_id),
+                            frontend=frontend)
     return slot_admit_step

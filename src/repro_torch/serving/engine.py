@@ -13,8 +13,10 @@ Entry points: ``submit()`` + ``step()``/``run_until_drained()``,
 Engine step = admit -> one prefill chunk -> one decode step:
   1. every free slot pulls from the RequestScheduler (priority/FCFS +
      max-tokens budget, footprints capped at max_len) if its context's
-     blocks fit the pool, and its slot-state rows (mamba2) are zeroed —
-     at every admission, re-admission after preemption included.  With
+     blocks fit the pool, and its slot-state rows are reset — mamba2
+     state zeroed, cross K/V computed once from the request's
+     ``frontend`` (whisper's encoder runs here, never per step) — at
+     every admission, re-admission after preemption included.  With
      ``share_prefix`` (purely paged archs only) admission first matches
      the longest cached full-block prefix: matched blocks are
      refcount-shared and prefill starts at the matched boundary;
@@ -28,16 +30,18 @@ Engine step = admit -> one prefill chunk -> one decode step:
 
 The steps (runtime/steps.py) run eagerly and write the pools in place;
 the greedy sampler is fused into them, so only a (B,) token vector comes
-back to the host per step.  The port serves archs built of ``attn``,
-``moe_attn``, ``mla``, ``mla_dense``, ``mamba2`` and ``shared_attn``
-blocks (serving/cache_manager.py owns both state classes; zamba2's shared
+back to the host per step.  The port serves archs built of every block
+kind of the reference's decoders — ``attn``, ``moe_attn``, ``mla``,
+``mla_dense``, ``mamba2``, ``shared_attn``, ``cross_attn`` and ``wdec``
+(serving/cache_manager.py owns both state classes; zamba2's shared
 block pages its KV in a pool per application, MLA blocks page latent
-(c_kv, k_rope) pools); any other block kind raises
-``NotImplementedError`` naming it at construction.
+(c_kv, k_rope) pools, cross_attn and wdec hold each request's cross K/V
+in slot rows); ``enc_attn`` in a decoder raises ``ValueError`` and an
+unknown kind ``NotImplementedError`` at construction.
 Stochastic sampling (temperature > 0) is refused at submit.  Not ported
 yet: the reference engine's ASA plan / mesh placement, Chrome tracer,
-snapshot writer, StepMonitor and cache sanitizer, per-request frontends,
-and ``cancel`` / ``outstanding_tokens`` (used by the serving cluster).
+snapshot writer, StepMonitor and cache sanitizer, and ``cancel`` /
+``outstanding_tokens`` (used by the serving cluster).
 """
 from __future__ import annotations
 
@@ -73,6 +77,11 @@ class Request:
     max_new_tokens: int = 16
     priority: int = 0                # lower = more urgent
     sampling: SamplingParams = GREEDY
+    # per-request modality input, consumed ONCE at admission: vision patch
+    # embeddings (1, n_img_tokens, d_model) -> cross-attn K/V rows, or audio
+    # frame embeddings (1, enc_len, d_model) -> encoder pass -> wdec cross
+    # K/V rows (transformer.admit_slot); numpy or a tensor
+    frontend: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -310,9 +319,11 @@ class ContinuousBatchingEngine:
                 self.metrics.on_prefix_match(n_cached, len(ctx),
                                              now=self._clock())
             if self._admit_slot_state is not None:
-                # a fresh (zeroed) mamba2 state for this slot's pool rows
+                # reset this slot's state-pool rows (zero mamba2 state;
+                # cross K/V from the request's frontend, computed once)
                 self.cache.pools = self._admit_slot_state(
-                    self.params, self.cache.pools, slot.idx)
+                    self.params, self.cache.pools, slot.idx,
+                    st.req.frontend)
         return admitted
 
     def _slot_ids(self, rows: list[Optional[int]]) -> Optional[torch.Tensor]:

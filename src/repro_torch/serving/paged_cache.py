@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.serving.prefix_hash import chain_keys
@@ -288,10 +289,10 @@ class PagedKVCache:
 
     @property
     def pool_bytes(self) -> int:
-        """Device memory resident in the cache pools."""
+        """Device memory resident in the cache pools (every leaf: block
+        pools and slot-state rows alike, wdec's nested ones included)."""
         return sum(t.numel() * t.element_size()
-                   for seg in self.pools for blk in seg.values()
-                   for t in blk.values())
+                   for t in tree.leaves(self.pools))
 
     def stats(self) -> dict:
         """JSON-able cache-layer stats: allocator occupancy, geometry, and

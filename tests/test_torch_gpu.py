@@ -56,12 +56,16 @@ def _smoke():
 # (a decode step's rows and a forward's), an odd width on the looped body in
 # single elements, and a vector width past the register-held 16,384
 RMSNORM_WIDE_SHAPES = [(4, 12288), (1024, 12288), (5, 12289), (3, 16392)]
+# llama-3.2-vision-90b's d_model: its forward's, prefill chunk's and
+# decode step's rows
+RMSNORM_VISION_SHAPES = [(1024, 8192), (256, 8192), (4, 8192)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
-                                   (2, 8192), *RMSNORM_WIDE_SHAPES])
+                                   (2, 8192), *RMSNORM_WIDE_SHAPES,
+                                   *RMSNORM_VISION_SHAPES])
 def test_cuda_rmsnorm_matches_plain(shape, dtype):
     _need_cuda()
     tdt, atol, rtol = DTYPES[dtype]
@@ -88,6 +92,8 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (1, 129, 1, 4, 2, 128, True),      # one key, one row past a 128-tile
     (1, 300, 300, 32, 32, 160, True),  # zamba2-2.7b's shared block
     (1, 300, 300, 16, 16, 256, True),  # gemma-7b
+    (2, 384, 384, 16, 16, 64, True),   # whisper-medium's decoder forward
+    (2, 512, 512, 64, 8, 128, True),   # llama-3.2-vision-90b: GQA 8
 ])
 def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                             dtype):
@@ -152,6 +158,8 @@ FLASH_BWD_CASES = [
     (1, 300, 300, 16, 16, 256, True),  # gemma-7b
     (1, 200, 333, 4, 4, 160, True),    # D = 160, S < T
     (1, 300, 150, 4, 4, 160, False),   # D = 160, S > T, not causal
+    (2, 448, 448, 16, 16, 64, True),   # whisper-medium's train step
+    (1, 256, 256, 64, 8, 128, True),   # GQA 8 (llama-3.2-vision's heads)
 ]
 
 
@@ -1131,3 +1139,82 @@ def test_cuda_hybrid_forward_and_engine_match_cpu():
 
 def _to(params, device):
     return tree.map(lambda t: t.to(device), params)
+
+
+def _tiny_frontend_arch(kind):
+    """fp32 tiny archs of the two frontend families: whisper's (``wdec``
+    blocks, an encoder of 2 ``enc_attn`` blocks over 24 frames, LayerNorm,
+    biases, GELU, head dim 64) and llama-vision's (``attn`` then gated
+    ``cross_attn``, 16 patch tokens, GQA 2)."""
+    from repro_torch.configs.base import ArchConfig, EncoderSpec, Segment
+    if kind == "encdec":
+        return ArchConfig(name="encdec-tiny", family="audio", n_layers=2,
+                          d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                          vocab=300, act="gelu", norm="layernorm",
+                          attn_bias=True, tie_embeddings=True,
+                          pattern=(Segment(("wdec",), 2),),
+                          encoder=EncoderSpec(n_layers=2, seq_len=24,
+                                              d_ff=512),
+                          frontend="audio", dtype="float32",
+                          param_dtype="float32")
+    return ArchConfig(name="cross-tiny", family="vlm", n_layers=4,
+                      d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                      vocab=300, frontend="vision", n_img_tokens=16,
+                      pattern=(Segment(("attn", "cross_attn"), 2),),
+                      dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["encdec", "cross"])
+def test_cuda_frontend_archs_match_cpu(kind):
+    """The enc-dec and vision families on the card (flash and RMSNorm
+    kernels; LayerNorm, the encoder and cross attention plain) against the
+    CPU (plain versions), in fp32, each request with its own frontend and
+    llama-vision's gates opened at 0.5: forward logits at 1e-4 (with its
+    exact flash launches: one a causal self-attention), and greedy tokens
+    equal, logprobs at 1e-4, under chunked prefill and forced
+    preemption."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    arch = _tiny_frontend_arch(kind)
+    params = T.init_lm(arch, device="cpu", seed=0)
+    for seg in params["segments"]:
+        blk = seg.get("b1", {})
+        if "mlp_gate" in blk:
+            blk["mlp_gate"].fill_(0.5)
+            blk["attn"]["gate"].fill_(0.5)
+    T_fe = arch.encoder.seq_len if arch.encoder else arch.n_img_tokens
+    g = torch.Generator().manual_seed(1)
+    fe = torch.randn((4, T_fe, arch.d_model), generator=g)
+    tokens = torch.randint(0, arch.vocab, (2, 70), generator=g)
+    before = tfa.flash_attention.launches
+    got = T.lm_apply(_to(params, "cuda"), arch, tokens.cuda(),
+                     frontend=fe[:2].cuda(), impl="pallas").logits
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches - before == 2
+    want = T.lm_apply(params, arch, tokens, frontend=fe[:2],
+                      impl="pallas").logits
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.vocab, size=n).astype(np.int32)
+               for n in (19, 5, 23, 7)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousBatchingEngine(arch, params, device=dev, slots=2,
+                                       max_len=40, block_size=4,
+                                       num_blocks=9, prefill_chunk=8)
+        outs[dev] = eng.generate([
+            Request(id=i, prompt=p, max_new_tokens=8, frontend=fe[i:i + 1],
+                    sampling=SamplingParams(logprobs=True))
+            for i, p in enumerate(prompts)])
+        assert eng.metrics.preemptions > 0
+        assert eng.cache.allocator.num_used == 0
+    assert [o.token_ids for o in outs["cuda"]] == \
+        [o.token_ids for o in outs["cpu"]]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-4)

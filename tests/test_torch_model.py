@@ -14,7 +14,14 @@ and the MoE family: ``tiny-mla`` (the goldens' MLA + MoE shape) and
 expert, the MTP head) and of arctic-480b (``moe_attn``: softmax routing, a
 dense residual FFN).  ``moe``, ``mla_attention`` and
 ``mla_paged_attention`` are also held alone, the MoE layer at a capacity
-that drops tokens and under ``jax.grad``.
+that drops tokens and under ``jax.grad``.  The enc-dec and vision
+families: ``tiny-encdec`` (whisper's shape: LayerNorm, an encoder of
+``enc_attn`` blocks, ``wdec`` blocks with cross attention over its
+output, sinusoidal positions, GELU, biases) and ``tiny-cross``
+(llama-vision's: gated ``cross_attn`` blocks), run with frontends and
+their gates opened (``torch_port_fixtures.GATE``); ``layernorm``,
+``sinusoidal_at``, cross ``attention``, ``encode_frontend`` and
+``admit_slot``'s rows are also held alone.
 """
 import dataclasses
 
@@ -34,17 +41,18 @@ from repro.models import transformer as JT
 from repro.runtime import steps as JST
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch import tree as ttree
 from repro_torch.models import layers as TL
 from repro_torch.models import mamba2 as TM2
 from repro_torch.models import mla as TMLA
 from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.runtime import steps as TST
-from serving_fixtures import (TINY, TINY_HYBRID, TINY_MLA, TINY_SHARED,
-                              TINY_SSM)
-from torch_port_fixtures import (GEMMA_TINY, GQA3_TINY, QWEN_TINY,
-                                 SSM_G2_TINY, jax_params, port_arch,
-                                 torch_params)
+from serving_fixtures import (TINY, TINY_CROSS, TINY_ENCDEC, TINY_HYBRID,
+                              TINY_MLA, TINY_SHARED, TINY_SSM)
+from torch_port_fixtures import (GATE, GEMMA_TINY, GQA3_TINY, QWEN_TINY,
+                                 SSM_G2_TINY, frontend, jax_params,
+                                 port_arch, torch_params)
 
 ZAMBA2_SMOKE = j_reduce_for_smoke(j_get_arch("zamba2-2.7b"))
 DEEPSEEK_SMOKE = j_reduce_for_smoke(j_get_arch("deepseek-v3-671b"))
@@ -54,7 +62,8 @@ ARCHS = {"tiny-serve": TINY, "qwen3-tiny": QWEN_TINY, "tiny-ssm": TINY_SSM,
          "tiny-shared": TINY_SHARED, "zamba2-smoke": ZAMBA2_SMOKE,
          "gemma-tiny": GEMMA_TINY, "gqa3-tiny": GQA3_TINY,
          "tiny-mla": TINY_MLA, "deepseek-smoke": DEEPSEEK_SMOKE,
-         "arctic-smoke": ARCTIC_SMOKE}
+         "arctic-smoke": ARCTIC_SMOKE, "tiny-cross": TINY_CROSS,
+         "tiny-encdec": TINY_ENCDEC}
 TOL = 1e-5
 
 
@@ -113,6 +122,34 @@ def test_convert_carries_the_shared_block_and_its_pools():
     _same_tree(cache, convert.to_numpy(convert.to_torch(cache)))
 
 
+@pytest.mark.parametrize("name", ["tiny-cross", "tiny-encdec"])
+def test_convert_carries_the_encoder_gates_and_cross_pools(name):
+    """The encoder subtree (``enc_attn`` blocks stacked on their repeat
+    axis, its final norm), the tanh gates, the LayerNorm biases and the
+    cross-K/V slot rows (wdec's nested in its pool) convert as they are,
+    bit for bit, in bf16."""
+    jarch = ARCHS[name]
+    arch = jarch.scaled(param_dtype="bfloat16")
+    host = jax.tree.map(lambda a: np.asarray(a.astype(jnp.bfloat16)),
+                        jax_params(jarch, open_gates=True))
+    tp = convert.to_torch(host)
+    _same_tree(host, convert.to_numpy(tp))
+    if jarch.encoder:
+        enc = tp["encoder"]["segments"][0]["b0"]
+        assert enc["attn"]["wq"]["b"].shape == (2, 64)    # (R, q_dim)
+        assert tp["encoder"]["final_norm"]["bias"].shape == (64,)
+    else:
+        gate = tp["segments"][0]["b1"]["attn"]["gate"]
+        assert gate.shape == (2,) and float(gate[0]) == GATE
+    cache = jax.tree.map(np.asarray,
+                         JT.init_paged_cache(arch, 5, 4, slots=2))
+    rows = (cache[0]["b0"]["cross"] if jarch.encoder
+            else cache[0]["b1"])["k"]
+    T = jarch.encoder.seq_len if jarch.encoder else jarch.n_img_tokens
+    assert rows.shape == (2, 3, T, jarch.n_kv_heads, 16)  # (R, slots+1, ..)
+    _same_tree(cache, convert.to_numpy(convert.to_torch(cache)))
+
+
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_init_lm_matches_reference_tree(name):
     """Same nesting, shapes and dtypes as the reference init (values are
@@ -149,7 +186,8 @@ def test_init_lm_matches_reference_tree(name):
 @pytest.mark.parametrize("name", ["qwen3-8b", "mamba2-780m", "zamba2-2.7b",
                                   "gemma-7b", "minitron-4b",
                                   "command-r-plus-104b", "deepseek-v3-671b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "whisper-medium",
+                                  "llama-3.2-vision-90b"])
 def test_configs_and_smoke_reductions_equal_the_reference(name):
     """The port's copy of each served config, and its reduce_for_smoke,
     field for field the reference's."""
@@ -163,14 +201,20 @@ def test_configs_and_smoke_reductions_equal_the_reference(name):
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_lm_apply_matches_reference(name, impl):
     """Logits, the final-normed hidden states, the MoE aux loss (0
-    without MoE) and, for an MTP arch, the MTP head's logits."""
+    without MoE) and, for an MTP arch, the MTP head's logits; an arch with
+    a frontend takes one (gates opened)."""
     arch = ARCHS[name]
     tokens = np.random.default_rng(0).integers(0, arch.vocab, (2, 11))
-    want = JT.lm_apply(jax_params(arch), arch, jnp.asarray(tokens, jnp.int32),
+    fe = frontend(arch, 2, 1) if arch.frontend else None
+    gates = arch.frontend is not None
+    want = JT.lm_apply(jax_params(arch, gates), arch,
+                       jnp.asarray(tokens, jnp.int32),
+                       frontend=None if fe is None else jnp.asarray(fe),
                        impl=impl, return_hidden=True)
-    got = TT.lm_apply(torch_params(arch), port_arch(arch),
-                      torch.from_numpy(tokens), impl=impl,
-                      return_hidden=True)
+    got = TT.lm_apply(torch_params(arch, gates), port_arch(arch),
+                      torch.from_numpy(tokens),
+                      frontend=None if fe is None else torch.from_numpy(fe),
+                      impl=impl, return_hidden=True)
     assert got.logits.shape == (2, 11, arch.padded_vocab)
     assert got.logits.dtype == torch.float32
     _close(got.logits, want.logits)
@@ -274,7 +318,9 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
     """Two padded prompt chunks then three decode steps (with an idle row
     on the null block), on shuffled block tables: logits after every step
     and the pools after every step (null block excluded — padded rows'
-    scratch writes may land there in any order) match the JAX steps."""
+    scratch writes may land there in any order) match the JAX steps.  An
+    arch with a frontend first admits one into each slot row it uses
+    (gates opened), and its rows must match after admission too."""
     arch = ARCHS[name]
     tarch = port_arch(arch)
     NB, BS, C, SLOTS = 12, 4, 6, 3
@@ -284,7 +330,8 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
     jdec = JST.make_paged_decode_step(arch)
     tpre = TST.make_paged_prefill_step(tarch)
     tdec = TST.make_paged_decode_step(tarch)
-    jp, tp = jax_params(arch), torch_params(arch)
+    gates = arch.frontend is not None
+    jp, tp = jax_params(arch, gates), torch_params(arch, gates)
     rng = np.random.default_rng(3)
     tables = np.asarray([[3, 7, 1, 9], [2, 5, 11, 4]], np.int32)
     # slot-state pool rows, out of order; the idle decode row takes the
@@ -294,14 +341,31 @@ def test_paged_prefill_and_decode_steps_match_reference(name):
 
     def pools_close():
         """Paged KV pools without the null block (row 1 of the block
-        axis on), slot-state pools without the null row (the last): padded
-        and idle rows write scratch there in any order."""
-        for js, ts in zip(jcache, tcache):
-            for key, pool in ts.items():
-                paged = "k" in pool or "c_kv" in pool
-                skip = slice(1, None) if paged else slice(None, -1)
-                for leaf, t in pool.items():
-                    _close(t[:, skip], np.asarray(js[key][leaf])[:, skip])
+        axis on), mamba2 state pools without the null row (the last):
+        padded and idle rows write scratch there in any order.  Cross-K/V
+        rows are written at admission only, and held whole."""
+        for seg, js, ts in zip(arch.pattern, jcache, tcache):
+            for bi, kind in enumerate(seg.blocks):
+                key = f"b{bi}"
+                parts = ([("self", slice(1, None)), ("cross", slice(None))]
+                         if kind == "wdec" else
+                         [(None, slice(None, -1) if kind == "mamba2" else
+                           slice(None) if kind == "cross_attn" else
+                           slice(1, None))])
+                for part, skip in parts:
+                    tpool = ts[key] if part is None else ts[key][part]
+                    jpool = js[key] if part is None else js[key][part]
+                    for leaf, t in tpool.items():
+                        _close(t[:, skip], np.asarray(jpool[leaf])[:, skip])
+
+    if arch.frontend:
+        fe = frontend(arch, 2, 4)
+        for i, slot in enumerate(sids):
+            jcache = JT.admit_slot(jp, arch, jcache, int(slot),
+                                   frontend=jnp.asarray(fe[i:i + 1]))
+            TT.admit_slot(tp, tarch, tcache, int(slot),
+                          frontend=torch.from_numpy(fe[i:i + 1]))
+        pools_close()
 
     pos = np.asarray([0, 0], np.int32)
     for new_lens in ([6, 4], [5, 6]):
@@ -603,3 +667,127 @@ def test_mla_paged_attention_matches_reference():
         _close(got, want)
         for leaf in ("c_kv", "k_rope"):
             _close(tcache[leaf][1:], np.asarray(jcache[leaf])[1:])
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and vision layers alone
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_reference(dtype):
+    """fp32 math over the population variance (jnp.var's), cast back to
+    the input's dtype: in fp32 at 1e-5; from bf16 input within one bf16
+    rounding of the output (2^-7 of it), where both round the same fp32
+    value.  torch's layer_norm (also the population variance) agrees."""
+    rng = np.random.default_rng(10)
+    x = (3 + 2 * rng.standard_normal((3, 5, 48))).astype(np.float32)
+    p = {"scale": (1 + 0.1 * rng.standard_normal(48)).astype(np.float32),
+         "bias": (0.1 * rng.standard_normal(48)).astype(np.float32)}
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = JL.layernorm(jax.tree.map(jnp.asarray, p), jx)
+    got = TL.layernorm({k: torch.from_numpy(v) for k, v in p.items()}, tx)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    if dtype == "float32":
+        _close(got, want)
+    else:
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=1e-5, rtol=2.0 ** -7)
+    lib = torch.nn.functional.layer_norm(
+        tx.float(), (48,), torch.from_numpy(p["scale"]),
+        torch.from_numpy(p["bias"]), 1e-5).to(tx.dtype)
+    np.testing.assert_allclose(_np(got), _np(lib), atol=1e-5, rtol=2.0 ** -7)
+    init = TL.init_layernorm(48, device="cpu", repeat=3)
+    assert init["scale"].shape == init["bias"].shape == (3, 48)
+
+
+@pytest.mark.parametrize("d_model", [64, 33])
+def test_sinusoidal_at_matches_reference(d_model):
+    """Sin in the even columns, cos in the odd ones (at an odd width one
+    sin column more), at positions up to whisper's 1,500 frames; the
+    per-row (B, S) form the paged path takes is each row's (S,) one."""
+    pos = np.asarray([0, 1, 7, 383, 447, 1499], np.int32)
+    want = JT.sinusoidal_at(jnp.asarray(pos), d_model)
+    got = TT.sinusoidal_at(torch.from_numpy(pos), d_model)
+    assert got.shape == (6, d_model) and got.dtype == torch.float32
+    _close(got, want)
+    rows = torch.from_numpy(np.stack([pos, pos[::-1].copy()]))
+    both = TT.sinusoidal_at(rows, d_model)
+    torch.testing.assert_close(both[1], TT.sinusoidal_at(rows[1], d_model))
+    _close(TT.sinusoidal_positions(9, d_model),
+           JT.sinusoidal_positions(9, d_model))
+
+
+@pytest.mark.parametrize("gated,n_kv", [(False, 2), (True, 2), (True, 4)])
+def test_cross_attention_matches_reference(gated, n_kv):
+    """Cross attention over kv_input (T = 7 rows, S = 5 queries, 4 heads
+    over n_kv KV heads, qk-norm, biases) against the reference's
+    ``attention``; then over the same K/V handed in as precomputed rows
+    (the serving path's ``cache`` without "pos"), which give the same
+    output.  Gated: the output scaled by tanh(gate), gate = 0.5."""
+    cfg = dict(d_model=32, n_heads=4, n_kv_heads=n_kv, head_dim=8,
+               use_rope=False, qk_norm=True, causal=False, bias=True,
+               gated=gated)
+    jcfg, tcfg = JL.AttnConfig(**cfg), TL.AttnConfig(**cfg)
+    jp = JL.init_attention(jax.random.PRNGKey(11), jcfg)
+    if gated:
+        jp["gate"] = jnp.asarray(GATE, jnp.float32)
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp))
+    assert ("gate" in tp) == gated
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 5, 32)).astype(np.float32)
+    kv = rng.standard_normal((2, 7, 32)).astype(np.float32)
+    want, _ = JL.attention(jp, jcfg, jnp.asarray(x),
+                           kv_input=jnp.asarray(kv))
+    got, cache = TL.attention(tp, tcfg, torch.from_numpy(x),
+                              kv_input=torch.from_numpy(kv))
+    assert cache is None
+    _close(got, want)
+    tkv = torch.from_numpy(kv)
+    k = TL.dense(tp["wk"], tkv).reshape(2, 7, n_kv, 8)
+    rows = {"k": TL.rmsnorm(tp["k_norm"], k),
+            "v": TL.dense(tp["wv"], tkv).reshape(2, 7, n_kv, 8)}
+    again, same = TL.attention(tp, tcfg, torch.from_numpy(x), cache=rows)
+    assert same is rows
+    _close(again, want)
+    jrows = jax.tree.map(lambda t: jnp.asarray(_np(t)), rows)
+    _close(again, JL.attention(jp, jcfg, jnp.asarray(x), cache=jrows)[0])
+
+
+def test_encode_frontend_matches_reference():
+    """whisper's encoder at tiny-encdec's widths: frame embeddings plus
+    sinusoidal positions through two bidirectional ``enc_attn`` blocks
+    (LayerNorm, biases, GELU) and the final LayerNorm, at 1e-5."""
+    arch = TINY_ENCDEC
+    fe = frontend(arch, 2, 12)
+    want = JT.encode_frontend(jax_params(arch), arch, jnp.asarray(fe))
+    got = TT.encode_frontend(torch_params(arch), port_arch(arch),
+                             torch.from_numpy(fe), impl="pallas")
+    assert got.shape == fe.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("name", ["tiny-cross", "tiny-encdec"])
+def test_admit_slot_rows_match_reference(name):
+    """Admission with a frontend writes the slot's cross-K/V rows in every
+    layer (the patch embeddings' projections, or the encoder output's),
+    in place, as the reference's ``admit_slot``; admission without one
+    zeroes them; the other slots' rows and the paged pools stay."""
+    arch = ARCHS[name]
+    tarch = port_arch(arch)
+    jcache = JT.init_paged_cache(arch, 5, 4, jnp.float32, slots=3)
+    tcache = convert.to_torch(jax.tree.map(np.asarray, jcache))
+    jp, tp = jax_params(arch), torch_params(arch)
+    fe = frontend(arch, 2, 13)
+    for slot, f in ((1, fe[:1]), (2, fe[1:]), (1, None)):
+        jcache = JT.admit_slot(jp, arch, jcache, slot,
+                               frontend=None if f is None else jnp.asarray(f))
+        out = TT.admit_slot(tp, tarch, tcache, slot,
+                            frontend=None if f is None
+                            else torch.from_numpy(f))
+        assert out is tcache
+        for a, b in zip(jax.tree.leaves(jcache), ttree.leaves(tcache)):
+            _close(b, a)
+    rows = (tcache[0]["b0"]["cross"] if arch.encoder else tcache[0]["b1"])
+    assert float(rows["k"][:, 2].abs().max()) > 0       # slot 2 kept its rows
+    assert float(rows["k"][:, 1].abs().max()) == 0      # slot 1 zeroed

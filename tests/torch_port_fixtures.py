@@ -5,6 +5,12 @@ a JAX ``ArchConfig`` is mirrored field for field with ``port_arch``.
 Reference params are built under ``jax.threefry_partitionable(False)`` —
 the RNG the serving goldens were frozen with — and handed to the port as
 numpy leaves through ``repro_torch.convert``.
+
+llama-vision's tanh gates (a ``cross_attn`` block's ``attn.gate`` and
+``mlp_gate``) start at 0, which makes the block the identity and hides
+any fault in it; ``open_gates=True`` sets them to ``GATE``.  The goldens
+were frozen with them shut.  ``frontend`` makes a batch of frame or
+patch embeddings with numpy from a seed.
 """
 from __future__ import annotations
 
@@ -55,8 +61,9 @@ GQA3_TINY = ArchConfig(name="gqa3-tiny", family="dense", n_layers=2,
                        pattern=(Segment(("attn",), 2),), dtype="float32",
                        param_dtype="float32")
 
-_JAX_PARAMS: dict[str, dict] = {}
-_TORCH_PARAMS: dict[str, dict] = {}
+_JAX_PARAMS: dict[tuple, dict] = {}
+_TORCH_PARAMS: dict[tuple, dict] = {}
+GATE = 0.5          # the opened gates' value (tanh(0.5) = 0.46)
 
 
 def port_arch(arch: ArchConfig) -> tbase.ArchConfig:
@@ -71,17 +78,52 @@ def port_arch(arch: ArchConfig) -> tbase.ArchConfig:
     return tbase.ArchConfig(**kw)
 
 
-def jax_params(arch: ArchConfig) -> dict:
-    """Reference params from PRNGKey(0) under the goldens' RNG."""
-    if arch.name not in _JAX_PARAMS:
-        with jax.threefry_partitionable(False):
-            _JAX_PARAMS[arch.name] = JT.init_lm(jax.random.PRNGKey(0), arch)
-    return _JAX_PARAMS[arch.name]
+def opened(params: dict, arch, value: float = GATE) -> dict:
+    """A copy of the param tree ``params`` (JAX or numpy leaves) in which
+    every ``cross_attn`` block's ``attn.gate`` and ``mlp_gate`` are
+    ``value``; the other leaves are shared."""
+    out = dict(params)
+    out["segments"] = [dict(seg) for seg in params["segments"]]
+    for si, seg in enumerate(arch.pattern):
+        for bi, kind in enumerate(seg.blocks):
+            if kind == "cross_attn":
+                blk = dict(out["segments"][si][f"b{bi}"])
+                blk["attn"] = dict(blk["attn"])
+                blk["attn"]["gate"] = np.full_like(
+                    np.asarray(blk["attn"]["gate"]), value)
+                blk["mlp_gate"] = np.full_like(np.asarray(blk["mlp_gate"]),
+                                               value)
+                out["segments"][si][f"b{bi}"] = blk
+    return out
 
 
-def torch_params(arch: ArchConfig) -> dict:
-    """``jax_params(arch)`` converted leaf for leaf to CPU tensors."""
-    if arch.name not in _TORCH_PARAMS:
-        _TORCH_PARAMS[arch.name] = convert.to_torch(
-            jax.tree.map(np.asarray, jax_params(arch)))
-    return _TORCH_PARAMS[arch.name]
+def jax_params(arch: ArchConfig, open_gates: bool = False) -> dict:
+    """Reference params from PRNGKey(0) under the goldens' RNG (with
+    ``open_gates``, the cross_attn gates at ``GATE``)."""
+    key = (arch.name, open_gates)
+    if key not in _JAX_PARAMS:
+        if open_gates:
+            _JAX_PARAMS[key] = jax.tree.map(
+                jax.numpy.asarray, opened(jax_params(arch), arch))
+        else:
+            with jax.threefry_partitionable(False):
+                _JAX_PARAMS[key] = JT.init_lm(jax.random.PRNGKey(0), arch)
+    return _JAX_PARAMS[key]
+
+
+def torch_params(arch: ArchConfig, open_gates: bool = False) -> dict:
+    """``jax_params(arch, open_gates)`` converted leaf for leaf to CPU
+    tensors."""
+    key = (arch.name, open_gates)
+    if key not in _TORCH_PARAMS:
+        _TORCH_PARAMS[key] = convert.to_torch(
+            jax.tree.map(np.asarray, jax_params(arch, open_gates)))
+    return _TORCH_PARAMS[key]
+
+
+def frontend(arch: ArchConfig, batch: int, seed: int) -> np.ndarray:
+    """(batch, T, d_model) float32 N(0, 1) embeddings for ``arch``'s
+    frontend: T frames of its encoder, or its n_img_tokens patches."""
+    T = arch.encoder.seq_len if arch.encoder else arch.n_img_tokens
+    return np.random.default_rng(seed).standard_normal(
+        (batch, T, arch.d_model)).astype(np.float32)
