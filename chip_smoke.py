@@ -182,10 +182,50 @@ Phases, each of which fails the run (exit code 1) on any error:
     1024) through the encoder; phase 8's grad check and steps: flash and
     its backward 24 times a step each, no RMSNorm.
 
-The phases run in the order 1-7, 10-13, 15-22, 24-27 (each model's serve,
-then its forward, each model freed before the next), 8, 9, 14, 23, 28 (the
-trains, with every serving weight freed); each phase's seconds and the
-total are printed before the result lines.
+29. Sample qwen3-8b (after phase 5, on its weights): phase 4's requests at
+    temperature 0.8, top_k 50, top_p 0.95, request i with the seed 100 + i
+    and logprobs (``SAMPLING``): (a) two engines give the same tokens and
+    logprobs bit for bit; (b) top_k = 1 at temperature 1.5 gives phase 4's
+    greedy tokens, except at a step whose largest logit is tied (bf16
+    logits tie often at 151,936 columns: the mask keeps every tied token
+    and the draw picks one, where greedy takes the first), each tie
+    recorded and any other departure a failure; (c) request 1 sampled
+    among greedy requests leaves theirs equal to phase 4's; (d) a stop
+    token (phase 4's third token of request 0) finishes that request with
+    "stop" and gives its blocks and budget back (a token budget of one
+    request's footprint admits request 1 only after it); (e) every logprob
+    finite and <= 0; RMSNorm launches ``forward_launches`` a model call;
+    a forced-preemption run (``PREEMPT_BLOCKS``) finishes every request
+    and frees every block, each request's tokens compared to the ample
+    run's (reported, not required: in bf16 a re-prefill's logits come from
+    a chunked prefill, not from decode steps); tok/s, TPOT and TTFT beside
+    phase 4's.
+30. The sampler on the card at qwen3-8b's 151,936 columns: the threefry
+    bits and uniforms on CUDA equal the CPU's over a (seed, position)
+    grid; a row's token depends only on its logits, seed, position and
+    params, not on its batch row or the batch size; 16,384 draws from one
+    seeded logits row (T 0.8, top_k 50, top_p 0.9, positions 0 .. 16,383 in
+    batches of 256) stay in the kept set, and the counts' chi-square
+    against softmax(masked) (bins expecting < 5 merged) stays below its
+    0.9999 quantile (scipy); one call at (4, 151,936) between CUDA events,
+    stochastic and greedy, and the Gumbel draw alone.
+31. Observe qwen3-8b: phase 4's requests with a ``ChromeTracer`` alone
+    (TPOT beside phase 4's; the trace validated), then with the tracer,
+    a ``SnapshotWriter`` every 0.05 s, the ``StepMonitor`` and a
+    ``CacheSanitizer``, cancelling request 1 while it decodes and request
+    7 while it is queued: both finish "cancelled" with their blocks freed,
+    ``outstanding_tokens()`` drops by their budgets and reads 0 at drain,
+    the sanitizer is clean, every snapshot line parses, the trace
+    validates and the Prometheus text parses back to the summary.
+32. Sample mamba2-780m (after phase 7): phase 6's requests in phase 29's
+    form, checks (a), (b) and (e), and 48 SSD launches a prefill chunk.
+
+The phases run in the order 1-5, 29-31, 6, 7, 32, 10-13, 15-22, 24-27
+(each model's serve, then its forward, each model freed before the next),
+8, 9, 14, 23, 28 (the trains, with every serving weight freed); each
+phase's seconds and the total are printed before the result lines.
+``--profile`` also traces a sampled serve of qwen3-8b (``profile sample
+qwen3-8b``).
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -205,6 +245,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -271,6 +312,21 @@ ZERO_GRAD_REL_MAX = 1e-4
 
 TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
 L2_FLUSH_BYTES = 64 << 20          # written before each call of a cold-L2 time
+# phases 29 and 32: phase 4's / 6's requests sampled at these settings,
+# request i with the seed SAMPLE_SEED + i
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLE_SEED = 100
+# phase 29's forced-preemption run: the 4 admitted prompts' blocks (32 of
+# 16 tokens each) and 2 more, so the decode steps' growth preempts
+PREEMPT_BLOCKS = 4 * 32 + 1 + 2
+# phase 30: draws from one seeded logits row, in batches of DRAW_ROWS rows
+# (positions 0 .. DRAWS - 1), at these settings; the counts' chi-square
+# against softmax(masked) must stay below its CHI2_QUANTILE quantile (bins
+# expecting fewer than CHI2_MIN_EXPECTED draws merged into one)
+DRAWS, DRAW_ROWS = 16384, 256
+DRAW_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+CHI2_QUANTILE, CHI2_MIN_EXPECTED = 0.9999, 5.0
+SNAPSHOT_EVERY_S = 0.05            # phase 31's snapshot cadence
 
 QWEN = "qwen3-8b"
 MAMBA = "mamba2-780m"
@@ -1187,6 +1243,14 @@ class Counting:
         setattr(self.module, self.name, self.real)
 
 
+def engine_kwargs(name):
+    """The engine settings of model ``name``'s serve cell, on the card."""
+    st = SERVE[name]
+    return dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
+                block_size=st["block_size"],
+                prefill_chunk=st["prefill_chunk"])
+
+
 def serve_phase(torch, np, report, name, arch):
     from repro_torch import tree
     from repro_torch.models import transformer as T
@@ -1212,9 +1276,7 @@ def serve_phase(torch, np, report, name, arch):
                .astype(np.int32) for _ in range(st["requests"])]
     # each request's own frontend (whisper's frames, llama-vision's patches)
     fronts = make_frontends(torch, arch, st["requests"])
-    engine_kw = dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
-                     block_size=st["block_size"],
-                     prefill_chunk=st["prefill_chunk"])
+    engine_kw = engine_kwargs(name)
     # warm-up engine (not timed, not counted): first cuBLAS calls
     warm = ContinuousBatchingEngine(arch, params, **engine_kw)
     warm.generate([Request(id=0, prompt=prompts[0][:16], max_new_tokens=2,
@@ -1349,7 +1411,405 @@ def serve_phase(torch, np, report, name, arch):
         if first != outs[rid].token_ids[0]:
             fail(f"{name} request {rid}: chunked prefill argmax {first} != "
                  f"the engine's first token {outs[rid].token_ids[0]}")
-    return params, prompts, fronts, torch.stack(ref_logits)
+    return (params, prompts, fronts, torch.stack(ref_logits),
+            [o.token_ids for o in outs])
+
+
+def recording_sampler(np, ties):
+    """A ``make_sampler`` that records, for each stochastic row it samples,
+    whether the row's largest logit is shared by two or more tokens:
+    ``ties[(seed, position)] = bool``."""
+    from repro_torch.serving import sampling
+
+    def make(vocab):
+        sample = sampling.make_sampler(vocab)
+
+        def recorded(logits, temperature, top_k, top_p, seeds, positions):
+            if temperature is not None and np.any(temperature > 0):
+                lg = logits[:, :vocab].float()
+                tied = ((lg == lg.amax(-1, keepdim=True)).sum(-1) > 1)
+                for sd, pos, t, tie in zip(seeds, positions.tolist(),
+                                           temperature, tied.tolist()):
+                    if t > 0:
+                        ties[(int(sd), int(pos))] = tie
+            return sample(logits, temperature, top_k, top_p, seeds,
+                          positions)
+        return recorded
+    return make
+
+
+def sample_phase(torch, np, report, name, arch, params, prompts, greedy):
+    """29. / 32. Phase 4's (6's) requests sampled at ``SAMPLING``, request
+    i with the seed ``SAMPLE_SEED + i`` and logprobs: (a) two engines give
+    the same tokens and logprobs bit for bit; (b) top_k = 1 at temperature
+    1.5 gives the greedy tokens, except where a step's largest logit is
+    tied (the mask keeps every tied token and the draw picks one; greedy
+    takes the first), which is recorded and reported; (e) every logprob
+    finite and <= 0; the launch counts of the serve phase.  qwen3-8b also:
+    (c) request 1 sampled among greedy ones leaves the others' tokens
+    equal to phase 4's; (d) a stop token (phase 4's third token of request
+    0) finishes it with "stop" and gives its blocks and budget back; and a
+    forced-preemption run that must finish and free every block, with
+    each request's tokens compared to the ample run's."""
+    from unittest import mock
+
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+    from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.serving.scheduler import RequestScheduler
+
+    st = SERVE[name]
+    engine_kw = engine_kwargs(name)
+
+    def sampled(i, **kw):
+        return SamplingParams(seed=SAMPLE_SEED + i, logprobs=True,
+                              **dict(SAMPLING, **kw))
+
+    def serve(sampling, ids=None, **kw):
+        eng = ContinuousBatchingEngine(arch, params, **dict(engine_kw, **kw))
+        ids = range(len(prompts)) if ids is None else ids
+        t0 = time.perf_counter()
+        outs = eng.generate([Request(id=i, prompt=prompts[i],
+                                     max_new_tokens=st["max_new"],
+                                     sampling=sampling(i)) for i in ids])
+        torch.cuda.synchronize()
+        return eng, outs, time.perf_counter() - t0
+
+    # warm-up (not timed, not counted): the stochastic branch's first sorts
+    ContinuousBatchingEngine(arch, params, **engine_kw).generate([
+        Request(id=0, prompt=prompts[0][:16], max_new_tokens=2,
+                sampling=sampled(0))])
+    torch.cuda.synchronize()
+    reset_counts()
+    eng, outs, wall = serve(sampled)
+    counts = read_counts()
+    _, again, _ = serve(sampled)
+    for o, a in zip(outs, again):                                 # (a)
+        if o.token_ids != a.token_ids or o.logprobs != a.logprobs:
+            fail(f"sample {name} request {o.request_id}: two engines "
+                 f"differ: {o.token_ids} vs {a.token_ids}")
+    for o in outs:
+        if o.n_tokens != st["max_new"] or o.finish_reason != "length" or \
+                not all(0 <= t < arch.vocab for t in o.token_ids):
+            fail(f"sample {name} request {o.request_id}: {o.n_tokens} "
+                 f"tokens, finish {o.finish_reason!r}")
+        if not all(math.isfinite(lp) and lp <= 0 for lp in o.logprobs):
+            fail(f"sample {name} request {o.request_id}: logprobs not "
+                 f"finite and <= 0: {o.logprobs}")                   # (e)
+    if eng.cache.allocator.num_used or any(s.busy for s in eng.slots):
+        fail(f"sample {name}: blocks or slots held after drain")
+    s = eng.metrics.summary()
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    want = {k: 0 for k in KERNELS}
+    want.update(rmsnorm=forward_launches(arch)["rmsnorm"] * calls,
+                ssd_scan=block_counts(arch)["mamba2"] * s["prefill_chunks"])
+    if counts != want:                                                # (f)
+        fail(f"sample {name}: launches {counts}, want {want}")
+    differ = sum(o.token_ids != g for o, g in zip(outs, greedy))
+    if differ == 0 and name == QWEN:
+        fail(f"sample {name}: every sampled request equals its greedy one")
+
+    ties: dict = {}
+    with mock.patch.object(E, "make_sampler", recording_sampler(np, ties)):
+        _, top1, _ = serve(lambda i: SamplingParams(
+            temperature=1.5, top_k=1, seed=SAMPLE_SEED + i))         # (b)
+    top1_diverged = []
+    for i, (o, g) in enumerate(zip(top1, greedy)):
+        k = next((j for j, (a, b) in enumerate(zip(o.token_ids, g))
+                  if a != b), None)
+        if k is None:
+            continue
+        pos = len(prompts[i]) + k
+        if not ties.get((SAMPLE_SEED + i, pos)):
+            fail(f"sample {name} request {i}: top_k = 1 leaves the greedy "
+                 f"tokens at index {k} ({o.token_ids[k]} vs {g[k]}) with "
+                 f"no tie at the largest logit")
+        top1_diverged.append((i, k))
+    n_ties = sum(ties.values())
+
+    rep = dict(requests=len(outs), tokens=sum(o.n_tokens for o in outs),
+               wall_s=wall, tok_per_s=sum(o.n_tokens for o in outs) / wall,
+               ttft_p50_s=s["ttft_p50_s"], tpot_p50_s=s["tpot_p50_s"],
+               decode_steps=s["decode_steps"],
+               prefill_chunks=s["prefill_chunks"], launches=counts,
+               phases_host_s=s["phases"], requests_unlike_greedy=differ,
+               top1_steps=len(ties), top1_tied_steps=n_ties,
+               top1_diverged=top1_diverged,
+               logprob_min=min(lp for o in outs for lp in o.logprobs))
+    extra = ""
+    if name == QWEN:
+        _, mixed, _ = serve(lambda i: sampled(i) if i == 1
+                            else SamplingParams())                    # (c)
+        for o, g in zip(mixed, greedy):
+            if o.request_id != 1 and o.token_ids != g:
+                fail(f"sample {name}: greedy request {o.request_id} beside "
+                     f"a sampled one differs from phase 4's tokens")
+        stop = greedy[0][2]                                           # (d)
+        cut = greedy[0][:greedy[0].index(stop) + 1]
+        sched = RequestScheduler(max_tokens_in_flight=len(prompts[0])
+                                 + st["max_new"])   # one request at a time
+        deng, stopped, _ = serve(
+            lambda i: SamplingParams(stop_token_ids=(stop,) if i == 0
+                                     else ()), ids=[0, 1], scheduler=sched)
+        if stopped[0].finish_reason != "stop" or \
+                stopped[0].token_ids != cut or \
+                stopped[1].finish_reason != "length" or \
+                deng.cache.allocator.num_used or sched._in_flight_tokens:
+            fail(f"sample {name}: stop token {stop}: {stopped[0]} / "
+                 f"{stopped[1].finish_reason}, blocks "
+                 f"{deng.cache.allocator.num_used}, budget "
+                 f"{sched._in_flight_tokens}")
+        peng, tight, _ = serve(sampled, num_blocks=PREEMPT_BLOCKS)
+        if any(o.n_tokens != st["max_new"] for o in tight) or \
+                peng.cache.allocator.num_used or \
+                peng.metrics.preemptions == 0:
+            fail(f"sample {name}: forced preemption: tokens "
+                 f"{[o.n_tokens for o in tight]}, blocks "
+                 f"{peng.cache.allocator.num_used}, preemptions "
+                 f"{peng.metrics.preemptions}")
+        same = [sum(a == b for a, b in zip(o.token_ids, t.token_ids))
+                for o, t in zip(outs, tight)]
+        rep.update(preempt_blocks=PREEMPT_BLOCKS,
+                   preemptions=peng.metrics.preemptions,
+                   preempt_tokens_equal=same, stop_tokens=len(cut))
+        extra = (f"; greedy rows beside a sampled one equal phase 4's; stop "
+                 f"token {stop} after {len(cut)} tokens, blocks and budget "
+                 f"freed; forced preemption ({PREEMPT_BLOCKS} blocks, "
+                 f"{peng.metrics.preemptions} preemptions): every request "
+                 f"finished, tokens equal to the ample run's by request "
+                 f"{same} of {st['max_new']}")
+    g = report[f"serve {name}"]
+    report[f"sample {name}"] = rep
+    print(f"sample: {name}: T={SAMPLING['temperature']} top_k="
+          f"{SAMPLING['top_k']} top_p={SAMPLING['top_p']}: {rep['tokens']} "
+          f"tokens in {wall:.3f} s = {rep['tok_per_s']:.2f} tok/s (greedy "
+          f"{g['tok_per_s']:.2f}), TPOT p50 {s['tpot_p50_s'] * 1e3:.2f} ms "
+          f"(greedy {g['tpot_p50_s'] * 1e3:.2f}), TTFT p50 "
+          f"{s['ttft_p50_s'] * 1e3:.1f} ms (greedy "
+          f"{g['ttft_p50_s'] * 1e3:.1f}); two engines equal bit for bit; "
+          f"{differ} of {len(outs)} requests unlike greedy; logprobs finite, "
+          f"min {rep['logprob_min']:.3f}; launches {counts}; top_k = 1 at "
+          f"T = 1.5: {n_ties} of {len(ties)} steps tied at the largest "
+          f"logit, requests left greedy at (request, index) "
+          f"{top1_diverged}{extra}")
+
+
+def sampler_phase(torch, np, report, vocab):
+    """30. The sampler on the card at ``vocab``: the threefry bits and
+    uniforms on CUDA equal the CPU's over a (seed, position) grid; a row's
+    token depends only on its logits, seed, position and params, whatever
+    its batch row or batch size; ``DRAWS`` draws from one seeded row stay
+    in the kept set and their counts pass a chi-square test against
+    softmax(masked) at ``CHI2_QUANTILE``; one call's time at (4, vocab)."""
+    from scipy import stats
+
+    from repro_torch.serving import threefry as TF
+    from repro_torch.serving.sampling import (apply_top_k, apply_top_p,
+                                              make_sampler)
+
+    seeds = [0, 1, 12345, 2 ** 32 - 1, 7, 100]
+    positions = [0, 1, 511, 2 ** 31 - 1, 16383, 123456]
+    sd = torch.tensor([a for a in seeds for _ in positions])
+    ps = torch.tensor([b for _ in seeds for b in positions])
+    keys = TF.fold_in(TF.prng_key(sd), ps)
+    keys_gpu = TF.fold_in(TF.prng_key(sd.cuda()), ps.cuda())
+    if not torch.equal(TF.random_bits(keys_gpu, vocab).cpu(),
+                       TF.random_bits(keys, vocab)) or not torch.equal(
+            TF.uniform(keys_gpu, vocab, TF.TINY).cpu(),
+            TF.uniform(keys, vocab, TF.TINY)):
+        fail("sampler: threefry bits or uniforms on CUDA differ from the "
+             "CPU's")
+
+    sample = make_sampler(vocab)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B = 8
+    lg = 3 * torch.randn((B, vocab), generator=gen, device="cuda")
+    temp = np.asarray([0.0, 0.3, 0.8, 1.5, 0.8, 1.0, 0.0, 1.2], np.float32)
+    top_k = np.asarray([0, 0, 50, 0, 1, 50, 50, 0], np.int32)
+    top_p = np.asarray([1.0, 0.9, 0.95, 0.3, 1.0, 0.9, 1.0, 1.0], np.float32)
+    sds = np.asarray([5, 6, 7, 8, 9, 10, 11, 2 ** 32 - 1], np.uint32)
+    pos = torch.tensor([0, 17, 511, 1000, 3, 2 ** 31 - 1, 9, 42],
+                       device="cuda")
+    full, _ = sample(lg, temp, top_k, top_p, sds, pos)
+    perm = [7, 2, 5, 0, 3, 6, 1, 4]
+    shuffled, _ = sample(lg[perm], temp[perm], top_k[perm], top_p[perm],
+                         sds[perm], pos[perm])
+    alone = [int(sample(lg[i:i + 1], temp[i:i + 1], top_k[i:i + 1],
+                        top_p[i:i + 1], sds[i:i + 1], pos[i:i + 1])[0])
+             for i in range(B)]
+    if full[perm].tolist() != shuffled.tolist() or \
+            full.tolist() != alone:
+        fail(f"sampler: a row's token depends on its batch: {full.tolist()}"
+             f", permuted {shuffled.tolist()}, alone {alone}")
+
+    T, k, p = (DRAW_SAMPLING[x] for x in ("temperature", "top_k", "top_p"))
+    row = 2 * torch.randn((1, vocab), generator=gen, device="cuda")
+    masked = apply_top_p(apply_top_k(row / T, torch.tensor([k],
+                                                           device="cuda")),
+                         torch.tensor([p], device="cuda"))[0]
+    kept = torch.isfinite(masked)
+    probs = torch.softmax(masked.double(), -1).cpu().numpy()
+    counts = np.zeros(vocab, np.int64)
+    rows = row.expand(DRAW_ROWS, vocab)
+    for b in range(DRAWS // DRAW_ROWS):
+        tok, _ = sample(rows, np.full(DRAW_ROWS, T, np.float32),
+                        np.full(DRAW_ROWS, k, np.int32),
+                        np.full(DRAW_ROWS, p, np.float32),
+                        np.full(DRAW_ROWS, 42, np.uint32),
+                        torch.arange(b * DRAW_ROWS, (b + 1) * DRAW_ROWS,
+                                     device="cuda"))
+        counts += np.bincount(tok.cpu().numpy(), minlength=vocab)
+    kept_np = kept.cpu().numpy()
+    outside = int(counts[~kept_np].sum())
+    if outside:
+        fail(f"sampler: {outside} draws outside the kept set")
+    expect = probs[kept_np] * DRAWS
+    obs = counts[kept_np]
+    small = expect < CHI2_MIN_EXPECTED
+    exp_b = np.append(expect[~small], expect[small].sum())
+    obs_b = np.append(obs[~small], obs[small].sum())
+    if not small.any():
+        exp_b, obs_b = exp_b[:-1], obs_b[:-1]
+    chi2 = float(((obs_b - exp_b) ** 2 / exp_b).sum())
+    df = len(exp_b) - 1
+    thr = float(stats.chi2.ppf(CHI2_QUANTILE, df))
+    if not chi2 < thr:
+        fail(f"sampler: chi-square {chi2:.2f} >= {thr:.2f} ({df} degrees "
+             f"of freedom) over {DRAWS} draws")
+
+    lg4 = lg[:4].contiguous()
+    pos4 = pos[:4]
+    stoch_ms = call_ms(lambda: sample(lg4, np.full(4, 0.8, np.float32),
+                                      np.full(4, 50, np.int32),
+                                      np.full(4, 0.95, np.float32),
+                                      sds[:4], pos4), 20)
+    greedy_ms = call_ms(lambda: sample(lg4, None, None, None, None, pos4),
+                        20)
+    noise_ms = call_ms(lambda: TF.gumbel(torch.as_tensor(sds[:4].astype(
+        np.int64), device="cuda"), pos4, vocab), 20)
+    report["sampler"] = dict(vocab=vocab, bits_equal=True,
+                             batch_invariant=True, draws=DRAWS,
+                             kept_tokens=int(kept_np.sum()), chi2=chi2,
+                             chi2_df=df, chi2_threshold=thr,
+                             stochastic_call_ms=stoch_ms,
+                             greedy_call_ms=greedy_ms, gumbel_call_ms=noise_ms)
+    print(f"sampler: vocab {vocab}: threefry bits and uniforms on CUDA equal "
+          f"the CPU's over {len(sd)} (seed, position) pairs; tokens "
+          f"independent of batch row and size; {DRAWS} draws at T={T} "
+          f"top_k={k} top_p={p}: all in the kept set of {int(kept_np.sum())}"
+          f", chi-square {chi2:.2f} < {thr:.2f} (the {CHI2_QUANTILE} "
+          f"quantile, {df} degrees of freedom); one call at (4, {vocab}) "
+          f"between CUDA events: stochastic {stoch_ms:.3f} ms (the Gumbel "
+          f"draw alone {noise_ms:.3f}), greedy {greedy_ms:.3f} ms")
+
+
+def observe_phase(torch, np, report, name, arch, params, prompts):
+    """31. Phase 4's requests with a ``ChromeTracer`` alone (TPOT beside
+    phase 4's, the trace validated), then with the tracer, a
+    ``SnapshotWriter`` every ``SNAPSHOT_EVERY_S`` s, the ``StepMonitor``
+    and a ``CacheSanitizer`` attached, cancelling one running and one
+    queued request: both finish "cancelled" and free their blocks,
+    ``outstanding_tokens()`` drops by their budgets and reads 0 at drain,
+    the sanitizer is clean, every snapshot line parses, the trace
+    validates and the Prometheus text parses back to the summary."""
+    from repro_torch.analysis.sanitizer import CacheSanitizer
+    from repro_torch.serving import (ChromeTracer, ContinuousBatchingEngine,
+                                     Request, SnapshotWriter,
+                                     prometheus_text, validate_chrome_trace)
+    from repro_torch.serving.export import parse_prometheus_text
+
+    st = SERVE[name]
+    engine_kw = engine_kwargs(name)
+
+    def requests():
+        return [Request(id=i, prompt=p, max_new_tokens=st["max_new"])
+                for i, p in enumerate(prompts)]
+    tracer = ChromeTracer()
+    eng = ContinuousBatchingEngine(arch, params, tracer=tracer, **engine_kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    s = eng.metrics.summary()
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    if counts["rmsnorm"] != forward_launches(arch)["rmsnorm"] * calls:
+        fail(f"observe {name}: {counts['rmsnorm']} RMSNorm launches for "
+             f"{calls} model calls")
+    trace = validate_chrome_trace(tracer.to_dict())
+
+    with tempfile.TemporaryDirectory() as d:
+        snap = SnapshotWriter(pathlib.Path(d) / "snap.jsonl",
+                              every_s=SNAPSHOT_EVERY_S)
+        san, tr = CacheSanitizer(), ChromeTracer()
+        oeng = ContinuousBatchingEngine(arch, params, tracer=tr,
+                                        snapshot=snap, sanitizer=san,
+                                        **engine_kw)
+        for r in requests():
+            oeng.submit(r)
+        running, queued = 1, len(prompts) - 1
+        while not any(sl.req is not None and sl.req.id == running
+                      and sl.state == "decode" for sl in oeng.slots):
+            oeng.step()
+        if any(sl.req is not None and sl.req.id == queued
+               for sl in oeng.slots):
+            fail(f"observe {name}: request {queued} is not queued")
+        before = oeng.outstanding_tokens()
+        left = {rid: oeng._target_total(oeng._states[rid])
+                - len(oeng._states[rid].req.prompt)
+                - len(oeng._states[rid].out_tokens)
+                for rid in (running, queued)}
+        if not (oeng.cancel(running) and oeng.cancel(queued)) or \
+                oeng.outstanding_tokens() != before - sum(left.values()):
+            fail(f"observe {name}: cancel or outstanding_tokens wrong")
+        oeng.run_until_drained()     # the sanitizer's drain check runs here
+        snap.write(oeng.metrics)
+        lines = [json.loads(x) for x in
+                 (pathlib.Path(d) / "snap.jsonl").read_text().splitlines()]
+    by_id = {o.request_id: o for o in oeng.completed}
+    if by_id[running].finish_reason != "cancelled" or \
+            by_id[queued].finish_reason != "cancelled" or \
+            by_id[queued].token_ids or not by_id[running].token_ids or \
+            oeng.cache.allocator.num_used or oeng.outstanding_tokens() or \
+            len(oeng.completed) != len(prompts):
+        fail(f"observe {name}: cancelled requests {by_id[running]} / "
+             f"{by_id[queued]}, blocks {oeng.cache.allocator.num_used}, "
+             f"outstanding {oeng.outstanding_tokens()}")
+    rep_san = san.report()
+    if rep_san["violations"] or not rep_san["step_checks"]:
+        fail(f"observe {name}: sanitizer {rep_san}")
+    otrace = validate_chrome_trace(tr.to_dict())
+    os_ = oeng.metrics.summary()
+    prom = parse_prometheus_text(prometheus_text(oeng.metrics))
+    if float(prom["repro_serving_requests_completed_total"][0][1]) != \
+            os_["completed"] or \
+            float(prom["repro_serving_engine_steps_total"][0][1]) != \
+            os_["engine_steps"]:
+        fail(f"observe {name}: Prometheus text does not parse back to the "
+             f"summary")
+    g = report[f"serve {name}"]
+    report[f"observe {name}"] = dict(
+        wall_s=wall, tok_per_s=sum(o.n_tokens for o in outs) / wall,
+        tpot_p50_s=s["tpot_p50_s"], ttft_p50_s=s["ttft_p50_s"],
+        launches=counts, trace_events=trace["n_events"],
+        snapshot_lines=len(lines), sanitizer=rep_san,
+        cancelled_tokens=len(by_id[running].token_ids),
+        step_time_ema_s=os_["window"]["step_time_ema_s"],
+        observed_trace_events=otrace["n_events"])
+    print(f"observe: {name}: traced serve {wall:.3f} s, TPOT p50 "
+          f"{s['tpot_p50_s'] * 1e3:.2f} ms (phase 4 "
+          f"{g['tpot_p50_s'] * 1e3:.2f}), TTFT p50 "
+          f"{s['ttft_p50_s'] * 1e3:.1f} ms, {trace['n_events']} trace events "
+          f"valid; with snapshots every {SNAPSHOT_EVERY_S} s, StepMonitor "
+          f"and sanitizer: request {running} cancelled running after "
+          f"{len(by_id[running].token_ids)} tokens and {queued} queued, "
+          f"outstanding tokens {before} -> {before - sum(left.values())} -> "
+          f"0, sanitizer clean ({rep_san['step_checks']} step checks, "
+          f"{rep_san['allocs']} allocs), {len(lines)} snapshot lines parse, "
+          f"{otrace['n_events']} trace events valid, Prometheus text parses "
+          f"back to the summary; step-time EMA "
+          f"{os_['window']['step_time_ema_s'] * 1e3:.2f} ms")
 
 
 def check_cross_rows(torch, T, name, arch, params, pools, front, report):
@@ -1474,28 +1934,32 @@ def traced(torch, label, fn):
     return out
 
 
-def profile_phase(torch, report, name, arch, params, prompts, fronts):
+def profile_phase(torch, report, name, arch, params, prompts, fronts,
+                  sampling=None):
     """A traced serve of one full batch (``slots`` requests, 8 new tokens
     each): device busy share of the window and device time by kernel.  The
-    untraced serve phase gives the end-to-end numbers."""
+    untraced serve phase gives the end-to-end numbers.  With ``sampling``
+    (phase 29's settings) each request samples, with the seed
+    ``SAMPLE_SEED + i``, and the report is ``profile sample <name>``."""
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+    from repro_torch.serving.sampling import GREEDY, SamplingParams
 
     st = SERVE[name]
-    eng = ContinuousBatchingEngine(
-        arch, params, device="cuda", slots=st["slots"],
-        max_len=st["max_len"], block_size=st["block_size"],
-        prefill_chunk=st["prefill_chunk"])
+    eng = ContinuousBatchingEngine(arch, params, **engine_kwargs(name))
     reqs = [Request(id=i, prompt=p, max_new_tokens=8,
-                    frontend=fronts[i] if fronts else None)
+                    frontend=fronts[i] if fronts else None,
+                    sampling=GREEDY if sampling is None else
+                    SamplingParams(seed=SAMPLE_SEED + i, **sampling))
             for i, p in enumerate(prompts[:st["slots"]])]
-    out = traced(torch, name, lambda: eng.generate(reqs))
+    label = name if sampling is None else f"sample {name}"
+    out = traced(torch, label, lambda: eng.generate(reqs))
     s = eng.metrics.summary()
     out.update(requests=len(reqs), decode_steps=s["decode_steps"],
                prefill_chunks=s["prefill_chunks"])
-    print(f"profile {name}: traced serve of {len(reqs)} requests, "
+    print(f"profile {label}: traced serve of {len(reqs)} requests, "
           f"{s['decode_steps']} decode steps / {s['prefill_chunks']} prefill "
           f"chunks")
-    report[f"profile {name}"] = out
+    report[f"profile {label}"] = out
 
 
 def forward_phase(torch, np, report, name, arch, params, prompts, fronts,
@@ -1891,6 +2355,7 @@ def main() -> int:
 
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
+    paths += [f"sample {QWEN}", f"observe {QWEN}", f"sample {MAMBA}"]
     paths += [f"train {n}" for n in TRAIN]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
@@ -1905,14 +2370,27 @@ def main() -> int:
             # 4./6./10./12./15./17./19./21./24./26. serve, 5./7./11./13./
             # 16./18./20./22./25./27. forward, at the serve cell's depth
             arch = cut_depth(arch, SERVE_LAYERS.get(name))
-            params, prompts, fronts, ref_logits = timed(
+            params, prompts, fronts, ref_logits, greedy = timed(
                 f"serve {name}", serve_phase, torch, np, report, name, arch)
             timed(f"forward {name}", forward_phase, torch, np, report, name,
                   arch, params, prompts, fronts,
                   None if arch.moe else ref_logits)
+            if name in (QWEN, MAMBA):
+                # 29./32. sampled serves; 30. the sampler; 31. observed
+                timed(f"sample {name}", sample_phase, torch, np, report,
+                      name, arch, params, prompts, greedy)
+            if name == QWEN:
+                timed("sampler", sampler_phase, torch, np, report,
+                      arch.vocab)
+                timed(f"observe {name}", observe_phase, torch, np, report,
+                      name, arch, params, prompts)
             if args.profile:
                 timed(f"profile {name}", profile_phase, torch, report, name,
                       arch, params, prompts, fronts)
+                if name == QWEN:
+                    timed(f"profile sample {name}", profile_phase, torch,
+                          report, name, arch, params, prompts, fronts,
+                          sampling=SAMPLING)
             del params, fronts, ref_logits
             gc.collect()
             torch.cuda.empty_cache()

@@ -15,9 +15,10 @@ port runs eagerly and updates the pools IN PLACE — the cache returned is
 the same object that was passed in.
 
 With ``sampler`` (``serving.sampling.make_sampler``) the steps fuse the
-greedy sampler: they take per-row (temperature, top_k, top_p, seeds) host
-arrays, or None each when every row is greedy (as the engine passes them),
-and return (token (B,), logprob (B,), cache) instead of logits.
+sampler: they take per-row (temperature, top_k, top_p, seeds) host arrays
+(the engine's ``_sampling_rows``), or None each when every row is greedy,
+hand it the absolute position of the token each row produces, and return
+(token (B,), logprob (B,), cache) instead of logits.
 """
 from __future__ import annotations
 

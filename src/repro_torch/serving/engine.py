@@ -1,14 +1,17 @@
 """Continuous-batching engine over paged KV and slot-state pools (twin of
-``repro/serving/engine.py``), greedy decode on one device.
+``repro/serving/engine.py``) on one device.
 
 Requests and results are two typed objects: ``Request`` is input-only and
 never mutated; ``RequestOutput`` carries token ids, ``finish_reason``
 ("stop" on a stop-token hit, "length" on the max_new_tokens / max_len
-budget), optional logprobs, and TTFT/TPOT joined from ServingMetrics.
+budget, or the reason given to ``cancel``), optional logprobs, and
+TTFT/TPOT joined from ServingMetrics.
 
 Entry points: ``submit()`` + ``step()``/``run_until_drained()``,
 ``generate(requests)`` for submit-and-drain, ``stream(requests)`` yielding
-(request_id, token) pairs, and an ``on_token`` callback.
+(request_id, token) pairs, an ``on_token`` callback, ``cancel(rid,
+reason)`` for a queued or running request and ``outstanding_tokens()``
+(the load a cluster router balances on).
 
 Engine step = admit -> one prefill chunk -> one decode step:
   1. every free slot pulls from the RequestScheduler (priority/FCFS +
@@ -29,31 +32,50 @@ Engine step = admit -> one prefill chunk -> one decode step:
      prompt+generated as its new prefill).
 
 The steps (runtime/steps.py) run eagerly and write the pools in place;
-the greedy sampler is fused into them, so only a (B,) token vector comes
-back to the host per step.  The port serves archs built of every block
-kind of the reference's decoders — ``attn``, ``moe_attn``, ``mla``,
-``mla_dense``, ``mamba2``, ``shared_attn``, ``cross_attn`` and ``wdec``
-(serving/cache_manager.py owns both state classes; zamba2's shared
-block pages its KV in a pool per application, MLA blocks page latent
-(c_kv, k_rope) pools, cross_attn and wdec hold each request's cross K/V
-in slot rows); ``enc_attn`` in a decoder raises ``ValueError`` and an
-unknown kind ``NotImplementedError`` at construction.
-Stochastic sampling (temperature > 0) is refused at submit.  Not ported
-yet: the reference engine's ASA plan / mesh placement, Chrome tracer,
-snapshot writer, StepMonitor and cache sanitizer, and ``cancel`` /
-``outstanding_tokens`` (used by the serving cluster).
+the sampler (serving/sampling.py) is fused into them, so only a (B,)
+token vector comes back to the host per step.  Each row carries its own
+(temperature, top_k, top_p, seed) host row (``_sampling_rows``); a
+request's seed is ``SamplingParams.seed`` or its id, and its draws are
+keyed ``fold_in(PRNGKey(seed), absolute position)``, so a
+recompute-preempted request regenerates bit-identical tokens.  An
+all-greedy batch takes the greedy branch, chosen on the host.
+
+The port serves archs built of every block kind of the reference's
+decoders — ``attn``, ``moe_attn``, ``mla``, ``mla_dense``, ``mamba2``,
+``shared_attn``, ``cross_attn`` and ``wdec`` (serving/cache_manager.py
+owns both state classes; zamba2's shared block pages its KV in a pool
+per application, MLA blocks page latent (c_kv, k_rope) pools, cross_attn
+and wdec hold each request's cross K/V in slot rows); ``enc_attn`` in a
+decoder raises ``ValueError`` and an unknown kind ``NotImplementedError``
+at construction.
+
+Observability, as the reference's: every step is phase-timed (admission /
+prefix-match / prefill chunk / decode / sample host-sync) into the
+ServingMetrics histograms; a ``StepMonitor`` (core/profiler.py) tracks
+the step-time EMA drift; an optional ``tracer`` (serving/tracing.py
+ChromeTracer) records the same clock values as Perfetto-loadable spans —
+phase tracks plus a lifecycle span per request with admitted /
+first_token / preempt / resume annotations — and with ``tracer=None`` no
+trace work happens; an optional ``snapshot`` (serving/export.py
+SnapshotWriter) appends a windowed-signal JSONL line every N seconds of
+engine time; an optional ``sanitizer`` (analysis/sanitizer.py, or
+``REPRO_SANITIZE=1`` in the environment) cross-checks the block
+allocator after every step and at drain.  Not ported yet: the
+reference's ASA plan and mesh placement.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.profiler import StepMonitor
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 from repro_torch.runtime import steps as ST
@@ -62,10 +84,6 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged_cache import PagedCacheConfig, blocks_for
 from repro_torch.serving.sampling import GREEDY, SamplingParams, make_sampler
 from repro_torch.serving.scheduler import RequestScheduler
-
-# the steps' (temperature, top_k, top_p, seeds) rows: submit admits greedy
-# requests only, so the engine passes none (stochastic sampling is unported)
-_GREEDY_ROWS = (None, None, None, None)
 
 @dataclasses.dataclass
 class Request:
@@ -96,7 +114,7 @@ class RequestOutput:
     """
     request_id: int
     token_ids: list
-    finish_reason: str               # "stop" | "length"
+    finish_reason: str               # "stop" | "length" | cancel's reason
     prompt_len: int = 0
     logprobs: Optional[list] = None
     ttft_s: Optional[float] = None
@@ -112,6 +130,7 @@ class _ReqState:
     """Engine-internal mutable generation state for one in-flight request
     (quacks like the scheduler's request protocol)."""
     req: Request
+    seed: int                        # effective seed (params.seed or req.id)
     stop_ids: frozenset
     out_tokens: list = dataclasses.field(default_factory=list)
     logprobs: Optional[list] = None  # [] iff params.logprobs else None
@@ -168,7 +187,10 @@ class ContinuousBatchingEngine:
                  scheduler: Optional[RequestScheduler] = None,
                  metrics: Optional[ServingMetrics] = None,
                  clock: Callable[[], float] = time.perf_counter,
-                 on_token: Optional[Callable[[int, int], None]] = None):
+                 on_token: Optional[Callable[[int, int], None]] = None,
+                 tracer=None, snapshot=None,
+                 step_monitor: Optional[StepMonitor] = None,
+                 sanitizer=None):
         """``params``: the nested param dict (``transformer.init_lm`` or a
         converted JAX pytree); leaves not yet on ``device`` are moved there.
         ``device`` defaults to CUDA and raises when there is none."""
@@ -197,8 +219,21 @@ class ContinuousBatchingEngine:
         # charges capped footprints (the engine owns the cap)
         self.scheduler.footprint_cap = self.max_len
         self.metrics = metrics or ServingMetrics()
+        # observability: the tracer and snapshot writer cost nothing when
+        # absent; the StepMonitor always runs (a handful of floats)
+        self.tracer = tracer
+        self.snapshot = snapshot
+        self.step_monitor = step_monitor or StepMonitor()
         self.metrics.scheduler_stats = self.scheduler.stats
         self.metrics.cache_stats = self.cache.stats
+        # paged-cache sanitizer: explicit, or for a whole run through
+        # REPRO_SANITIZE=1; imported only when one is wanted
+        if sanitizer is None and os.environ.get("REPRO_SANITIZE"):
+            from repro_torch.analysis.sanitizer import CacheSanitizer
+            sanitizer = CacheSanitizer()
+        self.sanitizer = sanitizer
+        if self.sanitizer is not None:
+            self.sanitizer.attach(self.cache)
         self.slots = [_Slot(idx=i) for i in range(slots)]
         self.completed: list[RequestOutput] = []
         self._states: dict[int, _ReqState] = {}   # queued or running
@@ -222,11 +257,6 @@ class ContinuousBatchingEngine:
             req.sampling.validate(self.arch.vocab)
         except ValueError as e:
             raise ValueError(f"request {req.id}: {e}") from None
-        if not req.sampling.is_greedy:
-            raise NotImplementedError(
-                f"request {req.id}: temperature {req.sampling.temperature} "
-                f"> 0 — stochastic sampling is not ported to repro_torch "
-                f"yet; only greedy decode (temperature=0) is served")
         if blocks_for(self._target_total(req), self.cache.cfg.block_size) \
                 > self.cache.cfg.num_blocks - 1:
             raise ValueError(f"request {req.id} can never fit the block pool")
@@ -235,17 +265,45 @@ class ContinuousBatchingEngine:
     def submit(self, req: Request, now: Optional[float] = None) -> None:
         self._validate(req)
         sp = req.sampling
-        st = _ReqState(req=req, stop_ids=frozenset(sp.stop_token_ids),
-                       logprobs=[] if sp.logprobs else None)
+        st = _ReqState(
+            req=req,
+            # the effective seed depends only on the request, never on
+            # scheduling: preemption re-derives the same keys
+            seed=(sp.seed if sp.seed is not None else req.id % (2 ** 32)),
+            stop_ids=frozenset(sp.stop_token_ids),
+            logprobs=[] if sp.logprobs else None)
         self.scheduler.submit(st)        # may raise (token budget) — only a
         self._states[req.id] = st        # queued request claims its id
         t = self._clock() if now is None else now
         self.metrics.on_submit(req.id, t, prompt_len=len(req.prompt))
+        if self.tracer is not None:
+            self.tracer.request_begin(req.id, t, prompt_len=len(req.prompt),
+                                      max_new_tokens=req.max_new_tokens,
+                                      priority=req.priority)
 
     def _target_total(self, req) -> int:
         return min(len(req.prompt) + req.max_new_tokens, self.max_len)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _sampling_rows(states: Sequence[Optional[_ReqState]]):
+        """Per-row (temperature, top_k, top_p, seeds) host arrays for a
+        batch of request states; None rows get greedy params and are
+        discarded by the caller.  The sampler moves them to the device only
+        when a row is stochastic."""
+        n = len(states)
+        temp = np.zeros((n,), np.float32)
+        top_k = np.zeros((n,), np.int32)
+        top_p = np.ones((n,), np.float32)
+        seeds = np.zeros((n,), np.uint32)
+        for i, st in enumerate(states):
+            if st is None:
+                continue
+            sp = st.sampling
+            temp[i], top_k[i], top_p[i] = sp.temperature, sp.top_k, sp.top_p
+            seeds[i] = st.seed
+        return temp, top_k, top_p, seeds
+
     def _record_token(self, slot: _Slot, tok: int, logp: float) \
             -> Optional[str]:
         """Append one sampled token and return its finish reason, if any
@@ -266,23 +324,63 @@ class ContinuousBatchingEngine:
         st = slot.req
         self.cache.release(st.id)
         self.scheduler.on_finish(st)
-        self.metrics.on_finish(st.id, len(st.out_tokens), self._clock(),
-                               reason=reason)
         del self._states[st.id]
+        self._complete(st, reason)
+        slot.req, slot.state, slot.pos, slot.prefill_pos = None, "idle", 0, 0
+
+    def _complete(self, st: _ReqState, reason: str) -> None:
+        """Finish bookkeeping shared by ``_finish`` and a queued request's
+        ``cancel``: metrics, trace and the RequestOutput."""
+        t = self._clock()
+        self.metrics.on_finish(st.id, len(st.out_tokens), t, reason=reason)
+        if self.tracer is not None:
+            self.tracer.request_end(st.id, t, finish_reason=reason,
+                                    n_tokens=len(st.out_tokens))
         rep = self.metrics.request_report(st.id)
         self.completed.append(RequestOutput(
             request_id=st.id, token_ids=list(st.out_tokens),
             finish_reason=reason, prompt_len=len(st.req.prompt),
             logprobs=None if st.logprobs is None else list(st.logprobs),
             ttft_s=rep["ttft_s"], tpot_s=rep["tpot_s"]))
-        slot.req, slot.state, slot.pos, slot.prefill_pos = None, "idle", 0, 0
 
     def _preempt(self, slot: _Slot) -> None:
         st = slot.req
         self.cache.release(st.id)
         self.scheduler.preempt(st)
         self.metrics.on_preempt(st.id)
+        if self.tracer is not None:
+            self.tracer.request_instant(st.id, "preempt", self._clock(),
+                                        resident_tokens=slot.pos,
+                                        n_generated=len(st.out_tokens))
         slot.req, slot.state, slot.pos, slot.prefill_pos = None, "idle", 0, 0
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """Abort a queued or running request; True iff ``rid`` was in
+        flight.  It finishes with ``finish_reason=reason`` and the tokens it
+        had produced.  A running request gives back its blocks and budget
+        charge through ``_finish``; a queued one holds neither (the budget
+        is charged at admission) and leaves the queue."""
+        st = self._states.get(rid)
+        if st is None:
+            return False
+        for slot in self.slots:
+            if slot.req is st:
+                self._finish(slot, reason)
+                return True
+        if not self.scheduler.remove(st):
+            raise RuntimeError(f"request {rid} tracked but neither running "
+                               f"nor queued — lifecycle invariant broken")
+        del self._states[rid]
+        self._complete(st, reason)
+        return True
+
+    def outstanding_tokens(self) -> int:
+        """Worst-case tokens still to be generated across every queued and
+        running request."""
+        return sum(
+            max(self._target_total(st) - len(st.req.prompt)
+                - len(st.out_tokens), 0)
+            for st in self._states.values())
 
     # -- phase 1: admission --------------------------------------------
     def _admit(self) -> int:
@@ -305,7 +403,12 @@ class ContinuousBatchingEngine:
             if self.share_prefix:
                 tp0 = self._clock()
                 n_cached = self.cache.assign_prefix(st.id, ctx)
-                self.metrics.on_phase("prefix_match", self._clock() - tp0)
+                tp1 = self._clock()
+                self.metrics.on_phase("prefix_match", tp1 - tp0)
+                if self.tracer is not None:
+                    self.tracer.phase("prefix_match", tp0, tp1,
+                                      request=st.id,
+                                      matched_tokens=n_cached)
             else:
                 n_cached = self.cache.assign_prefix(st.id, ctx)
             if not self.cache.reserve(st.id, len(ctx)):
@@ -318,6 +421,15 @@ class ContinuousBatchingEngine:
             if self.share_prefix:
                 self.metrics.on_prefix_match(n_cached, len(ctx),
                                              now=self._clock())
+            if self.tracer is not None:
+                t = self._clock()
+                if st.out_tokens:      # re-admission after preemption
+                    self.tracer.request_instant(st.id, "resume", t,
+                                                n_generated=len(st.out_tokens))
+                self.tracer.request_instant(st.id, "admitted", t,
+                                            slot=slot.idx,
+                                            context_len=len(ctx),
+                                            prefix_cached_tokens=n_cached)
             if self._admit_slot_state is not None:
                 # reset this slot's state-pool rows (zero mamba2 state;
                 # cross K/V from the request's frontend, computed once)
@@ -352,14 +464,18 @@ class ContinuousBatchingEngine:
             self.params, self.cache.pools, self._tensor(chunk[None, :]),
             self._tensor(np.asarray([slot.prefill_pos], np.int64)),
             self._tensor(table), self._tensor(np.asarray([n_new], np.int64)),
-            self._slot_ids([slot.idx]), *_GREEDY_ROWS)
+            self._slot_ids([slot.idx]), *self._sampling_rows([st]))
         slot.prefill_pos += n_new
         slot.pos = slot.prefill_pos
         self.cache.commit_prefix(st.id, ctx, slot.prefill_pos)
         self.metrics.prefill_chunks += 1
         if slot.prefill_pos == len(ctx):
-            # the sampled token after the final chunk is the first output
-            self.metrics.on_first_token(st.id, self._clock())
+            # the sampled token after the final chunk is the first output,
+            # at absolute position len(ctx)
+            t = self._clock()
+            self.metrics.on_first_token(st.id, t)
+            if self.tracer is not None:
+                self.tracer.request_instant(st.id, "first_token", t)
             reason = self._record_token(slot, int(tok[0]), float(logp[0]))
             if reason is not None:
                 self._finish(slot, reason)
@@ -404,12 +520,20 @@ class ContinuousBatchingEngine:
                                for s in self.slots])
         tok, logp, _ = self._decode(
             self.params, self.cache.pools, self._tensor(last),
-            self._tensor(pos), self._tensor(table), sids, *_GREEDY_ROWS)
+            self._tensor(pos), self._tensor(table), sids,
+            *self._sampling_rows([s.req if s.state == "decode" else None
+                                  for s in self.slots]))
         # the (B,) token/logprob copy is where the host waits for the device
         ts0 = self._clock()
         nxt = tok.cpu().numpy()
         lps = logp.cpu().numpy()
-        self.metrics.on_phase("sample_sync", self._clock() - ts0)
+        ts1 = self._clock()
+        self.metrics.on_phase("sample_sync", ts1 - ts0)
+        if self.tracer is not None:
+            n_sampled = sum(1 for s in decoding
+                            if not s.req.sampling.is_greedy)
+            self.tracer.phase("sample_sync", ts0, ts1,
+                              n_rows=len(decoding), n_sampled=n_sampled)
         self.metrics.decode_steps += 1
         for i, s in enumerate(self.slots):
             if s.state != "decode":
@@ -425,6 +549,7 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
+        tr = self.tracer
         t0 = self._clock()
         admitted = self._admit()
         t1 = self._clock()
@@ -435,14 +560,32 @@ class ContinuousBatchingEngine:
         # phase durations only when the phase did work
         if admitted:
             self.metrics.on_phase("admission", t1 - t0)
+            if tr is not None:
+                tr.phase("admission", t0, t1, admitted=admitted)
         if prefilled:
             self.metrics.on_phase("prefill", t2 - t1)
+            if tr is not None:
+                tr.phase("prefill", t1, t2)
         if decoded:
             self.metrics.on_phase("decode", t3 - t2)
+            if tr is not None:
+                tr.phase("decode", t2, t3, n_rows=decoded)
+        util = self.cache.utilization
+        if tr is not None:
+            tr.counter("queue_depth", t3, self.scheduler.queue_depth)
+            tr.counter("block_utilization", t3, util)
         self.metrics.on_step(self.scheduler.queue_depth,
                              sum(s.busy for s in self.slots), len(self.slots),
-                             block_utilization=self.cache.utilization, now=t3)
-        self.metrics.on_step_time(t3 - t0)
+                             block_utilization=util, now=t3)
+        dur = t3 - t0
+        triggered = self.step_monitor.update(dur)
+        self.metrics.on_step_time(dur, ema=self.step_monitor.ema,
+                                  drift=self.step_monitor.drift_fraction(),
+                                  triggered=triggered)
+        if self.snapshot is not None:
+            self.snapshot.maybe_write(self.metrics, t3)
+        if self.sanitizer is not None:
+            self.sanitizer.check_engine_step(self)
 
     @property
     def has_work(self) -> bool:
@@ -470,6 +613,8 @@ class ContinuousBatchingEngine:
                     f"({self.scheduler.queue_depth} queued, "
                     f"{sum(s.busy for s in self.slots)} busy slots) — "
                     f"admission is wedged")
+        if self.sanitizer is not None:
+            self.sanitizer.check_drained(self)
         return self._clock() - t0
 
     # -- entry points ---------------------------------------------------

@@ -309,6 +309,22 @@ class ServingMetrics:
             out["cache"] = self.cache_stats()
         return out
 
+    def snapshot(self, now: Optional[float] = None) -> dict:
+        """Compact periodic snapshot (one JSONL line): the windowed signal
+        vector plus lifetime counters — no per-request list."""
+        snap = {
+            "completed": self.finished_requests,
+            "in_flight": sum(1 for r in self.submit_t
+                             if r not in self.finish_t),
+            "total_tokens": self.finished_tokens,
+            "preemptions": self.preemptions,
+            "engine_steps": self.engine_steps,
+            "window": self.window_signals(now),
+        }
+        if self.scheduler_stats is not None:
+            snap["scheduler"] = dict(self.scheduler_stats)
+        return snap
+
     def to_json(self, **extra) -> str:
         return json.dumps({**self.summary(), **extra}, indent=2)
 

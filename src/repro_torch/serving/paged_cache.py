@@ -58,6 +58,10 @@ class BlockAllocator:
     Every allocated block carries a reference count (fresh allocations
     start at 1); a block returns to the free list only when its count
     reaches 0.  Double-free and foreign-block frees raise.
+
+    ``observer`` (analysis/sanitizer.CacheSanitizer, None unless a sanitizer
+    is attached) is told of every alloc, incref and decref, and of every
+    invalid free or incref before the allocator raises.
     """
 
     def __init__(self, num_blocks: int):
@@ -66,6 +70,7 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self._free = list(range(num_blocks - 1, 0, -1))   # pop() -> low ids first
         self._ref: dict[int, int] = {}                    # block -> refcount
+        self.observer = None
 
     @property
     def num_free(self) -> int:
@@ -86,28 +91,38 @@ class BlockAllocator:
         blocks = [self._free.pop() for _ in range(n)]
         for b in blocks:
             self._ref[b] = 1
+        if self.observer is not None:
+            self.observer.on_alloc(blocks)
         return blocks
 
     def incref(self, block: int) -> int:
-        if block == NULL_BLOCK:
-            raise ValueError("cannot reference the null block")
-        if block not in self._ref:
+        if block == NULL_BLOCK or block not in self._ref:
+            if self.observer is not None:
+                self.observer.on_invalid_incref(block)  # raises with sites
+            if block == NULL_BLOCK:
+                raise ValueError("cannot reference the null block")
             raise ValueError(f"incref on unallocated block {block}")
         self._ref[block] += 1
+        if self.observer is not None:
+            self.observer.on_incref(block, self._ref[block])
         return self._ref[block]
 
     def decref(self, block: int) -> int:
         """Drop one reference; at 0 the block returns to the free list.
         Returns the remaining count."""
-        if block == NULL_BLOCK:
-            raise ValueError("cannot free the null block")
-        if block not in self._ref:
+        if block == NULL_BLOCK or block not in self._ref:
+            if self.observer is not None:
+                self.observer.on_invalid_free(block)    # raises with sites
+            if block == NULL_BLOCK:
+                raise ValueError("cannot free the null block")
             raise ValueError(f"double free / foreign block {block}")
         self._ref[block] -= 1
         remaining = self._ref[block]
         if remaining == 0:
             del self._ref[block]
             self._free.append(block)
+        if self.observer is not None:
+            self.observer.on_decref(block, remaining)
         return remaining
 
     def free(self, blocks: list[int]) -> None:
@@ -144,6 +159,21 @@ class PagedKVCache:
         self.pools = T.init_paged_cache(arch, cfg.num_blocks, cfg.block_size,
                                         device=device, dtype=dtype,
                                         slots=cfg.slots)
+        self._init_host_state()
+
+    @classmethod
+    def host_only(cls, cfg: PagedCacheConfig) -> "PagedKVCache":
+        """The host-side bookkeeping alone: allocator, block tables, prefix
+        index, LRU — no device pools and no arch (``pools`` is None).  It is
+        the object the engine's control plane mutates, for model checking
+        and state snapshots."""
+        self = cls.__new__(cls)
+        self.arch, self.cfg, self.pools = None, cfg, None
+        self._init_host_state()
+        return self
+
+    def _init_host_state(self) -> None:
+        cfg = self.cfg
         self.allocator = BlockAllocator(cfg.num_blocks)
         self.tables: dict[int, list[int]] = {}   # request id -> physical blocks
         # chain key -> block holding that full chunk; key = (prev_key, chunk)
@@ -312,6 +342,72 @@ class PagedKVCache:
         (LRU-retired prefix blocks are reclaimable and excluded)."""
         usable = self.cfg.num_blocks - 1
         return (self.allocator.num_used - len(self._lru)) / max(usable, 1)
+
+    # -- host state snapshot ------------------------------------------------
+    @staticmethod
+    def _flat_key(key: Optional[tuple]) -> tuple:
+        """Chain key -> the flat token prefix it commits to."""
+        out: list[int] = []
+        while key is not None:
+            key, chunk = key
+            out[:0] = chunk
+        return tuple(out)
+
+    def _nest_key(self, flat) -> Optional[tuple]:
+        """Inverse of ``_flat_key``: fold a flat token prefix back into the
+        (prev, chunk) chain form, one chunk per block_size tokens."""
+        bs = self.cfg.block_size
+        prev: Optional[tuple] = None
+        for i in range(0, len(flat), bs):
+            prev = (prev, tuple(int(t) for t in flat[i:i + bs]))
+        return prev
+
+    def host_state_dict(self) -> dict:
+        """JSON-able snapshot of every host-side structure: the free list
+        (its order decides which block is reused next), refcounts, block
+        tables, the prefix index (as flat token prefixes), LRU order,
+        commit cursors and the prefix counters.  The device pools are not
+        included: their contents are recomputable from the tokens."""
+        alloc = self.allocator
+        return {
+            "free_list": list(alloc._free),
+            "refcounts": [[b, alloc._ref[b]] for b in sorted(alloc._ref)],
+            "tables": [[rid, list(bs)]
+                       for rid, bs in sorted(self.tables.items())],
+            "prefix_index": [[list(self._flat_key(k)), b]
+                             for k, b in sorted(self._hash_to_block.items(),
+                                                key=lambda kv: kv[1])],
+            "lru": list(self._lru),
+            "committed": [[rid, n, None if key is None
+                           else list(self._flat_key(key))]
+                          for rid, (n, key) in sorted(self._committed.items())],
+            "counters": {"prefix_hit_tokens": self.prefix_hit_tokens,
+                         "prefix_lookup_tokens": self.prefix_lookup_tokens,
+                         "prefix_evictions": self.prefix_evictions},
+        }
+
+    def load_host_state_dict(self, state: dict) -> None:
+        """Restore from ``host_state_dict()`` output (same cfg geometry),
+        coercing ints so a JSON or npz round trip restores it exactly."""
+        alloc = self.allocator
+        alloc._free = [int(b) for b in state["free_list"]]
+        alloc._ref = {int(b): int(rc) for b, rc in state["refcounts"]}
+        self.tables = {int(rid): [int(b) for b in bs]
+                       for rid, bs in state["tables"]}
+        self._hash_to_block = {}
+        self._block_to_hash = {}
+        for flat, b in state["prefix_index"]:
+            key = self._nest_key(flat)
+            self._hash_to_block[key] = int(b)
+            self._block_to_hash[int(b)] = key
+        self._lru = OrderedDict((int(b), None) for b in state["lru"])
+        self._committed = {
+            int(rid): (int(n), None if flat is None else self._nest_key(flat))
+            for rid, n, flat in state["committed"]}
+        c = state["counters"]
+        self.prefix_hit_tokens = int(c["prefix_hit_tokens"])
+        self.prefix_lookup_tokens = int(c["prefix_lookup_tokens"])
+        self.prefix_evictions = int(c["prefix_evictions"])
 
     # -- device-side views ---------------------------------------------------
     def table_row(self, rid: Optional[int]) -> np.ndarray:

@@ -456,8 +456,13 @@ def test_greedy_sampler_cuts_padded_vocab():
     assert tok.tolist() == [7, 299]
     want = torch.log_softmax(logits[:, :300], -1)[[0, 1], [7, 299]]
     torch.testing.assert_close(logp, want)
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        sample(logits, z + 0.5, z.astype(np.int32), z + 1, z, z)
+    # a stochastic row at top_k = 1 keeps only the argmax: the padding
+    # column is cut before the mask, so it still never wins
+    tok, _ = sample(logits, z + 0.5, np.ones(2, np.int32), z + 1,
+                    z.astype(np.uint32), torch.zeros(2, dtype=torch.int64))
+    assert tok.tolist() == [7, 299]
+    with pytest.raises(ValueError, match="seeds"):
+        sample(logits, z + 0.5, None, None, None, torch.zeros(2))
 
 
 def _mixer_case(seed, cached):
