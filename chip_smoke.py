@@ -220,9 +220,34 @@ Phases, each of which fails the run (exit code 1) on any error:
 32. Sample mamba2-780m (after phase 7): phase 6's requests in phase 29's
     form, checks (a), (b) and (e), and 48 SSD launches a prefill chunk.
 
+33. Plan: ``AdaptiveScheduler(H100_SXM)`` (the port's H100 profile) plans
+    qwen3-8b at phase 8's 4 layers and shape on a 1 x 1 mesh, and the
+    whole model on (1, 1), which must come out infeasible (its training
+    state is ~150 GB), (16, 16) and (2, 16, 16) (host-only planning);
+    the DP / MP / HP baselines; ``ComponentProfiler`` times the
+    embedding, one attn mixer, one MLP and the head forward and backward
+    between CUDA events, ``calibrate`` takes measured / predicted per
+    component, and the re-planned step time stands beside phase 8's.
+34. Trainer qwen3-8b: ``runtime.trainer.Trainer`` on a 1 x 1
+    ``DeviceMesh`` over a world-1 NCCL group (params and moments
+    DTensors, the sharded step's gathers and reductions, as on many
+    ranks) trains qwen3-8b at full width and phase 8's depth, bf16,
+    impl="pallas", ``TrainConfig(lr=3e-4, warmup_steps=1,
+    total_steps=10, checkpoint_every=3)``, 6 steps of phase 8's batches,
+    deterministic algorithms on: every step launches phase 8's kernels
+    (``train_launches``); median of steps 2-6 beside phase 8's; peak
+    memory, the checkpoint's bytes, snapshot and write seconds (into a
+    temporary directory, removed after; depth is cut, never width, if
+    the disk lacks room); a fresh Trainer restores step 3 and every leaf
+    equals the checkpoint's bits, and replays steps 4-6 to the same
+    losses and params (an op without a deterministic CUDA form would be
+    named and the replay held at 1e-6 relative); then ``python -m
+    repro_torch.launch.train --arch qwen3-8b --smoke --steps 8
+    --checkpoint-dir ...`` twice, the second resuming from the manifest.
+
 The phases run in the order 1-5, 29-31, 6, 7, 32, 10-13, 15-22, 24-27
 (each model's serve, then its forward, each model freed before the next),
-8, 9, 14, 23, 28 (the trains, with every serving weight freed); each
+8, 9, 14, 23, 28 (the trains, with every serving weight freed), 33, 34; each
 phase's seconds and the total are printed before the result lines.
 ``--profile`` also traces a sampled serve of qwen3-8b (``profile sample
 qwen3-8b``).
@@ -241,6 +266,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -2273,6 +2299,348 @@ def train_phase(torch, report, name, arch, card, profile=False):
     del params, state
 
 
+def _component_fns(torch, arch, params):
+    """{component name of the 4-layer plan: (fn, args)}: the embedding,
+    one ``attn`` mixer (norm1 + attention with the flash kernel), one MLP
+    (norm2 + SwiGLU) and the head (final norm, head, loss), each forward
+    and backward (the cost model's train t_comp is three forwards) on
+    phase 8's batch shape."""
+    from repro_torch import tree
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    B_, S = TRAIN[QWEN]["batch"], TRAIN[QWEN]["seq_len"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tok = torch.randint(0, arch.vocab, (B_, S), generator=gen,
+                        device="cuda")
+    x = torch.randn((B_, S, arch.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    layer = T._take(params["segments"][0]["b0"], 0)
+    live = tree.map(lambda t: t.detach().requires_grad_(), {
+        "embed": params["embed"], "final_norm": params["final_norm"],
+        "head": params["head"], "layer": layer})
+    cfg = B.attn_cfg_for(arch)
+
+    def run(out):
+        torch.autograd.backward(out, torch.ones_like(out))
+
+    def embed(p, t):
+        run(L.embed(p["embed"], t, arch.d_model))
+
+    def mixer(p, h):
+        y, _ = L.attention(p["layer"]["attn"], cfg,
+                           B.norm_apply(arch, p["layer"]["norm1"], h),
+                           impl="pallas")
+        run(h + y)
+
+    def ffn(p, h):
+        run(h + L.mlp(p["layer"]["mlp"],
+                      B.norm_apply(arch, p["layer"]["norm2"], h), arch.act))
+
+    def head(p, h, t):
+        hid = B.norm_apply(arch, p["final_norm"], h)
+        loss = T.lm_loss(T._head(p, arch, hid), t, arch.vocab)
+        loss.backward()
+    return {"embed": (embed, (live, tok)),
+            "seg0/b0:attn.mixer": (mixer, (live, x)),
+            "seg0/b0:attn.ffn": (ffn, (live, x)),
+            "head": (head, (live, x, tok))}
+
+
+def plan_phase(torch, report, arch_full, card):
+    """Phase 33: the ASA planner for the H100 (``H100_SXM``): qwen3-8b at
+    phase 8's 4 layers on a 1 x 1 mesh at phase 8's shape, the whole model
+    on (1, 1) (it must come out infeasible: its training state does not
+    fit one card), (16, 16) and (2, 16, 16) (host-only planning), the
+    DP / MP / HP baselines; then ``ComponentProfiler`` times the
+    embedding, one attn mixer, one MLP and the head forward and backward
+    between CUDA events, ``calibrate`` turns measured / predicted into
+    factors, and the re-planned step time stands beside phase 8's."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.asa import AdaptiveScheduler
+    from repro_torch.core.costmodel import MeshShape
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    arch = cut_depth(arch_full, TRAIN[QWEN]["depth"])
+    shape = ShapeSpec("chip", TRAIN[QWEN]["seq_len"], TRAIN[QWEN]["batch"],
+                      "train")
+    sched = AdaptiveScheduler(H100_SXM, faithful=False)
+    sp = sched.plan(arch, shape, MeshShape(1, 1))
+    print(sp.summary())
+    if not sp.plan.feasible:
+        fail(f"plan: {arch.name} at 4 layers is infeasible on one H100")
+    whole = {}
+    for ms in (MeshShape(1, 1), MeshShape(16, 16), MeshShape(16, 16, pod=2)):
+        w = sched.plan(arch_full, shape, ms)
+        print(w.summary())
+        whole[f"{ms.pod}x{ms.data}x{ms.model}"] = dict(
+            method=w.plan.method, feasible=w.plan.feasible,
+            mem_per_device_gb=w.plan.cost["mem_per_device"] / 1e9,
+            time_ms=w.plan.cost["time"] * 1e3)
+    if whole["1x1x1"]["feasible"]:
+        fail(f"plan: the whole {arch_full.name} came out feasible on one "
+             f"card ({whole['1x1x1']['mem_per_device_gb']:.1f} GB)")
+    base = {k: dict(method=p.method, feasible=p.feasible,
+                    time_ms=p.cost["time"] * 1e3,
+                    mem_per_device_gb=p.cost["mem_per_device"] / 1e9)
+            for k, p in sched.baselines(arch, shape, MeshShape(1, 1)).items()}
+    print("plan: baselines on (1, 1): " + "; ".join(
+        f"{k} {v['method']} {v['time_ms']:.2f} ms {v['mem_per_device_gb']:.2f}"
+        f" GB feasible={v['feasible']}" for k, v in base.items()))
+
+    # one layer at full width is enough to time a component
+    one = cut_depth(arch_full, (1,))
+    params = T.init_lm(one, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4))
+    cm = sched._cost_model(MeshShape(1, 1), "train",
+                           microbatches=sp.microbatches)
+    predicted = {c.name: cm.component_cost(c, sp.assignment[c.name]).t_comp
+                 for c in sp.comps}
+    counts = {c.name: c.count for c in sp.comps}
+    measured = {}
+    for name, (fn, args) in _component_fns(torch, arch, params).items():
+        r = sched.profiler.profile(name, fn, *args, iters=10)
+        measured[name] = r.mean_s * counts[name]
+    factors = {n: measured[n] / predicted[n] for n in measured}
+    before = sp.plan.cost["time"]
+    sched.calibrate(measured, predicted)
+    sp2 = sched.replan(arch, shape, MeshShape(1, 1))
+    step8 = report[f"train {arch.name}"]["step_ms_median"]
+    print("plan: measured / predicted t_comp (CUDA events, forward + "
+          "backward x applications, on " + card + "): " + "; ".join(
+              f"{n} {measured[n] * 1e3:.3f} / {predicted[n] * 1e3:.3f} ms = "
+              f"{factors[n]:.3f}" for n in measured))
+    print(f"plan: predicted step {before * 1e3:.2f} ms, re-planned with "
+          f"calibration {sp2.plan.cost['time'] * 1e3:.2f} ms "
+          f"({sp2.plan.method}), phase 8 measured {step8:.2f} ms (the "
+          f"components leave out the optimizer)")
+    report["plan"] = dict(
+        summary=sp.summary(), whole=whole, baselines=base,
+        measured_s=measured, predicted_s=predicted, factors=factors,
+        predicted_step_ms=before * 1e3,
+        replanned_step_ms=sp2.plan.cost["time"] * 1e3,
+        replanned_method=sp2.plan.method, phase8_step_ms=step8,
+        phase_s=time.perf_counter() - t_phase)
+    del params
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def trainer_phase(torch, report, arch_full, card):
+    """Phase 34: the Trainer on a 1 x 1 DeviceMesh over a world-1 NCCL
+    group (the multi-rank code path: DTensor params and moments, gathers
+    and reductions through DTensor) trains qwen3-8b at full width and
+    phase 8's depth, bf16, impl="pallas", 6 steps with a checkpoint every
+    3; launches per step equal phase 8's; a fresh Trainer restores step 3
+    bit for bit and replays 4-6 to the same losses (deterministic
+    algorithms on); then the train launcher twice, the second resuming."""
+    import dataclasses
+    import shutil
+    import warnings
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.components import param_count
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    label = f"trainer {arch_full.name}"
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        depth = TRAIN[QWEN]["depth"]
+        free = shutil.disk_usage(ckdir).free
+        # two checkpoints (steps 3 and 6) of bf16 params and fp32 moments:
+        # cut depth, never width, until they fit
+        while depth[0] > 1:
+            if 2 * 10 * param_count(cut_depth(arch_full, depth)) < 0.9 * free:
+                break
+            depth = (depth[0] - 1,)
+        arch = cut_depth(arch_full, depth)
+        if depth != TRAIN[QWEN]["depth"]:
+            print(f"trainer: {free / 1e9:.1f} GB free for checkpoints: depth "
+                  f"cut to {depth[0]}")
+        cfg = TrainConfig(lr=TRAIN[QWEN]["peak_lr"],
+                          warmup_steps=TRAIN[QWEN]["warmup"],
+                          total_steps=TRAIN[QWEN]["total"],
+                          checkpoint_every=3, impl="pallas")
+        shape = ShapeSpec("chip", TRAIN[QWEN]["seq_len"],
+                          TRAIN[QWEN]["batch"], "train")
+        mesh = M.make_host_mesh(device="cuda")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        # keep torch.empty's memory as phase 8 has it (deterministic mode
+        # would fill it with NaN first: extra fills, and a kernel's padded
+        # scratch is not written before it is read)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(arch, shape, mesh, cfg, checkpoint_dir=ckdir)
+        print(tr.plan.summary())
+        t0 = time.perf_counter()
+        params, opt = tr.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        data = SyntheticLM(arch.vocab, shape.seq_len, shape.global_batch)
+        writes = []
+        real_save = store.save_pytree
+
+        def timed_save(path, t, **kw):
+            t0 = time.perf_counter()
+            real_save(path, t, **kw)
+            writes.append((str(path), time.perf_counter() - t0))
+        want = train_launches(arch)
+        losses, step_ms, snap_s, counts_all = [], [], [], {}
+        nondet = []
+        with mock.patch.object(store, "save_pytree", timed_save), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(6):
+                reset_counts()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t0 = time.perf_counter()
+                params, opt, h = tr.train(params, opt, data, steps=1)
+                t1 = time.perf_counter()
+                e1.record()
+                e1.synchronize()
+                c = read_counts()
+                for k, n in c.items():
+                    counts_all[k] = counts_all.get(k, 0) + n
+                if any(c.get(k, 0) != n for k, n in want.items()):
+                    fail(f"{label}: step {i + 1} launched {c}, phase 8's "
+                         f"step {want}")
+                losses.append(h[0]["loss"])
+                step_ms.append(e0.elapsed_time(e1))
+                if tr.step % cfg.checkpoint_every == 0:
+                    snap_s.append(t1 - t0 - h[0]["step_time_s"])
+                if tr.step == 3:        # what the checkpoint holds, on the card
+                    saved3 = [(k, x.to_local().clone()
+                               if hasattr(x, "to_local") else x)
+                              for k, x in store._flat_with_paths(
+                                  {"params": params, "opt": opt})]
+            t0 = time.perf_counter()
+            tr.ckpt.wait()
+            tail_s = time.perf_counter() - t0
+            nondet = sorted({str(w.message).split(" does not have")[0]
+                             for w in caught if "deterministic" in
+                             str(w.message)})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ck_bytes = _dir_bytes(pathlib.Path(ckdir) / "step_0000000003")
+        med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        step8 = report[f"train {arch.name}"]["step_ms_median"] \
+            if f"train {arch.name}" in report else None
+        losses8 = report.get(f"train {arch.name}", {}).get("losses")
+        print(f"trainer: {arch.name} on a 1 x 1 NCCL mesh, 6 steps: "
+              f"{', '.join(f'{t:.2f}' for t in step_ms)} ms, median of "
+              f"steps 2-6 {med:.2f} ms (phase 8: {step8} ms), init "
+              f"{init_s:.1f} s, peak memory {peak:.2f} GB on {card}; "
+              f"losses {[round(x, 6) for x in losses]} (phase 8's first 4: "
+              f"{None if losses8 is None else [round(x, 6) for x in losses8]})"
+              f"; launches a step {want}")
+        print(f"trainer: checkpoint {ck_bytes / 1e9:.2f} GB, host snapshot "
+              f"{', '.join(f'{s:.2f}' for s in snap_s)} s (in the step that "
+              f"saved), writes {', '.join(f'{s:.2f}' for _, s in writes)} s "
+              f"(in the background; {tail_s:.2f} s waited at the end)")
+
+        # a fresh Trainer restores step 3 and replays 4-6
+        keep = [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                for t in tree.leaves(params)]
+        keep_losses = losses[3:]
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr2 = Trainer(arch, shape, mesh, dataclasses.replace(
+            cfg, checkpoint_every=1000), checkpoint_dir=ckdir)
+        p2, o2 = tr2.init_state(seed=1)
+        t0 = time.perf_counter()
+        p2, o2 = tr2.maybe_restore(p2, o2, step=3)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if tr2.step != 3 or tr2.data_offset != 3:
+            fail(f"{label}: restored step {tr2.step}, data offset "
+                 f"{tr2.data_offset}")
+        flat = store._flat_with_paths({"params": p2, "opt": o2})
+        unequal = [k for (k, x), (k3, y) in zip(flat, saved3)
+                   if k != k3 or not (torch.equal(x.to_local(), y)
+                                      if hasattr(x, "to_local") else x == y)]
+        del saved3
+        if unequal:
+            fail(f"{label}: restored leaves differ from the checkpoint: "
+                 f"{unequal[:5]}")
+        replay = []
+        for _ in range(3):
+            p2, o2, h = tr2.train(p2, o2, SyntheticLM(
+                arch.vocab, shape.seq_len, shape.global_batch).skip(
+                tr2.data_offset), steps=1)
+            replay.append(h[0]["loss"])
+        same = all(torch.equal(a.full_tensor(), b)
+                   for a, b in zip(tree.leaves(p2), keep))
+        tol = 0.0 if not nondet else 1e-6
+        if not all(abs(a - b) <= tol * abs(b)
+                   for a, b in zip(replay, keep_losses)) or \
+                (not nondet and not same):
+            fail(f"{label}: replayed losses {replay} vs {keep_losses}; "
+                 f"params equal {same}; nondeterministic ops {nondet}")
+        print(f"trainer: restored step 3 in {restore_s:.2f} s, every leaf "
+              f"bit-equal to the state saved at step 3 ({len(flat)} "
+              f"leaves); replayed "
+              f"losses {replay} {'==' if tol == 0 else 'within 1e-6 of'} "
+              f"{keep_losses}; params after step 6 bit-equal: {same}; "
+              f"ops without a deterministic CUDA form: {nondet or 'none'}")
+        del p2, o2, keep
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(False)
+
+        # the launcher, twice: the second run resumes from the manifest
+        runs = []
+        cli_dir = pathlib.Path(ckdir) / "cli"
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 QWEN, "--smoke", "--steps", "8", "--checkpoint-dir",
+                 str(cli_dir)], capture_output=True, text=True, timeout=600,
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)})
+            runs.append((r, time.perf_counter() - t0))
+            if r.returncode != 0:
+                fail(f"{label}: the train launcher exited {r.returncode}: "
+                     f"{r.stderr[-2000:]}")
+        out1, out2 = runs[0][0].stdout, runs[1][0].stdout
+        if "resumed from step 8" not in out2 or "resumed" in out1:
+            fail(f"{label}: the launcher did not resume: {out2[-800:]}")
+        print(f"trainer: launcher --arch {QWEN} --smoke --steps 8 twice: "
+              f"{runs[0][1]:.1f} s / {runs[1][1]:.1f} s; "
+              f"{out1.strip().splitlines()[-1]!r}, then "
+              f"{[ln for ln in out2.splitlines() if 'resumed' in ln][0]!r}, "
+              f"{out2.strip().splitlines()[-1]!r}")
+        report[label] = dict(
+            layers=arch.n_layers, step_ms=step_ms, step_ms_median=med,
+            phase8_step_ms_median=step8, losses=losses,
+            phase8_losses=losses8, launches=counts_all,
+            launches_per_step=want, peak_mem_gb=peak, init_s=init_s,
+            checkpoint_bytes=ck_bytes, snapshot_s=snap_s,
+            write_s=[s for _, s in writes], wait_s=tail_s,
+            restore_s=restore_s, replay_losses=replay,
+            params_bit_equal=same, nondeterministic_ops=nondet,
+            launcher_s=[t for _, t in runs],
+            phase_s=time.perf_counter() - t_phase)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        M.shutdown()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2287,6 +2655,9 @@ def main() -> int:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    # phase 34 runs with deterministic algorithms, whose cuBLAS check
+    # reads this (the H100's default workspace already is 8 x 4 MiB)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2356,7 +2727,7 @@ def main() -> int:
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
     paths += [f"sample {QWEN}", f"observe {QWEN}", f"sample {MAMBA}"]
-    paths += [f"train {n}" for n in TRAIN]
+    paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -2400,6 +2771,12 @@ def main() -> int:
                   archs[name], card, profile=args.profile)
             gc.collect()
             torch.cuda.empty_cache()
+        # 33. the planner for the H100; 34. the Trainer on a 1 x 1 mesh
+        timed("plan", plan_phase, torch, report, archs[QWEN], card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(f"trainer {QWEN}", trainer_phase, torch, report, archs[QWEN],
+              card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.store import (CheckpointManager, restore_pytree,
+                                          save_pytree)
+
+__all__ = ["CheckpointManager", "save_pytree", "restore_pytree"]

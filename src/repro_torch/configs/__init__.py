@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
-                                      MoESpec, Segment, SSMSpec)
+from repro_torch.configs.base import (SHAPES, ArchConfig, EncoderSpec,
+                                      MLASpec, MoESpec, Segment, ShapeSpec,
+                                      SSMSpec, shape_applicable)
 from repro_torch.configs import (arctic_480b, command_r_plus_104b,
                                  deepseek_v3_671b, gemma_7b,
                                  llama_3_2_vision_90b, mamba2_780m,
@@ -65,5 +66,6 @@ def reduce_for_smoke(arch: ArchConfig) -> ArchConfig:
     return dataclasses.replace(arch, **kw)
 
 
-__all__ = ["ARCHS", "get_arch", "reduce_for_smoke", "ArchConfig", "Segment",
-           "MoESpec", "SSMSpec", "MLASpec", "EncoderSpec"]
+__all__ = ["ARCHS", "get_arch", "reduce_for_smoke", "SHAPES", "ShapeSpec",
+           "shape_applicable", "ArchConfig", "Segment", "MoESpec", "SSMSpec",
+           "MLASpec", "EncoderSpec"]

@@ -114,3 +114,31 @@ class ArchConfig:
 
     def scaled(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input shapes assigned to the LM family (the planner's workloads)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k only runs on sub-quadratic archs (SSM/hybrid)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, ("skipped: pure full-attention arch — a 512k dense-attention "
+                       "KV decode requires sub-quadratic attention (DESIGN.md §5)")
+    return True, ""

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import HostShardedLoader, Prefetcher, SyntheticLM
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "HostShardedLoader", "Prefetcher"]

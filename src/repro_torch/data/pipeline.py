@@ -1,9 +1,15 @@
-"""Input pipeline (the part of ``repro/data/pipeline.py`` the port's
-training step needs, copied: it is numpy only, and the port imports
-nothing of the JAX package)."""
+"""Input pipeline (the parts of ``repro/data/pipeline.py`` the port's
+training needs, copied: they are numpy and the standard library only, and
+the port imports nothing of the JAX package): the deterministic synthetic
+LM source, host-sharded loading with straggler-aware shard reassignment,
+and a background prefetch queue.  ``SyntheticImages`` (the paper's
+CIFAR-like data) goes with the vision models (ROADMAP)."""
 from __future__ import annotations
 
-from typing import Iterator
+import queue
+import threading
+import time
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -34,3 +40,81 @@ class SyntheticLM:
         toks = np.minimum(z - 1, self.vocab - 1).astype(np.int32)
         self.step += 1
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class HostShardedLoader:
+    """Splits the global batch across hosts; reassigns shards away from
+    hosts whose heartbeats go stale (straggler mitigation, DESIGN.md §7)."""
+
+    def __init__(self, source_factory: Callable[[int, int], Iterator[dict]],
+                 n_hosts: int, host_id: int, *,
+                 heartbeat_timeout_s: float = 30.0):
+        self.n_hosts, self.host_id = n_hosts, host_id
+        self.timeout = heartbeat_timeout_s
+        self.heartbeats = {h: time.monotonic() for h in range(n_hosts)}
+        self._factory = source_factory
+        self._build()
+
+    def _build(self):
+        self.assigned = self._live_assignment()
+        self.sources = {s: self._factory(s, self.n_hosts)
+                        for s in self.assigned}
+
+    def heartbeat(self, host: int, t: Optional[float] = None):
+        self.heartbeats[host] = t if t is not None else time.monotonic()
+
+    def _live_assignment(self) -> list[int]:
+        now = time.monotonic()
+        live = [h for h in range(self.n_hosts)
+                if now - self.heartbeats[h] <= self.timeout]
+        if self.host_id not in live:
+            return []
+        idx = live.index(self.host_id)
+        # dead hosts' shards are taken over round-robin by live hosts
+        return [s for s in range(self.n_hosts) if s % len(live) == idx] \
+            if len(live) < self.n_hosts else [self.host_id]
+
+    def __next__(self) -> list[dict]:
+        new = self._live_assignment()
+        if new != self.assigned:
+            self.assigned = new
+            self.sources = {s: self._factory(s, self.n_hosts) for s in new}
+        return [next(self.sources[s]) for s in self.assigned]
+
+
+class Prefetcher:
+    """Background-thread prefetch queue (overlap host input with device
+    compute)."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def worker():
+            try:
+                for item in it:
+                    if self._stop.is_set():
+                        return
+                    self.q.put(item)
+            finally:
+                self.q.put(None)
+
+        self.t = threading.Thread(target=worker, daemon=True)
+        self.t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if item is None:
+            raise StopIteration
+        return item
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

@@ -147,11 +147,14 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
 
 def _apply_segment(segp: Params, blocks: tuple, repeat: int,
                    arch: ArchConfig, x: torch.Tensor, *, cache=None,
-                   remat: str = "none", **kw):
+                   remat: str = "none", block_fns: Optional[dict] = None,
+                   **kw):
     """Every application of one segment's blocks in order -> (x, aux);
     ``remat`` checkpoints each application's body (the reference's
     checkpointed scan body), and only the whole-sequence forward takes
-    it."""
+    it.  ``block_fns`` maps a block index to the function that applies
+    that block in place of ``blocks.apply_block`` (the sharded train
+    step's tensor-parallel attn block)."""
     aux = 0.0
     for r in range(repeat):
         def body(x, r=r):
@@ -159,8 +162,9 @@ def _apply_segment(segp: Params, blocks: tuple, repeat: int,
             for bi, kind in enumerate(blocks):
                 key = f"b{bi}"
                 c = None if cache is None else _take(cache[key], r)
-                x, _, a = B.apply_block(_take(segp[key], r), kind, arch, x,
-                                        cache=c, **kw)
+                fn = (block_fns or {}).get(bi, B.apply_block)
+                x, _, a = fn(_take(segp[key], r), kind, arch, x, cache=c,
+                             **kw)
                 aux = aux + a
             return x, aux
         x, a = _remat(body, remat if cache is None else "none")(x)
@@ -289,7 +293,8 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
              new_lens: Optional[torch.Tensor] = None,
              slot_ids: Optional[torch.Tensor] = None,
              impl: str = "xla", remat: str = "none",
-             return_hidden: bool = False) -> LMOutput:
+             return_hidden: bool = False,
+             block_fns: Optional[dict] = None) -> LMOutput:
     """Forward pass -> LMOutput(logits, cache, aux, hidden).
 
     tokens: (B, S) integer tokens.
@@ -321,6 +326,12 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        without MoE), a 0-d fp32 tensor.
     return_hidden: also return the final-normed hidden states (B, S, D)
        that the head reads (``mtp_logits`` takes them).
+    block_fns: {segment index: {block index: fn}}, a function with
+       ``blocks.apply_block``'s signature that applies that block in its
+       place (the sharded train step's tensor-parallel attn block,
+       ``runtime/sharded.py``).  A stacked leaf of ``params`` may be any
+       object whose ``[r]`` gives application r's tensor (the sharded
+       step gathers each application's weights on use that way).
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
@@ -350,7 +361,8 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     for si, seg in enumerate(arch.pattern):
         x, a = _apply_segment(
             params["segments"][si], seg.blocks, seg.repeat, arch, x,
-            cache=None if cache is None else cache[si], remat=remat, x0=x0,
+            cache=None if cache is None else cache[si], remat=remat,
+            block_fns=(block_fns or {}).get(si), x0=x0,
             cross_input=cross_input, shared=params.get("shared"),
             positions=positions, block_tables=block_tables,
             new_lens=new_lens, slot_ids=slot_ids, impl=impl)

@@ -31,7 +31,7 @@ from repro_torch.optim import optimizers as O
 
 
 def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
-                 mtp_weight: float = 0.3):
+                 mtp_weight: float = 0.3, block_fns=None):
     """-> loss_fn(params, tokens (B,S), labels (B,S), frontend=None) ->
     (total, ce), both 0-d fp32, as the reference's (``frontend``: the
     batch's modality embeddings, which ``lm_apply`` takes; the encoder
@@ -40,10 +40,12 @@ def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
     (``transformer.lm_loss``), plus for an MTP arch ``mtp_weight`` times
     the MTP head's cross-entropy against the labels shifted left by one
     (the wrapped last column masked out); total adds the MoE layers' aux
-    loss to it, and is what the train step differentiates."""
+    loss to it, and is what the train step differentiates.
+    ``block_fns``: ``lm_apply``'s (the sharded step's TP blocks)."""
     def loss_fn(params, tokens, labels, frontend=None):
         out = T.lm_apply(params, arch, tokens, frontend=frontend, impl=impl,
-                         remat=remat, return_hidden=arch.mtp)
+                         remat=remat, return_hidden=arch.mtp,
+                         block_fns=block_fns)
         loss = T.lm_loss(out.logits, labels, arch.vocab)
         if arch.mtp:
             # depth-1 MTP: hidden_t + emb(token_{t+1}) predicts token_{t+2}
@@ -72,6 +74,7 @@ def loss_and_grads(loss_fn, params, tokens, labels, frontend=None):
 
 def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
                     impl: str = "xla", remat: str = "none",
+                    act_sharding=None, grad_shardings=None,
                     clip_norm: float = 1.0, mtp_weight: float = 0.3):
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).
@@ -87,8 +90,30 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
     metrics: ``loss``, ``ce`` and ``grad_norm`` (0-d fp32 tensors, the
     norm before clipping) and ``step`` (int, after the update).
     ``impl="pallas"`` runs the flash kernel, forward and backward, on CUDA
-    (its plain version on the CPU); ``act_sharding`` and
-    ``grad_shardings`` are not ported (no mesh yet)."""
+    (its plain version on the CPU).
+
+    With ``act_sharding`` (a ``core.sharding.NamedSharding`` whose spec's
+    dim 0 lays the batch over the mesh) and ``grad_shardings`` (the
+    params' tree of ``NamedSharding``: the layout the params, moments and
+    gradients keep), the step is the sharded one (``runtime/sharded.py``):
+    params and moments are DTensors on that mesh; each rank takes its rows
+    of each microbatch (the microbatch is the reference's: rows i * B / mb
+    to (i + 1) * B / mb of the global batch, then its slice), gathers the
+    weights on use, runs the dense attn blocks tensor-parallel where the
+    plan shards them over `model`, and reduces each gradient to its
+    parameter's placement in the backward; the global norm sums squares
+    over shards with one all-reduce; AdamW updates the local shards
+    (int8 moments: on the gathered leaves, each rank keeping its shards).
+    The loss and ce are the means over the ranks (each rank's rows are an
+    equal share of the batch)."""
+    if (act_sharding is None) != (grad_shardings is None):
+        raise ValueError("act_sharding and grad_shardings go together")
+    if act_sharding is not None:
+        return _make_sharded_train_step(
+            arch, optimizer, microbatches=microbatches, impl=impl,
+            remat=remat, act_sharding=act_sharding,
+            grad_shardings=grad_shardings, clip_norm=clip_norm,
+            mtp_weight=mtp_weight)
     _, opt_update = optimizer
     loss_fn = make_loss_fn(arch, impl=impl, remat=remat,
                            mtp_weight=mtp_weight)
@@ -128,6 +153,119 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
                                         opt_state, params)
         del grads
         params = O.apply_updates(params, updates)
+        metrics = {"loss": total, "ce": ce, "grad_norm": gnorm,
+                   "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
+                             act_sharding, grad_shardings, clip_norm,
+                             mtp_weight):
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.optim.quantized import QLeaf
+    from repro_torch.runtime import sharded as SD
+
+    mesh = act_sharding.mesh
+    specs = SH.map_specs(lambda ns: ns.spec, grad_shardings)
+    roles, block_fns = SD.plan_layout(arch, specs, mesh, act_sharding.spec)
+    lays = SD.layouts(grad_shardings, roles)
+    world = mesh.size()
+    _, opt_update = optimizer
+    loss_fn = make_loss_fn(arch, impl=impl, remat=remat,
+                           mtp_weight=mtp_weight, block_fns=block_fns)
+
+    def rows_of(x, i, per, dev):
+        x = torch.as_tensor(x)[i * per:(i + 1) * per]
+        return x[SH.batch_slice(act_sharding, per)].to(dev)
+
+    def local_grads(params, locals_, tok, lab, fe):
+        live = [t.detach().requires_grad_() for t in locals_]
+        work = SD.working_tree(params, live, lays, mesh)
+        total, ce = loss_fn(work, tok, lab, fe)
+        grads = torch.autograd.grad(total, live, allow_unused=True)
+        return total.detach(), ce.detach(), [
+            torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, live)]
+
+    def train_step(params, opt_state, batch):
+        p_leaves = tree.leaves(params)
+        locals_ = [p.to_local() for p in p_leaves]
+        dev = locals_[0].device
+        n = torch.as_tensor(batch["tokens"]).shape[0]
+        if n % microbatches:
+            raise ValueError(f"batch of {n} rows does not split into "
+                             f"{microbatches} microbatches")
+        per = n // microbatches
+        grads = total = ce = None
+        for i in range(microbatches):
+            tok, lab = (rows_of(batch[k], i, per, dev)
+                        for k in ("tokens", "labels"))
+            fe = batch.get("frontend")
+            fe = None if fe is None else rows_of(fe, i, per, dev)
+            t, c, g = local_grads(params, locals_, tok, lab, fe)
+            if microbatches == 1:
+                for j, x in enumerate(g):   # each leaf's own dtype freed
+                    g[j] = x.float()        # as its fp32 copy is made
+                grads, total, ce = g, t, c
+                break
+            if grads is None:
+                grads = [torch.zeros(x.shape, dtype=torch.float32,
+                                     device=dev) for x in locals_]
+                total = ce = torch.zeros((), dtype=torch.float32, device=dev)
+            for acc, x in zip(grads, g):
+                acc.add_(x.float() / microbatches)
+            del g
+            total = total + t / microbatches
+            ce = ce + c / microbatches
+        metrics_t = torch.stack([total, ce])
+        dist.all_reduce(metrics_t)
+        total, ce = metrics_t[0] / world, metrics_t[1] / world
+        gnorm = SD.global_norm(grads, lays, mesh)
+        scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+        quantized = any(isinstance(x, QLeaf)
+                        for x in tree.leaves(opt_state.mu))
+        if not quantized:
+            mu = tree.map(lambda m: m.to_local(), opt_state.mu)
+            nu = (None if opt_state.nu is None
+                  else tree.map(lambda m: m.to_local(), opt_state.nu))
+            p_local = tree.unflatten(params, locals_)
+            updates, new = opt_update(tree.unflatten(params, grads),
+                                      O.OptState(opt_state.step, mu, nu),
+                                      p_local)
+            del grads
+            O.apply_updates(p_local, updates)
+        else:
+            # int8 moments are blocks of the whole flattened leaf: update
+            # the gathered leaves, then keep this rank's shards
+            def full_q(q):
+                return QLeaf(q.q.full_tensor(), q.scale.full_tensor(),
+                             q.shape, q.signed)
+            mu_f = tree.map(full_q, opt_state.mu)
+            nu_f = tree.map(full_q, opt_state.nu)
+            g_full = [SD._dt().DTensor.from_local(
+                g, mesh, lay.placements, run_check=False).full_tensor()
+                for g, lay in zip(grads, lays)]
+            del grads
+            p_full = [p.full_tensor() for p in p_leaves]
+            updates, new = opt_update(tree.unflatten(params, g_full),
+                                      O.OptState(opt_state.step, mu_f, nu_f),
+                                      tree.unflatten(params, p_full))
+            for dq, fq in zip(tree.leaves(opt_state.mu) +
+                              tree.leaves(opt_state.nu),
+                              tree.leaves(mu_f) + tree.leaves(nu_f)):
+                for d, f in ((dq.q, fq.q), (dq.scale, fq.scale)):
+                    d.to_local().copy_(SD.local_of(f, d))
+            with torch.no_grad():
+                for x, u, p in zip(locals_, tree.leaves(updates), p_leaves):
+                    x.copy_(x.float().add_(SD.local_of(u, p)))
+        opt_state = O.OptState(new.step, opt_state.mu, opt_state.nu,
+                               opt_state.extra)
         metrics = {"loss": total, "ce": ce, "grad_norm": gnorm,
                    "step": opt_state.step}
         return params, opt_state, metrics

@@ -1218,3 +1218,88 @@ def test_cuda_frontend_archs_match_cpu(kind):
         [o.token_ids for o in outs["cpu"]]
     for a, b in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the Trainer on a 1 x 1 NCCL mesh, and its checkpoints, on the card
+# ---------------------------------------------------------------------------
+
+def _qwen_like(dtype="bfloat16"):
+    from repro_torch.configs.base import ArchConfig, Segment
+    return ArchConfig(name="qwen-gpu", family="dense", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=512, vocab=1000, qk_norm=True,
+                      pattern=(Segment(("attn",), 2),), dtype=dtype,
+                      param_dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_trainer_on_a_1x1_nccl_mesh_matches_the_plain_step():
+    """The Trainer (DTensor params on a world-1 NCCL mesh, impl="pallas")
+    against the plain make_train_step on the same params and batches:
+    the same kernels launched each step, the same losses."""
+    _need_cuda()
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim import schedules as S
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    arch = _qwen_like()
+    try:
+        mesh = M.make_host_mesh(device="cuda")
+        tr = Trainer(arch, ShapeSpec("g", 128, 2, "train"), mesh,
+                     TrainConfig(lr=3e-4, warmup_steps=1, total_steps=10,
+                                 impl="pallas"))
+        p, o = tr.init_state()
+        assert type(tree.leaves(p)[0]).__name__ == "DTensor"
+        plain = tree.map(lambda x: x.full_tensor().clone(), p)
+        opt = O.adamw(S.cosine_schedule(3e-4, 1, 10))
+        state = opt[0](plain)
+        step = ST.make_train_step(arch, opt, impl="pallas")
+        want = []
+        for batch in [b for b, _ in zip(SyntheticLM(1000, 128, 2), range(3))]:
+            plain, state, m = step(plain, state, batch)
+            want.append(float(m["loss"]))
+        before = (trn.rmsnorm.launches, tfa.flash_attention.launches,
+                  tfa.flash_attention_bwd.launches)
+        p, o, hist = tr.train(p, o, SyntheticLM(1000, 128, 2), steps=3)
+        after = (trn.rmsnorm.launches, tfa.flash_attention.launches,
+                 tfa.flash_attention_bwd.launches)
+        assert [a - b for a, b in zip(after, before)] == [3 * 9, 3 * 2,
+                                                          3 * 2]
+        got = [m["loss"] for m in hist]
+        assert all(math.isfinite(x) for x in got)
+        torch.testing.assert_close(torch.tensor(got), torch.tensor(want),
+                                   rtol=1e-5, atol=0)
+    finally:
+        M.shutdown()
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_bf16_round_trip_is_bit_exact(tmp_path):
+    _need_cuda()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    try:
+        mesh = M.make_host_mesh(device="cuda")
+        tr = Trainer(_qwen_like(), ShapeSpec("g", 128, 2, "train"), mesh,
+                     TrainConfig())
+        p, o = tr.init_state()
+        ck = CheckpointManager(tmp_path)
+        ck.save(1, {"params": p, "opt": o})
+        ck.wait()
+        p2, o2 = tr.init_state(seed=3)
+        back, manifest = ck.restore({"params": p2, "opt": o2})
+        assert manifest["step"] == 1
+        for a, b in zip(tree.leaves(back["params"]), tree.leaves(p)):
+            assert a.dtype == torch.bfloat16 and a.device.type == "cuda"
+            assert torch.equal(a.full_tensor().view(torch.int16),
+                               b.full_tensor().view(torch.int16))
+        for a, b in zip(tree.leaves(back["opt"].mu), tree.leaves(o.mu)):
+            assert torch.equal(a.full_tensor(), b.full_tensor())
+    finally:
+        M.shutdown()

@@ -132,3 +132,27 @@ def test_kernel_counters_count_only_kernel_launches():
     d = torch.full((1, 2, 3), 0.1)
     SSD.ssd_scan(q, q[:, :, :1], q[:, :, :1], d, -d)
     assert counts() == before
+
+
+def test_the_planner_trainer_and_checkpoint_modules_are_scanned():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for m in ("core/asa.py", "core/components.py", "core/costmodel.py",
+              "core/solver.py", "core/strategy.py", "core/hardware.py",
+              "core/sharding.py", "core/profiler.py", "runtime/trainer.py",
+              "runtime/sharded.py", "checkpoint/store.py", "launch/mesh.py",
+              "launch/train.py", "optim/quantized.py",
+              "examples/quickstart.py", "data/pipeline.py"):
+        assert f"src/repro_torch/{m}" in scanned, m
+
+
+def test_train_cli_quickstart_and_mesh_refuse_the_host_without_device():
+    _no_cuda()
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.make_host_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-8b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])

@@ -419,8 +419,9 @@ def test_unknown_remat_and_unported_options_raise():
     with pytest.raises(ValueError, match="remat"):
         T.lm_apply(params, arch, torch.zeros((1, 4), dtype=torch.long),
                    remat="dots")
-    with pytest.raises(NotImplementedError, match="int8 moments, ROADMAP Queue 1 'Remainder'"):
-        O.adamw(1e-3, quantized=True)
+    # int8 moments are ported now: the state holds a QLeaf per leaf
+    qstate = O.adamw(1e-3, quantized=True)[0](params)
+    assert all(isinstance(x, O.QLeaf) for x in tree.leaves(qstate.mu))
     step = ST.make_train_step(arch, O.adamw(1e-3), microbatches=3)
     batch = next(SyntheticLM(256, 8, 4))
     with pytest.raises(ValueError, match="microbatches"):
