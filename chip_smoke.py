@@ -28,7 +28,8 @@ Phases, each of which fails the run (exit code 1) on any error:
    h_final gradient, two-group and S < Q edges (RMSNorm also at
    command-r-plus-104b's 12,288 and on its looped body past 16,384 and at
    an odd width; flash at D = 160 and 256 with GQA at a ragged S, and its
-   backward at D = 160 with S != T), held
+   backward at D = 160 with S != T; flash forward and backward,
+   bidirectional, at the paper's ViTs' train shapes, ``VISION_FLASH``), held
    norm-wise against autograd through the plain versions (the SSD
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
@@ -244,13 +245,34 @@ Phases, each of which fails the run (exit code 1) on any error:
     named and the replay held at 1e-6 relative); then ``python -m
     repro_torch.launch.train --arch qwen3-8b --smoke --steps 8
     --checkpoint-dir ...`` twice, the second resuming from the manifest.
+35. Train ViT-B on CIFAR-100's widths (``models.vision``, ``ViTConfig()``:
+    65 tokens, 12 heads of 64), ``SyntheticImages(100, 32, 256)``, seeded
+    weights, fp32: step 1's loss and per-leaf grads through the flash
+    kernel (bidirectional) against the plain flash, as in phase 8; the
+    logits of 8 images against the CPU forward (``VISION_LOGIT_TOL``);
+    6 AdamW steps of the reference demo's step (``examples.
+    paper_repro_asa.make_image_step``): median of 2-6, peak memory, 12
+    flash forward and 12 backward launches a step; the same in bf16.
+36. Train ResNet-50 with its CIFAR stem at 256 images, fp32: the logits
+    of 8 images against the CPU forward, step 1's loss and grads finite,
+    6 AdamW steps; it launches no kernel of the repo's (library
+    convolutions and BatchNorm: the reference has no Pallas kernel
+    there).
+37. The paper: ``examples.paper_repro``'s Table I, Fig 3 and Fig 6 for
+    both models; the reference demo's reduced ViT trained 150 steps on the
+    card (accuracy past 0.5 at the last step, 4 + 4 flash launches a
+    step); ViT-B/16 at 224 (197 tokens) at 64 images, fp32 and bf16,
+    beside ``_gpu_step``'s prediction at ``H100_SXM``; ``ComponentProfiler``
+    measured / predicted for the embedding, one attention, one MLP and
+    the head (bf16).
 
 The phases run in the order 1-5, 29-31, 6, 7, 32, 10-13, 15-22, 24-27
 (each model's serve, then its forward, each model freed before the next),
-8, 9, 14, 23, 28 (the trains, with every serving weight freed), 33, 34; each
-phase's seconds and the total are printed before the result lines.
-``--profile`` also traces a sampled serve of qwen3-8b (``profile sample
-qwen3-8b``).
+8, 9, 14, 23, 28 (the trains, with every serving weight freed), 33, 34,
+35, 36, 37; each phase's seconds and the total are printed before the
+result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
+(``profile sample qwen3-8b``) and one more step of each of phases 35-37's
+timed runs.
 
 The last three lines of standard output are the ``{"kernels": [...]}`` JSON
 line (one entry per kernel: its launches on the main path that runs it
@@ -445,6 +467,29 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_wgmma_kernel", "ssd_bwd_grad_wgmma_kernel",
 # this repo's kernels in a trace, as ``traced`` names them
 OWN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash", "flash_bwd", "ssd_scan",
                "ssd_scan_bwd")
+# phases 35-37, the paper's experiment (its images are CIFAR-100's shape,
+# 32 x 32 x 3, 100 classes, synthetic): ViT-B (``ViTConfig()``: patch 4, 8
+# x 8 patches + the cls token = 65 tokens, 12 heads of 64) and ResNet-50
+# with its CIFAR stem, each at the paper's batch of 256 in fp32 (the
+# reference's dtype; ViT-B once more in bf16); ViT-B/16 at 224 (197
+# tokens) at 64, both dtypes; the reference demo's reduced ViT (4 heads of
+# 32, 10 classes, batch 64, 150 steps).  ``steps``: timed AdamW steps, the
+# median of steps 2 on read
+VIT_B, RESNET, VIT_224, VIT_DEMO = ("vit-b", "resnet-50", "vit-b16-224",
+                                    "vit-demo")
+PAPER = {VIT_B: dict(batch=256, steps=6), RESNET: dict(batch=256, steps=6),
+         VIT_224: dict(batch=64, steps=6)}
+# every shape those steps give the flash kernel, forward and backward:
+# (path, B, S, T, H, Hkv, D, causal)
+VISION_FLASH = [(f"{VIT_B} train", 256, 65, 65, 12, 12, 64, False),
+                (f"{VIT_224} train", 64, 197, 197, 12, 12, 64, False),
+                (f"{VIT_DEMO} train", 64, 65, 65, 4, 4, 32, False)]
+# the card's logits of a batch of this many images against the same
+# params' CPU forward (fp32, TF32 off on both sides of the card):
+# max |diff| <= VISION_LOGIT_TOL * max(1, max |cpu|); the two sum the same
+# fp32 products in other orders (~1e-6 of the logits' scale)
+VISION_CHECK_BATCH = 8
+VISION_LOGIT_TOL = 1e-4
 # cuBLAS's kernels in a trace (on Hopper most are named nvjet_*)
 GEMM_NAMES = ("gemm", "gemv", "nvjet")
 # the flash backward at the GQA ratios of the new paths' forwards (no
@@ -755,8 +800,8 @@ def served_cases(name, arch):
     kernels at this script's settings, derived from ``SERVE[name]``,
     ``TRAIN[name]`` and the arch, plus the larger and ragged cases that
     test the kernels' edges.  RMSNorm: ``(path, use, rows, D)``
-    (``_norm_uses``); flash: ``(path, B, S, T, causal, H, Hkv, D)``; SSD:
-    ``(path, B, S, G, h0)``.  The serve path's decode step normalises
+    (``_norm_uses``); flash: ``(path, B, S, T, H, Hkv, D, causal)``
+    (``flash_rows``' order); SSD: ``(path, B, S, G, h0)``.  The serve path's decode step normalises
     ``slots`` rows, its prefill step ``prefill_chunk`` rows (a padded
     chunk, scanned from the carried state), the forward
     ``FORWARD_PROMPTS * prompt_len`` (scanned from h0 = 0), and the train
@@ -776,17 +821,17 @@ def served_cases(name, arch):
     flash, ssd = [], []
     dims = _attn_dims(arch)
     if dims:
-        flash = [(p, B, Sq, Sq, True) + dims for p, B, Sq in seqs]
+        flash = [(p, B, Sq, Sq) + dims + (True,) for p, B, Sq in seqs]
     if name == QWEN:
         norm += [("edge", "long rows", 2048, arch.d_model),
                  ("edge", "q_norm", 2048 * arch.n_heads, arch.head_dim)]
         norm += NORM_WIDE_EDGES
-        flash += [c + dims for c in (
+        flash += [c[:4] + dims + c[4:] for c in (
             ("edge", 1, 2048, 2048, True), ("edge", 1, 300, 300, True),
             ("edge", 1, 256, 700, True), ("edge", 1, 300, 700, False))]
     if name in (ZAMBA, GEMMA):
         # the wide heads with GQA (the paths' are MHA) at a ragged S
-        flash.append(("edge", 1, 300, 300, True, 8, 4, dims[2]))
+        flash.append(("edge", 1, 300, 300, 8, 4, dims[2], True))
     if "mamba2" in _kinds(arch):
         G = arch.ssm.n_groups
         ssd = [(f"{name} serve prefill", 1, st["prefill_chunk"], G, True)]
@@ -887,6 +932,47 @@ def bwd_share_ms(fwd, grad_out, iters):
     return time_ms(both, iters) - time_ms(fwd, iters)
 
 
+def flash_rows(torch, cases, iters, randn, dtypes):
+    """The flash forward kernel against its plain version at ``cases``,
+    ``(path, B, S, T, H, Hkv, D, causal)`` each, in the model's (B, S, H,
+    D) layout."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for path, B, S, Tk, H, HKV, D, causal in cases:
+        for dt, dn in dtypes:
+            q = randn(B, S, H, D, dtype=dt)
+            k = randn(B, Tk, HKV, D, dtype=dt)
+            v = randn(B, Tk, HKV, D, dtype=dt)
+            sc = 1.0 / D ** 0.5
+            got = ops.flash_attention(q, k, v, scale=sc, causal=causal)
+            want = ref.flash_attention_ref(q, k, v, scale=sc,
+                                           causal=causal)
+            torch.cuda.synchronize()
+            err, ok, tol = check_close(got, want, dn)
+            ms = time_ms(lambda: ops.flash_attention(
+                q, k, v, scale=sc, causal=causal), iters)
+            eager = call_ms(lambda: ops.flash_attention(
+                q, k, v, scale=sc, causal=causal), iters)
+            plain_ms = time_ms(lambda: ref.flash_attention_ref(
+                q, k, v, scale=sc, causal=causal), iters)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
+                iters)
+            nbytes, flops = flash_work(B, S, Tk, H, HKV, D, causal,
+                                       q.element_size(), backward=False)
+            rows.append(dict(
+                name="flash_attention", path=path, use="attention",
+                shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
+                      f"{' causal' if causal else ''}",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
+                call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+    return rows
+
+
 def kernel_phase(torch, archs, iters):
     import torch.nn.functional as F
 
@@ -928,36 +1014,7 @@ def kernel_phase(torch, archs, iters):
                     bytes=nbytes, flops=flops,
                     **bound(nbytes, {"float32": flops})))
 
-        for path, B, S, Tk, causal, H, HKV, D in flash_cases:
-            for dt, dn in dtypes:
-                q = randn(B, S, H, D, dtype=dt)
-                k = randn(B, Tk, HKV, D, dtype=dt)
-                v = randn(B, Tk, HKV, D, dtype=dt)
-                sc = 1.0 / D ** 0.5
-                got = ops.flash_attention(q, k, v, scale=sc, causal=causal)
-                want = ref.flash_attention_ref(q, k, v, scale=sc,
-                                               causal=causal)
-                torch.cuda.synchronize()
-                err, ok, tol = check_close(got, want, dn)
-                ms = time_ms(lambda: ops.flash_attention(
-                    q, k, v, scale=sc, causal=causal), iters)
-                eager = call_ms(lambda: ops.flash_attention(
-                    q, k, v, scale=sc, causal=causal), iters)
-                plain_ms = time_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, scale=sc, causal=causal), iters)
-                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
-                    iters)
-                nbytes, flops = flash_work(B, S, Tk, H, HKV, D, causal,
-                                           q.element_size(), backward=False)
-                rows.append(dict(
-                    name="flash_attention", path=path, use="attention",
-                    shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
-                          f"{' causal' if causal else ''}",
-                    dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
-                    call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
-                    bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+        rows += flash_rows(torch, flash_cases, iters, randn, dtypes)
 
         for path, B, S, G, has_h0 in ssd_cases:
             s = arch.ssm
@@ -992,6 +1049,9 @@ def kernel_phase(torch, archs, iters):
     for name, arch in archs.items():
         if name in TRAIN:
             rows += backward_rows(torch, name, arch, iters, gen, dtypes)
+    # the paper's ViTs (phases 35 and 37) train through flash, bidirectional
+    rows += flash_rows(torch, VISION_FLASH, iters, randn, dtypes)
+    rows += flash_bwd_rows(torch, VISION_FLASH, iters, randn, dtypes)
     return rows
 
 
@@ -1058,54 +1118,15 @@ def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes):
     return rows
 
 
-def backward_rows(torch, name, arch, iters, gen, dtypes):
-    """The backward kernels against autograd through the plain versions,
-    at ``train_cases(name, arch)``."""
+def flash_bwd_rows(torch, cases, iters, randn, dtypes):
+    """The flash backward kernels against autograd through the plain
+    version at ``cases``, ``(path, B, S, T, H, Hkv, D, causal)`` each."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
-    from repro_torch.kernels import rmsnorm as RN
-
     rows = []
-
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.float32).to(dtype)
-
-    norm_cases, flash_cases, ssd_cases = train_cases(name, arch)
-    for path, use, R, D in norm_cases:
-        for dt, dn in dtypes:
-            x, g = randn(R, D, dtype=dt), randn(R, D, dtype=dt)
-            scale = (1.0 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
-            xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
-            got = RN.rmsnorm_bwd(x, scale, g)
-            want = torch.autograd.grad(ref.rmsnorm_ref(xr, sr), (xr, sr), g)
-            torch.cuda.synchronize()
-            err, ok, tol = check_normwise(got, want, dn)
-
-            def plain():
-                return ref.rmsnorm_ref(xr, sr), (xr, sr)
-
-            def lib():
-                return F.rms_norm(xr, (D,), sr, 1e-6), (xr, sr)
-            nbytes = 3 * R * D * x.element_size() \
-                + 2 * D * scale.element_size()
-            flops = 8 * R * D
-            rows.append(dict(
-                name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
-                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
-                cold_ms=time_ms_cold(lambda: RN.rmsnorm_bwd(x, scale, g),
-                                     iters),
-                call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
-                plain_ms=bwd_share_ms(plain, g, iters),
-                library_ms=(bwd_share_ms(lib, g, iters)
-                            if hasattr(F, "rms_norm") else None),
-                bytes=nbytes, flops=flops,
-                **bound(nbytes, {"float32": flops})))
-
-    for path, B, S, Tk, H, HKV, D, causal in flash_cases:
+    for path, B, S, Tk, H, HKV, D, causal in cases:
         for dt, dn in dtypes:
             # the model's layout: (B,S,H,D) tensors seen as (B,H,S,D) views
             q, do = (randn(B, S, H, D, dtype=dt).transpose(1, 2)
@@ -1152,6 +1173,56 @@ def backward_rows(torch, name, arch, iters, gen, dtypes):
                 plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
                 library_ms=bwd_share_ms(lib, do.contiguous(), iters),
                 bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+    return rows
+
+
+def backward_rows(torch, name, arch, iters, gen, dtypes):
+    """The backward kernels against autograd through the plain versions,
+    at ``train_cases(name, arch)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+
+    rows = []
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    norm_cases, flash_cases, ssd_cases = train_cases(name, arch)
+    for path, use, R, D in norm_cases:
+        for dt, dn in dtypes:
+            x, g = randn(R, D, dtype=dt), randn(R, D, dtype=dt)
+            scale = (1.0 + 0.1 * randn(D, dtype=torch.float32)).to(dt)
+            xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
+            got = RN.rmsnorm_bwd(x, scale, g)
+            want = torch.autograd.grad(ref.rmsnorm_ref(xr, sr), (xr, sr), g)
+            torch.cuda.synchronize()
+            err, ok, tol = check_normwise(got, want, dn)
+
+            def plain():
+                return ref.rmsnorm_ref(xr, sr), (xr, sr)
+
+            def lib():
+                return F.rms_norm(xr, (D,), sr, 1e-6), (xr, sr)
+            nbytes = 3 * R * D * x.element_size() \
+                + 2 * D * scale.element_size()
+            flops = 8 * R * D
+            rows.append(dict(
+                name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                cold_ms=time_ms_cold(lambda: RN.rmsnorm_bwd(x, scale, g),
+                                     iters),
+                call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                plain_ms=bwd_share_ms(plain, g, iters),
+                library_ms=(bwd_share_ms(lib, g, iters)
+                            if hasattr(F, "rms_norm") else None),
+                bytes=nbytes, flops=flops,
+                **bound(nbytes, {"float32": flops})))
+
+    rows += flash_bwd_rows(torch, flash_cases, iters, randn, dtypes)
     return rows + ssd_backward_rows(torch, arch, ssd_cases, iters, gen,
                                     dtypes)
 
@@ -2641,6 +2712,395 @@ def trainer_phase(torch, report, arch_full, card):
         M.shutdown()
 
 
+def card_images(torch, batch, dtype):
+    """A ``SyntheticImages`` batch on the card: images in ``dtype`` (the
+    ViT computes in the promoted type of its images and params), int32
+    labels."""
+    return (torch.as_tensor(batch["images"], device="cuda").to(dtype),
+            torch.as_tensor(batch["labels"], device="cuda"))
+
+
+def cpu_logits_check(torch, label, apply_fn, params, images):
+    """The card's logits of ``images`` against the same params' forward on
+    the CPU (the kernels' plain versions there) -> max |diff|; fails past
+    ``VISION_LOGIT_TOL``."""
+    from repro_torch import tree
+    with torch.no_grad():
+        got = apply_fn(params, images).cpu()
+        want = apply_fn(tree.map(lambda t: t.cpu(), params), images.cpu())
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    print(f"{label}: logits of {images.shape[0]} images on the card vs the "
+          f"CPU forward: max |diff| {err:.3g} (max |logit| "
+          f"{float(want.abs().max()):.4g}, tol {VISION_LOGIT_TOL} x "
+          f"{scale:.4g})")
+    if not (torch.isfinite(got).all() and err <= VISION_LOGIT_TOL * scale):
+        fail(f"{label}: card logits differ from the CPU forward by {err}")
+    return err
+
+
+def image_steps(torch, label, apply_fn, params, data, steps, dtype,
+                profile=False):
+    """``steps`` of the reference demo's train step (``paper_repro_asa.
+    make_image_step``: loss, grads, clip to 1.0, ``adamw(1e-3,
+    weight_decay=0.01)``) on ``data``'s batches, each between CUDA events
+    -> (a report: step times, the median of steps 2 on, peak memory,
+    launches, losses, accuracies; params).  With ``profile``, one more
+    step traced."""
+    from repro_torch.examples import paper_repro_asa as ASA
+    opt_init, step = ASA.make_image_step(apply_fn)
+    state = opt_init(params)
+    batches = [card_images(torch, next(data), dtype) for _ in range(steps)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks, out = [], []
+    for images, labels in batches:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, loss, acc = step(params, state, images, labels)
+        e1.record()
+        marks.append((e0, e1))
+        out.append((loss, acc))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    rep = dict(step_ms=step_ms, step_ms_median=med,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               mem_before_steps_gb=base, launches=counts,
+               launches_per_step={k: c / steps for k, c in counts.items()},
+               losses=[float(x) for x, _ in out],
+               accuracies=[float(a) for _, a in out])
+    if not all(math.isfinite(x) for x in rep["losses"]):
+        fail(f"{label}: losses {rep['losses']} not finite")
+    if profile:
+        images, labels = batches[-1]
+
+        def one_step():
+            nonlocal params, state
+            params, state, _, _ = step(params, state, images, labels)
+        rep["profile"] = traced(torch, label, one_step)
+    return rep, params
+
+
+def _check_flash_launches(label, counts, per_step):
+    """Each step launches the flash forward and backward ``per_step`` times
+    each (one a layer) and no other kernel of the repo's."""
+    want = {k: 0 for k in KERNELS}
+    want["flash_attention"] = want["flash_attention_bwd"] = per_step
+    if counts != want:
+        fail(f"{label}: launches {counts}, want {want}")
+
+
+def vit_phase(torch, report, card, profile=False):
+    """Phase 35: ViT-B at CIFAR-100's widths (``ViTConfig()``, 65 tokens,
+    head dim 64) at batch 256, seeded weights, through the flash kernel
+    forward and backward (bidirectional): step 1's loss and per-leaf
+    grads against the same params through the plain flash, in fp32; the
+    logits of 8 images against the CPU forward; 6 AdamW steps (median of
+    2-6, peak memory, 24 flash launches a step); the 6 steps again in
+    bf16 (bf16 params and images: a bf16 forward and backward)."""
+    from unittest import mock
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticImages
+    from repro_torch.examples import paper_repro_asa as ASA
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import vision as V
+    from repro_torch.optim import optimizers as O
+    from repro_torch.runtime import steps as ST
+
+    t_phase = time.perf_counter()
+    label = f"train {VIT_B}"
+    cfg, B, steps = V.ViTConfig(), PAPER[VIT_B]["batch"], PAPER[VIT_B]["steps"]
+
+    def apply(p, x):
+        return V.vit_apply(p, cfg, x)
+    params = V.init_vit(cfg, device="cuda", seed=0)
+    names = tree.names(params)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    data = SyntheticImages(cfg.n_classes, cfg.image_size, B, seed=0)
+    images, labels = card_images(torch, next(data), torch.float32)
+    print(f"{label}: ViT-B d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, patch {cfg.patch} ({cfg.n_patches + 1} "
+          f"tokens), {n_params / 1e6:.2f} M params, batch {B}, fp32")
+
+    # step 1's grads through the kernels and through the plain flash
+    loss_fn = ASA.image_loss(apply)
+    reset_counts()
+    loss_k, _, g_k = ST.loss_and_grads(loss_fn, params, images, labels)
+    grad_counts = read_counts()
+    with mock.patch.object(ops, "flash_attention", ref.flash_attention_ref):
+        loss_p, _, g_p = ST.loss_and_grads(loss_fn, params, images, labels)
+    _check_flash_launches(f"{label} grad check", grad_counts, cfg.n_layers)
+    gn_k, gn_p = float(O.global_norm(g_k)), float(O.global_norm(g_p))
+    zero = {n: max(float(torch.linalg.vector_norm(g[i])) / gn
+                   for g, gn in ((g_k, gn_k), (g_p, gn_p)))
+            for i, n in enumerate(names) if n.endswith(ZERO_GRAD_LEAF)}
+    diffs = {n: d for n, d in grad_diffs(torch, names, g_k, g_p).items()
+             if n not in zero}
+    bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}" for n, (c, r) in diffs.items()
+           if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+    bad += [f"{n}: |grad| {z:.3g} of the global norm" for n, z in
+            zero.items() if not z <= ZERO_GRAD_REL_MAX]
+    if not abs(gn_k - gn_p) <= GRAD_NORM_REL_TOL * gn_p:
+        bad.append(f"grad norm {gn_k} vs plain {gn_p}")
+    if not (math.isfinite(gn_k) and math.isfinite(float(loss_k))):
+        bad.append(f"grad norm {gn_k} / loss {float(loss_k)} not finite")
+    cos_leaf = min(diffs, key=lambda n: diffs[n][0])
+    print(f"{label}: step 1's grads through the flash kernel vs the plain "
+          f"flash: {len(names)} leaves, worst cosine "
+          f"{diffs[cos_leaf][0]:.8f} at {cos_leaf}, worst rel L2 "
+          f"{worst(diffs, text=True)}; key biases (grad 0 in exact "
+          f"arithmetic) at most {max(zero.values()):.3g} of the global norm; "
+          f"grad norm {gn_k:.6g} vs {gn_p:.6g}; loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f}; launches {grad_counts}")
+    if bad:
+        fail(f"{label}: kernel grads differ from the plain path's: {bad}")
+    check = dict(worst_cos=diffs[cos_leaf][0], worst_cos_leaf=cos_leaf,
+                 worst_rel_l2=worst(diffs)[1], worst_rel_l2_leaf=worst(diffs)[0],
+                 grad_norm_kernels=gn_k, grad_norm_plain=gn_p,
+                 loss_kernels=float(loss_k), loss_plain=float(loss_p),
+                 zero_grad_leaves=zero)
+    del g_k, g_p
+    logit_err = cpu_logits_check(torch, label, apply, params,
+                                 images[:VISION_CHECK_BATCH])
+
+    run, params = image_steps(torch, label, apply, params, data, steps,
+                              torch.float32, profile)
+    _check_flash_launches(label, run["launches"], cfg.n_layers * steps)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg16 = V.ViTConfig(dtype="bfloat16")
+    params = V.init_vit(cfg16, device="cuda", seed=0)
+    run16, params = image_steps(
+        torch, f"{label} bf16", lambda p, x: V.vit_apply(p, cfg16, x),
+        params, SyntheticImages(cfg.n_classes, cfg.image_size, B, seed=0),
+        steps, torch.bfloat16, profile)
+    _check_flash_launches(f"{label} bf16", run16["launches"],
+                          cfg.n_layers * steps)
+    for dn, r in (("fp32", run), ("bf16", run16)):
+        print(f"{label}: {steps} AdamW steps of {B} images, {dn}: step "
+              f"{', '.join(f'{t:.2f}' for t in r['step_ms'])} ms, median of "
+              f"steps 2-{steps} {r['step_ms_median']:.2f} ms = "
+              f"{B / r['step_ms_median'] * 1e3:.0f} images/s, peak memory "
+              f"{r['peak_mem_gb']:.2f} GB on {card}; losses "
+              f"{[round(x, 5) for x in r['losses']]}; launches a step "
+              f"{r['launches_per_step']}")
+    report[label] = dict(params=n_params, batch=B, grad_check=check,
+                         logits_max_abs_diff=logit_err, **run, bf16=run16,
+                         phase_s=time.perf_counter() - t_phase)
+    del params
+
+
+def resnet_phase(torch, report, card, profile=False):
+    """Phase 36: ResNet-50 with its CIFAR stem (``ResNetConfig()``) at batch
+    256, fp32, seeded weights: the logits of 8 images against the CPU
+    forward, step 1's loss and grads finite, 6 AdamW steps (median of
+    2-6, peak memory).  It launches no kernel of the repo's: its convs are
+    library convolutions, as in the reference (no Pallas kernel)."""
+    from repro_torch import tree
+    from repro_torch.data import SyntheticImages
+    from repro_torch.examples import paper_repro_asa as ASA
+    from repro_torch.models import vision as V
+    from repro_torch.runtime import steps as ST
+
+    t_phase = time.perf_counter()
+    label = f"train {RESNET}"
+    cfg = V.ResNetConfig()
+    B, steps = PAPER[RESNET]["batch"], PAPER[RESNET]["steps"]
+
+    def apply(p, x):
+        return V.resnet_apply(p, cfg, x)
+    params = V.init_resnet(cfg, device="cuda", seed=0)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    data = SyntheticImages(cfg.n_classes, cfg.image_size, B, seed=0)
+    images, labels = card_images(torch, next(data), torch.float32)
+    print(f"{label}: stages {cfg.stage_sizes}, width {cfg.width}, CIFAR "
+          f"stem, {n_params / 1e6:.2f} M params, batch {B}, fp32")
+    logit_err = cpu_logits_check(torch, label, apply, params,
+                                 images[:VISION_CHECK_BATCH])
+    loss, _, grads = ST.loss_and_grads(ASA.image_loss(apply), params,
+                                       images, labels)
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    print(f"{label}: step 1's loss {float(loss):.6f}, grads finite: {finite}")
+    if not finite:
+        fail(f"{label}: step 1's loss or grads not finite")
+    del grads
+    run, params = image_steps(torch, label, apply, params, data, steps,
+                              torch.float32, profile)
+    if any(run["launches"].values()):
+        fail(f"{label}: launched {run['launches']}: ResNet-50 runs no "
+             f"kernel of the repo's")
+    print(f"{label}: {steps} AdamW steps of {B} images, fp32: step "
+          f"{', '.join(f'{t:.2f}' for t in run['step_ms'])} ms, median of "
+          f"steps 2-{steps} {run['step_ms_median']:.2f} ms = "
+          f"{B / run['step_ms_median'] * 1e3:.0f} images/s, peak memory "
+          f"{run['peak_mem_gb']:.2f} GB on {card}; losses "
+          f"{[round(x, 5) for x in run['losses']]}; no kernel of the repo's "
+          f"launched (library convolutions and BatchNorm, no TPU kernel "
+          f"in the reference's ResNet)")
+    report[label] = dict(params=n_params, batch=B,
+                         logits_max_abs_diff=logit_err, **run,
+                         phase_s=time.perf_counter() - t_phase)
+    del params
+
+
+def _vit_component_fns(torch, cfg, params, images, labels):
+    """{component of ``paper_repro.vit_b16_components``: (fn, args)}: the
+    embedding, one attention (norm1 + attention + residual), one MLP
+    (norm2 + MLP + residual) and the head (final norm, head, loss), each
+    forward and backward."""
+    import torch.nn.functional as F
+
+    from repro_torch import tree
+    from repro_torch.models import vision as V
+    live = tree.map(lambda t: t.detach().requires_grad_(), params)
+    layer = tree.map(lambda t: t[0], live["layers"])
+    with torch.no_grad():
+        x = V._embed(params, cfg, images)
+    x.requires_grad_()
+
+    def run(out):
+        torch.autograd.backward(out, torch.ones_like(out))
+
+    def head(p, h, y):
+        logp = F.log_softmax(V._head(p, h), dim=-1)
+        (-torch.gather(logp, -1, y[:, None].long()).mean()).backward()
+    return {"embed": (lambda p, im: run(V._embed(p, cfg, im)),
+                      (live, images)),
+            "layer0/attn": (lambda lp, h: run(V._mixer(lp, cfg, h)),
+                            (layer, x)),
+            "layer0/mlp": (lambda lp, h: run(V._ffn(lp, h)), (layer, x)),
+            "head": (head, (live, x, labels))}
+
+
+def paper_phase(torch, report, card, profile=False):
+    """Phase 37: the paper's tables from the port (``examples.paper_repro``
+    at the V100 profile: Table I, Fig 3, Fig 6 for both models); the
+    reference demo's reduced ViT trained 150 steps on the card (accuracy
+    past 0.5 at the last step); ViT-B/16 at 224 (197 tokens) at batch 64,
+    fp32 and bf16, beside the single-card step ``_gpu_step`` predicts for
+    it at ``H100_SXM``; ``ComponentProfiler``'s measured / predicted for
+    the embedding, one attention, one MLP and the head (bf16)."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.profiler import ComponentProfiler
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.data import SyntheticImages
+    from repro_torch.examples import paper_repro as PR
+    from repro_torch.examples import paper_repro_asa as ASA
+    from repro_torch.models import vision as V
+
+    t_phase = time.perf_counter()
+    tables = {}
+    for model in ("vit", "resnet50"):
+        t1, f3 = PR.table1(model), PR.fig3_comm(model)
+        f6 = PR.fig6_strategy_map(model)
+        print(f"paper {model}: Table I speedup over one V100, ours / the "
+              f"paper's: " + "; ".join(
+                  f"{k} {t1['ours_speedup'][k]:.2f}x / "
+                  f"{t1['paper_speedup'][k]:.2f}x"
+                  for k in ("DP", "MP", "HP", "adaptive"))
+              + f"; adaptive over HP {t1['ours_adaptive_over_hp']:.3f} / "
+                f"{t1['paper_adaptive_over_hp']:.3f}")
+        print(f"paper {model}: Fig 3 communication share, ours / the "
+              f"paper's: " + "; ".join(
+                  f"{k} {f3['ours'][k]:.1f} / {f3['paper'][k]:.1f} %"
+                  for k in ("DP", "MP", "HP", "adaptive")))
+        print(f"paper {model}: Fig 6 the adaptive plan's strategy by "
+              f"component: {f6}")
+        tables[model] = dict(table1=t1, fig3=f3, fig6=f6)
+
+    # the reference demo on the card
+    label = f"train {VIT_DEMO}"
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = ASA.small_scale_training("cuda")
+    demo_s = time.perf_counter() - t0
+    demo_counts = read_counts()
+    acc = hist[-1][1]
+    print(f"{label}: {len(hist)} steps in {demo_s:.1f} s, accuracy "
+          f"{acc:.4f} at the last step (must pass 0.5), loss "
+          f"{hist[0][0]:.4f} -> {hist[-1][0]:.4f}; launches {demo_counts}")
+    if not acc > 0.5:
+        fail(f"{label}: accuracy {acc} at step {len(hist)}")
+    _check_flash_launches(label, demo_counts,
+                          ASA.DEMO_VIT.n_layers * len(hist))
+    report[label] = dict(steps=len(hist), seconds=demo_s, accuracy=acc,
+                         losses=[l for l, _ in hist], launches=demo_counts)
+
+    # ViT-B/16 at 224, both dtypes, and the cost model's step for it
+    label = f"train {VIT_224}"
+    B, steps = PAPER[VIT_224]["batch"], PAPER[VIT_224]["steps"]
+    runs = {}
+    for dn, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = V.ViTConfig(image_size=224, patch=16,
+                          dtype="float32" if dn == "fp32" else "bfloat16")
+        params = V.init_vit(cfg, device="cuda", seed=0)
+        runs[dn], params = image_steps(
+            torch, f"{label} {dn}", lambda p, x, c=cfg: V.vit_apply(p, c, x),
+            params, SyntheticImages(cfg.n_classes, 224, B, seed=0), steps,
+            dt, profile)
+        _check_flash_launches(f"{label} {dn}", runs[dn]["launches"],
+                              cfg.n_layers * steps)
+        if dn == "fp32":
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    comps = PR.vit_b16_components(B)
+    dp = {c.name: Strategy.DP for c in comps}
+    t_comp, t_comm, mem = PR._gpu_step(comps, n_gpus=1, dp=1, pp=1,
+                                       strategies=dp, hw=H100_SXM)
+    for dn, r in runs.items():
+        print(f"{label}: {steps} AdamW steps of {B} images at 224 (197 "
+              f"tokens), {dn}: step "
+              f"{', '.join(f'{t:.2f}' for t in r['step_ms'])} ms, median of "
+              f"steps 2-{steps} {r['step_ms_median']:.2f} ms = "
+              f"{B / r['step_ms_median'] * 1e3:.0f} images/s, peak memory "
+              f"{r['peak_mem_gb']:.2f} GB on {card}; launches a step "
+              f"{r['launches_per_step']}")
+    print(f"{label}: _gpu_step(vit_b16_components({B}), one card, all DP, "
+          f"H100_SXM) predicts {t_comp * 1e3:.2f} ms of compute + "
+          f"{t_comm * 1e3:.2f} ms of communication, {mem / 1e9:.2f} GB "
+          f"(bf16 peak x {H100_SXM.matmul_efficiency}; no optimizer "
+          f"term); measured fp32 {runs['fp32']['step_ms_median']:.2f}, "
+          f"bf16 {runs['bf16']['step_ms_median']:.2f} ms")
+
+    # measured / predicted per component, bf16 (the H100 profile's rate)
+    cfg = V.ViTConfig(image_size=224, patch=16, dtype="bfloat16")
+    images, labels = card_images(
+        torch, next(SyntheticImages(cfg.n_classes, 224, B, seed=1)),
+        torch.bfloat16)
+    by_name = {c.name: c for c in comps}
+    prof = ComponentProfiler()
+    measured, predicted = {}, {}
+    for name, (fn, args) in _vit_component_fns(torch, cfg, params, images,
+                                               labels).items():
+        measured[name] = prof.profile(name, fn, *args, iters=10).mean_s
+        c = by_name[name]
+        predicted[name] = PR._gpu_step([c], n_gpus=1, dp=1, pp=1,
+                                       strategies={name: Strategy.DP},
+                                       hw=H100_SXM)[0]
+    factors = {n: measured[n] / predicted[n] for n in measured}
+    print(f"{label}: measured / predicted t_comp a component (bf16, CUDA "
+          f"events, forward + backward, on {card}): " + "; ".join(
+              f"{n} {measured[n] * 1e3:.3f} / {predicted[n] * 1e3:.3f} ms "
+              f"= {factors[n]:.3f}" for n in measured))
+    report[label] = dict(batch=B, **runs["fp32"], bf16=runs["bf16"],
+                         predicted_step_ms=(t_comp + t_comm) * 1e3,
+                         predicted_mem_gb=mem / 1e9,
+                         measured_s=measured, predicted_s=predicted,
+                         factors=factors)
+    report["paper"] = dict(tables=tables,
+                           phase_s=time.perf_counter() - t_phase)
+    del params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2728,6 +3188,7 @@ def main() -> int:
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
     paths += [f"sample {QWEN}", f"observe {QWEN}", f"sample {MAMBA}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
+    paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -2777,6 +3238,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed(f"trainer {QWEN}", trainer_phase, torch, report, archs[QWEN],
               card)
+        # 35.-37. the paper's experiment: ViT-B, ResNet-50, then the
+        # tables, the reference demo and ViT-B/16 at 224
+        for label, phase in ((f"train {VIT_B}", vit_phase),
+                             (f"train {RESNET}", resnet_phase),
+                             ("paper", paper_phase)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed(label, phase, torch, report, card, profile=args.profile)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

@@ -1,3 +1,4 @@
-from repro_torch.data.pipeline import HostShardedLoader, Prefetcher, SyntheticLM
+from repro_torch.data.pipeline import (HostShardedLoader, Prefetcher,
+                                       SyntheticImages, SyntheticLM)
 
-__all__ = ["SyntheticLM", "HostShardedLoader", "Prefetcher"]
+__all__ = ["SyntheticLM", "SyntheticImages", "HostShardedLoader", "Prefetcher"]

@@ -1,9 +1,8 @@
 """Input pipeline (the parts of ``repro/data/pipeline.py`` the port's
 training needs, copied: they are numpy and the standard library only, and
 the port imports nothing of the JAX package): the deterministic synthetic
-LM source, host-sharded loading with straggler-aware shard reassignment,
-and a background prefetch queue.  ``SyntheticImages`` (the paper's
-CIFAR-like data) goes with the vision models (ROADMAP)."""
+LM source, the paper's CIFAR-100-like images, host-sharded loading with
+straggler-aware shard reassignment, and a background prefetch queue."""
 from __future__ import annotations
 
 import queue
@@ -40,6 +39,39 @@ class SyntheticLM:
         toks = np.minimum(z - 1, self.vocab - 1).astype(np.int32)
         self.step += 1
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class SyntheticImages:
+    """CIFAR-100-like labeled images (paper's dataset, synthesized):
+    class-conditional gaussian blobs so accuracy is learnable.  The same
+    ``(seed, step)`` gives the same numpy batch as the reference's
+    ``SyntheticImages``: NHWC float32 images, int32 labels."""
+
+    def __init__(self, n_classes: int = 100, image_size: int = 32,
+                 batch: int = 128, *, seed: int = 0, start_step: int = 0):
+        self.n_classes, self.image_size, self.batch = n_classes, image_size, batch
+        self.seed, self.step = seed, start_step
+        rng = np.random.default_rng(seed)
+        self.class_means = rng.normal(0, 1.0, (n_classes, 8)).astype(np.float32)
+
+    def skip(self, n: int):
+        self.step += n
+        return self
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        rng = np.random.default_rng((self.seed, self.step + 1))
+        labels = rng.integers(0, self.n_classes, self.batch).astype(np.int32)
+        base = self.class_means[labels]                        # (B, 8)
+        proj = np.random.default_rng(self.seed + 7).normal(
+            0, 1, (8, self.image_size * self.image_size * 3)).astype(np.float32)
+        imgs = (base @ proj).reshape(self.batch, self.image_size,
+                                     self.image_size, 3)
+        imgs += rng.normal(0, 0.7, imgs.shape).astype(np.float32)
+        self.step += 1
+        return {"images": imgs.astype(np.float32), "labels": labels}
 
 
 class HostShardedLoader:

@@ -61,6 +61,12 @@ RMSNORM_WIDE_SHAPES = [(4, 12288), (1024, 12288), (5, 12289), (3, 16392)]
 RMSNORM_VISION_SHAPES = [(1024, 8192), (256, 8192), (4, 8192)]
 
 
+# the paper's ViTs, bidirectional at head dim 64: ViT-B on CIFAR-100's
+# 8 x 8 patches + cls (65 tokens), ViT-B/16 at 224 (197 tokens)
+VIT_FLASH_CASES = [(2, 65, 65, 12, 12, 64, False),
+                   (1, 197, 197, 12, 12, 64, False)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [(3, 4096), (37, 128), (5, 7, 300),
@@ -94,6 +100,7 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (1, 300, 300, 16, 16, 256, True),  # gemma-7b
     (2, 384, 384, 16, 16, 64, True),   # whisper-medium's decoder forward
     (2, 512, 512, 64, 8, 128, True),   # llama-3.2-vision-90b: GQA 8
+    *VIT_FLASH_CASES,
 ])
 def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                             dtype):
@@ -160,6 +167,7 @@ FLASH_BWD_CASES = [
     (1, 300, 150, 4, 4, 160, False),   # D = 160, S > T, not causal
     (2, 448, 448, 16, 16, 64, True),   # whisper-medium's train step
     (1, 256, 256, 64, 8, 128, True),   # GQA 8 (llama-3.2-vision's heads)
+    *VIT_FLASH_CASES,
 ]
 
 
@@ -1303,3 +1311,57 @@ def test_cuda_checkpoint_bf16_round_trip_is_bit_exact(tmp_path):
             assert torch.equal(a.full_tensor(), b.full_tensor())
     finally:
         M.shutdown()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_vit_forward_and_backward_match_plain(dtype):
+    """A small ViT (65 tokens, 4 heads of 16) through the flash kernel,
+    forward and backward, against the same params through the plain
+    flash: logits norm-wise at the backward kernels' tolerance, grads per
+    leaf by chip_smoke.py's train-phase checks (the key biases, whose
+    gradient is 0 in exact arithmetic, by norm)."""
+    _need_cuda()
+    from unittest import mock
+
+    from repro_torch.examples import paper_repro_asa as ASA
+    from repro_torch.models import vision as V
+    from repro_torch.optim import optimizers as O
+    from repro_torch.runtime import steps as ST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = _smoke()
+    cfg = V.ViTConfig(d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                      n_classes=10, dtype=dtype)
+    params = V.init_vit(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.randn((8, 32, 32, 3), generator=g,
+                         device="cuda").to(DTYPES[dtype][0])
+    labels = torch.randint(0, 10, (8,), generator=g, device="cuda")
+
+    def apply(p, x):
+        return V.vit_apply(p, cfg, x)
+    loss_fn = ASA.image_loss(apply)
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches)
+    got = apply(params, images)
+    loss_k, _, g_k = ST.loss_and_grads(loss_fn, params, images, labels)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - before[0],
+            tfa.flash_attention_bwd.launches - before[1]) == (4, 2)
+    with mock.patch.object(tops, "flash_attention", tref.flash_attention_ref):
+        want = apply(params, images)
+        loss_p, _, g_p = ST.loss_and_grads(loss_fn, params, images, labels)
+    err, ok, tol = smoke.check_normwise([got], [want], dtype)
+    assert ok, (err, tol)
+    names = tree.names(params)
+    gn = float(O.global_norm(g_p))
+    diffs = smoke.grad_diffs(torch, names, g_k, g_p)
+    for n, (cos, rel) in diffs.items():
+        if n.endswith(smoke.ZERO_GRAD_LEAF):
+            k = names.index(n)
+            for gr in (g_k[k], g_p[k]):
+                assert float(torch.linalg.vector_norm(gr.float())) <= \
+                    smoke.ZERO_GRAD_REL_MAX * gn, n
+            continue
+        assert cos >= smoke.GRAD_COS_MIN and rel <= smoke.GRAD_REL_L2_MAX, \
+            (n, cos, rel)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-2 * abs(float(loss_p))

@@ -156,3 +156,22 @@ def test_train_cli_quickstart_and_mesh_refuse_the_host_without_device():
         train.main(["--arch", "qwen3-8b", "--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main([])
+
+
+def test_the_paper_experiment_modules_are_scanned():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for m in ("models/vision.py", "examples/paper_repro.py",
+              "examples/paper_repro_asa.py", "data/pipeline.py"):
+        assert f"src/repro_torch/{m}" in scanned, m
+
+
+def test_paper_demo_and_vision_init_refuse_the_host_without_device():
+    _no_cuda()
+    from repro_torch.examples import paper_repro_asa
+    from repro_torch.models import vision as V
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper_repro_asa.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.init_vit(V.ViTConfig(n_layers=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.init_resnet(V.ResNetConfig(stage_sizes=(1,)))
