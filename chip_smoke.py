@@ -29,7 +29,8 @@ Phases, each of which fails the run (exit code 1) on any error:
    command-r-plus-104b's 12,288 and on its looped body past 16,384 and at
    an odd width; flash at D = 160 and 256 with GQA at a ragged S, and its
    backward at D = 160 with S != T; flash forward and backward,
-   bidirectional, at the paper's ViTs' train shapes, ``VISION_FLASH``), held
+   bidirectional, at the paper's ViTs' train shapes, ``VISION_FLASH``, and
+   in fp32 at the split-TF32 bodies' edges, ``TF32_FLASH_EDGES``), held
    norm-wise against autograd through the plain versions (the SSD
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
@@ -301,6 +302,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "tfloat32": 495e12,  # dense tensor-core TF32
               "float32": 67e12}    # float32 outside the tensor cores
 # |kernel - plain| <= atol + rtol * |plain|.  Kernel and plain version both
 # compute in fp32 and differ only by summation order (~1e-6 relative).  In
@@ -484,6 +486,17 @@ PAPER = {VIT_B: dict(batch=256, steps=6), RESNET: dict(batch=256, steps=6),
 VISION_FLASH = [(f"{VIT_B} train", 256, 65, 65, 12, 12, 64, False),
                 (f"{VIT_224} train", 64, 197, 197, 12, 12, 64, False),
                 (f"{VIT_DEMO} train", 64, 65, 65, 4, 4, 32, False)]
+# the fp32 split-TF32 bodies' edges, forward and backward, in fp32 (no
+# path runs them; qwen3-8b's causal B=2 S=T=512 H=32 Hkv=8 D=128 and its S
+# = 300, T = 700 are path and edge rows already): one row, a 16-row slice
+# and a row, exactly five slices, S != T not causal at ViT-B's heads, GQA 4
+# at D = 64 (one block a head up to 128 keys, key tiles past it)
+TF32_FLASH_EDGES = [("edge", 4, 1, 65, 12, 12, 64, False),
+                    ("edge", 8, 17, 17, 12, 12, 64, True),
+                    ("edge", 64, 80, 80, 12, 12, 64, False),
+                    ("edge", 1, 300, 700, 12, 12, 64, False),
+                    ("edge", 2, 100, 100, 32, 8, 64, True),
+                    ("edge", 2, 512, 512, 32, 8, 64, True)]
 # the card's logits of a batch of this many images against the same
 # params' CPU forward (fp32, TF32 off on both sides of the card):
 # max |diff| <= VISION_LOGIT_TOL * max(1, max |cpu|); the two sum the same
@@ -920,6 +933,18 @@ def flash_work(B, S, Tk, H, HKV, D, causal, itemsize, backward):
     return 2 * q + 2 * kv, 4 * B * H * D * pairs
 
 
+def flash_ops(dtype_name, D, flops):
+    """``flops`` of a flash row by the type it runs at: the bf16 bodies'
+    on the bf16 tensor cores; fp32 at the split-TF32 bodies' head dims
+    (``flash_attention.TF32_DIMS``) as three TF32 products a product (big
+    and small parts, as ``ssd_work`` counts split products), on the FMA
+    body's above them at the fp32 rate."""
+    from repro_torch.kernels import flash_attention as FA
+    if dtype_name == "float32" and D in FA.TF32_DIMS:
+        return {"tfloat32": 3 * flops}
+    return {dtype_name: flops}
+
+
 def bwd_share_ms(fwd, grad_out, iters):
     """A backward's device time: the captured forward + backward less the
     captured forward (``fwd`` returns the output and the inputs to
@@ -969,7 +994,8 @@ def flash_rows(torch, cases, iters, randn, dtypes):
                       f"{' causal' if causal else ''}",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
                 call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+                bytes=nbytes, flops=flops,
+                **bound(nbytes, flash_ops(dn, D, flops))))
     return rows
 
 
@@ -1052,6 +1078,9 @@ def kernel_phase(torch, archs, iters):
     # the paper's ViTs (phases 35 and 37) train through flash, bidirectional
     rows += flash_rows(torch, VISION_FLASH, iters, randn, dtypes)
     rows += flash_bwd_rows(torch, VISION_FLASH, iters, randn, dtypes)
+    fp32 = ((torch.float32, "float32"),)
+    rows += flash_rows(torch, TF32_FLASH_EDGES, iters, randn, fp32)
+    rows += flash_bwd_rows(torch, TF32_FLASH_EDGES, iters, randn, fp32)
     return rows
 
 
@@ -1172,7 +1201,8 @@ def flash_bwd_rows(torch, cases, iters, randn, dtypes):
                 call_ms=call_ms(kernel, iters),
                 plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
                 library_ms=bwd_share_ms(lib, do.contiguous(), iters),
-                bytes=nbytes, flops=flops, **bound(nbytes, {dn: flops})))
+                bytes=nbytes, flops=flops,
+                **bound(nbytes, flash_ops(dn, D, flops))))
     return rows
 
 

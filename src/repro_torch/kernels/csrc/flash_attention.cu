@@ -67,10 +67,46 @@
 //     to the consumers (setmaxnreg), which may use 232 each: the output's
 //     D / 2 fp32 accumulators a thread (80 at D = 160, 128 at D = 256), S
 //     (32) and P as hi + lo (32).
-// fp32: the FMA body (flash_fwd_kernel): BQ = BK = 64, 256 threads, each
-// owning a 4x4 block of scores and a 4 x D/16 block of the output, the
-// products as fp32 FMAs from shared memory.  A TF32 tensor-core path would
-// miss the fp32 specification by design.
+// fp32 at D <= 128: the split-TF32 tensor-core body
+// (flash_fwd_tf32_kernel<D>).
+//   * Precision: every product runs on the tensor cores as mma.sync
+//     m16n8k8 with TF32 operands and fp32 accumulators, each fp32 operand
+//     x split into big = x with its low 13 mantissa bits cleared and small
+//     = x - big (split_tf32, hopper.cuh; the tensor cores read small's top
+//     19 bits), the product as small.big + big.small + big.big (mma3_n,
+//     term by term over a group of accumulators, so that no product waits
+//     on the one before it).  The pair keeps about 20 significant bits, so
+//     the outputs stay within a few 1e-6 of the fp32 plain version; one
+//     TF32 pass misses the fp32 check by 20x (tests/test_torch_kernels.py
+//     emulates both).
+//   * Tiles follow the sequence: a warp owns 16 q rows, a block one to
+//     eight warps (as many 16-row slices as S has, up to eight, dealt
+//     evenly: S = 65 is one block of five warps, 80 rows); slices past S
+//     are not computed.  Keys come in tiles of 80 (32 at D = 128), so that
+//     ViT-B's 65 keys are one tile: a head is 80 x 80 scores, not 128 x
+//     128.  The loops run over every 8-key slice of a tile without a
+//     branch (keys past T arrive as zero rows and are masked), which lets
+//     the compiler overlap the slices' loads and products; a tile wholly
+//     above a warp's rows is skipped.
+//   * Copies: each warp reads its Q fragments from device memory once and
+//     keeps them in registers as fp32 (split at each use); K and V tiles
+//     arrive by 16-byte cp.async into rows padded to D + 4 floats, which
+//     keeps the fragment reads free of bank conflicts, double-buffered
+//     where T takes more than one tile (one stage, 44 KB at D = 64,
+//     otherwise).
+//   * PV takes P from the accumulators of S in registers: the k order of
+//     each 8-key slice is permuted (k = t <-> key 2t, k = t + 4 <-> key 2t
+//     + 1) so that the m16n8 accumulator layout is the A layout, and V's
+//     fragments are read in the same order.
+//   * Softmax in registers as the bf16 body's: exp2 with log2(e) folded
+//     into the scale, quad shuffles for the row max and sum.
+//   Bound at ViT-B's shape (B=256 S=T=65 H=12 D=64, fp32): the bytes, q, k,
+//   v and o once each (204 MB, 0.061 ms); three TF32 products a product
+//   at 495 TFLOP/s take 0.020 ms.
+// fp32 at D = 160 and 256 (no path runs them): the FMA body
+// (flash_fwd_kernel): BQ = BK = 64, 256 threads, each owning a 4x4 block
+// of scores and a 4 x D/16 block of the output, the products as fp32 FMAs
+// from shared memory.
 //
 // Both bodies can write each row's logsumexp, lse = m + log(max(l, 1e-30))
 // in natural log and fp32, into a (B, H, S) array: the backward
@@ -267,6 +303,243 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 128: return launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 160: return launch<T, 160>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     case 256: return launch<T, 256>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    default:  return cudaErrorInvalidValue;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// fp32 split-TF32 tensor-core body (D <= 128)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Tf32 {
+  // keys a kv tile: 80 at D <= 64, so that ViT-B's 65 keys are one tile
+  static constexpr int kBK = D <= 64 ? 80 : 32;
+  static constexpr int kLD = D + 4;                // padded row, floats
+  static constexpr int kMaxWarps = 8;              // 16 q rows each
+  // one (K, V) stage, or two when the keys take more than one tile
+  static constexpr size_t smem(int stages) {
+    return sizeof(float) * stages * 2 * kBK * kLD;
+  }
+};
+constexpr float kLog2eF = 1.4426950408889634f;
+constexpr float kLn2F = 0.6931471805599453f;
+
+// A split product is three TF32 products, smallest first: term 0 is
+// small.big, term 1 big.small, term 2 big.big (mma_term); one TF32 pass
+// would be term 2 alone
+constexpr int kFirstTerm = 0;
+
+// launch bounds: at most 128 registers a thread (a few spill), so that
+// three blocks of ViT-B's five warps share an SM
+template <int D>
+__global__ void __launch_bounds__(32 * Tf32<D>::kMaxWarps, 2)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int group, int S, int Tk,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      float scale, int causal) {
+  using C = Tf32<D>;
+  constexpr int BK = C::kBK, LD = C::kLD, NJ = BK / 8, DK = D / 8;
+  // accumulators a group of products, term by term (NJ = 10 at D <= 64)
+  constexpr int NG = NJ % 5 == 0 ? 5 : 4, NI = DK < 4 ? DK : 4;
+  extern __shared__ __align__(16) float smem_f[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int W = blockDim.x / 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kv_head = h / group;
+  // the last rows first: with a causal mask they have the most keys
+  const int blk0 = (gridDim.x - 1 - blockIdx.x) * 16 * W;
+  const int r0 = blk0 + 16 * warp;         // this warp's rows r0 .. r0 + 15
+  const bool live = r0 < S;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kv_head * ks.h;
+  const float* vb = v + b * vs.b + kv_head * vs.h;
+  auto stage = [&](int i) { return smem_f + (i & 1) * 2 * BK * LD; };
+
+  int nk = (Tk + BK - 1) / BK;
+  if (causal) nk = min(nk, (min(S, blk0 + 16 * W) - 1) / BK + 1);
+  cp_rows<D>(stage(0), kb, ks.s, 0, Tk, BK);
+  cp_rows<D>(stage(0) + BK * LD, vb, vs.s, 0, Tk, BK);
+  cp_async_commit();
+
+  // Q's A fragments, kept as fp32 and split at each use: rows r0 + g and
+  // r0 + g + 8, columns 8kk + t and 8kk + t + 4
+  const int ra = r0 + g, rb = r0 + g + 8;
+  float qr[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) {
+    const int c = 8 * kk + t;
+    qr[kk][0] = ra < S ? qb[ra * qs.s + c] : 0.f;
+    qr[kk][1] = rb < S ? qb[rb * qs.s + c] : 0.f;
+    qr[kk][2] = ra < S ? qb[ra * qs.s + c + 4] : 0.f;
+    qr[kk][3] = rb < S ? qb[rb * qs.s + c + 4] : 0.f;
+  }
+
+  const float scale2 = scale * kLog2eF;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};                  // this thread's columns only
+  float acc[DK][4];
+#pragma unroll
+  for (int i = 0; i < DK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    if (it + 1 < nk) {                      // the next tile, while this one
+      cp_rows<D>(stage(it + 1), kb, ks.s, (it + 1) * BK, Tk, BK);
+      cp_rows<D>(stage(it + 1) + BK * LD, vb, vs.s, (it + 1) * BK, Tk, BK);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = stage(it);
+    const float* Vs = Ks + BK * LD;
+    const int k0 = it * BK;
+    // a tile wholly above this warp's rows adds nothing; keys past T (zero
+    // rows) and above the diagonal are masked, so the loops below run over
+    // every 8-key slice of the tile without a branch
+    if (live && !(causal && k0 > r0 + 15)) {
+      float s[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = Q K^T
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t ab[4], as[4];
+        split_n(qr[kk], ab, as);
+#pragma unroll
+        for (int j0 = 0; j0 < NJ; j0 += NG) {
+          uint32_t bb[NG][2], bs[NG][2];
+#pragma unroll
+          for (int j = 0; j < NG; ++j)
+            bt_frag(Ks, LD, 8 * (j0 + j), 8 * kk, bb[j], bs[j]);
+          mma3_n<NG, kFirstTerm>(s + j0, ab, as, bb, bs);
+        }
+      }
+      // softmax: s[j][e] is row r0 + g + 8 (e / 2), key k0 + 8j + 2t + e % 2
+      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > r0);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale2;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = r0 + g + 8 * (e >> 1);
+            if (key >= Tk || (causal && key > row)) x = kNegInf;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - m[e >> 1]);
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < DK; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+      // O += P V: P's slice j in the permuted k order
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ab[4], as[4];
+        acc_as_a(s[j], ab, as);
+#pragma unroll
+        for (int i0 = 0; i0 < DK; i0 += NI) {
+          uint32_t bb[NI][2], bs[NI][2];
+#pragma unroll
+          for (int i = 0; i < NI; ++i)
+            bp_frag(Vs, LD, 8 * j, 8 * (i0 + i), bb[i], bs[i]);
+          mma3_n<NI, kFirstTerm>(acc + i0, ab, as, bb, bs);
+        }
+      }
+    }
+    __syncthreads();                        // this stage is free again
+  }
+
+  if (!live) return;
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = r0 + g + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(lr, 1e-30f);
+    const float inv = 1.f / denom;
+    // m is in log2 units (the scores were scaled by log2(e))
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+          m[r] * kLn2F + logf(denom);
+#pragma unroll
+    for (int i = 0; i < DK; ++i)
+      *reinterpret_cast<float2*>(ob + row * os.s + 8 * i + 2 * t) =
+          make_float2(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int H, int Hkv, int S, int Tk,
+                        Strides qs, Strides ks, Strides vs, Strides os,
+                        float scale, int causal, cudaStream_t stream) {
+  using C = Tf32<D>;
+  static bool configured = false;   // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::smem(2)));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const size_t smem = C::smem(Tk > C::kBK ? 2 : 1);
+  // 16-row slices, dealt to as few blocks of at most kMaxWarps warps as
+  // take them, as evenly as they go
+  const int slices = (S + 15) / 16;
+  const int blocks = (slices + C::kMaxWarps - 1) / C::kMaxWarps;
+  const int warps = (slices + blocks - 1) / blocks;
+  flash_fwd_tf32_kernel<D><<<dim3(blocks, H, B), 32 * warps, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / Hkv, S,
+      Tk, qs, ks, vs, os, scale, causal);
+  return cudaGetLastError();
+}
+
+// the head dims of the split-TF32 body, kernels/flash_attention.py:
+// TF32_DIMS
+cudaError_t dispatch_tf32(int D, const void* q, const void* k, const void* v,
+                          void* o, float* lse, int B, int H, int Hkv, int S,
+                          int Tk, Strides qs, Strides ks, Strides vs,
+                          Strides os, float scale, int causal,
+                          cudaStream_t stream) {
+  switch (D) {
+    case 16:  return launch_tf32<16>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 32:  return launch_tf32<32>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 64:  return launch_tf32<64>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
+    case 128: return launch_tf32<128>(q, k, v, o, lse, B, H, Hkv, S, Tk, qs, ks, vs, os, scale, causal, stream);
     default:  return cudaErrorInvalidValue;
   }
 }
@@ -631,8 +904,9 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 // q, o: (B, H, S, D) views; k, v: (B, Hkv, T, D) views, each given by its
 // element strides over (b, h, s) with the last axis contiguous.  All four
 // share one dtype.  lse: a contiguous fp32 (B, H, S) array for the rows'
-// logsumexp, or null.  bf16 runs the tensor-core body at every D (every
-// row start 16-byte aligned), fp32 the FMA body.  Returns the cudaError_t
+// logsumexp, or null.  bf16 runs the tensor-core body at every D, fp32
+// the split-TF32 body at D <= 128 (both need every row start 16-byte
+// aligned) and the FMA body at D = 160 and 256.  Returns the cudaError_t
 // of the launch (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -647,12 +921,20 @@ extern "C" int repro_flash_attention(
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == repro::kFloat32)
-    return dispatch_d<float>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs,
-                             os, scale, causal, s);
+  if (dtype == repro::kFloat32) {
+    if (D > 128)
+      return dispatch_d<float>(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks,
+                               vs, os, scale, causal, s);
+    if (!aligned16(q, qs, 4) || !aligned16(k, ks, 4) ||
+        !aligned16(v, vs, 4) || !aligned16(o, os, 4))
+      return cudaErrorInvalidValue;
+    return dispatch_tf32(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs, os,
+                         scale, causal, s);
+  }
   if (dtype == repro::kBFloat16) {
-    if (!aligned16(q, qs) || !aligned16(k, ks) || !aligned16(v, vs) ||
-        !aligned16(o, os) || B > 65535 || S > 65535 * TBQ)
+    if (!aligned16(q, qs, 2) || !aligned16(k, ks, 2) ||
+        !aligned16(v, vs, 2) || !aligned16(o, os, 2) || B > 65535 ||
+        S > 65535 * TBQ)
       return cudaErrorInvalidValue;
     return dispatch_tc(D, q, k, v, o, l, B, H, Hkv, S, Tk, qs, ks, vs, os,
                        scale, causal, s);

@@ -17,8 +17,9 @@
 // of its own that recomputes S and dP (five products where four would do):
 // the price of summing dQ without atomics.
 // Bound on an H100: operations, 10 * B * H * D * (unmasked pairs) flops
-// (S and dP twice, dV, dK, dQ) at 989 TFLOP/s bf16 or 67 fp32; the bytes
-// are small beside them at the model's shapes.
+// (S and dP recomputed, dV, dK, dQ) at 989 TFLOP/s bf16, three times
+// that at 495 TFLOP/s TF32 for the split-TF32 body, 67 fp32 for the FMA
+// body; at short sequences (ViT-B's 65) the bytes.
 //
 // bf16 at D <= 160: the tensor-core body, three kernels a call.
 //   1. flash_bwd_prep_kernel: Di = rowsum(dO * O) and lse2 = log2(e) * lse
@@ -94,9 +95,50 @@
 //   ptxas reports 168 for both kernels (a 384-thread block's launch
 //   share), no spills, and no warning that it serialised a wgmma: the
 //   wgmma calls sit on straight-line code, never under a branch.
-// fp32 at every D, and bf16 at D = 256, keep the FMA body (a TF32 body
-// would miss the fp32 specification; no train path runs D = 256, and its
-// dK and dV, 128 + 128 accumulators a thread, fit neither split):
+// fp32 at D <= 128: the split-TF32 tensor-core body.  Every product is
+// mma.sync m16n8k8 with TF32 operands and fp32 accumulators, each fp32
+// operand x split into big = x with its low 13 mantissa bits cleared and
+// small = x - big (split_tf32, hopper.cuh; the tensor cores read small's
+// top 19 bits), the product taken as small.big + big.small + big.big,
+// term by term over a group of accumulators (mma3_n) so that no product
+// waits on the one before it: about 20 significant bits, within the fp32
+// check where one TF32 pass misses it (tests/test_torch_kernels.py
+// emulates both).  Tiles follow the sequence: 16 keys a warp, q rows in
+// steps of 72 (32 at D = 128) taken in passes of three (two) 8-row
+// slices, a pass past S or wholly above the warp's keys skipped (ViT-B's
+// S = T = 65 computes 80 keys x 72 rows a head, not 128 x 128).  Inside a
+// pass the loops have no branch (rows past S are zero and masked).  Loads
+// are 16-byte cp.async into rows padded to D + 4 floats (no bank
+// conflicts in the fragment reads).  P^T and dS^T stay in the
+// accumulators of S^T and dP^T and enter dV and dK as A operands with the
+// k order of each 8-row slice permuted (k = t <-> row 2t, k = t + 4 <->
+// row 2t + 1), dO and Q read in the same order.
+//   1. T <= kWholeKeys (208 at D <= 64, 64 at D = 128): one launch,
+//      flash_bwd_kv_tf32_kernel<D, true, W>.  One block owns a (b, kv
+//      head): K and V of all its keys resident, one warp each 16 keys, dK
+//      and dV in registers.  It walks the q steps of each q head of the
+//      group in order; a step brings Q, dO and O by cp.async, forms Di =
+//      rowsum(dO * O) and lse2 (rows_lse_di), S^T, dP^T, P^T, dS^T once,
+//      sums dV += P^T dO and dK += dS^T Q, writes dS into shared memory
+//      over O and finishes the step's dQ = dS K in place (each 16-row x
+//      32-column item summed by one warp over the keys in order): five
+//      products.  Up to six warps (96 keys; ViT-B's 65: five warps, 109
+//      KB) two blocks an SM; past that one block of up to 13 warps
+//      (ViT-B/16's 197 keys: K and V 113 KB, 215 KB in all), registers
+//      held to 152 a thread (launch bounds) so that 13 warps fit an SM.
+//   2. Past that (qwen3-8b's 512 keys): the same kernel with kWhole =
+//      false over key tiles of up to 96 keys (64 at D = 128; sized evenly),
+//      then flash_bwd_dq_tf32_kernel: 16 q rows a warp, four warps a
+//      block, Q and dO resident, K and V tiles of 32 keys
+//      double-buffered, S and dP formed again, dQ += dS K: seven products.
+//      Each kernel forms the Di and lse2 of its rows itself, so no
+//      pre-pass runs (O is read once more a key tile, mostly from L2).
+//   Bound at ViT-B's shape (B=256 S=T=65 H=12 D=64): the bytes, q, k, v,
+//   o, dO in and dq, dk, dv out once each (409 MB, 0.122 ms); the five
+//   products as three TF32 products each at 495 TFLOP/s take 0.050 ms.
+// fp32 at D = 160 and 256, and bf16 at D = 256, keep the FMA body (no
+// path runs them; bf16 D = 256's dK and dV, 128 + 128 accumulators a
+// thread, fit neither tensor-core split):
 //   1. flash_bwd_dot_kernel: Di for every (b, h, row), one warp a row;
 //   2. flash_bwd_dkdv_kernel: a block owns BK keys of one (b, kv head) and
 //      walks the q tiles of each q head of its group: S^T = K Q^T and
@@ -504,6 +546,542 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_BWD_CASE
+}
+
+
+// ---------------------------------------------------------------------------
+// fp32 split-TF32 tensor-core body (D <= 128)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Tf32Bwd {
+  // q rows a dK/dV step (ViT-B's 65 rows are one step at D <= 64), taken
+  // in passes of kNP 8-row slices
+  static constexpr int kBQ = D <= 64 ? 72 : 32;
+  static constexpr int kNP = D <= 64 ? 3 : 2;
+  static constexpr int kBK = 32;                   // keys a dQ-kernel tile
+  static constexpr int kLD = D + 4;                // padded row, floats
+  // a (b, kv head)'s keys up to this many stay in one block, which then
+  // finishes dQ in place: ViT-B/16's 197 keys are one block of 13 warps
+  // (K and V 113 KB, 215 KB in all, at most 152 registers a thread), up
+  // to 96 keys (ViT-B's 65: five warps, 109 KB) two blocks an SM
+  static constexpr int kWholeKeys = D <= 64 ? 208 : 64;
+  static constexpr int kNarrowWarps = 6;
+  // warps (16 keys each) of a key tile past that: two blocks an SM
+  static constexpr int kSplitWarps = D <= 64 ? 6 : 4;
+  // the dQ kernel's warps, 16 q rows each: three blocks an SM
+  static constexpr int kDqWarps = 4;
+  // the dK/dV kernel's shared memory for W warps: K and V of its 16 W keys,
+  // Q and dO of a q step, O of the step (for Di), then, with dQ in place,
+  // its dS (kBQ rows of 16 W + 8) over the same floats, lse2 and Di
+  static constexpr size_t kv_smem(int W, bool whole) {
+    return sizeof(float) *
+           (2 * 16 * W * kLD + 2 * kBQ * kLD +
+            (whole && 16 * W + 8 > kLD ? kBQ * (16 * W + 8) : kBQ * kLD) +
+            2 * kBQ);
+  }
+  // the dQ kernel's: two (K, V) stages, Q and dO of 16 W rows, lse2, Di
+  static constexpr size_t dq_smem(int W) {
+    return sizeof(float) * (2 * 2 * kBK * kLD + 2 * 16 * W * kLD + 2 * 16 * W);
+  }
+};
+constexpr float kLog2eF = 1.4426950408889634f;
+
+// A split product is three TF32 products, smallest first: term 0 is
+// small.big, term 1 big.small, term 2 big.big (mma_term); one TF32 pass
+// would be term 2 alone
+constexpr int kFirstTerm = 0;
+
+// lse2 = log2(e) lse and Di = rowsum(dO * O) of R rows (n of them live,
+// zeros past), from O and dO tiles in shared or device memory (rows ld
+// floats apart, 16-byte aligned): D / 4 lanes a row, a float4 each
+template <int D>
+__device__ __forceinline__ void rows_lse_di(float* lse_s, float* di_s,
+                                            const float* ot, long long o_ld,
+                                            const float* dt, long long d_ld,
+                                            const float* lt, int R, int n) {
+  constexpr int L = D / 4;                  // lanes a row
+  constexpr int RPW = 32 / L;               // rows a warp at once
+  const int lane = threadIdx.x % 32, sub = lane / L, c = lane % L * 4;
+  const int step = blockDim.x / 32 * RPW;
+  for (int rw = threadIdx.x / 32 * RPW; rw < R; rw += step) {
+    const int r = rw + sub;
+    const bool in = r < n;
+    float acc = 0.f;
+    if (in) {
+      const float4 x = *reinterpret_cast<const float4*>(ot + r * o_ld + c);
+      const float4 y = *reinterpret_cast<const float4*>(dt + r * d_ld + c);
+      acc = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane % L == 0 && r < R) {
+      lse_s[r] = in ? lt[r] * kLog2eF : 0.f;
+      di_s[r] = in ? acc : 0.f;
+    }
+  }
+}
+
+// dK and dV of one (b, kv head)'s keys k0 .. k0 + 16 W - 1: warp w owns 16
+// of them and holds their dK and dV in registers while the block walks the
+// q steps (kBQ rows) of each q head of the group, in order.  A step: Q, dO
+// and O by cp.async, lse2 and Di (rows_lse_di); then each warp, in passes
+// of kNP 8-row slices, forms S^T = K_w Q^T and dP^T = V_w dO^T, P^T =
+// exp2(scale log2(e) S^T - lse2) and dS^T = P^T (dP^T - Di) in its
+// accumulators, and sums dV += P^T dO and dK += dS^T Q from them.  kWhole
+// (the block holds every key): the warps also write dS into shared memory
+// (over O) and the block finishes the step's dQ = dS K in place; five
+// products, one launch.
+template <int D, bool kWhole, int kMaxW>
+__global__ void __launch_bounds__(32 * kMaxW)
+flash_bwd_kv_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse, float* __restrict__ dq,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Hkv, int S, int Tk, Strides qs, Strides ks,
+                         Strides vs, Strides os, Strides dos, Strides dqs,
+                         Strides dks, Strides dvs, float scale, int causal) {
+  using C = Tf32Bwd<D>;
+  constexpr int BQ = C::kBQ, NP = C::kNP, LD = C::kLD, DK = D / 8;
+  constexpr int NJ = BQ / 8;
+  constexpr int NC = DK < 4 ? DK : 4;       // output slices a product group
+  extern __shared__ __align__(16) float smem_f[];
+  const int W = blockDim.x / 32, KT = 16 * W, LDS = KT + 8;
+  float* Ks = smem_f;                       // KT x LD
+  float* Vs = Ks + KT * LD;
+  float* Qs = Vs + KT * LD;                 // BQ x LD
+  float* dOs = Qs + BQ * LD;
+  float* Xs = dOs + BQ * LD;                // O (BQ x LD), then dS (BQ x LDS)
+  float* lse_s = Xs + (kWhole && LDS > LD ? BQ * LDS : BQ * LD);
+  float* di_s = lse_s + BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int k0 = blockIdx.x * KT, hk = blockIdx.y, b = blockIdx.z;
+  const int kw = k0 + 16 * warp;            // this warp's keys kw .. kw + 15
+  const bool live = kw < Tk;
+  const int group = H / Hkv;
+  const float scale2 = scale * kLog2eF;
+  cp_rows<D>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, Tk, KT);
+  cp_rows<D>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, Tk, KT);
+  cp_async_commit();
+
+  float dka[DK][4], dva[DK][4];
+#pragma unroll
+  for (int i = 0; i < DK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  // the first q step with a row at or below the block's first key
+  const int qt0 = causal ? k0 / BQ * BQ : 0;
+  for (int j = 0; j < group; ++j) {
+    const int h = hk * group + j;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* db = dout + b * dos.b + h * dos.h;
+    for (int q0 = qt0; q0 < S; q0 += BQ) {
+      const int n = min(BQ, S - q0);        // live rows of the step
+      __syncthreads();                      // the last step's readers done
+      cp_rows<D>(Qs, qb, qs.s, q0, S, BQ);
+      cp_rows<D>(dOs, db, dos.s, q0, S, BQ);
+      cp_rows<D>(Xs, o + b * os.b + h * os.h, os.s, q0, S, BQ);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      rows_lse_di<D>(lse_s, di_s, Xs, LD, dOs, LD,
+                     lse + (static_cast<long long>(b) * H + h) * S + q0, BQ,
+                     n);
+      __syncthreads();                      // Di in; O no longer read
+      for (int p0 = 0; live && p0 < NJ && 8 * p0 < n; p0 += NP) {
+        // a pass wholly above this warp's keys adds nothing (dS = 0)
+        const bool run = !(causal && q0 + 8 * (p0 + NP) - 1 < kw);
+        float st[NP][4], dpt[NP][4];
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[i][e] = dpt[i][e] = 0.f;
+        if (run) {
+          // S^T = K_w Q^T, dP^T = V_w dO^T over this pass's rows
+#pragma unroll
+          for (int kk = 0; kk < DK; ++kk) {
+            uint32_t kb_[4], ks_[4], vb_[4], vs_[4];
+            a_frag(Ks, LD, 16 * warp, 8 * kk, kb_, ks_);
+            a_frag(Vs, LD, 16 * warp, 8 * kk, vb_, vs_);
+            uint32_t qb2[NP][2], qs2[NP][2], db2[NP][2], ds2[NP][2];
+#pragma unroll
+            for (int i = 0; i < NP; ++i) {
+              bt_frag(Qs, LD, 8 * (p0 + i), 8 * kk, qb2[i], qs2[i]);
+              bt_frag(dOs, LD, 8 * (p0 + i), 8 * kk, db2[i], ds2[i]);
+            }
+#pragma unroll
+            for (int term = kFirstTerm; term < 3; ++term)
+#pragma unroll
+              for (int i = 0; i < NP; ++i) {
+                mma_term(term, st[i], kb_, ks_, qb2[i], qs2[i]);
+                mma_term(term, dpt[i], vb_, vs_, db2[i], ds2[i]);
+              }
+          }
+          // P^T and dS^T in place: st[i][e] is key kw + g + 8 (e / 2),
+          // row q0 + 8 (p0 + i) + 2t + e % 2
+#pragma unroll
+          for (int i = 0; i < NP; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kw + g + 8 * (e >> 1);
+              const int r = 8 * (p0 + i) + 2 * t + (e & 1), row = q0 + r;
+              const bool keep = row < S && key < Tk && (!causal || key <= row);
+              const float p =
+                  keep ? exp2f(st[i][e] * scale2 - lse_s[r]) : 0.f;
+              st[i][e] = p;
+              dpt[i][e] = p * (dpt[i][e] - di_s[r]);
+            }
+          // dV += P^T dO, dK += dS^T Q: the pass's rows, permuted order
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            uint32_t pb[4], ps[4], sb[4], ss[4];
+            acc_as_a(st[i], pb, ps);
+            acc_as_a(dpt[i], sb, ss);
+#pragma unroll
+            for (int c0 = 0; c0 < DK; c0 += NC) {
+              uint32_t ob2[NC][2], os2[NC][2], qb2[NC][2], qs2[NC][2];
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                bp_frag(dOs, LD, 8 * (p0 + i), 8 * (c0 + c), ob2[c], os2[c]);
+                bp_frag(Qs, LD, 8 * (p0 + i), 8 * (c0 + c), qb2[c], qs2[c]);
+              }
+#pragma unroll
+              for (int term = kFirstTerm; term < 3; ++term)
+#pragma unroll
+                for (int c = 0; c < NC; ++c) {
+                  mma_term(term, dva[c0 + c], pb, ps, ob2[c], os2[c]);
+                  mma_term(term, dka[c0 + c], sb, ss, qb2[c], qs2[c]);
+                }
+            }
+          }
+        }
+        if constexpr (kWhole) {
+          // dS[row][key] for dQ (zeros where P is masked or the pass idle)
+#pragma unroll
+          for (int i = 0; i < NP; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              Xs[(8 * (p0 + i) + 2 * t + (e & 1)) * LDS + 16 * warp + g +
+                 8 * (e >> 1)] = dpt[i][e];
+        }
+      }
+      if constexpr (kWhole) {
+        __syncthreads();
+        // dQ = dS K over the block's keys: items of 16 rows x NC 8-column
+        // slices, dealt to the warps; one warp sums each item's keys in
+        // order, so every call gives the same bits
+        constexpr int NCH = DK / NC;
+        const int nk8 = (min(KT, Tk - k0) + 7) / 8;
+        const int items = (n + 15) / 16 * NCH;
+        for (int it = warp; it < items; it += W) {
+          const int m0 = it / NCH * 16, n0 = it % NCH * NC * 8;
+          const bool hi = m0 + 8 < BQ;      // rows m0 + 8 .. inside the step
+          float c[NC][4];
+#pragma unroll
+          for (int x = 0; x < NC; ++x)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[x][e] = 0.f;
+          for (int k8 = 0; k8 < nk8; ++k8) {
+            const float2 x0 = *reinterpret_cast<const float2*>(
+                Xs + (m0 + g) * LDS + 8 * k8 + 2 * t);
+            const float2 x1 = hi ? *reinterpret_cast<const float2*>(
+                                       Xs + (m0 + g + 8) * LDS + 8 * k8 +
+                                       2 * t)
+                                 : make_float2(0.f, 0.f);
+            const float f[4] = {x0.x, x1.x, x0.y, x1.y};
+            uint32_t ab[4], as[4];
+            split_n(f, ab, as);
+            uint32_t bb[NC][2], bs[NC][2];
+#pragma unroll
+            for (int x = 0; x < NC; ++x)
+              bp_frag(Ks, LD, 8 * k8, n0 + 8 * x, bb[x], bs[x]);
+            mma3_n<NC, kFirstTerm>(c, ab, as, bb, bs);
+          }
+          float* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int rr = m0 + g + 8 * r;
+            if (rr >= n) continue;
+            const int row = q0 + rr;
+#pragma unroll
+            for (int x = 0; x < NC; ++x)
+              *reinterpret_cast<float2*>(dqb + row * dqs.s + n0 + 8 * x +
+                                         2 * t) =
+                  make_float2(c[x][2 * r] * scale, c[x][2 * r + 1] * scale);
+          }
+        }
+      }
+    }
+  }
+
+  // keys no query sees (past S when causal) get zeros, never garbage
+  if (!live) return;
+  float* dkb = dk + b * dks.b + hk * dks.h;
+  float* dvb = dv + b * dvs.b + hk * dvs.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int c = 0; c < DK; ++c) {
+      *reinterpret_cast<float2*>(dkb + key * dks.s + 8 * c + 2 * t) =
+          make_float2(dka[c][2 * r] * scale, dka[c][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(dvb + key * dvs.s + 8 * c + 2 * t) =
+          make_float2(dva[c][2 * r], dva[c][2 * r + 1]);
+    }
+  }
+}
+
+// dQ where the keys span more than one dK/dV block: a block owns 16 W q
+// rows of one (b, q head), warp w 16 of them, Q and dO resident; K and V
+// tiles of kBK keys come by cp.async, double-buffered.  Per tile: S = Q
+// K^T and dP = dO V^T, P and dS = P (dP - Di) in the accumulators, dQ +=
+// dS K with dS as the A operand in the permuted k order.  Keys past T are
+// zero rows and masked, so the loops run over every slice of a tile.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse, float* __restrict__ dq,
+                         int group, int S, int Tk, Strides qs, Strides ks,
+                         Strides vs, Strides os, Strides dos, Strides dqs,
+                         float scale, int causal) {
+  using C = Tf32Bwd<D>;
+  constexpr int BK = C::kBK, LD = C::kLD, DK = D / 8, NJ = BK / 8;
+  constexpr int NC = DK < 4 ? DK : 4;       // output slices a product group
+  extern __shared__ __align__(16) float smem_f[];
+  const int W = blockDim.x / 32, R = 16 * W;
+  float* Qs = smem_f + 2 * 2 * BK * LD;     // after the two (K, V) stages
+  float* dOs = Qs + R * LD;
+  float* lse_s = dOs + R * LD;
+  float* di_s = lse_s + R;
+  auto stage = [&](int i) { return smem_f + (i & 1) * 2 * BK * LD; };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int kvh_ = h / group;
+  const int blk0 = (gridDim.x - 1 - blockIdx.x) * R;   // last rows first
+  const int r0 = blk0 + 16 * warp;
+  const bool live = r0 < S;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* db = dout + b * dos.b + h * dos.h;
+  const float* kb = k + b * ks.b + kvh_ * ks.h;
+  const float* vb = v + b * vs.b + kvh_ * vs.h;
+  const float scale2 = scale * kLog2eF;
+
+  int nk = (Tk + BK - 1) / BK;
+  if (causal) nk = min(nk, (min(S, blk0 + R) - 1) / BK + 1);
+  cp_rows<D>(Qs, qb, qs.s, blk0, S, R);
+  cp_rows<D>(dOs, db, dos.s, blk0, S, R);
+  cp_rows<D>(stage(0), kb, ks.s, 0, Tk, BK);
+  cp_rows<D>(stage(0) + BK * LD, vb, vs.s, 0, Tk, BK);
+  cp_async_commit();
+  rows_lse_di<D>(lse_s, di_s, o + b * os.b + h * os.h + blk0 * os.s, os.s,
+                 db + blk0 * dos.s, dos.s,
+                 lse + (static_cast<long long>(b) * H + h) * S + blk0, R,
+                 min(R, S - blk0));
+  // this thread's rows r0 + g and r0 + g + 8 (read after the first sync)
+  float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
+
+  float acc[DK][4];
+#pragma unroll
+  for (int i = 0; i < DK; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    if (it + 1 < nk) {
+      cp_rows<D>(stage(it + 1), kb, ks.s, (it + 1) * BK, Tk, BK);
+      cp_rows<D>(stage(it + 1) + BK * LD, vb, vs.s, (it + 1) * BK, Tk, BK);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lr[r] = lse_s[16 * warp + g + 8 * r];
+        dr[r] = di_s[16 * warp + g + 8 * r];
+      }
+    }
+    const float* Ks = stage(it);
+    const float* Vs = Ks + BK * LD;
+    const int k0 = it * BK;
+    if (live && !(causal && k0 > r0 + 15)) {
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t qb_[4], qs_[4], db_[4], ds_[4];
+        a_frag(Qs, LD, 16 * warp, 8 * kk, qb_, qs_);
+        a_frag(dOs, LD, 16 * warp, 8 * kk, db_, ds_);
+        uint32_t kb2[NJ][2], ks2[NJ][2], vb2[NJ][2], vs2[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          bt_frag(Ks, LD, 8 * j, 8 * kk, kb2[j], ks2[j]);
+          bt_frag(Vs, LD, 8 * j, 8 * kk, vb2[j], vs2[j]);
+        }
+#pragma unroll
+        for (int term = kFirstTerm; term < 3; ++term)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            mma_term(term, s[j], qb_, qs_, kb2[j], ks2[j]);
+            mma_term(term, dp[j], db_, ds_, vb2[j], vs2[j]);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = r0 + g + 8 * (e >> 1);
+          const bool in = row < S && key < Tk && (!causal || key <= row);
+          const float p = in ? exp2f(s[j][e] * scale2 - lr[e >> 1]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dr[e >> 1]);
+        }
+        uint32_t ab[4], as[4];
+        acc_as_a(s[j], ab, as);
+#pragma unroll
+        for (int c0 = 0; c0 < DK; c0 += NC) {
+          uint32_t bb[NC][2], bs[NC][2];
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            bp_frag(Ks, LD, 8 * j, 8 * (c0 + c), bb[c], bs[c]);
+          mma3_n<NC, kFirstTerm>(acc + c0, ab, as, bb, bs);
+        }
+      }
+    }
+    __syncthreads();                        // this stage is free again
+  }
+
+  if (!live) return;
+  float* dqb = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < DK; ++c)
+      *reinterpret_cast<float2*>(dqb + row * dqs.s + 8 * c + 2 * t) =
+          make_float2(acc[c][2 * r] * scale, acc[c][2 * r + 1] * scale);
+  }
+}
+
+// one launch of flash_bwd_kv_tf32_kernel<D, kWhole, kMaxW> with W <=
+// kMaxW warps over `blocks` key tiles
+template <int D, bool kWhole, int kMaxW>
+cudaError_t launch_kv(int W, int blocks, const float* q, const float* k,
+                      const float* v, const float* o, const float* dout,
+                      const float* lse, float* dq, float* dk, float* dv,
+                      int B, int H, int Hkv, int S, int Tk, Strides qs,
+                      Strides ks, Strides vs, Strides os, Strides dos,
+                      Strides dqs, Strides dks, Strides dvs, float scale,
+                      int causal, cudaStream_t stream) {
+  static bool configured = false;   // one attribute call per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_kv_tf32_kernel<D, kWhole, kMaxW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Tf32Bwd<D>::kv_smem(kMaxW, kWhole)));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  flash_bwd_kv_tf32_kernel<D, kWhole, kMaxW>
+      <<<dim3(blocks, Hkv, B), 32 * W, Tf32Bwd<D>::kv_smem(W, kWhole),
+         stream>>>(q, k, v, o, dout, lse, dq, dk, dv, H, Hkv, S, Tk, qs, ks,
+                   vs, os, dos, dqs, dks, dvs, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        void* dq, void* dk, void* dv, int B, int H, int Hkv,
+                        int S, int Tk, Strides qs, Strides ks, Strides vs,
+                        Strides os, Strides dos, Strides dqs, Strides dks,
+                        Strides dvs, float scale, int causal,
+                        cudaStream_t stream) {
+  using C = Tf32Bwd<D>;
+  const auto* qt = static_cast<const float*>(q);
+  const auto* kt = static_cast<const float*>(k);
+  const auto* vt = static_cast<const float*>(v);
+  const auto* ot = static_cast<const float*>(o);
+  const auto* dot = static_cast<const float*>(dout);
+  auto* dqt = static_cast<float*>(dq);
+  auto* dkt = static_cast<float*>(dk);
+  auto* dvt = static_cast<float*>(dv);
+  const int kslices = (Tk + 15) / 16;
+  // one block a (b, kv head): dK, dV and dQ in one launch
+  if (kslices <= C::kNarrowWarps && Tk <= C::kWholeKeys)
+    return launch_kv<D, true, C::kNarrowWarps>(
+        kslices, 1, qt, kt, vt, ot, dot, lse, dqt, dkt, dvt, B, H, Hkv, S,
+        Tk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, stream);
+  if constexpr (C::kWholeKeys > 16 * C::kNarrowWarps) {
+    if (Tk <= C::kWholeKeys)
+      return launch_kv<D, true, C::kWholeKeys / 16>(
+          kslices, 1, qt, kt, vt, ot, dot, lse, dqt, dkt, dvt, B, H, Hkv, S,
+          Tk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, stream);
+  }
+  // key tiles of 16 W keys, as few and as even as kSplitWarps warps
+  // allow; then dQ by q rows
+  const int kblocks = (kslices + C::kSplitWarps - 1) / C::kSplitWarps;
+  const int kwarps = (kslices + kblocks - 1) / kblocks;
+  cudaError_t e = launch_kv<D, false, C::kSplitWarps>(
+      kwarps, kblocks, qt, kt, vt, ot, dot, lse, dqt, dkt, dvt, B, H, Hkv, S,
+      Tk, qs, ks, vs, os, dos, dqs, dks, dvs, scale, causal, stream);
+  if (e != cudaSuccess) return e;
+  static bool configured = false;   // one attribute call per instantiation
+  if (!configured) {
+    e = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::dq_smem(C::kDqWarps)));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const int qslices = (S + 15) / 16;
+  const int qblocks = (qslices + C::kDqWarps - 1) / C::kDqWarps;
+  const int qwarps = (qslices + qblocks - 1) / qblocks;
+  flash_bwd_dq_tf32_kernel<D>
+      <<<dim3(qblocks, H, B), 32 * qwarps, C::dq_smem(qwarps), stream>>>(
+          qt, kt, vt, ot, dot, lse, dqt, H / Hkv, S, Tk, qs, ks, vs, os, dos,
+          dqs, scale, causal);
+  return cudaGetLastError();
+}
+
+// the head dims of the split-TF32 body, kernels/flash_attention.py:
+// TF32_DIMS
+cudaError_t dispatch_tf32(int D, const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          void* dq, void* dk, void* dv, int B, int H, int Hkv,
+                          int S, int Tk, Strides qs, Strides ks, Strides vs,
+                          Strides os, Strides dos, Strides dqs, Strides dks,
+                          Strides dvs, float scale, int causal,
+                          cudaStream_t st) {
+#define REPRO_BWD_TF32_CASE(DIM)                                              \
+  case DIM:                                                                   \
+    return launch_tf32<DIM>(q, k, v, o, dout, lse, dq, dk, dv, B, H, Hkv, S,  \
+                            Tk, qs, ks, vs, os, dos, dqs, dks, dvs, scale,    \
+                            causal, st);
+  switch (D) {
+    REPRO_BWD_TF32_CASE(16)
+    REPRO_BWD_TF32_CASE(32)
+    REPRO_BWD_TF32_CASE(64)
+    REPRO_BWD_TF32_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BWD_TF32_CASE
 }
 
 
@@ -1269,11 +1847,12 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 // strides over (b, h, s) with the last axis contiguous, all of one dtype.
 // lse: the forward's contiguous fp32 (B, H, S) logsumexp; scratch: a
 // contiguous fp32 buffer of 2 * B * H * Sp floats, Sp = S rounded up to a
-// multiple of 128 (the FMA body keeps Di in its first B * H * S; the
-// tensor-core body keeps lse2 and Di there, each (B, H, Sp)).  bf16 runs
-// the tensor-core body at D <= 160 (every row start 16-byte aligned) and
-// the FMA body at D = 256.  Returns the cudaError_t of the
-// launches (0 on success).
+// multiple of 128 (the FMA body keeps Di in its first B * H * S; the bf16
+// tensor-core body keeps lse2 and Di there, each (B, H, Sp); the
+// split-TF32 body needs none).  bf16 runs the tensor-core body at D <= 160
+// and the FMA body at D = 256; fp32 the split-TF32 body at D <= 128 and the
+// FMA body above.  The tensor-core bodies need every row start 16-byte
+// aligned.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
@@ -1290,18 +1869,25 @@ extern "C" int repro_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(lse);
   auto* dl = static_cast<float*>(scratch);
-  if (dtype == kFloat32)
-    return dispatch_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H,
-                             Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
-                             st[5], st[6], st[7], scale, causal, s);
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  if (dtype == kFloat32) {
+    if (D > 128)
+      return dispatch_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, H,
+                               Hkv, S, Tk, st[0], st[1], st[2], st[3], st[4],
+                               st[5], st[6], st[7], scale, causal, s);
+    for (int i = 0; i < 8; ++i)
+      if (!aligned16(ptrs[i], st[i], 4)) return cudaErrorInvalidValue;
+    return dispatch_tf32(D, q, k, v, o, dout, l, dq, dk, dv, B, H, Hkv, S,
+                         Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                         st[7], scale, causal, s);
+  }
   if (dtype != kBFloat16) return cudaErrorInvalidValue;
   if (D == 256)
     return launch<bf16, 256>(q, k, v, o, dout, l, dl, dq, dk, dv, B, H, Hkv,
                              S, Tk, st[0], st[1], st[2], st[3], st[4], st[5],
                              st[6], st[7], scale, causal, s);
-  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   for (int i = 0; i < 8; ++i)
-    if (!aligned16(ptrs[i], st[i])) return cudaErrorInvalidValue;
+    if (!aligned16(ptrs[i], st[i], 2)) return cudaErrorInvalidValue;
   if (static_cast<long long>(B) * Hkv > 65535 || (Tk + TB - 1) / TB > 65535 ||
       (S + 2 * TB - 1) / (2 * TB) > 65535)
     return cudaErrorInvalidValue;

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's tensor-core kernels:
 // shared-memory addresses, wgmma matrix descriptors, mbarriers, TMA loads
-// and the tensor maps they read, and the wgmma instructions themselves.
+// and the tensor maps they read, and the wgmma instructions themselves;
+// for the fp32 bodies, the big + small TF32 split, the m16n8k8 TF32
+// mma.sync and 16-byte cp.async copies.
 //
 // Tiles lie in shared memory as TMA's 128-, 64- or 32-byte swizzle writes
 // them (and wgmma reads them): column blocks of kRow-byte rows, each block
@@ -347,10 +349,142 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int H,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// every row start 16-byte aligned: TMA reads rows of 16-byte multiples
-inline bool aligned16(const void* p, Strides s) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 8 == 0 &&
-         s.h % 8 == 0 && s.s % 8 == 0;
+// every row start 16-byte aligned, for elements of esize bytes: TMA and
+// cp.async read rows in 16-byte pieces
+inline bool aligned16(const void* p, Strides s, int esize) {
+  const int n = 16 / esize;                 // elements a 16-byte piece
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % n == 0 &&
+         s.h % n == 0 && s.s % n == 0;
+}
+
+// x as big + small for a split TF32 product: big = x with its low 13
+// mantissa bits cleared (a TF32 value, x rounded toward zero), small = x -
+// big (exact in fp32, below 2^-10 |x|).  The tensor cores read a .tf32
+// operand's top 19 bits, so small enters a product rounded toward zero as
+// well: big + small keeps x to about 20 significant bits, two operations
+// a value (tests/test_torch_kernels.py emulates the rounding).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+// d += a b for one m16n8k8 slice: TF32 operands, fp32 accumulators.
+// Lane l (g = l / 4, t = l % 4) holds a = A[g][t], A[g + 8][t], A[g][t +
+// 4], A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; d = D[g][2t], D[g][2t +
+// 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// term `term` of the split product a b: a split TF32 product is three
+// TF32 products, smallest first: term 0 is small.big, term 1 big.small,
+// term 2 big.big
+__device__ __forceinline__ void mma_term(int term, float (&d)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const uint32_t (&bb)[2],
+                                         const uint32_t (&bs)[2]) {
+  mma_tf32(d, term == 0 ? as : ab, term == 1 ? bs : bb);
+}
+// d[n] += a b[n] for n < N, terms kFirst .. 2, term by term: the N
+// independent products of a term stand between two products on the same
+// accumulator, which would otherwise wait out the mma.sync latency one
+// after the other
+template <int N, int kFirst>
+__device__ __forceinline__ void mma3_n(float (*d)[4], const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4],
+                                       const uint32_t (*bb)[2],
+                                       const uint32_t (*bs)[2]) {
+#pragma unroll
+  for (int term = kFirst; term < 3; ++term)
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma_term(term, d[n], ab, as, bb[n], bs[n]);
+}
+
+template <int N>
+__device__ __forceinline__ void split_n(const float (&x)[N], uint32_t (&b)[N],
+                                        uint32_t (&s)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], b[i], s[i]);
+}
+
+// an A fragment of rows m0 .. m0 + 15, columns c0 .. c0 + 7 of a row-major
+// fp32 tile with row stride ld, split
+__device__ __forceinline__ void a_frag(const float* x, int ld, int m0,
+                                       int c0, uint32_t (&b)[4],
+                                       uint32_t (&s)[4]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* r = x + (m0 + g) * ld + c0 + t;
+  const float f[4] = {r[0], r[8 * ld], r[4], r[8 * ld + 4]};
+  split_n(f, b, s);
+}
+// a B fragment read as B[k][n] = x[n0 + n][c0 + k] (x row-major: the
+// transpose of a tile, as K in Q K^T), split
+__device__ __forceinline__ void bt_frag(const float* x, int ld, int n0,
+                                        int c0, uint32_t (&b)[2],
+                                        uint32_t (&s)[2]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* r = x + (n0 + g) * ld + c0 + t;
+  const float f[2] = {r[0], r[4]};
+  split_n(f, b, s);
+}
+// a B fragment read as B[k][n] = x[k0 + pi(k)][n0 + n], in the permuted k
+// order of an accumulator used as A (k = t <-> row 2t, k = t + 4 <-> row
+// 2t + 1), split
+__device__ __forceinline__ void bp_frag(const float* x, int ld, int k0,
+                                        int n0, uint32_t (&b)[2],
+                                        uint32_t (&s)[2]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const float* r = x + (k0 + 2 * t) * ld + n0 + g;
+  const float f[2] = {r[0], r[ld]};
+  split_n(f, b, s);
+}
+// an m16n8 accumulator as the A fragment of a k8 slice in that permuted
+// order, split
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&b)[4],
+                                         uint32_t (&s)[4]) {
+  const float f[4] = {c[0], c[2], c[1], c[3]};
+  split_n(f, b, s);
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; zeros
+// when !ok (nothing is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + R) of a (rows, D) fp32 matrix with row stride ld into
+// shared memory at dst, rows D + 4 floats apart (so that the mma.sync
+// fragment reads are free of bank conflicts); rows past n arrive as zeros.
+// 16-byte cp.async pieces, by the block's threads; the caller commits.
+template <int D>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        long long ld, int row0, int n,
+                                        int R) {
+  constexpr int kPieces = D / 4;           // a power of two: shifts
+  for (int c = threadIdx.x; c < R * kPieces; c += blockDim.x) {
+    const int r = c / kPieces, col = (c % kPieces) * 4, row = row0 + r;
+    const bool ok = row < n;
+    cp_async16(dst + r * (D + 4) + col, ok ? src + row * ld + col : src, ok);
+  }
 }
 
 }  // namespace repro

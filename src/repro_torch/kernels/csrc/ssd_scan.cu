@@ -821,7 +821,8 @@ extern "C" int repro_ssd_scan(
   p.st = static_cast<float*>(scratch);
   p.cl = p.st + static_cast<size_t>(B) * H * nc * P * N;
   p.H = H; p.G = G; p.S = S; p.P = P; p.N = N; p.Q = Q; p.nc = nc;
-  p.tma = aligned16(x, xs) && aligned16(bm, bs) && aligned16(cm, cs);
+  p.tma = aligned16(x, xs, 2) && aligned16(bm, bs, 2) &&
+          aligned16(cm, cs, 2);
   p.xs = xs; p.bs = bs; p.cs = cs; p.dts = dts; p.as = as; p.ys = ys;
   return launch_tc(p, B, s);
 }

@@ -1950,9 +1950,9 @@ extern "C" int repro_ssd_scan_bwd(
   p.dcp = p.dbp + per;
   p.H = H; p.G = G; p.S = S; p.P = P; p.N = N; p.Q = Q; p.nc = nc;
   p.nsl = head_slices(B, H, G, S, Q);
-  p.tma = aligned16(x, Strides{x_sb, x_sh, x_ss}) &&
-          aligned16(bm, Strides{b_sb, b_sg, b_ss}) &&
-          aligned16(cm, Strides{c_sb, c_sg, c_ss});
+  p.tma = aligned16(x, Strides{x_sb, x_sh, x_ss}, 2) &&
+          aligned16(bm, Strides{b_sb, b_sg, b_ss}, 2) &&
+          aligned16(cm, Strides{c_sb, c_sg, c_ss}, 2);
   p.tma_dy = P % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
   p.bulk = N == 128;                           // the states' rows, as staged
   p.xs = Strides{x_sb, x_sh, x_ss};

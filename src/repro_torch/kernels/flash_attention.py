@@ -19,9 +19,16 @@ an mbarrier ring (four stages, two at D = 256: 192 KB of shared memory),
 QK^T and PV as ``wgmma`` from swizzled bf16 shared memory (64-byte
 swizzle blocks of 32 columns at D = 160), softmax in registers, and P
 split into bf16 hi + lo so that PV keeps P to about 16 bits, as the fp32
-specification needs; it needs every row start 16-byte aligned (strides
-multiples of 8 elements), which the model's layouts give.  fp32 runs on
-an fp32 FMA body.
+specification needs.  fp32 at D <= 128 (``TF32_DIMS``) runs on the tensor
+cores too, as ``mma.sync`` m16n8k8 with every fp32 operand split into
+TF32 big + small and each product taken as three TF32 products (about 20
+significant bits: within a few 1e-6 of the fp32 plain version, where one
+TF32 pass would miss the fp32 check by 20x), in tiles cut to the sequence:
+16 q rows a warp, keys in tiles of 80 (S = T = 65 computes 80 x 80
+scores, not 128 x 128).  Both tensor-core routes need every row start
+16-byte aligned (strides multiples of 8 bf16 or 4 fp32 elements), which
+the model's layouts give, and raise otherwise.  fp32 at D = 160 and 256 runs on an
+fp32 FMA body.
 
 The backward (the reference has none: it trains through plain attention)
 recomputes P from the forward's row logsumexp.  bf16 at D <= 160
@@ -32,9 +39,14 @@ items, over four consumer warpgroups at D <= 128 (S^T, dP^T, dV and dK as
 ``wgmma``, P^T and dS^T rounded once to bf16), and at D = 160 over the
 two blocks with each block's two warpgroups split by product (one forms
 P^T and sums dV, the other dS^T and dK); the sums meet in a fixed order;
-a dQ kernel that mirrors the forward.  fp32 at every D, and bf16 at D =
-256, run fp32 FMA kernels.  No float atomics: every call gives the same
-bits.
+a dQ kernel that mirrors the forward.  fp32 at D <= 128 runs split-TF32
+tensor-core kernels: where a (b, kv head)'s keys fit one block (T <= 208,
+64 at D = 128) one launch holds them resident, 16 keys a warp, walks the
+group's q steps, forms Di, S^T and dP^T once and finishes dK, dV and each
+dQ step in place (five products); past that, key tiles of up to 96 keys
+sum dK and dV and a second kernel forms dQ by q rows.  fp32 at D = 160
+and 256, and bf16 at D = 256, run fp32 FMA kernels.  No float atomics:
+every call gives the same bits.
 
 ``flash_attention(q, k, v)`` launches the forward for CUDA tensors and
 raises on anything the kernels do not take; when autograd needs its
@@ -59,6 +71,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 FWD_TENSOR_CORE_DIMS = HEAD_DIMS
 BWD_TENSOR_CORE_DIMS = (16, 32, 64, 128, 160)
+# fp32 takes the split-TF32 bodies (dispatch_tf32) at these, forward and
+# backward, and the FMA bodies at the rest
+TF32_DIMS = (16, 32, 64, 128)
 # the backward's scratch holds two fp32 (B, H, Sp) arrays, Sp = S rounded
 # up to this (csrc/flash_attention_bwd.cu: kRowAlign)
 BWD_ROW_ALIGN = 128
@@ -138,16 +153,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _aligned(*ts: torch.Tensor) -> bool:
-    """Every row start 16-byte aligned (pointer and strides), as TMA reads
-    the tensor-core bodies' tiles."""
-    return all(t.data_ptr() % 16 == 0 and all(x % 8 == 0
-                                              for x in t.stride()[:3])
+    """Every row start 16-byte aligned (pointer and strides), as TMA and
+    cp.async read the tensor-core bodies' tiles."""
+    return all(t.data_ptr() % 16 == 0
+               and all(x % (16 // t.element_size()) == 0
+                       for x in t.stride()[:3])
                for t in ts)
 
 
 def _tensor_cores(q: torch.Tensor, dims: tuple) -> bool:
-    """Whether ``q``'s dtype and head dim take a tensor-core body whose
-    head dims are ``dims``."""
+    """Whether ``q``'s dtype and head dim take a tensor-core body: bf16 at
+    ``dims`` (the bf16 bodies' head dims), fp32 at ``TF32_DIMS``."""
+    if q.dtype == torch.float32:
+        return q.shape[3] in TF32_DIMS
     return q.dtype == torch.bfloat16 and q.shape[3] in dims
 
 
@@ -158,8 +176,8 @@ def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     Hkv, T = k.shape[1], k.shape[2]
     o = _like(q)
     if _tensor_cores(q, FWD_TENSOR_CORE_DIMS) and not _aligned(q, k, v, o):
-        raise ValueError("flash_attention: bf16 rows must start 16-byte "
-                         "aligned (pointers and strides)")
+        raise ValueError(f"flash_attention: {q.dtype} rows at D={D} must "
+                         "start 16-byte aligned (pointers and strides)")
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if S == 0 or B == 0:
@@ -202,8 +220,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool):
         if not _aligned(do):
             do = do.contiguous()
         if not _aligned(q, k, v, o, do, dq, dk, dv):
-            raise ValueError("flash_attention_bwd: bf16 rows must start "
-                             "16-byte aligned (pointers and strides)")
+            raise ValueError(f"flash_attention_bwd: {q.dtype} rows at "
+                             f"D={D} must start 16-byte aligned (pointers "
+                             "and strides)")
     rows = -(-S // BWD_ROW_ALIGN) * BWD_ROW_ALIGN
     scratch = torch.empty(2 * B * H * rows, dtype=torch.float32,
                           device=q.device)

@@ -65,6 +65,23 @@ RMSNORM_VISION_SHAPES = [(1024, 8192), (256, 8192), (4, 8192)]
 # 8 x 8 patches + cls (65 tokens), ViT-B/16 at 224 (197 tokens)
 VIT_FLASH_CASES = [(2, 65, 65, 12, 12, 64, False),
                    (1, 197, 197, 12, 12, 64, False)]
+# the fp32 split-TF32 bodies' edges (bf16 runs them too): one row, a
+# slice and a row, exactly five slices, S != T both ways, causal and not,
+# GQA and MQA, at every head dim they take, and both backward designs (one
+# block a head up to 208 keys, 64 at D = 128; key tiles and the dQ kernel
+# past that)
+TF32_FLASH_CASES = [
+    (3, 1, 65, 4, 4, 64, False),       # one row
+    (2, 1, 1, 4, 2, 16, True),         # one row, one key
+    (2, 17, 17, 8, 2, 32, True),       # GQA 4: a slice and a row
+    (2, 17, 90, 4, 4, 128, False),
+    (4, 80, 80, 6, 6, 64, False),      # exactly five 16-row slices
+    (2, 80, 33, 4, 1, 16, True),       # S > T, MQA
+    (2, 65, 197, 8, 2, 64, True),      # S < T, GQA 4, past one block
+    (1, 197, 65, 4, 4, 32, False),
+    (1, 197, 197, 4, 4, 128, True),
+    (1, 150, 300, 4, 2, 32, False),    # past 208 keys: key tiles + dQ
+]
 
 
 @pytest.mark.gpu
@@ -101,6 +118,7 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (2, 384, 384, 16, 16, 64, True),   # whisper-medium's decoder forward
     (2, 512, 512, 64, 8, 128, True),   # llama-3.2-vision-90b: GQA 8
     *VIT_FLASH_CASES,
+    *TF32_FLASH_CASES,
 ])
 def test_cuda_flash_attention_matches_plain(B, S, T, H, Hkv, D, causal,
                                             dtype):
@@ -168,6 +186,7 @@ FLASH_BWD_CASES = [
     (2, 448, 448, 16, 16, 64, True),   # whisper-medium's train step
     (1, 256, 256, 64, 8, 128, True),   # GQA 8 (llama-3.2-vision's heads)
     *VIT_FLASH_CASES,
+    *TF32_FLASH_CASES,
 ]
 
 
@@ -362,6 +381,15 @@ def test_cuda_mamba2_mixer_grads_match_cpu():
         assert float((gg - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+def _poison_outputs(monkeypatch):
+    """The flash wrappers' outputs start as NaN, so that rows a wrong
+    kernel leaves unwritten show (the caching allocator would otherwise
+    hand back the right kernel's results of the same size)."""
+    like = tfa._like
+    monkeypatch.setattr(tfa, "_like",
+                        lambda t: like(t).fill_(float("nan")))
+
+
 def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
     """Each (old, new) edit of ``csrc/<source>``, compiled in parallel into
     ``tmp_path`` -> {name: loaded library}."""
@@ -386,8 +414,10 @@ def _build_mutants(tmp_path, source: str, mutants: dict) -> dict:
 # (source text, replacement).  The bf16 tensor-core body's: the classic
 # bugs of a flash kernel, the lo term of P dropped (P rounded to bf16 once,
 # as the reference's plain attention does in layers._sdpa) and V read as a
-# K-major operand.  The fp32 FMA body's: the same classic bugs and P rounded
-# to bf16.
+# K-major operand.  The fp32 FMA body's (D = 160 and 256): the same classic
+# bugs and P rounded to bf16.  The fp32 split-TF32 body's (D <= 128): the
+# small terms dropped (one TF32 product), the last 16-row slice dropped,
+# the mask one key late, the kv heads interleaved.
 FLASH_MUTANTS_BF16 = {
     "mask one key late": ("(causal && key > rows[r])",
                           "(causal && key > rows[r] + 1)"),
@@ -412,55 +442,89 @@ FLASH_MUTANTS_FP32 = {
                       "Ps[(ty * 4 + i) * PP + tx + 16 * j] = "
                       "__bfloat162float(__float2bfloat16(p));"),
 }
+# the split-TF32 bodies' products (mma_term, in each source): the small
+# terms dropped, one TF32 product left
+TF32_SMALL_TERMS = ("constexpr int kFirstTerm = 0;",
+                    "constexpr int kFirstTerm = 2;")
+FLASH_MUTANTS_TF32 = {
+    "tf32: small terms dropped": TF32_SMALL_TERMS,
+    "tf32: last 16-row slice dropped": ("const bool live = r0 < S;",
+                                  "const bool live = r0 + 16 < S;"),
+    "tf32: mask one key late": ("(causal && key > row)) x = kNegInf;",
+                          "(causal && key > row + 1)) x = kNegInf;"),
+    "tf32: kv heads interleaved": ("const int kv_head = h / group;",
+                             "const int kv_head = h % (gridDim.y / group);"),
+}
+# which of a body's mutants a shape can show: not causal, no mask is one
+# key late; with as many kv heads as q heads, none are interleaved
+def _shows(name: str, causal: bool, H: int, Hkv: int) -> bool:
+    if "mask" in name:
+        return causal
+    if "kv heads" in name:
+        return H != Hkv
+    return True
 
 
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_flash_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's kernel check fails every mutant of the body its
-    dtype runs (the bf16 body's in bf16, the fp32 body's in fp32), at the
-    qwen3-8b forward's attention and at D = 160 and 256 (zamba2-2.7b's
-    and gemma-7b's head dims, with GQA so that a wrong kv head shows, and
-    a ragged S)."""
+    dtype and head dim run: the bf16 body's in bf16 at the qwen3-8b
+    forward's attention and at D = 160 and 256 (zamba2-2.7b's and
+    gemma-7b's head dims, with GQA so that a wrong kv head shows, and a
+    ragged S); the fp32 FMA body's in fp32 at D = 160 and 256; the fp32
+    split-TF32 body's in fp32 at qwen3-8b's (D = 128, causal, GQA 4), at
+    ViT-B's (S = 65, D = 64, not causal) and at a causal GQA-4 one at D =
+    64, each mutant where the shape can show it.  Outputs start as NaN."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
     mutants = {("bfloat16", n): m for n, m in FLASH_MUTANTS_BF16.items()}
     mutants.update({("float32", n): m for n, m in FLASH_MUTANTS_FP32.items()})
+    mutants.update({("float32", n): m for n, m in FLASH_MUTANTS_TF32.items()})
     libs = _build_mutants(tmp_path, "flash_attention.cu", mutants)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rejected = {}
-    # (B, S, H, Hkv, D): the qwen3-8b forward's attention, then D = 160
-    # and 256
-    for shape in ((2, 512, 32, 8, 128), (2, 500, 8, 4, 160),
-                  (2, 300, 8, 4, 256)):
-        B, S, H, Hkv, D = shape
+    # (B, S, H, Hkv, D, causal): the qwen3-8b forward's attention, D = 160
+    # and 256, ViT-B's, a causal GQA-4 one at D = 64
+    shapes = ((2, 512, 32, 8, 128, True), (2, 500, 8, 4, 160, True),
+              (2, 300, 8, 4, 256, True), (2, 65, 12, 12, 64, False),
+              (2, 200, 16, 4, 64, True))
+    for shape in shapes:
+        B, S, H, Hkv, D, causal = shape
         for dn, (tdt, _, _) in DTYPES.items():
             q = torch.randn((B, S, H, D), generator=g, device="cuda").to(tdt)
             k = torch.randn((B, S, Hkv, D), generator=g,
                             device="cuda").to(tdt)
             v = torch.randn((B, S, Hkv, D), generator=g,
                             device="cuda").to(tdt)
-            want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5)
+            want = tref.flash_attention_ref(q, k, v, scale=D ** -0.5,
+                                            causal=causal)
             for name, lib in [(("kernel", "kernel"), None), *libs.items()]:
                 if name[0] not in ("kernel", dn):
                     continue
+                _poison_outputs(monkeypatch)
                 if lib is not None:
                     monkeypatch.setattr(tfa, "_fn", tfa.bind(lib))
-                got = tops.flash_attention(q, k, v)
+                got = tops.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 err, ok, tol = smoke.check_close(got, want, dn)
-                print(f"flash {name[1]} {dn} D={D}: max_abs_err {err:.3g} "
+                print(f"flash {name[1]} {dn} {shape}: max_abs_err {err:.3g} "
                       f"({'passes' if ok else 'fails'} {tol})")
-                rejected[name[1], dn, D] = not ok
-            monkeypatch.undo()
-    for D in (128, 160, 256):
-        assert not rejected["kernel", "float32", D]
-        assert not rejected["kernel", "bfloat16", D]
-        for name in FLASH_MUTANTS_BF16:
-            assert rejected[name, "bfloat16", D], (name, D)
-        for name in FLASH_MUTANTS_FP32:
-            assert rejected[name, "float32", D], (name, D)
+                rejected[name[1], dn, shape] = not ok
+                monkeypatch.undo()
+    for shape in shapes:
+        B, S, H, Hkv, D, causal = shape
+        assert not rejected["kernel", "float32", shape]
+        assert not rejected["kernel", "bfloat16", shape]
+        if D >= 128:
+            for name in FLASH_MUTANTS_BF16:
+                assert rejected[name, "bfloat16", shape], (name, shape)
+        wrong = (FLASH_MUTANTS_FP32 if D not in tfa.TF32_DIMS
+                 else FLASH_MUTANTS_TF32)
+        for name in wrong:
+            if _shows(name, causal, H, Hkv):
+                assert rejected[name, "float32", shape], (name, shape)
 
 
 # Wrong RMSNorm kernels, each one edit away from csrc/rmsnorm.cu
@@ -486,9 +550,11 @@ RMSNORM_LOOP_MUTANTS = {
 # dK/dV kernel, dK/dV from the items of one q head of the group, Di left
 # out of the pre-pass, lse taken in natural-log units where the kernels
 # want log2, and the peer block's half of the items (cluster rank 1)
-# dropped from the sum.  The fp32 FMA body's: the mask dropped, dK/dV
-# summed over one q head, Di left out of dS.  RMSNorm: dscale from one
-# partial row.
+# dropped from the sum.  The fp32 FMA body's (D = 160 and 256): the mask
+# dropped, dK/dV summed over one q head, Di left out of dS.  The fp32
+# split-TF32 body's (D <= 128): the small terms dropped (one TF32
+# product), the last 16-key slice dropped, Di left out, the mask one key
+# late, the kv heads interleaved.  RMSNorm: dscale from one partial row.
 FLASH_BWD_MUTANTS_BF16 = {
     "mask dropped": ("if (diag && kr[r] > q0 + c) p = 0.f;", "(void)diag;"),
     "dK/dV from one q head": ("const int items = group * per_head;",
@@ -517,6 +583,18 @@ FLASH_BWD_MUTANTS = {
     "dK/dV from one q head": ("for (int h = h0; h < h0 + group; ++h) {",
                               "for (int h = h0; h < h0 + 1; ++h) {"),
     "Di left out": ("return p * (dp - di);", "return p * dp;"),
+}
+FLASH_BWD_MUTANTS_TF32 = {
+    "tf32: small terms dropped": TF32_SMALL_TERMS,
+    "tf32: last 16-key slice dropped": ("const bool live = kw < Tk;",
+                                  "const bool live = kw + 16 < Tk;"),
+    "tf32: Di left out": ("di_s[r] = in ? acc : 0.f;", "di_s[r] = 0.f;"),
+    "tf32: mask one key late": (
+        "const bool keep = row < S && key < Tk && (!causal || key <= row);",
+        "const bool keep = row < S && key < Tk && "
+        "(!causal || key <= row + 1);"),
+    "tf32: kv heads interleaved": ("const int h = hk * group + j;",
+                             "const int h = j * Hkv + hk;"),
 }
 # Wrong SSD backward kernels, each one edit away from csrc/
 # ssd_scan_bwd.cu.  The fp32 FMA body's: the decay not selected above the
@@ -776,10 +854,12 @@ SSD_MUTANTS_FP32 = {
     ("rmsnorm.cu", RMSNORM_LOOP_MUTANTS),
     ("rmsnorm.cu", RMSNORM_BWD_LOOP_MUTANTS),
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16_WIDE),
+    ("flash_attention.cu", FLASH_MUTANTS_TF32),
+    ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_TF32),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
         "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd",
         "ssd-bwd-bf16", "rmsnorm-loop", "rmsnorm-bwd-loop",
-        "flash-bwd-bf16-wide"])
+        "flash-bwd-bf16-wide", "flash-tf32", "flash-bwd-tf32"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs
@@ -832,14 +912,18 @@ def test_smoke_check_rejects_wrong_ssd_kernels(tmp_path, monkeypatch):
 @pytest.mark.gpu
 def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     """chip_smoke.py's backward check fails every wrong backward kernel of
-    the body its dtype runs (the flash and SSD tensor-core bodies' in
-    bf16, their FMA bodies' in fp32; RMSNorm's in both), at the train
-    steps' shapes: qwen3-8b's attention (B=2, S=512, 32 q heads in groups
-    of 4) and its (1024, 4096) norm rows, and mamba2-780m's scan (B=2,
-    S=1024, 48 heads in one group, 8 chunks of 128; held by
-    ``check_ssd_bwd``); and at D = 160 (B=2, S=512, 8 q heads in groups of
-    2, so that a wrong head shows), command-r-plus-104b's (1024, 12288)
-    norm rows and the looped body's (256, 12289)."""
+    the body its dtype and head dim run (the flash and SSD tensor-core
+    bodies' in bf16; in fp32 the flash split-TF32 body's at D <= 128, its
+    FMA body's at D = 160, the SSD FMA body's; RMSNorm's in both), at the
+    train steps' shapes: qwen3-8b's attention (B=2, S=512, 32 q heads in
+    groups of 4; the TF32 body's key tiles and dQ kernel) and its (1024,
+    4096) norm rows, and mamba2-780m's scan (B=2, S=1024, 48 heads in one
+    group, 8 chunks of 128; held by ``check_ssd_bwd``); at D = 160 (B=2,
+    S=512, 8 q heads in groups of 2, so that a wrong head shows),
+    command-r-plus-104b's (1024, 12288) norm rows and the looped body's
+    (256, 12289); and for the TF32 body's one block a head, at ViT-B's
+    (S = 65, D = 64, not causal) and a causal GQA-4 one at D = 64, each
+    mutant where the shape can show it.  Flash outputs start as NaN."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     smoke = _smoke()
@@ -847,6 +931,8 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     fmut.update({("bfloat16", n): m
                  for n, m in FLASH_BWD_MUTANTS_BF16_WIDE.items()})
     fmut.update({("float32", n): m for n, m in FLASH_BWD_MUTANTS.items()})
+    fmut.update({("float32", n): m
+                 for n, m in FLASH_BWD_MUTANTS_TF32.items()})
     flibs = _build_mutants(tmp_path, "flash_attention_bwd.cu", fmut)
     (tmp_path / "r").mkdir()
     rlibs = _build_mutants(tmp_path / "r", "rmsnorm.cu",
@@ -861,37 +947,43 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
     # which mutants each shape must reject, beyond those of the body's
     # dtype: the D = 160 body runs neither the D <= 128 reduction nor the
     # other way round
+    # (B, S, H, Hkv, D, causal): the bf16 mutants each shape must reject
     flash_shapes = {
-        (2, 512, 32, 8, 128): set(FLASH_BWD_MUTANTS_BF16),
-        (2, 512, 8, 4, 160): (set(FLASH_BWD_MUTANTS_BF16)
-                              - set(FLASH_BWD_MUTANTS_BF16_NARROW)
-                              | set(FLASH_BWD_MUTANTS_BF16_WIDE))}
+        (2, 512, 32, 8, 128, True): set(FLASH_BWD_MUTANTS_BF16),
+        (2, 512, 8, 4, 160, True): (set(FLASH_BWD_MUTANTS_BF16)
+                                    - set(FLASH_BWD_MUTANTS_BF16_NARROW)
+                                    | set(FLASH_BWD_MUTANTS_BF16_WIDE)),
+        (2, 65, 12, 12, 64, False): set(),
+        (2, 100, 16, 4, 64, True): set()}
     norm_shapes = {(1024, 4096): set(RMSNORM_BWD_MUTANTS),
                    (1024, 12288): set(RMSNORM_BWD_MUTANTS),
                    (256, 12289): set(RMSNORM_BWD_MUTANTS)
                    | set(RMSNORM_BWD_LOOP_MUTANTS)}
     for dn, (tdt, _, _) in DTYPES.items():
-        for (B, S, H, Hkv, D) in flash_shapes:
+        for shape in flash_shapes:
+            B, S, H, Hkv, D, causal = shape
             q, do = (torch.randn((B, S, H, D), generator=g,
                                  device="cuda").to(tdt) for _ in range(2))
             k, v = (torch.randn((B, S, Hkv, D), generator=g,
                                 device="cuda").to(tdt) for _ in range(2))
             refs = [t.clone().requires_grad_() for t in (q, k, v)]
-            tref.flash_attention_ref(*refs, scale=D ** -0.5).backward(do)
+            tref.flash_attention_ref(*refs, scale=D ** -0.5,
+                                     causal=causal).backward(do)
             for name, lib in [(("kernel", "kernel"), None), *flibs.items()]:
                 if name[0] not in ("kernel", dn):
                     continue
+                _poison_outputs(monkeypatch)
                 if lib is not None:
                     monkeypatch.setattr(tfa, "_bwd_fn", tfa.bind_bwd(lib))
                 ins = [t.clone().requires_grad_() for t in (q, k, v)]
-                tops.flash_attention(*ins).backward(do)
+                tops.flash_attention(*ins, causal=causal).backward(do)
                 torch.cuda.synchronize()
                 err, ok, tol = smoke.check_normwise(
                     [t.grad for t in ins], [t.grad for t in refs], dn)
-                print(f"flash_bwd {name[1]} {dn} D={D}: max_abs_err "
+                print(f"flash_bwd {name[1]} {dn} {shape}: max_abs_err "
                       f"{err:.3g} ({'passes' if ok else 'fails'} {tol})")
-                rejected["flash " + name[1], dn, D] = not ok
-            monkeypatch.undo()
+                rejected["flash " + name[1], dn, shape] = not ok
+                monkeypatch.undo()
         for (R, D) in norm_shapes:
             x, gy = (torch.randn((R, D), generator=g, device="cuda").to(tdt)
                      for _ in range(2))
@@ -930,39 +1022,49 @@ def test_smoke_check_rejects_wrong_backward_kernels(tmp_path, monkeypatch):
             assert not rejected["rmsnorm kernel", dn, D]
             for name in names:
                 assert rejected["rmsnorm " + name, dn, D], (name, D)
-        for (B, S, H, Hkv, D) in flash_shapes:
-            assert not rejected["flash kernel", dn, D]
-            for name in FLASH_BWD_MUTANTS:
-                if dn == "float32":
-                    assert rejected["flash " + name, dn, D], (name, D)
+        for shape in flash_shapes:
+            B, S, H, Hkv, D, causal = shape
+            assert not rejected["flash kernel", dn, shape]
+            wrong = (FLASH_BWD_MUTANTS if D not in tfa.TF32_DIMS
+                     else FLASH_BWD_MUTANTS_TF32)
+            for name in wrong:
+                if dn == "float32" and _shows(name, causal, H, Hkv):
+                    assert rejected["flash " + name, dn, shape], (name,
+                                                                  shape)
     for name in SSD_BWD_MUTANTS_BF16:
         assert rejected["ssd " + name, "bfloat16"], name
     for name in SSD_BWD_MUTANTS:
         assert rejected["ssd " + name, "float32"], name
-    for (B, S, H, Hkv, D), names in flash_shapes.items():
+    for shape, names in flash_shapes.items():
         for name in names:
-            assert rejected["flash " + name, "bfloat16", D], (name, D)
+            assert rejected["flash " + name, "bfloat16", shape], (name,
+                                                                  shape)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_backward_kernels_are_deterministic(dtype):
     """No float atomics: two calls of each backward at the train steps'
-    shapes (qwen3-8b's attention, B=2 S=512; its (1024, 4096) norm rows;
+    shapes (qwen3-8b's attention, B=2 S=512; ViT-B's, S = 65, and
+    ViT-B/16's, S = 197, not causal, where fp32 takes the one-block-a-head
+    design at five and at 13 warps; its (1024, 4096) norm rows;
     mamba2-780m's scan, B=2 S=1024, with h0 and h_final gradients) give
     the same bits."""
     _need_cuda()
     tdt = DTYPES[dtype][0]
     g = torch.Generator(device="cuda").manual_seed(5)
-    B, S, H, Hkv, D = 2, 512, 32, 8, 128
-    q, do = (torch.randn((B, H, S, D), generator=g, device="cuda").to(tdt)
-             for _ in range(2))
-    k, v = (torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(tdt)
-            for _ in range(2))
-    o, lse = tfa._forward(q, k, v, D ** -0.5, True, with_lse=True)
-    first, second = (tfa.flash_attention_bwd(q, k, v, o, lse, do,
-                                             scale=D ** -0.5, causal=True)
-                     for _ in range(2))
+    first, second = [], []
+    for B, S, H, Hkv, D, causal in ((2, 512, 32, 8, 128, True),
+                                    (16, 65, 12, 12, 64, False),
+                                    (4, 197, 12, 12, 64, False)):
+        q, do = (torch.randn((B, H, S, D), generator=g,
+                             device="cuda").to(tdt) for _ in range(2))
+        k, v = (torch.randn((B, Hkv, S, D), generator=g,
+                            device="cuda").to(tdt) for _ in range(2))
+        o, lse = tfa._forward(q, k, v, D ** -0.5, causal, with_lse=True)
+        for out in (first, second):
+            out += tfa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           scale=D ** -0.5, causal=causal)
     x, gy = (torch.randn((1024, 4096), generator=g, device="cuda").to(tdt)
              for _ in range(2))
     s = (1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")).to(tdt)
@@ -973,8 +1075,9 @@ def test_cuda_backward_kernels_are_deterministic(dtype):
     first += tssd.ssd_scan_bwd(*case, chunk=128)
     second += tssd.ssd_scan_bwd(*case, chunk=128)
     torch.cuda.synchronize()
-    names = ("dq", "dk", "dv", "dx", "dscale", "ssd dx", "ssd dB", "ssd dC",
-             "ssd ddt", "ssd da", "ssd dh0")
+    names = ("dq", "dk", "dv", "vit dq", "vit dk", "vit dv", "vit16 dq",
+             "vit16 dk", "vit16 dv", "dx", "dscale", "ssd dx", "ssd dB",
+             "ssd dC", "ssd ddt", "ssd da", "ssd dh0")
     assert len(first) == len(second) == len(names)
     for name, a, b in zip(names, first, second):
         assert torch.isfinite(a.float()).all(), name
@@ -997,6 +1100,15 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     q = q[1:].view(1, 4, 8, 64)               # rows 2 bytes off alignment
     with pytest.raises(ValueError, match="aligned"):
         tfa.flash_attention(q, q, q)
+    q = torch.randn((1 + 8 * 4 * 64,), device="cuda")
+    q = q[1:].view(1, 4, 8, 64)               # fp32 rows 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention(q, q, q)
+    qa = torch.randn((1, 4, 8, 64), device="cuda")
+    o, lse = tfa._forward(qa, qa, qa, 0.125, True, with_lse=True)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention_bwd(q, q, q, o, lse, qa, scale=0.125,
+                                causal=True)
 
     def ssd(B=1, S=8, H=4, P=16, N=32, G=1, dtype=torch.bfloat16,
             dt_dtype=torch.float32, chunk=128, h0=None):

@@ -12,6 +12,7 @@ the SSD scan is held at 1e-5 of its output's scale to its chunked twins
 (``_close_scaled`` says why not elementwise) and at the 2e-3 of
 tests/test_kernels.py to the sequential recurrence.
 """
+import itertools
 import shutil
 
 import jax
@@ -902,6 +903,344 @@ def test_flash_lse_convention_is_logsumexp_of_the_masked_logits(S, T,
     got = _flash_lse_tiled(torch.from_numpy(q), torch.from_numpy(k),
                            scale=scale, causal=causal, bk=64)
     _close(got, want, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 flash bodies' split-TF32 arithmetic, emulated: csrc/
+# flash_attention.cu flash_fwd_tf32_kernel, csrc/flash_attention_bwd.cu
+# flash_bwd_kv_tf32_kernel and flash_bwd_dq_tf32_kernel
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 as a TF32 operand of the tensor cores: its top 19 bits (10
+    mantissa bits), rounded toward zero on the bits (``split_tf32`` in
+    csrc/hopper.cuh)."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mm_tc(a: torch.Tensor, b: torch.Tensor, how: str) -> torch.Tensor:
+    """a @ b as the fp32 bodies' tensor cores take it, sums in fp32:
+    "split" is small.big + big.small + big.big of the TF32 parts big =
+    tf32(x), small = tf32(x - big) (mma3_n); "single" one TF32 product;
+    "fp32" the exact fp32 product."""
+    if how == "fp32":
+        return a @ b
+    ab, bb = _tf32(a), _tf32(b)
+    if how == "single":
+        return ab @ bb
+    return _tf32(a - ab) @ bb + ab @ _tf32(b - bb) + ab @ bb
+
+
+# csrc/flash_attention.cu Tf32<D>::kBK and csrc/flash_attention_bwd.cu
+# Tf32Bwd<D>: kBQ, kNP, kBK, kWholeKeys, kSplitWarps
+def _tf32_fwd_bk(D):
+    return 80 if D <= 64 else 32
+
+
+def _tf32_bwd_tiles(D):
+    return dict(bq=72 if D <= 64 else 32, np=3 if D <= 64 else 2, bk=32,
+                whole=208 if D <= 64 else 64, warps=6 if D <= 64 else 4)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (..., R, D) with zero rows appended up to n (cp.async's zero
+    fill)."""
+    return torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[-2]))
+
+
+def _flash_fwd_tf32(q, k, v, *, scale, causal, how="split"):
+    """flash_fwd_tf32_kernel in plain torch, as it tiles: a warp's 16 q
+    rows (zero rows past S), whole kv tiles of kBK keys (zero rows past T,
+    masked) but for tiles wholly above the warp's rows, an online softmax
+    in log2 units, P used as an operand from the accumulators.  q:
+    (B,H,S,D), k, v: (B,Hkv,T,D) fp32 -> (o (B,H,S,D), lse (B,H,S))."""
+    B, H, S, D = q.shape
+    T, group = k.shape[2], H // k.shape[1]
+    kx, vx = (t.repeat_interleave(group, 1) for t in (k, v))
+    bk = _tf32_fwd_bk(D)
+    scale2 = np.float32(scale * _LOG2E)
+    o = torch.zeros((B, H, S, D))
+    lse = torch.zeros((B, H, S))
+    for r0 in range(0, S, 16):
+        qs = _pad_rows(q[:, :, r0:r0 + 16], 16)
+        rows = torch.arange(r0, r0 + 16)[:, None]
+        m = torch.full((B, H, 16), tref.NEG_INF)
+        l = torch.zeros((B, H, 16))
+        acc = torch.zeros((B, H, 16, D))
+        last = min(S, r0 + 16) if causal else T
+        for k0 in range(0, min(T, last), bk):
+            ks, vs = (_pad_rows(t[:, :, k0:k0 + bk], bk) for t in (kx, vx))
+            keys = torch.arange(k0, k0 + bk)[None, :]
+            keep = keys < T
+            if causal:
+                keep = keep & (keys <= rows)
+            x = torch.where(keep, _mm_tc(qs, ks.transpose(-1, -2), how)
+                            * scale2, torch.tensor(tref.NEG_INF))
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _mm_tc(p, vs, how)
+            m = m_new
+        n = min(16, S - r0)
+        denom = l.clamp_min(1e-30)
+        o[:, :, r0:r0 + n] = (acc / denom[..., None])[:, :, :n]
+        lse[:, :, r0:r0 + n] = (m * np.float32(np.log(2.0))
+                                + torch.log(denom))[:, :, :n]
+    return o, lse
+
+
+def _flash_bwd_tf32(q, k, v, o, do, lse, *, scale, causal, how="split",
+                    wrong=None):
+    """The split-TF32 backward in plain torch, as it tiles (csrc/
+    flash_attention_bwd.cu).  flash_bwd_kv_tf32_kernel: key tiles of 16 W
+    keys (all T in one tile up to kWholeKeys, else as few and as even as
+    kSplitWarps warps allow), one warp each 16 keys; the block walks the q
+    steps (kBQ rows) of each q head of the group in order, each in passes
+    of kNP 8-row slices (a pass wholly above the warp's keys skipped); Di
+    and lse2 from the step's rows; S^T = K_w Q^T, dP^T = V_w dO^T, P^T,
+    dS^T; dV += P^T dO, dK += dS^T Q; with all keys in the tile, dQ = dS K
+    in place.  Otherwise flash_bwd_dq_tf32_kernel: 16 q rows a warp, whole
+    kBK-key tiles, S and dP again, dQ += dS K.  q, o, do: (B,H,S,D); k, v:
+    (B,Hkv,T,D) -> (dq, dk, dv, whole).  ``wrong``: one of the wrong
+    kernels of tests/test_torch_gpu.py (FLASH_BWD_MUTANTS_TF32)."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    group = H // Hkv
+    c = _tf32_bwd_tiles(D)
+    bq = c["bq"]
+    scale2 = np.float32(scale * _LOG2E)
+    lse2 = lse * np.float32(_LOG2E)
+    di = (do * o).sum(-1)
+    if wrong == "Di left out":
+        di = torch.zeros_like(di)
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    slices = -(-T // 16)
+    whole = T <= c["whole"]
+    warps = slices if whole else -(-slices // -(-slices // c["warps"]))
+    late = 1 if wrong == "mask one key late" else 0
+
+    def head(hk, j):
+        return j * Hkv + hk if wrong == "kv heads interleaved" else \
+            hk * group + j
+
+    for hk in range(Hkv):
+        for k0 in range(0, T, 16 * warps):
+            kt = 16 * warps
+            kl = (_pad_rows(k[:, hk, k0:k0 + kt], kt),
+                  _pad_rows(v[:, hk, k0:k0 + kt], kt))
+            acc_k = torch.zeros((B, kt, D))
+            acc_v = torch.zeros((B, kt, D))
+            q_first = k0 // bq * bq if causal else 0
+            for j in range(group):
+                h = head(hk, j)
+                for q0 in range(q_first, S, bq):
+                    qs, dos = (_pad_rows(t[:, h, q0:q0 + bq], bq)
+                               for t in (q, do))
+                    rows = torch.arange(q0, q0 + bq)
+                    l2t, dit = (_pad_rows(t[:, h, q0:q0 + bq, None],
+                                          bq)[..., 0] for t in (lse2, di))
+                    n = min(bq, S - q0)
+                    ds_all = torch.zeros((B, bq, kt))
+                    passes = [slice(p, p + 8 * c["np"])
+                              for p in range(0, n, 8 * c["np"])]
+                    for w, sl in itertools.product(range(warps), passes):
+                        kw = k0 + 16 * w
+                        if kw >= T or (wrong == "last slice dropped"
+                                       and kw + 16 >= T):
+                            continue
+                        if causal and q0 + sl.stop - 1 < kw:
+                            continue
+                        kw_, vw_ = (t[:, 16 * w:16 * w + 16] for t in kl)
+                        st = _mm_tc(kw_, qs[:, sl].transpose(-1, -2), how)
+                        dpt = _mm_tc(vw_, dos[:, sl].transpose(-1, -2), how)
+                        keys = torch.arange(kw, kw + 16)[:, None]
+                        r = rows[sl][None, :]
+                        keep = (r < S) & (keys < T)
+                        if causal:
+                            keep = keep & (keys <= r + late)
+                        pt = torch.where(keep, torch.exp2(
+                            st * scale2 - l2t[:, None, sl]),
+                            torch.zeros(()))
+                        dst = pt * (dpt - dit[:, None, sl])
+                        acc_v[:, 16 * w:16 * w + 16] += _mm_tc(
+                            pt, dos[:, sl], how)
+                        acc_k[:, 16 * w:16 * w + 16] += _mm_tc(
+                            dst, qs[:, sl], how)
+                        ds_all[:, sl, 16 * w:16 * w + 16] = \
+                            dst.transpose(-1, -2)
+                    if whole:
+                        n = min(bq, S - q0)
+                        dq[:, h, q0:q0 + n] = (_mm_tc(ds_all, kl[0], how)
+                                               * scale)[:, :n]
+            n = min(kt, T - k0)
+            dk[:, hk, k0:k0 + n] = (acc_k * scale)[:, :n]
+            dv[:, hk, k0:k0 + n] = acc_v[:, :n]
+    if not whole:
+        bk = c["bk"]
+        for h in range(H):
+            hk = h // group
+            for r0 in range(0, S, 16):
+                qs, dos = (_pad_rows(t[:, h, r0:r0 + 16], 16)
+                           for t in (q, do))
+                rows = torch.arange(r0, r0 + 16)[:, None]
+                n = min(16, S - r0)
+                l2 = _pad_rows(lse2[:, h, r0:r0 + 16, None], 16)
+                d2 = _pad_rows(di[:, h, r0:r0 + 16, None], 16)
+                acc = torch.zeros((B, 16, D))
+                last = min(S, r0 + 16) if causal else T
+                for k0 in range(0, min(T, last), bk):
+                    ks, vs = (_pad_rows(t[:, hk, k0:k0 + bk], bk)
+                              for t in (k, v))
+                    keys = torch.arange(k0, k0 + bk)[None, :]
+                    keep = (rows < S) & (keys < T)
+                    if causal:
+                        keep = keep & (keys <= rows)
+                    s = _mm_tc(qs, ks.transpose(-1, -2), how)
+                    dp = _mm_tc(dos, vs.transpose(-1, -2), how)
+                    p = torch.where(keep, torch.exp2(s * scale2 - l2),
+                                    torch.zeros(()))
+                    acc += _mm_tc(p * (dp - d2), ks, how)
+                dq[:, h, r0:r0 + n] = (acc * scale)[:, :n]
+    return dq, dk, dv, whole
+
+
+# (B, S, T, H, Hkv, D, causal): ViT-B's layout (S = T = 65, D = 64, not
+# causal: one block a head, five warps), ViT-B/16's at 224 (S = T = 197:
+# one block a head, 13 warps) and a causal one at D = 128 with GQA (past
+# 64 keys: key tiles and the dQ kernel), each at small B and H
+TF32_LAYOUTS = [(1, 65, 65, 2, 2, 64, False), (1, 197, 197, 2, 2, 64, False),
+                (1, 150, 150, 4, 2, 128, True)]
+
+
+def _tf32_case(seed, B, S, T, H, Hkv, D, causal):
+    """Inputs from the seed, autograd of the plain version, and the same
+    tensors in the kernels' (B, H, S, D) layout."""
+    q, k, v, do = _flash_case(seed, B, S, T, H, Hkv, D)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = tref.flash_attention_ref(*refs, scale=D ** -0.5, causal=causal)
+    o.backward(do)
+    heads = tuple(t.transpose(1, 2) for t in (q, k, v, o.detach(), do))
+    return o.detach(), [t.grad for t in refs], heads
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", TF32_LAYOUTS)
+def test_flash_fp32_forward_split_tf32_passes_the_fp32_check(B, S, T, H, Hkv,
+                                                             D, causal):
+    """The fp32 forward's tensor-core arithmetic as the kernel tiles it
+    (16-row slices, 8-key granules): with every operand split into TF32
+    big + small and three products, the output passes chip_smoke's fp32
+    check against the plain version and its lse is the logsumexp; one
+    TF32 product per product fails the check."""
+    check_close = _smoke_check_close()
+    want, _, (qh, kh, vh, _, _) = _tf32_case(12, B, S, T, H, Hkv, D, causal)
+    scale = D ** -0.5
+    got = {how: _flash_fwd_tf32(qh, kh, vh, scale=scale, causal=causal,
+                                how=how) for how in ("split", "single")}
+    err, ok, tol = check_close(got["split"][0].transpose(1, 2), want,
+                               "float32")
+    assert ok, (err, tol)
+    err1, ok1, _ = check_close(got["single"][0].transpose(1, 2), want,
+                               "float32")
+    assert not ok1 and err1 > 10 * err, (err1, err)
+    lse = _flash_lse_tiled(qh, kh.repeat_interleave(H // Hkv, 1),
+                           scale=scale, causal=causal, bk=64)
+    torch.testing.assert_close(got["split"][1], lse, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", TF32_LAYOUTS)
+def test_flash_fp32_backward_split_tf32_passes_bwd_tol(B, S, T, H, Hkv, D,
+                                                       causal):
+    """The fp32 backward's tensor-core arithmetic as the kernels tile it,
+    from the emulated forward's o and lse: split TF32 passes chip_smoke's
+    fp32 backward check (BWD_TOL) against autograd of the plain version
+    with an order of magnitude to spare; one TF32 product per product
+    fails it.  ViT-B's T = 65 and ViT-B/16's 197 run the one-block-a-head
+    design, the D = 128 layout key tiles and the dQ kernel."""
+    smoke = _smoke()
+    _, want, (qh, kh, vh, _, doh) = _tf32_case(13, B, S, T, H, Hkv, D,
+                                               causal)
+    scale = D ** -0.5
+    res = {}
+    for how in ("split", "single"):
+        o, lse = _flash_fwd_tf32(qh, kh, vh, scale=scale, causal=causal,
+                                 how=how)
+        *grads, whole = _flash_bwd_tf32(qh, kh, vh, o, doh, lse,
+                                        scale=scale, causal=causal, how=how)
+        assert whole == (T <= 208 if D <= 64 else T <= 64)
+        res[how] = smoke.check_normwise([g.transpose(1, 2) for g in grads],
+                                        want, "float32")
+    err, ok, tol = res["split"]
+    assert ok and err <= smoke.BWD_TOL["float32"] / 10 * max(
+        float(w.abs().max()) for w in want), (err, tol)
+    assert not res["single"][1], res["single"]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", [
+    (1, 65, 65, 2, 2, 64, False),      # ViT-B: one block a head, 80 x 72
+    (2, 80, 80, 4, 1, 32, True),       # exactly five 16-key slices, MQA
+    (1, 17, 100, 8, 2, 16, True),      # GQA 4, S < T
+    (1, 100, 40, 2, 2, 64, True),      # S > T: keys past T masked
+    (1, 1, 7, 2, 1, 128, False),       # one row, a key granule short
+    (1, 197, 197, 2, 2, 64, False),    # ViT-B/16: one block of 13 warps
+    (1, 120, 300, 2, 1, 32, False),    # past 208 keys: 4 tiles of 80 + dQ
+    (1, 90, 300, 4, 2, 128, True),     # D = 128 key tiles, S < T
+])
+def test_flash_fp32_tf32_tiling_matches_autograd_and_jax_grad(B, S, T, H,
+                                                              Hkv, D, causal):
+    """The split-TF32 kernels' tiling in exact fp32 products: the forward's
+    16-row slices and 8-key granules, the backward's five products of the
+    one-block-a-head design (16-key slices a warp, q tiles cut at 8 rows,
+    dQ in place) or its key tiles and dQ kernel past kWholeKeys, match the
+    plain version and autograd of it (1e-5), and jax.grad of the
+    reference's plain attention in fp32 (1e-5 of max |grad|)."""
+    from repro.models import layers as JL
+    want_o, want, (qh, kh, vh, oh, doh) = _tf32_case(14, B, S, T, H, Hkv, D,
+                                                     causal)
+    scale = D ** -0.5
+    o, lse = _flash_fwd_tf32(qh, kh, vh, scale=scale, causal=causal,
+                             how="fp32")
+    torch.testing.assert_close(o.transpose(1, 2), want_o, rtol=1e-5,
+                               atol=1e-5)
+    *got, _ = _flash_bwd_tf32(qh, kh, vh, oh, doh, lse, scale=scale,
+                              causal=causal, how="fp32")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.transpose(1, 2), w, rtol=1e-5,
+                                   atol=1e-5)
+    jq, jk, jv, jdo = (jnp.asarray(t.transpose(1, 2).numpy())
+                       for t in (qh, kh, vh, doh))
+    _, vjp = jax.vjp(lambda a, b, c: JL._sdpa(a, b, c, causal=causal,
+                                              scale=scale), jq, jk, jv)
+    for g, j in zip(got, vjp(jdo)):
+        _close_normwise(g.transpose(1, 2), j, 1e-5)
+
+
+@pytest.mark.parametrize("wrong", ["small terms dropped", "Di left out",
+                                   "mask one key late",
+                                   "kv heads interleaved",
+                                   "last slice dropped"])
+@pytest.mark.parametrize("S,T", [(100, 100), (150, 150)])
+def test_flash_fp32_tf32_emulation_fails_each_wrong_kernel(wrong, S, T):
+    """Each one-edit wrong split-TF32 backward of tests/test_torch_gpu.py
+    (FLASH_BWD_MUTANTS_TF32), emulated, misses autograd of the plain
+    version by more than chip_smoke's fp32 backward check allows, at a
+    causal GQA-4 layout on both designs: one block a head (T = 100) and
+    key tiles with the dQ kernel (T = 150 at D = 128)."""
+    smoke = _smoke()
+    D = 64 if T <= 128 else 128
+    _, want, (qh, kh, vh, _, doh) = _tf32_case(15, 1, S, T, 8, 2, D, True)
+    scale = D ** -0.5
+    o, lse = _flash_fwd_tf32(qh, kh, vh, scale=scale, causal=True)
+    how = "single" if wrong == "small terms dropped" else "split"
+    *got, _ = _flash_bwd_tf32(qh, kh, vh, o, doh, lse, scale=scale,
+                              causal=True, how=how, wrong=wrong)
+    err, ok, tol = smoke.check_normwise([g.transpose(1, 2) for g in got],
+                                        want, "float32")
+    assert not ok, (wrong, err, tol)
 
 
 # ---------------------------------------------------------------------------
