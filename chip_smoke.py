@@ -267,11 +267,34 @@ Phases, each of which fails the run (exit code 1) on any error:
     measured / predicted for the embedding, one attention, one MLP and
     the head (bf16).
 
-The phases run in the order 1-5, 29-31, 6, 7, 32, 10-13, 15-22, 24-27
-(each model's serve, then its forward, each model freed before the next),
-8, 9, 14, 23, 28 (the trains, with every serving weight freed), 33, 34,
-35, 36, 37; each phase's seconds and the total are printed before the
-result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
+38. Placed serve qwen3-8b (after phase 31, on phase 4's weights):
+    phase 4's requests and settings through ``ContinuousBatchingEngine``
+    on a 1 x 1 ``DeviceMesh`` over a world-1 NCCL group
+    (``make_host_mesh``): the ASA plan printed; every param and pool leaf
+    a DTensor on that mesh (the params wrapped without a copy); tokens
+    bit-equal to phase 4's; ``forward_launches`` RMSNorm launches a model
+    call and no flash launch; tok/s, TTFT and TPOT beside phase 4's and
+    the unplaced engine's once more after it (unplaced, placed, unplaced).
+39. Cluster qwen3-8b (after qwen3-8b's weights are freed): ``python -m
+    repro_torch.launch.serve_cluster --arch qwen3-8b --replicas 2`` at
+    phase 4's settings as a subprocess, both replicas whole on the one
+    card (round robin): the boot time; /healthz 200 with both live; each
+    worker's boot line names a CUDA device; phase 4's 8 requests as
+    concurrent HTTP posts, half streamed by SSE, each with phase 4's
+    tokens; /metrics parses, 2 replicas live, the replicas' generated
+    tokens sum to the tokens received, and each replica's RMSNorm
+    launches (its ``repro_serving_kernel_launches_total``, counted from 0
+    in the fresh worker) are ``forward_launches`` a model call, with no
+    flash launch; one request streamed with a stop string from its own
+    greedy output (``"t<id> "``) ends "stop", trimmed at the match;
+    SIGTERM: ``workers exited with [0, 0]``, exit 0, no worker left;
+    aggregate tok/s and each request's TTFT and TPOT beside phase 4's.
+
+The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
+24-27 (each model's serve, then its forward, each model freed before the
+next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
+trains, with every serving weight freed), 33, 34, 35, 36, 37; each
+phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
 
@@ -377,6 +400,13 @@ DRAWS, DRAW_ROWS = 16384, 256
 DRAW_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 CHI2_QUANTILE, CHI2_MIN_EXPECTED = 0.9999, 5.0
 SNAPSHOT_EVERY_S = 0.05            # phase 31's snapshot cadence
+# phase 39: the serving cluster's replicas (each holds the whole model on
+# the one card), the seconds its launcher may take to report ready (each
+# worker starts torch, draws 8.2 B params and plans), and an HTTP
+# request's timeout
+CLUSTER_REPLICAS = 2
+CLUSTER_BOOT_S = 300
+CLUSTER_REQUEST_S = 300
 
 QWEN = "qwen3-8b"
 MAMBA = "mamba2-780m"
@@ -1939,6 +1969,321 @@ def observe_phase(torch, np, report, name, arch, params, prompts):
           f"{os_['window']['step_time_ema_s'] * 1e3:.2f} ms")
 
 
+def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
+    """38. Phase 4's weights, requests and settings through the engine on
+    a 1 x 1 ``DeviceMesh`` over a world-1 NCCL group (``make_host_mesh``):
+    the plan printed, params and pools DTensors on that mesh, tokens
+    bit-equal to phase 4's, ``forward_launches`` RMSNorm launches a model
+    call and no flash launch; tok/s, TTFT and TPOT beside phase 4's and
+    beside the unplaced engine's once more after it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+    from repro_torch.launch import mesh as M
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    st = SERVE[name]
+    mesh = M.make_host_mesh(device="cuda")
+    try:
+        eng = ContinuousBatchingEngine(arch, params, mesh,
+                                       **engine_kwargs(name))
+        eng_plan = eng.plan.summary()
+        print(eng_plan)
+        leaves = tree.leaves(eng.params) + tree.leaves(eng.cache.pools)
+        if not all(isinstance(x, DTensor) and x.device_mesh is mesh
+                   for x in leaves):
+            fail(f"placed {name}: a param or pool leaf is not a DTensor on "
+                 f"the engine's mesh")
+        shared = sum(x.to_local().data_ptr() == p.data_ptr() for x, p in
+                     zip(tree.leaves(eng.params), tree.leaves(params)))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = eng.generate([Request(id=i, prompt=p,
+                                     max_new_tokens=st["max_new"])
+                             for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        s = eng.metrics.summary()
+        calls = s["prefill_chunks"] + s["decode_steps"]
+        bad = [o.request_id for o in outs
+               if o.token_ids != greedy[o.request_id]]
+        if bad:
+            fail(f"placed {name}: requests {bad} differ from phase 4's "
+                 f"tokens")
+        if counts["rmsnorm"] != forward_launches(arch)["rmsnorm"] * calls \
+                or counts["flash_attention"] != 0:
+            fail(f"placed {name}: launches {counts} for {calls} model calls "
+                 f"(want {forward_launches(arch)['rmsnorm']} RMSNorm a call, "
+                 f"no flash)")
+        if eng.cache.allocator.num_used != 0:
+            fail(f"placed {name}: blocks still held after drain")
+        del eng, outs
+        # the unplaced engine once more, after the placed one: unplaced
+        # (phase 4), placed, unplaced within one run
+        again = ContinuousBatchingEngine(arch, params, **engine_kwargs(name))
+        t0 = time.perf_counter()
+        outs = again.generate([Request(id=i, prompt=p,
+                                       max_new_tokens=st["max_new"])
+                               for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall_again = time.perf_counter() - t0
+        if [o.token_ids for o in outs] != greedy:
+            fail(f"placed {name}: the unplaced engine's second run differs "
+                 f"from phase 4's tokens")
+        s2 = again.metrics.summary()
+        total = sum(o.n_tokens for o in outs)
+        del again, outs
+        p4 = report[f"serve {name}"]
+        report[f"placed {name}"] = dict(
+            plan=eng_plan, tokens=total, wall_s=wall,
+            tok_per_s=total / wall, ttft_p50_s=s["ttft_p50_s"],
+            tpot_p50_s=s["tpot_p50_s"], launches=counts,
+            params_shared=shared, n_params=len(tree.leaves(params)),
+            phase4_tok_per_s=p4["tok_per_s"],
+            phase4_ttft_p50_s=p4["ttft_p50_s"],
+            phase4_tpot_p50_s=p4["tpot_p50_s"],
+            unplaced_after_tok_per_s=total / wall_again,
+            unplaced_after_ttft_p50_s=s2["ttft_p50_s"],
+            unplaced_after_tpot_p50_s=s2["tpot_p50_s"])
+        print(f"placed: {name} on a 1 x 1 mesh ({mesh.device_type}, world "
+              f"{mesh.size()}): {len(greedy)} requests, tokens bit-equal to "
+              f"phase 4's, {total} tokens in {wall:.3f} s = "
+              f"{total / wall:.2f} tok/s (phase 4 {p4['tok_per_s']:.2f}, "
+              f"unplaced after {total / wall_again:.2f}), TTFT p50 "
+              f"{s['ttft_p50_s'] * 1e3:.1f} ms (phase 4 "
+              f"{p4['ttft_p50_s'] * 1e3:.1f}, after "
+              f"{s2['ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
+              f"{s['tpot_p50_s'] * 1e3:.2f} ms (phase 4 "
+              f"{p4['tpot_p50_s'] * 1e3:.2f}, after "
+              f"{s2['tpot_p50_s'] * 1e3:.2f}), launches {counts}, "
+              f"{shared} of {len(tree.leaves(params))} param leaves placed "
+              f"without a copy")
+    finally:
+        M.shutdown()
+
+
+def _post(url, body, timeout):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if not body.get("stream"):
+            return resp.status, [json.loads(resp.read())]
+        events = []
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[len("data: "):]))
+        return resp.status, events
+
+
+def _get(url, timeout=30):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def _replica_series(series, metric):
+    return {lab["replica"]: float(v) for lab, v in series.get(metric, [])
+            if "replica" in lab}
+
+
+def cluster_phase(torch, np, report, name, arch, prompts, greedy):
+    """39. ``python -m repro_torch.launch.serve_cluster`` with two
+    replicas of ``name`` on the card at phase 4's settings, after phase
+    38's weights are freed: boot time; /healthz 200 with both replicas
+    live; each worker's boot line names a CUDA device; phase 4's 8
+    requests as concurrent HTTP posts, half streamed by SSE, each with
+    phase 4's tokens; /metrics parses, 2 replicas live, the replicas'
+    generated tokens sum to the tokens the requests received and each
+    replica's RMSNorm launches are ``forward_launches`` a model call
+    (no flash); one request stopped by a stop string from its own greedy
+    output, trimmed at the match; SIGTERM: ``workers exited with [0,
+    0]`` and no worker left.  Aggregate tok/s and each request's TTFT and
+    TPOT beside phase 4's."""
+    import signal
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serving.export import parse_prometheus_text
+
+    st = SERVE[name]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_cluster",
+           "--arch", name, "--replicas", str(CLUSTER_REPLICAS),
+           "--slots", str(st["slots"]), "--max-len", str(st["max_len"]),
+           "--block-size", str(st["block_size"]),
+           "--prefill-chunk", str(st["prefill_chunk"])]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, ready = [], threading.Event()
+
+    def reader():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            print(f"  cluster| {line.rstrip()}", flush=True)
+            if line.startswith("worker pids: "):
+                ready.set()
+        ready.set()
+    threading.Thread(target=reader, daemon=True).start()
+    pids = []
+    try:
+        if not ready.wait(CLUSTER_BOOT_S) or proc.poll() is not None:
+            fail(f"cluster {name}: no 'worker pids' line within "
+                 f"{CLUSTER_BOOT_S} s (exit {proc.poll()})")
+        boot_s = time.perf_counter() - t0
+        url = next(x.split()[2] for x in lines
+                   if x.startswith("serving on "))
+        pids = [int(p) for p in next(
+            x for x in lines if x.startswith("worker pids: "))
+            .split(":")[1].split()]
+        boots = [x for x in lines if x.startswith("worker ")
+                 and ": device " in x]
+        if len(boots) != CLUSTER_REPLICAS or not all(
+                ": device cuda" in b for b in boots):
+            fail(f"cluster {name}: worker boot lines {boots} do not each "
+                 f"name a CUDA device")
+        status, body = _get(url + "/healthz")
+        health = json.loads(body)
+        if status != 200 or set(health["replicas"].values()) != {"live"} \
+                or len(health["replicas"]) != CLUSTER_REPLICAS:
+            fail(f"cluster {name}: /healthz {status} {health}")
+
+        def one(i):
+            body = {"prompt": prompts[i].tolist(),
+                    "max_new_tokens": st["max_new"], "stream": i % 2 == 1}
+            t = time.perf_counter()
+            status, events = _post(url + "/v1/generate", body,
+                                   CLUSTER_REQUEST_S)
+            return status, events, time.perf_counter() - t
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            res = list(ex.map(one, range(len(prompts))))
+        wall = time.perf_counter() - t1
+        done = []
+        for i, (status, events, _) in enumerate(res):
+            d = events[-1]
+            if status != 200 or d.get("token_ids") != greedy[i] or \
+                    d.get("finish_reason") != "length":
+                fail(f"cluster {name} request {i}: status {status}, "
+                     f"{d.get('finish_reason')!r}, tokens differ from phase "
+                     f"4's: {d.get('token_ids') != greedy[i]}")
+            if i % 2 == 1 and "".join(e.get("text", "") for e in
+                                      events[:-1]) != d["text"]:
+                fail(f"cluster {name} request {i}: streamed text is not "
+                     f"the final text")
+            done.append(d)
+        received = sum(len(d["token_ids"]) for d in done)
+        # /metrics: the replicas' stats come with their heartbeats
+        t2 = time.perf_counter()
+        while True:
+            status, text = _get(url + "/metrics")
+            series = parse_prometheus_text(text)
+            toks = _replica_series(series,
+                                   "repro_serving_tokens_generated_total")
+            if sum(toks.values()) == received or \
+                    time.perf_counter() - t2 > 15:
+                break
+            time.sleep(0.5)
+        live = series["repro_serving_router_replicas_live"]
+        if status != 200 or live != [({}, str(CLUSTER_REPLICAS))] or \
+                sum(toks.values()) != received:
+            fail(f"cluster {name}: /metrics {status}, replicas_live {live},"
+                 f" tokens by replica {toks} for {received} received")
+        prefill = _replica_series(series,
+                                  "repro_serving_prefill_chunks_total")
+        decode = _replica_series(series, "repro_serving_decode_steps_total")
+        steps = {r: prefill[r] + decode[r] for r in toks}
+        launches = {}
+        for lab, v in series["repro_serving_kernel_launches_total"]:
+            launches.setdefault(lab["replica"], {})[lab["kernel"]] = \
+                int(float(v))
+        per = forward_launches(arch)["rmsnorm"]
+        for r in toks:
+            if launches[r]["rmsnorm"] != per * steps[r] or \
+                    launches[r]["flash_attention"] != 0:
+                fail(f"cluster {name} replica {r}: launches {launches[r]} "
+                     f"for {steps[r]:.0f} model calls (want {per} RMSNorm "
+                     f"a call, no flash)")
+        # a stop string from request 0's own greedy output: the first token
+        # from the third on that it has not produced before
+        k = next(j for j in range(2, len(greedy[0]))
+                 if greedy[0][j] not in greedy[0][:j])
+        stop = f"t{greedy[0][k]} "
+        status, events = _post(url + "/v1/generate",
+                               {"prompt": prompts[0].tolist(),
+                                "max_new_tokens": st["max_new"],
+                                "stream": True, "stop": [stop]},
+                               CLUSTER_REQUEST_S)
+        d = events[-1]
+        streamed = "".join(e.get("text", "") for e in events[:-1])
+        want_text = "".join(f"t{t} " for t in greedy[0][:k])
+        if status != 200 or d.get("finish_reason") != "stop" or \
+                d.get("matched_stop") != stop or \
+                d.get("token_ids") != greedy[0][:k] or \
+                d.get("text") != want_text or streamed != want_text:
+            fail(f"cluster {name}: stop string {stop!r}: {d}")
+        # SIGTERM: every worker exits 0 and none is left
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail(f"cluster {name}: the launcher did not exit on SIGTERM")
+        time.sleep(0.5)                  # the reader's last lines
+        left = [p for p in pids if _pid_alive(p)]
+        if rc != 0 or "workers exited with [0, 0]" not in lines or left:
+            fail(f"cluster {name}: exit {rc}, workers left {left}, last "
+                 f"lines {lines[-3:]}")
+        p4 = report[f"serve {name}"]
+        ttft = [d["ttft_s"] for d in done]
+        tpot = [d["tpot_s"] for d in done]
+        report[f"cluster {name}"] = dict(
+            boot_s=boot_s, replicas=CLUSTER_REPLICAS, requests=len(done),
+            tokens=received, wall_s=wall, tok_per_s=received / wall,
+            ttft_s=ttft, tpot_s=tpot,
+            client_s=[r[2] for r in res], launches_by_replica=launches,
+            model_calls=steps, tokens_by_replica=toks, stop=stop,
+            stop_tokens=k, boot_lines=boots,
+            phase4_tok_per_s=p4["tok_per_s"],
+            phase4_ttft_p50_s=p4["ttft_p50_s"],
+            phase4_tpot_p50_s=p4["tpot_p50_s"],
+            # the path's counts: the replicas' sums, read through /metrics
+            # before the stop-string request
+            launches={k_: sum(c.get(k_, 0) for c in launches.values())
+                      for k_ in KERNELS})
+        print(f"cluster: {name} x {CLUSTER_REPLICAS} replicas on one card: "
+              f"boot {boot_s:.1f} s; {len(done)} concurrent requests "
+              f"({len(done) // 2} by SSE), tokens equal to phase 4's, "
+              f"{received} tokens in {wall:.3f} s = {received / wall:.2f} "
+              f"tok/s (phase 4 {p4['tok_per_s']:.2f}); TTFT ms "
+              f"{[round(x * 1e3, 1) for x in ttft]} (phase 4 p50 "
+              f"{p4['ttft_p50_s'] * 1e3:.1f}), TPOT ms "
+              f"{[round(x * 1e3, 2) for x in tpot]} (phase 4 p50 "
+              f"{p4['tpot_p50_s'] * 1e3:.2f}); tokens by replica {toks}, "
+              f"launches {launches}; stop {stop!r} trimmed to {k} tokens; "
+              f"SIGTERM: workers exited with [0, 0], none left")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in pids:
+            if _pid_alive(p):
+                os.kill(p, 9)
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
 def check_cross_rows(torch, T, name, arch, params, pools, front, report):
     """Slot 0's cross-K rows in the first cross_attn / wdec layer, just
     admitted with ``front``, against the direct projection of the frontend
@@ -3217,6 +3562,7 @@ def main() -> int:
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
     paths += [f"sample {QWEN}", f"observe {QWEN}", f"sample {MAMBA}"]
+    paths += [f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
@@ -3246,6 +3592,9 @@ def main() -> int:
                       arch.vocab)
                 timed(f"observe {name}", observe_phase, torch, np, report,
                       name, arch, params, prompts)
+                # 38. the engine placed on a 1 x 1 mesh
+                timed(f"placed {name}", placed_phase, torch, np, report,
+                      name, arch, params, prompts, greedy)
             if args.profile:
                 timed(f"profile {name}", profile_phase, torch, report, name,
                       arch, params, prompts, fronts)
@@ -3256,6 +3605,10 @@ def main() -> int:
             del params, fronts, ref_logits
             gc.collect()
             torch.cuda.empty_cache()
+            if name == QWEN:
+                # 39. the serving cluster: two replicas on the card
+                timed(f"cluster {name}", cluster_phase, torch, np, report,
+                      name, arch, prompts, greedy)
         # 8./9./14./23./28. train, with the serving weights freed
         for name in TRAIN:
             timed(f"train {name}", train_phase, torch, report, name,

@@ -414,8 +414,8 @@ def paged_cache_specs(arch: ArchConfig, assignment: dict[str, Strategy],
     (c_kv, k_rope) pools are replicated.
 
     Specs come in the reference's canonical form (trailing Nones
-    stripped, fully replicated as P()).  The port's engine does not place
-    its pools by them yet (ROADMAP)."""
+    stripped, fully replicated as P()); the engine places its pools by
+    them on a mesh (``serving/placement.py``)."""
     def _canon(spec):
         parts = tuple(spec)
         while parts and parts[-1] is None:
@@ -539,3 +539,37 @@ def distribute(t, sharding: NamedSharding):
 def shardings(spec_tree, mesh):
     """A ``NamedSharding`` for each spec of ``spec_tree``."""
     return map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def shard_of(full, mesh, placements: tuple):
+    """This rank's shard of ``full`` (the same on every rank) under
+    ``placements``, as DTensor lays it out: chunked along each sharding
+    mesh dim of more than one rank, outer mesh dim first.  A view of
+    ``full``, and ``full`` itself where no such mesh dim shards it."""
+    from torch.distributed.tensor import Shard
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and mesh.shape[i] > 1:
+            full = full.chunk(mesh.shape[i], pl.dim)[
+                mesh.get_local_rank(mesh_dim=i)]
+    return full
+
+
+def place(t, sharding_tree):
+    """A tree of tensors (the same on every rank) as DTensors placed by a
+    tree of ``NamedSharding`` of the same leaf order.  Each DTensor wraps
+    this rank's shard: its own copy where the leaf is split, the leaf
+    itself where it is not (so a world of 1 copies nothing)."""
+    from torch.distributed.tensor import DTensor
+    nss = tree.leaves(sharding_tree)
+    xs = tree.leaves(t)
+    if len(nss) != len(xs):
+        raise ValueError(f"{len(xs)} leaves but {len(nss)} shardings")
+    out = []
+    for x, ns in zip(xs, nss):
+        pl = ns.placements
+        local = shard_of(x, ns.mesh, pl)
+        if local is not x:
+            local = local.clone()
+        out.append(DTensor.from_local(local, ns.mesh, pl, run_check=False,
+                                      shape=x.shape, stride=x.stride()))
+    return tree.unflatten(t, out)

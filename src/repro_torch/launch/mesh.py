@@ -81,6 +81,13 @@ def mesh_shape_of(mesh) -> MeshShape:
                      pod=d.get("pod", 1))
 
 
+def mesh_device(mesh) -> torch.device:
+    """The device this rank of ``mesh`` computes on (its card on CUDA)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def make_host_mesh(n_devices: Optional[int] = None, model: int = 1, *,
                    device=None):
     """A (data, model) mesh over every rank of the world (started as a

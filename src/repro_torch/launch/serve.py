@@ -17,8 +17,11 @@ passes no frontend: whisper's cross K/V rows and llama-3.2-vision's are
 zeroed at admission (``Request.frontend`` carries one).
 
 Runs on CUDA unless ``--device cpu`` is given; with no CUDA device and no
-``--device`` it fails instead of falling back to the host.  Weights are
-random, drawn from a generator seeded with 0 on the serving device.
+``--device`` it fails instead of falling back to the host.  The engine is
+placed by its ASA plan on ``make_host_mesh`` (a world of 1, NCCL on the
+card, gloo on the CPU; torchrun's world when run under it), as the
+reference's launcher builds it.  Weights are random, drawn from a
+generator seeded with 0 on the serving device.
 
 --engine continuous  (default) the continuous-batching engine.
 --engine wave        DEPRECATED: the ``runtime.server.Server`` shim, which
@@ -130,12 +133,29 @@ def main(argv=None):
                      "shim exposes no cache hooks): use --engine "
                      "continuous")
 
-    import torch
+    import torch.distributed as dist
 
     from repro_torch import device as _device
-    from repro_torch.models import transformer as T
+    from repro_torch.launch.mesh import make_host_mesh, shutdown
 
     dev = _device.resolve(args.device)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev)      # a world of 1 unless torchrun's
+    try:
+        _serve(args, mesh)
+    finally:
+        if started:
+            shutdown()
+
+
+def _serve(args, mesh):
+    import torch
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.models import transformer as T
+
+    dev = mesh_device(mesh)
     arch = get_arch(args.arch)
     if args.smoke:
         arch = reduce_for_smoke(arch)
@@ -155,7 +175,7 @@ def main(argv=None):
 
     if args.engine == "wave":
         from repro_torch.runtime.server import Request, Server
-        server = Server(arch, params, device=dev, slots=args.slots,
+        server = Server(arch, params, mesh, slots=args.slots,
                         max_len=args.max_len, block_size=args.block_size,
                         num_blocks=args.num_blocks,
                         prefill_chunk=args.prefill_chunk)
@@ -185,7 +205,7 @@ def main(argv=None):
         from repro_torch.analysis.sanitizer import CacheSanitizer
         sanitizer = CacheSanitizer()
     engine = ContinuousBatchingEngine(
-        arch, params, device=dev, slots=args.slots, max_len=args.max_len,
+        arch, params, mesh, slots=args.slots, max_len=args.max_len,
         block_size=args.block_size, num_blocks=args.num_blocks,
         prefill_chunk=args.prefill_chunk, share_prefix=args.share_prefix,
         metrics=ServingMetrics(window_s=args.metrics_window),

@@ -11,17 +11,19 @@ request scheduler, per-request frontends and the serving metrics, none of
 which fit the legacy interface.  The shim is greedy-only: the legacy
 Request has no sampling field.  As the engine requires, max_new_tokens >=
 1, prompts are non-empty and shorter than max_len, and in-flight ids are
-unique.  The reference's ``mesh`` argument and ``plan`` property wait for
-the port's planner (the engine runs on one ``device``).
+unique.  ``mesh`` and ``scheduler`` are the engine's ``mesh`` and ``asa``,
+and ``plan`` is its ASA plan, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Optional
 
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.asa import AdaptiveScheduler
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.engine import Request as EngineRequest
 
@@ -43,24 +45,30 @@ class Server:
     prefill_chunk, ...) pass straight through to the engine.
     """
 
-    def __init__(self, arch: ArchConfig, params, *, slots: int = 4,
-                 max_len: int = 512, **engine_kwargs):
+    def __init__(self, arch: ArchConfig, params, mesh=None, *,
+                 slots: int = 4, max_len: int = 512,
+                 scheduler: Optional[AdaptiveScheduler] = None,
+                 **engine_kwargs):
         warnings.warn(
             "runtime.server.Server is a deprecated compatibility shim over "
             "repro_torch.serving.ContinuousBatchingEngine — the wave decode "
             "path has been removed; construct the engine directly",
             DeprecationWarning, stacklevel=2)
-        self.arch = arch
+        self.arch, self.mesh = arch, mesh
         self.slots, self.max_len = slots, max_len
-        self.engine = ContinuousBatchingEngine(arch, params, slots=slots,
-                                               max_len=max_len,
-                                               **engine_kwargs)
+        self.engine = ContinuousBatchingEngine(
+            arch, params, mesh, slots=slots, max_len=max_len, asa=scheduler,
+            **engine_kwargs)
         self.completed: list[Request] = []
         self._submitted: dict[int, Request] = {}
 
     @property
     def params(self):
         return self.engine.params
+
+    @property
+    def plan(self):
+        return self.engine.plan
 
     @property
     def decode_steps(self) -> int:

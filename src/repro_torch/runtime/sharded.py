@@ -2,7 +2,9 @@
 act_sharding=, grad_shardings=)``: each rank's slice of the batch, the
 weights gathered on use, Megatron's f and g around the tensor-parallel
 dense ``attn`` block, each gradient reduced to its parameter's placement,
-and the global norm over shards.
+and the global norm over shards.  A placed serving engine
+(``serving/placement.py``) runs the same gathers and the same
+tensor-parallel block, its paged path, without gradients.
 
 Params and optimizer moments are DTensors placed by the plan's specs
 (``core/sharding.py``).  The forward and backward run on plain local
@@ -227,35 +229,81 @@ def _row_parallel(fn, p_out: dict, x, tp: TPBlock):
     return y + p_out["b"].to(y.dtype) if "b" in p_out else y
 
 
+def _kv_view(cache: dict, heads: tuple):
+    """The paged pool ``cache`` ({"k", "v": (NB, BS, Hkv, D)}) at ``heads``
+    -> (view, write_back): a view where the heads are a contiguous range
+    (the attention writes the pool through it), else a copy that
+    ``write_back()`` puts back.
+
+    Where ``cache`` is the local tensor of a replicated pool, each `model`
+    rank writes only its own heads into it, so the ranks' copies differ on
+    the heads they do not own although the pool's DTensor says Replicate.
+    Such a pool must be read only through the paged step, never whole
+    (``full_tensor``, a redistribute, a checkpoint or a sanitizer read
+    would see one rank's partial copy)."""
+    lo = heads[0]
+    if heads == tuple(range(lo, lo + len(heads))):
+        return {k: t.narrow(2, lo, len(heads)) for k, t in cache.items()}, \
+            lambda: None
+    idx = torch.as_tensor(heads, device=cache["k"].device)
+    part = {k: t.index_select(2, idx) for k, t in cache.items()}
+
+    def write_back():
+        for k, t in cache.items():
+            t.index_copy_(2, idx, part[k])
+    return part, write_back
+
+
 def tp_attn_block(tp: TPBlock):
     """-> a function with ``blocks.apply_block``'s signature that applies
-    a dense ``attn`` block tensor-parallel by ``tp`` (whole-sequence
-    forward only)."""
+    a dense ``attn`` block tensor-parallel by ``tp``: the whole-sequence
+    forward, or a paged serving step (``cache`` and ``block_tables``).
+    On the paged path the rank attends with its own Q heads over the KV
+    heads they read, which it writes into ``cache`` in place: ``cache``
+    is this rank's shard of a pool sharded by KV heads over `model` (the
+    plan's paged-cache specs under MP / HP), or a whole pool (replicated:
+    the KV heads do not divide, or the weights alone are sharded), of
+    which the rank reads and writes only those heads (``_kv_view`` says
+    what that asks of the pool's readers)."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
-              cache=None, **_):
-        if kind != "attn" or cache is not None:
+              cache=None, block_tables=None, new_lens=None, **_):
+        if kind != "attn" or (cache is None) != (block_tables is None):
             raise ValueError("the tensor-parallel block is the dense attn "
-                             "block's whole-sequence forward")
+                             "block's whole-sequence forward or paged step")
+        paged = dict(cache=cache, block_tables=block_tables,
+                     new_lens=new_lens)
         cfg = B.attn_cfg_for(arch)
         h = B.norm_apply(arch, p["norm1"], x)
         if tp.attn:
             a = dict(p["attn"])
             n_kv = cfg.n_kv_heads // tp.size
+            heads = tuple(range(tp.rank * n_kv, (tp.rank + 1) * n_kv))
             if tp.kv_heads is not None:
                 a["wk"] = _pick_heads(a["wk"], tp.kv_heads, cfg.head_dim)
                 a["wv"] = _pick_heads(a["wv"], tp.kv_heads, cfg.head_dim)
-                n_kv = len(tp.kv_heads)
+                heads = tp.kv_heads
+                n_kv = len(heads)
+            # a pool sharded by KV heads holds exactly this rank's; a whole
+            # one (always so where the KV heads do not divide) is viewed at
+            # them
+            write_back = None
+            if cache is not None and (tp.kv_heads is not None
+                                      or cache["k"].shape[2] != n_kv):
+                paged["cache"], write_back = _kv_view(cache, heads)
             lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
                                        n_kv_heads=n_kv)
             wo = a.pop("wo")
 
             def attend(o, hin):
                 return L.attention({**a, "wo": o}, lcfg, hin,
-                                   positions=positions, impl=impl)[0]
+                                   positions=positions, impl=impl,
+                                   **paged)[0]
             y = _row_parallel(attend, wo, _CopyToTP.apply(h, tp.group), tp)
+            if write_back is not None:
+                write_back()
         else:
             y, _ = L.attention(p["attn"], cfg, h, positions=positions,
-                               impl=impl)
+                               impl=impl, **paged)
         x = x + y
         h = B.norm_apply(arch, p["norm2"], x)
         if tp.mlp:
@@ -266,8 +314,20 @@ def tp_attn_block(tp: TPBlock):
                               w_out, _CopyToTP.apply(h, tp.group), tp)
         else:
             y = L.mlp(p["mlp"], h, arch.act)
-        return x + y, None, 0.0
+        return x + y, cache, 0.0
     return apply
+
+
+def gather_full(local, mesh, placements: tuple):
+    """The whole tensor of which ``local`` is this rank's shard under
+    ``placements`` (all-gathered over every sharding mesh dim of more than
+    one rank); ``local`` itself where there is none."""
+    D = _dt()
+    if not any(isinstance(pl, D.Shard) and mesh.shape[i] > 1
+               for i, pl in enumerate(placements)):
+        return local
+    return D.DTensor.from_local(local, mesh, placements, run_check=False) \
+        .redistribute(mesh, (D.Replicate(),) * len(placements)).to_local()
 
 
 # ---------------------------------------------------------------------------

@@ -274,7 +274,7 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
 
 
 def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",
-                            sampler=None):
+                            sampler=None, block_fns=None):
     """-> prefill(params, cache, tokens (B,C), positions, block_tables,
     new_lens, slot_ids) -> (last_valid_logits (B,V), cache).  Called once
     per prompt *chunk*.  ``new_lens`` (B,) is the real token count per row;
@@ -286,12 +286,15 @@ def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",
     With ``sampler`` the signature gains (temperature, top_k, top_p, seeds)
     and returns (token (B,), logprob (B,), cache): the token after the
     chunk, at absolute position ``positions + new_lens`` (only consumed on
-    the final chunk of a prompt)."""
+    the final chunk of a prompt).  ``block_fns``: ``lm_apply``'s (a placed
+    engine's tensor-parallel and pool-gathering blocks,
+    ``serving/placement.py``); so for the decode step."""
     def _last_logits(params, cache, tokens, positions, block_tables,
                      new_lens, slot_ids):
         out = T.lm_apply(params, arch, tokens, cache=cache,
                          positions=positions, block_tables=block_tables,
-                         new_lens=new_lens, slot_ids=slot_ids, impl=impl)
+                         new_lens=new_lens, slot_ids=slot_ids, impl=impl,
+                         block_fns=block_fns)
         idx = (new_lens - 1).long()[:, None, None].expand(
             -1, 1, out.logits.shape[-1])
         return torch.gather(out.logits, 1, idx)[:, 0], out.cache
@@ -311,7 +314,7 @@ def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",
 
 
 def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
-                           sampler=None):
+                           sampler=None, block_fns=None):
     """-> decode(params, cache, tokens (B,1), positions, block_tables,
     slot_ids) -> (logits (B,V), cache).  Every batch row advances at its
     *own* position — rows of idle/prefilling slots point their block
@@ -324,7 +327,7 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
     def _logits(params, cache, tokens, positions, block_tables, slot_ids):
         out = T.lm_apply(params, arch, tokens, cache=cache,
                          positions=positions, block_tables=block_tables,
-                         slot_ids=slot_ids, impl=impl)
+                         slot_ids=slot_ids, impl=impl, block_fns=block_fns)
         return out.logits[:, -1], out.cache
 
     if sampler is None:

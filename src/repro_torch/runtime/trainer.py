@@ -35,7 +35,7 @@ from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core import hardware as HW
 from repro_torch.core import sharding as SH
 from repro_torch.core.asa import AdaptiveScheduler, SchedulePlan
-from repro_torch.launch.mesh import mesh_shape_of
+from repro_torch.launch.mesh import mesh_device, mesh_shape_of
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 from repro_torch.optim.quantized import QLeaf
@@ -62,12 +62,6 @@ def hardware_for(mesh) -> HW.HardwareProfile:
     """The profile a mesh's device plans with: the H100 on CUDA, the
     reference's default on the CPU."""
     return HW.H100_SXM if mesh.device_type == "cuda" else HW.TPU_V5E
-
-
-def mesh_device(mesh) -> torch.device:
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
 
 
 class Trainer:

@@ -1,8 +1,11 @@
 """The port's continuous-batching serving subsystem (twin of
 ``repro/serving/``): the engine, its typed requests and results, the
 sampler's parameters, the paged and slot-state caches, the scheduler, the
-metrics and telemetry, the Chrome tracer and the exporters.  The
-reference's ``detok.py`` and ``cluster/`` are not ported yet.
+metrics and telemetry, the Chrome tracer and the exporters; the engine's
+placement on a mesh (``placement.py``), the detokenizer and stop-string
+matcher (``detok.py``) and the multi-process serving cluster
+(``cluster/``: wire protocol, prefix affinity, router, HTTP/SSE
+frontend, workers, launcher).
 """
 from repro_torch.serving.cache_manager import (PAGEABLE_KINDS,
                                                SLOT_STATE_KINDS,

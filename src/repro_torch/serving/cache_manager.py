@@ -96,7 +96,7 @@ class UnifiedCacheManager(PagedKVCache):
     """
 
     def __init__(self, arch: ArchConfig, cfg: PagedCacheConfig, *, device,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None, specs=None):
         check_servable(arch)
         kinds = {k for seg in arch.pattern for k in seg.blocks}
         self.slot_state_kinds = sorted(kinds & SLOT_STATE_KINDS)
@@ -114,7 +114,8 @@ class UnifiedCacheManager(PagedKVCache):
                 f"with no content key.  Only purely paged archs "
                 f"(attention / MLA block kinds) may share; serve this arch "
                 f"with share_prefix=False")
-        super().__init__(arch, cfg, device=device, dtype=dtype)
+        super().__init__(arch, cfg, device=device, dtype=dtype, mesh=mesh,
+                         specs=specs)
 
     @property
     def has_slot_state(self) -> bool:

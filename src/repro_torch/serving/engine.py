@@ -60,8 +60,23 @@ trace work happens; an optional ``snapshot`` (serving/export.py
 SnapshotWriter) appends a windowed-signal JSONL line every N seconds of
 engine time; an optional ``sanitizer`` (analysis/sanitizer.py, or
 ``REPRO_SANITIZE=1`` in the environment) cross-checks the block
-allocator after every step and at drain.  Not ported yet: the
-reference's ASA plan and mesh placement.
+allocator after every step and at drain.
+
+Placement, as the reference's: ``plan`` is the ASA plan for the serve
+shape ``ShapeSpec("serve", max_len, slots, "decode")`` on the mesh's
+shape (``MeshShape(1, 1)`` without a mesh), from ``asa`` or
+``AdaptiveScheduler(faithful=False)``.  With a ``mesh`` (a
+``DeviceMesh``, ``launch/mesh.py``) the engine runs on the mesh's device,
+its params are DTensors placed by ``plan.param_specs()`` and its pools by
+``plan.paged_cache_specs()``, and every rank runs this host loop on the
+same inputs: the scheduler, the allocator and the sampler's host rows
+are deterministic, so the ranks make the same model calls, and the steps
+split what the plan shards (``serving/placement.py``: the dense attn
+blocks by heads, every other sharded block gathered around its call).
+On a world of 1 the steps see the local tensors.  Without a mesh the
+engine runs unplaced on ``device`` and computes ``plan`` when it is
+first read (planning a large model takes seconds of host time that the
+unplaced engine does not need).
 """
 from __future__ import annotations
 
@@ -74,14 +89,18 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.core.asa import AdaptiveScheduler
+from repro_torch.core.costmodel import MeshShape
 from repro_torch.core.profiler import StepMonitor
+from repro_torch.launch.mesh import mesh_device, mesh_shape_of
 from repro_torch.models import blocks as B
 from repro_torch.models import transformer as T
 from repro_torch.runtime import steps as ST
 from repro_torch.serving.cache_manager import UnifiedCacheManager
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.paged_cache import PagedCacheConfig, blocks_for
+from repro_torch.serving.placement import Placement
 from repro_torch.serving.sampling import GREEDY, SamplingParams, make_sampler
 from repro_torch.serving.scheduler import RequestScheduler
 
@@ -179,12 +198,13 @@ class _Slot:
 
 
 class ContinuousBatchingEngine:
-    def __init__(self, arch: ArchConfig, params, *, device=None,
+    def __init__(self, arch: ArchConfig, params, mesh=None, *, device=None,
                  slots: int = 4, max_len: int = 512,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 64,
                  share_prefix: bool = False,
                  scheduler: Optional[RequestScheduler] = None,
+                 asa: Optional[AdaptiveScheduler] = None,
                  metrics: Optional[ServingMetrics] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  on_token: Optional[Callable[[int, int], None]] = None,
@@ -192,26 +212,52 @@ class ContinuousBatchingEngine:
                  step_monitor: Optional[StepMonitor] = None,
                  sanitizer=None):
         """``params``: the nested param dict (``transformer.init_lm`` or a
-        converted JAX pytree); leaves not yet on ``device`` are moved there.
-        ``device`` defaults to CUDA and raises when there is none."""
+        converted JAX pytree, the same on every rank of ``mesh``); leaves
+        not yet on the engine's device are moved there.  ``mesh``: a
+        ``DeviceMesh`` to place the params and pools on, whose device the
+        engine runs on; without one, ``device``, which defaults to CUDA and
+        raises when there is none.  ``asa``: the scheduler that plans the
+        placement."""
         B.check_arch(arch)             # precise error for unported archs
-        self.arch = arch
-        self.device = _device.resolve(device)
+        self.arch, self.mesh = arch, mesh
+        if mesh is None:
+            self.device = _device.resolve(device)
+        else:
+            self.device = mesh_device(mesh)
+            if device is not None and \
+                    _device.resolve(device).type != self.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"({self.device})")
         self.max_len, self.prefill_chunk = max_len, prefill_chunk
         self.share_prefix = share_prefix
         self._clock = clock
         self.on_token = on_token
+        self._asa, self._slots = asa, slots
+        self._plan = None if mesh is None else self._make_plan()
         max_blocks_per_seq = blocks_for(max_len, block_size)
         if num_blocks is None:
             num_blocks = slots * max_blocks_per_seq + 1   # +1: null block
         self.cache = UnifiedCacheManager(
             arch, PagedCacheConfig(block_size, num_blocks, max_blocks_per_seq,
                                    slots=slots, share_prefix=share_prefix),
-            device=self.device, dtype=T.compute_dtype(arch))
-        self.params = _to_device(params, self.device)
+            device=self.device, dtype=T.compute_dtype(arch), mesh=mesh,
+            specs=None if mesh is None else self._plan.paged_cache_specs())
+        params = _to_device(params, self.device)
+        self._placed = None
+        if mesh is None:
+            self.params = params
+        else:
+            self._placed = Placement(arch, mesh, params, self.cache.pools,
+                                     self._plan.param_specs(),
+                                     self._plan.paged_cache_specs())
+            self.params = self._placed.params
+        del params
+        block_fns = None if self._placed is None else self._placed.block_fns
         sampler = make_sampler(arch.vocab)
-        self._prefill = ST.make_paged_prefill_step(arch, sampler=sampler)
-        self._decode = ST.make_paged_decode_step(arch, sampler=sampler)
+        self._prefill = ST.make_paged_prefill_step(arch, sampler=sampler,
+                                                   block_fns=block_fns)
+        self._decode = ST.make_paged_decode_step(arch, sampler=sampler,
+                                                 block_fns=block_fns)
         self._admit_slot_state = (ST.make_slot_admit_step(arch)
                                   if self.cache.has_slot_state else None)
         self.scheduler = scheduler or RequestScheduler()
@@ -237,6 +283,28 @@ class ContinuousBatchingEngine:
         self.slots = [_Slot(idx=i) for i in range(slots)]
         self.completed: list[RequestOutput] = []
         self._states: dict[int, _ReqState] = {}   # queued or running
+
+    def _make_plan(self):
+        shape = ShapeSpec("serve", self.max_len, self._slots, "decode")
+        mesh = (MeshShape(1, 1) if self.mesh is None
+                else mesh_shape_of(self.mesh))
+        return (self._asa or AdaptiveScheduler(faithful=False)).plan(
+            self.arch, shape, mesh)
+
+    @property
+    def plan(self):
+        """The ASA plan (``core.asa.SchedulePlan``) the engine is placed
+        by: made at construction with a mesh, at first read without."""
+        if self._plan is None:
+            self._plan = self._make_plan()
+        return self._plan
+
+    def _model(self):
+        """(params, pools) as the steps take them: the engine's own trees,
+        or a placed engine's working params and local pool shards."""
+        if self._placed is None:
+            return self.params, self.cache.pools
+        return self._placed.step_params(), self._placed.step_pools
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -433,9 +501,13 @@ class ContinuousBatchingEngine:
             if self._admit_slot_state is not None:
                 # reset this slot's state-pool rows (zero mamba2 state;
                 # cross K/V from the request's frontend, computed once)
-                self.cache.pools = self._admit_slot_state(
-                    self.params, self.cache.pools, slot.idx,
-                    st.req.frontend)
+                params, pools = self._model()
+                if self._placed is None:
+                    self._admit_slot_state(params, pools, slot.idx,
+                                           st.req.frontend)
+                else:
+                    self._placed.admit(self._admit_slot_state, params,
+                                       slot.idx, st.req.frontend)
         return admitted
 
     def _slot_ids(self, rows: list[Optional[int]]) -> Optional[torch.Tensor]:
@@ -461,7 +533,7 @@ class ContinuousBatchingEngine:
                 [chunk, np.zeros(self.prefill_chunk - n_new, np.int32)])
         table = self.cache.table_array([st.id])
         tok, logp, _ = self._prefill(
-            self.params, self.cache.pools, self._tensor(chunk[None, :]),
+            *self._model(), self._tensor(chunk[None, :]),
             self._tensor(np.asarray([slot.prefill_pos], np.int64)),
             self._tensor(table), self._tensor(np.asarray([n_new], np.int64)),
             self._slot_ids([slot.idx]), *self._sampling_rows([st]))
@@ -519,7 +591,7 @@ class ContinuousBatchingEngine:
         sids = self._slot_ids([s.idx if s.state == "decode" else None
                                for s in self.slots])
         tok, logp, _ = self._decode(
-            self.params, self.cache.pools, self._tensor(last),
+            *self._model(), self._tensor(last),
             self._tensor(pos), self._tensor(table), sids,
             *self._sampling_rows([s.req if s.state == "decode" else None
                                   for s in self.slots]))

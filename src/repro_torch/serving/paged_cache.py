@@ -39,6 +39,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.serving.prefix_hash import chain_keys
 
@@ -154,11 +155,17 @@ class PagedKVCache:
     pure block-table indirection."""
 
     def __init__(self, arch: ArchConfig, cfg: PagedCacheConfig, *, device,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None, specs=None):
+        """With ``mesh`` and ``specs`` (``paged_cache_specs``) the pools
+        are DTensors on ``mesh`` placed by the specs, as the reference
+        places them."""
         self.arch, self.cfg = arch, cfg
-        self.pools = T.init_paged_cache(arch, cfg.num_blocks, cfg.block_size,
-                                        device=device, dtype=dtype,
-                                        slots=cfg.slots)
+        pools = T.init_paged_cache(arch, cfg.num_blocks, cfg.block_size,
+                                   device=device, dtype=dtype,
+                                   slots=cfg.slots)
+        if mesh is not None and specs is not None:
+            pools = SH.place(pools, SH.shardings(specs, mesh))
+        self.pools = pools
         self._init_host_state()
 
     @classmethod
@@ -320,9 +327,11 @@ class PagedKVCache:
     @property
     def pool_bytes(self) -> int:
         """Device memory resident in the cache pools (every leaf: block
-        pools and slot-state rows alike, wdec's nested ones included)."""
+        pools and slot-state rows alike, wdec's nested ones included; a
+        placed pool's shard on this rank)."""
         return sum(t.numel() * t.element_size()
-                   for t in tree.leaves(self.pools))
+                   for t in (t.to_local() if hasattr(t, "to_local") else t
+                             for t in tree.leaves(self.pools)))
 
     def stats(self) -> dict:
         """JSON-able cache-layer stats: allocator occupancy, geometry, and

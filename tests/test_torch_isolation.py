@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and its entry points
 refuse to run on the host unless the CPU is asked for."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -175,3 +176,31 @@ def test_paper_demo_and_vision_init_refuse_the_host_without_device():
         V.init_vit(V.ViTConfig(n_layers=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         V.init_resnet(V.ResNetConfig(stage_sizes=(1,)))
+
+
+def test_the_cluster_modules_are_scanned():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for m in ("serving/detok.py", "serving/placement.py",
+              "serving/cluster/__init__.py", "serving/cluster/protocol.py",
+              "serving/cluster/affinity.py", "serving/cluster/router.py",
+              "serving/cluster/frontend.py", "serving/cluster/worker.py",
+              "serving/cluster/launcher.py", "launch/serve_cluster.py"):
+        assert f"src/repro_torch/{m}" in scanned, m
+
+
+def test_cluster_worker_and_launcher_refuse_the_host_without_device():
+    _no_cuda()
+    from repro_torch.serving.cluster import worker
+    with pytest.raises(RuntimeError, match="CUDA"):
+        worker.main(["--connect", "127.0.0.1:9", "--replica-id", "0",
+                     "--arch", "qwen3-8b", "--smoke"])
+    # the launcher's worker dies at boot, and the launcher fails loudly
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_cluster", "--arch",
+         "qwen3-8b", "--smoke", "--replicas", "1", "--boot-timeout", "60"],
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode != 0
+    assert "no CUDA device available" in r.stderr
+    assert "exited before connecting" in r.stderr
+    assert "serving on" not in r.stdout
