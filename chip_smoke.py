@@ -30,7 +30,12 @@ Phases, each of which fails the run (exit code 1) on any error:
    an odd width; flash at D = 160 and 256 with GQA at a ragged S, and its
    backward at D = 160 with S != T; flash forward and backward,
    bidirectional, at the paper's ViTs' train shapes, ``VISION_FLASH``, and
-   in fp32 at the split-TF32 bodies' edges, ``TF32_FLASH_EDGES``), held
+   in fp32 at the split-TF32 bodies' edges, ``TF32_FLASH_EDGES``; and at
+   the shapes 2 tensor-parallel ranks give them, ``tp_rows``: the
+   split-row RMSNorm, forward and backward, at zamba2-2.7b's and
+   mamba2-780m's (rows, d_inner / 2), the SSD scan and its backward at
+   40 of 80 and 24 of 48 heads, flash forward and backward at zamba2's
+   16 of 32 heads of 160 and whisper-medium's 8 of 16 of 64), held
    norm-wise against autograd through the plain versions (the SSD
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
@@ -290,10 +295,31 @@ Phases, each of which fails the run (exit code 1) on any error:
     SIGTERM: ``workers exited with [0, 0]``, exit 0, no worker left;
     aggregate tok/s and each request's TTFT and TPOT beside phase 4's.
 
+40. Tensor parallelism, zamba2-2.7b: published widths at 2 of its 9
+    pattern repeats (2 applications of the shared block, 12 mamba2
+    layers), two processes on the one card on a (data 1, model 2) mesh
+    over gloo (NCCL refuses two ranks on one device; ``tp_rank``) under
+    the uniform MP plan (``uniform_scheduler``): each rank runs 40 of the
+    80 SSD heads, 16 of the shared block's 32 attention heads and half its
+    d_ff, and the gated norms through the split-row RMSNorm.  Step 1's
+    loss, grad norm and every gradient, gathered whole, held against the
+    unplaced single-process step on the same weights and batch
+    (``SyntheticLM(32000, 1024, 2)``, bf16, impl="pallas") at phase 14's
+    tolerances (the loss at ``TP_LOSS_REL_TOL``); each rank's x_proj
+    working tensor 2,560 of 5,120 columns and its scans 40 heads; 4 steps
+    of the Trainer's step: their times, each rank's exact launches a step
+    (phase 14's at this depth, the 12 gated norms split), its
+    all-reduces and weight gathers; then, in fp32, the engine placed on
+    the mesh serves phase 10's requests: its tokens equal the unplaced
+    engine's (rank 0, same depth) on every rank, each prefill call's
+    logits within ``TP_LOGIT_TOL`` of max |logit|, every block on its own
+    heads (``tp_shared_block``, ``tp_mamba2_block``), its launches
+    ``forward_launches``' with the gated norms split.
+
 The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
-trains, with every serving weight freed), 33, 34, 35, 36, 37; each
+trains, with every serving weight freed), 33, 34, 35, 36, 37, 40; each
 phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
@@ -482,8 +508,9 @@ TRAIN = {QWEN: dict(_TRAIN, depth=(4,), seq_len=512),
          ZAMBA: dict(_TRAIN, seq_len=1024, check_remat="full"),
          DEEPSEEK: dict(_TRAIN, depth=(1, 0), seq_len=512),
          WHISPER: dict(_TRAIN, seq_len=448)}
-KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+KERNELS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_split", "rmsnorm_split_bwd",
+           "flash_attention", "flash_attention_bwd", "ssd_scan",
+           "ssd_scan_bwd")
 # the CUDA kernels one ssd_scan call launches: the fp32 body's one, the
 # bf16 body's three (chunk states, state passing, chunk outputs)
 SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel",
@@ -545,6 +572,24 @@ BWD_GQA_EDGES = (MINITRON, ARCTIC, CMDR)
 NORM_WIDE_EDGES = [("edge", "command-r-plus-104b d_model", 1024, 12288),
                    ("edge", "looped: past 16,384", 256, 16392),
                    ("edge", "looped: odd width", 256, 12289)]
+# phase 40, tensor parallelism on the one card: zamba2-2.7b at published
+# widths and 2 of its 9 pattern repeats (2 applications of the shared
+# block, 12 mamba2 layers; the cut is depth only, for the script's time),
+# TP_MODEL processes on a (data 1, model TP_MODEL) mesh over gloo (NCCL
+# refuses two ranks on one device) under the uniform MP plan
+TP_NAME = f"tp {ZAMBA}"
+TP_DEPTH = (2,)
+TP_MODEL = 2
+# step 1's loss through the sharded step against the unplaced step's, both
+# bf16 end to end through the kernels: the ranks' row-parallel products
+# are summed in bf16 by the all-reduce where the unplaced product sums in
+# fp32 once, which moves each layer's output by about one bf16 rounding;
+# the mean over 2,048 tokens' cross-entropy moves far less than that
+TP_LOSS_REL_TOL = 2e-3
+# the placed fp32 serve's prefill logits against the unplaced engine's:
+# max |diff| <= TP_LOGIT_TOL * max |unplaced| for each prefill call (the
+# same fp32 sums in another order, ~1e-6 of the scale)
+TP_LOGIT_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1032,7 +1077,7 @@ def flash_rows(torch, cases, iters, randn, dtypes):
 def kernel_phase(torch, archs, iters):
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1072,39 +1117,14 @@ def kernel_phase(torch, archs, iters):
 
         rows += flash_rows(torch, flash_cases, iters, randn, dtypes)
 
-        for path, B, S, G, has_h0 in ssd_cases:
-            s = arch.ssm
-            H = s.expand * arch.d_model // s.head_dim
-            P, N, chunk = s.head_dim, s.d_state, s.chunk
-            Q = min(chunk, S)
-            dt_bias = ssd_init_dt_bias(torch, gen, H)
-            for dt, dn in dtypes:
-                x, Bm, Cm, dtv, a, h0 = ssd_inputs(torch, gen, B, S, H, P, N,
-                                                   G, dt_bias, dt, has_h0)
-
-                def kernel():
-                    return ops.ssd_scan(x, Bm, Cm, dtv, a, h0, chunk=chunk)
-
-                def plain():
-                    return ref.ssd_scan_ref(x, Bm, Cm, dtv, a, h0,
-                                            chunk=chunk)
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
-                err, ok, tol = check_ssd(got, want)
-                nbytes, flops = ssd_work(B, S, H, P, N, G, Q, dn,
-                                         x.element_size(), has_h0)
-                rows.append(dict(
-                    name="ssd_scan", path=path, use="scan",
-                    shape=f"B={B} S={S} H={H} P={P} N={N} G={G} Q={Q}"
-                          f"{' h0' if has_h0 else ''}",
-                    dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                    ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
-                    plain_ms=time_ms(plain, iters), library_ms=None,
-                    bytes=nbytes, flops=sum(flops.values()),
-                    **bound(nbytes, flops)))
+        if ssd_cases:
+            rows += ssd_rows(torch, arch.ssm, ssd_heads(arch), ssd_cases,
+                             iters, gen, dtypes)
     for name, arch in archs.items():
         if name in TRAIN:
             rows += backward_rows(torch, name, arch, iters, gen, dtypes)
+    # the shapes tensor parallelism on 2 ranks gives the kernels (phase 40)
+    rows += tp_rows(torch, archs, iters, gen, randn, dtypes)
     # the paper's ViTs (phases 35 and 37) train through flash, bidirectional
     rows += flash_rows(torch, VISION_FLASH, iters, randn, dtypes)
     rows += flash_bwd_rows(torch, VISION_FLASH, iters, randn, dtypes)
@@ -1114,6 +1134,157 @@ def kernel_phase(torch, archs, iters):
     return rows
 
 
+def ssd_heads(arch):
+    return arch.ssm.expand * arch.d_model // arch.ssm.head_dim
+
+
+def ssd_rows(torch, s, H, cases, iters, gen, dtypes):
+    """The SSD scan kernel against its plain version at ``cases``, ``(path,
+    B, S, G, h0)`` each, for the SSM spec ``s`` at ``H`` heads."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for path, B, S, G, has_h0 in cases:
+        P, N, chunk = s.head_dim, s.d_state, s.chunk
+        Q = min(chunk, S)
+        dt_bias = ssd_init_dt_bias(torch, gen, H)
+        for dt, dn in dtypes:
+            x, Bm, Cm, dtv, a, h0 = ssd_inputs(torch, gen, B, S, H, P, N, G,
+                                               dt_bias, dt, has_h0)
+
+            def kernel():
+                return ops.ssd_scan(x, Bm, Cm, dtv, a, h0, chunk=chunk)
+
+            def plain():
+                return ref.ssd_scan_ref(x, Bm, Cm, dtv, a, h0, chunk=chunk)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err, ok, tol = check_ssd(got, want)
+            nbytes, flops = ssd_work(B, S, H, P, N, G, Q, dn,
+                                     x.element_size(), has_h0)
+            rows.append(dict(
+                name="ssd_scan", path=path, use="scan",
+                shape=f"B={B} S={S} H={H} P={P} N={N} G={G} Q={Q}"
+                      f"{' h0' if has_h0 else ''}",
+                dtype=dn, ok=ok, max_abs_err=err, tol=tol,
+                ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
+                plain_ms=time_ms(plain, iters), library_ms=None,
+                bytes=nbytes, flops=sum(flops.values()),
+                **bound(nbytes, flops)))
+    return rows
+
+
+def split_norm_rows(torch, cases, iters, gen, dtypes):
+    """The split-row RMSNorm's kernels, forward and backward, at ``cases``
+    (``(path, use, rows, D)``: this rank's D of each row's 2 D columns, as
+    2 ranks split mamba2's gated norm) against autograd through its plain
+    version, ``ref.rmsnorm_split_ref`` over d_total = 2 D.  On one card
+    without a group, the two launches of each direction run back to back
+    (the all-reduce between them is phase 40's), the other rank's sums
+    taken as 0.  No PyTorch call computes a split row (library_ms None).
+    The backward's plain time is that of its formula in plain PyTorch
+    (``split_norm_bwd_plain``; a CUDA graph that captures autograd through
+    ``rmsnorm_split_ref`` fails on the card with "operation would make the
+    legacy stream depend on a capturing blocking stream").  Bound: bytes,
+    x, scale and g read once, y, dx and dscale written once, and each
+    row's sums (4 bytes forward, 8 backward) written and read once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+    rows = []
+    for path, use, R, D in cases:
+        for dt, dn in dtypes:
+            x, g = (torch.randn((R, D), generator=gen, device="cuda").to(dt)
+                    for _ in range(2))
+            scale = (1.0 + 0.1 * torch.randn(D, generator=gen,
+                                             device="cuda")).to(dt)
+
+            def fwd():
+                return RN._split_forward(x, scale, 1e-6, 2 * D, None)
+
+            def bwd():
+                return RN._split_backward(x, scale, g, 1e-6, 2 * D, None)
+            xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
+            want = ref.rmsnorm_split_ref(xr, sr, d_total=2 * D)
+            want_g = torch.autograd.grad(want, (xr, sr), g)
+            got, got_g = fwd(), bwd()
+            torch.cuda.synchronize()
+            isz = x.element_size()
+            for name, (err, ok, tol), ms, plain_ms, nbytes, flops in (
+                    ("rmsnorm_split", check_close(got, want.detach(), dn),
+                     time_ms(fwd, iters),
+                     time_ms(lambda: ref.rmsnorm_split_ref(
+                         x, scale, d_total=2 * D), iters),
+                     2 * R * D * isz + D * isz + 8 * R, 4 * R * D),
+                    ("rmsnorm_split_bwd",
+                     check_normwise(got_g, want_g, dn), time_ms(bwd, iters),
+                     time_ms(lambda: split_norm_bwd_plain(x, scale, g, 2 * D),
+                             iters),
+                     3 * R * D * isz + 2 * D * isz + 16 * R, 8 * R * D)):
+                rows.append(dict(
+                    name=name, path=path, use=use,
+                    shape=f"({R}, {D}) of {2 * D}", dtype=dn, ok=ok,
+                    max_abs_err=err, tol=tol, ms=ms,
+                    call_ms=call_ms(fwd if name == "rmsnorm_split" else bwd,
+                                    iters),
+                    plain_ms=plain_ms, library_ms=None, bytes=nbytes,
+                    flops=flops, **bound(nbytes, {"float32": flops})))
+    return rows
+
+
+def split_norm_bwd_plain(x, scale, g, d_total, eps=1e-6):
+    """The split row's backward in plain PyTorch, fp32: dx = r (g s - xh
+    r sum(g s x) / d_total), dscale = sum over rows of g xh, xh = x r, r
+    = rsqrt(sum(x^2) / d_total + eps) (this rank's sums; the other
+    ranks' taken as 0)."""
+    import torch
+    xf, gf, sf = x.float(), g.float(), scale.float()
+    r = torch.rsqrt(xf.square().sum(-1, keepdim=True) / d_total + eps)
+    gsx = (gf * sf * xf).sum(-1, keepdim=True)
+    dx = r * (gf * sf - xf * r * r * gsx / d_total)
+    return dx.to(x.dtype), (gf * xf * r).sum(0).to(scale.dtype)
+
+
+def tp_rows(torch, archs, iters, gen, randn, dtypes):
+    """The kernels at the shapes 2 tensor-parallel ranks give them:
+    phase 40's zamba2-2.7b train step and placed serve, mamba2-780m's
+    train step, whisper-medium's decoder self-attention at its train
+    step.  The split-row RMSNorm at (rows, d_inner / 2); the SSD scan at H
+    / 2, forward and backward (zamba2 40 of 80, mamba2-780m 24 of 48);
+    flash at the local heads (zamba2's shared block 16 of 32 at D = 160,
+    whisper's 8 of 16 at D = 64), forward and backward."""
+    z, m, w = archs[ZAMBA], archs[MAMBA], archs[WHISPER]
+    zt, mt, wt = TRAIN[ZAMBA], TRAIN[MAMBA], TRAIN[WHISPER]
+    st = SERVE[ZAMBA]
+    zi, mi = z.ssm.expand * z.d_model // 2, m.ssm.expand * m.d_model // 2
+    use = "gated norm (split)"
+    rows = split_norm_rows(torch, [
+        (f"{TP_NAME} train", use, zt["batch"] * zt["seq_len"], zi),
+        (f"{TP_NAME} serve prefill", use, st["prefill_chunk"], zi),
+        (f"{TP_NAME} serve decode", use, st["slots"], zi),
+        (f"tp {MAMBA} train", use, mt["batch"] * mt["seq_len"], mi)],
+        iters, gen, dtypes)
+    rows += ssd_rows(torch, z.ssm, ssd_heads(z) // 2, [
+        (f"{TP_NAME} train", zt["batch"], zt["seq_len"], 1, False),
+        (f"{TP_NAME} serve prefill", 1, st["prefill_chunk"], 1, True)],
+        iters, gen, dtypes)
+    rows += ssd_rows(torch, m.ssm, ssd_heads(m) // 2, [
+        (f"tp {MAMBA} train", mt["batch"], mt["seq_len"], 1, False)],
+        iters, gen, dtypes)
+    rows += ssd_backward_rows(torch, z, [
+        (f"{TP_NAME} train", zt["batch"], zt["seq_len"], 1, False, False)],
+        iters, gen, dtypes, H=ssd_heads(z) // 2)
+    rows += ssd_backward_rows(torch, m, [
+        (f"tp {MAMBA} train", mt["batch"], mt["seq_len"], 1, False, False)],
+        iters, gen, dtypes, H=ssd_heads(m) // 2)
+    H, Hkv, D = _attn_dims(z)
+    wH, wHkv, wD = _attn_dims(w)
+    flash = [(f"{TP_NAME} train", zt["batch"], zt["seq_len"], zt["seq_len"],
+              H // 2, Hkv // 2, D, True),
+             (f"tp {WHISPER} train", wt["batch"], wt["seq_len"],
+              wt["seq_len"], wH // 2, wHkv // 2, wD, True)]
+    return rows + flash_rows(torch, flash, iters, randn, dtypes) + \
+        flash_bwd_rows(torch, flash, iters, randn, dtypes)
+
+
 def ssd_init_dt_bias(torch, gen, H):
     """The init's dt_bias: inverse softplus of log-uniform [1e-3, 0.1]."""
     u = torch.rand((H,), generator=gen, device="cuda")
@@ -1121,18 +1292,19 @@ def ssd_init_dt_bias(torch, gen, H):
     return dt0 + torch.log(-torch.expm1(-dt0))
 
 
-def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes):
+def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes, H=None):
     """The SSD scan's backward kernel against autograd through the plain
-    scan, at ``cases`` (``train_cases``).  No single PyTorch call computes
-    this function (library_ms None); plain_ms is the backward's share of
-    autograd through ``ref.ssd_scan_ref``."""
+    scan, at ``cases`` (``train_cases``), at the arch's heads or ``H``.
+    No single PyTorch call computes this function (library_ms None);
+    plain_ms is the backward's share of autograd through
+    ``ref.ssd_scan_ref``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SSD
 
     rows = []
     for path, B, S, G, has_h0, has_dh in cases:
+        H = H or ssd_heads(arch)
         s = arch.ssm
-        H = s.expand * arch.d_model // s.head_dim
         P, N, chunk = s.head_dim, s.d_state, s.chunk
         Q = min(chunk, S)
         dt_bias = ssd_init_dt_bias(torch, gen, H)
@@ -1293,6 +1465,8 @@ def _wrappers():
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
     return {"rmsnorm": RN.rmsnorm, "rmsnorm_bwd": RN.rmsnorm_bwd,
+            "rmsnorm_split": RN.rmsnorm_split,
+            "rmsnorm_split_bwd": RN.rmsnorm_split_bwd,
             "flash_attention": FA.flash_attention,
             "flash_attention_bwd": FA.flash_attention_bwd,
             "ssd_scan": SSD.ssd_scan, "ssd_scan_bwd": SSD.ssd_scan_bwd}
@@ -3476,6 +3650,410 @@ def paper_phase(torch, report, card, profile=False):
     del params
 
 
+def uniform_scheduler(strategy):
+    """The ASA scheduler for the H100 whose plan is ``strategy`` on every
+    component (the reference's ``solve_uniform`` baseline), one
+    microbatch."""
+    from repro_torch.core import solver as SV
+    from repro_torch.core.asa import AdaptiveScheduler
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.strategy import Strategy
+
+    class Uniform(AdaptiveScheduler):
+        def plan(self, arch, shape, mesh):
+            sp = super().plan(arch, shape, mesh)
+            cm = self._cost_model(mesh, shape.kind)
+            sp.plan = SV.solve_uniform(cm, sp.comps, Strategy(strategy))
+            sp.microbatches = 1
+            return sp
+    return Uniform(H100_SXM, faithful=False)
+
+
+def tp_phase(torch, report, card):
+    """40. zamba2-2.7b tensor-parallel on the one card: TP_MODEL processes
+    on a (data 1, model TP_MODEL) mesh over gloo, under the uniform MP plan
+    (``tp_rank``); the ranks' results printed and kept."""
+    import shutil
+    import socket
+
+    import torch.multiprocessing as mp
+
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    try:
+        mp.start_processes(tp_rank, args=(TP_MODEL, port, str(out)),
+                           nprocs=TP_MODEL, start_method="spawn")
+        if not (out / "tp.json").exists():
+            fail(f"{TP_NAME}: the ranks exited without a result")
+        res = json.loads((out / "tp.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    t, sv = res["train"], res["serve"]
+    report[TP_NAME] = dict(res, launches=t["launches"])
+    print(f"tp: {ZAMBA} at {t['layers']} layers (2 x 2560 shared block, 12 "
+          f"mamba2), {TP_MODEL} ranks of a (1, {TP_MODEL}) mesh over "
+          f"{res['backend']} on one card, uniform MP ({t['method']}): step "
+          f"1 loss {t['loss']:.6f} vs unplaced {t['loss_unplaced']:.6f}, "
+          f"grad norm {t['grad_norm']:.6g} vs {t['grad_norm_unplaced']:.6g}, "
+          f"{t['n_leaves']} gathered grads: worst cosine "
+          f"{t['worst_cos']:.6f} at {t['worst_cos_leaf']}, worst rel L2 "
+          f"{t['worst_rel_l2']:.4g} at {t['worst_rel_l2_leaf']}; x_proj "
+          f"working {t['x_proj']}, SSD heads {t['ssd_heads']}; "
+          f"{len(t['step_s'])} steps: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in t['step_s'])} ms (median "
+          f"of 2-{len(t['step_s'])} {t['step_ms_median']:.1f} ms; the "
+          f"unplaced step on one process {t['unplaced_step_ms']:.1f} ms), "
+          f"losses {[round(x, 5) for x in t['losses']]}; rank 0's launches "
+          f"a step {t['launches_per_step']}; all-reduces a step "
+          f"{t['tp_all_reduces_per_step']} ({t['tp_all_reduce_mb_per_step']:.1f}"
+          f" MB), weight gathers a step {t['gathers_per_step']}; peak "
+          f"memory {t['peak_mem_gb']:.2f} GB a rank, on {card}")
+    print(f"tp: placed fp32 serve of {sv['requests']} requests on the mesh: "
+          f"tokens equal the unplaced engine's; {sv['prefills']} prefill "
+          f"calls' logits within {sv['worst_logit_rel']:.3g} of max |logit| "
+          f"(max {TP_LOGIT_TOL:g}); blocks {sv['block_fns']}; {sv['tokens']} "
+          f"tokens in {sv['wall_s']:.2f} s = {sv['tok_per_s']:.1f} tok/s "
+          f"(unplaced {sv['unplaced_tok_per_s']:.1f}); launches {sv['launches']}")
+
+
+def tp_rank(rank, world, port, out):
+    """Phase 40's rank ``rank`` of ``world`` processes on card 0: a gloo
+    group over CUDA tensors and a (1, world) mesh; the train check and
+    steps (``tp_train``), then the placed serve (``tp_serve``); rank 0
+    writes the results to ``out``/tp.json."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as M
+    mesh = M.make_host_mesh(model=world, device="cuda", backend="gloo")
+    res = {"backend": "gloo", "world": world}
+    try:
+        res["train"] = tp_train(torch, mesh)
+        res["serve"] = tp_serve(torch, np, mesh)
+    finally:
+        M.shutdown()
+    if rank == 0:
+        pathlib.Path(out, "tp.json").write_text(json.dumps(res))
+
+
+class _Recorder:
+    """Counts and records what a step computes on this rank while entered:
+    the x_proj width of every mamba2 mixer, the heads of every SSD scan,
+    the all-reduces (``torch.distributed.all_reduce``: Megatron's f and
+    g, the split norm's sums, the replicated leaves' gradients, the
+    step's metrics and norm) with their bytes, and the weight gathers
+    (``sharded._Gather``: each leaf's, or each application's of a stacked
+    leaf)."""
+
+    def __init__(self):
+        self.x_proj, self.ssd_heads = set(), set()
+        self.all_reduces, self.all_reduce_bytes, self.gathers = 0, 0, 0
+
+    def __enter__(self):
+        from unittest import mock
+
+        import torch.distributed as dist
+
+        from repro_torch.kernels import ops
+        from repro_torch.models import blocks as B
+        from repro_torch.runtime import sharded as SD
+        mixer, scan = B.mamba2_mixer, ops.ssd_scan
+        reduce, gather = dist.all_reduce, SD._Gather.apply
+
+        def mixer_(p, *a, **k):
+            self.x_proj.add(tuple(p["x_proj"]["w"].shape))
+            return mixer(p, *a, **k)
+
+        def scan_(x, *a, **k):
+            self.ssd_heads.add(x.shape[2])
+            return scan(x, *a, **k)
+
+        def reduce_(t, *a, **k):
+            self.all_reduces += 1
+            self.all_reduce_bytes += t.numel() * t.element_size()
+            return reduce(t, *a, **k)
+
+        def gather_(*a):
+            self.gathers += 1
+            return gather(*a)
+        self.patches = [mock.patch.object(B, "mamba2_mixer", mixer_),
+                        mock.patch.object(ops, "ssd_scan", scan_),
+                        mock.patch.object(dist, "all_reduce", reduce_),
+                        mock.patch.object(SD._Gather, "apply", gather_)]
+        for pt in self.patches:
+            pt.start()
+        return self
+
+    def __exit__(self, *exc):
+        for pt in self.patches:
+            pt.stop()
+
+
+def tp_train(torch, mesh):
+    """Phase 40's train part on this rank: zamba2 at ``TP_DEPTH``, bf16,
+    impl="pallas", ``TRAIN[ZAMBA]``'s batches.  Step 1's loss, grad norm
+    and every gradient (gathered whole) through the sharded step, held
+    against the unplaced single-process step (rank 0) on the same weights
+    and batch at phase 14's tolerances; then ``TRAIN[ZAMBA]["steps"]``
+    steps of the Trainer's step: their times (host clock, synchronised),
+    this rank's launches a step (each kernel's exact count) and its
+    collectives."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import sharding as SH
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as O
+    from repro_torch.runtime import sharded as SD
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    rank = dist.get_rank()
+    cfg = TRAIN[ZAMBA]
+    arch = cut_depth(get_arch(ZAMBA), TP_DEPTH)
+    params = T.init_lm(arch, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    data = SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"])
+    batches = [next(data) for _ in range(cfg["steps"] + 1)]
+    tok, lab = (torch.as_tensor(batches[0][k], device="cuda")
+                for k in ("tokens", "labels"))
+    names = tree.names(params)
+    if rank == 0:   # the unplaced single-process step, timed as one step
+        loss_fn = ST.make_loss_fn(arch, impl="pallas")
+        ST.loss_and_grads(loss_fn, params, tok, lab)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_u, _, g_u = ST.loss_and_grads(loss_fn, params, tok, lab)
+        torch.cuda.synchronize()
+        unplaced_s = time.perf_counter() - t0
+    tr = Trainer(arch, ShapeSpec("tp", cfg["seq_len"], cfg["batch"],
+                                 "train"), mesh,
+                 TrainConfig(lr=cfg["peak_lr"], warmup_steps=cfg["warmup"],
+                             total_steps=cfg["total"], impl="pallas",
+                             microbatches=1),
+                 scheduler=uniform_scheduler("MP"))
+    # every rank holds the same whole params: each keeps its shards
+    p = SH.place(params, tr._pns)
+    o = tr._init_opt(p)
+    del params
+    # step 1's grads through the sharded step: no clipping, an optimizer
+    # that keeps the reduced grads and updates nothing
+    kept = {}
+
+    def keep(grads, state, params_):
+        kept["g"] = tree.leaves(grads)
+        return tree.map(torch.zeros_like, grads), state
+    _, _, act_ns = tr._specs()
+    check = ST.make_train_step(arch, (None, keep), microbatches=1,
+                               impl="pallas", act_sharding=act_ns,
+                               grad_shardings=tr._pns,
+                               clip_norm=float("inf"))
+    with _Recorder() as seen:
+        p, o, m1 = check(p, o, batches[0])
+    # (SD.gather_full: DTensor's full_tensor faults on gloo over CUDA)
+    g_full = [SD.gather_full(g, mesh, ns.placements)
+              for g, ns in zip(kept.pop("g"), tree.leaves(tr._pns))]
+    d_inner = arch.ssm.expand * arch.d_model
+    H = d_inner // arch.ssm.head_dim
+    if seen.x_proj != {(arch.d_model, d_inner // TP_MODEL)} or \
+            seen.ssd_heads != {H // TP_MODEL}:
+        fail(f"{TP_NAME}: rank {rank}'s x_proj working tensors "
+             f"{seen.x_proj}, SSD heads {seen.ssd_heads} (want "
+             f"{d_inner // TP_MODEL} of {d_inner} columns, {H // TP_MODEL} "
+             f"heads)")
+    out = {}
+    if rank == 0:
+        diffs = grad_diffs(torch, names, g_full, g_u)
+        bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}"
+               for n, (c, r) in diffs.items()
+               if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+        gn_u = float(O.global_norm(g_u))
+        gn, loss = float(m1["grad_norm"]), float(m1["loss"])
+        if not abs(loss - float(loss_u)) <= TP_LOSS_REL_TOL * abs(
+                float(loss_u)):
+            bad.append(f"loss {loss} vs unplaced {float(loss_u)}")
+        if not abs(gn - gn_u) <= GRAD_NORM_REL_TOL * gn_u:
+            bad.append(f"grad norm {gn} vs unplaced {gn_u}")
+        if bad:
+            fail(f"{TP_NAME}: step 1 differs from the unplaced step's: "
+                 f"{bad}")
+        cos_leaf = min(diffs, key=lambda n: diffs[n][0])
+        rel_leaf, rel = worst(diffs)
+        out.update(loss=loss, loss_unplaced=float(loss_u), grad_norm=gn,
+                   grad_norm_unplaced=gn_u, n_leaves=len(names),
+                   worst_cos=diffs[cos_leaf][0], worst_cos_leaf=cos_leaf,
+                   worst_rel_l2=rel, worst_rel_l2_leaf=rel_leaf,
+                   rel_l2={n: r for n, (_, r) in diffs.items()},
+                   unplaced_step_ms=unplaced_s * 1e3)
+        del g_u
+    del g_full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    step_s, losses, gnorms = [], [], []
+    with _Recorder() as coll:
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = tr._step_fn(p, o, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    counts = read_counts()
+    steps = cfg["steps"]
+    # the gated norms run split; every other kernel as phase 14's step
+    want = train_launches(arch)
+    g = block_counts(arch)["mamba2"]
+    want.update(rmsnorm=want["rmsnorm"] - g,
+                rmsnorm_bwd=want["rmsnorm_bwd"] - g, rmsnorm_split=g,
+                rmsnorm_split_bwd=g)
+    if any(counts[k] != n * steps for k, n in want.items()):
+        fail(f"{TP_NAME}: rank {rank}'s launches {counts}, want {want} a "
+             f"step")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"{TP_NAME}: losses {losses} / grad norms {gnorms} not finite")
+    out.update(
+        layers=arch.n_layers, method=tr.plan.plan.method,
+        x_proj=sorted(seen.x_proj), ssd_heads=sorted(seen.ssd_heads),
+        step_s=step_s,
+        step_ms_median=sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3,
+        losses=losses, grad_norms=gnorms, launches=counts,
+        launches_per_step={k: c / steps for k, c in counts.items()},
+        tp_all_reduces_per_step=coll.all_reduces / steps,
+        tp_all_reduce_mb_per_step=coll.all_reduce_bytes / steps / 1e6,
+        gathers_per_step=coll.gathers / steps,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(torch, np, mesh):
+    """Phase 40's serve part: zamba2 at ``TP_DEPTH`` in fp32, seeded
+    weights, phase 10's requests and settings; rank 0 serves them unplaced
+    first, then every rank through the engine placed on ``mesh`` under
+    the uniform MP plan.  The placed tokens must equal the unplaced
+    engine's on every rank, each prefill call's logits (the rows it
+    serves) within TP_LOGIT_TOL of max |logit|, every block must run its
+    tensor-parallel function, and the launches must be
+    ``forward_launches``' with the gated norms split."""
+    import dataclasses
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    rank = dist.get_rank()
+    st = SERVE[ZAMBA]
+    arch = dataclasses.replace(cut_depth(get_arch(ZAMBA), TP_DEPTH),
+                               dtype="float32", param_dtype="float32")
+    params = T.init_lm(arch, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
+               .astype(np.int32) for _ in range(st["requests"])]
+
+    def requests():
+        return [Request(id=i, prompt=q, max_new_tokens=st["max_new"])
+                for i, q in enumerate(prompts)]
+
+    def serve(eng):
+        """-> ({request: tokens}, the prefill calls' logits, seconds)."""
+        real, logits = T.lm_apply, []
+
+        def lm_apply(*a, **k):
+            out = real(*a, **k)
+            nl = k.get("new_lens")
+            if k.get("cache") is not None and nl is not None:
+                live = nl > 0
+                last = (nl - 1).clamp_min(0).long()
+                logits.append(out.logits[torch.arange(
+                    len(nl), device=nl.device), last][live].float().cpu())
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(T, "lm_apply", lm_apply):
+            outs = eng.generate(requests())
+        torch.cuda.synchronize()
+        return ({o.request_id: o.token_ids for o in outs}, logits,
+                time.perf_counter() - t0)
+    kw = engine_kwargs(ZAMBA)
+    if rank == 0:
+        want, want_logits, want_s = serve(ContinuousBatchingEngine(
+            arch, params, **kw))
+    dist.barrier()
+    eng = ContinuousBatchingEngine(arch, params, mesh,
+                                   asa=uniform_scheduler("MP"), **kw)
+    fns = {bi: fn.__qualname__.split(".")[0]
+           for si, f in eng._placed.block_fns.items() if si != "encoder"
+           for bi, fn in f.items()}
+    wanted = {0: "tp_shared_block", **{bi: "tp_mamba2_block"
+                                       for bi in range(1, 7)}}
+    if fns != wanted:
+        fail(f"{TP_NAME}: the placed blocks run {fns}, want {wanted}")
+    reset_counts()
+    got, logits, wall = serve(eng)
+    counts = read_counts()
+    s = eng.metrics.summary()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got)
+    if any(e != every[0] for e in every):
+        fail(f"{TP_NAME}: the ranks' placed tokens differ")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    fl = forward_launches(arch)
+    g = block_counts(arch)["mamba2"]
+    want_counts = dict(rmsnorm=(fl["rmsnorm"] - g) * calls,
+                       rmsnorm_split=g * calls, flash_attention=0,
+                       ssd_scan=fl["ssd_scan"] * s["prefill_chunks"])
+    if any(counts[k] != n for k, n in want_counts.items()):
+        fail(f"{TP_NAME}: placed serve launches {counts}, want "
+             f"{want_counts} for {s['prefill_chunks']} prefill chunks and "
+             f"{s['decode_steps']} decode steps")
+    out = dict(requests=len(prompts), block_fns=fns, launches=counts,
+               prefills=len(logits), tokens=sum(map(len, got.values())),
+               wall_s=wall)
+    out["tok_per_s"] = out["tokens"] / wall
+    if rank == 0:
+        if got != want:
+            bad = [i for i in want if got[i] != want[i]]
+            fail(f"{TP_NAME}: placed requests {bad} differ from the "
+                 f"unplaced engine's tokens")
+        if len(logits) != len(want_logits):
+            fail(f"{TP_NAME}: {len(logits)} placed prefill calls, "
+                 f"{len(want_logits)} unplaced")
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(logits, want_logits)]
+        if not max(rels) <= TP_LOGIT_TOL:
+            fail(f"{TP_NAME}: placed prefill logits differ by up to "
+                 f"{max(rels):.3g} of max |logit| (max {TP_LOGIT_TOL:g})")
+        out.update(worst_logit_rel=max(rels), unplaced_wall_s=want_s,
+                   unplaced_tok_per_s=out["tokens"] / want_s)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3565,6 +4143,7 @@ def main() -> int:
     paths += [f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
+    paths += [TP_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -3629,6 +4208,10 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             timed(label, phase, torch, report, card, profile=args.profile)
+        # 40. zamba2 tensor-parallel on 2 ranks of the one card
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(TP_NAME, tp_phase, torch, report, card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its
@@ -3650,15 +4233,24 @@ def main() -> int:
         "flash_attention_bwd": (f"train {QWEN}", f"{QWEN} train",
                                 "attention"),
         "ssd_scan": (f"serve {MAMBA}", f"{MAMBA} serve prefill", "scan"),
-        "ssd_scan_bwd": (f"train {MAMBA}", f"{MAMBA} train", "scan")}
+        "ssd_scan_bwd": (f"train {MAMBA}", f"{MAMBA} train", "scan"),
+        "rmsnorm_split": (TP_NAME, f"{TP_NAME} train", "gated norm (split)"),
+        "rmsnorm_split_bwd": (TP_NAME, f"{TP_NAME} train",
+                              "gated norm (split)")}
+    # the split-row RMSNorm partitions the whole-row one: it replaces the
+    # same TPU kernel, whose rows the reference's GSPMD splits with one
+    # all-reduce of the sums of squares
     replaces = {"rmsnorm": "src/repro/kernels/rmsnorm.py:20",
                 "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:20",
+                "rmsnorm_split": "src/repro/kernels/rmsnorm.py:20",
+                "rmsnorm_split_bwd": "src/repro/kernels/rmsnorm.py:20",
                 "flash_attention": "src/repro/kernels/flash_attention.py:77",
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:77",
                 "ssd_scan": "src/repro/kernels/ssd_scan.py:71",
                 "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:71"}
-    sources = {"rmsnorm_bwd": "rmsnorm"}
+    sources = {"rmsnorm_bwd": "rmsnorm", "rmsnorm_split": "rmsnorm",
+               "rmsnorm_split_bwd": "rmsnorm"}
     kernels = []
     for name, (path, case_path, use) in headline.items():
         r = next(r for r in rows if r["name"] == name and r["path"] ==

@@ -72,6 +72,24 @@
 //     blocks are in place and waiting when the row kernel ends.  No float
 //     atomics: the order is a function of the shape alone, so dscale is
 //     the same on every run.
+//
+// Split rows (repro_rmsnorm_split, repro_rmsnorm_split_bwd): a row split
+// over ranks, each holding d of its d_total columns (mamba2's gated norm
+// over d_inner under tensor parallelism, the heads over `model`).  It
+// replaces no TPU kernel of its own: the reference's Pallas RMSNorm runs
+// whole rows, and GSPMD partitions the jnp norm of the tensor-parallel
+// mixer with one all-reduce of the sum of squares.  This is that
+// partition, on the same row loops: every body above takes a template
+// mode (kSplit).  kSumSq runs the row loop's loads and sums and writes
+// each row's sum over this rank's columns (the forward: sum(x^2); the
+// backward: sum(x^2) and sum(g*s*x), two floats a row) and writes nothing
+// else; the caller all-reduces them over the ranks; kApply reads the
+// summed values and runs the rest of the body with d_total in place of d
+// (the forward: y; the backward: dx, the partial rows and dscale, this
+// rank's columns of it).  At d_total = d, with one rank, the two launches
+// give the whole-row kernel's bits: the same sums in the same order.
+// Bound: bytes, as the whole-row kernel, plus one read of x (and g) more
+// in the second launch; the sums are 4 or 8 bytes a row.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -88,6 +106,10 @@ constexpr int kDscaleCols = 32;    // columns a block of the dscale pass
 constexpr int kDscaleWarps = 8;    // warps a block of the dscale pass
 
 constexpr int kMaxSmemBwd = 32 << 10;  // the backward's group sums, fp32
+
+// the row bodies' modes: the whole row here; this rank's share of a split
+// row's sums written to ``sums``; the rest of the body from the summed ones
+enum Split : int { kWhole = 0, kSumSq = 1, kApply = 2 };
 
 // vectors a lane holds in the backward: 4 of 16 bytes, or 8 elements
 template <int VEC>
@@ -114,10 +136,11 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-template <typename T, typename TS, int VEC, int LANES>
+template <typename T, typename TS, int VEC, int LANES, int kSplit>
 __global__ void __launch_bounds__(block_threads<LANES>())
 rmsnorm_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
-               T* __restrict__ y, long long rows, int d, int nv, float eps) {
+               T* __restrict__ y, float* __restrict__ sums, long long rows,
+               int d, int nv, float eps, int d_total) {
   using V = Vec<T, VEC>;
   using VS = Vec<TS, VEC>;
   constexpr int kRows = block_threads<LANES>() / LANES;
@@ -137,42 +160,53 @@ rmsnorm_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
     const int vi = lane + i * LANES;
     if (active && i < nv && vi < nvec) buf[i] = xr[vi];
   }
+  if constexpr (kSplit != kSumSq) {
 #pragma unroll
-  for (int i = 0; i < kMaxNV; ++i) {
-    const int vi = lane + i * LANES;
-    if (active && i < nv && vi < nvec) sbuf[i] = sr[vi];
-  }
-  // one partial sum a vector, so the adds are not one long chain
-  float part[kMaxNV];
-#pragma unroll
-  for (int i = 0; i < kMaxNV; ++i) {
-    const int vi = lane + i * LANES;
-    part[i] = 0.f;
-    if (i < nv && vi < nvec && active) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float f = repro::to_f32(buf[i].v[e]);
-        part[i] += f * f;
-      }
+    for (int i = 0; i < kMaxNV; ++i) {
+      const int vi = lane + i * LANES;
+      if (active && i < nv && vi < nvec) sbuf[i] = sr[vi];
     }
   }
   float ss = 0.f;
+  if constexpr (kSplit != kApply) {
+    // one partial sum a vector, so the adds are not one long chain
+    float part[kMaxNV];
 #pragma unroll
-  for (int i = 0; i < kMaxNV; ++i) ss += part[i];
-  // every thread reaches the reductions (inactive rows add 0)
+    for (int i = 0; i < kMaxNV; ++i) {
+      const int vi = lane + i * LANES;
+      part[i] = 0.f;
+      if (i < nv && vi < nvec && active) {
 #pragma unroll
-  for (int o = (LANES < 32 ? LANES : 32) / 2; o > 0; o >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if constexpr (LANES > 32) {
-    constexpr int kWarps = LANES / 32;
-    __shared__ float warp_sums[block_threads<LANES>() / 32];
-    if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = ss;
-    __syncthreads();
-    ss = 0.f;
+        for (int e = 0; e < VEC; ++e) {
+          const float f = repro::to_f32(buf[i].v[e]);
+          part[i] += f * f;
+        }
+      }
+    }
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) ss += warp_sums[sub * kWarps + w];
+    for (int i = 0; i < kMaxNV; ++i) ss += part[i];
+    // every thread reaches the reductions (inactive rows add 0)
+#pragma unroll
+    for (int o = (LANES < 32 ? LANES : 32) / 2; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if constexpr (LANES > 32) {
+      constexpr int kWarps = LANES / 32;
+      __shared__ float warp_sums[block_threads<LANES>() / 32];
+      if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = ss;
+      __syncthreads();
+      ss = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) ss += warp_sums[sub * kWarps + w];
+    }
   }
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  if constexpr (kSplit == kSumSq) {
+    if (active && lane == 0) sums[row] = ss;
+    return;
+  }
+  const float r =
+      kSplit == kApply
+          ? rsqrtf(sums[active ? row : 0] / static_cast<float>(d_total) + eps)
+          : rsqrtf(ss / static_cast<float>(d) + eps);
 
   if (!active) return;
   V* yr = reinterpret_cast<V*>(y + row * d);
@@ -190,12 +224,12 @@ rmsnorm_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
   }
 }
 
-template <typename T, typename TS, int VEC, int LANES>
+template <typename T, typename TS, int VEC, int LANES, int kSplit>
 __global__ void __launch_bounds__(block_threads<LANES>())
 rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
                    const T* __restrict__ g, T* __restrict__ dx,
-                   float* __restrict__ partial, long long rows, int d,
-                   int nv, float eps) {
+                   float* __restrict__ partial, float* __restrict__ sums,
+                   long long rows, int d, int nv, float eps, int d_total) {
   using V = Vec<T, VEC>;
   using VS = Vec<TS, VEC>;
   constexpr int kThreads = block_threads<LANES>();
@@ -235,40 +269,57 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
         }
     }
     float ss = 0.f, gsx = 0.f;           // sum(x^2), sum(g*s*x)
+    if constexpr (kSplit != kApply) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      if (active && has(i)) {
-        const VS sv = sr[lane + i * LANES];
+      for (int i = 0; i < NV; ++i) {
+        if (active && has(i)) {
+          const VS sv = sr[lane + i * LANES];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const float xf = repro::to_f32(xb[i].v[e]);
-          ss += xf * xf;
-          gsx += repro::to_f32(gb[i].v[e]) * repro::to_f32(sv.v[e]) * xf;
+          for (int e = 0; e < VEC; ++e) {
+            const float xf = repro::to_f32(xb[i].v[e]);
+            ss += xf * xf;
+            gsx += repro::to_f32(gb[i].v[e]) * repro::to_f32(sv.v[e]) * xf;
+          }
         }
       }
-    }
 #pragma unroll
-    for (int o = (LANES < 32 ? LANES : 32) / 2; o > 0; o >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      gsx += __shfl_xor_sync(0xffffffffu, gsx, o);
-    }
-    if constexpr (LANES > 32) {
-      constexpr int kWarps = LANES / 32;
-      if (threadIdx.x % 32 == 0) {
-        warp_sums[0][threadIdx.x / 32] = ss;
-        warp_sums[1][threadIdx.x / 32] = gsx;
+      for (int o = (LANES < 32 ? LANES : 32) / 2; o > 0; o >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        gsx += __shfl_xor_sync(0xffffffffu, gsx, o);
       }
-      __syncthreads();
-      ss = gsx = 0.f;
+      if constexpr (LANES > 32) {
+        constexpr int kWarps = LANES / 32;
+        if (threadIdx.x % 32 == 0) {
+          warp_sums[0][threadIdx.x / 32] = ss;
+          warp_sums[1][threadIdx.x / 32] = gsx;
+        }
+        __syncthreads();
+        ss = gsx = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        ss += warp_sums[0][sub * kWarps + w];
-        gsx += warp_sums[1][sub * kWarps + w];
+        for (int w = 0; w < kWarps; ++w) {
+          ss += warp_sums[0][sub * kWarps + w];
+          gsx += warp_sums[1][sub * kWarps + w];
+        }
+        __syncthreads();                 // read before the next row writes
       }
-      __syncthreads();                   // read before the next row writes
     }
-    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-    const float mean_gsxh = r * gsx / static_cast<float>(d);
+    if constexpr (kSplit == kSumSq) {
+      if (active && lane == 0) {
+        sums[2 * row] = ss;
+        sums[2 * row + 1] = gsx;
+      }
+      continue;
+    }
+    float dn = static_cast<float>(d);
+    if constexpr (kSplit == kApply) {
+      if (active) {
+        ss = sums[2 * row];
+        gsx = sums[2 * row + 1];
+      }
+      dn = static_cast<float>(d_total);
+    }
+    const float r = rsqrtf(ss / dn + eps);
+    const float mean_gsxh = r * gsx / dn;
     if (!active) continue;
     V* dxr = reinterpret_cast<V*>(dx + row * d);
 #pragma unroll
@@ -289,6 +340,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
     }
   }
 
+  if constexpr (kSplit == kSumSq) return;
   // the block's row groups in group order, then one partial row a block
   float* prow = partial + static_cast<long long>(blockIdx.x) * d;
   if constexpr (kRows > 1) {
@@ -368,10 +420,11 @@ __device__ __forceinline__ float2 block_sum2(float2 v, float2* warp_sums) {
 // The looped forward, for rows wider than the register-held body takes: a
 // block a row, its threads walking the row's vectors; the scale pass reads
 // the row again (from L2: a row is at most a few tens of KB).
-template <typename T, typename TS, int VEC>
+template <typename T, typename TS, int VEC, int kSplit>
 __global__ void __launch_bounds__(kLoopLanes)
 rmsnorm_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
-                    T* __restrict__ y, int d, float eps) {
+                    T* __restrict__ y, float* __restrict__ sums, int d,
+                    float eps, int d_total) {
   using V = Vec<T, VEC>;
   using VS = Vec<TS, VEC>;
   __shared__ float2 warp_sums[kLoopLanes / 32];
@@ -379,18 +432,26 @@ rmsnorm_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
   const int nvec = d / VEC;
   const V* xr = reinterpret_cast<const V*>(x + row * d);
   const VS* sr = reinterpret_cast<const VS*>(scale);
-  float ss = 0.f;
-  for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
-    const V b = xr[vi];
+  float r;
+  if constexpr (kSplit == kApply) {
+    r = rsqrtf(sums[row] / static_cast<float>(d_total) + eps);
+  } else {
+    float ss = 0.f;
+    for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+      const V b = xr[vi];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float f = repro::to_f32(b.v[e]);
-      ss += f * f;
+      for (int e = 0; e < VEC; ++e) {
+        const float f = repro::to_f32(b.v[e]);
+        ss += f * f;
+      }
     }
+    const float total = block_sum2(make_float2(ss, 0.f), warp_sums).x;
+    if constexpr (kSplit == kSumSq) {
+      if (threadIdx.x == 0) sums[row] = total;
+      return;
+    }
+    r = rsqrtf(total / static_cast<float>(d) + eps);
   }
-  const float r = rsqrtf(
-      block_sum2(make_float2(ss, 0.f), warp_sums).x / static_cast<float>(d) +
-      eps);
   V* yr = reinterpret_cast<V*>(y + row * d);
   for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
     const V b = xr[vi];
@@ -427,39 +488,54 @@ __device__ __forceinline__ void add_to(float* p, const float (&v)[VEC]) {
 // register-held backward does, a row at a time; each thread adds g * xh of
 // its columns to the block's partial row in device memory (its own
 // columns only, rows in order, so the sums keep a fixed order).
-template <typename T, typename TS, int VEC>
+template <typename T, typename TS, int VEC, int kSplit>
 __global__ void __launch_bounds__(kLoopLanes)
 rmsnorm_bwd_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
                         const T* __restrict__ g, T* __restrict__ dx,
-                        float* __restrict__ partial, long long rows, int d,
-                        float eps) {
+                        float* __restrict__ partial, float* __restrict__ sums,
+                        long long rows, int d, float eps, int d_total) {
   using V = Vec<T, VEC>;
   using VS = Vec<TS, VEC>;
   __shared__ float2 warp_sums[kLoopLanes / 32];
   const int nvec = d / VEC;
   const VS* sr = reinterpret_cast<const VS*>(scale);
   float* prow = partial + static_cast<long long>(blockIdx.x) * d;
-  for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes)
+  if constexpr (kSplit != kSumSq) {
+    for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) prow[vi * VEC + e] = 0.f;
+      for (int e = 0; e < VEC; ++e) prow[vi * VEC + e] = 0.f;
+  }
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
     const V* xr = reinterpret_cast<const V*>(x + row * d);
     const V* gr = reinterpret_cast<const V*>(g + row * d);
-    float ss = 0.f, gsx = 0.f;             // sum(x^2), sum(g*s*x)
-    for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
-      const V xb = xr[vi], gb = gr[vi];
-      const VS sv = sr[vi];
+    float2 t;                              // sum(x^2), sum(g*s*x)
+    if constexpr (kSplit == kApply) {
+      t = make_float2(sums[2 * row], sums[2 * row + 1]);
+    } else {
+      float ss = 0.f, gsx = 0.f;
+      for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
+        const V xb = xr[vi], gb = gr[vi];
+        const VS sv = sr[vi];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float xf = repro::to_f32(xb.v[e]);
-        ss += xf * xf;
-        gsx += repro::to_f32(gb.v[e]) * repro::to_f32(sv.v[e]) * xf;
+        for (int e = 0; e < VEC; ++e) {
+          const float xf = repro::to_f32(xb.v[e]);
+          ss += xf * xf;
+          gsx += repro::to_f32(gb.v[e]) * repro::to_f32(sv.v[e]) * xf;
+        }
       }
+      t = block_sum2(make_float2(ss, gsx), warp_sums);
     }
-    const float2 t = block_sum2(make_float2(ss, gsx), warp_sums);
-    const float r = rsqrtf(t.x / static_cast<float>(d) + eps);
-    const float mean_gsxh = r * t.y / static_cast<float>(d);
+    if constexpr (kSplit == kSumSq) {
+      if (threadIdx.x == 0) {
+        sums[2 * row] = t.x;
+        sums[2 * row + 1] = t.y;
+      }
+      continue;
+    }
+    const float dn = static_cast<float>(kSplit == kApply ? d_total : d);
+    const float r = rsqrtf(t.x / dn + eps);
+    const float mean_gsxh = r * t.y / dn;
     V* dxr = reinterpret_cast<V*>(dx + row * d);
     for (int vi = threadIdx.x; vi < nvec; vi += kLoopLanes) {
       const V xb = xr[vi], gb = gr[vi];
@@ -482,7 +558,9 @@ rmsnorm_bwd_loop_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
 
 // One launch of either direction.  The forward reads x and scale and
 // writes y; the backward (g != nullptr) also reads g, writes dx into y,
-// the blocks' partials and dscale.
+// the blocks' partials and dscale.  A split row (split != kWhole) writes
+// or reads ``sums`` (rows floats forward, 2 rows backward) and normalises
+// over d_total columns.
 struct Args {
   const void* x;
   const void* scale;
@@ -494,6 +572,9 @@ struct Args {
   int d, nv, rows_per_block, blocks;
   float eps;
   cudaStream_t stream;
+  float* sums = nullptr;
+  int split = kWhole;
+  int d_total = 0;
 };
 
 // the shape must cover the row once: every vector has a slot, and no
@@ -529,13 +610,15 @@ cudaError_t launch_dscale(const Args& a) {
                             static_cast<TS*>(a.dscale), a.blocks, a.d);
 }
 
-// the backward's grid: at least one block, at most one a row group
+// the backward's grid: at least one block, at most one a row group (the
+// sums pass writes no partial rows)
 inline bool bwd_grid_ok(const Args& a) {
   const long long groups = (a.rows + a.rows_per_block - 1) / a.rows_per_block;
-  return a.blocks >= 1 && a.blocks <= groups && a.partial != nullptr;
+  return a.blocks >= 1 && a.blocks <= groups &&
+         (a.partial != nullptr || a.split == kSumSq);
 }
 
-template <typename T, typename TS, int VEC, int LANES>
+template <typename T, typename TS, int VEC, int LANES, int kSplit>
 cudaError_t launch_fwd(const Args& a) {
   constexpr int kThreads = block_threads<LANES>();
   // a vector group never spans more than kMaxVecSpan elements (16,384 at 8
@@ -548,15 +631,16 @@ cudaError_t launch_fwd(const Args& a) {
     const long long blocks =
         (a.rows + a.rows_per_block - 1) / a.rows_per_block;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rmsnorm_kernel<T, TS, VEC, LANES>
+    rmsnorm_kernel<T, TS, VEC, LANES, kSplit>
         <<<static_cast<unsigned>(blocks), kThreads, 0, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
-            static_cast<T*>(a.y), a.rows, a.d, a.nv, a.eps);
+            static_cast<T*>(a.y), a.sums, a.rows, a.d, a.nv, a.eps,
+            a.d_total);
     return cudaGetLastError();
   }
 }
 
-template <typename T, typename TS, int VEC, int LANES>
+template <typename T, typename TS, int VEC, int LANES, int kSplit>
 cudaError_t launch_bwd(const Args& a) {
   constexpr int kThreads = block_threads<LANES>();
   // at most 4 vectors a lane: 16,384 needs vector groups of 4096
@@ -569,41 +653,64 @@ cudaError_t launch_bwd(const Args& a) {
     constexpr int kRows = kThreads / LANES;
     const size_t smem = kRows > 1 ? sizeof(float) * kRows * a.d : 0;
     if (smem > kMaxSmemBwd) return cudaErrorInvalidValue;
-    rmsnorm_bwd_kernel<T, TS, VEC, LANES>
-        <<<a.blocks, kThreads, smem, a.stream>>>(
+    rmsnorm_bwd_kernel<T, TS, VEC, LANES, kSplit>
+        <<<a.blocks, kThreads, kSplit == kSumSq ? 0 : smem, a.stream>>>(
             static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
             static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial,
-            a.rows, a.d, a.nv, a.eps);
+            a.sums, a.rows, a.d, a.nv, a.eps, a.d_total);
+    if constexpr (kSplit == kSumSq) return cudaGetLastError();
     return launch_dscale<TS>(a);
   }
 }
 
+template <typename T, typename TS, int VEC, int LANES, int kSplit>
+cudaError_t launch_dir(const Args& a) {
+  return a.g == nullptr ? launch_fwd<T, TS, VEC, LANES, kSplit>(a)
+                        : launch_bwd<T, TS, VEC, LANES, kSplit>(a);
+}
+
 template <typename T, typename TS, int VEC, int LANES>
 cudaError_t launch(const Args& a) {
-  return a.g == nullptr ? launch_fwd<T, TS, VEC, LANES>(a)
-                        : launch_bwd<T, TS, VEC, LANES>(a);
+  switch (a.split) {
+    case kWhole:  return launch_dir<T, TS, VEC, LANES, kWhole>(a);
+    case kSumSq:  return launch_dir<T, TS, VEC, LANES, kSumSq>(a);
+    case kApply:  return launch_dir<T, TS, VEC, LANES, kApply>(a);
+    default:      return cudaErrorInvalidValue;
+  }
 }
 
 // rows wider than the register-held bodies take: kLoopLanes threads a row,
 // one row a block
+template <typename T, typename TS, int VEC, int kSplit>
+cudaError_t launch_loop_dir(const Args& a) {
+  if (a.g == nullptr) {
+    if (a.rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_loop_kernel<T, TS, VEC, kSplit>
+        <<<static_cast<unsigned>(a.rows), kLoopLanes, 0, a.stream>>>(
+            static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
+            static_cast<T*>(a.y), a.sums, a.d, a.eps, a.d_total);
+    return cudaGetLastError();
+  }
+  if (!bwd_grid_ok(a)) return cudaErrorInvalidValue;
+  rmsnorm_bwd_loop_kernel<T, TS, VEC, kSplit>
+      <<<a.blocks, kLoopLanes, 0, a.stream>>>(
+          static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
+          static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial,
+          a.sums, a.rows, a.d, a.eps, a.d_total);
+  if constexpr (kSplit == kSumSq) return cudaGetLastError();
+  return launch_dscale<TS>(a);
+}
+
 template <typename T, typename TS, int VEC>
 cudaError_t launch_loop(int lanes, const Args& a) {
   if (lanes != kLoopLanes || !covers(a, kLoopLanes, 1, 1 << 30, VEC))
     return cudaErrorInvalidValue;
-  if (a.g == nullptr) {
-    if (a.rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-    rmsnorm_loop_kernel<T, TS, VEC>
-        <<<static_cast<unsigned>(a.rows), kLoopLanes, 0, a.stream>>>(
-            static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
-            static_cast<T*>(a.y), a.d, a.eps);
-    return cudaGetLastError();
+  switch (a.split) {
+    case kWhole:  return launch_loop_dir<T, TS, VEC, kWhole>(a);
+    case kSumSq:  return launch_loop_dir<T, TS, VEC, kSumSq>(a);
+    case kApply:  return launch_loop_dir<T, TS, VEC, kApply>(a);
+    default:      return cudaErrorInvalidValue;
   }
-  if (!bwd_grid_ok(a)) return cudaErrorInvalidValue;
-  rmsnorm_bwd_loop_kernel<T, TS, VEC><<<a.blocks, kLoopLanes, 0, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const TS*>(a.scale),
-      static_cast<const T*>(a.g), static_cast<T*>(a.y), a.partial, a.rows,
-      a.d, a.eps);
-  return launch_dscale<TS>(a);
 }
 
 template <typename T, typename TS, int VEC>
@@ -682,5 +789,49 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
   const Args a{x, scale, g, dx, static_cast<float*>(partial), dscale, rows,
                d, nv, rows_per_block, blocks, eps,
                static_cast<cudaStream_t>(stream)};
+  return dispatch(x_dtype, scale_dtype, vec, lanes, a);
+}
+
+// A row split over ranks, this rank holding d of its d_total columns:
+// split 1 (kSumSq) writes sums[row] = sum(x^2) over them; split 2
+// (kApply) writes y from the sums all-reduced over the ranks.  x, y, scale
+// and the launch shape as repro_rmsnorm's; sums (rows,) fp32.
+extern "C" int repro_rmsnorm_split(const void* x, const void* scale, void* y,
+                                   void* sums, long long rows, int d,
+                                   int d_total, int split, int x_dtype,
+                                   int scale_dtype, float eps, int lanes,
+                                   int nv, int rows_per_block, int vec,
+                                   void* stream) {
+  if (sums == nullptr || d_total < d || (split != kSumSq && split != kApply))
+    return cudaErrorInvalidValue;
+  Args a{x, scale, nullptr, y, nullptr, nullptr, rows, d, nv,
+         rows_per_block, 0, eps, static_cast<cudaStream_t>(stream)};
+  a.sums = static_cast<float*>(sums);
+  a.split = split;
+  a.d_total = d_total;
+  return dispatch(x_dtype, scale_dtype, vec, lanes, a);
+}
+
+// Its backward: split 1 writes sums[2 row] = sum(x^2) and sums[2 row + 1]
+// = sum(g * scale * x) over this rank's columns; split 2 reads them
+// all-reduced and writes dx and this rank's dscale (its columns), through
+// the partial rows as repro_rmsnorm_bwd.  sums (rows, 2) fp32; partial may
+// be null for split 1.
+extern "C" int repro_rmsnorm_split_bwd(const void* x, const void* scale,
+                                       const void* g, void* dx, void* partial,
+                                       void* dscale, void* sums,
+                                       long long rows, int d, int d_total,
+                                       int split, int x_dtype,
+                                       int scale_dtype, float eps, int lanes,
+                                       int nv, int rows_per_block, int vec,
+                                       int blocks, void* stream) {
+  if (g == nullptr || sums == nullptr || d_total < d ||
+      (split != kSumSq && split != kApply))
+    return cudaErrorInvalidValue;
+  Args a{x, scale, g, dx, static_cast<float*>(partial), dscale, rows, d, nv,
+         rows_per_block, blocks, eps, static_cast<cudaStream_t>(stream)};
+  a.sums = static_cast<float*>(sums);
+  a.split = split;
+  a.d_total = d_total;
   return dispatch(x_dtype, scale_dtype, vec, lanes, a);
 }

@@ -40,6 +40,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _rn.rmsnorm(x, scale, eps)
 
 
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                  *, d_total: int, group=None) -> torch.Tensor:
+    """x: (..., D) this rank's columns of rows of ``d_total`` split over
+    ``group``; scale: (D,) -> x.dtype."""
+    return _rn.rmsnorm_split(x, scale, eps, d_total=d_total, group=group)
+
+
 # the SSD kernel takes the model's layout itself: x (B,S,H,P); Bm, Cm
 # (B,S,G,N); dt, a (B,S,H) float32; h0 (B,H,P,N) float32 or None ->
 # (y (B,S,H,P) float32, h_final (B,H,P,N) float32)

@@ -17,6 +17,42 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+class _SumOver(torch.autograd.Function):
+    """The sum of a tensor over the ranks of ``group`` (an all-reduce), and
+    the same of its gradient: each rank's output feeds that rank's own
+    terms, so every input's gradient is the sum of theirs."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        ctx.group = group
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def rmsnorm_split_ref(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float = 1e-6, *, d_total: int,
+                      group=None) -> torch.Tensor:
+    """``rmsnorm_ref`` of a row split over the ranks of ``group``: x (...,
+    D) and scale (D,) are this rank's D of the row's ``d_total`` columns;
+    the mean of squares is the sum over every rank's columns (one
+    all-reduce, whose gradient is one more) over d_total.  Without a group
+    the row is whole here (d_total = D)."""
+    xf = x.float()
+    ss = xf.square().sum(dim=-1, keepdim=True)
+    if group is not None:
+        ss = _SumOver.apply(ss, group)
+    return (xf * torch.rsqrt(ss / d_total + eps) * scale.float()).to(x.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float, causal: bool = True) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,T,Hkv,D) with Hkv | H — q head h reads kv

@@ -23,6 +23,13 @@ past ``max_register_d``); dscale = sum over rows of g*xh, one partial row
 a block, then summed over the card in a fixed order, so it is the same on
 every run.
 
+A row split over ranks (``rmsnorm_split``: mamba2's gated norm over a
+d_inner whose heads lie over `model`) takes the same bodies in two
+launches a direction: each row's sums over this rank's columns, an
+all-reduce of them over the group, then the rest of the body over the
+whole row's width (the source's header says how), in every dtype pair
+the whole-row kernel takes.
+
 ``rmsnorm(x, scale)`` launches the kernel for a CUDA tensor and raises on
 anything the kernel does not take; when autograd needs its gradient (grad
 mode on and an input that requires grad) it runs as ``RMSNormFn``, whose
@@ -37,7 +44,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_ref, rmsnorm_split_ref
 
 VEC_BYTES = 16             # one vector load
 MAX_VECS_PER_LANE = 8      # csrc/rmsnorm.cu: kMaxNV
@@ -58,8 +65,12 @@ LOOP_LANES = 1024
 # partials
 BWD_MAX_BLOCKS = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the split row's two launches (csrc/rmsnorm.cu: kSumSq, kApply)
+SUM_SQ, APPLY = 1, 2
 _fn = None
 _bwd_fn = None
+_split_fn = None
+_split_bwd_fn = None
 
 
 def launch_shape(D: int, itemsize: int, aligned: bool = True):
@@ -127,6 +138,37 @@ def _bwd_entry():
     if _bwd_fn is None:
         _bwd_fn = bind_bwd(build.load("rmsnorm"))
     return _bwd_fn
+
+
+def _split_entries():
+    global _split_fn, _split_bwd_fn
+    if _split_fn is None:
+        lib = build.load("rmsnorm")
+        _split_fn, _split_bwd_fn = bind_split(lib), bind_split_bwd(lib)
+    return _split_fn, _split_bwd_fn
+
+
+def bind_split(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_rmsnorm_split`` entry point)."""
+    fn = lib.repro_rmsnorm_split
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def bind_split_bwd(lib: ctypes.CDLL):
+    """-> (lib, its typed ``repro_rmsnorm_split_bwd`` entry point)."""
+    fn = lib.repro_rmsnorm_split_bwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def bind(lib: ctypes.CDLL):
@@ -246,5 +288,129 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _forward(x, scale, eps)
 
 
+def _sum_over(t: torch.Tensor, group) -> None:
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=group)
+
+
+def _check_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
+                 group) -> None:
+    _check(x, scale)
+    if d_total < x.shape[-1] or (group is None and d_total != x.shape[-1]):
+        raise ValueError(f"rmsnorm_split: d_total={d_total} for a slice of "
+                         f"{x.shape[-1]} columns"
+                         f"{'' if group is not None else ' without a group'}")
+
+
+def _split_forward(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   d_total: int, group) -> torch.Tensor:
+    """The forward's two launches around the all-reduce (as
+    ``_split_backward``)."""
+    D = x.shape[-1]
+    y = torch.empty_like(x)
+    rows = x.numel() // D
+    if rows == 0:
+        return y
+    sums = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, y))
+    lanes, per_lane, rows_per_block, vec = launch_shape(
+        D, x.element_size(), aligned)
+    (lib, fn), _ = _split_entries()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for split in (SUM_SQ, APPLY):
+        code = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                  sums.data_ptr(), rows, D, d_total, split,
+                  _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, lanes,
+                  per_lane, rows_per_block, vec, stream)
+        build.check(lib, code, "rmsnorm_split launch")
+        if split == SUM_SQ:
+            _sum_over(sums, group)
+    rmsnorm_split.launches += 1
+    return y
+
+
+def rmsnorm_split_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-6, *, d_total: int,
+                      group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split row's backward: x and g (..., D) this rank's columns,
+    scale (D,) -> (dx, this rank's dscale).  Each row's sum(x^2) and
+    sum(g * scale * x) over these columns, all-reduced over ``group``,
+    then dx and dscale from them."""
+    _check_split(x, scale, d_total, group)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"rmsnorm_split_bwd: g {tuple(g.shape)} {g.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    return _split_backward(x, scale, g.contiguous(), eps, d_total, group)
+
+
+def _split_backward(x, scale, g, eps, d_total, group):
+    """The backward's two launches around the all-reduce (none without a
+    group: then d_total may exceed D, the other columns' sums taken as 0,
+    which is how a single card times the launches)."""
+    D = x.shape[-1]
+    dx = torch.empty_like(x)
+    rows = x.numel() // D
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    sums = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in (x, scale, g, dx))
+    lanes, per_lane, rows_per_block, vec = bwd_launch_shape(
+        D, x.element_size(), aligned)
+    blocks = bwd_blocks(rows, rows_per_block)
+    partial = torch.empty((blocks, D), dtype=torch.float32, device=x.device)
+    _, (lib, fn) = _split_entries()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for split in (SUM_SQ, APPLY):
+        code = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                  dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+                  sums.data_ptr(), rows, D, d_total, split,
+                  _DTYPES[x.dtype], _DTYPES[scale.dtype], eps, lanes,
+                  per_lane, rows_per_block, vec, blocks, stream)
+        build.check(lib, code, "rmsnorm_split_bwd launch")
+        if split == SUM_SQ:
+            _sum_over(sums, group)
+    rmsnorm_split_bwd.launches += 1
+    return dx, dscale
+
+
+class RMSNormSplitFn(torch.autograd.Function):
+    """The split row's forward kernels, with its backward kernels as the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float, d_total: int, group):
+        ctx.save_for_backward(x, scale)
+        ctx.eps, ctx.d_total, ctx.group = eps, d_total, group
+        return _split_forward(x, scale, eps, d_total, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_split_bwd(x, scale, g, ctx.eps,
+                                       d_total=ctx.d_total, group=ctx.group)
+        return dx, dscale, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                  *, d_total: int, group=None) -> torch.Tensor:
+    """RMSNorm of rows split over the ranks of ``group``: x (..., D)
+    contiguous and scale (D,) are this rank's D of each row's ``d_total``
+    columns (every rank of the group calls it, on the same rows); returns
+    this rank's columns of y in x.dtype.  Without a group the row is whole
+    (d_total = D), and the result is ``rmsnorm``'s bit for bit.  The plain
+    version, ``ref.rmsnorm_split_ref``, for a CPU tensor; on CUDA the
+    kernels, differentiable through their backward."""
+    if x.device.type == "cpu":
+        return rmsnorm_split_ref(x, scale, eps, d_total=d_total, group=group)
+    _check_split(x, scale, d_total, group)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormSplitFn.apply(x, scale, eps, d_total, group)
+    return _split_forward(x, scale, eps, d_total, group)
+
+
 rmsnorm.launches = 0
 rmsnorm_bwd.launches = 0
+rmsnorm_split.launches = 0
+rmsnorm_split_bwd.launches = 0

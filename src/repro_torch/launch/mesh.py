@@ -7,7 +7,8 @@ group yet, ``init_world`` starts one: under ``torchrun`` (RANK and
 WORLD_SIZE in the environment) from its environment, otherwise a world
 of 1 that meets through a file store in a fresh temporary directory, so
 that no TCP port is claimed and any number of such processes run side by
-side.  NCCL on CUDA, gloo on the CPU.
+side.  NCCL on CUDA, gloo on the CPU, unless the caller names the backend
+(gloo over CUDA tensors: several ranks on one card, which NCCL refuses).
 
 Production meshes: single pod 16 x 16 = 256 ranks (data, model); multi-pod
 2 x 16 x 16 = 512 (pod, data, model) — the `pod` axis is the slow-link
@@ -27,10 +28,11 @@ from repro_torch import device as _device
 from repro_torch.core.costmodel import MeshShape
 
 
-def init_world(device=None) -> torch.device:
+def init_world(device=None, backend: Optional[str] = None) -> torch.device:
     """The process group for ``device`` (CUDA unless the caller asks for
-    the CPU), started if none is: -> the resolved device (on CUDA this
-    rank's card, ``LOCAL_RANK`` under torchrun)."""
+    the CPU), started if none is, on ``backend`` (default NCCL on CUDA,
+    gloo on the CPU): -> the resolved device (on CUDA this rank's card,
+    ``LOCAL_RANK`` under torchrun)."""
     dev = _device.resolve(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))
@@ -38,7 +40,7 @@ def init_world(device=None) -> torch.device:
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         return dev
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend)
     else:
@@ -89,11 +91,12 @@ def mesh_device(mesh) -> torch.device:
 
 
 def make_host_mesh(n_devices: Optional[int] = None, model: int = 1, *,
-                   device=None):
+                   device=None, backend: Optional[str] = None):
     """A (data, model) mesh over every rank of the world (started as a
-    world of 1 when there is none), factored as (n // model, model).
-    ``n_devices``, when given, must be the world size."""
-    dev = init_world(device)
+    world of 1 on ``backend`` when there is none; ``init_world``),
+    factored as (n // model, model).  ``n_devices``, when given, must be
+    the world size."""
+    dev = init_world(device, backend)
     n = n_devices or dist.get_world_size()
     if n % model:
         raise ValueError(f"{n} ranks do not factor as (data, {model})")

@@ -301,18 +301,10 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
                      else {"self": nc_self, "cross": nc_cross})
         return x + h, new_cache, 0.0
     if kind == "mamba2":
-        normed = norm_apply(arch, p["norm"], x)
-        if cache is None:
-            h, new_cache = M2.mamba2(p["mixer"], ssm_cfg_for(arch), normed,
-                                     impl=impl)
-        elif slot_ids is None:
-            raise ValueError("the port's cached mamba2 path is the slot-state "
-                             "pool: pass slot_ids with the pools")
-        else:
-            h, new_cache = M2.mamba2_slot(p["mixer"], ssm_cfg_for(arch),
-                                          normed, pool=cache,
-                                          slot_ids=slot_ids,
-                                          new_lens=new_lens, impl=impl)
+        h, new_cache = mamba2_mixer(p["mixer"], arch,
+                                    norm_apply(arch, p["norm"], x),
+                                    cache=cache, slot_ids=slot_ids,
+                                    new_lens=new_lens, impl=impl)
         return x + h, new_cache, 0.0
     if kind == "shared_attn":
         if shared is None or x0 is None:
@@ -352,6 +344,23 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
         h, aux = MOE.moe(p["moe"], moe_cfg_for(arch), normed)
         return x + h, new_cache, aux
     return x + L.mlp(p["mlp"], normed, arch.act), new_cache, 0.0
+
+
+def mamba2_mixer(p: Params, arch: ArchConfig, x: torch.Tensor, *,
+                 cache: Optional[Params] = None, slot_ids=None,
+                 new_lens=None, impl: str = "xla",
+                 split: Optional[M2.HeadSplit] = None):
+    """A mamba2 block's mixer over its normed input -> (y, cache): the
+    whole-sequence forward, or the slot-state pool path (``slot_ids``);
+    ``split``: this rank's heads (``mamba2.mamba2``'s)."""
+    cfg = ssm_cfg_for(arch)
+    if cache is None:
+        return M2.mamba2(p, cfg, x, impl=impl, split=split)
+    if slot_ids is None:
+        raise ValueError("the port's cached mamba2 path is the slot-state "
+                         "pool: pass slot_ids with the pools")
+    return M2.mamba2_slot(p, cfg, x, pool=cache, slot_ids=slot_ids,
+                          new_lens=new_lens, impl=impl, split=split)
 
 
 def _cross(p: Params, cfg: L.AttnConfig, x: torch.Tensor, cross_input,

@@ -176,6 +176,22 @@ def init_attention(cfg: AttnConfig, *, generator, device,
     return p
 
 
+def local_groups(n_heads: int, n_groups: int, size: int,
+                 rank: int) -> tuple:
+    """The groups (KV heads of GQA, B/C groups of mamba2) that the heads
+    of ``rank`` read, its n_heads / size heads of ``size`` ranks in order
+    (head h reads group h // (n_heads / n_groups)): a contiguous range
+    when it keeps the grouping (each local group serving an equal run of
+    local heads), else one group a local head."""
+    hl, rep = n_heads // size, n_heads // n_groups
+    heads = [(rank * hl + i) // rep for i in range(hl)]
+    lo, count = heads[0], heads[-1] - heads[0] + 1
+    if hl % count == 0 and all(h == lo + i // (hl // count)
+                               for i, h in enumerate(heads)):
+        return tuple(range(lo, lo + count))
+    return tuple(heads)
+
+
 def _expand_kv(t: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B,T,Hkv,D) -> (B,T,H,D) by broadcasting each kv head over its
     q-group (q head h reads kv head h // group)."""

@@ -13,6 +13,16 @@ autograd differentiates.  Decode is the O(1) recurrent update carrying
 
 Projections stay separate (z/x/B/C/dt, one causal conv per stream), as the
 reference keeps them, so its params convert leaf for leaf.
+
+Under tensor parallelism (``split``, a ``HeadSplit``) a rank runs the
+mixer on its own heads, as GSPMD partitions the reference's: its columns
+of z/x/dt_proj, its conv_x channels, A_log, D and gated-norm scale, its
+rows of out_proj, and its slices of the conv_x and ssm state; B and C
+(b/c_proj, conv_b/c, replicated) are computed whole on every rank and
+handed to the scan at the groups of its heads.  The gated norm runs over
+the whole d_inner: one all-reduce of each row's sum of squares over the
+group (``kernels.ops.rmsnorm_split``).  What the caller does: Megatron's f
+on the input and the all-reduce after out_proj, whose bias it adds once.
 """
 from __future__ import annotations
 
@@ -50,6 +60,15 @@ class Mamba2Config:
     @property
     def d_bc(self):
         return self.n_groups * self.d_state
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The mixer's heads over the ``size`` ranks of ``group``, in order:
+    rank ``rank`` holds heads rank * H / size onward."""
+    group: object
+    size: int
+    rank: int
 
 
 def _stacked(draw, repeat: Optional[int]) -> torch.Tensor:
@@ -161,7 +180,9 @@ def _conv_step(u_new: torch.Tensor, buf: torch.Tensor,
 def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
            cache: Optional[Params] = None,
            new_lens: Optional[torch.Tensor] = None,
-           impl: str = "xla") -> tuple[torch.Tensor, Optional[Params]]:
+           impl: str = "xla",
+           split: Optional[HeadSplit] = None
+           ) -> tuple[torch.Tensor, Optional[Params]]:
     """x: (B,S,D).  With ``cache`` and S==1 runs the recurrent decode path.
 
     With ``cache`` and S>1 (prefill) the cached conv buffers supply the raw
@@ -170,32 +191,47 @@ def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
     new_lens[b] as padding: their dt is zeroed (decay 1, zero input) and
     they never enter the carried conv buffer.  ``impl`` is accepted for the
     reference's signature; the scan is the port's kernel either way, and
-    differentiable: under grad its backward is the backward kernel."""
+    differentiable: under grad its backward is the backward kernel.
+
+    With ``split`` the params and ``cache`` are this rank's (the module
+    docstring says which leaves are sliced), the heads are its own and the
+    output is its share of out_proj's product: all-reduced over the group
+    by the caller."""
     Bsz, S, _ = x.shape
     H, P, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
+    dt_bias = p["dt_bias"]
+    groups = tuple(range(G))                   # the B/C groups of our heads
+    if split is not None:
+        H //= split.size
+        dt_bias = dt_bias[split.rank * H:(split.rank + 1) * H]
+        groups = L.local_groups(cfg.n_heads, G, split.size, split.rank)
     z = L.dense(p["z_proj"], x)
     xr = L.dense(p["x_proj"], x)
     br = L.dense(p["b_proj"], x)
     cr = L.dense(p["c_proj"], x)
     dt_raw = L.dense(p["dt_proj"], x)
     A = -torch.exp(p["A_log"])                                     # (H,)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])                 # (B,S,H)
+    dt = F.softplus(dt_raw.float() + dt_bias)                      # (B,S,H)
+
+    def own(t):
+        """B or C (..., G, N) at the groups of this rank's heads."""
+        return t if groups == tuple(range(G)) else t[..., list(groups), :]
 
     if cache is not None and S == 1:
-        head_group = torch.arange(H, device=x.device) // (H // G)
+        head_group = torch.arange(H, device=x.device) // (H // len(groups))
         xu, conv_x = _conv_step(xr, cache["conv_x"], p["conv_x"])
         bu, conv_b = _conv_step(br, cache["conv_b"], p["conv_b"])
         cu, conv_c = _conv_step(cr, cache["conv_c"], p["conv_c"])
         xs = xu.reshape(Bsz, H, P).float()
-        Bm = bu.reshape(Bsz, G, N).float()
-        Cm = cu.reshape(Bsz, G, N).float()
+        Bm = own(bu.reshape(Bsz, G, N)).float()
+        Cm = own(cu.reshape(Bsz, G, N)).float()
         a = torch.exp(dt[:, 0] * A[None, :])                       # (B,H)
         Bh, Chd = Bm[:, head_group], Cm[:, head_group]             # (B,H,N)
         h = (cache["ssm"].float() * a[:, :, None, None]
              + torch.einsum("bh,bhp,bhn->bhpn", dt[:, 0], xs, Bh))
         y = torch.einsum("bhpn,bhn->bhp", h, Chd)
         y = y + p["D"][None, :, None] * xs
-        y = y.reshape(Bsz, 1, cfg.d_inner)
+        y = y.reshape(Bsz, 1, H * P)
         new_cache = {"conv_x": conv_x, "conv_b": conv_b, "conv_c": conv_c,
                      "ssm": h.to(cache["ssm"].dtype)}
     else:
@@ -204,8 +240,8 @@ def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
         bc = _causal_conv(br, p["conv_b"], left=left.get("conv_b"))
         cc = _causal_conv(cr, p["conv_c"], left=left.get("conv_c"))
         xs = xc.reshape(Bsz, S, H, P)
-        Bm = bc.reshape(Bsz, S, G, N)
-        Cm = cc.reshape(Bsz, S, G, N)
+        Bm = own(bc.reshape(Bsz, S, G, N))
+        Cm = own(cc.reshape(Bsz, S, G, N))
         if new_lens is not None:
             # padded tail rows: dt=0 => decay 1, zero input — state untouched
             valid = torch.arange(S, device=x.device)[None, :] < \
@@ -216,7 +252,7 @@ def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
         h0 = cache["ssm"] if cache is not None else None
         y, h_final = kops.ssd_scan(xs, Bm, Cm, dt, a, h0=h0, chunk=cfg.chunk)
         y = y + p["D"][None, None, :, None] * xs.float()
-        y = y.reshape(Bsz, S, cfg.d_inner)
+        y = y.reshape(Bsz, S, H * P)
         new_cache = None
         if cache is not None:
             # prefill -> decode handoff: the last (d_conv-1) *valid* raw
@@ -229,21 +265,30 @@ def mamba2(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
             }
 
     y = y.to(x.dtype) * F.silu(z)
-    y = L.rmsnorm(p["norm"], y)
+    if split is None:
+        y = L.rmsnorm(p["norm"], y)
+    else:       # this rank's columns of a norm over the whole d_inner
+        y = kops.rmsnorm_split(y, p["norm"]["scale"], d_total=cfg.d_inner,
+                               group=split.group)
     return L.dense(p["out_proj"], y), new_cache
 
 
 def mamba2_slot(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
                 pool: Params, slot_ids: torch.Tensor,
                 new_lens: Optional[torch.Tensor] = None,
-                impl: str = "xla") -> tuple[torch.Tensor, Params]:
+                impl: str = "xla",
+                split: Optional[HeadSplit] = None
+                ) -> tuple[torch.Tensor, Params]:
     """Serving path over a *slot-indexed state pool* (continuous batching).
 
     pool: the mamba2 cache dict with a leading (slots+1) row axis shared by
     every in-flight request — row i holds engine slot i's recurrent state
     and the last row is the reserved null slot.  ``slot_ids`` (B,) maps
     each batch row to its pool row; inactive rows point at the null slot,
-    so their garbage lands in scratch no live request reads.
+    so their garbage lands in scratch no live request reads.  With
+    ``split`` (``mamba2``'s) the pool is this rank's: its conv_x channels
+    and ssm heads, and conv_b / conv_c whole, which every rank computes
+    alike.
 
     Gather rows -> the exact recurrence / chunked scan on them (decode when
     S==1 and new_lens is None, chunk-prefill otherwise) -> scatter the
@@ -252,7 +297,8 @@ def mamba2_slot(p: Params, cfg: Mamba2Config, x: torch.Tensor, *,
     rows = {k: t[idx] for k, t in pool.items()}
     decode = x.shape[1] == 1 and new_lens is None
     y, new_rows = mamba2(p, cfg, x, cache=rows,
-                         new_lens=None if decode else new_lens, impl=impl)
+                         new_lens=None if decode else new_lens, impl=impl,
+                         split=split)
     for k, t in pool.items():
         t[idx] = new_rows[k].to(t.dtype)
     return y, pool

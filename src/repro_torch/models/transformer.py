@@ -174,21 +174,25 @@ def _apply_segment(segp: Params, blocks: tuple, repeat: int,
 
 def encode_frontend(params: Params, arch: ArchConfig,
                     frontend: torch.Tensor, *, impl: str = "xla",
-                    remat: str = "none") -> torch.Tensor:
+                    remat: str = "none",
+                    block_fns: Optional[dict] = None) -> torch.Tensor:
     """The encoder stack over precomputed frame embeddings (B, enc_len,
     d_model) -> its output (B, enc_len, d_model) in the compute dtype:
     sinusoidal positions added, every ``enc_attn`` layer (bidirectional,
     so never the flash kernel), the final norm.  Shared by the forward's
     audio branch and by serving admission, which runs it ONCE per
-    request (``admit_slot``), never per step."""
+    request (``admit_slot``), never per step.  ``block_fns``: {encoder
+    segment: {block: fn}}, as ``lm_apply``'s for the decoder (the sharded
+    step's tensor-parallel encoder blocks)."""
     cdt = compute_dtype(arch)
     enc = frontend.to(cdt)
     enc = enc + sinusoidal_positions(enc.shape[1], arch.d_model,
                                      device=enc.device).to(cdt)
     enc_p = params["encoder"]
-    for segp in enc_p["segments"]:
+    for si, segp in enumerate(enc_p["segments"]):
         enc, _ = _apply_segment(segp, ("enc_attn",), arch.encoder.n_layers,
-                                arch, enc, remat=remat, impl=impl)
+                                arch, enc, remat=remat, impl=impl,
+                                block_fns=(block_fns or {}).get(si))
     return B.norm_apply(arch, enc_p["final_norm"], enc)
 
 
@@ -199,10 +203,13 @@ def _scatter_cross_kv(pool: Params, slot_id: int, attn_stack: Params,
     into this slot's rows of a (repeat, slots+1, T, Hkv, D) cross-K/V
     pool, in place, in the pool's dtype.  Shared by the cross_attn and
     wdec admission branches."""
+    T = src.shape[0]
     for r in range(pool["k"].shape[0]):
         p = _take(attn_stack, r)
-        k = L.dense(p["wk"], src).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-        v = L.dense(p["wv"], src).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        # the KV heads of wk / wv: all of them, or a tensor-parallel rank's
+        # (its columns of them, written into its shard of the pool)
+        k = L.dense(p["wk"], src).reshape(T, -1, cfg.head_dim)
+        v = L.dense(p["wv"], src).reshape(T, -1, cfg.head_dim)
         if cfg.qk_norm:
             k = L.rmsnorm(p["k_norm"], k)
         pool["k"][r, slot_id] = k.to(pool["k"].dtype)
@@ -210,7 +217,8 @@ def _scatter_cross_kv(pool: Params, slot_id: int, attn_stack: Params,
 
 
 def admit_slot(params: Params, arch: ArchConfig, pools: list, slot_id: int,
-               frontend: Optional[torch.Tensor] = None) -> list:
+               frontend: Optional[torch.Tensor] = None,
+               block_fns: Optional[dict] = None) -> list:
     """Reset one engine slot's rows across every slot-state pool, in place
     (paged KV and latent block pools pass through untouched — block reuse
     is the allocator's business).  Recompute-style preemption re-admits
@@ -224,7 +232,11 @@ def admit_slot(params: Params, arch: ArchConfig, pools: list, slot_id: int,
     ``frontend`` frame embeddings (1, enc_len, d_model) go through the
     encoder once, then every decoder layer's cross projections of its
     output are written into this slot's rows; without a frontend they are
-    zeroed."""
+    zeroed.  ``block_fns``: ``lm_apply``'s; admission runs the encoder's
+    (its ``"encoder"`` entry).  Under tensor parallelism ``params`` and
+    ``pools`` are a rank's: its wk / wv columns write its own heads into
+    its shard of a cross-K/V pool, and zeroing a slot is the same on any
+    shard."""
     cdt = compute_dtype(arch)
     srcs = {}          # what each kind's cross K/V are projected from
     if frontend is not None:
@@ -232,7 +244,9 @@ def admit_slot(params: Params, arch: ArchConfig, pools: list, slot_id: int,
                                    device=tree.leaves(pools)[0].device)
         srcs["cross_attn"] = frontend[0].to(cdt)
         if any("wdec" in seg.blocks for seg in arch.pattern):
-            srcs["wdec"] = encode_frontend(params, arch, frontend)[0]
+            srcs["wdec"] = encode_frontend(
+                params, arch, frontend,
+                block_fns=(block_fns or {}).get("encoder"))[0]
     for si, seg in enumerate(arch.pattern):
         segp = params["segments"][si]
         for bi, kind in enumerate(seg.blocks):
@@ -328,10 +342,12 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
        that the head reads (``mtp_logits`` takes them).
     block_fns: {segment index: {block index: fn}}, a function with
        ``blocks.apply_block``'s signature that applies that block in its
-       place (the sharded train step's tensor-parallel attn block,
-       ``runtime/sharded.py``).  A stacked leaf of ``params`` may be any
-       object whose ``[r]`` gives application r's tensor (the sharded
-       step gathers each application's weights on use that way).
+       place (the sharded train step's tensor-parallel blocks,
+       ``runtime/sharded.py``), and under ``"encoder"`` the same for the
+       encoder's segments (``encode_frontend``).  A stacked leaf of
+       ``params`` may be any object whose ``[r]`` gives application r's
+       tensor (the sharded step gathers each application's weights on use
+       that way).
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
@@ -344,7 +360,9 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
         cross_input = frontend.to(cdt)
     elif frontend is not None and arch.frontend == "audio":
         cross_input = encode_frontend(params, arch, frontend, impl=impl,
-                                      remat=remat)
+                                      remat=remat,
+                                      block_fns=(block_fns or {}).get(
+                                          "encoder"))
     x = L.embed(params["embed"], tokens.long(), arch.d_model).to(cdt)
     if arch.encoder is not None:   # whisper's decoder: absolute positions
         S = x.shape[1]

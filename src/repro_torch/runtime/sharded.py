@@ -1,10 +1,11 @@
 """The sharded train step's pieces, behind ``steps.make_train_step(
 act_sharding=, grad_shardings=)``: each rank's slice of the batch, the
 weights gathered on use, Megatron's f and g around the tensor-parallel
-dense ``attn`` block, each gradient reduced to its parameter's placement,
-and the global norm over shards.  A placed serving engine
+blocks, each gradient reduced to its parameter's placement, and the
+global norm over shards.  A placed serving engine
 (``serving/placement.py``) runs the same gathers and the same
-tensor-parallel block, its paged path, without gradients.
+tensor-parallel blocks, their paged and slot-state paths, without
+gradients.
 
 Params and optimizer moments are DTensors placed by the plan's specs
 (``core/sharding.py``).  The forward and backward run on plain local
@@ -18,17 +19,24 @@ that DTensor dispatch never reaches.  Every leaf plays one of three roles:
     replicated) and divides by the world size: a rank that shares its
     rows with others (the `model` axis of MP and HP) adds the same
     gradient as they do, so the mean over ranks is the mean over rows;
-  * ``local`` — a tensor-parallel weight of the dense ``attn`` block under
-    MP / HP (wq, wk, wv, w_in, w_gate by columns; wo, w_out by rows):
-    gathered over every mesh dim but `model`, whose shard the rank keeps
-    and computes with (its own heads and its d_ff slice); its gradient is
-    that shard's, summed over the other dims and divided by their size;
+  * ``local`` — a tensor-parallel weight under MP / HP, sharded over
+    `model` by the plan's specs: an attention's wq, wk, wv by columns and
+    wo by rows, an MLP's w_in, w_gate by columns and w_out by rows, a
+    mamba2 mixer's z/x/dt_proj by columns, out_proj by rows and conv_x,
+    A_log, D and its gated norm's scale by heads, zamba2's app_proj by
+    rows: gathered over every mesh dim but `model`, whose shard the rank
+    keeps and computes with (its own heads and its d_ff slice); its
+    gradient is that shard's, summed over the other dims and divided by
+    their size;
   * ``partial`` — a weight used whole inside the tensor-parallel region
     whose gradient each `model` rank holds only in part: the q/k norms'
-    scales (each rank normalises its own heads) and wk / wv where the KV
+    scales (each rank normalises its own heads), wk / wv where the KV
     heads do not divide over `model` (the reference keeps them
-    replicated; each rank picks the KV heads of its Q heads); summed over
-    every rank, `model` included, and divided by the non-`model` size.
+    replicated; each rank picks the KV heads of its Q heads), and a
+    mamba2 mixer's b/c_proj, conv_b/c and dt_bias (replicated; each rank
+    computes B and C whole and reads them, and its slice of dt_bias, for
+    its own heads); summed over every rank, `model` included, and divided
+    by the non-`model` size.
 
 Repeat-stacked leaves are gathered one application at a time, as the
 model reaches it (``_Stacked``), others at the start of the forward.  The
@@ -37,10 +45,21 @@ placements microbatch by microbatch.  Every collective runs in the same
 order on every rank: the forward's gathers in the model's order, the
 backward's reductions in autograd's, which is the same graph everywhere.
 
+Tensor-parallel blocks (``plan_layout``): ``attn`` and the encoder's
+``enc_attn`` (``tp_attn_block``), whisper's ``wdec`` (self and cross
+attention, MLP), llama-vision's ``cross_attn`` (its tanh gates after the
+all-reduce), zamba2's ``shared_attn`` (the shared weights walked once,
+used by every application; app_proj by rows) and ``mamba2`` (its heads,
+the gated norm over the whole d_inner through the split-row RMSNorm).
+zamba2's shared leaves are used at every application, and their
+gradients sum over the applications as any leaf's do.
+
 What this does not do yet: re-gather in the backward (a gathered weight
 lives from its use in the forward to its gradient, as the plain step's
-do), and tensor-parallel compute for any block kind but ``attn`` (the MLA,
-MoE, mamba2, shared, cross and encoder-decoder kinds gather on use).
+do), and tensor-parallel compute for the ``mla``, ``mla_dense`` and
+``moe_attn`` blocks and the MTP head (they gather on use: MLA's latent
+pools stay replicated, and the MoE dispatch over ranks wants a design of
+its own).
 """
 from __future__ import annotations
 
@@ -54,6 +73,7 @@ from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 
 ROLES = ("full", "local", "partial")
 
@@ -67,6 +87,37 @@ def _dt():
 # gather on use, reduce in the backward
 # ---------------------------------------------------------------------------
 
+def _gather_dims(t, mesh, have, want):
+    """``t``, this rank's shard under placements ``have``, all-gathered
+    by ``torch.distributed``'s own collective over every mesh dim of more
+    than one rank that ``have`` shards and ``want`` replicates, the
+    innermost first: two mesh dims that shard one tensor dim then
+    concatenate in DTensor's order (the outer one major).  A tensor dim
+    that ``want`` keeps sharded must not be gathered over another mesh
+    dim (that is a re-layout, not a gather; no param spec asks it).
+
+    Every gather on use and ``gather_full`` take it, on every backend:
+    DTensor's redistribute to Replicate runs the functional all-gather,
+    which faults (SIGSEGV, torch 2.11) on a gloo group over CUDA tensors.
+    The backward's reductions stay DTensor's."""
+    D = _dt()
+    kept = {p.dim for p in want if isinstance(p, D.Shard)}
+    if any(isinstance(p, D.Shard) and isinstance(w, D.Replicate)
+           and p.dim in kept for p, w in zip(have, want)):
+        raise ValueError(f"{have} -> {want} is not a gather")
+    for i in reversed(range(len(have))):
+        p, n = have[i], mesh.shape[i]
+        if n == 1 or not (isinstance(p, D.Shard)
+                          and isinstance(want[i], D.Replicate)):
+            continue
+        x = t.movedim(p.dim, 0).contiguous()
+        buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(buf, x, group=mesh.get_group(i))
+        t = buf.movedim(0, p.dim).contiguous()
+    return t
+
+
 class _Gather(torch.autograd.Function):
     """local shard (placements ``have``) -> the working tensor (placements
     ``want``: Replicate, or the `model` shard kept); backward: the
@@ -76,10 +127,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, mesh, have, want, scale):
         ctx.mesh, ctx.have, ctx.want, ctx.scale = mesh, have, want, scale
-        D = _dt()
-        out = D.DTensor.from_local(local.detach(), mesh, have,
-                                   run_check=False) \
-            .redistribute(mesh, want).to_local()
+        out = _gather_dims(local.detach(), mesh, have, want)
         return out.view_as(out)
 
     @staticmethod
@@ -180,36 +228,29 @@ class _ReduceFromTP(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-parallel dense attn block
+# the tensor-parallel blocks
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class TPBlock:
-    """One dense ``attn`` block's tensor parallelism: over the `model`
-    group of ``size`` ranks (this one ``rank``), the attention by heads
-    (``attn``; ``kv_heads``: the KV heads this rank picks from replicated
-    wk / wv, None where they are sharded too) and the MLP by d_ff
-    (``mlp``)."""
+    """One block's tensor parallelism over the `model` group of ``size``
+    ranks (this one ``rank``): which of its parts compute on this rank's
+    share.  ``attn``: its attention (self, encoder, zamba2's shared block's
+    or llama-vision's cross attention) by heads, ``kv_heads`` the KV heads
+    this rank picks from replicated wk / wv (None where they are sharded
+    too); ``xattn`` / ``xkv_heads``: whisper's decoder cross attention the
+    same way; ``mlp``: the MLP by d_ff; ``mixer``: mamba2's mixer by heads;
+    ``app_proj``: zamba2's per-application projection by rows."""
     group: object
     size: int
     rank: int
     attn: bool
     kv_heads: Optional[tuple]
     mlp: bool
-
-
-def local_kv_heads(n_heads: int, n_kv: int, size: int, rank: int) -> tuple:
-    """The KV heads the Q heads of ``rank`` read (q head g reads g //
-    (n_heads / n_kv)): a contiguous range when it keeps the grouping
-    (each local KV head serving an equal run of local Q heads), else one
-    KV head a local Q head."""
-    hl, rep = n_heads // size, n_heads // n_kv
-    heads = [(rank * hl + i) // rep for i in range(hl)]
-    lo, count = heads[0], heads[-1] - heads[0] + 1
-    if hl % count == 0 and all(h == lo + i // (hl // count)
-                               for i, h in enumerate(heads)):
-        return tuple(range(lo, lo + count))
-    return tuple(heads)
+    xattn: bool = False
+    xkv_heads: Optional[tuple] = None
+    mixer: bool = False
+    app_proj: bool = False
 
 
 def _pick_heads(p: dict, heads: tuple, head_dim: int) -> dict:
@@ -230,10 +271,10 @@ def _row_parallel(fn, p_out: dict, x, tp: TPBlock):
 
 
 def _kv_view(cache: dict, heads: tuple):
-    """The paged pool ``cache`` ({"k", "v": (NB, BS, Hkv, D)}) at ``heads``
-    -> (view, write_back): a view where the heads are a contiguous range
-    (the attention writes the pool through it), else a copy that
-    ``write_back()`` puts back.
+    """The KV ``cache`` ({"k", "v"}: a paged pool (NB, BS, Hkv, D) or
+    cross-K/V rows (B, T, Hkv, D)) at ``heads`` -> (view, write_back): a
+    view where the heads are a contiguous range (the attention writes a
+    pool through it), else a copy that ``write_back()`` puts back.
 
     Where ``cache`` is the local tensor of a replicated pool, each `model`
     rank writes only its own heads into it, so the ranks' copies differ on
@@ -254,67 +295,221 @@ def _kv_view(cache: dict, heads: tuple):
     return part, write_back
 
 
+def _tp_attention(a: dict, cfg, h, tp: TPBlock, kv_heads, *, cache=None,
+                  kv_input=None, **kw):
+    """The attention ``a`` (``cfg``) over ``h`` on this rank's Q heads and
+    the KV heads they read -> y, all-reduced over `model`, wo's bias added
+    once after it and then llama-vision's tanh gate (a ``full`` leaf, as
+    the bias: every rank applies it to the same sum).  ``cache``: a paged
+    pool or cross-K/V rows, this rank's shard (its KV heads) or whole, of
+    which it reads and writes only those heads (``_kv_view``);
+    ``kv_input``: cross attention's replicated K/V input, through f as
+    ``h`` is (each rank's K/V projections give its gradient a share)."""
+    a = dict(a)
+    n_kv = cfg.n_kv_heads // tp.size
+    heads = tuple(range(tp.rank * n_kv, (tp.rank + 1) * n_kv))
+    if kv_heads is not None:
+        a["wk"] = _pick_heads(a["wk"], kv_heads, cfg.head_dim)
+        a["wv"] = _pick_heads(a["wv"], kv_heads, cfg.head_dim)
+        heads, n_kv = kv_heads, len(kv_heads)
+    # a cache sharded by KV heads holds exactly this rank's; a whole one
+    # (always so where the KV heads do not divide) is viewed at them
+    write_back = None
+    if cache is not None and (kv_heads is not None
+                              or cache["k"].shape[2] != n_kv):
+        cache, write_back = _kv_view(cache, heads)
+    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
+                               n_kv_heads=n_kv, gated=False)
+    wo, gate = a.pop("wo"), a.pop("gate", None)
+    if kv_input is not None:
+        kv_input = _CopyToTP.apply(kv_input, tp.group)
+
+    def attend(o, hin):
+        return L.attention({**a, "wo": o}, lcfg, hin, cache=cache,
+                           kv_input=kv_input, **kw)[0]
+    y = _row_parallel(attend, wo, _CopyToTP.apply(h, tp.group), tp)
+    if write_back is not None:
+        write_back()
+    if cfg.gated:
+        y = torch.tanh(gate.to(y.dtype)) * y
+    return y
+
+
+def _attention(a: dict, cfg, h, tp: TPBlock, on: bool, kv_heads, **kw):
+    """An attention, tensor-parallel by ``tp`` where ``on``, else whole."""
+    if on:
+        return _tp_attention(a, cfg, h, tp, kv_heads, **kw)
+    return L.attention(a, cfg, h, **kw)[0]
+
+
+def _mlp(m: dict, h, act: str, tp: TPBlock, on: bool):
+    """The MLP by d_ff (w_in, w_gate by columns, w_out by rows) where
+    ``on``, else whole."""
+    if not on:
+        return L.mlp(m, h, act)
+    m = dict(m)
+    w_out = m.pop("w_out")
+    return _row_parallel(lambda o, hin: L.mlp({**m, "w_out": o}, hin, act),
+                         w_out, _CopyToTP.apply(h, tp.group), tp)
+
+
+def _cross_kw(cross_input, rows, slot_ids) -> dict:
+    """A cross attention's K/V source: the slot rows of each batch row on
+    the serving path (``slot_ids``), else ``cross_input`` (with neither,
+    the attention runs over its own input, as ``blocks._cross``)."""
+    if slot_ids is not None:
+        sid = slot_ids.long()
+        return {"cache": {"k": rows["k"][sid], "v": rows["v"][sid]}}
+    return {"kv_input": cross_input}
+
+
+def _paged_or_whole(cache, block_tables) -> None:
+    if (cache is None) != (block_tables is None):
+        raise ValueError("the tensor-parallel attention is the "
+                         "whole-sequence forward or the paged step")
+
+
 def tp_attn_block(tp: TPBlock):
     """-> a function with ``blocks.apply_block``'s signature that applies
-    a dense ``attn`` block tensor-parallel by ``tp``: the whole-sequence
-    forward, or a paged serving step (``cache`` and ``block_tables``).
-    On the paged path the rank attends with its own Q heads over the KV
-    heads they read, which it writes into ``cache`` in place: ``cache``
-    is this rank's shard of a pool sharded by KV heads over `model` (the
-    plan's paged-cache specs under MP / HP), or a whole pool (replicated:
-    the KV heads do not divide, or the weights alone are sharded), of
-    which the rank reads and writes only those heads (``_kv_view`` says
-    what that asks of the pool's readers)."""
+    a dense ``attn`` or an encoder ``enc_attn`` block tensor-parallel by
+    ``tp``: the whole-sequence forward, or a paged serving step (``cache``
+    and ``block_tables``).  On the paged path the rank attends with its
+    own Q heads over the KV heads they read, which it writes into
+    ``cache`` in place: ``cache`` is this rank's shard of a pool sharded
+    by KV heads over `model` (the plan's paged-cache specs under MP / HP),
+    or a whole pool (replicated: the KV heads do not divide, or the
+    weights alone are sharded), of which the rank reads and writes only
+    those heads (``_kv_view`` says what that asks of the pool's
+    readers)."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
               cache=None, block_tables=None, new_lens=None, **_):
-        if kind != "attn" or (cache is None) != (block_tables is None):
-            raise ValueError("the tensor-parallel block is the dense attn "
-                             "block's whole-sequence forward or paged step")
-        paged = dict(cache=cache, block_tables=block_tables,
-                     new_lens=new_lens)
-        cfg = B.attn_cfg_for(arch)
-        h = B.norm_apply(arch, p["norm1"], x)
-        if tp.attn:
-            a = dict(p["attn"])
-            n_kv = cfg.n_kv_heads // tp.size
-            heads = tuple(range(tp.rank * n_kv, (tp.rank + 1) * n_kv))
-            if tp.kv_heads is not None:
-                a["wk"] = _pick_heads(a["wk"], tp.kv_heads, cfg.head_dim)
-                a["wv"] = _pick_heads(a["wv"], tp.kv_heads, cfg.head_dim)
-                heads = tp.kv_heads
-                n_kv = len(heads)
-            # a pool sharded by KV heads holds exactly this rank's; a whole
-            # one (always so where the KV heads do not divide) is viewed at
-            # them
-            write_back = None
-            if cache is not None and (tp.kv_heads is not None
-                                      or cache["k"].shape[2] != n_kv):
-                paged["cache"], write_back = _kv_view(cache, heads)
-            lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
-                                       n_kv_heads=n_kv)
-            wo = a.pop("wo")
+        if kind not in ("attn", "enc_attn"):
+            raise ValueError(f"tp_attn_block applies attn and enc_attn "
+                             f"blocks, not {kind!r}")
+        _paged_or_whole(cache, block_tables)
+        enc = kind == "enc_attn"
+        cfg = B.attn_cfg_for(arch, causal=not enc, use_rope=not enc)
+        x = x + _attention(p["attn"], cfg, B.norm_apply(arch, p["norm1"], x),
+                           tp, tp.attn, tp.kv_heads, positions=positions,
+                           impl=impl, cache=cache, block_tables=block_tables,
+                           new_lens=new_lens)
+        return x + _mlp(p["mlp"], B.norm_apply(arch, p["norm2"], x),
+                        arch.act, tp, tp.mlp), cache, 0.0
+    apply.own_pools = tp.attn
+    return apply
 
-            def attend(o, hin):
-                return L.attention({**a, "wo": o}, lcfg, hin,
-                                   positions=positions, impl=impl,
-                                   **paged)[0]
-            y = _row_parallel(attend, wo, _CopyToTP.apply(h, tp.group), tp)
-            if write_back is not None:
-                write_back()
+
+def tp_wdec_block(tp: TPBlock):
+    """-> whisper's decoder block (``wdec``) tensor-parallel by ``tp``:
+    its causal self-attention as ``tp_attn_block``'s (its pool
+    ``cache["self"]``), its cross attention by heads over the encoder
+    output or this rank's slot rows (``cache["cross"]``, its KV heads),
+    its MLP by d_ff."""
+    def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
+              cache=None, block_tables=None, new_lens=None, slot_ids=None,
+              cross_input=None, **_):
+        if kind != "wdec":
+            raise ValueError(f"tp_wdec_block applies wdec blocks, not "
+                             f"{kind!r}")
+        _paged_or_whole(cache, block_tables)
+        x = x + _attention(p["attn"], B.attn_cfg_for(arch, use_rope=False),
+                           B.norm_apply(arch, p["norm1"], x), tp, tp.attn,
+                           tp.kv_heads, positions=positions, impl=impl,
+                           cache=None if cache is None else cache["self"],
+                           block_tables=block_tables, new_lens=new_lens)
+        x = x + _attention(p["xattn"], B.cross_cfg_for(arch, kind),
+                           B.norm_apply(arch, p["norm2"], x), tp, tp.xattn,
+                           tp.xkv_heads, impl=impl, **_cross_kw(
+                               cross_input,
+                               None if cache is None else cache["cross"],
+                               slot_ids))
+        return x + _mlp(p["mlp"], B.norm_apply(arch, p["norm3"], x),
+                        arch.act, tp, tp.mlp), cache, 0.0
+    apply.own_pools = tp.attn and tp.xattn
+    return apply
+
+
+def tp_cross_block(tp: TPBlock):
+    """-> llama-vision's gated cross-attention block (``cross_attn``)
+    tensor-parallel by ``tp``: the attention by heads over the frontend or
+    this rank's slot rows (its KV heads), its tanh gate after the
+    all-reduce; the MLP by d_ff, scaled by tanh(mlp_gate) after it."""
+    def apply(p, kind, arch: ArchConfig, x, *, impl="xla", cache=None,
+              slot_ids=None, cross_input=None, **_):
+        if kind != "cross_attn":
+            raise ValueError(f"tp_cross_block applies cross_attn blocks, "
+                             f"not {kind!r}")
+        x = x + _attention(p["attn"], B.cross_cfg_for(arch, kind),
+                           B.norm_apply(arch, p["norm1"], x), tp, tp.attn,
+                           tp.kv_heads, impl=impl,
+                           **_cross_kw(cross_input, cache, slot_ids))
+        h = _mlp(p["mlp"], B.norm_apply(arch, p["norm2"], x), arch.act, tp,
+                 tp.mlp)
+        return x + torch.tanh(p["mlp_gate"].to(h.dtype)) * h, cache, 0.0
+    apply.own_pools = tp.attn
+    return apply
+
+
+def tp_shared_block(tp: TPBlock):
+    """-> one application of zamba2's shared block (``shared_attn``)
+    tensor-parallel by ``tp``: the shared attention (2 x d_model, every
+    head its own KV head) by heads over this application's paged pool
+    (its shard), the shared MLP by d_ff, then ``app_proj`` by rows: the
+    rank takes its columns of the replicated concat, after f, and g
+    follows.  The shared weights are ``shared``, used by every
+    application; autograd sums their gradients over the applications."""
+    def apply(p, kind, arch: ArchConfig, x, *, x0=None, shared=None,
+              positions=None, impl="xla", cache=None, block_tables=None,
+              new_lens=None, **_):
+        if kind != "shared_attn" or shared is None or x0 is None:
+            raise ValueError("tp_shared_block applies shared_attn blocks, "
+                             "with the shared params and the embeddings")
+        _paged_or_whole(cache, block_tables)
+        z = torch.cat([x, x0], dim=-1)
+        z = z + _attention(shared["attn"], B.shared_cfg_for(arch),
+                           B.norm_apply(arch, shared["norm1"], z), tp,
+                           tp.attn, tp.kv_heads, positions=positions,
+                           impl=impl, cache=cache, block_tables=block_tables,
+                           new_lens=new_lens)
+        z = z + _mlp(shared["mlp"], B.norm_apply(arch, shared["norm2"], z),
+                     arch.act, tp, tp.mlp)
+        if tp.app_proj:
+            cols = z.shape[-1] // tp.size
+            zl = _CopyToTP.apply(z, tp.group)[
+                ..., tp.rank * cols:(tp.rank + 1) * cols]
+            y = _row_parallel(L.dense, p["app_proj"], zl, tp)
         else:
-            y, _ = L.attention(p["attn"], cfg, h, positions=positions,
-                               impl=impl, **paged)
-        x = x + y
-        h = B.norm_apply(arch, p["norm2"], x)
-        if tp.mlp:
-            m = dict(p["mlp"])
-            w_out = m.pop("w_out")
-            y = _row_parallel(lambda o, hin: L.mlp({**m, "w_out": o}, hin,
-                                                   arch.act),
-                              w_out, _CopyToTP.apply(h, tp.group), tp)
-        else:
-            y = L.mlp(p["mlp"], h, arch.act)
+            y = L.dense(p["app_proj"], z)
         return x + y, cache, 0.0
+    apply.own_pools = tp.attn
+    return apply
+
+
+def tp_mamba2_block(tp: TPBlock):
+    """-> a ``mamba2`` block tensor-parallel by ``tp``: the outer norm
+    whole, then the mixer on this rank's heads (``mamba2.mamba2`` with a
+    ``HeadSplit``: its projections' columns, conv_x channels, A_log, D,
+    gated-norm columns, and its shard of the conv_x and ssm slot pools),
+    f before it and g after out_proj, whose bias is added once."""
+    split = M2.HeadSplit(tp.group, tp.size, tp.rank)
+
+    def apply(p, kind, arch: ArchConfig, x, *, cache=None, slot_ids=None,
+              new_lens=None, impl="xla", **_):
+        if kind != "mamba2":
+            raise ValueError(f"tp_mamba2_block applies mamba2 blocks, not "
+                             f"{kind!r}")
+        mixer = dict(p["mixer"])
+        out = mixer.pop("out_proj")
+
+        def run(o, h):
+            y, _ = B.mamba2_mixer({**mixer, "out_proj": o}, arch, h,
+                                  cache=cache, slot_ids=slot_ids,
+                                  new_lens=new_lens, impl=impl, split=split)
+            return y
+        y = _row_parallel(run, out, _CopyToTP.apply(
+            B.norm_apply(arch, p["norm"], x), tp.group), tp)
+        return x + y, cache, 0.0
+    apply.own_pools = True
     return apply
 
 
@@ -326,12 +521,12 @@ def gather_full(local, mesh, placements: tuple):
     if not any(isinstance(pl, D.Shard) and mesh.shape[i] > 1
                for i, pl in enumerate(placements)):
         return local
-    return D.DTensor.from_local(local, mesh, placements, run_check=False) \
-        .redistribute(mesh, (D.Replicate(),) * len(placements)).to_local()
+    return _gather_dims(local, mesh, placements,
+                        (D.Replicate(),) * len(placements))
 
 
 # ---------------------------------------------------------------------------
-# layouts: each leaf's role, each attn block's tensor parallelism
+# layouts: each leaf's role, each block's tensor parallelism
 # ---------------------------------------------------------------------------
 
 def _axis_at(spec, dim: int):
@@ -342,13 +537,92 @@ def _axis_at(spec, dim: int):
     return ax
 
 
+def _attn_layout(a: dict, pre: str, n_heads: int, n_kv: int, size: int,
+                 rank: int):
+    """-> (kv_heads, roles) of an attention whose wq the specs ``a`` shard
+    by columns over `model` (``kv_heads``: those this rank picks from
+    replicated wk / wv, None where they are sharded), or None where they
+    do not.  Roles: wq, wo (and wk, wv when sharded) ``local``; the q/k
+    norms' scales and replicated wk, wv ``partial``; wo's bias and the
+    gate ``full``."""
+    if _axis_at(a["wq"]["w"], -1) != "model":
+        return None
+    if _axis_at(a["wo"]["w"], -2) != "model":
+        raise ValueError(f"{pre}: wq is column-sharded but wo is not "
+                         f"row-sharded")
+    kv = _axis_at(a["wk"]["w"], -1) == "model"
+    roles = {}
+    for mod, leaves in a.items():
+        if not isinstance(leaves, dict):              # the tanh gate
+            continue
+        for leaf in leaves:
+            if (mod, leaf) == ("wo", "b"):
+                continue
+            roles[f"{pre}.{mod}.{leaf}"] = (
+                "partial" if mod in ("q_norm", "k_norm")
+                else "local" if mod in ("wq", "wo") or kv else "partial")
+    return (None if kv else L.local_groups(n_heads, n_kv, size, rank)), roles
+
+
+def _mlp_layout(m: dict, pre: str):
+    """-> the roles of an MLP whose w_in the specs shard by columns over
+    `model` (every leaf ``local`` but w_out's bias), or None."""
+    if _axis_at(m["w_in"]["w"], -1) != "model":
+        return None
+    if _axis_at(m["w_out"]["w"], -2) != "model":
+        raise ValueError(f"{pre}: w_in is column-sharded but w_out is not "
+                         f"row-sharded")
+    return {f"{pre}.{mod}.{leaf}": "local" for mod, leaves in m.items()
+            for leaf in leaves if (mod, leaf) != ("w_out", "b")}
+
+
+# mamba2's mixer under tensor parallelism: the leaves on this rank's heads
+# (out_proj's weight too; its bias is ``full``) and the replicated ones
+# used whole, whose gradient each rank holds in part
+_MAMBA2_LOCAL = ("z_proj", "x_proj", "dt_proj", "conv_x", "A_log", "D",
+                 "norm", "out_proj")
+_MAMBA2_PARTIAL = ("b_proj", "c_proj", "conv_b", "conv_c", "dt_bias")
+
+
+def _mamba2_layout(mx: dict, pre: str):
+    """-> the roles of a mamba2 mixer whose x_proj the specs shard by
+    columns over `model`, or None."""
+    if _axis_at(mx["x_proj"]["w"], -1) != "model":
+        return None
+    roles = {}
+    for mod, leaves in mx.items():
+        items = leaves.items() if isinstance(leaves, dict) else [("", leaves)]
+        for leaf, spec in items:
+            name = f"{pre}.{mod}" + (f".{leaf}" if leaf else "")
+            if (mod, leaf) == ("out_proj", "b"):
+                continue
+            if mod in _MAMBA2_PARTIAL:
+                roles[name] = "partial"
+            elif mod in _MAMBA2_LOCAL and "model" in tuple(spec):
+                roles[name] = "local"
+            else:
+                raise ValueError(f"{name}: spec {spec!r} under a "
+                                 f"tensor-parallel mamba2 mixer")
+    return roles
+
+
 def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     """-> (leaf roles: {leaf name (``tree.names``): role} for the
     non-``full`` leaves,
-    block_fns for ``lm_apply``).  ``specs``: the params' spec tree;
+    block_fns for ``lm_apply``: {segment: {block: fn}}, and the encoder's
+    under ``"encoder"``).  ``specs``: the params' spec tree;
     ``batch_spec``: the batch's (tensor parallelism needs the `model`
     ranks to hold the same rows, so a batch laid over `model`, as FS
-    lays it, gathers every weight on use)."""
+    lays it, gathers every weight on use).
+
+    A block runs tensor-parallel where the specs shard its weights over
+    `model`: ``attn`` and ``enc_attn`` (``tp_attn_block``), ``wdec``,
+    ``cross_attn``, ``shared_attn`` and ``mamba2``; each of its parts (the
+    attention, the cross attention, the MLP, the mixer, app_proj) on its
+    own share where its own specs say so (an ASA plan may shard a block's
+    mixer and not its FFN), else whole.  zamba2's shared weights
+    (``specs["shared"]``) are walked once, for every application.  The
+    MLA, MoE and MTP blocks gather their weights on use."""
     names = tuple(mesh.mesh_dim_names)
     ax = batch_spec[0] if len(batch_spec) else None
     if "model" not in names or "model" in (
@@ -357,44 +631,72 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     mdim = names.index("model")
     group = mesh.get_group(mdim)
     size, rank = mesh.shape[mdim], mesh.get_local_rank(mesh_dim=mdim)
-    roles, fns = {}, {}
+    n_kv = min(arch.n_kv_heads, arch.n_heads)
+    roles = {}
+
+    def attn(a, pre, n=arch.n_heads, kv=n_kv):
+        got = _attn_layout(a, pre, n, kv, size, rank)
+        if got is None:
+            return False, None
+        roles.update(got[1])
+        return True, got[0]
+
+    def mlp(m, pre):
+        got = _mlp_layout(m, pre)
+        roles.update(got or {})
+        return got is not None
+
+    shared = None
+    if "shared" in specs:
+        on, kv_heads = attn(specs["shared"]["attn"], "shared.attn",
+                            arch.n_heads, arch.n_heads)
+        shared = dict(attn=on, kv_heads=kv_heads,
+                      mlp=mlp(specs["shared"]["mlp"], "shared.mlp"))
+
+    def block(kind, b, pre):
+        """-> this block's function, or None where it runs whole."""
+        if kind in ("attn", "enc_attn", "cross_attn"):
+            on, kv_heads = attn(b["attn"], f"{pre}.attn")
+            tp = TPBlock(group, size, rank, on, kv_heads,
+                         mlp(b["mlp"], f"{pre}.mlp"))
+            make = tp_cross_block if kind == "cross_attn" else tp_attn_block
+        elif kind == "wdec":
+            on, kv_heads = attn(b["attn"], f"{pre}.attn")
+            x_on, x_kv = attn(b["xattn"], f"{pre}.xattn")
+            tp = TPBlock(group, size, rank, on, kv_heads,
+                         mlp(b["mlp"], f"{pre}.mlp"), xattn=x_on,
+                         xkv_heads=x_kv)
+            make = tp_wdec_block
+        elif kind == "shared_attn":
+            app = _axis_at(b["app_proj"]["w"], -2) == "model"
+            if app:
+                roles[f"{pre}.app_proj.w"] = "local"
+            tp = TPBlock(group, size, rank, **shared, app_proj=app)
+            make = tp_shared_block
+        elif kind == "mamba2":
+            got = _mamba2_layout(b["mixer"], f"{pre}.mixer")
+            roles.update(got or {})
+            tp = TPBlock(group, size, rank, False, None, False,
+                         mixer=got is not None)
+            make = tp_mamba2_block
+        else:
+            return None
+        if not (tp.attn or tp.xattn or tp.mlp or tp.mixer or tp.app_proj):
+            return None
+        return make(tp)
+
+    fns = {}
     for si, seg in enumerate(arch.pattern):
         for bi, kind in enumerate(seg.blocks):
-            if kind != "attn":
-                continue
-            b = specs["segments"][si][f"b{bi}"]
-            pre = f"segments.{si}.b{bi}"
-            attn = _axis_at(b["attn"]["wq"]["w"], -1) == "model"
-            mlp = _axis_at(b["mlp"]["w_in"]["w"], -1) == "model"
-            if not (attn or mlp):
-                continue
-            kv_heads = None
-            if attn:
-                if _axis_at(b["attn"]["wo"]["w"], -2) != "model":
-                    raise ValueError(f"{pre}: wq is column-sharded but wo "
-                                     f"is not row-sharded")
-                kv = _axis_at(b["attn"]["wk"]["w"], -1) == "model"
-                if not kv:
-                    kv_heads = local_kv_heads(arch.n_heads, min(
-                        arch.n_kv_heads, arch.n_heads), size, rank)
-                for mod, leaves in b["attn"].items():
-                    for leaf in leaves:
-                        role = ("partial" if mod in ("q_norm", "k_norm")
-                                else "full" if (mod, leaf) == ("wo", "b")
-                                else "local" if mod in ("wq", "wo") or kv
-                                else "partial")
-                        roles[f"{pre}.attn.{mod}.{leaf}"] = role
-            if mlp:
-                if _axis_at(b["mlp"]["w_out"]["w"], -2) != "model":
-                    raise ValueError(f"{pre}: w_in is column-sharded but "
-                                     f"w_out is not row-sharded")
-                for mod, leaves in b["mlp"].items():
-                    for leaf in leaves:
-                        roles[f"{pre}.mlp.{mod}.{leaf}"] = \
-                            "full" if (mod, leaf) == ("w_out", "b") \
-                            else "local"
-            fns.setdefault(si, {})[bi] = tp_attn_block(TPBlock(
-                group, size, rank, attn, kv_heads, mlp))
+            fn = block(kind, specs["segments"][si][f"b{bi}"],
+                       f"segments.{si}.b{bi}")
+            if fn is not None:
+                fns.setdefault(si, {})[bi] = fn
+    for si, seg in enumerate((specs.get("encoder") or {}).get("segments",
+                                                             [])):
+        fn = block("enc_attn", seg["b0"], f"encoder.segments.{si}.b0")
+        if fn is not None:
+            fns.setdefault("encoder", {}).setdefault(si, {})[0] = fn
     return roles, fns
 
 

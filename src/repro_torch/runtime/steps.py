@@ -99,8 +99,9 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
     params and moments are DTensors on that mesh; each rank takes its rows
     of each microbatch (the microbatch is the reference's: rows i * B / mb
     to (i + 1) * B / mb of the global batch, then its slice), gathers the
-    weights on use, runs the dense attn blocks tensor-parallel where the
-    plan shards them over `model`, and reduces each gradient to its
+    weights on use, runs the attn, encoder, mamba2, shared, wdec and
+    cross_attn blocks tensor-parallel where the plan shards them over
+    `model`, and reduces each gradient to its
     parameter's placement in the backward; the global norm sums squares
     over shards with one all-reduce; AdamW updates the local shards
     (int8 moments: on the gathered leaves, each rank keeping its shards).
@@ -343,15 +344,15 @@ def make_paged_decode_step(arch: ArchConfig, *, impl: str = "xla",
     return paged_decode_step
 
 
-def make_slot_admit_step(arch: ArchConfig):
+def make_slot_admit_step(arch: ArchConfig, *, block_fns=None):
     """-> admit(params, cache, slot_id[, frontend]) -> cache.  Resets one
     engine slot's rows in every slot-state pool on admission, in place:
     mamba2 state zeroed; cross-attn K/V zeroed or computed once from the
     request's ``frontend`` patch embeddings (1, T, d_model); wdec encoder
     K/V zeroed or computed by running the encoder ONCE over the request's
     frame embeddings (see transformer.admit_slot).  No-op for paged block
-    pools."""
+    pools.  ``block_fns``: the placed engine's (its encoder blocks')."""
     def slot_admit_step(params, cache, slot_id, frontend=None):
         return T.admit_slot(params, arch, cache, int(slot_id),
-                            frontend=frontend)
+                            frontend=frontend, block_fns=block_fns)
     return slot_admit_step

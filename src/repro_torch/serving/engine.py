@@ -71,8 +71,9 @@ its params are DTensors placed by ``plan.param_specs()`` and its pools by
 ``plan.paged_cache_specs()``, and every rank runs this host loop on the
 same inputs: the scheduler, the allocator and the sampler's host rows
 are deterministic, so the ranks make the same model calls, and the steps
-split what the plan shards (``serving/placement.py``: the dense attn
-blocks by heads, every other sharded block gathered around its call).
+split what the plan shards (``serving/placement.py``: the attn, mamba2,
+shared, wdec and cross_attn blocks by heads and d_ff on their own pool
+shards, the MLA and MoE blocks gathered around their calls).
 On a world of 1 the steps see the local tensors.  Without a mesh the
 engine runs unplaced on ``device`` and computes ``plan`` when it is
 first read (planning a large model takes seconds of host time that the
@@ -258,8 +259,8 @@ class ContinuousBatchingEngine:
                                                    block_fns=block_fns)
         self._decode = ST.make_paged_decode_step(arch, sampler=sampler,
                                                  block_fns=block_fns)
-        self._admit_slot_state = (ST.make_slot_admit_step(arch)
-                                  if self.cache.has_slot_state else None)
+        self._admit_slot_state = (ST.make_slot_admit_step(
+            arch, block_fns=block_fns) if self.cache.has_slot_state else None)
         self.scheduler = scheduler or RequestScheduler()
         # the engine truncates every request to max_len, so the token budget
         # charges capped footprints (the engine owns the cap)

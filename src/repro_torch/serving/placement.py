@@ -9,15 +9,24 @@ deterministic, so every rank makes the same model calls on the same
 token rows; ranks along `data` compute the same values, and the `model`
 ranks split what the plan shards:
 
-  * a dense ``attn`` block under MP / HP computes on its own heads
-    (``runtime/sharded.py``'s ``tp_attn_block``): its Q heads, the KV
-    heads of its pool shard, which it writes in place, and its slice of
-    d_ff, with one all-reduce after ``wo`` and one after ``w_out``;
-  * every other block whose weights or pools the plan shards gathers its
-    weights on use and its pool shards around the block call, then
-    writes back only this rank's slice: correct, not parallel (mamba2's
-    ``conv_x`` and ``ssm`` on a (2, 2) mesh).  Admission gathers the
-    slot-state pools it resets the same way.
+  * the ``attn``, ``mamba2``, ``shared_attn``, ``wdec`` and
+    ``cross_attn`` blocks under MP / HP compute on their own share
+    (``runtime/sharded.py``'s tensor-parallel blocks) and work on their
+    pool shards in place: an attention's Q heads and the KV heads of its
+    pool shard (zamba2's per-application pools, whisper's self pool and
+    its cross slot rows, llama-vision's cross slot rows), mamba2's heads
+    and its ``conv_x`` and ``ssm`` slot rows, the MLP's slice of d_ff,
+    with one all-reduce after each row-parallel projection (and one a
+    gated norm).  mamba2's ``conv_b`` and ``conv_c`` pools stay
+    replicated: every `model` rank computes the same B and C, so each
+    rank's copy stays whole and valid.  The encoder runs on its own heads
+    too, at admission, where each rank writes its own heads of the cross
+    K/V;
+  * the blocks this does not cover yet (``mla``, ``mla_dense``,
+    ``moe_attn``) gather their weights on use and, where the plan shards
+    their pools, the pool shards around the block call, then write back
+    only this rank's slice: correct, not parallel.  Admission gathers such
+    a block's slot-state pools the same way.
 
 The kernels are ctypes calls on local tensors, which DTensor dispatch
 never reaches.  On a world of 1 the steps see the local tensors, which
@@ -114,6 +123,8 @@ class Placement:
         self.step_pools = tree.map(_local, pools)
         local = tree.map(_local, self.params)
         self.block_fns = None
+        # the (segment, block)s whose pool shards are gathered around them
+        self._gathered = set()
         if self.world == 1:
             self._work = local
             return
@@ -126,19 +137,17 @@ class Placement:
         self._pool_pls = SH.map_specs(lambda ns: ns.placements,
                                       SH.shardings(pool_specs, mesh))
         app_pls = _pls_map(SD._shift, self._pool_pls)
-        fns = {}
+        fns = {k: v for k, v in tp_fns.items() if k == "encoder"}
         for si, seg in enumerate(arch.pattern):
             for bi, kind in enumerate(seg.blocks):
                 fn = tp_fns.get(si, {}).get(bi)
                 pls = app_pls[si][f"b{bi}"]
                 split = any(_is_split(pl, mesh) for pl in _pls_leaves(pls))
-                # a tensor-parallel attention attends over its own pool
-                # shard; any other block gathers the shards around it
-                own_heads = fn is not None and SD._axis_at(
-                    param_specs["segments"][si][f"b{bi}"]["attn"]["wq"]["w"],
-                    -1) == "model"
-                if split and not own_heads:
+                # a tensor-parallel block works on its own pool shards;
+                # any other block gathers the shards around it
+                if split and not getattr(fn, "own_pools", False):
                     fn = _gathered_block(fn or B.apply_block, pls, mesh)
+                    self._gathered.add((si, bi))
                 if fn is not None:
                     fns.setdefault(si, {})[bi] = fn
         self.block_fns = fns
@@ -154,15 +163,19 @@ class Placement:
 
     def admit(self, admit_fn, params, slot: int, frontend):
         """``admit_fn(params, pools, slot, frontend)`` (the slot admission
-        step) with the split slot-state pools gathered around it."""
-        if self.world == 1:
+        step) on the pools as the steps see them: a tensor-parallel
+        block's shards as they are (each rank writes its own heads), the
+        split slot-state pools of a block that gathers them around its
+        calls gathered around this one too."""
+        if not self._gathered:
             admit_fn(params, self.step_pools, slot, frontend)
             return
         pools = [dict(seg) for seg in self.step_pools]
         gathered = []
         for si, seg in enumerate(self.arch.pattern):
             for bi, kind in enumerate(seg.blocks):
-                if kind not in SLOT_STATE_KINDS:
+                if kind not in SLOT_STATE_KINDS or \
+                        (si, bi) not in self._gathered:
                     continue
                 key = f"b{bi}"
                 local, pls = pools[si][key], self._pool_pls[si][key]

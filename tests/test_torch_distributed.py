@@ -1,17 +1,26 @@
 """The port's sharded training (``repro_torch.runtime.trainer``,
 ``runtime/sharded.py``, ``checkpoint``, ``launch``) on the CPU.
 
-(c) Four gloo ranks, spawned once for this module
-(``torch_dist_worker.py``): 4 steps of test_convergence_parity's arch (4
-heads over 4) and of tiny-rt (4 over 2: the KV projections stay
-replicated on model = 4) under uniform DP on (4, 1), MP on (1, 4), HP on
-(2, 2), FS on (2, 2) and the ASA's own plan on (2, 2), against the
-single-rank Trainer (a world of 1 in this process) at
+(c) Four gloo ranks, spawned twice for this module
+(``torch_dist_worker.py``: ``run``, ``run_tp``): 4 steps of
+test_convergence_parity's arch (4 heads over 4) and of tiny-rt (4 over 2:
+the KV projections stay replicated on model = 4), and 2 steps (losses and
+grad norms) of the tiny mamba2 (one and two B/C groups), zamba2 (shared
+block + mamba2), whisper (encoder + wdec, a frontend in each batch) and
+llama-vision (attn + gated cross attention, a frontend in each batch)
+configs, under uniform DP on (4, 1), MP on (1, 4), HP on (2, 2), FS on
+(2, 2) and the ASA's own plan on (2, 2), each spawn within 120 s,
+against the single-rank Trainer (a world of 1 in this process) at
 test_convergence_parity's tolerances (2e-4 for DP and FS, 2e-3 where the
-compute is tensor-parallel); local shards are the spec's division; a
-checkpoint saved on (4, 1) restores onto (2, 2) bit for bit.  The
-single-rank Trainer equals the mesh-free JAX step on the same params at
-1e-5.
+compute is tensor-parallel); local shards are the spec's division; under
+MP each rank's SSD scans run H / 4 heads, its x_proj and wq work at a
+quarter of their columns, and no leaf the specs shard over `model` is
+all-gathered over it but the embedding and head; the all-gather by hand
+(for gloo over CUDA tensors) lays shards out as DTensor does; the
+split-row RMSNorm over the four ranks equals the reference's whole-row
+norm, forward and gradients; a checkpoint saved on (4, 1) restores onto (2, 2) bit for
+bit.  The single-rank Trainer equals the mesh-free JAX step on the same
+params (and frontends) at 1e-5.
 
 (d) The reference's trainer tests re-pointed at the port (their JAX
 originals fail on jax 0.9.0: its ``Trainer.train`` raises): end to end,
@@ -72,11 +81,10 @@ def _world_of_one():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def four_ranks():
+def _spawn(fn):
     d = pathlib.Path(tempfile.mkdtemp())
     t0 = time.perf_counter()
-    mp.start_processes(W.run, args=(4, str(d / "store"), str(d / "out.pkl")),
+    mp.start_processes(fn, args=(4, str(d / "store"), str(d / "out.pkl")),
                        nprocs=4, start_method="spawn")
     res = pickle.loads((d / "out.pkl").read_bytes())
     res["seconds"] = time.perf_counter() - t0
@@ -84,14 +92,30 @@ def four_ranks():
 
 
 @pytest.fixture(scope="module")
+def four_ranks():
+    return _spawn(W.run)
+
+
+@pytest.fixture(scope="module")
+def four_ranks_tp():
+    """The tensor-parallel kinds' archs on four ranks (``W.run_tp``)."""
+    return _spawn(W.run_tp)
+
+
+def _steps(name):
+    return W.TP_STEPS if name in W.TP_ARCHS else W.STEPS
+
+
+@pytest.fixture(scope="module")
 def single_rank():
-    """Each arch's 4 losses on a world of 1 (fp32 and int8 moments), and
-    the params it started from."""
+    """Each arch's losses on a world of 1 (fp32 and int8 moments), and
+    for the tensor-parallel kinds' archs their grad norms."""
     out = {}
     for name, arch in W.ARCHS.items():
         mesh = M.make_host_mesh(device="cpu")
-        tr, p, o, losses = W.train(arch, mesh, "DP")
+        tr, p, o, losses = W.train(arch, mesh, "DP", steps=_steps(name))
         out[name] = losses
+        out[name, "grad_norms"] = tr.grad_norms
     out["tiny-rt-int8"] = W.train(W.ARCHS["tiny-rt"],
                                   M.make_host_mesh(device="cpu"), "HP",
                                   quantized=True, steps=3)[3]
@@ -100,12 +124,18 @@ def single_rank():
 
 @pytest.mark.parametrize("name", sorted(W.ARCHS))
 @pytest.mark.parametrize("case", [c[0] for c in W.CASES])
-def test_four_ranks_train_like_one(four_ranks, single_rank, name, case):
-    got = four_ranks["losses"][(name, case)]
+def test_four_ranks_train_like_one(request, single_rank, name, case):
+    ranks = request.getfixturevalue(
+        "four_ranks_tp" if name in W.TP_ARCHS else "four_ranks")
+    got = ranks["losses"][(name, case)]
     np.testing.assert_allclose(got, single_rank[name], rtol=TOL[case],
                                atol=TOL[case])
-    assert four_ranks["shards"][(name, case)] == []
-    full, local = four_ranks["sharded"][(name, case)]
+    if name in W.TP_ARCHS:      # 2 steps: their grad norms too
+        np.testing.assert_allclose(ranks["grad_norms"][(name, case)],
+                                   single_rank[name, "grad_norms"],
+                                   rtol=TOL[case], atol=TOL[case])
+    assert ranks["shards"][(name, case)] == []
+    full, local = ranks["sharded"][(name, case)]
     # storage really is sharded: wq holds 1/(data*model) a rank under HP
     # and FS, 1/model under MP, all of it under DP
     div = {"DP": 1, "MP": 4, "HP": 4, "FS": 4}.get(case)
@@ -118,6 +148,10 @@ def test_asa_plan_on_four_ranks_is_the_planners(four_ranks):
         W.scheduler(None).plan(W.ARCHS["tiny-rt"], SHAPE,
                                M.MeshShape(2, 2)).plan.method
     assert four_ranks["seconds"] < 120
+
+
+def test_tp_kinds_spawn_is_as_cheap(four_ranks_tp):
+    assert four_ranks_tp["seconds"] < 120
 
 
 def test_int8_moments_on_four_ranks(four_ranks, single_rank):
@@ -135,14 +169,15 @@ def test_checkpoint_reshards_from_4x1_to_2x2(four_ranks):
     assert r["local_shapes"][0] == (128, 32)
 
 
-def _jax_losses(arch, params_np, steps, data=(256, 32, 8)):
+def _jax_losses(arch, params_np, steps, data=(256, 32, 8), batches=None):
     jarch = arch
     jopt = JO.adamw(JS.cosine_schedule(3e-3, 2, 40))
     jp = jax.tree.map(jnp.asarray, params_np)
     js = jopt[0](jp)
     step = jit_step("train", j_make_train_step(jarch, jopt))
     out = []
-    for batch in (next(it) for it in [JSyntheticLM(*data)] * steps):
+    batches = batches or JSyntheticLM(*data)
+    for batch in (next(it) for it in [batches] * steps):
         jp, js, m = step(jp, js, {k: jnp.asarray(v) for k, v in
                                   batch.items()})
         out.append(float(m["loss"]))
@@ -153,20 +188,95 @@ def _gathered(p):
     return tree.map(lambda x: x.full_tensor(), p)
 
 
+def _jax_arch(arch):
+    """The reference's ArchConfig with every field of the port's."""
+    from repro.configs import base as JB
+    kw = {f.name: getattr(arch, f.name) for f in dataclasses.fields(arch)}
+    kw["pattern"] = tuple(JB.Segment(s.blocks, s.repeat)
+                          for s in arch.pattern)
+    for name, cls in (("moe", JB.MoESpec), ("ssm", JB.SSMSpec),
+                      ("mla", JB.MLASpec), ("encoder", JB.EncoderSpec)):
+        if kw[name] is not None:
+            kw[name] = cls(**dataclasses.asdict(kw[name]))
+    return JB.ArchConfig(**kw)
+
+
 @pytest.mark.parametrize("name", sorted(W.ARCHS))
 def test_single_rank_trainer_equals_the_jax_step(single_rank, name):
-    from repro.configs.base import ArchConfig as JArch, Segment as JSeg
     arch = W.ARCHS[name]
-    jarch = JArch(**{**{f.name: getattr(arch, f.name) for f in
-                        dataclasses.fields(arch)},
-                     "pattern": (JSeg(("attn",), 2),)})
     mesh = M.make_host_mesh(device="cpu")
     tr = Trainer(arch, SHAPE, mesh, W.CFG)
     p, _ = tr.init_state()
     start = convert.to_numpy(_gathered(p))
     np.testing.assert_allclose(single_rank[name],
-                               _jax_losses(jarch, start, W.STEPS),
+                               _jax_losses(_jax_arch(arch), start,
+                                           _steps(name),
+                                           batches=W.data(arch)),
                                rtol=1e-5, atol=0)
+
+
+# the new tensor-parallel kinds' archs, and the leaves MP may still gather
+# over `model` (the vocab-sharded embedding and head, full leaves)
+TP_ARCHS = W.TP_ARCHS
+GATHERED_OVER_MODEL = {"embed.embedding", "head.w", "head.b"}
+
+
+@pytest.mark.parametrize("name", TP_ARCHS)
+def test_mp_computes_on_each_ranks_share(four_ranks_tp, name):
+    """Under MP on (1, 4) every rank's SSD scans see H / 4 heads, its
+    mamba2 mixers work on a quarter of x_proj's columns and every
+    attention (self, encoder, shared, cross) on a quarter of wq's, and no
+    leaf the specs shard over `model` is gathered over it but the
+    embedding and head."""
+    arch = W.ARCHS[name]
+    recs = four_ranks_tp["split"][name]
+    assert len(recs) == 4
+    for rank, rec in enumerate(recs):
+        if arch.ssm is not None:
+            d_inner = arch.ssm.expand * arch.d_model
+            assert rec["ssd_heads"] == {d_inner // arch.ssm.head_dim // 4}
+            assert rec["x_proj"] == {(arch.d_model, d_inner // 4)}, rank
+        else:
+            assert rec["ssd_heads"] == set() and rec["x_proj"] == set()
+        attends = any(k != "mamba2" for seg in arch.pattern
+                      for k in seg.blocks)
+        assert bool(rec["wq"]) == attends, rank
+        for d_model, shape in rec["wq"]:
+            assert shape == (d_model, d_model // 4), (rank, d_model, shape)
+        assert rec["gathered_over_model"] <= GATHERED_OVER_MODEL, \
+            (rank, rec["gathered_over_model"])
+    if name == "tiny-shared":           # the shared block at 2 x d_model
+        assert {dm for dm, _ in recs[0]["wq"]} == {2 * arch.d_model}
+
+
+def test_gathers_by_hand_are_dtensors(four_ranks_tp):
+    """The sharded step's all-gather (``sharded._gather_dims``, which
+    every gather on use takes) lays shards out as DTensor's redistribute
+    does, on (2, 2)."""
+    got = four_ranks_tp["gathers_by_hand"]
+    assert len(got) == 10 and all(ok for _, _, ok in got), got
+
+
+def test_split_row_rmsnorm_on_four_ranks_is_the_whole_rows(four_ranks_tp):
+    """The four ranks' columns of ``rmsnorm_split`` (a (6, 40) fp32 row
+    split 10 a rank, loss sum(y * w)) against the reference's whole-row
+    ``layers.rmsnorm`` and its ``jax.grad``, at 1e-5."""
+    from repro.models import layers as JL
+    rng = np.random.default_rng(3)
+    x, w = (rng.standard_normal((6, 40)).astype(np.float32)
+            for _ in range(2))
+    scale = (1 + 0.1 * rng.standard_normal(40)).astype(np.float32)
+
+    def loss(x, s):
+        return jnp.sum(JL.rmsnorm({"scale": s}, x) * w)
+    want_y = np.asarray(JL.rmsnorm({"scale": scale}, x))
+    want_dx, want_ds = jax.grad(loss, (0, 1))(x, scale)
+    got = four_ranks_tp["split_rmsnorm"]
+    for key, want, axis in (("y", want_y, 1), ("dx", want_dx, 1),
+                            ("dscale", want_ds, 0)):
+        np.testing.assert_allclose(
+            np.concatenate([g[key] for g in got], axis=axis),
+            np.asarray(want), rtol=1e-5, atol=1e-5, err_msg=key)
 
 
 # ---------------------------------------------------------------------------

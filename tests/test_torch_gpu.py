@@ -168,6 +168,84 @@ def test_cuda_rmsnorm_bwd_matches_plain(shape, dtype):
     assert ok, (err, tol)
 
 
+# the split-row RMSNorm (mamba2's gated norm under tensor parallelism):
+# mamba2-780m's and zamba2-2.7b's d_inner halves at a forward's, a train
+# step's and a decode step's rows, an odd width, the looped body's width
+RMSNORM_SPLIT_SHAPES = [(1000, 1536), (2048, 2560), (4, 2560), (37, 300),
+                        (3, 16392)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", RMSNORM_SPLIT_SHAPES)
+def test_cuda_rmsnorm_split_matches_plain(shape, dtype):
+    """The split-row kernels, forward and backward: on a whole row (no
+    group) the whole-row kernels' bits; over a world-1 group at d_total =
+    3 D (the other columns' squares summed as 0) against autograd through
+    ``ref.rmsnorm_split_ref`` on the same group, at the kernels'
+    tolerances; one launch a direction."""
+    _need_cuda()
+    from repro_torch.launch import mesh as M
+    smoke = _smoke()
+    tdt, atol, rtol = DTYPES[dtype]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    s = (1.0 + 0.1 * torch.randn(shape[-1], generator=g, device="cuda")
+         ).to(tdt)
+    gy = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    D = shape[-1]
+    xk, sk = x.clone().requires_grad_(), s.clone().requires_grad_()
+    before = (trn.rmsnorm_split.launches, trn.rmsnorm_split_bwd.launches)
+    y = trn.rmsnorm_split(xk, sk, d_total=D)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert (trn.rmsnorm_split.launches, trn.rmsnorm_split_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, trn.rmsnorm(x, s))
+    dx, ds = trn.rmsnorm_bwd(x, s, gy)
+    assert torch.equal(xk.grad, dx) and torch.equal(sk.grad, ds)
+    M.init_world(device="cuda")
+    try:
+        group = torch.distributed.group.WORLD
+        xk, sk = x.clone().requires_grad_(), s.clone().requires_grad_()
+        y = trn.rmsnorm_split(xk, sk, d_total=3 * D, group=group)
+        y.backward(gy)
+        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+        want = tref.rmsnorm_split_ref(xr, sr, d_total=3 * D, group=group)
+        want.backward(gy)
+        torch.cuda.synchronize()
+    finally:
+        M.shutdown()
+    torch.testing.assert_close(y.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    err, ok, tol = smoke.check_normwise((xk.grad, sk.grad),
+                                        (xr.grad, sr.grad), dtype)
+    assert ok, (err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,scale_dtype",
+                         [("bfloat16", "float32"), ("float32", "bfloat16")])
+def test_cuda_rmsnorm_split_takes_mixed_dtypes(x_dtype, scale_dtype):
+    """x and scale of different dtypes, as the whole-row kernel takes them:
+    the split-row kernels on a whole row give the whole-row kernels' bits,
+    forward and backward."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    R, D = 64, 1536
+    x, gy = (torch.randn((R, D), generator=g, device="cuda")
+             .to(DTYPES[x_dtype][0]) for _ in range(2))
+    s = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")
+         ).to(DTYPES[scale_dtype][0])
+    xk, sk = x.clone().requires_grad_(), s.clone().requires_grad_()
+    y = trn.rmsnorm_split(xk, sk, d_total=D)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, trn.rmsnorm(x, s))
+    dx, ds = trn.rmsnorm_bwd(x, s, gy)
+    assert torch.equal(xk.grad, dx) and torch.equal(sk.grad, ds)
+
+
 FLASH_BWD_CASES = [
     (2, 128, 128, 4, 2, 128, True),
     (1, 300, 300, 4, 1, 64, True),
@@ -633,6 +711,21 @@ RMSNORM_BWD_MUTANTS = {
         "for (int b = w; b < blocks; b += kDscaleWarps)",
         "for (int b = w; b < 1; b += kDscaleWarps)"),
 }
+# the split-row modes' (csrc/rmsnorm.cu's kSumSq and kApply):
+# the forward normalising by this rank's width, not the row's; the sums
+# pass writing half of sum(x^2); the backward's sum(g*s*x) dropped; the
+# backward normalising by this rank's width
+RMSNORM_SPLIT_MUTANTS = {
+    "split: forward over the local width": (
+        "rsqrtf(sums[active ? row : 0] / static_cast<float>(d_total) + eps)",
+        "rsqrtf(sums[active ? row : 0] / static_cast<float>(d) + eps)"),
+    "split: half the squares": ("if (active && lane == 0) sums[row] = ss;",
+                                "if (active && lane == 0) sums[row] = 0.5f * ss;"),
+    "split: backward without sum(g*s*x)": ("sums[2 * row + 1] = gsx;",
+                                           "sums[2 * row + 1] = 0.f;"),
+    "split: backward over the local width": (
+        "dn = static_cast<float>(d_total);", "dn = static_cast<float>(d);"),
+}
 # the looped backward's: its rows' g * xh left out of dscale
 RMSNORM_BWD_LOOP_MUTANTS = {
     "looped: g * xh never added to the partial row": (
@@ -678,6 +771,41 @@ def test_smoke_check_rejects_wrong_rmsnorm_kernels(tmp_path, monkeypatch):
         for name in wrong:
             assert rejected[name, "float32", D], (name, D)
             assert rejected[name, "bfloat16", D], (name, D)
+
+
+@pytest.mark.gpu
+def test_smoke_check_rejects_wrong_split_rmsnorm_kernels(tmp_path,
+                                                         monkeypatch):
+    """chip_smoke.py's split-row rows (``split_norm_rows``: d_total = 2 D,
+    the forward by ``check_close``, the backward by ``check_normwise``)
+    fail every split-mode mutant in both dtypes at zamba2-2.7b's train
+    shape (2048, 2560) and pass the kernel."""
+    _need_cuda()
+    smoke = _smoke()
+    libs = _build_mutants(tmp_path, "rmsnorm.cu", RMSNORM_SPLIT_MUTANTS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    R, D = 2048, 2560
+    for dn, (tdt, _, _) in DTYPES.items():
+        x, gy = (torch.randn((R, D), generator=g, device="cuda").to(tdt)
+                 for _ in range(2))
+        s = (1.0 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(tdt)
+        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+        want = tref.rmsnorm_split_ref(xr, sr, d_total=2 * D)
+        want_g = torch.autograd.grad(want, (xr, sr), gy)
+        for name, lib in [("kernel", None), *libs.items()]:
+            if lib is not None:
+                monkeypatch.setattr(trn, "_split_fn", trn.bind_split(lib))
+                monkeypatch.setattr(trn, "_split_bwd_fn",
+                                    trn.bind_split_bwd(lib))
+            y = trn._split_forward(x, s, 1e-6, 2 * D, None)
+            grads = trn._split_backward(x, s, gy, 1e-6, 2 * D, None)
+            torch.cuda.synchronize()
+            ok = (smoke.check_close(y, want.detach(), dn)[1]
+                  and smoke.check_normwise(grads, want_g, dn)[1])
+            print(f"rmsnorm_split {name} {dn}: "
+                  f"{'passes' if ok else 'fails'}")
+            assert ok == (lib is None), (name, dn)
+            monkeypatch.undo()
 
 
 def _ssd_case(smoke, B, S, H, P, N, G, dtype, has_h0, dt_bias=None, seed=0):
@@ -856,10 +984,12 @@ SSD_MUTANTS_FP32 = {
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_BF16_WIDE),
     ("flash_attention.cu", FLASH_MUTANTS_TF32),
     ("flash_attention_bwd.cu", FLASH_BWD_MUTANTS_TF32),
+    ("rmsnorm.cu", RMSNORM_SPLIT_MUTANTS),
 ], ids=["flash-bf16", "flash-fp32", "rmsnorm", "ssd", "ssd-bf16",
         "flash-bwd", "rmsnorm-bwd", "flash-bwd-bf16", "ssd-bwd",
         "ssd-bwd-bf16", "rmsnorm-loop", "rmsnorm-bwd-loop",
-        "flash-bwd-bf16-wide", "flash-tf32", "flash-bwd-tf32"])
+        "flash-bwd-bf16-wide", "flash-tf32", "flash-bwd-tf32",
+        "rmsnorm-split"])
 def test_every_mutant_edit_applies_once(source, mutants):
     """Each wrong kernel above is one edit of text that occurs exactly once
     in its source, so the card's mutant tests build what they claim.  Runs

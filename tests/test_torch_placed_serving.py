@@ -5,16 +5,23 @@ Four gloo ranks, spawned once for this module
 (``torch_serve_dist_worker.py``, which imports no JAX; this process hands
 them the reference's params under the goldens' RNG as numpy), serve the
 reference's placement scenarios (``tests/test_serving.py``'s
-multi-device tests, which need 8 JAX devices) on a (data 2, model 2)
-mesh: the greedy tokens equal the goldens, every pool leaf lies as
-``plan.paged_cache_specs()`` says, with the leaves the reference's
-planner shards over `model` really split (tiny/base 2 of 2, hybrid 4 of
-6, mla/base 0 of 4), and the plan's assignment equals the reference
-planner's for the same arch, shape and mesh shape.
+multi-device tests, which need 8 JAX devices), and the SSM, shared,
+enc-dec and cross goldens, on a (data 2, model 2) mesh: the greedy tokens
+equal the goldens, every pool leaf lies as ``plan.paged_cache_specs()``
+says, with the leaves the reference's planner shards over `model` really
+split (``SPLIT``), each block runs its tensor-parallel function on its own
+pool shards (``BLOCK_FNS``: only the MLA blocks keep ``apply_block``, and
+none gathers), and the plan's assignment equals the reference planner's
+for the same arch, shape and mesh shape.
 
-A fifth case, 6 Q heads over 3 KV heads, keeps its KV weights and pools
-whole on (2, 2): each rank picks the KV heads of its Q heads, and the
-tokens equal the unplaced engine's.
+A case of 6 Q heads over 3 KV heads keeps its KV weights and pools whole
+on (2, 2): each rank picks the KV heads of its Q heads, and the tokens
+equal the unplaced engine's.  Two cases with a frontend in every request
+and llama-vision's gates opened (the goldens were frozen without
+frontends, gates shut) give the JAX engine's tokens on the same params
+and frontends, and the unplaced engine's: whisper's encoder runs on each rank's heads at
+admission, which writes each rank's heads of the cross K/V, and the cross
+attention reads them.
 
 In this process, on a world of 1: the placed engine equals the unplaced
 one bit for bit (tokens and logprobs), and ``Server.plan`` is the
@@ -42,7 +49,7 @@ from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 from repro_torch.serving.sampling import SamplingParams
 from serving_fixtures import (load_goldens, scenario_prompts,
                               scenario_requests)
-from torch_port_fixtures import jax_params, port_arch, torch_params
+from torch_port_fixtures import frontend, jax_params, port_arch, torch_params
 
 # the reference's multi-device placement scenarios and their settings
 CASES = {
@@ -50,20 +57,40 @@ CASES = {
     "hybrid/base": dict(block_size=4, prefill_chunk=4),
     "mla/base": dict(block_size=4, prefill_chunk=3),
     "hybrid/preempt": dict(block_size=4, num_blocks=8, prefill_chunk=8),
+    "ssm/base": dict(block_size=4, prefill_chunk=3),
+    "shared/base": dict(block_size=4, prefill_chunk=3),
+    "shared/preempt": dict(block_size=4, num_blocks=8, prefill_chunk=8),
+    "encdec/base": dict(block_size=4, prefill_chunk=3),
+    "cross/base": dict(block_size=4, prefill_chunk=4),
 }
 # pool leaves sharded over `model` / pool leaves, as the reference's
-# planner places them on (2, 2)
+# planner places them on (2, 2): the attention pools by KV heads, mamba2's
+# conv_x and ssm by heads (conv_b and conv_c stay whole), zamba2's
+# per-application pools, whisper's self and cross pools, llama-vision's
+# cross slot rows
 SPLIT = {"tiny/base": (2, 2), "hybrid/base": (4, 6), "mla/base": (0, 4),
-         "hybrid/preempt": (4, 6)}
-# how each (segment, block) runs on (2, 2): the dense attn block on its own
-# heads, mamba2 with its pool shards gathered around it; MLA's pools are
-# replicated and its weights gathered on use, so it keeps apply_block
+         "hybrid/preempt": (4, 6), "ssm/base": (2, 4),
+         "shared/base": (4, 6), "shared/preempt": (4, 6),
+         "encdec/base": (4, 4), "cross/base": (4, 4)}
+# how each (segment, block) runs on (2, 2): every block on its own share
+# and pool shards; MLA's pools are replicated and its weights gathered on
+# use, so it keeps apply_block; whisper's encoder block under
+# ("encoder", segment, block)
 BLOCK_FNS = {"tiny/base": {(0, 0): "tp_attn_block"},
              "hybrid/base": {(0, 0): "tp_attn_block",
-                             (0, 1): "_gathered_block"},
+                             (0, 1): "tp_mamba2_block"},
              "mla/base": {},
              "hybrid/preempt": {(0, 0): "tp_attn_block",
-                                (0, 1): "_gathered_block"}}
+                                (0, 1): "tp_mamba2_block"},
+             "ssm/base": {(0, 0): "tp_mamba2_block"},
+             "shared/base": {(0, 0): "tp_shared_block",
+                             (0, 1): "tp_mamba2_block"},
+             "shared/preempt": {(0, 0): "tp_shared_block",
+                                (0, 1): "tp_mamba2_block"},
+             "encdec/base": {(0, 0): "tp_wdec_block",
+                             ("encoder", 0, 0): "tp_attn_block"},
+             "cross/base": {(0, 0): "tp_attn_block",
+                            (0, 1): "tp_cross_block"}}
 
 
 # 6 Q heads over 3 KV heads: on model = 2 wq and wo split, wk, wv and the
@@ -75,8 +102,21 @@ GQA_ODD = JArchConfig(name="gqa-odd", family="dense", n_layers=2, d_model=96,
                       dtype="float32", param_dtype="float32")
 GQA_ODD_CASE = dict(slots=2, max_len=64, engine=dict(block_size=4,
                                                      prefill_chunk=3),
-                    requests=[(i, p, 6) for i, p in
+                    requests=[(i, p, 6, None) for i, p in
                               enumerate(scenario_prompts(8, 4))])
+# requests with frontends (seeded numpy, one a request) and the gates
+# opened, held against the unplaced engine: whisper and llama-vision
+FRONTEND_CASES = {"encdec/frontend": "encdec/base",
+                  "cross/frontend": "cross/base"}
+
+
+def _frontend_case(name: str) -> dict:
+    scenario = FRONTEND_CASES[name]
+    arch, reqs, slots, max_len = scenario_requests(scenario)
+    fes = frontend(arch, len(reqs), 11)
+    return dict(slots=slots, max_len=max_len, engine=CASES[scenario],
+                requests=[(rid, p, m, fes[rid:rid + 1])
+                          for rid, p, m in reqs])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,10 +139,15 @@ def four_ranks():
         cases[name] = dict(
             arch=port_arch(arch), slots=slots, max_len=max_len, engine=kw,
             params=jax.tree.map(np.asarray, jax_params(arch)),
-            requests=[(rid, p, m) for rid, p, m in reqs])
+            requests=[(rid, p, m, None) for rid, p, m in reqs])
     cases["gqa-odd"] = dict(GQA_ODD_CASE, arch=port_arch(GQA_ODD),
                             params=jax.tree.map(np.asarray,
                                                 jax_params(GQA_ODD)))
+    for name, scenario in FRONTEND_CASES.items():
+        arch = scenario_requests(scenario)[0]
+        cases[name] = dict(_frontend_case(name), arch=port_arch(arch),
+                           params=jax.tree.map(np.asarray, jax_params(
+                               arch, open_gates=True)))
     (d / "in.pkl").write_bytes(pickle.dumps(cases))
     t0 = time.perf_counter()
     mp.start_processes(W.run, args=(4, str(d / "store"), str(d / "in.pkl"),
@@ -159,10 +204,46 @@ def test_four_ranks_pick_kv_heads_that_do_not_divide(four_ranks):
         slots=GQA_ODD_CASE["slots"], max_len=GQA_ODD_CASE["max_len"],
         **GQA_ODD_CASE["engine"])
     outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m)
-                         for rid, p, m in GQA_ODD_CASE["requests"]])
+                         for rid, p, m, _ in GQA_ODD_CASE["requests"]])
     assert got["tokens"] == {o.request_id: o.token_ids for o in outs}
     assert got["block_fns"] == {(0, 0): "tp_attn_block"}
     assert got["specs"] == [(), ()] and all(got["placed_as_specs"])
+
+
+def _jax_frontend_tokens(arch, case) -> dict:
+    """The JAX engine's greedy tokens for a frontend case, on the same
+    params (gates opened), frontends and engine settings."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.serving import ContinuousBatchingEngine as JaxEngine
+    from repro.serving import Request as JaxRequest
+    eng = JaxEngine(arch, jax_params(arch, open_gates=True),
+                    make_host_mesh(), slots=case["slots"],
+                    max_len=case["max_len"], **case["engine"])
+    outs = eng.generate([JaxRequest(id=rid, prompt=p.copy(),
+                                    max_new_tokens=m, frontend=fe)
+                         for rid, p, m, fe in case["requests"]])
+    return {o.request_id: list(o.token_ids) for o in outs}
+
+
+@pytest.mark.parametrize("name", list(FRONTEND_CASES))
+def test_four_ranks_serve_frontends_like_one(four_ranks, name):
+    """Requests with frontends, gates opened: the placed engine on (2, 2)
+    gives the JAX engine's tokens on the same params and frontends, and
+    the unplaced engine's, its blocks on their own heads."""
+    scenario = FRONTEND_CASES[name]
+    arch = scenario_requests(scenario)[0]
+    case = _frontend_case(name)
+    got = four_ranks[name]
+    assert {k: list(v) for k, v in got["tokens"].items()} == \
+        _jax_frontend_tokens(arch, case)
+    eng = ContinuousBatchingEngine(
+        port_arch(arch), torch_params(arch, open_gates=True), device="cpu",
+        slots=case["slots"], max_len=case["max_len"], **case["engine"])
+    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m,
+                                 frontend=fe)
+                         for rid, p, m, fe in case["requests"]])
+    assert got["tokens"] == {o.request_id: o.token_ids for o in outs}
+    assert got["block_fns"] == BLOCK_FNS[scenario]
 
 
 def _serve(scenario, mesh, sampling=None):

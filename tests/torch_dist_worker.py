@@ -1,17 +1,23 @@
 """The four-rank side of ``tests/test_torch_distributed.py``: spawned
-once per test module, each rank joins a gloo group through a file store
-and runs every case; rank 0 pickles the results for the test.  Imports
-torch and the port only (no JAX), so the ranks start fast."""
+once per test module for the dense archs and the checkpoint (``run``) and
+once for the archs whose other block kinds run tensor-parallel
+(``run_tp``), each rank joins a gloo group through a file store and runs
+every case; rank 0 pickles the results for the test.  Imports torch,
+numpy and the port only (no JAX), so the ranks start fast."""
 from __future__ import annotations
 
+import contextlib
 import pickle
 import tempfile
+from unittest import mock
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.configs.base import ArchConfig, Segment, ShapeSpec
+from repro_torch.configs.base import (ArchConfig, EncoderSpec, Segment,
+                                      ShapeSpec, SSMSpec)
 from repro_torch.core import solver as SV
 from repro_torch.core.asa import AdaptiveScheduler
 from repro_torch.core.strategy import Strategy
@@ -21,7 +27,17 @@ from repro_torch.runtime.trainer import TrainConfig, Trainer
 
 # test_convergence_parity.py's arch (4 heads, 4 KV heads) and test_runtime's
 # tiny-rt (4 heads over 2 KV heads: on model = 4 the KV projections stay
-# replicated and each rank picks the KV head of its Q head)
+# replicated and each rank picks the KV head of its Q head); then copies of
+# tests/serving_fixtures.py's tiny configs of the kinds that run
+# tensor-parallel beside attn (fp32, scan chunks of 16 or less): mamba2 (8
+# heads: 2 a rank on model 4), mamba2 over two B/C groups (model 4: a
+# rank's 2 heads within one group; model 2: a whole group a rank), zamba2's
+# shared block with mamba2, whisper's encoder and wdec decoder, and
+# llama-vision's attn with gated cross attention (4 heads over 2 KV heads:
+# picked on model 4)
+_SSM = dict(family="ssm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+            d_ff=128, vocab=256, pattern=(Segment(("mamba2",), 2),),
+            dtype="float32", param_dtype="float32")
 ARCHS = {
     "parity": ArchConfig(name="t", family="dense", n_layers=2, d_model=64,
                          n_heads=4, n_kv_heads=4, d_ff=128, vocab=256,
@@ -30,10 +46,47 @@ ARCHS = {
     "tiny-rt": ArchConfig(name="tiny-rt", family="dense", n_layers=2,
                           d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                           vocab=256, pattern=(Segment(("attn",), 2),),
-                          dtype="float32", param_dtype="float32")}
+                          dtype="float32", param_dtype="float32"),
+    "tiny-ssm": ArchConfig(name="tiny-ssm", **_SSM, ssm=SSMSpec(
+        d_state=16, head_dim=16, chunk=16)),
+    "tiny-ssm-g2": ArchConfig(name="tiny-ssm-g2", **_SSM, ssm=SSMSpec(
+        d_state=16, head_dim=16, n_groups=2, chunk=4)),
+    "tiny-shared": ArchConfig(
+        name="tiny-shared", family="hybrid", n_layers=4, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=256, act="geglu",
+        tie_embeddings=True, ssm=SSMSpec(d_state=16, head_dim=16, d_conv=4,
+                                         chunk=4),
+        pattern=(Segment(("shared_attn", "mamba2"), 2),), dtype="float32",
+        param_dtype="float32"),
+    "tiny-encdec": ArchConfig(
+        name="tiny-encdec", family="audio", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=256, act="gelu",
+        norm="layernorm", attn_bias=True, tie_embeddings=True,
+        pattern=(Segment(("wdec",), 2),),
+        encoder=EncoderSpec(n_layers=2, seq_len=8, d_ff=128),
+        frontend="audio", dtype="float32", param_dtype="float32"),
+    "tiny-cross": ArchConfig(
+        name="tiny-cross", family="vlm", n_layers=4, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab=256, frontend="vision",
+        n_img_tokens=8, pattern=(Segment(("attn", "cross_attn"), 2),),
+        dtype="float32", param_dtype="float32")}
+# the leaf each arch's storage check reads (sharded over `model` under MP)
+PROBE = {"parity": "segments.0.b0.attn.wq.w",
+         "tiny-rt": "segments.0.b0.attn.wq.w",
+         "tiny-ssm": "segments.0.b0.mixer.x_proj.w",
+         "tiny-ssm-g2": "segments.0.b0.mixer.x_proj.w",
+         "tiny-shared": "shared.attn.wq.w",
+         "tiny-encdec": "segments.0.b0.xattn.wq.w",
+         "tiny-cross": "segments.0.b1.attn.wq.w"}
 SHAPE = ShapeSpec("dist", 32, 8, "train")
 CFG = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=40)
 STEPS = 4
+# the tensor-parallel kinds' archs: 2 steps each (step 2's loss and grad
+# norm follow step 1's gradients), so that their spawn stays as cheap as
+# the dense one
+TP_ARCHS = ("tiny-ssm", "tiny-ssm-g2", "tiny-shared", "tiny-encdec",
+            "tiny-cross")
+TP_STEPS = 2
 # (case, strategy or None for the ASA's own plan, model axis)
 CASES = (("DP", "DP", 1), ("MP", "MP", 4), ("HP", "HP", 2), ("FS", "FS", 2),
          ("ASA", None, 2))
@@ -60,13 +113,119 @@ def scheduler(strategy):
         else Uniform(strategy)
 
 
+def data(arch):
+    """SyntheticLM(arch.vocab, 32, 8) batches; an arch with a frontend
+    gets its own (8, T, d_model) N(0, 1) embeddings in each, from numpy
+    seeded by the step, so every rank and the JAX step see the same."""
+    for i, batch in enumerate(SyntheticLM(arch.vocab, 32, 8)):
+        if arch.frontend:
+            T = arch.encoder.seq_len if arch.encoder else arch.n_img_tokens
+            batch["frontend"] = np.random.default_rng(100 + i) \
+                .standard_normal((8, T, arch.d_model)).astype(np.float32)
+        yield batch
+
+
 def train(arch, mesh, strategy, *, quantized=False, steps=STEPS):
     import dataclasses
     cfg = dataclasses.replace(CFG, quantized_opt=quantized)
     tr = Trainer(arch, SHAPE, mesh, cfg, scheduler=scheduler(strategy))
     p, o = tr.init_state()
-    p, o, hist = tr.train(p, o, SyntheticLM(arch.vocab, 32, 8), steps=steps)
+    p, o, hist = tr.train(p, o, data(arch), steps=steps)
+    tr.grad_norms = [m["grad_norm"] for m in hist]
     return tr, p, o, [m["loss"] for m in hist]
+
+
+@contextlib.contextmanager
+def recording(rec: dict):
+    """Record what the step computes on this rank: the heads of every
+    ``ssd_scan`` call, the working width of x_proj in every mamba2 mixer
+    and of wq in every attention (by its d_model), and the leaves whose
+    working tensor is all-gathered over `model`."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import sharded as SD
+    rec.update(ssd_heads=set(), x_proj=set(), wq=set(),
+               gathered_over_model=set())
+    scan, mixer, attention = ops.ssd_scan, B.mamba2_mixer, L.attention
+    working = SD.working_tree
+
+    def scan_(x, *a, **k):
+        rec["ssd_heads"].add(x.shape[2])
+        return scan(x, *a, **k)
+
+    def mixer_(p, *a, **k):
+        rec["x_proj"].add(tuple(p["x_proj"]["w"].shape))
+        return mixer(p, *a, **k)
+
+    def attention_(p, cfg, *a, **k):
+        rec["wq"].add((cfg.d_model, tuple(p["wq"]["w"].shape)))
+        return attention(p, cfg, *a, **k)
+
+    def working_(params, live, lays, mesh):
+        mdim = tuple(mesh.mesh_dim_names).index("model")
+        for name, lay in zip(tree.names(params), lays):
+            want = SD._Working(lay, mesh, mdim).want
+            if type(lay.placements[mdim]).__name__ == "Shard" and \
+                    type(want[mdim]).__name__ == "Replicate":
+                rec["gathered_over_model"].add(name)
+        return working(params, live, lays, mesh)
+    with mock.patch.object(ops, "ssd_scan", scan_), \
+            mock.patch.object(B, "mamba2_mixer", mixer_), \
+            mock.patch.object(L, "attention", attention_), \
+            mock.patch.object(SD, "working_tree", working_):
+        yield
+
+
+def gathers_by_hand() -> list:
+    """``sharded._gather_dims`` (the sharded step's all-gather) against
+    DTensor's redistribute on a (2, 2) mesh, for shards of one (8, 12)
+    tensor: whole, and the `model` shard kept where that is a gather (a
+    tensor dim sharded over both mesh dims is not: the call refuses it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharded as SD
+    mesh = make_host_mesh(model=2, device="cpu")
+    full = torch.arange(96.0).reshape(8, 12)
+    R = Replicate()
+    out = []
+    for have in ((Shard(0), Shard(1)), (Shard(0), Shard(0)), (R, Shard(1)),
+                 (Shard(1), R), (Shard(1), Shard(1))):
+        local = SH.shard_of(full, mesh, have).contiguous()
+        for want in ((R, R), (R, have[1])):
+            if have[0] == have[1] == want[1]:
+                try:
+                    SD._gather_dims(local, mesh, have, want)
+                    out.append((str(have), str(want), False))
+                except ValueError:
+                    out.append((str(have), str(want), True))
+                continue
+            got = SD._gather_dims(local, mesh, have, want)
+            ref = SD._dt().DTensor.from_local(local, mesh, have,
+                                              run_check=False) \
+                .redistribute(mesh, want).to_local()
+            out.append((str(have), str(want), torch.equal(got, ref)))
+    return out
+
+
+def split_rmsnorm(rank: int, world: int) -> dict:
+    """The split-row RMSNorm over the world's ranks: each rank its quarter
+    of the columns of one (6, 40) fp32 x and scale, the loss sum(y * w);
+    -> this rank's y, dx and dscale (the whole row's in the test)."""
+    from repro_torch.kernels import rmsnorm as RN
+    rng = np.random.default_rng(3)
+    x, w = (torch.from_numpy(rng.standard_normal((6, 40)).astype(np.float32))
+            for _ in range(2))
+    scale = torch.from_numpy(
+        (1 + 0.1 * rng.standard_normal(40)).astype(np.float32))
+    cols = slice(rank * 40 // world, (rank + 1) * 40 // world)
+    xl = x[:, cols].contiguous().requires_grad_()
+    sl = scale[cols].contiguous().requires_grad_()
+    y = RN.rmsnorm_split(xl, sl, d_total=40, group=dist.group.WORLD)
+    torch.sum(y * w[:, cols]).backward()
+    return dict(y=y.detach().numpy(), dx=xl.grad.numpy(),
+                dscale=sl.grad.numpy())
 
 
 def shard_mismatches(tr, params) -> list:
@@ -86,21 +245,55 @@ def shard_mismatches(tr, params) -> list:
     return bad
 
 
+def train_all(names, steps: int, world: int) -> dict:
+    """Every case of each arch of ``names``, ``steps`` steps: losses, grad
+    norms, plan methods, shard shapes; under MP what each rank computes
+    (``recording``)."""
+    res = {"losses": {}, "grad_norms": {}, "methods": {}, "shards": {},
+           "sharded": {}, "split": {}}
+    for name in names:
+        arch = ARCHS[name]
+        for case, strategy, model in CASES:
+            mesh = make_host_mesh(model=model, device="cpu")
+            rec = {}
+            with (recording(rec) if case == "MP" else
+                  contextlib.nullcontext()):
+                tr, p, o, losses = train(arch, mesh, strategy, steps=steps)
+            res["losses"][(name, case)] = losses
+            res["grad_norms"][(name, case)] = tr.grad_norms
+            res["methods"][(name, case)] = tr.plan.plan.method
+            res["shards"][(name, case)] = shard_mismatches(tr, p)
+            probe = dict(zip(tree.names(p), tree.leaves(p)))[PROBE[name]]
+            res["sharded"][(name, case)] = (tuple(probe.shape),
+                                            tuple(probe.to_local().shape))
+            if rec:
+                every = [None] * world
+                dist.all_gather_object(every, rec)
+                res["split"][name] = every
+    return res
+
+
+def run_tp(rank: int, world: int, store: str, out: str) -> None:
+    """The tensor-parallel kinds' archs (``TP_ARCHS``), the gathers by
+    hand and the split-row RMSNorm."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    res = train_all(TP_ARCHS, TP_STEPS, world)
+    res["gathers_by_hand"] = gathers_by_hand()
+    res["split_rmsnorm"] = [None] * world
+    dist.all_gather_object(res["split_rmsnorm"], split_rmsnorm(rank, world))
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
 def run(rank: int, world: int, store: str, out: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
-    res = {"losses": {}, "methods": {}, "shards": {}, "sharded": {}}
-    for name, arch in ARCHS.items():
-        for case, strategy, model in CASES:
-            mesh = make_host_mesh(model=model, device="cpu")
-            tr, p, o, losses = train(arch, mesh, strategy)
-            res["losses"][(name, case)] = losses
-            res["methods"][(name, case)] = tr.plan.plan.method
-            res["shards"][(name, case)] = shard_mismatches(tr, p)
-            wq = p["segments"][0]["b0"]["attn"]["wq"]["w"]
-            res["sharded"][(name, case)] = (tuple(wq.shape),
-                                            tuple(wq.to_local().shape))
+    res = train_all([n for n in ARCHS if n not in TP_ARCHS], STEPS, world)
     # int8 moments on (2, 2) under HP (3 steps: at this lr the int8
     # moments' zeroed small entries blow the fourth step up, on one rank
     # as on four, so that a rounding apart decides its value)
@@ -114,7 +307,7 @@ def run(rank: int, world: int, store: str, out: str) -> None:
     tr = Trainer(arch, SHAPE, make_host_mesh(model=1, device="cpu"), CFG,
                  scheduler=Uniform("HP"), checkpoint_dir=ck[0])
     p, o = tr.init_state()
-    p, o, _ = tr.train(p, o, SyntheticLM(arch.vocab, 32, 8), steps=2)
+    p, o, _ = tr.train(p, o, data(arch), steps=2)
     tr.ckpt.save(tr.step, {"params": p, "opt": o},
                  extra={"data_offset": tr.data_offset})
     tr.ckpt.wait()

@@ -1,8 +1,9 @@
 """The four-rank side of ``tests/test_torch_placed_serving.py``: spawned once
 per test module, each rank joins a gloo group through a file store, builds
 the placed engine on a (data 2, model 2) mesh for every case the parent
-pickled (the port's arch, the reference's params as numpy, the requests
-and the engine's settings) and serves it; rank 0 pickles the results.
+pickled (the port's arch, the reference's params as numpy, the requests,
+each with its frontend or None, and the engine's settings) and serves it;
+rank 0 pickles the results.
 Imports torch, numpy and the port only (no JAX)."""
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ def serve(mesh, case: dict) -> dict:
         slots=case["slots"], max_len=case["max_len"], **case["engine"])
     specs = SH.spec_leaves(eng.plan.paged_cache_specs())
     pools = tree.leaves(eng.cache.pools)
-    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m)
-                         for rid, p, m in case["requests"]])
+    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m,
+                                 frontend=fe)
+                         for rid, p, m, fe in case["requests"]])
     return dict(
         tokens={o.request_id: o.token_ids for o in outs},
         logprobs={o.request_id: o.logprobs for o in outs},
@@ -37,13 +39,26 @@ def serve(mesh, case: dict) -> dict:
         pool_shapes=[tuple(x.shape) for x in pools],
         assignment={k: str(v) for k, v in eng.plan.assignment.items()},
         method=eng.plan.plan.method,
-        # how each block runs: "tp_attn_block" (its own heads) or
-        # "_gathered_block" (pool shards gathered around the call)
-        block_fns={(si, bi): fn.__qualname__.split(".")[0]
+        # how each block runs: a tensor-parallel block ("tp_attn_block",
+        # "tp_mamba2_block", ...: its own share) or "_gathered_block" (pool
+        # shards gathered around the call); the encoder's under
+        # ("encoder", segment, block)
+        block_fns={(si, bi) if si != "encoder" else ("encoder",) + key:
+                   fn.__qualname__.split(".")[0]
                    for si, fns in (eng._placed.block_fns or {}).items()
-                   for bi, fn in fns.items()},
+                   for key, fn in _flat(fns)
+                   for bi in [key]},
         preemptions=eng.metrics.preemptions,
         blocks_used=eng.cache.allocator.num_used)
+
+
+def _flat(fns: dict, prefix=()):
+    """(key path, fn) of a nested {index: fn or {index: fn}} dict."""
+    for k, v in fns.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield (prefix + (k,) if prefix else k), v
 
 
 def run(rank: int, world: int, store: str, inp: str, out: str) -> None:
