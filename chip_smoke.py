@@ -316,10 +316,29 @@ Phases, each of which fails the run (exit code 1) on any error:
     heads (``tp_shared_block``, ``tp_mamba2_block``), its launches
     ``forward_launches``' with the gated norms split.
 
+41. Tensor and expert parallelism, deepseek-v3-671b, on phase 40's mesh
+    and plan: each rank runs 64 of the 128 MLA heads (the q latent
+    all-gathered before q_norm, the latents whole on both), half of each
+    MLP's d_ff, the MTP head's projection by columns and its block by
+    heads, and 128 of the 256 experts.  Train (``TP_MOE_TRAIN``: 1
+    ``mla_dense`` layer and the MTP head, phase 23's cut, bf16,
+    ``SyntheticLM(129280, 1024, 2)``): step 1 against the unplaced step
+    as phase 40's, exact launches (8 RMSNorm forward and 8 backward a
+    step), the all-reduces and weight gathers of 3 steps.  Serve
+    (``TP_MOE_SERVE``: 1 ``mla_dense`` + 1 ``mla`` layer with all 256
+    experts, fp32, weights drawn matrix by matrix from ``TP_MOE_SEED``
+    (``seeded_params``: each rank draws only its shards; the unplaced
+    engine, rank 0's alone, runs and frees its 55.8 GB before the ranks
+    place theirs; the MTP head, which serving never reads, left out), 2
+    requests of 128 prompt tokens, 8 new, chunk 128):
+    tokens equal the unplaced engine's, prefill logits within
+    ``TP_LOGIT_TOL``, 9 RMSNorm launches a model call, every block
+    ``tp_mla_block``, and the latent pools bit-equal across the ranks.
+
 The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
-trains, with every serving weight freed), 33, 34, 35, 36, 37, 40; each
+trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41; each
 phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
@@ -590,6 +609,18 @@ TP_LOSS_REL_TOL = 2e-3
 # max |diff| <= TP_LOGIT_TOL * max |unplaced| for each prefill call (the
 # same fp32 sums in another order, ~1e-6 of the scale)
 TP_LOGIT_TOL = 1e-4
+# phase 41, the MoE family on phase 40's mesh and plan: deepseek-v3-671b at
+# published widths.  Train: 1 mla_dense layer and the MTP head (phase 23's
+# cut; one mla layer's training state, ~184 GB, needs four cards), bf16, 3
+# timed steps after the check.  Serve: 1 mla_dense + 1 mla layer with all
+# 256 experts, fp32 so that tokens compare exactly; 2 requests of 128 prompt
+# tokens and 8 new, cut because every model call gathers the fp32
+# embedding and head (3.7 GB each) through gloo
+TP_MOE_NAME = f"tp {DEEPSEEK}"
+TP_MOE_TRAIN = dict(TRAIN[DEEPSEEK], depth=(1, 0), seq_len=1024, steps=3)
+TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=8,
+                    slots=2, max_len=256, block_size=16, prefill_chunk=128)
+TP_MOE_SEED = 0
 
 
 def fail(msg: str) -> None:
@@ -3669,10 +3700,9 @@ def uniform_scheduler(strategy):
     return Uniform(H100_SXM, faithful=False)
 
 
-def tp_phase(torch, report, card):
-    """40. zamba2-2.7b tensor-parallel on the one card: TP_MODEL processes
-    on a (data 1, model TP_MODEL) mesh over gloo, under the uniform MP plan
-    (``tp_rank``); the ranks' results printed and kept."""
+def _spawn_ranks(label, phase):
+    """Runs ``tp_rank`` for ``phase`` (40 or 41) in TP_MODEL processes on
+    the card -> rank 0's results."""
     import shutil
     import socket
 
@@ -3684,45 +3714,85 @@ def tp_phase(torch, report, card):
     port = sock.getsockname()[1]
     sock.close()
     try:
-        mp.start_processes(tp_rank, args=(TP_MODEL, port, str(out)),
+        mp.start_processes(tp_rank, args=(TP_MODEL, port, str(out), phase),
                            nprocs=TP_MODEL, start_method="spawn")
         if not (out / "tp.json").exists():
-            fail(f"{TP_NAME}: the ranks exited without a result")
-        res = json.loads((out / "tp.json").read_text())
+            fail(f"{label}: the ranks exited without a result")
+        return json.loads((out / "tp.json").read_text())
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+def _train_line(t, card):
+    """The printed summary of a TP train part (``tp_train``)."""
+    return (f"step 1 loss {t['loss']:.6f} vs unplaced "
+            f"{t['loss_unplaced']:.6f}, grad norm {t['grad_norm']:.6g} vs "
+            f"{t['grad_norm_unplaced']:.6g}, {t['n_leaves']} gathered grads: "
+            f"worst cosine {t['worst_cos']:.6f} at {t['worst_cos_leaf']}, "
+            f"worst rel L2 {t['worst_rel_l2']:.4g} at "
+            f"{t['worst_rel_l2_leaf']}; {len(t['step_s'])} steps: "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in t['step_s'])} ms (median "
+            f"of 2-{len(t['step_s'])} {t['step_ms_median']:.1f} ms; the "
+            f"unplaced step on one process {t['unplaced_step_ms']:.1f} ms), "
+            f"losses {[round(x, 5) for x in t['losses']]}; rank 0's launches "
+            f"a step {t['launches_per_step']}; all-reduces a step "
+            f"{t['tp_all_reduces_per_step']} "
+            f"({t['tp_all_reduce_mb_per_step']:.1f} MB), weight gathers a "
+            f"step {t['gathers_per_step']}; peak memory "
+            f"{t['peak_mem_gb']:.2f} GB a rank, on {card}")
+
+
+def _serve_line(sv):
+    """The printed summary of a placed serve (``tp_serve``,
+    ``tp_moe_serve``)."""
+    return (f"tokens equal the unplaced engine's; {sv['prefills']} prefill "
+            f"calls' logits within {sv['worst_logit_rel']:.3g} of max "
+            f"|logit| (max {TP_LOGIT_TOL:g}); blocks {sv['block_fns']}; "
+            f"{sv['tokens']} tokens in {sv['wall_s']:.2f} s = "
+            f"{sv['tok_per_s']:.1f} tok/s (unplaced "
+            f"{sv['unplaced_tok_per_s']:.1f}); launches {sv['launches']}")
+
+
+def tp_phase(torch, report, card):
+    """40. zamba2-2.7b tensor-parallel on the one card: TP_MODEL processes
+    on a (data 1, model TP_MODEL) mesh over gloo, under the uniform MP plan
+    (``tp_rank``); the ranks' results printed and kept."""
+    res = _spawn_ranks(TP_NAME, 40)
     t, sv = res["train"], res["serve"]
     report[TP_NAME] = dict(res, launches=t["launches"])
     print(f"tp: {ZAMBA} at {t['layers']} layers (2 x 2560 shared block, 12 "
           f"mamba2), {TP_MODEL} ranks of a (1, {TP_MODEL}) mesh over "
-          f"{res['backend']} on one card, uniform MP ({t['method']}): step "
-          f"1 loss {t['loss']:.6f} vs unplaced {t['loss_unplaced']:.6f}, "
-          f"grad norm {t['grad_norm']:.6g} vs {t['grad_norm_unplaced']:.6g}, "
-          f"{t['n_leaves']} gathered grads: worst cosine "
-          f"{t['worst_cos']:.6f} at {t['worst_cos_leaf']}, worst rel L2 "
-          f"{t['worst_rel_l2']:.4g} at {t['worst_rel_l2_leaf']}; x_proj "
-          f"working {t['x_proj']}, SSD heads {t['ssd_heads']}; "
-          f"{len(t['step_s'])} steps: "
-          f"{', '.join(f'{x * 1e3:.1f}' for x in t['step_s'])} ms (median "
-          f"of 2-{len(t['step_s'])} {t['step_ms_median']:.1f} ms; the "
-          f"unplaced step on one process {t['unplaced_step_ms']:.1f} ms), "
-          f"losses {[round(x, 5) for x in t['losses']]}; rank 0's launches "
-          f"a step {t['launches_per_step']}; all-reduces a step "
-          f"{t['tp_all_reduces_per_step']} ({t['tp_all_reduce_mb_per_step']:.1f}"
-          f" MB), weight gathers a step {t['gathers_per_step']}; peak "
-          f"memory {t['peak_mem_gb']:.2f} GB a rank, on {card}")
+          f"{res['backend']} on one card, uniform MP ({t['method']}): "
+          f"x_proj working {t['x_proj']}, SSD heads {t['ssd_heads']}; "
+          + _train_line(t, card))
     print(f"tp: placed fp32 serve of {sv['requests']} requests on the mesh: "
-          f"tokens equal the unplaced engine's; {sv['prefills']} prefill "
-          f"calls' logits within {sv['worst_logit_rel']:.3g} of max |logit| "
-          f"(max {TP_LOGIT_TOL:g}); blocks {sv['block_fns']}; {sv['tokens']} "
-          f"tokens in {sv['wall_s']:.2f} s = {sv['tok_per_s']:.1f} tok/s "
-          f"(unplaced {sv['unplaced_tok_per_s']:.1f}); launches {sv['launches']}")
+          + _serve_line(sv))
 
 
-def tp_rank(rank, world, port, out):
-    """Phase 40's rank ``rank`` of ``world`` processes on card 0: a gloo
-    group over CUDA tensors and a (1, world) mesh; the train check and
-    steps (``tp_train``), then the placed serve (``tp_serve``); rank 0
+def tp_moe_phase(torch, report, card):
+    """41. deepseek-v3-671b tensor- and expert-parallel on the one card, on
+    phase 40's mesh and plan (``tp_rank``); the ranks' results printed and
+    kept."""
+    res = _spawn_ranks(TP_MOE_NAME, 41)
+    t, sv = res["train"], res["serve"]
+    report[TP_MOE_NAME] = dict(res, launches=t["launches"])
+    print(f"tp: {DEEPSEEK} at {t['layers']} mla_dense layer and the MTP "
+          f"head, {TP_MODEL} ranks of a (1, {TP_MODEL}) mesh over "
+          f"{res['backend']} on one card, uniform MP ({t['method']}): MLA "
+          f"heads a rank {t['mla_heads']} of 128; " + _train_line(t, card))
+    print(f"tp: placed fp32 serve of {DEEPSEEK} at 1 mla_dense + 1 mla "
+          f"layer, all 256 experts, {sv['requests']} requests: experts a "
+          f"rank {sv['experts']}, MLA heads {sv['mla_heads']}, latent pools "
+          f"equal across the ranks ({sv['pool_digest']}); peak memory "
+          f"{sv['peak_mem_gb']:.2f} GB a rank (unplaced "
+          f"{sv['unplaced_peak_mem_gb']:.2f} GB); " + _serve_line(sv))
+
+
+def tp_rank(rank, world, port, out, phase):
+    """Rank ``rank`` of ``world`` processes on card 0 for ``phase``: a gloo
+    group over CUDA tensors and a (1, world) mesh; phase 40's train check
+    and steps (``tp_train``) and placed serve (``tp_serve``) of zamba2,
+    or phase 41's of deepseek (``tp_train``, ``tp_moe_serve``); rank 0
     writes the results to ``out``/tp.json."""
     sys.path.insert(0, str(SRC))
     import numpy as np
@@ -3731,14 +3801,24 @@ def tp_rank(rank, world, port, out):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       LOCAL_RANK="0")
+    if phase == 41:     # two ranks' 36 GB beside each other: less slack
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_arch
     from repro_torch.launch import mesh as M
     mesh = M.make_host_mesh(model=world, device="cuda", backend="gloo")
     res = {"backend": "gloo", "world": world}
     try:
-        res["train"] = tp_train(torch, mesh)
-        res["serve"] = tp_serve(torch, np, mesh)
+        if phase == 40:
+            res["train"] = tp_train(torch, mesh, TP_NAME, cut_depth(
+                get_arch(ZAMBA), TP_DEPTH), TRAIN[ZAMBA])
+            res["serve"] = tp_serve(torch, np, mesh)
+        else:
+            res["train"] = tp_train(torch, mesh, TP_MOE_NAME, cut_depth(
+                get_arch(DEEPSEEK), TP_MOE_TRAIN["depth"]), TP_MOE_TRAIN)
+            res["serve"] = tp_moe_serve(torch, np, mesh)
     finally:
         M.shutdown()
     if rank == 0:
@@ -3747,15 +3827,17 @@ def tp_rank(rank, world, port, out):
 
 class _Recorder:
     """Counts and records what a step computes on this rank while entered:
-    the x_proj width of every mamba2 mixer, the heads of every SSD scan,
-    the all-reduces (``torch.distributed.all_reduce``: Megatron's f and
-    g, the split norm's sums, the replicated leaves' gradients, the
-    step's metrics and norm) with their bytes, and the weight gathers
-    (``sharded._Gather``: each leaf's, or each application's of a stacked
-    leaf)."""
+    the x_proj width of every mamba2 mixer, the heads of every SSD scan
+    and of every latent attention, the experts of every MoE layer's
+    stacks, the all-reduces (``torch.distributed.all_reduce``: Megatron's
+    f and g, the split norm's sums, the q latent gather's backward, the
+    replicated leaves' gradients, the step's metrics and norm) with their
+    bytes, and the weight gathers (``sharded._Gather``: each leaf's, or
+    each application's of a stacked leaf)."""
 
     def __init__(self):
         self.x_proj, self.ssd_heads = set(), set()
+        self.mla_heads, self.experts = set(), set()
         self.all_reduces, self.all_reduce_bytes, self.gathers = 0, 0, 0
 
     def __enter__(self):
@@ -3765,8 +3847,11 @@ class _Recorder:
 
         from repro_torch.kernels import ops
         from repro_torch.models import blocks as B
+        from repro_torch.models import mla as MLA
+        from repro_torch.models import moe as MOE
         from repro_torch.runtime import sharded as SD
         mixer, scan = B.mamba2_mixer, ops.ssd_scan
+        attend, routed = MLA._attend, MOE.routed
         reduce, gather = dist.all_reduce, SD._Gather.apply
 
         def mixer_(p, *a, **k):
@@ -3776,6 +3861,14 @@ class _Recorder:
         def scan_(x, *a, **k):
             self.ssd_heads.add(x.shape[2])
             return scan(x, *a, **k)
+
+        def attend_(cfg, q_nope, *a, **k):
+            self.mla_heads.add(q_nope.shape[2])
+            return attend(cfg, q_nope, *a, **k)
+
+        def routed_(p, *a, **k):
+            self.experts.add(p["w_in"].shape[0])
+            return routed(p, *a, **k)
 
         def reduce_(t, *a, **k):
             self.all_reduces += 1
@@ -3787,6 +3880,8 @@ class _Recorder:
             return gather(*a)
         self.patches = [mock.patch.object(B, "mamba2_mixer", mixer_),
                         mock.patch.object(ops, "ssd_scan", scan_),
+                        mock.patch.object(MLA, "_attend", attend_),
+                        mock.patch.object(MOE, "routed", routed_),
                         mock.patch.object(dist, "all_reduce", reduce_),
                         mock.patch.object(SD._Gather, "apply", gather_)]
         for pt in self.patches:
@@ -3798,21 +3893,43 @@ class _Recorder:
             pt.stop()
 
 
-def tp_train(torch, mesh):
-    """Phase 40's train part on this rank: zamba2 at ``TP_DEPTH``, bf16,
-    impl="pallas", ``TRAIN[ZAMBA]``'s batches.  Step 1's loss, grad norm
-    and every gradient (gathered whole) through the sharded step, held
-    against the unplaced single-process step (rank 0) on the same weights
-    and batch at phase 14's tolerances; then ``TRAIN[ZAMBA]["steps"]``
-    steps of the Trainer's step: their times (host clock, synchronised),
-    this rank's launches a step (each kernel's exact count) and its
-    collectives."""
-    import dataclasses
+def _split_shares(arch):
+    """{what ``_Recorder`` reads: the set each rank must see} for model
+    ``arch`` under MP on TP_MODEL ranks: x_proj at d_inner / TP_MODEL
+    columns and the scans at H / TP_MODEL heads (mamba2), the latent
+    attention at H / TP_MODEL heads (MLA), the MoE at E / TP_MODEL
+    experts."""
+    kinds, want = _kinds(arch), {}
+    if "mamba2" in kinds:
+        d_inner = arch.ssm.expand * arch.d_model
+        want.update(x_proj={(arch.d_model, d_inner // TP_MODEL)},
+                    ssd_heads={d_inner // arch.ssm.head_dim // TP_MODEL})
+    if kinds & {"mla", "mla_dense"}:
+        want["mla_heads"] = {arch.n_heads // TP_MODEL}
+    if kinds & {"mla", "moe_attn"}:
+        want["experts"] = {arch.moe.n_experts // TP_MODEL}
+    return want
 
+
+def _check_shares(label, rank, seen, arch):
+    want = _split_shares(arch)
+    got = {k: getattr(seen, k) for k in want}
+    if got != want:
+        fail(f"{label}: rank {rank} computes on {got}, want {want}")
+
+
+def tp_train(torch, mesh, label, arch, cfg):
+    """A TP phase's train part on this rank: model ``arch`` (bf16,
+    impl="pallas") on ``cfg``'s batches.  Step 1's loss, grad norm and
+    every gradient (gathered whole) through the sharded step, held
+    against the unplaced single-process step (rank 0) on the same weights
+    and batch at phase 14's tolerances; what each rank computes on
+    (``_split_shares``); then ``cfg["steps"]`` steps of the Trainer's
+    step: their times (host clock, synchronised), this rank's launches a
+    step (each kernel's exact count) and its collectives."""
     import torch.distributed as dist
 
     from repro_torch import tree
-    from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.core import sharding as SH
     from repro_torch.data import SyntheticLM
@@ -3823,8 +3940,6 @@ def tp_train(torch, mesh):
     from repro_torch.runtime.trainer import TrainConfig, Trainer
 
     rank = dist.get_rank()
-    cfg = TRAIN[ZAMBA]
-    arch = cut_depth(get_arch(ZAMBA), TP_DEPTH)
     params = T.init_lm(arch, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(0))
     data = SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"])
@@ -3864,20 +3979,18 @@ def tp_train(torch, mesh):
                                clip_norm=float("inf"))
     with _Recorder() as seen:
         p, o, m1 = check(p, o, batches[0])
-    # (SD.gather_full: DTensor's full_tensor faults on gloo over CUDA)
-    g_full = [SD.gather_full(g, mesh, ns.placements)
-              for g, ns in zip(kept.pop("g"), tree.leaves(tr._pns))]
-    d_inner = arch.ssm.expand * arch.d_model
-    H = d_inner // arch.ssm.head_dim
-    if seen.x_proj != {(arch.d_model, d_inner // TP_MODEL)} or \
-            seen.ssd_heads != {H // TP_MODEL}:
-        fail(f"{TP_NAME}: rank {rank}'s x_proj working tensors "
-             f"{seen.x_proj}, SSD heads {seen.ssd_heads} (want "
-             f"{d_inner // TP_MODEL} of {d_inner} columns, {H // TP_MODEL} "
-             f"heads)")
+    _check_shares(label, rank, seen, arch)
+    # each grad gathered whole and held one leaf at a time (all of them
+    # whole at once would not fit beside the training state; gather_full:
+    # DTensor's full_tensor faults on gloo over CUDA)
+    diffs = {}
+    for i, (g, ns) in enumerate(zip(kept.pop("g"), tree.leaves(tr._pns))):
+        g = SD.gather_full(g, mesh, ns.placements)
+        if rank == 0:
+            diffs.update(grad_diffs(torch, names[i:i + 1], [g], [g_u[i]]))
+        del g
     out = {}
     if rank == 0:
-        diffs = grad_diffs(torch, names, g_full, g_u)
         bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}"
                for n, (c, r) in diffs.items()
                if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
@@ -3889,8 +4002,7 @@ def tp_train(torch, mesh):
         if not abs(gn - gn_u) <= GRAD_NORM_REL_TOL * gn_u:
             bad.append(f"grad norm {gn} vs unplaced {gn_u}")
         if bad:
-            fail(f"{TP_NAME}: step 1 differs from the unplaced step's: "
-                 f"{bad}")
+            fail(f"{label}: step 1 differs from the unplaced step's: {bad}")
         cos_leaf = min(diffs, key=lambda n: diffs[n][0])
         rel_leaf, rel = worst(diffs)
         out.update(loss=loss, loss_unplaced=float(loss_u), grad_norm=gn,
@@ -3900,7 +4012,6 @@ def tp_train(torch, mesh):
                    rel_l2={n: r for n, (_, r) in diffs.items()},
                    unplaced_step_ms=unplaced_s * 1e3)
         del g_u
-    del g_full
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     dist.barrier()
@@ -3917,20 +4028,20 @@ def tp_train(torch, mesh):
             gnorms.append(float(m["grad_norm"]))
     counts = read_counts()
     steps = cfg["steps"]
-    # the gated norms run split; every other kernel as phase 14's step
+    # the gated norms run split; every other kernel as the unplaced step's
     want = train_launches(arch)
     g = block_counts(arch)["mamba2"]
     want.update(rmsnorm=want["rmsnorm"] - g,
                 rmsnorm_bwd=want["rmsnorm_bwd"] - g, rmsnorm_split=g,
                 rmsnorm_split_bwd=g)
     if any(counts[k] != n * steps for k, n in want.items()):
-        fail(f"{TP_NAME}: rank {rank}'s launches {counts}, want {want} a "
-             f"step")
+        fail(f"{label}: rank {rank}'s launches {counts}, want {want} a step")
     if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"{TP_NAME}: losses {losses} / grad norms {gnorms} not finite")
+        fail(f"{label}: losses {losses} / grad norms {gnorms} not finite")
     out.update(
         layers=arch.n_layers, method=tr.plan.plan.method,
         x_proj=sorted(seen.x_proj), ssd_heads=sorted(seen.ssd_heads),
+        mla_heads=sorted(seen.mla_heads), experts=sorted(seen.experts),
         step_s=step_s,
         step_ms_median=sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3,
         losses=losses, grad_norms=gnorms, launches=counts,
@@ -3945,6 +4056,69 @@ def tp_train(torch, mesh):
     return out
 
 
+def _serve_run(torch, eng, requests):
+    """``eng`` serving ``requests`` -> ({request: tokens}, each prefill
+    call's logits at the rows it serves, seconds)."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    real, logits = T.lm_apply, []
+
+    def lm_apply(*a, **k):
+        out = real(*a, **k)
+        nl = k.get("new_lens")
+        if k.get("cache") is not None and nl is not None:
+            live = nl > 0
+            last = (nl - 1).clamp_min(0).long()
+            logits.append(out.logits[torch.arange(
+                len(nl), device=nl.device), last][live].float().cpu())
+        return out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(T, "lm_apply", lm_apply):
+        outs = eng.generate(requests)
+    torch.cuda.synchronize()
+    return ({o.request_id: o.token_ids for o in outs}, logits,
+            time.perf_counter() - t0)
+
+
+def _placed_checks(torch, label, eng, got, logits, want, want_logits,
+                   wanted_fns):
+    """The checks every placed TP serve shares -> its numbers: every block
+    runs its tensor-parallel function (``wanted_fns``), every rank's
+    tokens are the same and (rank 0) the unplaced engine's, each prefill
+    call's logits within TP_LOGIT_TOL of max |logit|; the launches are
+    read by the caller."""
+    import torch.distributed as dist
+
+    fns = {bi if si == 0 else (si, bi): fn.__qualname__.split(".")[0]
+           for si, f in eng._placed.block_fns.items() if si != "encoder"
+           for bi, fn in f.items()}
+    if fns != wanted_fns:
+        fail(f"{label}: the placed blocks run {fns}, want {wanted_fns}")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got)
+    if any(e != every[0] for e in every):
+        fail(f"{label}: the ranks' placed tokens differ")
+    out = dict(block_fns={str(k): v for k, v in fns.items()},
+               prefills=len(logits), tokens=sum(map(len, got.values())))
+    if dist.get_rank() == 0:
+        if got != want:
+            bad = [i for i in want if got[i] != want[i]]
+            fail(f"{label}: placed requests {bad} differ from the unplaced "
+                 f"engine's tokens")
+        if len(logits) != len(want_logits):
+            fail(f"{label}: {len(logits)} placed prefill calls, "
+                 f"{len(want_logits)} unplaced")
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(logits, want_logits)]
+        if not max(rels) <= TP_LOGIT_TOL:
+            fail(f"{label}: placed prefill logits differ by up to "
+                 f"{max(rels):.3g} of max |logit| (max {TP_LOGIT_TOL:g})")
+        out["worst_logit_rel"] = max(rels)
+    return out
+
+
 def tp_serve(torch, np, mesh):
     """Phase 40's serve part: zamba2 at ``TP_DEPTH`` in fp32, seeded
     weights, phase 10's requests and settings; rank 0 serves them unplaced
@@ -3955,7 +4129,6 @@ def tp_serve(torch, np, mesh):
     tensor-parallel function, and the launches must be
     ``forward_launches``' with the gated norms split."""
     import dataclasses
-    from unittest import mock
 
     import torch.distributed as dist
 
@@ -3976,49 +4149,21 @@ def tp_serve(torch, np, mesh):
     def requests():
         return [Request(id=i, prompt=q, max_new_tokens=st["max_new"])
                 for i, q in enumerate(prompts)]
-
-    def serve(eng):
-        """-> ({request: tokens}, the prefill calls' logits, seconds)."""
-        real, logits = T.lm_apply, []
-
-        def lm_apply(*a, **k):
-            out = real(*a, **k)
-            nl = k.get("new_lens")
-            if k.get("cache") is not None and nl is not None:
-                live = nl > 0
-                last = (nl - 1).clamp_min(0).long()
-                logits.append(out.logits[torch.arange(
-                    len(nl), device=nl.device), last][live].float().cpu())
-            return out
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with mock.patch.object(T, "lm_apply", lm_apply):
-            outs = eng.generate(requests())
-        torch.cuda.synchronize()
-        return ({o.request_id: o.token_ids for o in outs}, logits,
-                time.perf_counter() - t0)
     kw = engine_kwargs(ZAMBA)
+    want = want_logits = None
     if rank == 0:
-        want, want_logits, want_s = serve(ContinuousBatchingEngine(
-            arch, params, **kw))
+        want, want_logits, want_s = _serve_run(
+            torch, ContinuousBatchingEngine(arch, params, **kw), requests())
     dist.barrier()
     eng = ContinuousBatchingEngine(arch, params, mesh,
                                    asa=uniform_scheduler("MP"), **kw)
-    fns = {bi: fn.__qualname__.split(".")[0]
-           for si, f in eng._placed.block_fns.items() if si != "encoder"
-           for bi, fn in f.items()}
-    wanted = {0: "tp_shared_block", **{bi: "tp_mamba2_block"
-                                       for bi in range(1, 7)}}
-    if fns != wanted:
-        fail(f"{TP_NAME}: the placed blocks run {fns}, want {wanted}")
     reset_counts()
-    got, logits, wall = serve(eng)
+    got, logits, wall = _serve_run(torch, eng, requests())
     counts = read_counts()
+    out = _placed_checks(torch, TP_NAME, eng, got, logits, want,
+                         want_logits, {0: "tp_shared_block", **{
+                             bi: "tp_mamba2_block" for bi in range(1, 7)}})
     s = eng.metrics.summary()
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, got)
-    if any(e != every[0] for e in every):
-        fail(f"{TP_NAME}: the ranks' placed tokens differ")
     calls = s["prefill_chunks"] + s["decode_steps"]
     fl = forward_launches(arch)
     g = block_counts(arch)["mamba2"]
@@ -4029,26 +4174,171 @@ def tp_serve(torch, np, mesh):
         fail(f"{TP_NAME}: placed serve launches {counts}, want "
              f"{want_counts} for {s['prefill_chunks']} prefill chunks and "
              f"{s['decode_steps']} decode steps")
-    out = dict(requests=len(prompts), block_fns=fns, launches=counts,
-               prefills=len(logits), tokens=sum(map(len, got.values())),
-               wall_s=wall)
-    out["tok_per_s"] = out["tokens"] / wall
+    out.update(requests=len(prompts), launches=counts, wall_s=wall,
+               tok_per_s=out["tokens"] / wall)
     if rank == 0:
-        if got != want:
-            bad = [i for i in want if got[i] != want[i]]
-            fail(f"{TP_NAME}: placed requests {bad} differ from the "
-                 f"unplaced engine's tokens")
-        if len(logits) != len(want_logits):
-            fail(f"{TP_NAME}: {len(logits)} placed prefill calls, "
-                 f"{len(want_logits)} unplaced")
-        rels = [float((a - b).abs().max() / b.abs().max())
-                for a, b in zip(logits, want_logits)]
-        if not max(rels) <= TP_LOGIT_TOL:
-            fail(f"{TP_NAME}: placed prefill logits differ by up to "
-                 f"{max(rels):.3g} of max |logit| (max {TP_LOGIT_TOL:g})")
-        out.update(worst_logit_rel=max(rels), unplaced_wall_s=want_s,
+        out.update(unplaced_wall_s=want_s,
                    unplaced_tok_per_s=out["tokens"] / want_s)
     del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def seeded_params(torch, arch, seed, shardings=None):
+    """Params of model ``arch`` (``init_lm``'s tree, shapes and dtypes)
+    drawn matrix by matrix from ``seed``: every matrix (a leaf's last two
+    dims, at each index of its leading ones: a stacked layer's, an
+    expert's) from its own generator on the card, seeded by (seed, leaf,
+    index), as stddev * N(0, 1) truncated to [-2, 2] (stddev 1 for the
+    embedding, else 1 / sqrt(fan in)), norm scales 1, biases 0.  With
+    ``shardings`` (the params' tree of ``NamedSharding``) each leaf is
+    this rank's DTensor, of which it draws only the matrices its shard
+    holds (the expert stacks' other experts never exist on this rank)
+    and cuts each matrix to its shard; without, the whole leaves."""
+    import itertools
+
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch import tree
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    meta = T.init_lm(arch, device="meta", generator=torch.Generator())
+    nss = None if shardings is None else tree.leaves(shardings)
+    out = []
+    for i, (name, m) in enumerate(zip(tree.names(meta), tree.leaves(meta))):
+        shape = tuple(m.shape)
+        span = [(0, n) for n in shape]       # this rank's (start, size)
+        if nss is not None:
+            ns = nss[i]
+            for mdim, pl in enumerate(ns.placements):
+                k = ns.mesh.shape[mdim]
+                if isinstance(pl, Shard) and k > 1:
+                    r = ns.mesh.get_local_rank(mesh_dim=mdim)
+                    st, n = span[pl.dim]
+                    span[pl.dim] = (st + r * (n // k), n // k)
+        local = torch.empty(tuple(n for _, n in span), dtype=m.dtype,
+                            device="cuda")
+        leaf = name.rsplit(".", 1)[-1]
+        if len(shape) < 2:
+            if leaf not in ("scale", "b"):
+                fail(f"seeded_params: no rule for the leaf {name}")
+            local.fill_(1.0 if leaf == "scale" else 0.0)
+        else:
+            lead = shape[:-2]
+            std = 1.0 if leaf == "embedding" else shape[-2] ** -0.5
+            rows, cols = (slice(s, s + n) for s, n in span[-2:])
+            for idx in itertools.product(*(range(s, s + n)
+                                           for s, n in span[:-2])):
+                flat = 0
+                for j, n in zip(idx, lead):
+                    flat = flat * n + j
+                g = torch.Generator(device="cuda").manual_seed(
+                    (seed << 40) + (i << 20) + flat)
+                w = L._normal(shape[-2:], m.dtype, std, g, "cuda")
+                at = tuple(j - s for j, (s, _) in zip(idx, span[:-2]))
+                local[at] = w[rows, cols]
+                del w
+        if nss is not None:
+            local = DTensor.from_local(local, nss[i].mesh, nss[i].placements,
+                                       run_check=False, shape=m.shape,
+                                       stride=m.stride())
+        out.append(local)
+    return tree.unflatten(meta, out)
+
+
+def tp_moe_serve(torch, np, mesh):
+    """Phase 41's serve part: deepseek at ``TP_MOE_SERVE``'s depth, all
+    256 experts, fp32, weights from ``seeded_params`` (55.8 GB without
+    the MTP head, which serving never reads).  Rank 0 serves the
+    requests unplaced first, alone on the card, and frees that model;
+    then every rank draws its own shards and serves them through the
+    engine placed on ``mesh`` under the uniform MP plan.  Phase 40's
+    checks (``_placed_checks``; both blocks ``tp_mla_block``), 9 RMSNorm
+    launches a model call, each rank's MoE on 128 of the 256 experts and
+    its latent attention on 64 of the 128 heads, and the latent pools
+    bit-equal across the ranks (every rank writes the same latents)."""
+    import dataclasses
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.mesh import mesh_shape_of
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    rank = dist.get_rank()
+    st = TP_MOE_SERVE
+    # (the MTP head, which serving never reads, left out of the weights)
+    arch = dataclasses.replace(cut_depth(get_arch(DEEPSEEK), st["depth"]),
+                               dtype="float32", param_dtype="float32",
+                               mtp=False)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
+               .astype(np.int32) for _ in range(st["requests"])]
+
+    def requests():
+        return [Request(id=i, prompt=q, max_new_tokens=st["max_new"])
+                for i, q in enumerate(prompts)]
+    kw = dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
+              block_size=st["block_size"], prefill_chunk=st["prefill_chunk"])
+    want = want_logits = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        eng = ContinuousBatchingEngine(
+            arch, seeded_params(torch, arch, TP_MOE_SEED), **kw)
+        want, want_logits, want_s = _serve_run(torch, eng, requests())
+        unplaced_peak = torch.cuda.max_memory_allocated() / 1e9
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    plan = uniform_scheduler("MP").plan(
+        arch, ShapeSpec("serve", st["max_len"], st["slots"], "decode"),
+        mesh_shape_of(mesh))
+    eng = ContinuousBatchingEngine(
+        arch, seeded_params(torch, arch, TP_MOE_SEED, SH.shardings(
+            plan.param_specs(), mesh)), mesh, asa=uniform_scheduler("MP"),
+        **kw)
+    reset_counts()
+    with _Recorder() as seen:
+        got, logits, wall = _serve_run(torch, eng, requests())
+    counts = read_counts()
+    out = _placed_checks(torch, TP_MOE_NAME, eng, got, logits, want,
+                         want_logits, {0: "tp_mla_block",
+                                       (1, 0): "tp_mla_block"})
+    _check_shares(TP_MOE_NAME, rank, seen, arch)
+    s = eng.metrics.summary()
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    want_counts = dict(rmsnorm=forward_launches(arch)["rmsnorm"] * calls,
+                       flash_attention=0)
+    if any(counts[k] != n for k, n in want_counts.items()):
+        fail(f"{TP_MOE_NAME}: placed serve launches {counts}, want "
+             f"{want_counts} for {s['prefill_chunks']} prefill chunks and "
+             f"{s['decode_steps']} decode steps")
+    # the replicated latent pools: every rank's copy, bit for bit
+    digest = hashlib.sha1()
+    for seg in eng.cache.pools:
+        for pool in seg.values():
+            for key in ("c_kv", "k_rope"):
+                digest.update(pool[key].to_local().cpu().numpy().tobytes())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digest.hexdigest())
+    if any(e != every[0] for e in every):
+        fail(f"{TP_MOE_NAME}: the ranks' latent pools differ: {every}")
+    out.update(requests=len(prompts), launches=counts, wall_s=wall,
+               tok_per_s=out["tokens"] / wall,
+               experts=sorted(seen.experts), mla_heads=sorted(seen.mla_heads),
+               pool_digest=every[0][:12],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if rank == 0:
+        out.update(unplaced_wall_s=want_s,
+                   unplaced_tok_per_s=out["tokens"] / want_s,
+                   unplaced_peak_mem_gb=unplaced_peak)
+    del eng
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4143,7 +4433,7 @@ def main() -> int:
     paths += [f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
-    paths += [TP_NAME]
+    paths += [TP_NAME, TP_MOE_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -4212,6 +4502,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(TP_NAME, tp_phase, torch, report, card)
+        # 41. deepseek tensor- and expert-parallel on the same mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(TP_MOE_NAME, tp_moe_phase, torch, report, card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

@@ -558,7 +558,9 @@ def place(t, sharding_tree):
     """A tree of tensors (the same on every rank) as DTensors placed by a
     tree of ``NamedSharding`` of the same leaf order.  Each DTensor wraps
     this rank's shard: its own copy where the leaf is split, the leaf
-    itself where it is not (so a world of 1 copies nothing)."""
+    itself where it is not (so a world of 1 copies nothing).  A leaf that
+    already is a DTensor on the sharding's mesh and placements (each rank
+    made its own shard, never holding the whole leaf) is kept as it is."""
     from torch.distributed.tensor import DTensor
     nss = tree.leaves(sharding_tree)
     xs = tree.leaves(t)
@@ -567,6 +569,12 @@ def place(t, sharding_tree):
     out = []
     for x, ns in zip(xs, nss):
         pl = ns.placements
+        if isinstance(x, DTensor):
+            if x.device_mesh != ns.mesh or tuple(x.placements) != tuple(pl):
+                raise ValueError(f"a DTensor leaf placed {x.placements}, "
+                                 f"not as its sharding {pl}")
+            out.append(x)
+            continue
         local = shard_of(x, ns.mesh, pl)
         if local is not x:
             local = local.clone()

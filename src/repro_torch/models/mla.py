@@ -87,9 +87,12 @@ def _rope_key(k_rope: torch.Tensor, positions: torch.Tensor,
 
 
 def _project_q(p: Params, cfg: MLAConfig, x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, gather_q=None):
     B, S, _ = x.shape
-    q = L.dense(p["wq_b"], L.rmsnorm(p["q_norm"], L.dense(p["wq_a"], x)))
+    q_lat = L.dense(p["wq_a"], x)
+    if gather_q is not None:
+        q_lat = gather_q(q_lat)
+    q = L.dense(p["wq_b"], L.rmsnorm(p["q_norm"], q_lat))
     q = q.reshape(B, S, cfg.n_heads, cfg.qk_head_dim)
     q_nope = q[..., : cfg.qk_nope_head_dim]
     q_rope = L.apply_rope(q[..., cfg.qk_nope_head_dim:], positions,
@@ -157,7 +160,8 @@ def _attend(cfg: MLAConfig, q_nope, q_rope, c_kv, k_rope, p: Params, *,
 def mla_paged_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                         cache: Params, positions: torch.Tensor,
                         block_tables: torch.Tensor,
-                        new_lens: Optional[torch.Tensor] = None):
+                        new_lens: Optional[torch.Tensor] = None,
+                        gather_q=None):
     """Latent attention over block-paged (c_kv, k_rope) pools, the MLA
     twin of ``layers.paged_attention``: new latents are written IN PLACE
     at block_tables[b, pos // BS] * BS + pos % BS (``paged_flat_indices``:
@@ -181,7 +185,7 @@ def mla_paged_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
     bt = block_tables.to(torch.int64)
     g_ckv = cache["c_kv"][bt].reshape(B, T, r)
     g_rope = cache["k_rope"][bt].reshape(B, T, dr)
-    q_nope, q_rope = _project_q(p, cfg, x, qp)
+    q_nope, q_rope = _project_q(p, cfg, x, qp, gather_q)
     kv_len = positions + (new_lens if new_lens is not None else S)
     ctx = _attend(cfg, q_nope, q_rope, g_ckv, g_rope, p, q_positions=qp,
                   kv_len=kv_len)
@@ -190,7 +194,7 @@ def mla_paged_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
 
 def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                   cache: Optional[Params] = None,
-                  positions: Optional[torch.Tensor] = None):
+                  positions: Optional[torch.Tensor] = None, gather_q=None):
     """Whole-sequence causal latent attention -> (out, None).  The port
     has no contiguous decode cache: serve through
     ``mla_paged_attention``."""
@@ -203,7 +207,7 @@ def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
         positions = torch.arange(S, device=x.device)
     c_kv, k_rope = _latent_kv(p, cfg, x)
     k_rope = _rope_key(k_rope, positions, cfg.rope_theta)
-    q_nope, q_rope = _project_q(p, cfg, x, positions)
+    q_nope, q_rope = _project_q(p, cfg, x, positions, gather_q)
     ctx = _attend(cfg, q_nope, q_rope, c_kv, k_rope, p,
                   q_positions=positions)
     return L.dense(p["wo"], ctx), None

@@ -17,9 +17,18 @@ carries the token).  Dispatch, the expert products and combine are dense
 ``einsum`` / ``bmm`` over every expert's full (E, C) buffer, as the
 reference computes them outside any kernel; a decode step therefore reads
 every expert's weights.
+
+Expert parallelism (``routed`` with an ``ExpertSplit``): every `model`
+rank routes all of its tokens over all E experts, so the slots and the
+drops are the whole layer's, then runs and combines only its own range of
+experts; the output is that range's share, summed over the ranks by the
+caller (``runtime/sharded.py``, which runs the ``SIDE_MLPS`` by d_ff).
+Under a batch split over ranks (``batch_split``) the aux loss is the
+whole batch's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -47,6 +56,15 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertSplit:
+    """The experts over the ``size`` ranks of a `model` group, in order:
+    rank ``rank`` holds experts rank * E / size onward (the expert stacks'
+    `model` shards)."""
+    size: int
+    rank: int
+
+
 def _estack(shape, dtype, stddev, generator, device, repeat):
     """Expert-stacked weights (E, a, b), one expert at a time, so that the
     fp32 draw never holds more than one expert's matrix."""
@@ -56,6 +74,11 @@ def _estack(shape, dtype, stddev, generator, device, repeat):
                 ((r, e) for r in range(repeat) for e in range(shape[0]))):
         w[idx] = L._normal(shape[1:], dtype, stddev, generator, device)
     return w
+
+
+# the MLPs beside the experts, each on every token: DeepSeek-V3's shared
+# expert(s) and Arctic's dense residual FFN
+SIDE_MLPS = ("shared", "dense")
 
 
 def init_moe(cfg: MoEConfig, *, generator, device, dtype=torch.float32,
@@ -99,8 +122,55 @@ def route(p: Params, cfg: MoEConfig, x: torch.Tensor):
     return probs, gate, idx
 
 
-def moe(p: Params, cfg: MoEConfig, x: torch.Tensor):
-    """x: (B, S, D) -> (out (B, S, D), aux loss, a 0-d fp32 tensor)."""
+class _BatchMean(torch.autograd.Function):
+    """The mean over the ``n`` ranks of ``group`` (an all-reduce / n);
+    backward: the gradient as it is.  Every rank takes the same gradient
+    of the mean, and the train step's reduction of the weights' gradients
+    divides by the world, so dividing here too would count each rank's
+    term 1 / n times too little."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+# (group, n): the ranks whose batch rows differ, while ``batch_split`` runs
+_batch = None
+
+
+@contextlib.contextmanager
+def batch_split(group, n: int):
+    """Within it (the forward and the backward, whose checkpointed layers
+    run their forward again), the aux loss's means ``me`` and ``pe`` run
+    over the rows of the ``n`` ranks of ``group`` that split the batch,
+    as the reference's run over the global batch; its product is then the
+    whole batch's on every rank."""
+    global _batch
+    old, _batch = _batch, (group, n)
+    try:
+        yield
+    finally:
+        _batch = old
+
+
+def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
+           split: Optional[ExpertSplit] = None):
+    """x: (B, S, D) -> (the routed experts' output (B, S, D), aux loss):
+    the layer without its ``SIDE_MLPS``.
+
+    With ``split`` the expert stacks of ``p`` are this rank's (E / size
+    experts) and the output is their share (the caller sums the shares
+    over the ranks).  The aux loss keeps its value, but its gradient is
+    scaled by 1 / size: every rank computes it whole from the same
+    tokens, so a router (and an input) whose gradient is summed over the
+    ranks would count it ``size`` times."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = max(1, int(cfg.capacity_factor * K * S / E))   # per-row capacity
@@ -115,24 +185,39 @@ def moe(p: Params, cfg: MoEConfig, x: torch.Tensor):
     # a dropped (or unchosen) assignment has an all-zero row over C
     pos_oh = (keep[..., None] & (pos[..., None] == torch.arange(
         C, device=x.device))).to(x.dtype)                        # (B,S,K,E,C)
+    if split is not None:               # this rank's experts' slots only
+        n = E // split.size
+        pos_oh = pos_oh[:, :, :, split.rank * n:(split.rank + 1) * n]
     disp = pos_oh.sum(dim=2)                                     # (B,S,E,C)
     comb = (gate.to(x.dtype)[..., None, None] * pos_oh).sum(dim=2)
 
     # expert-major buffers: (E, B*C, D), one bmm per product
-    xe = torch.einsum("bsd,bsec->ebcd", x, disp).reshape(E, B * C, D)
+    El = disp.shape[2]
+    xe = torch.einsum("bsd,bsec->ebcd", x, disp).reshape(El, B * C, D)
     h = torch.bmm(xe, p["w_in"].to(x.dtype))
     g = torch.bmm(xe, p["w_gate"].to(x.dtype))
     ye = torch.bmm(_act(h, g, cfg.act), p["w_out"].to(x.dtype))
-    out = torch.einsum("ebcd,bsec->bsd", ye.reshape(E, B, C, D), comb)
-
-    if cfg.n_shared_experts:
-        out = out + L.mlp(p["shared"], x, cfg.act)
-    if cfg.dense_d_ff:
-        out = out + L.mlp(p["dense"], x, cfg.act)
+    out = torch.einsum("ebcd,bsec->bsd", ye.reshape(El, B, C, D), comb)
 
     # Switch-style load balance: E * sum_e f_e * p_e / K; the routed
     # fraction f_e carries no gradient, so it reaches the router via p_e
     me = torch.mean(onehot.float().sum(dim=2), dim=(0, 1))
     pe = torch.mean(probs, dim=(0, 1))
+    if _batch is not None:
+        me, pe = _BatchMean.apply(torch.stack([me, pe]), *_batch)
     aux = cfg.aux_loss_weight * E * torch.sum(me * pe / K)
+    if split is not None:
+        # the aux-loss trap: its forward value stays (the difference term
+        # is exactly 0), its backward is 1 / size of it on each rank
+        aux = aux.detach() + (aux - aux.detach()) / split.size
+    return out, aux
+
+
+def moe(p: Params, cfg: MoEConfig, x: torch.Tensor):
+    """x: (B, S, D) -> (out (B, S, D), aux loss, a 0-d fp32 tensor): the
+    routed experts (``routed``) plus the MLPs beside them (``SIDE_MLPS``)."""
+    out, aux = routed(p, cfg, x)
+    for key in SIDE_MLPS:
+        if key in p:
+            out = out + L.mlp(p[key], x, cfg.act)
     return out, aux

@@ -401,22 +401,27 @@ def _head(params: Params, arch: ArchConfig,
 
 
 def mtp_logits(params: Params, arch: ArchConfig, hidden: torch.Tensor,
-               tokens: torch.Tensor) -> torch.Tensor:
+               tokens: torch.Tensor, mtp_fn=None) -> torch.Tensor:
     """DeepSeek-V3's multi-token prediction head (depth 1): the normed
     final hidden state at position t, concatenated with the embedding of
     token t+1 and projected back to d_model, goes through one ``attn``
     block at positions 0..S-1 (plain attention: the reference passes no
     ``impl`` there) and the head, so that logits[:, t] predict
-    tokens[:, t+2].  -> (B, S, V) fp32."""
+    tokens[:, t+2].  -> (B, S, V) fp32.  ``mtp_fn(mtp, arch, z,
+    positions)``, where given, applies the projection and the block to
+    the concatenation ``z`` in their place (the sharded step's
+    tensor-parallel head, ``runtime/sharded.py``)."""
     mtp = params["mtp"]
     emb_next = L.embed(params["embed"],
                        torch.roll(tokens.long(), -1, dims=1),
                        arch.d_model).to(hidden.dtype)
-    h = L.dense(mtp["proj"], torch.cat(
-        [B.norm_apply(arch, mtp["norm"], hidden), emb_next], dim=-1))
-    h, _, _ = B.apply_block(mtp["block"], "attn", arch, h,
-                            positions=torch.arange(h.shape[1],
-                                                   device=h.device))
+    z = torch.cat([B.norm_apply(arch, mtp["norm"], hidden), emb_next],
+                  dim=-1)
+    positions = torch.arange(z.shape[1], device=z.device)
+    if mtp_fn is not None:
+        return _head(params, arch, mtp_fn(mtp, arch, z, positions))
+    h, _, _ = B.apply_block(mtp["block"], "attn", arch,
+                            L.dense(mtp["proj"], z), positions=positions)
     return _head(params, arch, h)
 
 

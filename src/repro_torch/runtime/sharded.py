@@ -24,19 +24,25 @@ that DTensor dispatch never reaches.  Every leaf plays one of three roles:
     wo by rows, an MLP's w_in, w_gate by columns and w_out by rows, a
     mamba2 mixer's z/x/dt_proj by columns, out_proj by rows and conv_x,
     A_log, D and its gated norm's scale by heads, zamba2's app_proj by
-    rows: gathered over every mesh dim but `model`, whose shard the rank
-    keeps and computes with (its own heads and its d_ff slice); its
-    gradient is that shard's, summed over the other dims and divided by
-    their size;
+    rows, MLA's wq_a, wq_b, wk_b, wv_b by columns (head-major but wq_a's)
+    and wo by rows, the MoE expert stacks by experts, the MTP head's proj
+    by columns: gathered over every mesh dim but `model`, whose shard the
+    rank keeps and computes with (its own heads, its d_ff slice, its
+    experts); its gradient is that shard's, summed over the other dims
+    and divided by their size;
   * ``partial`` — a weight used whole inside the tensor-parallel region
     whose gradient each `model` rank holds only in part: the q/k norms'
     scales (each rank normalises its own heads), wk / wv where the KV
     heads do not divide over `model` (the reference keeps them
-    replicated; each rank picks the KV heads of its Q heads), and a
+    replicated; each rank picks the KV heads of its Q heads), a
     mamba2 mixer's b/c_proj, conv_b/c and dt_bias (replicated; each rank
     computes B and C whole and reads them, and its slice of dt_bias, for
-    its own heads); summed over every rank, `model` included, and divided
-    by the non-`model` size.
+    its own heads), MLA's q_norm, wkv_a and kv_norm (the latents computed
+    whole, read by each rank's heads) and the MoE router (every rank
+    routes every token; the gates reach it through each rank's own
+    experts, and the aux loss, computed whole on every rank, through a
+    gradient scaled by 1 / size: ``moe.routed``); summed over every rank,
+    `model` included, and divided by the non-`model` size.
 
 Repeat-stacked leaves are gathered one application at a time, as the
 model reaches it (``_Stacked``), others at the start of the forward.  The
@@ -45,21 +51,28 @@ placements microbatch by microbatch.  Every collective runs in the same
 order on every rank: the forward's gathers in the model's order, the
 backward's reductions in autograd's, which is the same graph everywhere.
 
-Tensor-parallel blocks (``plan_layout``): ``attn`` and the encoder's
-``enc_attn`` (``tp_attn_block``), whisper's ``wdec`` (self and cross
-attention, MLP), llama-vision's ``cross_attn`` (its tanh gates after the
-all-reduce), zamba2's ``shared_attn`` (the shared weights walked once,
-used by every application; app_proj by rows) and ``mamba2`` (its heads,
-the gated norm over the whole d_inner through the split-row RMSNorm).
-zamba2's shared leaves are used at every application, and their
-gradients sum over the applications as any leaf's do.
+Tensor-parallel blocks (``plan_layout``): ``attn``, the encoder's
+``enc_attn`` and ``moe_attn`` (``tp_attn_block``), ``mla`` and
+``mla_dense`` (``tp_mla_block``: the latent attention by heads, the q
+latent all-gathered before q_norm, the latents and their pools whole on
+every rank), whisper's ``wdec`` (self and cross attention, MLP),
+llama-vision's ``cross_attn`` (its tanh gates after the all-reduce),
+zamba2's ``shared_attn`` (the shared weights walked once, used by every
+application; app_proj by rows), ``mamba2`` (its heads, the gated norm
+over the whole d_inner through the split-row RMSNorm) and the MTP head
+(``tp_mtp_head``: proj by columns, then its columns all-gathered, and its
+``attn`` block).  The MoE FFN is expert-parallel (``_moe``): the `model`
+ranks hold the same tokens, so each routes them all and computes its own
+experts, the shared and dense MLPs by d_ff beside them, and one
+all-reduce sums the parts; no all-to-all.  zamba2's shared leaves are
+used at every application, and their gradients sum over the applications
+as any leaf's do.
 
-What this does not do yet: re-gather in the backward (a gathered weight
-lives from its use in the forward to its gradient, as the plain step's
-do), and tensor-parallel compute for the ``mla``, ``mla_dense`` and
-``moe_attn`` blocks and the MTP head (they gather on use: MLA's latent
-pools stay replicated, and the MoE dispatch over ranks wants a design of
-its own).
+What this does not do: re-gather in the backward (a gathered weight lives
+from its use in the forward to its gradient, as the plain step's do), and
+the reference's EP-major layout (``core.sharding.MOE_EP_AXIS = "data"``:
+experts over `data` with an all-to-all dispatch), which only its dry run
+sets.
 """
 from __future__ import annotations
 
@@ -74,6 +87,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 
 ROLES = ("full", "local", "partial")
 
@@ -86,6 +101,20 @@ def _dt():
 # ---------------------------------------------------------------------------
 # gather on use, reduce in the backward
 # ---------------------------------------------------------------------------
+
+def _all_gather(x, dim: int, n: int, group):
+    """The shards ``x`` of the ``n`` ranks of ``group`` along ``dim``,
+    concatenated in rank order: gathered rank-major as ``x`` lies, then
+    laid out along ``dim`` by one copy (none where ``dim`` is 0)."""
+    x = x.contiguous()
+    dim %= x.ndim
+    buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(buf, x, group=group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return buf.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
 
 def _gather_dims(t, mesh, have, want):
     """``t``, this rank's shard under placements ``have``, all-gathered
@@ -110,11 +139,7 @@ def _gather_dims(t, mesh, have, want):
         if n == 1 or not (isinstance(p, D.Shard)
                           and isinstance(want[i], D.Replicate)):
             continue
-        x = t.movedim(p.dim, 0).contiguous()
-        buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(buf, x, group=mesh.get_group(i))
-        t = buf.movedim(0, p.dim).contiguous()
+        t = _all_gather(t, p.dim, n, mesh.get_group(i))
     return t
 
 
@@ -227,6 +252,29 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromTP(torch.autograd.Function):
+    """The last dim's shards all-gathered over `model` in rank order (each
+    rank's columns of a column-parallel projection); backward: this
+    rank's columns of the gradient, summed over `model` first where
+    ``reduce`` (each rank holds a part of it: a reduce-scatter, as an
+    all-reduce and a slice) or taken as they are (every rank holds the
+    same whole gradient: no communication)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, reduce):
+        ctx.tp, ctx.reduce, ctx.cols = tp, reduce, x.shape[-1]
+        return _all_gather(x, -1, tp.size, tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if ctx.reduce:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=tp.group)
+        return g.narrow(-1, tp.rank * ctx.cols,
+                        ctx.cols).contiguous(), None, None
+
+
 # ---------------------------------------------------------------------------
 # the tensor-parallel blocks
 # ---------------------------------------------------------------------------
@@ -240,17 +288,34 @@ class TPBlock:
     this rank picks from replicated wk / wv (None where they are sharded
     too); ``xattn`` / ``xkv_heads``: whisper's decoder cross attention the
     same way; ``mlp``: the MLP by d_ff; ``mixer``: mamba2's mixer by heads;
-    ``app_proj``: zamba2's per-application projection by rows."""
+    ``app_proj``: zamba2's per-application projection by rows; ``mla``:
+    the latent attention by heads, ``q_split`` where wq_a is split by
+    columns too (the q latent all-gathered); ``experts``: the MoE experts
+    by ranges (``moe.ExpertSplit``), ``side_mlp`` the MLP beside them
+    (``moe.SIDE_MLPS``: DeepSeek's shared expert, Arctic's dense FFN) by
+    d_ff; ``proj``: the MTP head's projection by columns."""
     group: object
     size: int
     rank: int
     attn: bool
     kv_heads: Optional[tuple]
-    mlp: bool
+    mlp: bool = False
     xattn: bool = False
     xkv_heads: Optional[tuple] = None
     mixer: bool = False
     app_proj: bool = False
+    mla: bool = False
+    q_split: bool = False
+    experts: bool = False
+    side_mlp: bool = False
+    proj: bool = False
+
+    @property
+    def on(self) -> bool:
+        """Whether any part of the block runs on this rank's share."""
+        return (self.attn or self.xattn or self.mlp or self.mixer or
+                self.app_proj or self.mla or self.experts or self.side_mlp
+                or self.proj)
 
 
 def _pick_heads(p: dict, heads: tuple, head_dim: int) -> dict:
@@ -342,15 +407,80 @@ def _attention(a: dict, cfg, h, tp: TPBlock, on: bool, kv_heads, **kw):
     return L.attention(a, cfg, h, **kw)[0]
 
 
+def _mlp_part(m: dict, hin, act: str):
+    """The MLP ``m`` by d_ff (w_in, w_gate by columns, w_out by rows) on
+    ``hin`` (after f), before g -> (this rank's share of the output,
+    w_out's bias or None: it is added once, after g)."""
+    w_out = m["w_out"]
+    y = L.mlp({**m, "w_out": {"w": w_out["w"]}}, hin, act)
+    return y, w_out.get("b")
+
+
 def _mlp(m: dict, h, act: str, tp: TPBlock, on: bool):
-    """The MLP by d_ff (w_in, w_gate by columns, w_out by rows) where
-    ``on``, else whole."""
+    """The MLP by d_ff where ``on``, else whole."""
     if not on:
         return L.mlp(m, h, act)
-    m = dict(m)
-    w_out = m.pop("w_out")
-    return _row_parallel(lambda o, hin: L.mlp({**m, "w_out": o}, hin, act),
-                         w_out, _CopyToTP.apply(h, tp.group), tp)
+    y, bias = _mlp_part(m, _CopyToTP.apply(h, tp.group), act)
+    y = _ReduceFromTP.apply(y, tp.group)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _moe(m: dict, arch: ArchConfig, h, tp: TPBlock):
+    """The MoE FFN ``m`` over ``h`` -> (y, aux): ``moe.moe``'s routed
+    experts plus its side MLPs, the experts over `model` where
+    ``tp.experts`` (each rank routes every token over every expert and
+    combines its own range's outputs), the side MLP by d_ff where
+    ``tp.side_mlp``; the parts on this rank's share added and
+    all-reduced once (f before, g after), the biases and the parts
+    computed whole added after."""
+    cfg = B.moe_cfg_for(arch)
+    if not (tp.experts or tp.side_mlp):
+        return MOE.moe(m, cfg, h)
+    hin = _CopyToTP.apply(h, tp.group)
+    y, aux = MOE.routed(m, cfg, hin if tp.experts else h,
+                        MOE.ExpertSplit(tp.size, tp.rank) if tp.experts
+                        else None)
+    parts, whole = ([y], []) if tp.experts else ([], [y])
+    for key in MOE.SIDE_MLPS:
+        if key not in m:
+            continue
+        if tp.side_mlp:
+            part, bias = _mlp_part(m[key], hin, cfg.act)
+            parts.append(part)
+            whole += [] if bias is None else [bias.to(part.dtype)]
+        else:
+            whole.append(L.mlp(m[key], h, cfg.act))
+    y = _ReduceFromTP.apply(sum(parts), tp.group)
+    for w in whole:
+        y = y + w
+    return y, aux
+
+
+def _mla(a: dict, arch: ArchConfig, h, tp: TPBlock, *, positions, cache,
+         block_tables, new_lens):
+    """The latent attention ``a`` over ``h``: the whole-sequence forward,
+    or the paged step on the latent pools ``cache`` (replicated: every
+    rank writes the same latents into its own copy, which stays whole).
+    Where ``tp.mla``, on this rank's heads (a config of H / size heads,
+    the q latent all-gathered before ``q_norm`` where wq_a is split),
+    all-reduced after wo, whose bias is added once; else whole."""
+    cfg = B.mla_cfg_for(arch)
+    kw = (dict(positions=positions) if block_tables is None else
+          dict(cache=cache, positions=positions, block_tables=block_tables,
+               new_lens=new_lens))
+    fn = (MLA.mla_attention if block_tables is None
+          else MLA.mla_paged_attention)
+    if not tp.mla:
+        return fn(a, cfg, h, **kw)[0]
+    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size)
+    gather = ((lambda q: _GatherFromTP.apply(q, tp, True)) if tp.q_split
+              else None)
+    a = dict(a)
+    wo = a.pop("wo")
+    return _row_parallel(
+        lambda o, hin: fn({**a, "wo": o}, lcfg, hin, gather_q=gather,
+                          **kw)[0],
+        wo, _CopyToTP.apply(h, tp.group), tp)
 
 
 def _cross_kw(cross_input, rows, slot_ids) -> dict:
@@ -371,8 +501,9 @@ def _paged_or_whole(cache, block_tables) -> None:
 
 def tp_attn_block(tp: TPBlock):
     """-> a function with ``blocks.apply_block``'s signature that applies
-    a dense ``attn`` or an encoder ``enc_attn`` block tensor-parallel by
-    ``tp``: the whole-sequence forward, or a paged serving step (``cache``
+    a dense ``attn``, an encoder ``enc_attn`` or a ``moe_attn`` block
+    tensor-parallel by ``tp`` (the MoE FFN as ``_moe``): the
+    whole-sequence forward, or a paged serving step (``cache``
     and ``block_tables``).  On the paged path the rank attends with its
     own Q heads over the KV heads they read, which it writes into
     ``cache`` in place: ``cache`` is this rank's shard of a pool sharded
@@ -383,9 +514,9 @@ def tp_attn_block(tp: TPBlock):
     readers)."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
               cache=None, block_tables=None, new_lens=None, **_):
-        if kind not in ("attn", "enc_attn"):
-            raise ValueError(f"tp_attn_block applies attn and enc_attn "
-                             f"blocks, not {kind!r}")
+        if kind not in ("attn", "enc_attn", "moe_attn"):
+            raise ValueError(f"tp_attn_block applies attn, enc_attn and "
+                             f"moe_attn blocks, not {kind!r}")
         _paged_or_whole(cache, block_tables)
         enc = kind == "enc_attn"
         cfg = B.attn_cfg_for(arch, causal=not enc, use_rope=not enc)
@@ -393,9 +524,54 @@ def tp_attn_block(tp: TPBlock):
                            tp, tp.attn, tp.kv_heads, positions=positions,
                            impl=impl, cache=cache, block_tables=block_tables,
                            new_lens=new_lens)
-        return x + _mlp(p["mlp"], B.norm_apply(arch, p["norm2"], x),
-                        arch.act, tp, tp.mlp), cache, 0.0
+        h = B.norm_apply(arch, p["norm2"], x)
+        if kind == "moe_attn":
+            y, aux = _moe(p["moe"], arch, h, tp)
+            return x + y, cache, aux
+        return x + _mlp(p["mlp"], h, arch.act, tp, tp.mlp), cache, 0.0
     apply.own_pools = tp.attn
+    return apply
+
+
+def tp_mla_block(tp: TPBlock):
+    """-> an ``mla_dense`` (latent attention, MLP) or ``mla`` (latent
+    attention, MoE) block tensor-parallel by ``tp``: the attention by
+    heads (``_mla``), the MLP by d_ff, the MoE as ``_moe``; the
+    whole-sequence forward or a paged step on the block's latent pools,
+    which the plan replicates and every rank keeps whole (so nothing is
+    gathered around the block: it owns its pools)."""
+    def apply(p, kind, arch: ArchConfig, x, *, positions=None, cache=None,
+              block_tables=None, new_lens=None, **_):
+        if kind not in B.MLA_KINDS:
+            raise ValueError(f"tp_mla_block applies mla and mla_dense "
+                             f"blocks, not {kind!r}")
+        _paged_or_whole(cache, block_tables)
+        x = x + _mla(p["attn"], arch, B.norm_apply(arch, p["norm1"], x), tp,
+                     positions=positions, cache=cache,
+                     block_tables=block_tables, new_lens=new_lens)
+        h = B.norm_apply(arch, p["norm2"], x)
+        if kind == "mla":
+            y, aux = _moe(p["moe"], arch, h, tp)
+            return x + y, cache, aux
+        return x + _mlp(p["mlp"], h, arch.act, tp, tp.mlp), cache, 0.0
+    apply.own_pools = True
+    return apply
+
+
+def tp_mtp_head(tp: TPBlock, block=None):
+    """-> ``transformer.mtp_logits``' head function: the projection of the
+    concatenation ``z`` by columns where ``tp.proj`` (f before it, then
+    the columns all-gathered; the gather's backward is this rank's columns
+    of the gradient, which every rank holds whole), then the ``attn``
+    block through ``block`` (``tp_attn_block``'s, or whole)."""
+    def apply(mtp, arch: ArchConfig, z, positions):
+        if tp.proj:
+            h = _GatherFromTP.apply(L.dense(mtp["proj"], _CopyToTP.apply(
+                z, tp.group)), tp, False)
+        else:
+            h = L.dense(mtp["proj"], z)
+        return (block or B.apply_block)(mtp["block"], "attn", arch, h,
+                                        positions=positions)[0]
     return apply
 
 
@@ -606,23 +782,94 @@ def _mamba2_layout(mx: dict, pre: str):
     return roles
 
 
+# MLA under tensor parallelism by heads: the head-major projections on this
+# rank's heads (wo by rows; its bias is ``full``); every other leaf
+# (q_norm, wkv_a, kv_norm, and wq_a where its columns are not split) is
+# computed whole on every rank and its gradient held in part
+_MLA_LOCAL = ("wq_b", "wk_b", "wv_b", "wo")
+
+
+def _mla_layout(a: dict, pre: str, n_heads: int, size: int):
+    """-> (q_split, roles) of a latent attention whose head-major
+    projections the specs ``a`` split by columns over `model` at head
+    boundaries (wo by rows), or None where they do not (``_sanitize``
+    divides columns, not heads: H * head_dim may divide the axis where H
+    does not), and the block gathers them."""
+    if not (n_heads % size == 0 and
+            all(_axis_at(a[m]["w"], -1) == "model"
+                for m in ("wq_b", "wk_b", "wv_b")) and
+            _axis_at(a["wo"]["w"], -2) == "model"):
+        return None
+    q_split = _axis_at(a["wq_a"]["w"], -1) == "model"
+    roles = {}
+    for mod, leaves in a.items():
+        for leaf in leaves:
+            if (mod, leaf) == ("wo", "b"):
+                continue
+            roles[f"{pre}.{mod}.{leaf}"] = (
+                "local" if mod in _MLA_LOCAL or (mod == "wq_a" and q_split)
+                else "partial")
+    return q_split, roles
+
+
+def _moe_layout(m: dict, pre: str):
+    """-> (experts, roles) of a MoE FFN: ``experts`` where the specs split
+    the expert stacks over `model` by experts (``_sanitize`` replicates
+    them where E does not divide: they then run whole), with the stacks
+    ``local`` and the router ``partial`` (the routed gradient reaches it
+    through each rank's own experts)."""
+    if _axis_at(m["w_in"], -3) != "model":
+        return False, {}
+    if any(_axis_at(m[k], -3) != "model" for k in ("w_gate", "w_out")):
+        raise ValueError(f"{pre}: w_in is split by experts but w_gate or "
+                         f"w_out is not")
+    roles = {f"{pre}.{k}": "local" for k in ("w_in", "w_gate", "w_out")}
+    roles.update({f"{pre}.router.{leaf}": "partial" for leaf in m["router"]})
+    return True, roles
+
+
+def batch_group(mesh, batch_spec):
+    """-> (group, n): the process group of the ``n`` ranks over which
+    ``batch_spec`` splits the rows (those of one `model` coordinate under
+    DP and HP, every rank under FS), or None where each rank holds the
+    whole batch."""
+    ax = batch_spec[0] if len(batch_spec) else None
+    names = tuple(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in (
+        () if ax is None else ax if isinstance(ax, tuple) else (ax,))]
+    dims = [d for d in dims if mesh.shape[d] > 1]
+    if not dims:
+        return None
+    if len(dims) == 1:
+        return mesh.get_group(dims[0]), mesh.shape[dims[0]]
+    if all(mesh.shape[d] == 1 for d in range(mesh.ndim) if d not in dims):
+        return dist.group.WORLD, mesh.size()
+    raise ValueError(f"a batch laid over {ax!r} on a mesh of "
+                     f"{dict(zip(names, mesh.shape))}: its ranks are no "
+                     f"single group")
+
+
 def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     """-> (leaf roles: {leaf name (``tree.names``): role} for the
     non-``full`` leaves,
-    block_fns for ``lm_apply``: {segment: {block: fn}}, and the encoder's
-    under ``"encoder"``).  ``specs``: the params' spec tree;
-    ``batch_spec``: the batch's (tensor parallelism needs the `model`
-    ranks to hold the same rows, so a batch laid over `model`, as FS
-    lays it, gathers every weight on use).
+    block_fns for ``lm_apply``: {segment: {block: fn}}, the encoder's
+    under ``"encoder"`` and ``mtp_logits``' head function under
+    ``"mtp"``).  ``specs``: the params' spec tree; ``batch_spec``: the
+    batch's (tensor parallelism needs the `model` ranks to hold the same
+    rows, so a batch laid over `model`, as FS lays it, gathers every
+    weight on use).
 
     A block runs tensor-parallel where the specs shard its weights over
-    `model`: ``attn`` and ``enc_attn`` (``tp_attn_block``), ``wdec``,
-    ``cross_attn``, ``shared_attn`` and ``mamba2``; each of its parts (the
-    attention, the cross attention, the MLP, the mixer, app_proj) on its
-    own share where its own specs say so (an ASA plan may shard a block's
-    mixer and not its FFN), else whole.  zamba2's shared weights
-    (``specs["shared"]``) are walked once, for every application.  The
-    MLA, MoE and MTP blocks gather their weights on use."""
+    `model`: ``attn``, ``enc_attn`` and ``moe_attn``
+    (``tp_attn_block``), ``mla`` and ``mla_dense`` (``tp_mla_block``),
+    ``wdec``, ``cross_attn``, ``shared_attn`` and ``mamba2``; each of its
+    parts (the attention, the latent attention, the cross attention, the
+    MLP, the MoE experts and its shared and dense MLPs, the mixer,
+    app_proj) on its own share where its own specs say so (an ASA plan may
+    shard a block's mixer and not its FFN), else whole.  zamba2's shared
+    weights (``specs["shared"]``) are walked once, for every application,
+    and so is the MTP head (``specs["mtp"]``: its projection by columns,
+    its ``attn`` block by heads and d_ff)."""
     names = tuple(mesh.mesh_dim_names)
     ax = batch_spec[0] if len(batch_spec) else None
     if "model" not in names or "model" in (
@@ -653,13 +900,35 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
         shared = dict(attn=on, kv_heads=kv_heads,
                       mlp=mlp(specs["shared"]["mlp"], "shared.mlp"))
 
+    def moe(m, pre):
+        """-> the TPBlock fields of a MoE FFN: its side MLPs by d_ff only
+        where the specs split every one of them."""
+        ep, got = _moe_layout(m, pre)
+        roles.update(got)
+        sides = [_mlp_layout(m[k], f"{pre}.{k}") for k in MOE.SIDE_MLPS
+                 if k in m]
+        side = bool(sides) and None not in sides
+        for r in sides if side else ():
+            roles.update(r)
+        return dict(experts=ep, side_mlp=side)
+
     def block(kind, b, pre):
         """-> this block's function, or None where it runs whole."""
-        if kind in ("attn", "enc_attn", "cross_attn"):
+        if kind in ("attn", "enc_attn", "cross_attn", "moe_attn"):
             on, kv_heads = attn(b["attn"], f"{pre}.attn")
-            tp = TPBlock(group, size, rank, on, kv_heads,
-                         mlp(b["mlp"], f"{pre}.mlp"))
+            ffn = (moe(b["moe"], f"{pre}.moe") if kind == "moe_attn" else
+                   dict(mlp=mlp(b["mlp"], f"{pre}.mlp")))
+            tp = TPBlock(group, size, rank, on, kv_heads, **ffn)
             make = tp_cross_block if kind == "cross_attn" else tp_attn_block
+        elif kind in B.MLA_KINDS:
+            q_split, got = _mla_layout(b["attn"], f"{pre}.attn",
+                                       arch.n_heads, size) or (False, None)
+            roles.update(got or {})
+            ffn = (moe(b["moe"], f"{pre}.moe") if kind == "mla" else
+                   dict(mlp=mlp(b["mlp"], f"{pre}.mlp")))
+            tp = TPBlock(group, size, rank, False, None, **ffn,
+                         mla=got is not None, q_split=q_split)
+            make = tp_mla_block
         elif kind == "wdec":
             on, kv_heads = attn(b["attn"], f"{pre}.attn")
             x_on, x_kv = attn(b["xattn"], f"{pre}.xattn")
@@ -681,9 +950,7 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
             make = tp_mamba2_block
         else:
             return None
-        if not (tp.attn or tp.xattn or tp.mlp or tp.mixer or tp.app_proj):
-            return None
-        return make(tp)
+        return make(tp) if tp.on else None
 
     fns = {}
     for si, seg in enumerate(arch.pattern):
@@ -697,6 +964,17 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
         fn = block("enc_attn", seg["b0"], f"encoder.segments.{si}.b0")
         if fn is not None:
             fns.setdefault("encoder", {}).setdefault(si, {})[0] = fn
+    if "mtp" in specs:
+        m = specs["mtp"]
+        on, kv_heads = attn(m["block"]["attn"], "mtp.block.attn")
+        proj = _axis_at(m["proj"]["w"], -1) == "model"
+        roles.update({f"mtp.proj.{leaf}": "local" for leaf in m["proj"]}
+                     if proj else {})
+        tp = TPBlock(group, size, rank, on, kv_heads,
+                     mlp(m["block"]["mlp"], "mtp.block.mlp"), proj=proj)
+        if tp.on:
+            fns["mtp"] = tp_mtp_head(tp, tp_attn_block(tp) if (
+                tp.attn or tp.mlp) else None)
     return roles, fns
 
 

@@ -22,6 +22,8 @@ hand it the absolute position of the token each row produces, and return
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import tree
@@ -41,7 +43,8 @@ def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
     the MTP head's cross-entropy against the labels shifted left by one
     (the wrapped last column masked out); total adds the MoE layers' aux
     loss to it, and is what the train step differentiates.
-    ``block_fns``: ``lm_apply``'s (the sharded step's TP blocks)."""
+    ``block_fns``: ``lm_apply``'s (the sharded step's TP blocks), and
+    under ``"mtp"`` the function ``mtp_logits`` takes for its head."""
     def loss_fn(params, tokens, labels, frontend=None):
         out = T.lm_apply(params, arch, tokens, frontend=frontend, impl=impl,
                          remat=remat, return_hidden=arch.mtp,
@@ -49,7 +52,8 @@ def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
         loss = T.lm_loss(out.logits, labels, arch.vocab)
         if arch.mtp:
             # depth-1 MTP: hidden_t + emb(token_{t+1}) predicts token_{t+2}
-            mtp_lg = T.mtp_logits(params, arch, out.hidden, tokens)
+            mtp_lg = T.mtp_logits(params, arch, out.hidden, tokens,
+                                  (block_fns or {}).get("mtp"))
             tgt = torch.roll(labels, -1, dims=1)
             mask = torch.ones(tgt.shape, dtype=torch.float32,
                               device=tgt.device)
@@ -99,12 +103,13 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
     params and moments are DTensors on that mesh; each rank takes its rows
     of each microbatch (the microbatch is the reference's: rows i * B / mb
     to (i + 1) * B / mb of the global batch, then its slice), gathers the
-    weights on use, runs the attn, encoder, mamba2, shared, wdec and
-    cross_attn blocks tensor-parallel where the plan shards them over
-    `model`, and reduces each gradient to its
+    weights on use, runs every block kind and the MTP head
+    tensor-parallel (the MoE experts expert-parallel) where the plan
+    shards them over `model`, and reduces each gradient to its
     parameter's placement in the backward; the global norm sums squares
     over shards with one all-reduce; AdamW updates the local shards
     (int8 moments: on the gathered leaves, each rank keeping its shards).
+    The MoE aux loss is the global microbatch's (``moe.batch_split``).
     The loss and ce are the means over the ranks (each rank's rows are an
     equal share of the batch)."""
     if (act_sharding is None) != (grad_shardings is None):
@@ -167,6 +172,7 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
     import torch.distributed as dist
 
     from repro_torch.core import sharding as SH
+    from repro_torch.models import moe as MOE
     from repro_torch.optim.quantized import QLeaf
     from repro_torch.runtime import sharded as SD
 
@@ -183,11 +189,16 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
         x = torch.as_tensor(x)[i * per:(i + 1) * per]
         return x[SH.batch_slice(act_sharding, per)].to(dev)
 
+    # the MoE aux loss over the global batch, as the reference's
+    split = SD.batch_group(mesh, act_sharding.spec)
+
     def local_grads(params, locals_, tok, lab, fe):
         live = [t.detach().requires_grad_() for t in locals_]
-        work = SD.working_tree(params, live, lays, mesh)
-        total, ce = loss_fn(work, tok, lab, fe)
-        grads = torch.autograd.grad(total, live, allow_unused=True)
+        with (MOE.batch_split(*split) if split else
+              contextlib.nullcontext()):
+            work = SD.working_tree(params, live, lays, mesh)
+            total, ce = loss_fn(work, tok, lab, fe)
+            grads = torch.autograd.grad(total, live, allow_unused=True)
         return total.detach(), ce.detach(), [
             torch.zeros_like(x) if g is None else g
             for g, x in zip(grads, live)]

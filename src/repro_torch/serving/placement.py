@@ -9,24 +9,25 @@ deterministic, so every rank makes the same model calls on the same
 token rows; ranks along `data` compute the same values, and the `model`
 ranks split what the plan shards:
 
-  * the ``attn``, ``mamba2``, ``shared_attn``, ``wdec`` and
-    ``cross_attn`` blocks under MP / HP compute on their own share
-    (``runtime/sharded.py``'s tensor-parallel blocks) and work on their
+  * every block kind under MP / HP computes on its own share
+    (``runtime/sharded.py``'s tensor-parallel blocks) and works on its
     pool shards in place: an attention's Q heads and the KV heads of its
-    pool shard (zamba2's per-application pools, whisper's self pool and
-    its cross slot rows, llama-vision's cross slot rows), mamba2's heads
-    and its ``conv_x`` and ``ssm`` slot rows, the MLP's slice of d_ff,
-    with one all-reduce after each row-parallel projection (and one a
-    gated norm).  mamba2's ``conv_b`` and ``conv_c`` pools stay
-    replicated: every `model` rank computes the same B and C, so each
-    rank's copy stays whole and valid.  The encoder runs on its own heads
-    too, at admission, where each rank writes its own heads of the cross
-    K/V;
-  * the blocks this does not cover yet (``mla``, ``mla_dense``,
-    ``moe_attn``) gather their weights on use and, where the plan shards
-    their pools, the pool shards around the block call, then write back
-    only this rank's slice: correct, not parallel.  Admission gathers such
-    a block's slot-state pools the same way.
+    pool shard (``attn`` and ``moe_attn``, zamba2's per-application pools,
+    whisper's self pool and its cross slot rows, llama-vision's cross
+    slot rows), mamba2's heads and its ``conv_x`` and ``ssm`` slot rows,
+    MLA's heads, the MLP's slice of d_ff, the MoE layer's range of
+    experts, with one all-reduce after each row-parallel projection or
+    MoE FFN (and one a gated norm).  mamba2's ``conv_b`` and ``conv_c``
+    pools and MLA's latent pools stay replicated: every `model` rank
+    computes the same B and C, or the same latents, so each rank's copy
+    stays whole and valid.  The encoder runs on its own heads too, at
+    admission, where each rank writes its own heads of the cross K/V;
+  * a block whose pools the plan splits while the weights that use them
+    run whole (a uniform plan makes none; an ASA plan may lay out a pool
+    by one component's strategy and the weights by another's) gathers
+    the pool shards around the block call, then writes back only this
+    rank's slice: correct, not parallel.  Admission gathers such a
+    block's slot-state pools the same way.
 
 The kernels are ctypes calls on local tensors, which DTensor dispatch
 never reaches.  On a world of 1 the steps see the local tensors, which

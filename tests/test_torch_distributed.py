@@ -1,21 +1,28 @@
 """The port's sharded training (``repro_torch.runtime.trainer``,
 ``runtime/sharded.py``, ``checkpoint``, ``launch``) on the CPU.
 
-(c) Four gloo ranks, spawned twice for this module
-(``torch_dist_worker.py``: ``run``, ``run_tp``): 4 steps of
+(c) Four gloo ranks, spawned three times for this module
+(``torch_dist_worker.py``: ``run``, ``run_tp``, ``run_moe``): 4 steps of
 test_convergence_parity's arch (4 heads over 4) and of tiny-rt (4 over 2:
 the KV projections stay replicated on model = 4), and 2 steps (losses and
 grad norms) of the tiny mamba2 (one and two B/C groups), zamba2 (shared
 block + mamba2), whisper (encoder + wdec, a frontend in each batch) and
 llama-vision (attn + gated cross attention, a frontend in each batch)
-configs, under uniform DP on (4, 1), MP on (1, 4), HP on (2, 2), FS on
-(2, 2) and the ASA's own plan on (2, 2), each spawn within 120 s,
-against the single-rank Trainer (a world of 1 in this process) at
-test_convergence_parity's tolerances (2e-4 for DP and FS, 2e-3 where the
-compute is tensor-parallel); local shards are the spec's division; under
-MP each rank's SSD scans run H / 4 heads, its x_proj and wq work at a
-quarter of their columns, and no leaf the specs shard over `model` is
-all-gathered over it but the embedding and head; the all-gather by hand
+configs, and of the MoE family's (tiny-mla-ep: latent attention, 8
+experts top 2 behind a sigmoid router, a shared expert, the MTP head;
+tiny-moe: GQA attention, 8 experts top 2 behind a softmax router, the
+dense residual FFN, capacity drops), under uniform DP on (4, 1), MP on
+(1, 4), HP on (2, 2), FS on (2, 2) and the ASA's own plan on (2, 2), each
+spawn within 120 s, against the single-rank Trainer (a world of 1 in
+this process) at test_convergence_parity's tolerances (2e-4 for DP and
+FS, 2e-3 where the compute is tensor-parallel); local shards are the
+spec's division; under MP each rank's SSD scans run H / 4 heads, its
+x_proj and wq work at a quarter of their columns, its latent attentions
+at H / 4 heads and its MoE layers at E / 4 experts, and no leaf the
+specs shard over `model` is all-gathered over it but the embedding and
+head; the MoE family's every step-1 gradient under MP, gathered, equals
+the single-rank one (the router's too: the aux loss, computed whole on
+every rank, counted once); the all-gather by hand
 (for gloo over CUDA tensors) lays shards out as DTensor does; the
 split-row RMSNorm over the four ranks equals the reference's whole-row
 norm, forward and gradients; a checkpoint saved on (4, 1) restores onto (2, 2) bit for
@@ -102,6 +109,19 @@ def four_ranks_tp():
     return _spawn(W.run_tp)
 
 
+@pytest.fixture(scope="module")
+def four_ranks_moe():
+    """The MoE family's archs on four ranks (``W.run_moe``)."""
+    return _spawn(W.run_moe)
+
+
+def _ranks(request, name):
+    """The spawn that trains arch ``name``."""
+    return request.getfixturevalue(
+        "four_ranks_moe" if name in W.MOE_ARCHS else
+        "four_ranks_tp" if name in W.TP_ARCHS else "four_ranks")
+
+
 def _steps(name):
     return W.TP_STEPS if name in W.TP_ARCHS else W.STEPS
 
@@ -125,8 +145,7 @@ def single_rank():
 @pytest.mark.parametrize("name", sorted(W.ARCHS))
 @pytest.mark.parametrize("case", [c[0] for c in W.CASES])
 def test_four_ranks_train_like_one(request, single_rank, name, case):
-    ranks = request.getfixturevalue(
-        "four_ranks_tp" if name in W.TP_ARCHS else "four_ranks")
+    ranks = _ranks(request, name)
     got = ranks["losses"][(name, case)]
     np.testing.assert_allclose(got, single_rank[name], rtol=TOL[case],
                                atol=TOL[case])
@@ -152,6 +171,10 @@ def test_asa_plan_on_four_ranks_is_the_planners(four_ranks):
 
 def test_tp_kinds_spawn_is_as_cheap(four_ranks_tp):
     assert four_ranks_tp["seconds"] < 120
+
+
+def test_moe_spawn_is_as_cheap(four_ranks_moe):
+    assert four_ranks_moe["seconds"] < 120
 
 
 def test_int8_moments_on_four_ranks(four_ranks, single_rank):
@@ -222,16 +245,24 @@ GATHERED_OVER_MODEL = {"embed.embedding", "head.w", "head.b"}
 
 
 @pytest.mark.parametrize("name", TP_ARCHS)
-def test_mp_computes_on_each_ranks_share(four_ranks_tp, name):
+def test_mp_computes_on_each_ranks_share(request, name):
     """Under MP on (1, 4) every rank's SSD scans see H / 4 heads, its
     mamba2 mixers work on a quarter of x_proj's columns and every
-    attention (self, encoder, shared, cross) on a quarter of wq's, and no
-    leaf the specs shard over `model` is gathered over it but the
-    embedding and head."""
+    attention (self, encoder, shared, cross, the MTP block's) on a quarter
+    of wq's, every latent attention on H / 4 heads and every MoE layer on
+    E / 4 experts (tiny-moe's capacity drops tokens), and no leaf the
+    specs shard over `model` is gathered over it but the embedding and
+    head."""
     arch = W.ARCHS[name]
-    recs = four_ranks_tp["split"][name]
+    recs = _ranks(request, name)["split"][name]
     assert len(recs) == 4
+    kinds = {k for seg in arch.pattern for k in seg.blocks}
     for rank, rec in enumerate(recs):
+        assert rec["mla_heads"] == ({arch.n_heads // 4} if kinds & {
+            "mla", "mla_dense"} else set()), rank
+        assert rec["experts"] == ({arch.moe.n_experts // 4} if kinds & {
+            "mla", "moe_attn"} else set()), rank
+        assert name != "tiny-moe" or rec["dropped"] > 0, rank
         if arch.ssm is not None:
             d_inner = arch.ssm.expand * arch.d_model
             assert rec["ssd_heads"] == {d_inner // arch.ssm.head_dim // 4}
@@ -247,6 +278,94 @@ def test_mp_computes_on_each_ranks_share(four_ranks_tp, name):
             (rank, rec["gathered_over_model"])
     if name == "tiny-shared":           # the shared block at 2 x d_model
         assert {dm for dm, _ in recs[0]["wq"]} == {2 * arch.d_model}
+
+
+def _single_rank_grads(name):
+    """-> (params, tokens, grads): arch ``name``'s step-1 gradients on a
+    world of 1 from the Trainer's params and the first batch."""
+    from repro_torch.runtime import steps as ST
+    arch = W.ARCHS[name]
+    tr = Trainer(arch, SHAPE, M.make_host_mesh(device="cpu"), W.CFG)
+    p, _ = tr.init_state()
+    params = _gathered(p)
+    batch = next(W.data(arch))
+    tok, lab = (torch.as_tensor(batch[k]) for k in ("tokens", "labels"))
+    return params, tok, ST.loss_and_grads(ST.make_loss_fn(arch), params,
+                                          tok, lab)[2]
+
+
+@pytest.mark.parametrize("name", W.MOE_ARCHS)
+def test_mp_grads_are_the_single_rank_grads(four_ranks_moe, name):
+    """Every leaf's step-1 gradient under MP on (1, 4), reduced to its
+    placement and gathered, against the single-rank step's at 1e-4 of
+    its norm: the latent attention's q latent (its gather's backward
+    sums the ranks' parts), the latents' partial leaves, the experts, the
+    shared and dense MLPs, the MTP head."""
+    _assert_single_rank_grads(name, four_ranks_moe["mp_grads"][name])
+
+
+@pytest.mark.parametrize("name", W.MOE_ARCHS)
+def test_hp_grads_are_the_single_rank_grads(four_ranks_moe, name):
+    """The same under HP on (2, 2), whose batch is split over `data` and
+    whose experts are split over `model`: the aux loss's means run over
+    the global batch (``moe.batch_split``), their backward counting each
+    rank's rows once, and its 1 / size over `model` still holds."""
+    _assert_single_rank_grads(name, four_ranks_moe["hp_grads"][name])
+
+
+def _assert_single_rank_grads(name, got):
+    """``got`` ({leaf name: gathered gradient}) against the single-rank
+    step's, each leaf at 1e-4 of its norm."""
+    params, _, grads = _single_rank_grads(name)
+    names = tree.names(params)
+    assert sorted(got) == sorted(names)
+    for leaf, want in zip(names, grads):
+        want = want.numpy()
+        err = np.linalg.norm(got[leaf] - want)
+        assert err <= 1e-4 * np.linalg.norm(want) + 1e-9, (leaf, err)
+
+
+@pytest.mark.parametrize("name", W.MOE_ARCHS)
+@pytest.mark.parametrize("case", ["DP", "HP", "FS", "ASA"])
+def test_moe_aux_loss_is_the_global_batchs(request, single_rank, name,
+                                           case):
+    """Where the batch is split over ranks, each MoE layer's aux loss is
+    the global batch's, as the reference's under GSPMD: the losses and
+    grad norms equal the single rank's at 1e-5, where the mean of the
+    shards' aux losses differs from it by 1.2e-4 (tiny-moe) and 1.6e-4
+    (tiny-mla-ep) on the first batch."""
+    ranks = _ranks(request, name)
+    for key in ("losses", "grad_norms"):
+        want = (single_rank[name] if key == "losses" else
+                single_rank[name, "grad_norms"])
+        np.testing.assert_allclose(ranks[key][(name, case)], want,
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+def test_aux_loss_gradient_reaches_the_router_once(four_ranks_moe):
+    """The aux-loss trap: every `model` rank computes the MoE aux loss
+    whole, and the router's gradient is summed over `model` (the gates
+    reach it through each rank's own experts), so the aux term's backward
+    is scaled by 1 / size on each rank.  tiny-mla-ep's router gradient
+    under MP on (1, 4), gathered, equals the single-rank step's, and
+    counting the aux term on all four ranks would add three times its
+    share, far past the tolerance."""
+    from repro_torch.models import transformer as T
+    arch = W.ARCHS["tiny-mla-ep"]
+    params, tok, grads = _single_rank_grads("tiny-mla-ep")
+    names = tree.names(params)
+    live = [x.detach().requires_grad_() for x in tree.leaves(params)]
+    aux = T.lm_apply(tree.unflatten(params, live), arch, tok).aux
+    routers = [i for i, n in enumerate(names) if ".router." in n]
+    aux_grads = torch.autograd.grad(aux, [live[i] for i in routers])
+    got = four_ranks_moe["mp_grads"]["tiny-mla-ep"]
+    assert routers
+    for i, ag in zip(routers, aux_grads):
+        want = grads[i].numpy()
+        np.testing.assert_allclose(got[names[i]], want, rtol=1e-4,
+                                   atol=1e-7, err_msg=names[i])
+        assert 3 * np.abs(ag.numpy()).max() > 100 * (
+            1e-7 + 1e-4 * np.abs(want).max()), names[i]
 
 
 def test_gathers_by_hand_are_dtensors(four_ranks_tp):
@@ -524,6 +643,23 @@ def test_quickstart_smoke(capsys):
     quickstart.main(["--device", "cpu", "--smoke"])
     out = capsys.readouterr().out
     assert "step    2" in out and "final loss:" in out
+
+
+def test_place_keeps_leaves_already_placed():
+    """``sharding.place`` keeps a DTensor leaf already on its sharding's
+    mesh and placements (a rank that drew its own shard never holds the
+    whole leaf), and refuses one placed otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.core import sharding as SH
+    mesh = M.make_host_mesh(device="cpu")
+    ns = SH.NamedSharding(mesh, SH.P("model", None))
+    x = torch.arange(6.0).reshape(2, 3)
+    placed = SH.place({"w": x}, {"w": ns})["w"]
+    assert SH.place({"w": placed}, {"w": ns})["w"] is placed
+    other = DTensor.from_local(x, mesh, (Replicate(), Replicate()),
+                               run_check=False)
+    with pytest.raises(ValueError, match="not as its sharding"):
+        SH.place({"w": other}, {"w": ns})
 
 
 def test_host_mesh_and_production_mesh():

@@ -10,13 +10,17 @@ enc-dec and cross goldens, on a (data 2, model 2) mesh: the greedy tokens
 equal the goldens, every pool leaf lies as ``plan.paged_cache_specs()``
 says, with the leaves the reference's planner shards over `model` really
 split (``SPLIT``), each block runs its tensor-parallel function on its own
-pool shards (``BLOCK_FNS``: only the MLA blocks keep ``apply_block``, and
-none gathers), and the plan's assignment equals the reference planner's
-for the same arch, shape and mesh shape.
+pool shards (``BLOCK_FNS``: the MLA blocks too, on their heads and
+experts, their latent pools replicated and nothing gathered around them),
+and the plan's assignment equals the reference planner's for the same
+arch, shape and mesh shape.
 
 A case of 6 Q heads over 3 KV heads keeps its KV weights and pools whole
 on (2, 2): each rank picks the KV heads of its Q heads, and the tokens
-equal the unplaced engine's.  Two cases with a frontend in every request
+equal the unplaced engine's.  Arctic's shape (tiny-moe: GQA attention by
+heads, 8 experts 4 a rank, the dense FFN by d_ff; its prefill chunks drop
+tokens) gives the JAX engine's tokens on the same params and settings,
+and the unplaced engine's.  Two cases with a frontend in every request
 and llama-vision's gates opened (the goldens were frozen without
 frontends, gates shut) give the JAX engine's tokens on the same params
 and frontends, and the unplaced engine's: whisper's encoder runs on each rank's heads at
@@ -40,6 +44,7 @@ import torch.multiprocessing as mp
 
 import torch_serve_dist_worker as W
 from repro.configs.base import ArchConfig as JArchConfig
+from repro.configs.base import MoESpec as JMoESpec
 from repro.configs.base import Segment as JSegment
 from repro.configs.base import ShapeSpec as JShapeSpec
 from repro.core.asa import AdaptiveScheduler as JAdaptiveScheduler
@@ -73,13 +78,13 @@ SPLIT = {"tiny/base": (2, 2), "hybrid/base": (4, 6), "mla/base": (0, 4),
          "shared/base": (4, 6), "shared/preempt": (4, 6),
          "encdec/base": (4, 4), "cross/base": (4, 4)}
 # how each (segment, block) runs on (2, 2): every block on its own share
-# and pool shards; MLA's pools are replicated and its weights gathered on
-# use, so it keeps apply_block; whisper's encoder block under
+# and pool shards (MLA's latent pools are replicated: every rank writes
+# the same latents into its own whole copy); whisper's encoder block under
 # ("encoder", segment, block)
 BLOCK_FNS = {"tiny/base": {(0, 0): "tp_attn_block"},
              "hybrid/base": {(0, 0): "tp_attn_block",
                              (0, 1): "tp_mamba2_block"},
-             "mla/base": {},
+             "mla/base": {(0, 0): "tp_mla_block", (1, 0): "tp_mla_block"},
              "hybrid/preempt": {(0, 0): "tp_attn_block",
                                 (0, 1): "tp_mamba2_block"},
              "ssm/base": {(0, 0): "tp_mamba2_block"},
@@ -104,6 +109,21 @@ GQA_ODD_CASE = dict(slots=2, max_len=64, engine=dict(block_size=4,
                                                      prefill_chunk=3),
                     requests=[(i, p, 6, None) for i, p in
                               enumerate(scenario_prompts(8, 4))])
+# arctic's shape: GQA attention over KV heads that divide, 8 experts top 2
+# (4 a rank on model = 2) and the dense residual FFN, capacity 1.25, so
+# that prefill chunks drop tokens; served against the JAX engine and the
+# unplaced one
+TINY_MOE = JArchConfig(name="tiny-moe", family="moe", n_layers=2,
+                       d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                       vocab=256, moe=JMoESpec(n_experts=8, top_k=2, d_ff=32,
+                                               dense_d_ff=64,
+                                               capacity_factor=1.25),
+                       pattern=(JSegment(("moe_attn",), 2),),
+                       dtype="float32", param_dtype="float32")
+TINY_MOE_CASE = dict(slots=2, max_len=64, engine=dict(block_size=4,
+                                                      prefill_chunk=8),
+                     requests=[(i, p, 6, None) for i, p in
+                               enumerate(scenario_prompts(8, 4))])
 # requests with frontends (seeded numpy, one a request) and the gates
 # opened, held against the unplaced engine: whisper and llama-vision
 FRONTEND_CASES = {"encdec/frontend": "encdec/base",
@@ -143,6 +163,9 @@ def four_ranks():
     cases["gqa-odd"] = dict(GQA_ODD_CASE, arch=port_arch(GQA_ODD),
                             params=jax.tree.map(np.asarray,
                                                 jax_params(GQA_ODD)))
+    cases["tiny-moe"] = dict(TINY_MOE_CASE, arch=port_arch(TINY_MOE),
+                             params=jax.tree.map(np.asarray,
+                                                 jax_params(TINY_MOE)))
     for name, scenario in FRONTEND_CASES.items():
         arch = scenario_requests(scenario)[0]
         cases[name] = dict(_frontend_case(name), arch=port_arch(arch),
@@ -210,19 +233,38 @@ def test_four_ranks_pick_kv_heads_that_do_not_divide(four_ranks):
     assert got["specs"] == [(), ()] and all(got["placed_as_specs"])
 
 
-def _jax_frontend_tokens(arch, case) -> dict:
-    """The JAX engine's greedy tokens for a frontend case, on the same
-    params (gates opened), frontends and engine settings."""
+def _jax_tokens(arch, case, open_gates=False) -> dict:
+    """The JAX engine's greedy tokens for a case, on the same params (with
+    ``open_gates``, the gates opened), frontends and engine settings."""
     from repro.launch.mesh import make_host_mesh
     from repro.serving import ContinuousBatchingEngine as JaxEngine
     from repro.serving import Request as JaxRequest
-    eng = JaxEngine(arch, jax_params(arch, open_gates=True),
+    eng = JaxEngine(arch, jax_params(arch, open_gates=open_gates),
                     make_host_mesh(), slots=case["slots"],
                     max_len=case["max_len"], **case["engine"])
     outs = eng.generate([JaxRequest(id=rid, prompt=p.copy(),
                                     max_new_tokens=m, frontend=fe)
                          for rid, p, m, fe in case["requests"]])
     return {o.request_id: list(o.token_ids) for o in outs}
+
+
+def test_four_ranks_serve_experts_like_one(four_ranks):
+    """tiny-moe placed on (2, 2): its attention by heads and its experts
+    by ranges, the dense FFN by d_ff, give the JAX engine's tokens on the
+    same params and settings (its prefill chunks drop tokens), and the
+    unplaced engine's."""
+    got = four_ranks["tiny-moe"]
+    assert {k: list(v) for k, v in got["tokens"].items()} == \
+        _jax_tokens(TINY_MOE, TINY_MOE_CASE)
+    eng = ContinuousBatchingEngine(
+        port_arch(TINY_MOE), torch_params(TINY_MOE), device="cpu",
+        slots=TINY_MOE_CASE["slots"], max_len=TINY_MOE_CASE["max_len"],
+        **TINY_MOE_CASE["engine"])
+    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m)
+                         for rid, p, m, _ in TINY_MOE_CASE["requests"]])
+    assert got["tokens"] == {o.request_id: o.token_ids for o in outs}
+    assert got["block_fns"] == {(0, 0): "tp_attn_block"}
+    assert got["experts"] == {4}
 
 
 @pytest.mark.parametrize("name", list(FRONTEND_CASES))
@@ -235,7 +277,7 @@ def test_four_ranks_serve_frontends_like_one(four_ranks, name):
     case = _frontend_case(name)
     got = four_ranks[name]
     assert {k: list(v) for k, v in got["tokens"].items()} == \
-        _jax_frontend_tokens(arch, case)
+        _jax_tokens(arch, case, open_gates=True)
     eng = ContinuousBatchingEngine(
         port_arch(arch), torch_params(arch, open_gates=True), device="cpu",
         slots=case["slots"], max_len=case["max_len"], **case["engine"])

@@ -1,8 +1,9 @@
 """The four-rank side of ``tests/test_torch_distributed.py``: spawned
-once per test module for the dense archs and the checkpoint (``run``) and
+once per test module for the dense archs and the checkpoint (``run``),
 once for the archs whose other block kinds run tensor-parallel
-(``run_tp``), each rank joins a gloo group through a file store and runs
-every case; rank 0 pickles the results for the test.  Imports torch,
+(``run_tp``) and once for the MoE family's (``run_moe``), each rank joins
+a gloo group through a file store and runs every case; rank 0 pickles
+the results for the test.  Imports torch,
 numpy and the port only (no JAX), so the ranks start fast."""
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.configs.base import (ArchConfig, EncoderSpec, Segment,
-                                      ShapeSpec, SSMSpec)
+from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
+                                      MoESpec, Segment, ShapeSpec, SSMSpec)
 from repro_torch.core import solver as SV
 from repro_torch.core.asa import AdaptiveScheduler
 from repro_torch.core.strategy import Strategy
@@ -34,7 +35,11 @@ from repro_torch.runtime.trainer import TrainConfig, Trainer
 # rank's 2 heads within one group; model 2: a whole group a rank), zamba2's
 # shared block with mamba2, whisper's encoder and wdec decoder, and
 # llama-vision's attn with gated cross attention (4 heads over 2 KV heads:
-# picked on model 4)
+# picked on model 4); then the MoE family: deepseek's shape at TINY_MLA's
+# widths (latent attention, 8 experts top 2 behind a sigmoid router, one
+# shared expert, the MTP head) and arctic's (GQA 4 over 2, 8 experts top 2
+# behind a softmax router, the dense residual FFN; capacity 1.25, so that
+# tokens are dropped across the expert split)
 _SSM = dict(family="ssm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
             d_ff=128, vocab=256, pattern=(Segment(("mamba2",), 2),),
             dtype="float32", param_dtype="float32")
@@ -69,7 +74,24 @@ ARCHS = {
         name="tiny-cross", family="vlm", n_layers=4, d_model=64, n_heads=4,
         n_kv_heads=2, d_ff=128, vocab=256, frontend="vision",
         n_img_tokens=8, pattern=(Segment(("attn", "cross_attn"), 2),),
-        dtype="float32", param_dtype="float32")}
+        dtype="float32", param_dtype="float32"),
+    "tiny-mla-ep": ArchConfig(
+        name="tiny-mla-ep", family="moe", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=128, vocab=256,
+        mla=MLASpec(q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+                    qk_rope_head_dim=8, v_head_dim=16),
+        moe=MoESpec(n_experts=8, top_k=2, d_ff=32, router="sigmoid",
+                    n_shared_experts=1, capacity_factor=2.0),
+        mtp=True, pattern=(Segment(("mla_dense",), 1),
+                           Segment(("mla",), 1)),
+        dtype="float32", param_dtype="float32"),
+    "tiny-moe": ArchConfig(
+        name="tiny-moe", family="moe", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab=256,
+        moe=MoESpec(n_experts=8, top_k=2, d_ff=32, dense_d_ff=64,
+                    capacity_factor=1.25),
+        pattern=(Segment(("moe_attn",), 2),), dtype="float32",
+        param_dtype="float32")}
 # the leaf each arch's storage check reads (sharded over `model` under MP)
 PROBE = {"parity": "segments.0.b0.attn.wq.w",
          "tiny-rt": "segments.0.b0.attn.wq.w",
@@ -77,7 +99,9 @@ PROBE = {"parity": "segments.0.b0.attn.wq.w",
          "tiny-ssm-g2": "segments.0.b0.mixer.x_proj.w",
          "tiny-shared": "shared.attn.wq.w",
          "tiny-encdec": "segments.0.b0.xattn.wq.w",
-         "tiny-cross": "segments.0.b1.attn.wq.w"}
+         "tiny-cross": "segments.0.b1.attn.wq.w",
+         "tiny-mla-ep": "segments.1.b0.attn.wq_b.w",
+         "tiny-moe": "segments.0.b0.moe.w_in"}
 SHAPE = ShapeSpec("dist", 32, 8, "train")
 CFG = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=40)
 STEPS = 4
@@ -85,8 +109,12 @@ STEPS = 4
 # norm follow step 1's gradients), so that their spawn stays as cheap as
 # the dense one
 TP_ARCHS = ("tiny-ssm", "tiny-ssm-g2", "tiny-shared", "tiny-encdec",
-            "tiny-cross")
+            "tiny-cross", "tiny-mla-ep", "tiny-moe")
 TP_STEPS = 2
+# the MoE family's archs, spawned on their own (``run_moe``) so that each
+# spawn stays as cheap as the dense one; every step-1 gradient of theirs
+# under MP and HP is held leaf by leaf
+MOE_ARCHS = ("tiny-mla-ep", "tiny-moe")
 # (case, strategy or None for the ASA's own plan, model axis)
 CASES = (("DP", "DP", 1), ("MP", "MP", 4), ("HP", "HP", 2), ("FS", "FS", 2),
          ("ASA", None, 2))
@@ -139,16 +167,34 @@ def train(arch, mesh, strategy, *, quantized=False, steps=STEPS):
 def recording(rec: dict):
     """Record what the step computes on this rank: the heads of every
     ``ssd_scan`` call, the working width of x_proj in every mamba2 mixer
-    and of wq in every attention (by its d_model), and the leaves whose
-    working tensor is all-gathered over `model`."""
+    and of wq in every attention (by its d_model), the heads of every
+    latent attention, the experts of every MoE layer's stacks and the
+    assignments its capacity drops (over all E experts), and the leaves
+    whose working tensor is all-gathered over `model`."""
     from repro_torch.kernels import ops
     from repro_torch.models import blocks as B
     from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import moe as MOE
     from repro_torch.runtime import sharded as SD
-    rec.update(ssd_heads=set(), x_proj=set(), wq=set(),
-               gathered_over_model=set())
+    rec.update(ssd_heads=set(), x_proj=set(), wq=set(), mla_heads=set(),
+               experts=set(), dropped=0, gathered_over_model=set())
     scan, mixer, attention = ops.ssd_scan, B.mamba2_mixer, L.attention
+    attend, routed = MLA._attend, MOE.routed
     working = SD.working_tree
+
+    def attend_(cfg, q_nope, *a, **k):
+        rec["mla_heads"].add(q_nope.shape[2])
+        return attend(cfg, q_nope, *a, **k)
+
+    def routed_(p, cfg, x, *a, **k):
+        rec["experts"].add(p["w_in"].shape[0])
+        _, _, idx = MOE.route(p, cfg, x)
+        C = max(1, int(cfg.capacity_factor * cfg.top_k * x.shape[1]
+                       / cfg.n_experts))
+        count = torch.nn.functional.one_hot(idx, cfg.n_experts).sum((1, 2))
+        rec["dropped"] += int((count - C).clamp_min(0).sum())
+        return routed(p, cfg, x, *a, **k)
 
     def scan_(x, *a, **k):
         rec["ssd_heads"].add(x.shape[2])
@@ -173,6 +219,8 @@ def recording(rec: dict):
     with mock.patch.object(ops, "ssd_scan", scan_), \
             mock.patch.object(B, "mamba2_mixer", mixer_), \
             mock.patch.object(L, "attention", attention_), \
+            mock.patch.object(MLA, "_attend", attend_), \
+            mock.patch.object(MOE, "routed", routed_), \
             mock.patch.object(SD, "working_tree", working_):
         yield
 
@@ -273,13 +321,56 @@ def train_all(names, steps: int, world: int) -> dict:
     return res
 
 
-def run_tp(rank: int, world: int, store: str, out: str) -> None:
-    """The tensor-parallel kinds' archs (``TP_ARCHS``), the gathers by
-    hand and the split-row RMSNorm."""
+def step1_grads(name: str, strategy: str, model: int) -> dict:
+    """Step 1's gradient of every leaf of arch ``name`` under ``strategy``
+    on (world / ``model``, ``model``), reduced to its placement by the
+    sharded step (an optimizer that keeps the grads and updates nothing)
+    and gathered whole: {leaf name: array}."""
+    from repro_torch.runtime import sharded as SD
+    from repro_torch.runtime import steps as ST
+    arch = ARCHS[name]
+    mesh = make_host_mesh(model=model, device="cpu")
+    tr = Trainer(arch, SHAPE, mesh, CFG, scheduler=Uniform(strategy))
+    p, o = tr.init_state()
+    kept = {}
+
+    def keep(grads, state, params):
+        kept["g"] = tree.leaves(grads)
+        return tree.map(torch.zeros_like, grads), state
+    step = ST.make_train_step(arch, (None, keep), act_sharding=tr._specs()[2],
+                              grad_shardings=tr._pns,
+                              clip_norm=float("inf"))
+    step(p, o, next(data(arch)))
+    return {leaf: SD.gather_full(g, mesh, ns.placements).numpy()
+            for leaf, g, ns in zip(tree.names(p), kept["g"],
+                                   tree.leaves(tr._pns))}
+
+
+def run_moe(rank: int, world: int, store: str, out: str) -> None:
+    """The MoE family's archs (``MOE_ARCHS``) and their step-1 gradients
+    under MP on (1, 4) and HP on (2, 2)."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
-    res = train_all(TP_ARCHS, TP_STEPS, world)
+    res = train_all(MOE_ARCHS, TP_STEPS, world)
+    res["mp_grads"] = {name: step1_grads(name, "MP", world)
+                       for name in MOE_ARCHS}
+    res["hp_grads"] = {name: step1_grads(name, "HP", 2)
+                       for name in MOE_ARCHS}
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def run_tp(rank: int, world: int, store: str, out: str) -> None:
+    """The other tensor-parallel kinds' archs (``TP_ARCHS`` but
+    ``MOE_ARCHS``), the gathers by hand and the split-row RMSNorm."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    res = train_all([n for n in TP_ARCHS if n not in MOE_ARCHS], TP_STEPS,
+                    world)
     res["gathers_by_hand"] = gathers_by_hand()
     res["split_rmsnorm"] = [None] * world
     dist.all_gather_object(res["split_rmsnorm"], split_rmsnorm(rank, world))

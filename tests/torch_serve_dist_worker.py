@@ -8,6 +8,7 @@ Imports torch, numpy and the port only (no JAX)."""
 from __future__ import annotations
 
 import pickle
+from unittest import mock
 
 import torch
 import torch.distributed as dist
@@ -15,6 +16,7 @@ import torch.distributed as dist
 from repro_torch import convert, tree
 from repro_torch.core import sharding as SH
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe as MOE
 from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
 
@@ -24,10 +26,18 @@ def serve(mesh, case: dict) -> dict:
         slots=case["slots"], max_len=case["max_len"], **case["engine"])
     specs = SH.spec_leaves(eng.plan.paged_cache_specs())
     pools = tree.leaves(eng.cache.pools)
-    outs = eng.generate([Request(id=rid, prompt=p.copy(), max_new_tokens=m,
-                                 frontend=fe)
-                         for rid, p, m, fe in case["requests"]])
+    experts, routed = set(), MOE.routed
+
+    def routed_(p, *a, **k):
+        experts.add(p["w_in"].shape[0])
+        return routed(p, *a, **k)
+    with mock.patch.object(MOE, "routed", routed_):
+        outs = eng.generate([Request(id=rid, prompt=p.copy(),
+                                     max_new_tokens=m, frontend=fe)
+                             for rid, p, m, fe in case["requests"]])
     return dict(
+        # the experts of each MoE layer's working stacks
+        experts=experts,
         tokens={o.request_id: o.token_ids for o in outs},
         logprobs={o.request_id: o.logprobs for o in outs},
         n_pool_leaves=len(pools),
