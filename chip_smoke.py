@@ -335,10 +335,34 @@ Phases, each of which fails the run (exit code 1) on any error:
     ``TP_LOGIT_TOL``, 9 RMSNorm launches a model call, every block
     ``tp_mla_block``, and the latent pools bit-equal across the ranks.
 
+42. HP on a multi-pod mesh, mamba2-780m (``POD_TRAIN``: published
+    widths, 8 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
+    one sequence a rank): four processes on the one card over gloo on a
+    (pod 2, data 2, model 1) mesh from ``init_device_mesh`` (``pod_rank``)
+    under the uniform HP plan with int8 moments.  Every rank's shard of
+    every param (at init) and of every int8-moment array (after the
+    steps) is the block that its spec gives the rank's coordinates, the
+    reference's way (``spec_block``: HP's ``("data", "pod")`` and the
+    moments' ``("data", "model", "pod")`` lay pod out strided).  Step 1
+    against the unplaced step as phase 40's; 3 steps of the Trainer's
+    step (the int8-moment branch: every leaf gathered whole by
+    ``sharded.gather_full``): times, exact RMSNorm (the gated norms split,
+    the plan lays mamba2 out over a `model` axis of one rank) and SSD
+    launches forward and backward, all-reduces and all-gathers with their
+    MB, peak memory; a checkpoint saved and restored bit-equal; a
+    ``Trainer.resize`` onto (data 4, model 1) keeping every value;
+    ``compressed_allreduce`` of each rank's own step-1 gradient over the
+    pod group (the error-feedback identity exactly, the mean within half
+    a quantum of the exact mean).  Then the probe (``probe_full_tensor``):
+    DTensor's own whole-tensor reads as the int8 step, ``Trainer.resize``
+    and the checkpoint store called them before this phase's port, on two
+    ranks of the card over gloo, each outcome printed.
+
 The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
-trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41; each
+trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41,
+42; each
 phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
@@ -621,6 +645,23 @@ TP_MOE_TRAIN = dict(TRAIN[DEEPSEEK], depth=(1, 0), seq_len=1024, steps=3)
 TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=8,
                     slots=2, max_len=256, block_size=16, prefill_chunk=128)
 TP_MOE_SEED = 0
+# phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 8 of
+# its 48 layers, four processes on the card over gloo on a (pod 2, data 2,
+# model 1) mesh under the uniform HP plan with int8 moments: HP's ZeRO dim
+# ("data", "pod") and the moments' ("data", "model", "pod") laid out in the
+# reference's order (rank (pod p, data d) holds block 2 d + p); one
+# sequence of 1,024 tokens a rank; 3 timed steps after the check
+POD_NAME = f"pod {MAMBA}"
+POD_SHAPE = (2, 2, 1)                       # (pod, data, model)
+POD_AXES = ("pod", "data", "model")
+POD_TRAIN = dict(_TRAIN, depth=(8,), seq_len=1024, batch=4, steps=3)
+# the three paths that read a DTensor whole through DTensor's own
+# collectives until this phase's port routed them through
+# ``sharded.gather_full``: the int8-moment step, ``Trainer.resize`` and
+# the checkpoint store; each is probed as it called DTensor, on two ranks
+# of the card over gloo (``probe_rank``)
+PROBE_PATHS = ("int8 step", "resize", "store")
+PROBE_S = 120
 
 
 def fail(msg: str) -> None:
@@ -3700,22 +3741,27 @@ def uniform_scheduler(strategy):
     return Uniform(H100_SXM, faithful=False)
 
 
-def _spawn_ranks(label, phase):
-    """Runs ``tp_rank`` for ``phase`` (40 or 41) in TP_MODEL processes on
-    the card -> rank 0's results."""
-    import shutil
+def _free_port():
     import socket
-
-    import torch.multiprocessing as mp
-
-    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
     sock = socket.socket()
     sock.bind(("localhost", 0))
     port = sock.getsockname()[1]
     sock.close()
+    return port
+
+
+def _spawn_ranks(label, phase, world=TP_MODEL, fn=None):
+    """Runs ``fn`` (default ``tp_rank``) for ``phase`` in ``world``
+    processes on the card -> rank 0's results."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
     try:
-        mp.start_processes(tp_rank, args=(TP_MODEL, port, str(out), phase),
-                           nprocs=TP_MODEL, start_method="spawn")
+        mp.start_processes(fn or tp_rank, args=(world, _free_port(),
+                                                str(out), phase),
+                           nprocs=world, start_method="spawn")
         if not (out / "tp.json").exists():
             fail(f"{label}: the ranks exited without a result")
         return json.loads((out / "tp.json").read_text())
@@ -3832,13 +3878,16 @@ class _Recorder:
     stacks, the all-reduces (``torch.distributed.all_reduce``: Megatron's
     f and g, the split norm's sums, the q latent gather's backward, the
     replicated leaves' gradients, the step's metrics and norm) with their
-    bytes, and the weight gathers (``sharded._Gather``: each leaf's, or
-    each application's of a stacked leaf)."""
+    bytes, the weight gathers (``sharded._Gather``: each leaf's, or
+    each application's of a stacked leaf), and the all-gathers under them
+    and under ``gather_full`` (``sharded._all_gather``) with the bytes
+    they gather."""
 
     def __init__(self):
         self.x_proj, self.ssd_heads = set(), set()
         self.mla_heads, self.experts = set(), set()
         self.all_reduces, self.all_reduce_bytes, self.gathers = 0, 0, 0
+        self.all_gathers, self.all_gather_bytes = 0, 0
 
     def __enter__(self):
         from unittest import mock
@@ -3853,6 +3902,7 @@ class _Recorder:
         mixer, scan = B.mamba2_mixer, ops.ssd_scan
         attend, routed = MLA._attend, MOE.routed
         reduce, gather = dist.all_reduce, SD._Gather.apply
+        all_gather = SD._all_gather
 
         def mixer_(p, *a, **k):
             self.x_proj.add(tuple(p["x_proj"]["w"].shape))
@@ -3878,12 +3928,18 @@ class _Recorder:
         def gather_(*a):
             self.gathers += 1
             return gather(*a)
+
+        def all_gather_(x, dim, n, *a):
+            self.all_gathers += 1
+            self.all_gather_bytes += n * x.numel() * x.element_size()
+            return all_gather(x, dim, n, *a)
         self.patches = [mock.patch.object(B, "mamba2_mixer", mixer_),
                         mock.patch.object(ops, "ssd_scan", scan_),
                         mock.patch.object(MLA, "_attend", attend_),
                         mock.patch.object(MOE, "routed", routed_),
                         mock.patch.object(dist, "all_reduce", reduce_),
-                        mock.patch.object(SD._Gather, "apply", gather_)]
+                        mock.patch.object(SD._Gather, "apply", gather_),
+                        mock.patch.object(SD, "_all_gather", all_gather_)]
         for pt in self.patches:
             pt.start()
         return self
@@ -4344,6 +4400,456 @@ def tp_moe_serve(torch, np, mesh):
     return out
 
 
+def spec_block(full, spec, sizes, coords):
+    """The block of ``full`` that spec ``spec`` gives the device at
+    ``coords`` ({axis: index}) of a mesh of ``sizes``, the reference's
+    (JAX's) way: along each dim, the mixed-radix index of its axes, the
+    first axis the major one."""
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        k, n = 0, 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            k, n = k * sizes[a] + coords[a], n * sizes[a]
+        size = full.shape[d] // n
+        full = full.narrow(d, k * size, size)
+    return full
+
+
+def pod_phase(torch, report, card):
+    """42. HP on a multi-pod mesh, mamba2-780m: four processes on the card
+    over gloo on a (pod 2, data 2, model 1) mesh (``pod_rank``); the
+    ranks' results printed and kept; then the probe of DTensor's own
+    whole-tensor reads on the same setup (``probe_full_tensor``)."""
+    res = _spawn_ranks(POD_NAME, 42, world=math.prod(POD_SHAPE),
+                       fn=pod_rank)
+    t = res["train"]
+    t0 = time.perf_counter()
+    res["probe"] = probe_full_tensor()
+    res["probe_s"] = time.perf_counter() - t0
+    report[POD_NAME] = dict(res, launches=t["launches"])
+    print(f"pod: {MAMBA} at {t['layers']} of 48 layers, "
+          f"{math.prod(POD_SHAPE)} ranks of a (pod, data, model) = "
+          f"{POD_SHAPE} mesh over {res['backend']} on one card, uniform HP "
+          f"({t['method']}) with int8 moments: every rank's shard of "
+          f"{t['params_checked']} params ({t['params_strided']} laid out "
+          f"with pod strided over data) and {t['moments_checked']} int8 "
+          f"moment arrays ({t['moments_strided']} strided) is the "
+          f"reference's block for its coordinates; " + _train_line(t, card)
+          + f"; all-gathers a step {t['all_gathers_per_step']} "
+          f"({t['all_gather_mb_per_step']:.1f} MB)")
+    c = t["ckpt"]
+    print(f"pod: checkpoint of {c['gb']:.2f} GB saved in {c['save_s']:.2f} "
+          f"s, restored bit-equal in {c['restore_s']:.2f} s; "
+          f"Trainer.resize onto (data 4, model 1) in {c['resize_s']:.2f} s, "
+          f"every value equal")
+    e = t["ef"]
+    print(f"pod: compressed_allreduce of step 1's grads ({e['leaves']} "
+          f"leaves, each rank's own sequence) over the pod group in "
+          f"{e['s']:.2f} s: corrected - deq == new error exactly on every "
+          f"leaf; worst |mean - exact mean| {e['worst_err']:.3g} against "
+          f"half a quantum {e['worst_bound']:.3g} at {e['worst_leaf']} "
+          f"(largest share of the bound {e['worst_share']:.3f})")
+    for path, outcome in res["probe"].items():
+        print(f"pod: probe of DTensor's whole-tensor read as the {path} "
+              f"path called it (2 ranks, gloo over CUDA tensors): "
+              f"{outcome}")
+
+
+def pod_rank(rank, world, port, out, phase):
+    """Rank ``rank`` of ``world`` processes on card 0 for phase 42: a gloo
+    group over CUDA tensors and a ``POD_SHAPE`` mesh from
+    ``init_device_mesh``; ``pod_train``; rank 0 writes the results to
+    ``out``/tp.json."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as M
+    M.init_world("cuda", backend="gloo")
+    mesh = init_device_mesh("cuda", POD_SHAPE, mesh_dim_names=POD_AXES)
+    res = {"backend": "gloo", "world": world}
+    try:
+        res["train"] = pod_train(torch, np, mesh)
+    finally:
+        M.shutdown()
+    if rank == 0:
+        pathlib.Path(out, "tp.json").write_text(json.dumps(res))
+
+
+def _check_blocks(label, torch, mesh, arrays):
+    """Each (local, whole, spec) of ``arrays`` against the reference's
+    block of the whole for this rank's coordinates -> how many."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = {a: mesh.get_local_rank(mesh_dim=i)
+              for i, a in enumerate(mesh.mesh_dim_names)}
+    for name, local, whole, spec in arrays:
+        if not torch.equal(local, spec_block(whole, spec, sizes, coords)):
+            fail(f"{label}: {name}'s shard at {coords} is not the "
+                 f"reference's block of spec {spec!r}")
+    return len(arrays)
+
+
+def pod_train(torch, np, mesh):
+    """Phase 42's train part on this rank (``POD_TRAIN``): the params'
+    shards at init against the reference's blocks; step 1's loss and
+    every gradient (gathered whole, one leaf at a time) through the
+    sharded step against the unplaced step (rank 0) at phase 40's
+    tolerances; ``POD_TRAIN["steps"]`` steps of the Trainer's step (the
+    int8-moment branch: every leaf gathered whole): times, exact
+    launches, collectives; the int8 moments' shards against the
+    reference's blocks; a checkpoint saved and restored bit-equal;
+    ``Trainer.resize`` onto (data 4, model 1); ``compressed_allreduce`` of
+    each rank's own step-1 gradient over the pod group."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import sharding as SH
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import mesh_shape_of
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import compression as EF
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim.quantized import QLeaf
+    from repro_torch.runtime import sharded as SD
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    from torch.distributed.device_mesh import init_device_mesh
+
+    label, cfg = POD_NAME, POD_TRAIN
+    rank = dist.get_rank()
+    arch = cut_depth(get_arch(MAMBA), cfg["depth"])
+    params = T.init_lm(arch, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    data = SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"])
+    batches = [next(data) for _ in range(cfg["steps"] + 1)]
+    tok, lab = (torch.as_tensor(batches[0][k], device="cuda")
+                for k in ("tokens", "labels"))
+    names = tree.names(params)
+    loss_fn = ST.make_loss_fn(arch, impl="pallas")
+    if rank == 0:   # the unplaced single-process step, timed as one step
+        ST.loss_and_grads(loss_fn, params, tok, lab)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_u, _, g_u = ST.loss_and_grads(loss_fn, params, tok, lab)
+        torch.cuda.synchronize()
+        unplaced_s = time.perf_counter() - t0
+    tr = Trainer(arch, ShapeSpec("pod", cfg["seq_len"], cfg["batch"],
+                                 "train"), mesh,
+                 TrainConfig(lr=cfg["peak_lr"], warmup_steps=cfg["warmup"],
+                             total_steps=cfg["total"], impl="pallas",
+                             microbatches=1, quantized_opt=True),
+                 scheduler=uniform_scheduler("HP"))
+    # every rank holds the same whole params: each keeps its shards, which
+    # must be the reference's blocks of them
+    p = SH.place(params, tr._pns)
+    specs = [ns.spec for ns in tree.leaves(tr._pns)]
+    n_params = _check_blocks(label, torch, mesh, [
+        (n, x.to_local(), w, sp) for n, x, w, sp in
+        zip(names, tree.leaves(p), tree.leaves(params), specs)])
+    strided = [n for n, x in zip(names, tree.leaves(p)) if any(
+        type(pl).__name__ == "_StridedShard" for pl in x.placements)]
+    o = tr._init_opt(p)
+    # step 1's grads through the sharded step: no clipping, an optimizer
+    # that keeps the reduced grads and updates nothing (the int8 branch
+    # hands it every leaf whole)
+    kept = {}
+
+    def keep(grads, state, params_):
+        kept["g"] = tree.leaves(grads)
+        return tree.map(torch.zeros_like, grads), state
+    _, _, act_ns = tr._specs()
+    check = ST.make_train_step(arch, (None, keep), microbatches=1,
+                               impl="pallas", act_sharding=act_ns,
+                               grad_shardings=tr._pns,
+                               clip_norm=float("inf"))
+    p, o, m1 = check(p, o, batches[0])
+    diffs = {}
+    for i, (g, x, ns) in enumerate(zip(kept.pop("g"), tree.leaves(p),
+                                       tree.leaves(tr._pns))):
+        if tuple(g.shape) != tuple(x.shape):
+            g = SD.gather_full(g, mesh, ns.placements)
+        if rank == 0:
+            diffs.update(grad_diffs(torch, names[i:i + 1], [g], [g_u[i]]))
+        del g
+    out = {}
+    if rank == 0:
+        bad = [f"{n}: cos {c:.6f}, rel L2 {r:.3g}"
+               for n, (c, r) in diffs.items()
+               if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+        gn_u = float(O.global_norm(g_u))
+        gn, loss = float(m1["grad_norm"]), float(m1["loss"])
+        if not abs(loss - float(loss_u)) <= TP_LOSS_REL_TOL * abs(
+                float(loss_u)):
+            bad.append(f"loss {loss} vs unplaced {float(loss_u)}")
+        if not abs(gn - gn_u) <= GRAD_NORM_REL_TOL * gn_u:
+            bad.append(f"grad norm {gn} vs unplaced {gn_u}")
+        if bad:
+            fail(f"{label}: step 1 differs from the unplaced step's: {bad}")
+        cos_leaf = min(diffs, key=lambda n: diffs[n][0])
+        rel_leaf, rel = worst(diffs)
+        out.update(loss=loss, loss_unplaced=float(loss_u), grad_norm=gn,
+                   grad_norm_unplaced=gn_u, n_leaves=len(names),
+                   worst_cos=diffs[cos_leaf][0], worst_cos_leaf=cos_leaf,
+                   worst_rel_l2=rel, worst_rel_l2_leaf=rel_leaf,
+                   rel_l2={n: r for n, (_, r) in diffs.items()},
+                   unplaced_step_ms=unplaced_s * 1e3)
+        del g_u
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    reset_counts()
+    step_s, losses, gnorms = [], [], []
+    with _Recorder() as coll:
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = tr._step_fn(p, o, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = cfg["steps"]
+    # the gated norms run split where the plan lays mamba2 out
+    # tensor-parallel (over a `model` axis of one rank here)
+    want = train_launches(arch)
+    _, fns = SD.plan_layout(arch, SH.map_specs(lambda ns: ns.spec, tr._pns),
+                            mesh, act_ns.spec)
+    g = block_counts(arch)["mamba2"] if fns else 0
+    want.update(rmsnorm=want["rmsnorm"] - g,
+                rmsnorm_bwd=want["rmsnorm_bwd"] - g, rmsnorm_split=g,
+                rmsnorm_split_bwd=g)
+    if any(counts[k] != n * steps for k, n in want.items()):
+        fail(f"{label}: rank {rank}'s launches {counts}, want {want} a step")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"{label}: losses {losses} / grad norms {gnorms} not finite")
+    # the int8 moments' shards after the steps
+    sds = tr.opt[0](tree.map(lambda x: torch.empty(
+        x.shape, dtype=x.dtype, device="meta"), p))
+    ospecs = SH.opt_state_specs(sds, tr._pspecs, mesh_shape_of(mesh))
+    moments = []
+    for part, m_specs in ((o.mu, ospecs.mu), (o.nu, ospecs.nu)):
+        for n, q, sp in zip(names, tree.leaves(part),
+                            SH.spec_leaves(m_specs)):
+            if not isinstance(q, QLeaf):
+                fail(f"{label}: {n}'s moment is not int8")
+            for t_, s_ in ((q.q, sp.q), (q.scale, sp.scale)):
+                moments.append((n, t_.to_local(), SD.whole(t_), s_))
+    n_moments = _check_blocks(label, torch, mesh, moments)
+    m_strided = sum(1 for _, _, _, s_ in moments
+                    if ("data", "model", "pod") in tuple(s_))
+    del moments
+
+    def whole_state(p_, o_):
+        return [SD.whole(x) for x in tree.leaves(p_)] + [
+            SD.whole(t_) for part in (o_.mu, o_.nu)
+            for q in tree.leaves(part) for t_ in (q.q, q.scale)]
+    # a checkpoint: saved (gathered by gather_full, written by rank 0),
+    # restored into the live state's placements, bit-equal shard by shard
+    ck = [tempfile.mkdtemp(prefix="chip_smoke_pod_") if rank == 0
+          else None]
+    dist.broadcast_object_list(ck)
+    mgr = CheckpointManager(ck[0], async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(tr.step, {"params": p, "opt": o})
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    gb = _dir_bytes(pathlib.Path(ck[0])) / 1e9 if rank == 0 else 0.0
+    t0 = time.perf_counter()
+    got, _ = mgr.restore({"params": p, "opt": o})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    a = [x.to_local() for x in tree.leaves(p)] + [
+        t_.to_local() for part in (o.mu, o.nu) for q in tree.leaves(part)
+        for t_ in (q.q, q.scale)]
+    b = [x.to_local() for x in tree.leaves(got["params"])] + [
+        t_.to_local() for part in (got["opt"].mu, got["opt"].nu)
+        for q in tree.leaves(part) for t_ in (q.q, q.scale)]
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{label}: the restored state differs from the saved one")
+    del got, a, b
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ck[0], ignore_errors=True)
+    # Trainer.resize onto (data 4, model 1): every value kept
+    before = whole_state(p, o)
+    flat = init_device_mesh("cuda", (math.prod(POD_SHAPE), 1),
+                            mesh_dim_names=("data", "model"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p3, o3 = tr.resize(flat, p, o)
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    after = whole_state(p3, o3)
+    if not all(torch.equal(x, y) for x, y in zip(before, after)):
+        fail(f"{label}: Trainer.resize changed a value")
+    del before, after, p3, o3, p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    # compressed_allreduce over the pod group of each rank's own step-1
+    # gradient (its own sequence, the whole model): the error-feedback
+    # identity exactly, the mean within half a quantum (max block scale /
+    # 254: each rank's dequantized value is within half of its own) of
+    # the exact fp32 mean, plus the fp32 rounding of the two sums
+    pod = mesh.get_group("pod")
+    n_pod = dist.get_world_size(pod)
+    own = ST.loss_and_grads(loss_fn, params, tok[rank:rank + 1],
+                            lab[rank:rank + 1])[2]
+    del params
+    err0 = EF.init_error_state(own)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg, new_err = EF.compressed_allreduce(own, err0, pod)
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    q, corrected = EF.compress(own, err0)
+    deq = [x.dense() for x in q]
+    worst_ef = (0.0, 1.0, 0.0, "")
+    for n, c, d, e, qq, a_, g_ in zip(names, corrected, deq, new_err, q,
+                                      avg, own):
+        if not torch.equal(c - d, e):
+            fail(f"{label}: corrected - deq != new error at {n}")
+        exact = g_.float().clone()
+        dist.all_reduce(exact, group=pod)
+        exact /= n_pod
+        scale = qq.scale.max().reshape(1)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=pod)
+        mag = exact.abs().max().reshape(1) * n_pod
+        bound = float(scale) / 254 + 4 * float(mag) * 2.0 ** -24
+        err = float((a_ - exact).abs().max())
+        if not err <= bound:
+            fail(f"{label}: compressed mean off by {err} at {n}, more than "
+                 f"half a quantum {bound}")
+        if err / bound > worst_ef[2]:
+            worst_ef = (err, bound, err / bound, n)
+    del own, avg, new_err, q, corrected, deq
+    out.update(
+        layers=arch.n_layers, method=tr.plan.plan.method,
+        params_checked=n_params, params_strided=len(strided),
+        strided_leaves=strided, moments_checked=n_moments,
+        moments_strided=m_strided, step_s=step_s,
+        step_ms_median=sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3,
+        losses=losses, grad_norms=gnorms, launches=counts,
+        launches_per_step={k: c / steps for k, c in counts.items()},
+        tp_all_reduces_per_step=coll.all_reduces / steps,
+        tp_all_reduce_mb_per_step=coll.all_reduce_bytes / steps / 1e6,
+        gathers_per_step=coll.gathers / steps,
+        all_gathers_per_step=coll.all_gathers / steps,
+        all_gather_mb_per_step=coll.all_gather_bytes / steps / 1e6,
+        peak_mem_gb=peak,
+        ckpt=dict(gb=gb, save_s=save_s, restore_s=restore_s,
+                  resize_s=resize_s),
+        ef=dict(leaves=len(names), s=ef_s, worst_err=worst_ef[0],
+                worst_bound=worst_ef[1], worst_share=worst_ef[2],
+                worst_leaf=worst_ef[3]))
+    if rank == 0 and not strided:
+        fail(f"{label}: no param is laid out over ('data', 'pod')")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def probe_rank(rank, world, port, out, path):
+    """Rank ``rank`` of two on card 0 over gloo: DTensor's whole-tensor
+    read as ``path`` (``PROBE_PATHS``) called it before phase 42's port
+    (int8 step: ``full_tensor()`` of int8 codes and of an fp32 gradient
+    from ``from_local``, then ``distribute_tensor``; resize:
+    ``full_tensor()`` then ``distribute_tensor``; store: ``full_tensor()``
+    of a bf16 leaf), each result held against ``sharded.gather_full``;
+    rank 0 writes ``out``/tp.json."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      LOCAL_RANK="0")
+    from repro_torch.launch import mesh as M
+    from repro_torch.runtime import sharded as SD
+    M.init_world("cuda", backend="gloo")
+    mesh = init_device_mesh("cuda", (world, 1),
+                            mesh_dim_names=("data", "model"))
+    pl = (Shard(0), Replicate())
+    full = torch.arange(4096.0, device="cuda").reshape(16, 256)
+
+    def dt(x):
+        return DTensor.from_local(x.chunk(world)[rank].clone(), mesh, pl,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    ok = True
+    try:
+        xs = {"int8 step": (full.to(torch.int8), full),
+              "resize": (full,), "store": (full.bfloat16(),)}[path]
+        for x in xs:
+            d = dt(x)
+            ok &= torch.equal(d.full_tensor(), SD.gather_full(
+                d.to_local(), mesh, pl))
+        if path != "store":
+            ok &= torch.equal(distribute_tensor(full, mesh, pl).to_local(),
+                              full.chunk(world)[rank])
+        torch.cuda.synchronize()
+    finally:
+        M.shutdown()
+    if rank == 0:
+        pathlib.Path(out, "tp.json").write_text(json.dumps({"equal": ok}))
+
+
+def probe_full_tensor():
+    """-> {path: outcome} of ``probe_rank`` for each of ``PROBE_PATHS``,
+    each on its own two processes, all three started together: "equal to
+    gather_full", "differs from gather_full", or how a rank ended (a
+    signal, such as the SIGSEGV that DTensor's functional all-gather
+    raises on gloo over CUDA tensors).  The port no longer takes these
+    calls; the probe records whether DTensor still faults."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    runs = {}
+    for path in PROBE_PATHS:
+        out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_probe_"))
+        runs[path] = (out, mp.start_processes(
+            probe_rank, args=(2, _free_port(), str(out), path), nprocs=2,
+            join=False, start_method="spawn"))
+    outcome = {}
+    for path, (out, ctx) in runs.items():
+        deadline = time.perf_counter() + PROBE_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    outcome[path] = f"no result in {PROBE_S} s (killed)"
+                    break
+            else:
+                res = json.loads((out / "tp.json").read_text())
+                outcome[path] = ("equal to gather_full" if res["equal"]
+                                 else "differs from gather_full")
+        except mp.ProcessExitedException as e:     # the probed fault
+            outcome[path] = f"rank {e.error_index} ended: {e}"
+        except mp.ProcessRaisedException as e:
+            outcome[path] = f"raised: {str(e).strip().splitlines()[-1]}"
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+    return outcome
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4433,7 +4939,7 @@ def main() -> int:
     paths += [f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
-    paths += [TP_NAME, TP_MOE_NAME]
+    paths += [TP_NAME, TP_MOE_NAME, POD_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -4506,6 +5012,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(TP_MOE_NAME, tp_moe_phase, torch, report, card)
+        # 42. HP on a (pod 2, data 2, model 1) mesh: four ranks of the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(POD_NAME, pod_phase, torch, report, card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

@@ -16,10 +16,10 @@ between the two packages in both directions).
     consistent cut), then a background thread writes it
   * keep-k GC
   * restore **with resharding** — each leaf lands as its like-tree leaf
-    lies: a DTensor is re-placed with ``distribute_tensor`` on its mesh
-    and placements (every rank reads the file), so a checkpoint taken on
-    one mesh restarts on another.  On several ranks, rank 0 writes the
-    gathered leaves.
+    lies: a DTensor is re-placed on its mesh by its placements, each rank
+    taking its own shard of the leaf it reads (``sharding.from_full``), so
+    a checkpoint taken on one mesh restarts on another.  On several
+    ranks, rank 0 writes the gathered leaves (``sharded.whole``).
 """
 from __future__ import annotations
 
@@ -104,7 +104,11 @@ def _to_host(x) -> _Host:
 
 
 def _gathered(x):
-    return x.full_tensor() if _is_dtensor(x) else x
+    """A DTensor's whole tensor (``sharded.whole``), else ``x``."""
+    if not _is_dtensor(x):
+        return x
+    from repro_torch.runtime.sharded import whole
+    return whole(x)
 
 
 def save_pytree(path, tree, *, manifest_extra: Optional[dict] = None):
@@ -142,12 +146,12 @@ def _place(a: torch.Tensor, like):
     """``a`` (a full CPU tensor) in ``like``'s dtype, device and, for a
     DTensor, on its mesh by its placements."""
     if _is_dtensor(like):
-        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.core.sharding import from_full
         dev = torch.device(like.device_mesh.device_type,
                            torch.cuda.current_device()) \
             if like.device_mesh.device_type == "cuda" else torch.device("cpu")
-        return distribute_tensor(a.to(device=dev, dtype=like.dtype),
-                                 like.device_mesh, like.placements)
+        return from_full(a.to(device=dev, dtype=like.dtype),
+                         like.device_mesh, like.placements)
     if isinstance(like, torch.Tensor):
         return a.to(device=like.device, dtype=like.dtype)
     if isinstance(like, int):

@@ -16,19 +16,26 @@ attention mixers keep replicated weights under MP and shard only over
 `data` (ZeRO-style) under HP; their FFN halves shard fully.
 
 ``placements`` maps a spec onto a ``DeviceMesh`` whose dims are named
-``("data", "model")`` or ``("pod", "data", "model")``: one ``Shard(d)`` or
-``Replicate()`` a mesh dim.  DTensor orders a tensor dim shared by two mesh
-dims by the mesh's order (outer mesh dim major), so a spec that lists the
-axes of one dim in another order than the mesh's cannot be placed the
-reference's way and raises, naming the spec: on a mesh with a ``pod`` axis
-larger than 1, HP's ZeRO dim ``("data", "pod")`` and the int8 moments'
-``("data", "model", "pod")`` do (only ``batch_axes``' ``("pod", "data")``,
-which the train step slices itself, is in the mesh's order).
+``("data", "model")`` or ``("pod", "data", "model")``: one placement a
+mesh dim.  JAX makes the first axis of a dim shared by several axes the
+major one; DTensor's ``Shard`` makes the outer mesh dim major.  Where the
+two orders differ (on a mesh with ``pod`` > 1, HP's ZeRO dim
+``("data", "pod")`` and the int8 moments' ``("data", "model", "pod")``),
+the mesh dim that the spec lists later but the mesh lays out earlier gets
+torch's ``_StridedShard``, whose split factor is the size of the axes
+major to it that the mesh lays out after it: on (pod 2, data 2) the rank
+at (pod p, data d) then holds block ``2 d + p``, the reference's.  Every
+collective of the port runs in the mesh's order, on blocks moved there
+locally first (``to_mesh_order``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Any, Optional
+
+import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
@@ -469,15 +476,45 @@ def paged_cache_specs(arch: ArchConfig, assignment: dict[str, Strategy],
 # placements on a DeviceMesh
 # ---------------------------------------------------------------------------
 
+def _strided():
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return _StridedShard
+
+
+def shard_dim(p) -> Optional[tuple]:
+    """-> (tensor dim, split factor) of a ``Shard`` (factor 1) or a
+    ``_StridedShard`` placement, None for any other."""
+    from torch.distributed.tensor import Shard
+    if isinstance(p, _strided()):   # a Shard subclass in older torch
+        return p.dim, p.split_factor
+    if isinstance(p, Shard):
+        return p.dim, 1
+    return None
+
+
+def with_dim(p, dim: int):
+    """Placement ``p`` moved to tensor dim ``dim`` (its split factor
+    kept); ``p`` itself where it shards nothing."""
+    from torch.distributed.tensor import Shard
+    s = shard_dim(p)
+    if s is None:
+        return p
+    return Shard(dim) if s[1] == 1 else _strided()(dim, split_factor=s[1])
+
+
 def placements(spec: P, mesh) -> tuple:
-    """``spec`` on ``mesh`` (a ``DeviceMesh`` with named dims): a
-    ``Shard(d)`` for each mesh dim that shards tensor dim d, else
-    ``Replicate()``.  Raises, naming the spec, where it names an axis the
-    mesh lacks, or shards one dim over axes in another order than the
-    mesh's (DTensor would lay the shards out in another order than JAX)."""
+    """``spec`` on ``mesh`` (a ``DeviceMesh`` with named dims): for each
+    mesh dim that shards tensor dim d, ``Shard(d)``, or
+    ``_StridedShard(d, split_factor=f)`` where ``f`` > 1 ranks of the axes
+    that the spec lists before it (major to it) lie after it in the
+    mesh's order; ``Replicate()`` for each other mesh dim.  Raises, naming
+    the spec, only where no placement exists: the spec names an axis the
+    mesh lacks, or one mesh axis for two dims (a mesh dim splits one
+    tensor dim)."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
+    owner = {}
     for d, ax in enumerate(spec):
         if ax is None:
             continue
@@ -487,14 +524,51 @@ def placements(spec: P, mesh) -> tuple:
             raise ValueError(f"spec {spec!r} names mesh axes {missing} that "
                              f"the mesh {names} lacks")
         idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(
-                f"spec {spec!r} shards dim {d} over {axes}, not in the "
-                f"mesh's order {names}: DTensor makes the outer mesh dim "
-                f"major where the reference makes {axes[0]!r} major")
-        for i in idx:
-            out[i] = Shard(d)
+        for k, i in enumerate(idx):
+            if i in owner:
+                raise ValueError(
+                    f"spec {spec!r} shards dims {owner[i]} and {d} over "
+                    f"mesh axis {names[i]!r}: a mesh axis splits one dim")
+            owner[i] = d
+            f = math.prod(mesh.shape[j] for j in idx[:k] if j > i)
+            out[i] = (Shard(d) if f == 1 or mesh.shape[i] == 1
+                      else _strided()(d, split_factor=f))
     return tuple(out)
+
+
+def _block_order(mesh, placements: tuple, d: int) -> list:
+    """-> order: the rank at position k of the mesh's order (outer mesh
+    dim major) over the mesh dims that shard tensor dim ``d`` holds block
+    ``order[k]`` of ``d`` (cut into as many blocks as those ranks)."""
+    dims = [i for i, p in enumerate(placements)
+            if (shard_dim(p) or (None,))[0] == d]
+    pls = [with_dim(placements[i], 0) for i in dims]
+    sizes = [mesh.shape[i] for i in dims]
+    blocks = torch.arange(math.prod(sizes))
+    return [int(_take(blocks, pls, sizes, c))
+            for c in itertools.product(*map(range, sizes))]
+
+
+def to_mesh_order(t, mesh, placements: tuple):
+    """-> (t with the blocks of every dim that a ``_StridedShard`` splits
+    moved to the mesh's order, the placements as plain ``Shard``s): the
+    rank that holds block b of the spec's order finds it where DTensor's
+    mesh-ordered ``Shard`` puts that rank's block, so DTensor's
+    collectives (the backward's reduce-scatters) apply.  ``t`` itself
+    where nothing is strided."""
+    S = _strided()
+    for d in sorted({p.dim for p in placements if isinstance(p, S)}):
+        order = _block_order(mesh, placements, d)
+        idx = torch.tensor(order, device=t.device)
+        t = t.unflatten(d, (len(order), -1)).index_select(d, idx) \
+            .flatten(d, d + 1)
+    return t, tuple(_plain(p) for p in placements)
+
+
+def _plain(p):
+    from torch.distributed.tensor import Shard
+    s = shard_dim(p)
+    return p if s is None else Shard(s[0])
 
 
 @dataclasses.dataclass(eq=False)
@@ -531,9 +605,8 @@ def batch_slice(sharding: NamedSharding, rows: int) -> slice:
 
 def distribute(t, sharding: NamedSharding):
     """``t`` (the same full tensor on every rank) placed by ``sharding``:
-    a DTensor holding this rank's shard."""
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t, sharding.mesh, sharding.placements)
+    a DTensor holding this rank's shard (``from_full``)."""
+    return from_full(t, sharding.mesh, sharding.placements)
 
 
 def shardings(spec_tree, mesh):
@@ -543,15 +616,47 @@ def shardings(spec_tree, mesh):
 
 def shard_of(full, mesh, placements: tuple):
     """This rank's shard of ``full`` (the same on every rank) under
-    ``placements``, as DTensor lays it out: chunked along each sharding
-    mesh dim of more than one rank, outer mesh dim first.  A view of
-    ``full``, and ``full`` itself where no such mesh dim shards it."""
-    from torch.distributed.tensor import Shard
-    for i, pl in enumerate(placements):
-        if isinstance(pl, Shard) and mesh.shape[i] > 1:
-            full = full.chunk(mesh.shape[i], pl.dim)[
-                mesh.get_local_rank(mesh_dim=i)]
+    ``placements``, as DTensor defines them: along each sharding mesh dim
+    of more than one rank, outer mesh dim first, a ``Shard``'s chunk, or
+    a ``_StridedShard``'s piece of each of its ``split_factor`` parts.  A
+    view of ``full`` where it can be, and ``full`` itself where no such
+    mesh dim shards it."""
+    return _take(full, placements, mesh.shape,
+                 [mesh.get_local_rank(mesh_dim=i) if mesh.shape[i] > 1
+                  else 0 for i in range(len(placements))])
+
+
+def _take(full, placements: tuple, sizes, coords):
+    """The shard of ``full`` at mesh coordinates ``coords`` of a mesh of
+    ``sizes`` under ``placements`` (``shard_of``)."""
+    for pl, n, r in zip(placements, sizes, coords):
+        s = shard_dim(pl)
+        if s is None or n == 1:
+            continue
+        d, f = s
+        full = (full.chunk(n, d)[r] if f == 1 else
+                full.unflatten(d, (f, n, -1)).select(d + 1, r)
+                .flatten(d, d + 1))
     return full
+
+
+def from_full(full, mesh, placements: tuple):
+    """``full`` (the same whole tensor on every rank) as a DTensor on
+    ``mesh`` by ``placements``, wrapping this rank's shard: its own copy
+    where the tensor is split, ``full`` itself where it is not.  No
+    collective runs."""
+    from torch.distributed.tensor import DTensor
+    local = shard_of(full, mesh, placements)
+    if local is not full:
+        local = local.clone()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def local_shape(shape: tuple, mesh, placements: tuple) -> tuple:
+    """The shape of this rank's shard of a tensor of ``shape``."""
+    return tuple(shard_of(torch.empty(shape, device="meta"), mesh,
+                          placements).shape)
 
 
 def place(t, sharding_tree):
@@ -575,9 +680,5 @@ def place(t, sharding_tree):
                                  f"not as its sharding {pl}")
             out.append(x)
             continue
-        local = shard_of(x, ns.mesh, pl)
-        if local is not x:
-            local = local.clone()
-        out.append(DTensor.from_local(local, ns.mesh, pl, run_check=False,
-                                      shape=x.shape, stride=x.stride()))
+        out.append(from_full(x, ns.mesh, pl))
     return tree.unflatten(t, out)

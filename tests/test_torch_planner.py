@@ -247,9 +247,19 @@ def test_opt_state_specs_equal_fp32_and_int8(name):
 
 
 def test_placements_follow_the_mesh_order():
+    """Each spec places on the mesh in the reference's block order: plain
+    ``Shard``s where the spec lists a dim's axes in the mesh's order, a
+    ``_StridedShard`` on the mesh dim that the spec makes minor but the
+    mesh lays out first (HP's ``("data", "pod")``, the int8 moments'
+    ``("data", "model", "pod")``).  Only a spec that no placement can
+    lay out is refused: an axis the mesh lacks, or one mesh axis for two
+    dims (a mesh dim splits one tensor dim)."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh2 = types.SimpleNamespace(mesh_dim_names=("data", "model"))
-    mesh3 = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"))
+    from torch.distributed.tensor.placement_types import _StridedShard
+    mesh2 = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                  shape=(16, 16))
+    mesh3 = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                                  shape=(2, 16, 16))
     R = Replicate()
     assert SH.placements(SH.P(None, "model"), mesh2) == (R, Shard(1))
     assert SH.placements(SH.P("data", "model"), mesh2) == (Shard(0), Shard(1))
@@ -258,21 +268,39 @@ def test_placements_follow_the_mesh_order():
     assert SH.placements(SH.P(), mesh2) == (R, R)
     assert SH.placements(SH.P(("pod", "data"), None), mesh3) == \
         (Shard(0), Shard(0), R)
-    # the reference's multi-pod HP ZeRO dim lists data before pod: refused
-    # by name, never replicated
-    with pytest.raises(ValueError, match=r"P\(\('data', 'pod'\), 'model'\)"):
-        SH.placements(SH.P(("data", "pod"), "model"), mesh3)
+    # the reference's multi-pod HP ZeRO dim lists data before pod: pod's
+    # shards stride over data's 16 (rank (p, d) holds block 2 d + p)
+    hp = SH.placements(SH.P(("data", "pod"), "model"), mesh3)
+    assert isinstance(hp[0], _StridedShard)
+    assert (hp[0].dim, hp[0].split_factor) == (0, 16)
+    assert hp[1:] == (Shard(0), Shard(1))
+    # the int8 moments' flat dim: pod strides over data x model
+    q = SH.placements(SH.P(("data", "model", "pod"), None), mesh3)
+    assert isinstance(q[0], _StridedShard)
+    assert (q[0].dim, q[0].split_factor) == (0, 256)
+    assert q[1:] == (Shard(0), Shard(0))
+    # a pod axis of one rank orders nothing
+    one_pod = types.SimpleNamespace(mesh_dim_names=("pod", "data", "model"),
+                                    shape=(1, 16, 16))
+    assert SH.placements(SH.P(("data", "pod"), "model"), one_pod) == \
+        (Shard(0), Shard(0), Shard(1))
+    # what no placement lays out is refused, naming the spec
     with pytest.raises(ValueError, match="lacks"):
         SH.placements(SH.P("pod"), mesh2)
-    # and the specs that do it on a (2, 16, 16) mesh are exactly HP's and
-    # FS's ZeRO dims
+    with pytest.raises(ValueError, match=r"P\('data', 'data'\).*one dim"):
+        SH.placements(SH.P("data", "data"), mesh2)
+    # and the specs that need a stride on a (2, 16, 16) mesh are exactly
+    # HP's and FS's ZeRO dims, each placed with pod strided over data
     arch = ARCHS["qwen3-8b"]
     comps = C.components_for_shape(arch, SHAPES["train_4k"])
     for s in UNIFORM_STRATEGIES:
-        bad = [x for x in SH.spec_leaves(SH.param_specs(
+        specs = SH.spec_leaves(SH.param_specs(
             arch, _assignment(comps, s), MeshShape(16, 16, pod=2)))
-            if ("data", "pod") in tuple(x)]
+        bad = [x for x in specs if ("data", "pod") in tuple(x)]
         assert bool(bad) == (s in (Strategy.HP, Strategy.FS)), s
+        for x in bad:
+            pl = SH.placements(x, mesh3)[0]
+            assert isinstance(pl, _StridedShard) and pl.split_factor == 16
 
 
 def test_batch_slice_takes_rows_in_the_references_order():

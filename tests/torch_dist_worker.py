@@ -8,6 +8,7 @@ numpy and the port only (no JAX), so the ranks start fast."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import pickle
 import tempfile
 from unittest import mock
@@ -17,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import (ArchConfig, EncoderSpec, MLASpec,
                                       MoESpec, Segment, ShapeSpec, SSMSpec)
 from repro_torch.core import solver as SV
@@ -24,6 +26,7 @@ from repro_torch.core.asa import AdaptiveScheduler
 from repro_torch.core.strategy import Strategy
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.runtime.sharded import whole
 from repro_torch.runtime.trainer import TrainConfig, Trainer
 
 # test_convergence_parity.py's arch (4 heads, 4 KV heads) and test_runtime's
@@ -154,7 +157,6 @@ def data(arch):
 
 
 def train(arch, mesh, strategy, *, quantized=False, steps=STEPS):
-    import dataclasses
     cfg = dataclasses.replace(CFG, quantized_opt=quantized)
     tr = Trainer(arch, SHAPE, mesh, cfg, scheduler=scheduler(strategy))
     p, o = tr.init_state()
@@ -321,15 +323,15 @@ def train_all(names, steps: int, world: int) -> dict:
     return res
 
 
-def step1_grads(name: str, strategy: str, model: int) -> dict:
+def step1_grads(name: str, strategy: str, model: int, mesh=None) -> dict:
     """Step 1's gradient of every leaf of arch ``name`` under ``strategy``
-    on (world / ``model``, ``model``), reduced to its placement by the
-    sharded step (an optimizer that keeps the grads and updates nothing)
-    and gathered whole: {leaf name: array}."""
+    on (world / ``model``, ``model``) or on ``mesh``, reduced to its
+    placement by the sharded step (an optimizer that keeps the grads and
+    updates nothing) and gathered whole: {leaf name: array}."""
     from repro_torch.runtime import sharded as SD
     from repro_torch.runtime import steps as ST
     arch = ARCHS[name]
-    mesh = make_host_mesh(model=model, device="cpu")
+    mesh = mesh or make_host_mesh(model=model, device="cpu")
     tr = Trainer(arch, SHAPE, mesh, CFG, scheduler=Uniform(strategy))
     p, o = tr.init_state()
     kept = {}
@@ -344,6 +346,131 @@ def step1_grads(name: str, strategy: str, model: int) -> dict:
     return {leaf: SD.gather_full(g, mesh, ns.placements).numpy()
             for leaf, g, ns in zip(tree.names(p), kept["g"],
                                    tree.leaves(tr._pns))}
+
+
+# the pod meshes (pod, data, model): HP's ZeRO dim ("data", "pod") strided
+# on (2, 2, 1); the int8 moments' ("data", "model", "pod") on both
+POD_MESHES = ((2, 2, 1), (2, 1, 2))
+POD_ARCH = "tiny-rt"
+# rounds of compressed_allreduce over the pod group (the second carries
+# the first's error), on leaves that do not fill whole 256-blocks
+EF_ROUNDS = 2
+EF_SHAPES = {"a": (300,), "b": (4, 70)}
+
+
+def pod_mesh(shape: tuple):
+    """A (pod, data, model) ``DeviceMesh`` of ``shape`` over the world."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape,
+                            mesh_dim_names=("pod", "data", "model"))
+
+
+def _coords(mesh) -> tuple:
+    return tuple(mesh.get_local_rank(mesh_dim=i) for i in range(mesh.ndim))
+
+
+def _state_arrays(p, o) -> list:
+    """Every param and int8-moment leaf of a train state, whole."""
+    out = [whole(x) for x in tree.leaves(p)]
+    for m in (o.mu, o.nu):
+        for q in tree.leaves(m):
+            out += [whole(q.q), whole(q.scale)]
+    return out
+
+
+def _local_moments(o) -> list:
+    """This rank's shards of the int8 moments: (codes, scales) a leaf, in
+    ``tree.leaves`` order, mu's then nu's."""
+    return [(q.q.to_local().numpy().copy(), q.scale.to_local().numpy().copy())
+            for m in (o.mu, o.nu) for q in tree.leaves(m)]
+
+
+def pod_case(shape: tuple, world: int) -> dict:
+    """HP on the pod mesh ``shape`` for ``POD_ARCH``: each rank's shards
+    of the params at init and of the int8 moments after a step (with the
+    whole leaves, gathered), the fp32 and int8 losses, step 1's gathered
+    gradients, a checkpoint restored on (world, 1) and a resize onto it,
+    and ``compressed_allreduce`` over the pod group."""
+    from repro_torch.optim import compression as EF
+    arch = ARCHS[POD_ARCH]
+    mesh = pod_mesh(shape)
+    res = {"coords": [None] * world}
+    dist.all_gather_object(res["coords"], _coords(mesh))
+    # fp32 moments: the losses, and the params' shards at init
+    tr = Trainer(arch, SHAPE, mesh, CFG, scheduler=Uniform("HP"))
+    p, o = tr.init_state()
+    res["assignment"] = {k: str(v) for k, v in tr.plan.assignment.items()}
+    res["params_full"] = [whole(x).numpy().copy() for x in tree.leaves(p)]
+    res["names"] = tree.names(p)
+    res["params_local"] = [None] * world
+    dist.all_gather_object(res["params_local"],
+                           [x.to_local().numpy().copy()
+                            for x in tree.leaves(p)])
+    p, o, hist = tr.train(p, o, data(arch), steps=STEPS)
+    res["losses"] = [m["loss"] for m in hist]
+    # int8 moments: 3 steps (as ``run``'s), their shards after step 1
+    cfg = dataclasses.replace(CFG, quantized_opt=True)
+    tr = Trainer(arch, SHAPE, mesh, cfg, scheduler=Uniform("HP"))
+    p, o = tr.init_state()
+    it = data(arch)
+    p, o, h1 = tr.train(p, o, it, steps=1)
+    res["moments_full"] = [(whole(q.q).numpy().copy(),
+                            whole(q.scale).numpy().copy())
+                           for m in (o.mu, o.nu) for q in tree.leaves(m)]
+    res["moments_local"] = [None] * world
+    dist.all_gather_object(res["moments_local"], _local_moments(o))
+    p, o, h2 = tr.train(p, o, it, steps=2)
+    res["int8_losses"] = [m["loss"] for m in h1 + h2]
+    res["grads"] = step1_grads(POD_ARCH, "HP", 1, mesh=mesh)
+    # a checkpoint saved here restores on (world, 1), bit for bit
+    ck = [tempfile.mkdtemp() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(ck)
+    tr.ckpt = CheckpointManager(ck[0])
+    tr.ckpt.save(tr.step, {"params": p, "opt": o},
+                 extra={"data_offset": tr.data_offset})
+    tr.ckpt.wait()
+    saved = _state_arrays(p, o)
+    flat = make_host_mesh(model=1, device="cpu")
+    tr2 = Trainer(arch, SHAPE, flat, cfg, scheduler=Uniform("HP"),
+                  checkpoint_dir=ck[0])
+    p2, o2 = tr2.init_state(seed=1)
+    p2, o2 = tr2.maybe_restore(p2, o2)
+    res["restored_equal"] = all(torch.equal(a, b) for a, b in zip(
+        saved, _state_arrays(p2, o2)))
+    # Trainer.resize onto (world, 1): the same values, re-placed
+    p3, o3 = tr.resize(flat, p, o)
+    res["resized_equal"] = all(torch.equal(a, b) for a, b in zip(
+        saved, _state_arrays(p3, o3)))
+    res["resized_placements"] = [str(x.placements) for x in
+                                 tree.leaves(p3)][:2]
+    # error-feedback compression over the pod group, on this rank's grads
+    rng = np.random.default_rng(1000 + dist.get_rank())
+    rounds = [{k: rng.standard_normal(s).astype(np.float32)
+               for k, s in EF_SHAPES.items()} for _ in range(EF_ROUNDS)]
+    err = EF.init_error_state({k: torch.from_numpy(v)
+                               for k, v in rounds[0].items()})
+    got = []
+    for g in rounds:
+        avg, err = EF.compressed_allreduce(
+            {k: torch.from_numpy(v) for k, v in g.items()}, err,
+            mesh.get_group("pod"))
+        got.append(({k: v.numpy() for k, v in avg.items()},
+                    {k: v.numpy() for k, v in err.items()}))
+    res["ef"] = [None] * world
+    dist.all_gather_object(res["ef"], dict(grads=rounds, out=got))
+    return res
+
+
+def run_pod(rank: int, world: int, store: str, out: str) -> None:
+    """HP on the pod meshes (``POD_MESHES``, ``pod_case``)."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    res = {shape: pod_case(shape, world) for shape in POD_MESHES}
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(res, f)
+    dist.destroy_process_group()
 
 
 def run_moe(rank: int, world: int, store: str, out: str) -> None:
