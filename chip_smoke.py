@@ -330,13 +330,13 @@ Phases, each of which fails the run (exit code 1) on any error:
     (``seeded_params``: each rank draws only its shards; the unplaced
     engine, rank 0's alone, runs and frees its 55.8 GB before the ranks
     place theirs; the MTP head, which serving never reads, left out), 2
-    requests of 128 prompt tokens, 8 new, chunk 128):
+    requests of 128 prompt tokens, 4 new, chunk 128):
     tokens equal the unplaced engine's, prefill logits within
     ``TP_LOGIT_TOL``, 9 RMSNorm launches a model call, every block
     ``tp_mla_block``, and the latent pools bit-equal across the ranks.
 
 42. HP on a multi-pod mesh, mamba2-780m (``POD_TRAIN``: published
-    widths, 8 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
+    widths, 4 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
     one sequence a rank): four processes on the one card over gloo on a
     (pod 2, data 2, model 1) mesh from ``init_device_mesh`` (``pod_rank``)
     under the uniform HP plan with int8 moments.  Every rank's shard of
@@ -358,11 +358,31 @@ Phases, each of which fails the run (exit code 1) on any error:
     and the checkpoint store called them before this phase's port, on two
     ranks of the card over gloo, each outcome printed.
 
+43. tracecheck on the card (``tracecheck_phase``): the five analyzers of
+    ``repro_torch.analysis.tracecheck`` over qwen3-8b (all 36 layers) and
+    mamba2-780m (all 48) at published widths, bf16.  Each serving step
+    (prefill chunk, decode step, slot admission) runs once under
+    ``analysis/ircost.py``'s recorders at the reference's geometry, under
+    ``set_sync_debug_mode("error")``: no finding; the pools updated in
+    place; 0 host syncs (the sanctioned host-to-device copies of the
+    sampler's rows counted apart); exact RMSNorm and SSD launches
+    (``_step_launches``); the counted FLOPs and bytes equal to the CPU's
+    count of the same step (under FakeTensorMode, shapes only) and within
+    ``predict_serving_step``'s tolerances; the reference's mixed workload
+    through a real engine on its tight pool, one argument signature a
+    step kind, with a preemption, and launches each step's.  The sharding
+    analyzer in a process of its own (``trace_sharding_rank``): qwen3-8b's
+    pools on the reference's (data 4, model 2) mesh over a fake process
+    group of 8 ranks on the card; if torch refuses that group, the
+    refusal is printed and the analyzer runs on two ranks of the card
+    over gloo.  Each analyzer's seconds, the counts against the
+    prediction and the temp bytes beside the pools' are printed.
+
 The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
 trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41,
-42; each
+42, 43; each
 phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
@@ -392,10 +412,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
-              "tfloat32": 495e12,  # dense tensor-core TF32
-              "float32": 67e12}    # float32 outside the tensor cores
+# each kernel's bound: ``repro_torch.kernels.work`` (the bytes it must move
+# over the H100 SXM's 3.35 TB/s, its operations over the peak of their type)
 # |kernel - plain| <= atol + rtol * |plain|.  Kernel and plain version both
 # compute in fp32 and differ only by summation order (~1e-6 relative).  In
 # fp32 that is all; in bf16 both round that fp32 value once to 8
@@ -638,15 +656,15 @@ TP_LOGIT_TOL = 1e-4
 # cut; one mla layer's training state, ~184 GB, needs four cards), bf16, 3
 # timed steps after the check.  Serve: 1 mla_dense + 1 mla layer with all
 # 256 experts, fp32 so that tokens compare exactly; 2 requests of 128 prompt
-# tokens and 8 new, cut because every model call gathers the fp32
-# embedding and head (3.7 GB each) through gloo
+# tokens and 4 new, cut because every model call gathers the fp32
+# embedding and head (3.7 GB each) through gloo (~6.7 s a call)
 TP_MOE_NAME = f"tp {DEEPSEEK}"
 TP_MOE_TRAIN = dict(TRAIN[DEEPSEEK], depth=(1, 0), seq_len=1024, steps=3)
-TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=8,
+TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=4,
                     slots=2, max_len=256, block_size=16, prefill_chunk=128)
 TP_MOE_SEED = 0
-# phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 8 of
-# its 48 layers, four processes on the card over gloo on a (pod 2, data 2,
+# phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 4 of
+# its 48 layers (depth cut for the script's time), four processes on the card over gloo on a (pod 2, data 2,
 # model 1) mesh under the uniform HP plan with int8 moments: HP's ZeRO dim
 # ("data", "pod") and the moments' ("data", "model", "pod") laid out in the
 # reference's order (rank (pod p, data d) holds block 2 d + p); one
@@ -654,7 +672,7 @@ TP_MOE_SEED = 0
 POD_NAME = f"pod {MAMBA}"
 POD_SHAPE = (2, 2, 1)                       # (pod, data, model)
 POD_AXES = ("pod", "data", "model")
-POD_TRAIN = dict(_TRAIN, depth=(8,), seq_len=1024, batch=4, steps=3)
+POD_TRAIN = dict(_TRAIN, depth=(4,), seq_len=1024, batch=4, steps=3)
 # the three paths that read a DTensor whole through DTensor's own
 # collectives until this phase's port routed them through
 # ``sharded.gather_full``: the int8-moment step, ``Trainer.resize`` and
@@ -662,6 +680,17 @@ POD_TRAIN = dict(_TRAIN, depth=(8,), seq_len=1024, batch=4, steps=3)
 # of the card over gloo (``probe_rank``)
 PROBE_PATHS = ("int8 step", "resize", "store")
 PROBE_S = 120
+# phase 43, tracecheck on the card: the analyzers of
+# ``repro_torch.analysis.tracecheck`` over qwen3-8b (all 36 layers) and
+# mamba2-780m (all 48) at published widths, bf16: the static analyzers
+# (``TRACE_STATIC``) at the reference's geometry (``DEFAULT_GEOM``: slots
+# 4, max_len 64, block 8, chunk 16), trace-cache at its tight pool (slots
+# 2, max_len 48, block 4, 13 blocks, chunk 8), the sharding analyzer over
+# qwen3-8b's pools on the reference's (data 4, model 2) mesh in a process
+# of its own
+TRACE_NAME = "tracecheck"
+TRACE_ARCHS = (QWEN, MAMBA)
+TRACE_STATIC = ("donation", "host-transfer", "cost-drift")
 
 
 def fail(msg: str) -> None:
@@ -810,40 +839,6 @@ def ptxas_report(txt):
             regs = line.split(":", 1)[-1].strip()
             out.append((kernel, regs, spill))
     return out
-
-
-def bound(nbytes, flops):
-    """The least time for moving ``nbytes`` and doing ``flops``, a dict of
-    operation counts by the type they run at, each at its peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(f / PEAK_FLOPS[t] for t, f in flops.items()) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def ssd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0):
-    """(bytes, flops by type) the scan must move and do: each input read
-    once, each output written once; 2 flops per multiply-add over the
-    causal triangle of each chunk's real rows, every product on the bf16
-    tensor cores.  C.B^T depends on the group alone (decay and dt scale it
-    afterwards), so it counts once per group: once with bf16 inputs (a
-    product of two bf16 values summed in fp32 is exact), three times with
-    fp32 ones (hi.hi + hi.lo + lo.hi of a split into bf16 hi + lo).  The
-    score product, the inter-chunk term and the state update count once
-    per head, each with an fp32 factor split into hi + lo: twice with bf16
-    inputs, three times with fp32 ones."""
-    cb = ops = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        cb += B * G * 2 * tri * N
-        ops += B * H * (2 * tri * P + 4 * q * N * P)
-    bf16 = dtype_name == "bfloat16"
-    flops = {"bfloat16": (1 if bf16 else 3) * cb + (2 if bf16 else 3) * ops}
-    nbytes = (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
-              + 2 * B * S * H * 4 + B * S * H * P * 4
-              + B * H * P * N * 4 * (2 if has_h0 else 1))
-    return nbytes, flops
 
 
 def ssd_bwd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0,
@@ -1067,19 +1062,6 @@ def train_cases(name, arch):
     return norm, flash, ssd
 
 
-def flash_work(B, S, Tk, H, HKV, D, causal, itemsize, backward):
-    """(bytes, flops) of the forward (4 flops a pair a head dim: QK^T and
-    PV) or the backward (10: S and dP recomputed, dV, dK, dQ): each input
-    read once, each output written once.  Top-left causal: query i sees
-    keys 0..i, so only the first min(S, T) keys are ever read."""
-    pairs = (sum(min(i + 1, Tk) for i in range(S)) if causal else S * Tk)
-    keys = min(S, Tk) if causal else Tk
-    q, kv = B * S * H * D * itemsize, B * keys * HKV * D * itemsize
-    if backward:      # q, o, dO, lse and k, v in; dq, dk, dv out
-        return (4 * q + 4 * kv + B * H * S * 4, 10 * B * H * D * pairs)
-    return 2 * q + 2 * kv, 4 * B * H * D * pairs
-
-
 def flash_ops(dtype_name, D, flops):
     """``flops`` of a flash row by the type it runs at: the bf16 bodies'
     on the bf16 tensor cores; fp32 at the split-TF32 bodies' head dims
@@ -1111,6 +1093,7 @@ def flash_rows(torch, cases, iters, randn, dtypes):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import bound, flash_work
     rows = []
     for path, B, S, Tk, H, HKV, D, causal in cases:
         for dt, dn in dtypes:
@@ -1151,6 +1134,7 @@ def kernel_phase(torch, archs, iters):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels.work import bound, rmsnorm_work
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -1176,9 +1160,9 @@ def kernel_phase(torch, archs, iters):
                 plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters)
                 lib_ms = (time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6),
                                   iters) if hasattr(F, "rms_norm") else None)
-                nbytes = 2 * R * D * x.element_size() \
-                    + D * scale.element_size()
-                flops = 4 * R * D
+                nbytes, fl = rmsnorm_work(R, D, x.element_size(),
+                                          scale.element_size())
+                flops = fl["float32"]
                 rows.append(dict(
                     name="rmsnorm", path=path, use=use, shape=f"({R}, {D})",
                     dtype=dn, ok=ok, max_abs_err=err, tol=tol, ms=ms,
@@ -1214,6 +1198,7 @@ def ssd_rows(torch, s, H, cases, iters, gen, dtypes):
     """The SSD scan kernel against its plain version at ``cases``, ``(path,
     B, S, G, h0)`` each, for the SSM spec ``s`` at ``H`` heads."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.work import bound, ssd_work
     rows = []
     for path, B, S, G, has_h0 in cases:
         P, N, chunk = s.head_dim, s.d_state, s.chunk
@@ -1261,6 +1246,7 @@ def split_norm_rows(torch, cases, iters, gen, dtypes):
     row's sums (4 bytes forward, 8 backward) written and read once."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels.work import bound
     rows = []
     for path, use, R, D in cases:
         for dt, dn in dtypes:
@@ -1372,6 +1358,7 @@ def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes, H=None):
     ``ref.ssd_scan_ref``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels.work import bound
 
     rows = []
     for path, B, S, G, has_h0, has_dh in cases:
@@ -1428,6 +1415,7 @@ def flash_bwd_rows(torch, cases, iters, randn, dtypes):
 
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
+    from repro_torch.kernels.work import bound, flash_work
     rows = []
     for path, B, S, Tk, H, HKV, D, causal in cases:
         for dt, dn in dtypes:
@@ -1487,6 +1475,7 @@ def backward_rows(torch, name, arch, iters, gen, dtypes):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels.work import bound
 
     rows = []
 
@@ -3753,15 +3742,28 @@ def _free_port():
 def _spawn_ranks(label, phase, world=TP_MODEL, fn=None):
     """Runs ``fn`` (default ``tp_rank``) for ``phase`` in ``world``
     processes on the card -> rank 0's results."""
-    import shutil
+    return _join_ranks(label, *_start_ranks(fn or tp_rank, phase, world))
 
+
+def _start_ranks(fn, phase, world):
+    """Starts ``fn`` for ``phase`` in ``world`` processes on the card ->
+    (their output directory, their processes) for ``_join_ranks``."""
     import torch.multiprocessing as mp
 
     out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    return out, mp.start_processes(fn, args=(world, _free_port(), str(out),
+                                             phase),
+                                   nprocs=world, join=False,
+                                   start_method="spawn")
+
+
+def _join_ranks(label, out, procs):
+    """Waits for ``_start_ranks``'s processes -> rank 0's results."""
+    import shutil
+
     try:
-        mp.start_processes(fn or tp_rank, args=(world, _free_port(),
-                                                str(out), phase),
-                           nprocs=world, start_method="spawn")
+        while not procs.join():
+            pass
         if not (out / "tp.json").exists():
             fail(f"{label}: the ranks exited without a result")
         return json.loads((out / "tp.json").read_text())
@@ -4850,6 +4852,236 @@ def probe_full_tensor():
     return outcome
 
 
+def _step_launches(arch, kind):
+    """Each kernel's launches in one serving step: a forward's norms
+    (``forward_launches``) in a prefill chunk and a decode step, its scans
+    in a prefill chunk only (a decode step runs the recurrence), none in a
+    slot admission; no flash (the paged path's attention is plain)."""
+    fl = forward_launches(arch)
+    want = {"rmsnorm": 0, "rmsnorm_split": 0, "flash_attention": 0,
+            "ssd_scan": 0}
+    if kind != "slot_admit":
+        want["rmsnorm"] = fl["rmsnorm"]
+    if kind == "paged_prefill":
+        want["ssd_scan"] = fl["ssd_scan"]
+    return want
+
+
+def _trace_step_facts(IC, TC, name, ctx, kind):
+    """One traced step's facts (the static analyzers' trace), checked:
+    no host sync, the pools kept in place, exact launches, the counted
+    FLOPs and bytes equal to the CPU's count of the same step (run under
+    FakeTensorMode at the same widths and geometry)."""
+    ts = ctx.traced(kind)
+    cost, syncs = IC.cost_report(ts), IC.host_syncs(ts)
+    don = IC.donation_report(ts)
+    t = time.perf_counter()
+    cpu_ts = IC.trace_step(ctx.arch, kind, ctx.geom, device="cpu",
+                           shapes_only=True)
+    cpu = IC.cost_report(cpu_ts)
+    want = _step_launches(ctx.arch, kind)
+    f = dict(flops=cost["flops"], bytes=cost["bytes"],
+             cpu_flops=cpu["flops"], cpu_bytes=cpu["bytes"],
+             cpu_count_s=time.perf_counter() - t,
+             temp_bytes=cost["temp_bytes"], cache_bytes=don["cache_bytes"],
+             argument_bytes=cost["argument_bytes"],
+             h2d_copies=syncs["h2d_copies"], h2d_bytes=syncs["h2d_bytes"],
+             syncs=syncs["syncs"], launches=ts.launches,
+             kernel_calls=cost["kernel_calls"], ops=len(IC.op_census(ts)),
+             storage_kept=don["storage_kept"])
+    if kind != "slot_admit":
+        row = TC.bench_row(ctx, kind)
+        f.update({k: row[k] for k in ("flops_predicted", "bytes_predicted",
+                                      "flops_rel_err", "bytes_ratio")})
+    label = f"{TRACE_NAME}: {name} {kind}"
+    if syncs["syncs"] or syncs["error"]:
+        fail(f"{label}: host syncs {syncs['syncs']} {syncs['error'] or ''}")
+    if not (don["storage_kept"] and don["cache_returned"]):
+        fail(f"{label}: the pools were not updated in place")
+    if ts.launches != want or cost["kernel_calls"] != {
+            k: v for k, v in want.items() if v}:
+        fail(f"{label}: launches {ts.launches}, kernel calls "
+             f"{cost['kernel_calls']}, want {want}")
+    if (cost["flops"], cost["bytes"]) != (cpu["flops"], cpu["bytes"]):
+        ops = sorted(set(ts.rec.by_op) | set(cpu_ts.rec.by_op))
+        diff = {op: (ts.rec.by_op[op], cpu_ts.rec.by_op[op]) for op in ops
+                if ts.rec.by_op[op] != cpu_ts.rec.by_op[op]}
+        fail(f"{label}: counted {cost['flops']:.6g} FLOPs / "
+             f"{cost['bytes']:.6g} bytes on the card, {cpu['flops']:.6g} / "
+             f"{cpu['bytes']:.6g} on the CPU; (card, CPU) bytes by op "
+             f"where they differ: {diff}")
+    return f
+
+
+def _trace_arch(torch, IC, TC, name, card):
+    """Phase 43's part for one arch: the static analyzers at
+    ``DEFAULT_GEOM``, each step's facts (``_trace_step_facts``), the
+    trace-cache audit, each checked and printed -> its results."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    ctx = TC.ArchContext(arch, TC.DEFAULT_GEOM, torch.device("cuda"))
+    t = time.perf_counter()
+    ctx.params                     # the weights, drawn on the card
+    secs = {"init": time.perf_counter() - t}
+    for a in TRACE_STATIC:
+        t = time.perf_counter()
+        findings = TC.ANALYZERS[a][0](ctx)
+        secs[a] = time.perf_counter() - t
+        if findings:
+            fail(f"{TRACE_NAME}: {name}: " + "; ".join(
+                f.format() for f in findings))
+    steps = {kind: _trace_step_facts(IC, TC, name, ctx, kind)
+             for kind in ctx.kinds()}
+    before = read_counts()
+    t = time.perf_counter()
+    eng = TC.audit_engine(ctx)
+    eng.generate(TC._mixed_workload(ctx))
+    secs["trace-cache"] = time.perf_counter() - t
+    findings = TC.audit_findings(ctx, eng)
+    if findings:
+        fail(f"{TRACE_NAME}: {name}: " + "; ".join(
+            f.format() for f in findings))
+    m = eng.metrics
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    want = {k: m.prefill_chunks * _step_launches(arch, "paged_prefill")[k]
+            + m.decode_steps * _step_launches(arch, "paged_decode")[k]
+            for k in ("rmsnorm", "ssd_scan")}
+    if {k: got[k] for k in want} != want:
+        fail(f"{TRACE_NAME}: {name} audit launches {got}, want {want}")
+    audit = dict(signatures={k: len(v) for k, v in eng.signatures.items()},
+                 preemptions=m.preemptions, prefill_chunks=m.prefill_chunks,
+                 decode_steps=m.decode_steps, launches=got)
+    for kind, f in steps.items():
+        pred = ("" if kind == "slot_admit" else
+                f" (predicted {f['flops_predicted']:.6g}, rel err "
+                f"{f['flops_rel_err']:.4f})")
+        bpred = ("" if kind == "slot_admit" else
+                 f" (predicted {f['bytes_predicted']:.6g}, ratio "
+                 f"{f['bytes_ratio']:.2f})")
+        print(f"{TRACE_NAME}: {name} {kind}: {f['flops']:.6g} FLOPs{pred} "
+              f"and {f['bytes']:.6g} bytes{bpred}, both equal to the CPU's "
+              f"count ({f['cpu_count_s']:.1f} s); temp "
+              f"{f['temp_bytes'] / 2**20:.1f} MiB beside "
+              f"{f['cache_bytes'] / 2**20:.1f} MiB of pools; pools in "
+              f"place, 0 host syncs, {f['h2d_copies']} host-to-device "
+              f"copies of the host rows ({f['h2d_bytes']} B); launches "
+              f"{ {k: v for k, v in f['launches'].items() if v} }; "
+              f"{f['ops']} op kinds; on {card}")
+    print(f"{TRACE_NAME}: {name} trace-cache: signatures "
+          f"{audit['signatures']}, {audit['preemptions']} preemptions, "
+          f"{audit['prefill_chunks']} prefill chunks and "
+          f"{audit['decode_steps']} decode steps, launches "
+          f"{ {k: v for k, v in got.items() if v} } as each step's; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    del ctx, eng
+    IC.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, audit=audit, seconds=secs)
+
+
+def tracecheck_phase(torch, report, card):
+    """43. tracecheck on the card: ``repro_torch.analysis.tracecheck``'s
+    analyzers over qwen3-8b (36 layers) and mamba2-780m (48) at published
+    widths in bf16 (``TRACE_ARCHS``), checked and printed
+    (``_trace_arch``); the sharding analyzer in a process of its own
+    (``trace_sharding_rank``), beside mamba2-780m's part, which holds ~2
+    GB of the card."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.analysis import ircost as IC
+    from repro_torch.analysis import tracecheck as TC
+
+    reset_counts()
+    label = f"{TRACE_NAME} sharding"
+    res = {"archs": {TRACE_ARCHS[0]: _trace_arch(torch, IC, TC,
+                                                 TRACE_ARCHS[0], card)}}
+    t = time.perf_counter()
+    pending = _start_ranks(trace_sharding_rank, "fake", 1)
+    for name in TRACE_ARCHS[1:]:
+        res["archs"][name] = _trace_arch(torch, IC, TC, name, card)
+    res["launches"] = read_counts()
+    try:
+        sh = _join_ranks(label, *pending)
+    except mp.ProcessRaisedException as e:
+        sh = {"refused": str(e).strip().splitlines()[-1]}
+    if "refused" in sh:
+        print(f"{TRACE_NAME}: a fake process group over CUDA tensors was "
+              f"refused: {sh['refused']}; the sharding analyzer runs on "
+              f"{TP_MODEL} ranks of the card over gloo instead")
+        sh = dict(_spawn_ranks(label, "gloo", world=TP_MODEL,
+                               fn=trace_sharding_rank),
+                  fake_refused=sh["refused"])
+    res["sharding"] = dict(sh, s=time.perf_counter() - t)
+    if sh["findings"]:
+        fail(f"{TRACE_NAME}: sharding: {sh['findings']}")
+    print(f"{TRACE_NAME}: sharding {QWEN} on a {sh['mesh']} mesh over "
+          f"{sh['backend']} ({sh['world']} ranks): 0 findings, every pool "
+          f"of every step as paged_cache_specs places it: {sh['pools']}; "
+          f"analyzer {sh['analyzer_s']:.1f} s, peak memory "
+          f"{sh['peak_mem_gb']:.2f} GB a process; "
+          f"{res['sharding']['s']:.1f} s from its start")
+    report[TRACE_NAME] = res
+
+
+def trace_sharding_rank(rank, world, port, out, backend):
+    """Phase 43's sharding analyzer in processes of its own: qwen3-8b at
+    published widths, its pools placed by the plan on the reference's
+    (data 4, model 2) mesh, on a fake process group of 8 ranks over CUDA
+    tensors (``backend`` "fake", one process); on "gloo", ``world`` real
+    ranks of the card on a (1, world) mesh.  Rank 0 writes
+    ``out``/tp.json: the findings and each pool leaf's placements, or the
+    fake group's refusal."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.analysis import tracecheck as TC
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ctx = TC.ArchContext(get_arch(QWEN), TC.DEFAULT_GEOM, dev)
+    res = {"backend": backend, "world": world}
+    if backend == "fake":
+        try:
+            with TC.serve_mesh(dev) as mesh:
+                res.update(_sharding_result(TC, ctx, mesh))
+        except Exception as e:     # the fake group's refusal, printed
+            res = {"refused": f"{type(e).__name__}: "
+                              f"{str(e).strip().splitlines()[-1]}"}
+    else:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                          LOCAL_RANK="0")
+        from repro_torch.launch import mesh as M
+        mesh = M.make_host_mesh(model=world, device="cuda", backend="gloo")
+        try:
+            ctx.mesh = mesh
+            res.update(_sharding_result(TC, ctx, mesh))
+        finally:
+            M.shutdown()
+    if rank == 0:
+        pathlib.Path(out, "tp.json").write_text(json.dumps(res))
+
+
+def _sharding_result(TC, ctx, mesh):
+    """The sharding analyzer's findings on ``mesh``, and how many pool
+    leaves each step returned at each placements."""
+    t = time.perf_counter()
+    findings, seen = TC.sharding_report(ctx, mesh)
+    pools = {}
+    for kind, got in seen.items():
+        for _, pl in got:
+            key = f"{kind} {pl}"
+            pools[key] = pools.get(key, 0) + 1
+    import torch
+    return {"mesh": list(mesh.shape), "world": mesh.size(),
+            "findings": [f.format() for f in findings], "pools": pools,
+            "analyzer_s": time.perf_counter() - t,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4939,7 +5171,7 @@ def main() -> int:
     paths += [f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
-    paths += [TP_NAME, TP_MOE_NAME, POD_NAME]
+    paths += [TP_NAME, TP_MOE_NAME, POD_NAME, TRACE_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -5016,6 +5248,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(POD_NAME, pod_phase, torch, report, card)
+        # 43. tracecheck's five analyzers on the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(TRACE_NAME, tracecheck_phase, torch, report, card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

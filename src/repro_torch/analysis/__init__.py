@@ -7,6 +7,13 @@
     functions free of host syncs, explicit generators, alloc/free
     pairing, atomic writes, clock injection, no bare asserts.
     Stdlib-only.
+  * ``repro_torch.analysis.tracecheck`` (+ ``ircost``) — analysis of the
+    serving steps as they run (``python -m repro_torch.analysis.tracecheck
+    --device cpu``; CUDA by default): each step run once under recorders
+    at the engine's shapes, and five analyzers — signature budgets over a
+    drained mixed workload, in-place cache updates, host syncs and
+    sanctioned outputs, pool placements on the (data 4, model 2) mesh,
+    counted costs against the cost model.
   * ``repro_torch.analysis.sanitizer`` — a runtime paged-cache sanitizer
     that records allocation sites and cross-validates refcounts against
     live block tables and the prefix index every engine step.
@@ -17,9 +24,7 @@
     and paged-cache objects, with the sanitizer battery asserted at every
     reachable state and minimized counterexample traces on violation.
 
-``python -m repro_torch.analysis`` runs them under one CLI.  The
-reference's fourth layer, tracecheck (+ ``ircost``), reads lowered JAX
-IR and has no twin yet: the front end refuses it by name.
+``python -m repro_torch.analysis`` runs them under one CLI.
 
 Everything is exported lazily, so importing the package pulls in no
 submodule (and no torch) until a name is used.
@@ -28,6 +33,7 @@ import importlib
 
 __all__ = ["Finding", "Linter", "ModuleInfo", "emit_findings",
            "CacheSanitizer", "SanitizerError",
+           "run_analyzers", "collect_bench", "validate_bench", "ServeGeom",
            "CheckConfig", "ControlPlaneModel", "SCHED_CONFIGS",
            "run_config", "replay_trace",
            "explore", "ExplorationResult", "Violation"]
@@ -35,6 +41,8 @@ __all__ = ["Finding", "Linter", "ModuleInfo", "emit_findings",
 _EXPORTS = {"Finding": "lint", "Linter": "lint", "ModuleInfo": "lint",
             "emit_findings": "lint",
             "CacheSanitizer": "sanitizer", "SanitizerError": "sanitizer",
+            "run_analyzers": "tracecheck", "collect_bench": "tracecheck",
+            "validate_bench": "tracecheck", "ServeGeom": "ircost",
             "CheckConfig": "schedcheck", "ControlPlaneModel": "schedcheck",
             "run_config": "schedcheck", "replay_trace": "schedcheck",
             "explore": "statespace", "ExplorationResult": "statespace",

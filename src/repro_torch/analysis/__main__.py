@@ -1,22 +1,25 @@
 """Unified analysis front-end: ``python -m repro_torch.analysis`` (twin
 of ``repro/analysis/__main__.py``).
 
-Runs the port's static-analysis layers — reprolint (AST) and schedcheck
-(control-plane state space) — under one CLI with the shared conventions
-the individual tools follow:
+Runs the port's analysis layers — reprolint (AST), tracecheck (the
+serving steps as they run) and schedcheck (control-plane state space) —
+under one CLI with the shared conventions the individual tools follow:
 
 * ``--select`` takes a comma-separated list of check ids; each id is
-  routed to whichever tool owns it (lint rule / schedcheck property), and
-  an id no tool recognizes is a usage error;
+  routed to whichever tool owns it (lint rule / tracecheck analyzer /
+  schedcheck property), and an id no tool recognizes is a usage error;
 * ``--format text|json|github`` — text and github stream per-tool, json
   is one combined array over the whole run (each entry tagged with its
   originating tool) so stdout stays a single valid JSON document;
 * exit 0 clean, 1 on any finding, 2 on usage error.
 
 Tool selection: positional names restrict the run (``python -m
-repro_torch.analysis lint schedcheck``); with no names, every tool runs.
-The reference's third tool, ``tracecheck``, audits lowered JAX IR and has
-no twin yet: naming it is a usage error that says so.
+repro_torch.analysis lint schedcheck``).  With no names, every tool runs —
+except that a tool that cannot run here (tracecheck runs the steps on
+``--device``, CUDA unless ``--device cpu`` is given, and this machine may
+have no card) is *skipped with a note*, the reference's rule for a tool
+whose imports are missing.  Naming a tool, or selecting a check it owns,
+makes that fatal again.
 """
 from __future__ import annotations
 
@@ -39,6 +42,21 @@ def _lint_run(select, args) -> list:
     return Linter(select=select or None).lint_paths(args.lint_paths)
 
 
+def _tracecheck_catalogue() -> dict:
+    from repro_torch.analysis.tracecheck import ANALYZERS
+    return {name: desc for name, (_, desc) in ANALYZERS.items()}
+
+
+def _tracecheck_run(select, args) -> list:
+    from repro_torch.analysis.tracecheck import run_analyzers
+    return run_analyzers(None, select or None, device=args.device)
+
+
+def _tracecheck_unavailable(args):
+    from repro_torch.analysis.tracecheck import device_unavailable
+    return device_unavailable(args.device)
+
+
 def _schedcheck_catalogue() -> dict:
     from repro_torch.analysis.schedcheck import PROPERTIES
     return dict(PROPERTIES)
@@ -57,20 +75,20 @@ def _schedcheck_run(select, args) -> list:
     return findings
 
 
-# the reference's tools that have no twin here yet, and why
-NOT_PORTED = {"tracecheck": "audits the lowered JAX IR of the jitted "
-                            "serving steps; its torch analogue (no "
-                            "recompiles, in-place cache updates, no host "
-                            "syncs in the step) is not ported yet"}
-
 # name -> (runner, catalogue, one-line description)
 TOOLS = {
     "lint": (_lint_run, _lint_catalogue,
              "reprolint — AST rules over the source tree (stdlib-only)"),
+    "tracecheck": (_tracecheck_run, _tracecheck_catalogue,
+                   "the serving steps run once under recorders "
+                   "(runs them on --device)"),
     "schedcheck": (_schedcheck_run, _schedcheck_catalogue,
                    "exhaustive state-space check of the serving "
                    "control plane"),
 }
+
+# name -> why the tool cannot run here (None: it can)
+UNAVAILABLE = {"tracecheck": _tracecheck_unavailable}
 
 
 def main(argv=None) -> int:
@@ -94,28 +112,23 @@ def main(argv=None) -> int:
                     default=["src/repro_torch"],
                     help="paths for the lint tool (default: "
                          "src/repro_torch)")
+    ap.add_argument("--device", default=None,
+                    help="where tracecheck runs the steps (default: cuda; "
+                         "cpu runs their plain PyTorch paths on the host)")
     args = ap.parse_args(argv)
 
     if args.list_tools:
         for name, (_, _, desc) in TOOLS.items():
             print(f"{name:12s} {desc}")
-        for name, why in NOT_PORTED.items():
-            print(f"{name:12s} (not ported: {why})")
         return 0
 
     paths = [t for t in args.tools
-             if t not in TOOLS and t not in NOT_PORTED
-             and pathlib.Path(t).exists()]
+             if t not in TOOLS and pathlib.Path(t).exists()]
     if paths:
         args.lint_paths = paths
     tools = [t for t in args.tools if t not in paths]
     explicit = bool(tools)
     names = tools or (["lint"] if paths else list(TOOLS))
-    for n in names:
-        if n in NOT_PORTED:
-            print(f"analysis: tool {n!r} is not ported: {NOT_PORTED[n]}",
-                  file=sys.stderr)
-            return 2
     bad = [n for n in names if n not in TOOLS]
     if bad:
         print(f"analysis: unknown tool(s) {bad} (have: {list(TOOLS)})",
@@ -155,6 +168,19 @@ def main(argv=None) -> int:
             print(f"analysis: no tool owns check(s) {sorted(unknown)}; "
                   f"see --list-checks", file=sys.stderr)
             return 2
+
+    # a tool that cannot run here: fatal when named or selected, else a
+    # note (it keeps its catalogue: --select still routes its ids)
+    for name in list(catalogues):
+        why = UNAVAILABLE.get(name, lambda a: None)(args)
+        if why is None:
+            continue
+        if explicit or per_tool_select[name]:
+            print(f"analysis: tool {name!r} unavailable: {why}",
+                  file=sys.stderr)
+            return 2
+        skipped[name] = why
+        del catalogues[name]
 
     for name, reason in skipped.items():
         print(f"analysis: skipping {name} (unavailable: {reason})",

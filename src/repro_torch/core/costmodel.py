@@ -238,27 +238,29 @@ class CostModel:
 
 # ---------------------------------------------------------------------------
 # serving-step predictions — the analytic side of the static-cost contract.
-# analysis/ircost.py extracts the same quantities from the lowered IR;
-# analysis/tracecheck.py (cost-drift analyzer) gates on their agreement and
-# the pair is committed to BENCH_static_costs.json.
+# analysis/ircost.py counts the same quantities while a step runs once;
+# analysis/tracecheck.py (cost-drift analyzer) gates on their agreement
+# (``--write-bench PATH`` writes the pair; no copy is committed).
 # ---------------------------------------------------------------------------
 
-# Relative FLOP tolerance between predict_serving_step and XLA's
-# cost_analysis() of the compiled step.  The analytic model counts matmul
-# FLOPs; XLA additionally counts elementwise work (norms, rope, softmax,
-# masking, sampler) and is free to rematerialize — agreement is structural,
-# not exact.  Calibrated over the registry archs by tests/test_tracecheck.py.
+# Relative FLOP tolerance between predict_serving_step and a step's counted
+# FLOPs (FlopCounterMode's formulas for each op, each hand-written kernel's
+# own).  The analytic model counts the projections and attention; the count
+# adds every other product the step runs — agreement is structural, not
+# exact.  The reference's value, held over the
+# registry archs by tests/test_torch_tracecheck.py.
 SERVING_FLOPS_RTOL = 0.5
 
-# XLA's "bytes accessed" charges every operand of every fused op; the
-# analytic estimate counts params + cache pools + boundary activations once.
-# Only order-of-magnitude agreement is meaningful.
+# A step's counted bytes charge every input and output of every non-view
+# op (each kernel's formula for it); the analytic estimate counts params +
+# cache pools + boundary activations once.  Only order-of-magnitude
+# agreement is meaningful.
 SERVING_BYTES_RFACTOR = 16.0
 
 
 def predict_serving_step(arch, *, batch: int, new_tokens: int,
                          table_len: int) -> dict:
-    """Analytic cost of ONE jitted paged serving step (forward only).
+    """Analytic cost of ONE paged serving step (forward only).
 
     ``new_tokens`` is the tokens computed per row this step: the prefill
     chunk size C for paged_prefill, 1 for paged_decode.  ``table_len`` is

@@ -178,7 +178,8 @@ def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
 
     # slot of each (token, k) in its expert's buffer: cumsum over the
     # flattened (S*K) axis, token-major then rank
-    onehot = F.one_hot(idx, E)                                   # (B,S,K,E)
+    # F.one_hot would check idx's range with two host reads on the CPU
+    onehot = (idx[..., None] == torch.arange(E, device=idx.device)).long()
     pos = torch.cumsum(onehot.reshape(B, S * K, E), dim=1).reshape(
         B, S, K, E) - 1
     keep = (pos < C) & (onehot > 0)

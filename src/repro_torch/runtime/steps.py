@@ -31,6 +31,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizers as O
 
+# The reference's buffer-donation table: which positional arguments of
+# each step kind it donates to jit.  Here they are the arguments a step
+# updates IN PLACE and returns: (params, opt_state) for train, the cache
+# for every serving step; params are read-only weights outside training.
+# ``analysis/tracecheck.py``'s donation analyzer holds the steps to it.
+STEP_DONATION: dict[str, tuple[int, ...]] = {
+    "train": (0, 1),
+    "prefill": (1,),
+    "decode": (1,),
+    "paged_prefill": (1,),
+    "paged_decode": (1,),
+    "slot_admit": (1,),
+}
+
 
 def make_loss_fn(arch: ArchConfig, *, impl: str = "xla", remat: str = "none",
                  mtp_weight: float = 0.3, block_fns=None):

@@ -50,9 +50,12 @@ def test_scan_covers_the_analysis_and_compression_modules():
     for mod in ("analysis/__init__.py", "analysis/__main__.py",
                 "analysis/lint.py", "analysis/rules.py",
                 "analysis/statespace.py", "analysis/schedcheck.py",
-                "analysis/sanitizer.py", "optim/compression.py"):
+                "analysis/sanitizer.py", "analysis/tracecheck.py",
+                "analysis/ircost.py", "kernels/work.py",
+                "optim/compression.py"):
         assert mod in names, mod
-    assert not {m for m in ("lint", "rules", "statespace", "schedcheck")
+    assert not {m for m in ("lint", "rules", "statespace", "schedcheck",
+                            "tracecheck", "ircost")
                 for x in _imported_modules(
                     ROOT / "src" / "repro_torch" / "analysis" / f"{m}.py")
                 if x.split(".")[0] in FORBIDDEN}
@@ -131,6 +134,21 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
     assert r.returncode != 0
     assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout
     assert "FAILED" in r.stderr
+
+
+def test_tracecheck_refuses_the_host_without_device():
+    """The tracecheck CLI runs the steps on CUDA unless ``--device cpu``
+    is given, and says so when there is no card."""
+    _no_cuda()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.tracecheck", "--arch",
+         "qwen3-8b", "--select", "donation"], capture_output=True,
+        text=True, timeout=120, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode != 0
+    assert "no CUDA device available" in r.stderr
+    assert "--device cpu" in r.stderr
+    assert "clean" not in r.stdout
 
 
 def test_kernel_counters_count_only_kernel_launches():

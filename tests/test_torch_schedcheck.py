@@ -343,12 +343,42 @@ def test_front_end_rejects_unknown_tool(capsys):
     assert "unknown tool" in capsys.readouterr().err
 
 
-def test_front_end_refuses_tracecheck_by_name(capsys):
-    """tracecheck has no twin yet: naming it is a usage error that says
-    so, never a silent skip."""
+def test_front_end_refuses_tracecheck_by_name(capsys, monkeypatch):
+    """tracecheck runs the steps on ``--device`` (CUDA by default).
+    Without a card, naming it — or selecting one of its analyzers — is a
+    usage error that names ``--device cpu``; with no tool named it is
+    skipped with a note, as the reference skips a tool it cannot import.
+    With ``--device cpu`` the front end routes tracecheck and its ids."""
+    import torch
+
+    from repro_torch.analysis import tracecheck
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert analysis_main(["tracecheck"]) == 2
-    assert "'tracecheck' is not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "'tracecheck' unavailable" in err and "--device cpu" in err
     assert analysis_main(["lint", "tracecheck"]) == 2
+    assert analysis_main(["--select", "donation"]) == 2
+    capsys.readouterr()
+    assert analysis_main(["--select", "no-bare-assert"]) == 0
+    err = capsys.readouterr().err
+    assert "skipping tracecheck" in err and "--device cpu" in err
+    assert "lint: clean" in err
+
+    calls = []
+    monkeypatch.setattr(tracecheck, "run_analyzers",
+                        lambda archs, select, device: calls.append(
+                            (archs, select, device)) or [])
+    assert analysis_main(["tracecheck", "--device", "cpu", "--select",
+                          "donation,sharding"]) == 0
+    assert calls == [(None, {"donation", "sharding"}, "cpu")]
+    assert "tracecheck: clean" in capsys.readouterr().err
+    assert analysis_main(["--device", "cpu", "--select",
+                          "cost-drift,no-bare-assert"]) == 0
+    assert calls[-1] == (None, {"cost-drift"}, "cpu")
+    assert analysis_main(["--list-checks"]) == 0
+    out = capsys.readouterr().out
+    for name in tracecheck.ANALYZERS:
+        assert f"tracecheck:{name}" in out
 
 
 def test_front_end_lists_tools_and_checks(capsys):
