@@ -467,14 +467,12 @@ def kernel_outputs(name: str, args: tuple, kwargs: dict):
     raise ValueError(f"no outputs for kernel {name!r}")
 
 
-def count(fn, *args, kernels: bool = True, **kwargs) -> dict:
+def count(fn, *args, **kwargs) -> dict:
     """The recorder's count of one call ``fn(*args, **kwargs)`` outside a
-    step: its FLOPs, bytes and op names, and which hand-written kernels it
-    called; ``kernels=False`` counts without the accounting hook (each
-    kernel's plain version counted op by op, on the CPU)."""
+    step, each hand-written kernel counted by its formula: its FLOPs,
+    bytes and op names, and which kernels it called."""
     rec = _Recorder(None, False)
-    with (kops.kernel_hook(rec.kernel) if kernels
-          else contextlib.nullcontext()), rec:
+    with kops.kernel_hook(rec.kernel), rec:
         fn(*args, **kwargs)
     return {"flops": rec.flops, "bytes": rec.bytes, "ops": set(rec.ops),
             "kernel_calls": dict(rec.kernel_calls)}
@@ -696,16 +694,17 @@ def host_syncs(ts: TracedStep) -> dict:
 
 
 def output_structure(ts: TracedStep):
-    """A tree of (shape, dtype) of the step's outputs."""
-    def leaf(t):
-        return ((tuple(t.shape), str(t.dtype))
-                if isinstance(t, torch.Tensor) else type(t).__name__)
-    if isinstance(ts.out, (dict, list)):
-        return tree.map(leaf, ts.out)
-    if isinstance(ts.out, tuple):
-        return tuple(tree.map(leaf, o) if isinstance(o, (dict, list))
-                     else leaf(o) for o in ts.out)
-    return leaf(ts.out)
+    """The step's outputs with each tensor leaf a meta tensor of its shape
+    and dtype (the twin of the reference's ``jax.eval_shape`` structs)."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        if isinstance(t, torch.Tensor):
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return t
+    return walk(ts.out)
 
 
 def output_placements(ts: TracedStep):

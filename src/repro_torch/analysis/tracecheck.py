@@ -185,17 +185,16 @@ def _mixed_workload(ctx: ArchContext):
     return reqs
 
 
-def audit_engine(ctx: ArchContext, **engine_kw):
+def audit_engine(ctx: ArchContext):
     """The trace-cache audit's engine: slots=2 with a 12-usable-block
     pool: two in-flight requests need 13 blocks at peak, so the decode
     loop must preempt and re-admit — recompute prefill re-runs the same
     padded chunk shape.  Its steps record each call's ``signature``
     (``eng.signatures[kind]``)."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
-    kw = dict(slots=2, max_len=48, block_size=4, num_blocks=13,
-              prefill_chunk=8)
     eng = ContinuousBatchingEngine(ctx.arch, ctx.params, device=ctx.device,
-                                   **{**kw, **engine_kw})
+                                   slots=2, max_len=48, block_size=4,
+                                   num_blocks=13, prefill_chunk=8)
     eng.signatures = {}
 
     def watch(kind, fn):
@@ -212,14 +211,13 @@ def audit_engine(ctx: ArchContext, **engine_kw):
     return eng
 
 
-def check_trace_cache(ctx: ArchContext) -> list[Finding]:
+def check_trace_cache(ctx: ArchContext, drained=None) -> list[Finding]:
+    """The audit's findings; ``drained``, when given, is called with the
+    drained engine (its ``metrics`` and ``signatures``)."""
     eng = audit_engine(ctx)
     eng.generate(_mixed_workload(ctx))
-    return audit_findings(ctx, eng)
-
-
-def audit_findings(ctx: ArchContext, eng) -> list[Finding]:
-    """The trace-cache findings of a drained ``audit_engine``."""
+    if drained is not None:
+        drained(eng)
     findings = []
     for kind, seen in eng.signatures.items():
         n = len(seen)
@@ -299,14 +297,14 @@ def check_host_transfer(ctx: ArchContext) -> list[Finding]:
                 f"{syncs['error']}"))
             continue
         cache = ts.args[ts.cache_index]
-        outs = ts.out
         if kind == "slot_admit":
-            if outs is not cache:
+            if ts.out is not cache:
                 findings.append(ctx.finding(
                     kind, "host-transfer",
                     "slot_admit must return exactly the cache carry"))
             continue
         B = ts.args[2].shape[0]
+        outs = IC.output_structure(ts)
         ok = (isinstance(outs, tuple) and len(outs) == 3
               and all(isinstance(o, torch.Tensor)
                       and tuple(o.shape) == (B,) for o in outs[:2])
