@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything (~5 minutes on an H100)
+    python3 chip_smoke.py                 # everything (~11 minutes on an H100)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
     python3 chip_smoke.py --profile       # plus a traced serve of each model
@@ -40,8 +40,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    backward's bf16 rows also hold ddt, da and dh0, which stay fp32, at
    SSD_BWD_F32_TOL).  Kernel and
    plain times (and the library call's, where one PyTorch call computes
-   the same function) are device times: 20 calls captured in one CUDA
-   graph, the median of 5 replays between CUDA events.  A backward row's
+   the same function) are device times: 10 calls captured in one CUDA
+   graph, the median of 5 replays between CUDA events, for the bf16
+   rows (``TIMED_DTYPES``); the fp32 rows are checked, not timed.  A backward row's
    plain and library times are the backward's share: the captured
    forward + backward less the captured forward, each measured here.
    RMSNorm rows (both directions) and the flash and SSD backwards'
@@ -62,17 +63,18 @@ Phases, each of which fails the run (exit code 1) on any error:
    (the flash kernel's path): exact launch counts (36 flash, 145 RMSNorm);
    the last-position logits and their argmax are held against the
    engine's own paged prefill logits for the same prompts.
-6. Serve mamba2-780m: published widths and all 48 layers, bf16, seeded
+6. Serve mamba2-780m: published widths at 12 of its 48 layers
+   (``SERVE_LAYERS``), bf16, seeded
    random weights, 8 greedy requests of 500 prompt tokens (a 256-token
    chunk, then a padded one of 244) and 32 new tokens, on slot-state
    pools.  Every request must finish with its tokens, every slot and
-   block must come back, and the SSD counter must read 48 per prefill
+   block must come back, and the SSD counter must read 12 per prefill
    chunk.
 7. Forward mamba2-780m: ``lm_apply(impl="pallas")`` over 2 of the prompts,
-   one scan over 500 tokens from h0 = 0 (48 SSD and 97 RMSNorm launches),
+   one scan over 500 tokens from h0 = 0 (12 SSD and 25 RMSNorm launches),
    held against the engine's chunked prefill, which hands h0 and the conv
    buffers from one chunk to the next.
-8. Train qwen3-8b: published widths at 4 layers (the serving weights are
+8. Train qwen3-8b: published widths at 2 layers (the serving weights are
    freed first), bf16, seeded weights; step 1's grads through the flash
    kernel and its backward (``impl="pallas"``) held per leaf against the
    grads through plain attention (``impl="xla"``) and plain RMSNorm
@@ -84,7 +86,7 @@ Phases, each of which fails the run (exit code 1) on any error:
    time (median of steps 2-4, CUDA events), tokens/s, peak memory, the
    launches of every kernel a step (each backward kernel as often as its
    forward), losses and grad norms (finite).
-9. Train mamba2-780m: published widths and all 48 layers, bf16, seeded
+9. Train mamba2-780m: published widths at 12 of its 48 layers, bf16, seeded
    weights (tied embeddings); step 1's grads through the SSD scan's
    kernels, forward and backward, held per leaf against the grads through
    the plain scan (``kernels.ops.ssd_scan`` swapped for
@@ -93,38 +95,39 @@ Phases, each of which fails the run (exit code 1) on any error:
    steps on ``SyntheticLM``
    batches of 2 x 1024
    tokens (8 chunks of 128 a sequence): step time, tokens/s, peak memory,
-   launches a step (the SSD backward once for each SSD forward, 48 a
+   launches a step (the SSD backward once for each SSD forward, 12 a
    step), finite losses and grad norms.
 10. Serve zamba2-2.7b: published widths (d 2560; 80 SSD heads of 64,
     d_state 64; the shared block over 2 x 2560 with 32 heads of 160,
-    GeGLU), all 54 mamba2 layers and 9 applications of the shared block,
+    GeGLU), 2 of its 9 pattern repeats (12 mamba2 layers and 2
+    applications of the shared block, ``SERVE_LAYERS``),
     bf16, seeded weights; phase 6's requests and settings and checks, on
-    slot-state pools and a paged KV pool per application: 54 SSD launches
+    slot-state pools and a paged KV pool per application: 12 SSD launches
     per prefill chunk and no flash launch (the serve path's attention is
     paged, as in the reference).
 11. Forward zamba2-2.7b: ``lm_apply(impl="pallas")`` over 2 of the prompts
-    (9 flash at D = 160, 54 SSD and 127 RMSNorm launches), held against
+    (2 flash at D = 160, 12 SSD and 29 RMSNorm launches), held against
     the engine's chunked prefill as in phase 7.
 12. Serve gemma-7b: published widths (d 3072, 16 heads of 256, GeGLU, a
-    256,000-token tied embedding), all 28 layers, bf16, seeded weights;
-    phase 4's requests and settings and checks.
+    256,000-token tied embedding), 7 of its 28 layers, bf16, seeded
+    weights; phase 4's requests and settings and checks.
 13. Forward gemma-7b: ``lm_apply(impl="pallas")`` over 2 of the prompts
-    (28 flash at D = 256, 57 RMSNorm launches), held as in phase 5.
-14. Train zamba2-2.7b: published widths and all 54 + 9 layers (2.62 B
-    params; ~47 GB peak reckoned: bf16 params, grads and fp32 moments
-    plus ~15 GB of activations, so no remat), ``SyntheticLM(32000, 1024,
+    (7 flash at D = 256, 15 RMSNorm launches), held as in phase 5.
+14. Train zamba2-2.7b: published widths at 2 of its 9 pattern repeats
+    (12 + 2 layers; the whole model, 2.62 B params, fits at ~47 GB
+    without remat), ``SyntheticLM(32000, 1024,
     2)``; phase 9's grad check with plain attention and the plain scan both
     swapped in (the plain and fp32 reference passes under remat "full",
     which gives the same grads, so that the plain scan's fp32
-    intermediates of 54 layers need not live at once), then 4 AdamW steps:
+    intermediates of every layer need not live at once), then 4 AdamW steps:
     flash, SSD and RMSNorm forward and backward, each as often as phase
     11 launches it, a step.
 
 15. Serve minitron-4b: published widths (d 3072, 24 heads of 128 over 8
-    KV heads, GQA ratio 3, untied 256,000-token embedding and head), all
-    32 layers, bf16, seeded weights; phase 4's requests, settings and
+    KV heads, GQA ratio 3, untied 256,000-token embedding and head), 8 of
+    its 32 layers, bf16, seeded weights; phase 4's requests, settings and
     checks.
-16. Forward minitron-4b (32 flash, 65 RMSNorm launches), held as in phase
+16. Forward minitron-4b (8 flash, 17 RMSNorm launches), held as in phase
     5.
 17. Serve command-r-plus-104b: published widths (d 12,288: RMSNorm at
     12,288; 96 heads of 128 over 8, GQA ratio 12; a tied 256,000-token
@@ -159,8 +162,8 @@ Phases, each of which fails the run (exit code 1) on any error:
     too, as in every train phase: this model runs no flash and no SSD)
     and steps; the loss adds the MTP term, RMSNorm and its backward run 8
     times a step (5 in the model, 3 in the MTP head).
-24. Serve whisper-medium: published widths and all 24 encoder and 24
-    decoder layers (d 1,024, 16 heads of 64, LayerNorm, GELU, attention
+24. Serve whisper-medium: published widths, all 24 encoder layers and 6
+    of its 24 decoder layers (``SERVE_LAYERS``; d 1,024, 16 heads of 64, LayerNorm, GELU, attention
     biases, a tied 51,865-token embedding), bf16, seeded weights; 8
     greedy requests of 384 prompt tokens (a 256-token chunk, then a
     padded one of 128) and 32 new within its 448-token decoder context,
@@ -173,7 +176,7 @@ Phases, each of which fails the run (exit code 1) on any error:
     frontends give the TTFT without the encoder.
 25. Forward whisper-medium: ``lm_apply(impl="pallas", frontend=...)`` over
     2 of the prompts and their frontends (the encoder in the forward):
-    exactly 24 flash launches at D = 64 and no RMSNorm, held against the
+    exactly 6 flash launches at D = 64 and no RMSNorm, held against the
     engine's paged prefill as in phase 5.
 26. Serve llama-3.2-vision-90b: published widths (d 8,192, 64 heads of 128
     over 8, GQA ratio 8, d_ff 28,672, 128,256-token vocabulary) at 5 of
@@ -189,7 +192,11 @@ Phases, each of which fails the run (exit code 1) on any error:
     1024) through the encoder; phase 8's grad check and steps: flash and
     its backward 24 times a step each, no RMSNorm.
 
-29. Sample qwen3-8b (after phase 5, on its weights): phase 4's requests at
+29. Sample qwen3-8b (after phase 5; this phase, 31 and 38 run qwen3-8b at
+    9 of its 36 layers, ``QWEN_CUT_LAYERS``, and stand beside
+    ``QWEN_CUT``, phase 4's requests, settings and checks at that depth,
+    served first, whose greedy tokens they read as "phase 4's" below;
+    depth only, for the script's time): phase 4's requests at
     temperature 0.8, top_k 50, top_p 0.95, request i with the seed 100 + i
     and logprobs (``SAMPLING``): (a) two engines give the same tokens and
     logprobs bit for bit; (b) top_k = 1 at temperature 1.5 gives phase 4's
@@ -225,10 +232,10 @@ Phases, each of which fails the run (exit code 1) on any error:
     the sanitizer is clean, every snapshot line parses, the trace
     validates and the Prometheus text parses back to the summary.
 32. Sample mamba2-780m (after phase 7): phase 6's requests in phase 29's
-    form, checks (a), (b) and (e), and 48 SSD launches a prefill chunk.
+    form, checks (a), (b) and (e), and 12 SSD launches a prefill chunk.
 
 33. Plan: ``AdaptiveScheduler(H100_SXM)`` (the port's H100 profile) plans
-    qwen3-8b at phase 8's 4 layers and shape on a 1 x 1 mesh, and the
+    qwen3-8b at phase 8's 2 layers and shape on a 1 x 1 mesh, and the
     whole model on (1, 1), which must come out infeasible (its training
     state is ~150 GB), (16, 16) and (2, 16, 16) (host-only planning);
     the DP / MP / HP baselines; ``ComponentProfiler`` times the
@@ -272,7 +279,7 @@ Phases, each of which fails the run (exit code 1) on any error:
     measured / predicted for the embedding, one attention, one MLP and
     the head (bf16).
 
-38. Placed serve qwen3-8b (after phase 31, on phase 4's weights):
+38. Placed serve qwen3-8b (after phase 31, on ``QWEN_CUT``'s weights):
     phase 4's requests and settings through ``ContinuousBatchingEngine``
     on a 1 x 1 ``DeviceMesh`` over a world-1 NCCL group
     (``make_host_mesh``): the ASA plan printed; every param and pool leaf
@@ -324,19 +331,19 @@ Phases, each of which fails the run (exit code 1) on any error:
     ``mla_dense`` layer and the MTP head, phase 23's cut, bf16,
     ``SyntheticLM(129280, 1024, 2)``): step 1 against the unplaced step
     as phase 40's, exact launches (8 RMSNorm forward and 8 backward a
-    step), the all-reduces and weight gathers of 3 steps.  Serve
+    step), the all-reduces and weight gathers of 2 steps.  Serve
     (``TP_MOE_SERVE``: 1 ``mla_dense`` + 1 ``mla`` layer with all 256
     experts, fp32, weights drawn matrix by matrix from ``TP_MOE_SEED``
     (``seeded_params``: each rank draws only its shards; the unplaced
     engine, rank 0's alone, runs and frees its 55.8 GB before the ranks
     place theirs; the MTP head, which serving never reads, left out), 2
-    requests of 128 prompt tokens, 4 new, chunk 128):
+    requests of 128 prompt tokens, 8 new, chunk 128):
     tokens equal the unplaced engine's, prefill logits within
     ``TP_LOGIT_TOL``, 9 RMSNorm launches a model call, every block
     ``tp_mla_block``, and the latent pools bit-equal across the ranks.
 
 42. HP on a multi-pod mesh, mamba2-780m (``POD_TRAIN``: published
-    widths, 4 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
+    widths, 2 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
     one sequence a rank): four processes on the one card over gloo on a
     (pod 2, data 2, model 1) mesh from ``init_device_mesh`` (``pod_rank``)
     under the uniform HP plan with int8 moments.  Every rank's shard of
@@ -353,10 +360,7 @@ Phases, each of which fails the run (exit code 1) on any error:
     ``Trainer.resize`` onto (data 4, model 1) keeping every value;
     ``compressed_allreduce`` of each rank's own step-1 gradient over the
     pod group (the error-feedback identity exactly, the mean within half
-    a quantum of the exact mean).  Then the probe (``probe_full_tensor``):
-    DTensor's own whole-tensor reads as the int8 step, ``Trainer.resize``
-    and the checkpoint store called them before this phase's port, on two
-    ranks of the card over gloo, each outcome printed.
+    a quantum of the exact mean).
 
 43. tracecheck on the card (``tracecheck_phase``): the five analyzers of
     ``repro_torch.analysis.tracecheck`` over qwen3-8b (all 36 layers) and
@@ -373,12 +377,13 @@ Phases, each of which fails the run (exit code 1) on any error:
     step kind, with a preemption, and launches each step's.  The sharding
     analyzer in a process of its own (``trace_sharding_rank``): qwen3-8b's
     pools on the reference's (data 4, model 2) mesh over a fake process
-    group of 8 ranks on the card; if torch refuses that group, the
-    refusal is printed and the analyzer runs on two ranks of the card
-    over gloo.  Each analyzer's seconds, the counts against the
-    prediction and the temp bytes beside the pools' are printed.
+    group of 8 ranks on the card; a refused group, a finding or any
+    error in that process fails the run.  Each analyzer's seconds, the
+    counts against the prediction and the temp bytes beside the pools'
+    are printed.
 
-The phases run in the order 1-5, 29-31, 38, 39, 6, 7, 32, 10-13, 15-22,
+The phases run in the order 1-5, ``QWEN_CUT``, 29-31, 38, 39, 6, 7, 32,
+10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
 trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41,
@@ -470,7 +475,11 @@ GRAD_NORM_REL_TOL = 2e-2
 ZERO_GRAD_LEAF = ".wk.b"
 ZERO_GRAD_REL_MAX = 1e-4
 
-TIMED_LAUNCHES = 20                # per kernel time, after 3 warm-up launches
+TIMED_LAUNCHES = 10                # per kernel time, after 3 warm-up launches
+# the dtypes whose kernel rows are timed; the fp32 rows are checked at
+# every shape, not timed, for the script's time (their times: PERF.md's
+# table, from the PRs that built the fp32 bodies)
+TIMED_DTYPES = ("bfloat16",)
 L2_FLUSH_BYTES = 64 << 20          # written before each call of a cold-L2 time
 # phases 29 and 32: phase 4's / 6's requests sampled at these settings,
 # request i with the seed SAMPLE_SEED + i
@@ -523,7 +532,13 @@ SERVE = {QWEN: _DENSE_SERVE, MAMBA: _SSM_SERVE, ZAMBA: _SSM_SERVE,
 GATE = 0.5
 # the serve cells' depth cuts: each segment's repeat (bf16, 2 bytes a
 # parameter; every width, expert count and vocabulary as published).
-# minitron-4b serves whole (5.1 B params, 10.2 GB). command-r-plus-104b:
+# qwen3-8b serves whole: phase 39's cluster serves the launcher's model,
+# whole, and must give phase 4's tokens.  mamba2-780m at 12 of its 48
+# layers, zamba2-2.7b at 2 of its 9 pattern repeats (2 applications of the
+# shared block, 12 mamba2 layers), gemma-7b at 7 of 28 and minitron-4b at
+# 8 of 32: depth only, for the script's time (a serve phase's time is the
+# host's launching of eager ops, which grows with depth; phase 43 runs
+# mamba2-780m whole).  command-r-plus-104b:
 # 1.573 B a layer (attention 327 M, MLP 3 x 12,288 x 33,792) and a tied
 # 256,000 x 12,288 embedding (3.1 B): 16 of 64 layers, 28.3 B = 56.6 GB.
 # deepseek-v3-671b: an mla layer 11.5 B (256 routed experts and 1 shared at
@@ -537,16 +552,26 @@ GATE = 0.5
 # llama-3.2-vision-90b: an attn or a cross_attn layer 0.856 B (attention
 # 151 M at 64 heads over 8, MLP 3 x 8,192 x 28,672 = 705 M), untied
 # 128,256 x 8,192 embedding and head 2.1 B: 5 of its 20 segments (4 attn
-# + 1 cross_attn each), 23.5 B = 47 GB.  whisper-medium serves whole
+# + 1 cross_attn each), 23.5 B = 47 GB.  whisper-medium at 6 of its 24
+# decoder layers, its encoder whole (24 layers)
 # (0.76 B params).
-SERVE_LAYERS = {CMDR: (16,), DEEPSEEK: (3, 2), ARCTIC: (2,), VISION: (5,)}
+SERVE_LAYERS = {MAMBA: (12,), ZAMBA: (2,), GEMMA: (7,), MINITRON: (8,),
+                CMDR: (16,), DEEPSEEK: (3, 2), ARCTIC: (2,), VISION: (5,),
+                WHISPER: (6,)}
+# phases 29, 31 and 38 serve qwen3-8b at 9 of its 36 layers, held against
+# the greedy tokens of a serve at that depth (``QWEN_CUT``, phase 4's
+# requests, settings and checks); phase 4 and phase 39 serve it whole
+QWEN_CUT_LAYERS = (9,)
+QWEN_CUT = f"serve {QWEN} ({QWEN_CUT_LAYERS[0]} layers)"
 FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
-# the train phases: qwen3-8b's widths at 4 of its 36 layers (bf16 params
+# the train phases: qwen3-8b's widths at 2 of its 36 layers (bf16 params
 # and grads plus fp32 moments take 12 bytes a parameter: 98 GB at 36
-# layers, 24 GB at 4); mamba2-780m whole (0.78 B params, ~12.5 GB of
-# state); zamba2-2.7b whole (2.62 B params: bf16 params and grads, fp32
-# moments and the step's fp32 grads ~42 GB, plus ~15 GB of activations at
-# 2 x 1024 tokens, ~47 GB at the peak, so no remat); AdamW on a cosine
+# layers, 19.6 GB at 2; phase 34's two checkpoints, 16.3 GB each, are
+# written to disk in the run's time); mamba2-780m at 12 of its 48 layers
+# and zamba2-2.7b at 2 of its 9 pattern repeats, depth only, for the
+# script's time (whole, 0.78 B params and ~12.5 GB of state, and 2.62 B
+# params, ~47 GB at the peak with ~15 GB of activations at 2 x 1024
+# tokens, both fit without remat); AdamW on a cosine
 # schedule, SyntheticLM batches (mamba2, zamba2: 8 scan chunks of 128 a
 # sequence, so the state passes between chunks).  ``check_remat``: the
 # remat of the grad check's plain and fp32 passes (the plain scan keeps
@@ -564,9 +589,9 @@ FORWARD_PROMPTS = 2                # batch of the lm_apply(impl="pallas") run
 # so no remat.  ``depth``: each segment's repeat (None: whole)
 _TRAIN = dict(batch=2, steps=4, peak_lr=3e-4, warmup=1, total=10,
               check_remat="none", depth=None)
-TRAIN = {QWEN: dict(_TRAIN, depth=(4,), seq_len=512),
-         MAMBA: dict(_TRAIN, seq_len=1024),
-         ZAMBA: dict(_TRAIN, seq_len=1024, check_remat="full"),
+TRAIN = {QWEN: dict(_TRAIN, depth=(2,), seq_len=512),
+         MAMBA: dict(_TRAIN, depth=(12,), seq_len=1024),
+         ZAMBA: dict(_TRAIN, depth=(2,), seq_len=1024, check_remat="full"),
          DEEPSEEK: dict(_TRAIN, depth=(1, 0), seq_len=512),
          WHISPER: dict(_TRAIN, seq_len=448)}
 KERNELS = ("rmsnorm", "rmsnorm_bwd", "rmsnorm_split", "rmsnorm_split_bwd",
@@ -664,7 +689,7 @@ TP_MOE_TRAIN = dict(TRAIN[DEEPSEEK], depth=(1, 0), seq_len=1024, steps=2)
 TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=8,
                     slots=2, max_len=256, block_size=16, prefill_chunk=128)
 TP_MOE_SEED = 0
-# phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 4 of
+# phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 2 of
 # its 48 layers (depth cut for the script's time), four processes on the card over gloo on a (pod 2, data 2,
 # model 1) mesh under the uniform HP plan with int8 moments: HP's ZeRO dim
 # ("data", "pod") and the moments' ("data", "model", "pod") laid out in the
@@ -673,14 +698,7 @@ TP_MOE_SEED = 0
 POD_NAME = f"pod {MAMBA}"
 POD_SHAPE = (2, 2, 1)                       # (pod, data, model)
 POD_AXES = ("pod", "data", "model")
-POD_TRAIN = dict(_TRAIN, depth=(4,), seq_len=1024, batch=4, steps=3)
-# the three paths that read a DTensor whole through DTensor's own
-# collectives until this phase's port routed them through
-# ``sharded.gather_full``: the int8-moment step, ``Trainer.resize`` and
-# the checkpoint store; each is probed as it called DTensor, on two ranks
-# of the card over gloo (``probe_rank``)
-PROBE_PATHS = ("int8 step", "resize", "store")
-PROBE_S = 120
+POD_TRAIN = dict(_TRAIN, depth=(2,), seq_len=1024, batch=4, steps=3)
 # phase 43, tracecheck on the card: the analyzers of
 # ``repro_torch.analysis.tracecheck`` over qwen3-8b (all 36 layers) and
 # mamba2-780m (all 48) at published widths, bf16: the static analyzers
@@ -706,11 +724,14 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def call_ms(fn, iters: int) -> float:
+def call_ms(fn, iters: int) -> float | None:
     """Time of one eager call: ``iters`` calls issued back to back from
     Python after 3 warm-up calls, CUDA events around them.  At small shapes
-    this is the rate at which the host issues calls, not device time."""
+    this is the rate at which the host launches calls, not device time.
+    None, and ``fn`` not called, for ``iters`` 0 (a row not timed)."""
     import torch
+    if not iters:
+        return None
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -724,15 +745,17 @@ def call_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int, replays: int = 5) -> float:
+def time_ms(fn, iters: int, replays: int = 5) -> float | None:
     """Device time of one call: ``iters`` calls captured in one CUDA graph
     (after 3 warm-up calls on a side stream), replayed once to warm up and
     then ``replays`` times, each between CUDA events; the median replay
     over ``iters``.  The replay takes the host's launch cost out, so a
     small kernel is timed on the device, not at Python's pace; the median
     keeps one slow replay (a clock change, a neighbour on the host) out of
-    the reading."""
+    the reading.  None for ``iters`` 0 (a row not timed)."""
     import torch
+    if not iters:
+        return None
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -757,11 +780,13 @@ def time_ms(fn, iters: int, replays: int = 5) -> float:
     return sorted(times)[replays // 2]
 
 
-def time_ms_cold(fn, iters: int, replays: int = 5) -> float:
+def time_ms_cold(fn, iters: int, replays: int = 5) -> float | None:
     """``time_ms`` with a cold L2: each captured call follows a write of
     ``L2_FLUSH_BYTES`` (more than the H100's 50 MB L2), which evicts the
     call's inputs; the flush's own time, captured alone, is subtracted."""
     import torch
+    if not iters:
+        return None
     buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                       device="cuda")
 
@@ -1080,6 +1105,8 @@ def bwd_share_ms(fwd, grad_out, iters):
     captured forward (``fwd`` returns the output and the inputs to
     differentiate; ``grad_out`` is the output's gradient)."""
     import torch
+    if not iters:
+        return None
 
     def both():
         out, inputs = fwd()
@@ -1108,15 +1135,15 @@ def flash_rows(torch, cases, iters, randn, dtypes):
             torch.cuda.synchronize()
             err, ok, tol = check_close(got, want, dn)
             ms = time_ms(lambda: ops.flash_attention(
-                q, k, v, scale=sc, causal=causal), iters)
+                q, k, v, scale=sc, causal=causal), iters[dn])
             eager = call_ms(lambda: ops.flash_attention(
-                q, k, v, scale=sc, causal=causal), iters)
+                q, k, v, scale=sc, causal=causal), iters[dn])
             plain_ms = time_ms(lambda: ref.flash_attention_ref(
-                q, k, v, scale=sc, causal=causal), iters)
+                q, k, v, scale=sc, causal=causal), iters[dn])
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=sc, enable_gqa=True),
-                iters)
+                iters[dn])
             nbytes, flops = flash_work(B, S, Tk, H, HKV, D, causal,
                                        q.element_size(), backward=False)
             rows.append(dict(
@@ -1130,7 +1157,11 @@ def flash_rows(torch, cases, iters, randn, dtypes):
     return rows
 
 
-def kernel_phase(torch, archs, iters):
+def kernel_phase(torch, archs, iters, secs):
+    """Every kernel case's row (phase 3), timed with ``iters[dtype name]``
+    calls a CUDA graph (0: checked, not timed); ``secs`` gets each group
+    of cases' seconds: each kernel's rows at the serve and forward shapes,
+    the backward rows, the tensor-parallel, ViT and TF32-edge rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1145,8 +1176,15 @@ def kernel_phase(torch, archs, iters):
                            dtype=torch.float32).to(dtype)
 
     dtypes = ((torch.bfloat16, "bfloat16"), (torch.float32, "float32"))
+
+    def group(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        secs[label] = secs.get(label, 0.0) + time.perf_counter() - t
+        return out
     for name, arch in archs.items():
         norm_cases, flash_cases, ssd_cases = served_cases(name, arch)
+        t_norm = time.perf_counter()
         for path, use, R, D in norm_cases:
             for dt, dn in dtypes:
                 x = randn(R, D, dtype=dt)
@@ -1155,12 +1193,12 @@ def kernel_phase(torch, archs, iters):
                 want = ref.rmsnorm_ref(x, scale)
                 torch.cuda.synchronize()
                 err, ok, tol = check_close(got, want, dn)
-                ms = time_ms(lambda: RN.rmsnorm(x, scale), iters)
-                cold = time_ms_cold(lambda: RN.rmsnorm(x, scale), iters)
-                eager = call_ms(lambda: RN.rmsnorm(x, scale), iters)
-                plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters)
+                ms = time_ms(lambda: RN.rmsnorm(x, scale), iters[dn])
+                cold = time_ms_cold(lambda: RN.rmsnorm(x, scale), iters[dn])
+                eager = call_ms(lambda: RN.rmsnorm(x, scale), iters[dn])
+                plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale), iters[dn])
                 lib_ms = (time_ms(lambda: F.rms_norm(x, (D,), scale, 1e-6),
-                                  iters) if hasattr(F, "rms_norm") else None)
+                                  iters[dn]) if hasattr(F, "rms_norm") else None)
                 nbytes, fl = rmsnorm_work(R, D, x.element_size(),
                                           scale.element_size())
                 flops = fl["float32"]
@@ -1171,23 +1209,31 @@ def kernel_phase(torch, archs, iters):
                     library_ms=lib_ms,
                     bytes=nbytes, flops=flops,
                     **bound(nbytes, {"float32": flops})))
+        secs["rmsnorm"] = (secs.get("rmsnorm", 0.0) + time.perf_counter()
+                           - t_norm)
 
-        rows += flash_rows(torch, flash_cases, iters, randn, dtypes)
+        rows += group("flash", flash_rows, torch, flash_cases, iters, randn,
+                      dtypes)
 
         if ssd_cases:
-            rows += ssd_rows(torch, arch.ssm, ssd_heads(arch), ssd_cases,
-                             iters, gen, dtypes)
+            rows += group("ssd_scan", ssd_rows, torch, arch.ssm,
+                          ssd_heads(arch), ssd_cases, iters, gen, dtypes)
     for name, arch in archs.items():
         if name in TRAIN:
-            rows += backward_rows(torch, name, arch, iters, gen, dtypes)
+            rows += group("backward", backward_rows, torch, name, arch,
+                          iters, gen, dtypes)
     # the shapes tensor parallelism on 2 ranks gives the kernels (phase 40)
-    rows += tp_rows(torch, archs, iters, gen, randn, dtypes)
+    rows += group("tp", tp_rows, torch, archs, iters, gen, randn, dtypes)
     # the paper's ViTs (phases 35 and 37) train through flash, bidirectional
-    rows += flash_rows(torch, VISION_FLASH, iters, randn, dtypes)
-    rows += flash_bwd_rows(torch, VISION_FLASH, iters, randn, dtypes)
+    rows += group("vision", flash_rows, torch, VISION_FLASH, iters, randn,
+                  dtypes)
+    rows += group("vision", flash_bwd_rows, torch, VISION_FLASH, iters,
+                  randn, dtypes)
     fp32 = ((torch.float32, "float32"),)
-    rows += flash_rows(torch, TF32_FLASH_EDGES, iters, randn, fp32)
-    rows += flash_bwd_rows(torch, TF32_FLASH_EDGES, iters, randn, fp32)
+    rows += group("tf32 edges", flash_rows, torch, TF32_FLASH_EDGES, iters,
+                  randn, fp32)
+    rows += group("tf32 edges", flash_bwd_rows, torch, TF32_FLASH_EDGES,
+                  iters, randn, fp32)
     return rows
 
 
@@ -1224,8 +1270,8 @@ def ssd_rows(torch, s, H, cases, iters, gen, dtypes):
                 shape=f"B={B} S={S} H={H} P={P} N={N} G={G} Q={Q}"
                       f"{' h0' if has_h0 else ''}",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(kernel, iters), call_ms=call_ms(kernel, iters),
-                plain_ms=time_ms(plain, iters), library_ms=None,
+                ms=time_ms(kernel, iters[dn]), call_ms=call_ms(kernel, iters[dn]),
+                plain_ms=time_ms(plain, iters[dn]), library_ms=None,
                 bytes=nbytes, flops=sum(flops.values()),
                 **bound(nbytes, flops)))
     return rows
@@ -1269,21 +1315,21 @@ def split_norm_rows(torch, cases, iters, gen, dtypes):
             isz = x.element_size()
             for name, (err, ok, tol), ms, plain_ms, nbytes, flops in (
                     ("rmsnorm_split", check_close(got, want.detach(), dn),
-                     time_ms(fwd, iters),
+                     time_ms(fwd, iters[dn]),
                      time_ms(lambda: ref.rmsnorm_split_ref(
-                         x, scale, d_total=2 * D), iters),
+                         x, scale, d_total=2 * D), iters[dn]),
                      2 * R * D * isz + D * isz + 8 * R, 4 * R * D),
                     ("rmsnorm_split_bwd",
-                     check_normwise(got_g, want_g, dn), time_ms(bwd, iters),
+                     check_normwise(got_g, want_g, dn), time_ms(bwd, iters[dn]),
                      time_ms(lambda: split_norm_bwd_plain(x, scale, g, 2 * D),
-                             iters),
+                             iters[dn]),
                      3 * R * D * isz + 2 * D * isz + 16 * R, 8 * R * D)):
                 rows.append(dict(
                     name=name, path=path, use=use,
                     shape=f"({R}, {D}) of {2 * D}", dtype=dn, ok=ok,
                     max_abs_err=err, tol=tol, ms=ms,
                     call_ms=call_ms(fwd if name == "rmsnorm_split" else bwd,
-                                    iters),
+                                    iters[dn]),
                     plain_ms=plain_ms, library_ms=None, bytes=nbytes,
                     flops=flops, **bound(nbytes, {"float32": flops})))
     return rows
@@ -1399,11 +1445,11 @@ def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes, H=None):
                       f"{' h0' if has_h0 else ''}"
                       f"{' dh_final' if has_dh else ''}",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(kernel, iters),
+                ms=time_ms(kernel, iters[dn]),
                 cold_ms=(None if path.startswith("edge")
-                         else time_ms_cold(kernel, iters)),
-                call_ms=call_ms(kernel, iters),
-                plain_ms=bwd_share_ms(plain, grad_out, iters),
+                         else time_ms_cold(kernel, iters[dn])),
+                call_ms=call_ms(kernel, iters[dn]),
+                plain_ms=bwd_share_ms(plain, grad_out, iters[dn]),
                 library_ms=None, bytes=nbytes, flops=sum(flops.values()),
                 **bound(nbytes, flops)))
     return rows
@@ -1458,12 +1504,12 @@ def flash_bwd_rows(torch, cases, iters, randn, dtypes):
                 shape=f"B={B} S={S} T={Tk} H={H} Hkv={HKV} D={D}"
                       f"{' causal' if causal else ''}",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(kernel, iters),
+                ms=time_ms(kernel, iters[dn]),
                 cold_ms=(None if path.startswith("edge")
-                         else time_ms_cold(kernel, iters)),
-                call_ms=call_ms(kernel, iters),
-                plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters),
-                library_ms=bwd_share_ms(lib, do.contiguous(), iters),
+                         else time_ms_cold(kernel, iters[dn])),
+                call_ms=call_ms(kernel, iters[dn]),
+                plain_ms=bwd_share_ms(plain, do.transpose(1, 2), iters[dn]),
+                library_ms=bwd_share_ms(lib, do.contiguous(), iters[dn]),
                 bytes=nbytes, flops=flops,
                 **bound(nbytes, flash_ops(dn, D, flops))))
     return rows
@@ -1506,12 +1552,12 @@ def backward_rows(torch, name, arch, iters, gen, dtypes):
             rows.append(dict(
                 name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
-                ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
+                ms=time_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters[dn]),
                 cold_ms=time_ms_cold(lambda: RN.rmsnorm_bwd(x, scale, g),
-                                     iters),
-                call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters),
-                plain_ms=bwd_share_ms(plain, g, iters),
-                library_ms=(bwd_share_ms(lib, g, iters)
+                                     iters[dn]),
+                call_ms=call_ms(lambda: RN.rmsnorm_bwd(x, scale, g), iters[dn]),
+                plain_ms=bwd_share_ms(plain, g, iters[dn]),
+                library_ms=(bwd_share_ms(lib, g, iters[dn])
                             if hasattr(F, "rms_norm") else None),
                 bytes=nbytes, flops=flops,
                 **bound(nbytes, {"float32": flops})))
@@ -1644,7 +1690,11 @@ def engine_kwargs(name):
                 prefill_chunk=st["prefill_chunk"])
 
 
-def serve_phase(torch, np, report, name, arch):
+def serve_phase(torch, np, report, name, arch, key=None):
+    """Model ``name`` (``arch``: its depth cut, if any) serving its cell's
+    greedy requests, checked, kept in ``report`` under ``key`` (default
+    ``serve <name>``) -> (params, prompts, frontends, the first-token
+    logits of the engine's own chunked prefill, each request's tokens)."""
     from repro_torch import tree
     from repro_torch.models import transformer as T
     from repro_torch.runtime import steps as ST
@@ -1762,7 +1812,7 @@ def serve_phase(torch, np, report, name, arch):
         del bare
     elif n_cross:
         enc_txt = f", cross-K/V written {scatter.calls} times"
-    report[f"serve {name}"] = serve
+    report[key or f"serve {name}"] = serve
     print(f"serve: {name}: {len(outs)} requests, {total} tokens in "
           f"{wall:.3f} s = {total / wall:.2f} tok/s, TTFT p50 "
           f"{s['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
@@ -1831,7 +1881,8 @@ def recording_sampler(np, ties):
     return make
 
 
-def sample_phase(torch, np, report, name, arch, params, prompts, greedy):
+def sample_phase(torch, np, report, name, arch, params, prompts, greedy,
+                 ref=None):
     """29. / 32. Phase 4's (6's) requests sampled at ``SAMPLING``, request
     i with the seed ``SAMPLE_SEED + i`` and logprobs: (a) two engines give
     the same tokens and logprobs bit for bit; (b) top_k = 1 at temperature
@@ -1852,6 +1903,7 @@ def sample_phase(torch, np, report, name, arch, params, prompts, greedy):
     from repro_torch.serving.scheduler import RequestScheduler
 
     st = SERVE[name]
+    src = ref or f"serve {name}"    # the greedy serve held against
     engine_kw = engine_kwargs(name)
 
     def sampled(i, **kw):
@@ -1936,7 +1988,7 @@ def sample_phase(torch, np, report, name, arch, params, prompts, greedy):
         for o, g in zip(mixed, greedy):
             if o.request_id != 1 and o.token_ids != g:
                 fail(f"sample {name}: greedy request {o.request_id} beside "
-                     f"a sampled one differs from phase 4's tokens")
+                     f"a sampled one differs from {src}'s tokens")
         stop = greedy[0][2]                                           # (d)
         cut = greedy[0][:greedy[0].index(stop) + 1]
         sched = RequestScheduler(max_tokens_in_flight=len(prompts[0])
@@ -1965,13 +2017,13 @@ def sample_phase(torch, np, report, name, arch, params, prompts, greedy):
         rep.update(preempt_blocks=PREEMPT_BLOCKS,
                    preemptions=peng.metrics.preemptions,
                    preempt_tokens_equal=same, stop_tokens=len(cut))
-        extra = (f"; greedy rows beside a sampled one equal phase 4's; stop "
+        extra = (f"; greedy rows beside a sampled one equal {src}'s; stop "
                  f"token {stop} after {len(cut)} tokens, blocks and budget "
                  f"freed; forced preemption ({PREEMPT_BLOCKS} blocks, "
                  f"{peng.metrics.preemptions} preemptions): every request "
                  f"finished, tokens equal to the ample run's by request "
                  f"{same} of {st['max_new']}")
-    g = report[f"serve {name}"]
+    g = report[src]
     report[f"sample {name}"] = rep
     print(f"sample: {name}: T={SAMPLING['temperature']} top_k="
           f"{SAMPLING['top_k']} top_p={SAMPLING['top_p']}: {rep['tokens']} "
@@ -2096,7 +2148,8 @@ def sampler_phase(torch, np, report, vocab):
           f"draw alone {noise_ms:.3f}), greedy {greedy_ms:.3f} ms")
 
 
-def observe_phase(torch, np, report, name, arch, params, prompts):
+def observe_phase(torch, np, report, name, arch, params, prompts,
+                  ref=None):
     """31. Phase 4's requests with a ``ChromeTracer`` alone (TPOT beside
     phase 4's, the trace validated), then with the tracer, a
     ``SnapshotWriter`` every ``SNAPSHOT_EVERY_S`` s, the ``StepMonitor``
@@ -2112,6 +2165,7 @@ def observe_phase(torch, np, report, name, arch, params, prompts):
     from repro_torch.serving.export import parse_prometheus_text
 
     st = SERVE[name]
+    src = ref or f"serve {name}"    # the greedy serve held against
     engine_kw = engine_kwargs(name)
 
     def requests():
@@ -2181,7 +2235,7 @@ def observe_phase(torch, np, report, name, arch, params, prompts):
             os_["engine_steps"]:
         fail(f"observe {name}: Prometheus text does not parse back to the "
              f"summary")
-    g = report[f"serve {name}"]
+    g = report[src]
     report[f"observe {name}"] = dict(
         wall_s=wall, tok_per_s=sum(o.n_tokens for o in outs) / wall,
         tpot_p50_s=s["tpot_p50_s"], ttft_p50_s=s["ttft_p50_s"],
@@ -2191,7 +2245,7 @@ def observe_phase(torch, np, report, name, arch, params, prompts):
         step_time_ema_s=os_["window"]["step_time_ema_s"],
         observed_trace_events=otrace["n_events"])
     print(f"observe: {name}: traced serve {wall:.3f} s, TPOT p50 "
-          f"{s['tpot_p50_s'] * 1e3:.2f} ms (phase 4 "
+          f"{s['tpot_p50_s'] * 1e3:.2f} ms ({src} "
           f"{g['tpot_p50_s'] * 1e3:.2f}), TTFT p50 "
           f"{s['ttft_p50_s'] * 1e3:.1f} ms, {trace['n_events']} trace events "
           f"valid; with snapshots every {SNAPSHOT_EVERY_S} s, StepMonitor "
@@ -2205,7 +2259,8 @@ def observe_phase(torch, np, report, name, arch, params, prompts):
           f"{os_['window']['step_time_ema_s'] * 1e3:.2f} ms")
 
 
-def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
+def placed_phase(torch, np, report, name, arch, params, prompts, greedy,
+                 ref=None):
     """38. Phase 4's weights, requests and settings through the engine on
     a 1 x 1 ``DeviceMesh`` over a world-1 NCCL group (``make_host_mesh``):
     the plan printed, params and pools DTensors on that mesh, tokens
@@ -2219,6 +2274,7 @@ def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
     from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
     st = SERVE[name]
+    src = ref or f"serve {name}"    # the greedy serve held against
     mesh = M.make_host_mesh(device="cuda")
     try:
         eng = ContinuousBatchingEngine(arch, params, mesh,
@@ -2246,7 +2302,7 @@ def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
         bad = [o.request_id for o in outs
                if o.token_ids != greedy[o.request_id]]
         if bad:
-            fail(f"placed {name}: requests {bad} differ from phase 4's "
+            fail(f"placed {name}: requests {bad} differ from {src}'s "
                  f"tokens")
         if counts["rmsnorm"] != forward_launches(arch)["rmsnorm"] * calls \
                 or counts["flash_attention"] != 0:
@@ -2267,11 +2323,11 @@ def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
         wall_again = time.perf_counter() - t0
         if [o.token_ids for o in outs] != greedy:
             fail(f"placed {name}: the unplaced engine's second run differs "
-                 f"from phase 4's tokens")
+                 f"from {src}'s tokens")
         s2 = again.metrics.summary()
         total = sum(o.n_tokens for o in outs)
         del again, outs
-        p4 = report[f"serve {name}"]
+        p4 = report[src]
         report[f"placed {name}"] = dict(
             plan=eng_plan, tokens=total, wall_s=wall,
             tok_per_s=total / wall, ttft_p50_s=s["ttft_p50_s"],
@@ -2285,13 +2341,13 @@ def placed_phase(torch, np, report, name, arch, params, prompts, greedy):
             unplaced_after_tpot_p50_s=s2["tpot_p50_s"])
         print(f"placed: {name} on a 1 x 1 mesh ({mesh.device_type}, world "
               f"{mesh.size()}): {len(greedy)} requests, tokens bit-equal to "
-              f"phase 4's, {total} tokens in {wall:.3f} s = "
-              f"{total / wall:.2f} tok/s (phase 4 {p4['tok_per_s']:.2f}, "
+              f"{src}'s, {total} tokens in {wall:.3f} s = "
+              f"{total / wall:.2f} tok/s ({src} {p4['tok_per_s']:.2f}, "
               f"unplaced after {total / wall_again:.2f}), TTFT p50 "
-              f"{s['ttft_p50_s'] * 1e3:.1f} ms (phase 4 "
+              f"{s['ttft_p50_s'] * 1e3:.1f} ms ({src} "
               f"{p4['ttft_p50_s'] * 1e3:.1f}, after "
               f"{s2['ttft_p50_s'] * 1e3:.1f}), TPOT p50 "
-              f"{s['tpot_p50_s'] * 1e3:.2f} ms (phase 4 "
+              f"{s['tpot_p50_s'] * 1e3:.2f} ms ({src} "
               f"{p4['tpot_p50_s'] * 1e3:.2f}, after "
               f"{s2['tpot_p50_s'] * 1e3:.2f}), launches {counts}, "
               f"{shared} of {len(tree.leaves(params))} param leaves placed "
@@ -3031,7 +3087,7 @@ def _component_fns(torch, arch, params):
 
 def plan_phase(torch, report, arch_full, card):
     """Phase 33: the ASA planner for the H100 (``H100_SXM``): qwen3-8b at
-    phase 8's 4 layers on a 1 x 1 mesh at phase 8's shape, the whole model
+    phase 8's 2 layers on a 1 x 1 mesh at phase 8's shape, the whole model
     on (1, 1) (it must come out infeasible: its training state does not
     fit one card), (16, 16) and (2, 16, 16) (host-only planning), the
     DP / MP / HP baselines; then ``ComponentProfiler`` times the
@@ -3052,7 +3108,8 @@ def plan_phase(torch, report, arch_full, card):
     sp = sched.plan(arch, shape, MeshShape(1, 1))
     print(sp.summary())
     if not sp.plan.feasible:
-        fail(f"plan: {arch.name} at 4 layers is infeasible on one H100")
+        fail(f"plan: {arch.name} at {arch.n_layers} layers is infeasible "
+             f"on one H100")
     whole = {}
     for ms in (MeshShape(1, 1), MeshShape(16, 16), MeshShape(16, 16, pod=2)):
         w = sched.plan(arch_full, shape, ms)
@@ -4422,14 +4479,10 @@ def spec_block(full, spec, sizes, coords):
 def pod_phase(torch, report, card):
     """42. HP on a multi-pod mesh, mamba2-780m: four processes on the card
     over gloo on a (pod 2, data 2, model 1) mesh (``pod_rank``); the
-    ranks' results printed and kept; then the probe of DTensor's own
-    whole-tensor reads on the same setup (``probe_full_tensor``)."""
+    ranks' results printed and kept."""
     res = _spawn_ranks(POD_NAME, 42, world=math.prod(POD_SHAPE),
                        fn=pod_rank)
     t = res["train"]
-    t0 = time.perf_counter()
-    res["probe"] = probe_full_tensor()
-    res["probe_s"] = time.perf_counter() - t0
     report[POD_NAME] = dict(res, launches=t["launches"])
     print(f"pod: {MAMBA} at {t['layers']} of 48 layers, "
           f"{math.prod(POD_SHAPE)} ranks of a (pod, data, model) = "
@@ -4453,10 +4506,6 @@ def pod_phase(torch, report, card):
           f"leaf; worst |mean - exact mean| {e['worst_err']:.3g} against "
           f"half a quantum {e['worst_bound']:.3g} at {e['worst_leaf']} "
           f"(largest share of the bound {e['worst_share']:.3f})")
-    for path, outcome in res["probe"].items():
-        print(f"pod: probe of DTensor's whole-tensor read as the {path} "
-              f"path called it (2 ranks, gloo over CUDA tensors): "
-              f"{outcome}")
 
 
 def pod_rank(rank, world, port, out, phase):
@@ -4765,94 +4814,6 @@ def pod_train(torch, np, mesh):
     return out
 
 
-def probe_rank(rank, world, port, out, path):
-    """Rank ``rank`` of two on card 0 over gloo: DTensor's whole-tensor
-    read as ``path`` (``PROBE_PATHS``) called it before phase 42's port
-    (int8 step: ``full_tensor()`` of int8 codes and of an fp32 gradient
-    from ``from_local``, then ``distribute_tensor``; resize:
-    ``full_tensor()`` then ``distribute_tensor``; store: ``full_tensor()``
-    of a bf16 leaf), each result held against ``sharded.gather_full``;
-    rank 0 writes ``out``/tp.json."""
-    sys.path.insert(0, str(SRC))
-    import torch
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import (DTensor, Replicate, Shard,
-                                          distribute_tensor)
-
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                      LOCAL_RANK="0")
-    from repro_torch.launch import mesh as M
-    from repro_torch.runtime import sharded as SD
-    M.init_world("cuda", backend="gloo")
-    mesh = init_device_mesh("cuda", (world, 1),
-                            mesh_dim_names=("data", "model"))
-    pl = (Shard(0), Replicate())
-    full = torch.arange(4096.0, device="cuda").reshape(16, 256)
-
-    def dt(x):
-        return DTensor.from_local(x.chunk(world)[rank].clone(), mesh, pl,
-                                  run_check=False, shape=x.shape,
-                                  stride=x.stride())
-    ok = True
-    try:
-        xs = {"int8 step": (full.to(torch.int8), full),
-              "resize": (full,), "store": (full.bfloat16(),)}[path]
-        for x in xs:
-            d = dt(x)
-            ok &= torch.equal(d.full_tensor(), SD.gather_full(
-                d.to_local(), mesh, pl))
-        if path != "store":
-            ok &= torch.equal(distribute_tensor(full, mesh, pl).to_local(),
-                              full.chunk(world)[rank])
-        torch.cuda.synchronize()
-    finally:
-        M.shutdown()
-    if rank == 0:
-        pathlib.Path(out, "tp.json").write_text(json.dumps({"equal": ok}))
-
-
-def probe_full_tensor():
-    """-> {path: outcome} of ``probe_rank`` for each of ``PROBE_PATHS``,
-    each on its own two processes, all three started together: "equal to
-    gather_full", "differs from gather_full", or how a rank ended (a
-    signal, such as the SIGSEGV that DTensor's functional all-gather
-    raises on gloo over CUDA tensors).  The port no longer takes these
-    calls; the probe records whether DTensor still faults."""
-    import shutil
-
-    import torch.multiprocessing as mp
-
-    runs = {}
-    for path in PROBE_PATHS:
-        out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_probe_"))
-        runs[path] = (out, mp.start_processes(
-            probe_rank, args=(2, _free_port(), str(out), path), nprocs=2,
-            join=False, start_method="spawn"))
-    outcome = {}
-    for path, (out, ctx) in runs.items():
-        deadline = time.perf_counter() + PROBE_S
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() > deadline:
-                    for proc in ctx.processes:
-                        proc.kill()
-                    outcome[path] = f"no result in {PROBE_S} s (killed)"
-                    break
-            else:
-                res = json.loads((out / "tp.json").read_text())
-                outcome[path] = ("equal to gather_full" if res["equal"]
-                                 else "differs from gather_full")
-        except mp.ProcessExitedException as e:     # the probed fault
-            outcome[path] = f"rank {e.error_index} ended: {e}"
-        except mp.ProcessRaisedException as e:
-            outcome[path] = f"raised: {str(e).strip().splitlines()[-1]}"
-        finally:
-            shutil.rmtree(out, ignore_errors=True)
-    return outcome
-
-
 def _step_launches(arch, kind):
     """Each kernel's launches in one serving step: a forward's norms
     (``forward_launches``) in a prefill chunk and a decode step, its scans
@@ -5091,10 +5052,22 @@ def main() -> int:
     seconds = {"build": rep["seconds"]}             # each phase's
     # 3. kernels vs their plain versions
     t0 = time.perf_counter()
-    rows = kernel_phase(torch, archs, TIMED_LAUNCHES)
+    group_s = {}
+    iters = {dn: TIMED_LAUNCHES if dn in TIMED_DTYPES else 0
+             for dn in ("bfloat16", "float32")}
+    rows = kernel_phase(torch, archs, iters, group_s)
     report["kernel_cases"] = rows
     report["kernel_phase_s"] = time.perf_counter() - t0
+    report["kernel_group_s"] = group_s
     for r in rows:
+        if r["ms"] is None:                 # checked, not timed
+            r.update(library_ratio=None, bound_share=None,
+                     cold_bound_share=None)
+            print(f"kernel {r['name']} [{r['path']}: {r['use']}] "
+                  f"{r['shape']} {r['dtype']}: "
+                  f"{'ok' if r['ok'] else 'MISMATCH'} max_abs_err "
+                  f"{r['max_abs_err']:.3g} (tol {r['tol']}), not timed")
+            continue
         # ms / library_ms (above 1: slower than the PyTorch call) and the
         # share of the bound reached, bound_ms / ms
         r["library_ratio"] = (None if r["library_ms"] is None
@@ -5116,7 +5089,9 @@ def main() -> int:
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
               f"{100 * r['bound_share']:.1f}% of it)")
     seconds["kernels"] = report["kernel_phase_s"]
-    print(f"kernels: {len(rows)} cases in {report['kernel_phase_s']:.1f} s")
+    print(f"kernels: {len(rows)} cases in {report['kernel_phase_s']:.1f} s"
+          f" (" + ", ".join(f"{k} {v:.1f}" for k, v in group_s.items())
+          + ")")
     bad = [f"{r['name']} {r['shape']} {r['dtype']}" for r in rows
            if not r["ok"]]
     if bad:
@@ -5125,7 +5100,7 @@ def main() -> int:
     # launches on each main path, each counted from 0 around its own run
     paths = [f"{p} {n}" for n in archs for p in ("serve", "forward")]
     paths += [f"sample {QWEN}", f"observe {QWEN}", f"sample {MAMBA}"]
-    paths += [f"placed {QWEN}", f"cluster {QWEN}"]
+    paths += [QWEN_CUT, f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
     paths += [TP_NAME, TP_MOE_NAME, POD_NAME, TRACE_NAME]
@@ -5147,18 +5122,30 @@ def main() -> int:
             timed(f"forward {name}", forward_phase, torch, np, report, name,
                   arch, params, prompts, fronts,
                   None if arch.moe else ref_logits)
+            # the model, weights and greedy tokens phases 29-32 and 38 run
+            # on: qwen3-8b's at QWEN_CUT_LAYERS, served first
+            follow = (arch, params, greedy, None)
+            if name == QWEN:
+                cut = cut_depth(arch, QWEN_CUT_LAYERS)
+                p_cut, _, _, _, g_cut = timed(
+                    QWEN_CUT, serve_phase, torch, np, report, name, cut,
+                    key=QWEN_CUT)
+                follow = (cut, p_cut, g_cut, QWEN_CUT)
+                del p_cut
+            f_arch, f_params, f_greedy, ref = follow
             if name in (QWEN, MAMBA):
                 # 29./32. sampled serves; 30. the sampler; 31. observed
                 timed(f"sample {name}", sample_phase, torch, np, report,
-                      name, arch, params, prompts, greedy)
+                      name, f_arch, f_params, prompts, f_greedy, ref=ref)
             if name == QWEN:
                 timed("sampler", sampler_phase, torch, np, report,
                       arch.vocab)
                 timed(f"observe {name}", observe_phase, torch, np, report,
-                      name, arch, params, prompts)
+                      name, f_arch, f_params, prompts, ref=ref)
                 # 38. the engine placed on a 1 x 1 mesh
                 timed(f"placed {name}", placed_phase, torch, np, report,
-                      name, arch, params, prompts, greedy)
+                      name, f_arch, f_params, prompts, f_greedy, ref=ref)
+            del follow, f_params
             if args.profile:
                 timed(f"profile {name}", profile_phase, torch, report, name,
                       arch, params, prompts, fronts)
