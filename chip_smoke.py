@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py                 # everything (~11 minutes on an H100)
+    python3 chip_smoke.py                 # everything (~13 minutes on an H100)
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --out run.json  # also write every number to JSON
     python3 chip_smoke.py --profile       # plus a traced serve of each model
@@ -382,12 +382,51 @@ Phases, each of which fails the run (exit code 1) on any error:
     counts against the prediction and the temp bytes beside the pools'
     are printed.
 
-The phases run in the order 1-5, ``QWEN_CUT``, 29-31, 38, 39, 6, 7, 32,
+44. Contiguous decode (``decode_phase``), right after each model's
+    forward on its weights: qwen3-8b (all 36 layers) and mamba2-780m (12
+    of 48), bf16, ``impl="pallas"``, 2 of phase 4's / 6's prompts
+    (``DECODE``: 512 / 500 tokens), a contiguous cache of 1024 rows
+    (``transformer.init_cache``), one ``make_prefill_step`` call, then 32
+    greedy ``make_decode_step`` calls.  (a) Each step's logits against
+    one ``lm_apply`` forward without a cache over the prompt and the
+    tokens so far, within FORWARD_REL_TOL of max |logit|; (b) the same
+    steps, fed the same tokens, with the plain RMSNorm and SSD scan
+    patched in, within the same bound; (c) exact launches a step: the
+    prefill and every decode step ``forward_launches`` RMSNorm, the
+    prefill one SSD scan a mamba2 layer and a decode step none, no flash
+    (the reference attends plainly over a cache); (d) the greedy tokens
+    against phase 4's / 6's paged tokens (printed, with the first
+    divergence; bf16 rounds a 64-token chunked prefill otherwise than one
+    prefill, so it does not fail).  The prefill's ms and the decode's
+    tok/s (CUDA events) are printed beside the paged serve's.
+
+45. Dry run (``dryrun_start``, ``dryrun_phase``): ``python -m
+    repro_torch.launch.dryrun`` in child processes, each cell on a fake
+    process group of 256 ranks with fake CUDA tensors (``DRYRUN_CELLS``:
+    qwen3-8b x train_4k and x decode_32k, mamba2-780m x long_500k, 16 x
+    16), all three at once, started before the build and read after it:
+    every cell ``ok``, its counted FLOPs, bytes and kernel calls equal to
+    the CPU's (``DRYRUN_CPU_COST``, which the CPU tests hold to the CPU's
+    count); memory and collectives printed.  The dry run drives no kernel
+    and no device work: it has no launch count.
+
+46. The examples' twins (``examples_phase``):
+    ``repro_torch.examples.serve_lm`` (the legacy ``Server`` shim, then
+    ``--share-prefix``: a hit rate above 0), ``serve_continuous`` (every
+    request finished, every token streamed, logprobs on the sampled
+    ones), ``serve_hybrid_archs`` (zamba2 and whisper, frontends on every
+    other request) and ``adaptive_switch`` (the plans before and after
+    calibration; the Trainer on a world-1 NCCL mesh re-planning at steps
+    20, 40 and 60 with losses bit-equal, under deterministic algorithms,
+    to the same Trainer's with ``replan_every=0``), on the card.
+
+The phases run in the order 1-5, 44, ``QWEN_CUT``, 29-31, 38, 39, 6, 7,
+44, 32,
 10-13, 15-22,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
 trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41,
-42, 43; each
+42, 43, then 46 while 45's processes trace; each
 phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
@@ -707,6 +746,36 @@ POD_TRAIN = dict(_TRAIN, depth=(2,), seq_len=1024, batch=4, steps=3)
 # 2, max_len 48, block 4, 13 blocks, chunk 8), the sharding analyzer over
 # qwen3-8b's pools on the reference's (data 4, model 2) mesh in a process
 # of its own
+# 44. the contiguous decode cache: phase 4's / 6's first prompts
+DECODE = dict(batch=2, max_len=1024, steps=32)
+DECODE_TRACED = 4          # decode steps traced with --profile
+DECODE_ARCHS = (QWEN, MAMBA)
+# 45. the dry run's cells (16 x 16, a fake group of 256 ranks)
+DRYRUN_CELLS = ((QWEN, "train_4k"), (QWEN, "decode_32k"),
+                (MAMBA, "long_500k"))
+DRYRUN_NAME = "dryrun"
+DRYRUN_TIMEOUT_S = 600
+# each cell's counted cost with fake CPU tensors (``python -m
+# repro_torch.launch.dryrun --arch A --shape S --no-save --device cpu``;
+# tests/test_torch_dryrun*.py hold these to the CPU's count): the card's
+# count must equal it
+DRYRUN_CPU_COST = {
+    (QWEN, "train_4k"): {
+        "flops": 267676790292480, "bytes": 3338592198348,
+        "kernel_calls": {"rmsnorm": 289, "rmsnorm_bwd": 145}},
+    (QWEN, "decode_32k"): {
+        "flops": 275732234240, "bytes": 953248004308,
+        "kernel_calls": {"rmsnorm": 145}},
+    (MAMBA, "long_500k"): {
+        "flops": 1597347840, "bytes": 5967407128,
+        "kernel_calls": {"rmsnorm": 97}},
+}
+# the run's limit, and how much slower a host has run the whole script
+# than the fastest seen: more than 1.29x (its host-bound phases up to
+# 1.6x; PERF.md section 7)
+TIME_LIMIT_S = 1200
+SLOW_HOST = 1.3
+EXAMPLES_NAME = "examples"
 TRACE_NAME = "tracecheck"
 TRACE_ARCHS = (QWEN, MAMBA)
 TRACE_STATIC = ("donation", "host-transfer", "cost-drift")
@@ -865,45 +934,6 @@ def ptxas_report(txt):
             regs = line.split(":", 1)[-1].strip()
             out.append((kernel, regs, spill))
     return out
-
-
-def ssd_bwd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0,
-                 has_dh):
-    """(bytes, flops by type) of the scan's backward, counted as
-    ``ssd_work`` counts the forward: each input (x, B, C, dt, a, h0, dy,
-    dh_final) read once and each gradient written once; every product on
-    the bf16 tensor cores, over the causal triangle of each chunk's real
-    rows.  Once per group: C.B^T, and the intra terms of dB and dC (Mbar^T C
-    and Mbar B, where Mbar sums the heads' dS o L diag(dt) first); per head:
-    dS = dy.x^T and dx's intra term K^T dy, and five products of the
-    state's size (the chunk states and the dy.C sums again, dh B_j, dh^T
-    x_j, h^T dy_i; dcum's state term C_i.(h^T dy_i) reuses dC's h^T dy_i).
-    A product counts once per bf16 product it takes: an fp32 factor goes
-    in as hi + lo, so twice with one fp32 factor and three times (hi.hi +
-    hi.lo + lo.hi) with two; with fp32 inputs every product has two.  This
-    is the function's least work, not the kernel's: the bf16 body also
-    takes C.h^T for dcum (2 products) and dh^T x_j with x scaled into fp32
-    first (3, not 2)."""
-    cb = mbar = tri_p = st = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        cb += B * G * 2 * tri * N
-        mbar += B * G * 2 * (2 * tri * N)
-        tri_p += B * H * 2 * tri * P
-        st += B * H * 2 * q * N * P
-    if dtype_name == "bfloat16":
-        # dS 2, K^T dy 3; s_c 2, u_c 2, dh B_j 2, dh^T x_j 2, h^T dy_i 3
-        ops = cb + 2 * mbar + 5 * tri_p + 11 * st
-    else:
-        ops = 3 * (cb + mbar + 2 * tri_p + 5 * st)
-    flops = {"bfloat16": ops}
-    state = B * H * P * N * 4
-    nbytes = (2 * (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
-                   + 2 * B * S * H * 4)
-              + B * S * H * P * 4 + state * (2 if has_h0 else 0)
-              + (state if has_dh else 0))
-    return nbytes, flops
 
 
 def _kinds(arch):
@@ -1405,7 +1435,7 @@ def ssd_backward_rows(torch, arch, cases, iters, gen, dtypes, H=None):
     ``ref.ssd_scan_ref``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.kernels.work import bound
+    from repro_torch.kernels.work import bound, ssd_bwd_work
 
     rows = []
     for path, B, S, G, has_h0, has_dh in cases:
@@ -1522,7 +1552,7 @@ def backward_rows(torch, name, arch, iters, gen, dtypes):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
-    from repro_torch.kernels.work import bound
+    from repro_torch.kernels.work import bound, rmsnorm_bwd_work
 
     rows = []
 
@@ -1546,9 +1576,9 @@ def backward_rows(torch, name, arch, iters, gen, dtypes):
 
             def lib():
                 return F.rms_norm(xr, (D,), sr, 1e-6), (xr, sr)
-            nbytes = 3 * R * D * x.element_size() \
-                + 2 * D * scale.element_size()
-            flops = 8 * R * D
+            nbytes, fl = rmsnorm_bwd_work(R, D, x.element_size(),
+                                          scale.element_size())
+            flops = fl["float32"]
             rows.append(dict(
                 name="rmsnorm_bwd", path=path, use=use, shape=f"({R}, {D})",
                 dtype=dn, ok=ok, max_abs_err=err, tol=tol,
@@ -5000,6 +5030,297 @@ def trace_sharding_rank(rank, world, port, out, phase):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
 
 
+def _decode_run(torch, T, ST, arch, params, prompts, feed=None):
+    """One contiguous prefill of ``prompts`` (B, S) then DECODE["steps"]
+    greedy decode steps -> (each step's logits (steps+1, B, V) fp32, the
+    tokens fed or picked (B, steps+1), the launches of each step, prefill
+    ms, decode ms; both between CUDA events).  ``feed``: tokens to feed
+    instead of the argmax (a teacher-forced rerun)."""
+    B = prompts.shape[0]
+    cache = T.init_cache(arch, B, DECODE["max_len"], device="cuda")
+    prefill = ST.make_prefill_step(arch, impl="pallas")
+    decode = ST.make_decode_step(arch, impl="pallas")
+    logits, toks, launches = [], [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.no_grad():
+        reset_counts()
+        ev[0].record()
+        last, cache = prefill(params, cache, prompts)
+        ev[1].record()
+        launches.append(read_counts())
+        for i in range(DECODE["steps"] + 1):
+            logits.append(last[:, :arch.vocab].float())
+            nxt = (feed[:, i] if feed is not None
+                   else torch.argmax(logits[-1], dim=-1))
+            toks.append(nxt)
+            if i == DECODE["steps"]:
+                break
+            reset_counts()
+            last, cache = decode(params, cache, nxt[:, None].int())
+            launches.append(read_counts())
+        ev[2].record()
+    torch.cuda.synchronize()
+    return (torch.stack(logits), torch.stack(toks, 1), launches,
+            ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+
+
+def _decode_traced(torch, T, ST, name, arch, params, tokens):
+    """One contiguous prefill of ``tokens``, then DECODE_TRACED greedy
+    decode steps, each window under ``traced`` -> {"profile_prefill": ..,
+    "profile_decode": ..}."""
+    cache = T.init_cache(arch, tokens.shape[0], DECODE["max_len"],
+                         device="cuda")
+    prefill = ST.make_prefill_step(arch, impl="pallas")
+    decode = ST.make_decode_step(arch, impl="pallas")
+    state = {}
+
+    def pre():
+        state["last"], state["cache"] = prefill(params, cache, tokens)
+
+    def dec():
+        for _ in range(DECODE_TRACED):
+            nxt = torch.argmax(state["last"][:, :arch.vocab], dim=-1)
+            state["last"], state["cache"] = decode(params, state["cache"],
+                                                   nxt[:, None].int())
+    with torch.no_grad():
+        return {"profile_prefill": traced(torch, f"decode prefill {name}",
+                                          pre),
+                "profile_decode": traced(torch, f"decode {DECODE_TRACED} "
+                                         f"steps {name}", dec)}
+
+
+def decode_phase(torch, np, report, name, arch, params, prompts, greedy,
+                 profile=False):
+    """44. The contiguous decode cache on ``arch`` (this model's serve
+    depth and weights): ``make_prefill_step`` over DECODE["batch"] of the
+    serve cell's prompts, then DECODE["steps"] greedy ``make_decode_step``
+    calls; checks (a)-(c) of the module docstring fail the run, (d) is
+    printed.  With ``profile``, one more prefill and DECODE_TRACED decode
+    steps are traced (``traced``: the device's busy share, time by kernel
+    and by operator)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import steps as ST
+
+    B, n = DECODE["batch"], DECODE["steps"]
+    tokens = torch.as_tensor(np.stack(prompts[:B]), device="cuda")
+    S = tokens.shape[1]
+    logits, toks, launches, pre_ms, dec_ms = _decode_run(
+        torch, T, ST, arch, params, tokens)
+    fl = forward_launches(arch)
+    want_pre = {k: 0 for k in KERNELS}
+    want_pre.update(rmsnorm=fl["rmsnorm"], ssd_scan=fl["ssd_scan"])
+    want_dec = dict(want_pre, ssd_scan=0)
+    if launches[0] != want_pre:
+        fail(f"decode {name}: prefill launches {launches[0]}, want "
+             f"{want_pre}")
+    bad = [i for i, c in enumerate(launches[1:], 1) if c != want_dec]
+    if bad:
+        fail(f"decode {name}: decode step {bad[0]} launches "
+             f"{launches[bad[0]]}, want {want_dec}")
+    total = {k: sum(c[k] for c in launches) for k in KERNELS}
+    if not torch.isfinite(logits).all():
+        fail(f"decode {name}: logits not finite")
+    # (a) one forward without a cache over the prompt and the tokens fed
+    seq = torch.cat([tokens, toks[:, :n].to(tokens.dtype)], dim=1)
+    with torch.no_grad():
+        full = T.lm_apply(params, arch, seq, impl="pallas").logits
+    want = full[:, S - 1:, :arch.vocab].float().transpose(0, 1)
+    del full
+
+    def worst(got, ref_):
+        # per step: max |diff| against FORWARD_REL_TOL * max |logit|
+        err = (got - ref_).abs().amax(dim=(1, 2))
+        tol = FORWARD_REL_TOL * ref_.abs().amax(dim=(1, 2))
+        return float((err / tol).max()), float(err.max()), \
+            [i for i, ok in enumerate((err <= tol).tolist()) if not ok]
+    ratio_a, err_a, bad_a = worst(logits, want)
+    # (b) the same steps, the same tokens, the plain kernels
+    with mock.patch.object(ops, "rmsnorm", ref.rmsnorm_ref), \
+            mock.patch.object(ops, "ssd_scan", ref.ssd_scan_ref):
+        plain, _, _, _, _ = _decode_run(torch, T, ST, arch, params, tokens,
+                                        feed=toks)
+    ratio_b, err_b, bad_b = worst(logits, plain)
+    # (d) the greedy tokens against the paged serve's
+    paged = np.asarray([g[:n] for g in greedy[:B]])
+    mine = toks[:, :n].cpu().numpy()
+    agree = float((paged == mine).mean())
+    first = [int(np.argmax(r != p)) if (r != p).any() else None
+             for r, p in zip(mine, paged)]
+    sv = report[f"serve {name}"]
+    tok_s = B * n / (dec_ms / 1e3)
+    report[f"decode {name}"] = dict(
+        batch=B, prompt_len=S, max_len=DECODE["max_len"], steps=n,
+        prefill_ms=pre_ms, decode_ms=dec_ms, decode_tok_per_s=tok_s,
+        launches=total, prefill_launches=launches[0],
+        decode_step_launches=launches[1], max_abs_err_forward=err_a,
+        tol_share_forward=ratio_a, max_abs_err_plain=err_b,
+        tol_share_plain=ratio_b, paged_agreement=agree,
+        first_divergence=first, paged_tok_per_s=sv["tok_per_s"],
+        paged_ttft_p50_s=sv["ttft_p50_s"], paged_tpot_p50_s=sv["tpot_p50_s"])
+    print(f"decode: {name}: contiguous cache B={B} S={S} max_len "
+          f"{DECODE['max_len']}, prefill {pre_ms:.2f} ms, {n} decode steps "
+          f"in {dec_ms:.2f} ms = {tok_s:.1f} tok/s (the paged serve: "
+          f"{sv['tok_per_s']:.2f} tok/s over 8 requests, TTFT p50 "
+          f"{sv['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{sv['tpot_p50_s'] * 1e3:.2f} ms); launches prefill "
+          f"{launches[0]}, each decode step {launches[1]}; logits vs the "
+          f"forward: max |diff| {err_a:.4g} ({100 * ratio_a:.1f}% of the "
+          f"bound), vs the plain kernels {err_b:.4g} "
+          f"({100 * ratio_b:.1f}%); greedy tokens vs the paged serve's: "
+          f"{100 * agree:.1f}% agree, first divergence {first}")
+    if profile:
+        report[f"decode {name}"].update(_decode_traced(
+            torch, T, ST, name, arch, params, tokens))
+    if bad_a:
+        fail(f"decode {name}: steps {bad_a} differ from the forward by more "
+             f"than {FORWARD_REL_TOL} of max |logit|")
+    if bad_b:
+        fail(f"decode {name}: steps {bad_b} differ from the plain kernels "
+             f"by more than {FORWARD_REL_TOL} of max |logit|")
+
+
+def dryrun_start():
+    """45, started: the dry run's cells (``DRYRUN_CELLS``) in child
+    processes, each on a fake process group of 256 ranks with fake CUDA
+    tensors, all at once -> (their processes, the start time).  They hold
+    host cores and no device memory: ``main`` starts them before the
+    build."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--no-save", "--device", "cuda"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=str(ROOT))
+    return procs, time.perf_counter()
+
+
+def dryrun_phase(torch, report, card, pending):
+    """45. The dry run's records, ``pending`` from ``dryrun_start``: every
+    cell ``ok`` and its counted cost (FLOPs, bytes, kernel calls) equal
+    to the CPU's, ``DRYRUN_CPU_COST``."""
+    procs, t0 = pending
+    recs, errors = {}, []
+    for key, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            errors.append(f"{key}: over {DRYRUN_TIMEOUT_S} s")
+            continue
+        rec = [json.loads(l[7:]) for l in out.splitlines()
+               if l.startswith("record ")]
+        if p.returncode != 0 or not rec or rec[0]["status"] != "ok":
+            errors.append(f"{key}: exit {p.returncode}, "
+                          f"{rec[0].get('error') if rec else err[-1500:]}")
+            continue
+        recs[key] = rec[0]
+    if errors:
+        fail(f"{DRYRUN_NAME}: {errors}")
+    res = {}
+    for arch, shape in DRYRUN_CELLS:
+        gpu, cpu = recs[(arch, shape)], DRYRUN_CPU_COST[(arch, shape)]
+        if gpu["cost"] != cpu:
+            fail(f"{DRYRUN_NAME} {arch} x {shape}: the card's count "
+                 f"{gpu['cost']} != the CPU's {cpu}")
+        res[f"{arch} x {shape}"] = {
+            k: gpu[k] for k in ("method", "microbatches", "memory", "cost",
+                                "collectives", "model_flops", "trace_s")}
+        coll = {k: (v["count"], v["bytes"]) for k, v in
+                gpu["collectives"].items() if isinstance(v, dict)}
+        print(f"{DRYRUN_NAME}: {arch} x {shape} on 16x16 ({gpu['method']}, "
+              f"mb {gpu['microbatches']}): ok, traced in "
+              f"{gpu['trace_s']:.1f} s; memory a rank {gpu['memory']}; "
+              f"cost flops {gpu['cost']['flops']} bytes "
+              f"{gpu['cost']['bytes']} (equal to the CPU's), kernel calls "
+              f"{gpu['cost']['kernel_calls']}; collectives (count, bytes "
+              f"from the other ranks) {coll}; model flops "
+              f"{gpu['model_flops']:.4g}")
+    report[DRYRUN_NAME] = dict(res, s=time.perf_counter() - t0)
+    print(f"{DRYRUN_NAME}: {len(procs)} processes done "
+          f"{report[DRYRUN_NAME]['s']:.1f} s after their start")
+
+
+def examples_phase(torch, report, card):
+    """46. The four example twins' functions on the card, each checked as
+    its CPU test checks what does not need the reference."""
+    import warnings
+
+    from repro_torch.configs import get_arch, reduce_for_smoke
+    from repro_torch.examples import adaptive_switch as AS
+    from repro_torch.examples import serve_continuous as SC
+    from repro_torch.examples import serve_hybrid_archs as SH
+    from repro_torch.examples import serve_lm as SL
+
+    res = {}
+    reset_counts()
+    legacy = SL.main(["--device", "cuda"])
+    if len(legacy) != 10 or any(len(r.out_tokens) != 12 for r in legacy):
+        fail(f"{EXAMPLES_NAME}: serve_lm legacy: {len(legacy)} requests")
+    outs, s, stats = SL.main(["--device", "cuda", "--share-prefix"])
+    if not s["prefix_hit_rate"] > 0 or \
+            any(o.finish_reason != "length" for o in outs):
+        fail(f"{EXAMPLES_NAME}: serve_lm --share-prefix: hit rate "
+             f"{s['prefix_hit_rate']}, {[o.finish_reason for o in outs]}")
+    res["serve_lm"] = dict(prefix_hit_rate=s["prefix_hit_rate"],
+                           prefill_chunks=s["prefill_chunks"])
+    outs, s, streamed = SC.main(["--device", "cuda"])
+    if (len(outs) != 10 or any(o.finish_reason != "length" for o in outs)
+            or len(streamed) != s["total_tokens"]
+            or any((o.logprobs is None) != (o.request_id % 2 == 0)
+                   for o in outs)):
+        fail(f"{EXAMPLES_NAME}: serve_continuous: {len(outs)} outputs, "
+             f"{len(streamed)} of {s['total_tokens']} tokens streamed")
+    res["serve_continuous"] = dict(tokens=s["total_tokens"],
+                                   decode_steps=s["decode_steps"])
+    for (outs, s, fe), front in zip(SH.main(["--device", "cuda"]),
+                                    (set(), {0, 2, 4, 6})):
+        if len(outs) != 8 or fe != front or \
+                any(o.finish_reason != "length" for o in outs):
+            fail(f"{EXAMPLES_NAME}: serve_hybrid_archs: {len(outs)} "
+                 f"outputs, frontends {fe}")
+    res["serve_hybrid_archs"] = "ok"
+    rows = AS.plan_shift_demo()
+    if len(rows) != 4 or rows[3]["time"] == rows[2]["time"]:
+        fail(f"{EXAMPLES_NAME}: plan_shift_demo: {rows}")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            hist, replans = AS.live_replan_demo("cuda")
+            base, _ = AS.live_replan_demo("cuda", replan_every=0)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    losses = [m["loss"] for m in hist]
+    if not {20, 40, 60} <= set(replans) or \
+            losses != [m["loss"] for m in base] or \
+            not losses[-1] < losses[0]:
+        fail(f"{EXAMPLES_NAME}: live_replan_demo re-planned at {replans}, "
+             f"losses {losses[:3]}...{losses[-1:]} vs "
+             f"{[m['loss'] for m in base][:3]}")
+    res["adaptive_switch"] = dict(
+        plans=[(r["shape"], r["method"], r["time"]) for r in rows],
+        replans=replans, first_loss=losses[0], last_loss=losses[-1],
+        step_ms_median=sorted(m["step_time_s"] for m in hist)[30] * 1e3)
+    res["launches"] = read_counts()
+    print(f"{EXAMPLES_NAME}: serve_lm (10 legacy requests; shared prefix "
+          f"hit rate {res['serve_lm']['prefix_hit_rate']:.2f}), "
+          f"serve_continuous ({res['serve_continuous']}), "
+          f"serve_hybrid_archs (zamba2, whisper), adaptive_switch (plans "
+          f"{res['adaptive_switch']['plans']}; re-planned at {replans}, "
+          f"losses bit-equal to replan_every=0, {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, median step "
+          f"{res['adaptive_switch']['step_ms_median']:.1f} ms) on the card; "
+          f"launches {res['launches']}")
+    report[EXAMPLES_NAME] = res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5034,6 +5355,21 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
           f"float32 matmul and cuDNN")
 
+    # 45. the dry run's cells start now, in child processes that hold host
+    # cores and no device memory, while the kernels build; none outlives
+    # the script
+    pending = None if args.kernels_only else dryrun_start()
+    try:
+        return _run(args, torch, np, card, t_start, pending)
+    finally:
+        for p in (pending[0].values() if pending else ()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _run(args, torch, np, card, t_start, pending) -> int:
+    """``main`` from the build on; ``pending`` from ``dryrun_start``."""
     # 2. build
     from repro_torch.kernels import build
     rep = build.build()
@@ -5050,6 +5386,11 @@ def main() -> int:
     archs = {n: get_arch(n) for n in SERVE}
     report = {"card": card, "build_s": rep["seconds"]}
     seconds = {"build": rep["seconds"]}             # each phase's
+    if pending is not None:
+        # 45. the dry run's records (the seconds its processes added)
+        t0 = time.perf_counter()
+        dryrun_phase(torch, report, card, pending)
+        seconds[DRYRUN_NAME] = time.perf_counter() - t0
     # 3. kernels vs their plain versions
     t0 = time.perf_counter()
     group_s = {}
@@ -5104,6 +5445,8 @@ def main() -> int:
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
     paths += [TP_NAME, TP_MOE_NAME, POD_NAME, TRACE_NAME]
+    paths += [f"decode {n}" for n in DECODE_ARCHS]
+    paths += [EXAMPLES_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
 
     def timed(label, fn, *a, **kw):
@@ -5122,6 +5465,11 @@ def main() -> int:
             timed(f"forward {name}", forward_phase, torch, np, report, name,
                   arch, params, prompts, fronts,
                   None if arch.moe else ref_logits)
+            if name in DECODE_ARCHS:
+                # 44. the contiguous decode cache on the same weights
+                timed(f"decode {name}", decode_phase, torch, np, report,
+                      name, arch, params, prompts, greedy,
+                      profile=args.profile)
             # the model, weights and greedy tokens phases 29-32 and 38 run
             # on: qwen3-8b's at QWEN_CUT_LAYERS, served first
             follow = (arch, params, greedy, None)
@@ -5196,6 +5544,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(TRACE_NAME, tracecheck_phase, torch, report, card)
+        # 46. the examples' twins
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed(EXAMPLES_NAME, examples_phase, torch, report, card)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its
@@ -5256,6 +5608,11 @@ def main() -> int:
     seconds["total"] = time.perf_counter() - t_start
     report["seconds"] = seconds
     print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    slow = SLOW_HOST * seconds["total"]
+    print(f"time: {seconds['total']:.1f} s; on a host {SLOW_HOST}x slower "
+          f"{slow:.0f} s of the {TIME_LIMIT_S} s limit"
+          + (" (OVER: cut an earlier phase's depth)" if slow > TIME_LIMIT_S
+             else ""))
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(report, indent=1))

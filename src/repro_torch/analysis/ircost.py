@@ -333,20 +333,28 @@ class _Recorder(TorchDispatchMode):
 
     # -- the kernel accounting hook ------------------------------------
     def kernel(self, name, fn, args, kwargs):
-        nbytes, flops = kernel_work(name, args, kwargs)
+        self.add_kernel(name, *kernel_work(name, args, kwargs))
+        self.paused += 1
+        try:
+            out = self._kernel_out(name, fn, args, kwargs)
+        finally:
+            self.paused -= 1
+        self._track(tree_flatten(out)[0])
+        return out
+
+    def add_kernel(self, name, nbytes, flops) -> None:
+        """Count one call of kernel ``name`` by its formula's work."""
         self.kernel_calls[name] += 1
         self.ops.add(f"kernel::{name}")
         self.bytes += nbytes
         self.by_op[f"kernel::{name}"] += nbytes
         self.flops += sum(flops.values())
-        self.paused += 1
-        try:
-            out = (kernel_outputs(name, args, kwargs) if self.shapes_only
-                   else fn(*args, **kwargs))
-        finally:
-            self.paused -= 1
-        self._track(tree_flatten(out)[0])
-        return out
+
+    def _kernel_out(self, name, fn, args, kwargs):
+        """What a kernel call returns: its wrapper's result, or its empty
+        outputs in a shapes-only run."""
+        return (kernel_outputs(name, args, kwargs) if self.shapes_only
+                else fn(*args, **kwargs))
 
     def _copy_kind(self, func, args, kwargs, out) -> Optional[str]:
         packet = func._overloadpacket
@@ -418,6 +426,17 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
+def _flash_work(args: tuple, kwargs: dict, backward: bool):
+    """``flash_work`` of the adapter's (B, S, H, D) q and (B, T, Hkv, D)
+    k, its flops by the inputs' type."""
+    q, k = args[0], args[1]
+    B, S, H, D = q.shape
+    nbytes, flops = KW.flash_work(B, S, k.shape[1], H, k.shape[2], D,
+                                  kwargs.get("causal", True),
+                                  q.element_size(), backward=backward)
+    return nbytes, {str(q.dtype).removeprefix("torch."): flops}
+
+
 def kernel_work(name: str, args: tuple, kwargs: dict):
     """(bytes, flops by type) of one hand-written kernel call, from the
     arguments ``kernels/ops.py`` passes its wrapper."""
@@ -427,11 +446,7 @@ def kernel_work(name: str, args: tuple, kwargs: dict):
         return KW.rmsnorm_work(x.numel() // max(D, 1), D, x.element_size(),
                                scale.element_size())
     if name == "flash_attention":
-        q, k = args[0], args[1]
-        B, S, H, D = q.shape
-        return KW.flash_work(B, S, k.shape[1], H, k.shape[2], D,
-                             kwargs.get("causal", True), q.element_size(),
-                             backward=False)
+        return _flash_work(args, kwargs, backward=False)
     if name == "ssd_scan":
         # the bytes of ``ssd_work``; the flops the scan's arithmetic (one
         # product each, whatever bf16 splits the kernel runs it in)
@@ -443,6 +458,29 @@ def kernel_work(name: str, args: tuple, kwargs: dict):
         return nbytes, {"float32": sum(KW.ssd_products(B, S, H, P, N, G,
                                                        Q))}
     raise ValueError(f"no work formula for kernel {name!r}")
+
+
+def kernel_bwd_work(name: str, args: tuple, kwargs: dict, has_dh: bool):
+    """(bytes, flops by type) of the backward kernel of one kernel call,
+    from the forward's arguments as ``kernel_work`` takes them;
+    ``has_dh``: the SSD scan's final state has a gradient."""
+    if name in ("rmsnorm", "rmsnorm_split"):
+        x, scale = args[0], args[1]
+        D = x.shape[-1]
+        return KW.rmsnorm_bwd_work(x.numel() // max(D, 1), D,
+                                   x.element_size(), scale.element_size())
+    if name == "flash_attention":
+        return _flash_work(args, kwargs, backward=True)
+    if name == "ssd_scan":
+        # as the forward: ``ssd_bwd_work``'s bytes, one of each product
+        x, Bm, h0 = args[0], args[1], args[5]
+        B, S, H, P = x.shape
+        G, N, Q = Bm.shape[2], Bm.shape[3], min(kwargs["chunk"], S)
+        nbytes, _ = KW.ssd_bwd_work(B, S, H, P, N, G, Q, "float32",
+                                    x.element_size(), h0 is not None, has_dh)
+        cb, mbar, tri_p, st = KW.ssd_bwd_products(B, S, H, P, N, G, Q)
+        return nbytes, {"float32": cb + mbar + 2 * tri_p + 5 * st}
+    raise ValueError(f"no backward work formula for kernel {name!r}")
 
 
 def kernel_outputs(name: str, args: tuple, kwargs: dict):

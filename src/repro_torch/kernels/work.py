@@ -6,8 +6,9 @@ input read once, each output written once) and its operations by the
 type they run at.  ``chip_smoke.py`` puts ``bound`` beside each kernel's
 measured time; ``analysis/ircost.py`` adds a kernel's work to a serving
 step's count in place of the plain version's own operations, so that a
-step counts the same whichever of the two ran.  Pure arithmetic: no
-torch.
+step counts the same whichever of the two ran, and the dry run
+(``launch/dryrun.py``) adds a backward kernel's work to a train step's.
+Pure arithmetic: no torch.
 """
 from __future__ import annotations
 
@@ -32,6 +33,14 @@ def rmsnorm_work(R, D, itemsize, scale_itemsize):
     square, the sum, the product by 1 / rms and by the scale)."""
     return (2 * R * D * itemsize + D * scale_itemsize,
             {"float32": 4 * R * D})
+
+
+def rmsnorm_bwd_work(R, D, itemsize, scale_itemsize):
+    """(bytes, flops by type) of RMSNorm's backward over R rows of D: x and
+    dy read and dx written once, the scale read and dscale written once;
+    8 fp32 operations an element."""
+    return (3 * R * D * itemsize + 2 * D * scale_itemsize,
+            {"float32": 8 * R * D})
 
 
 def ssd_products(B, S, H, P, N, G, Q):
@@ -64,6 +73,52 @@ def ssd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0):
     nbytes = (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
               + 2 * B * S * H * 4 + B * S * H * P * 4
               + B * H * P * N * 4 * (2 if has_h0 else 1))
+    return nbytes, flops
+
+
+def ssd_bwd_products(B, S, H, P, N, G, Q):
+    """The backward's products, 2 flops per multiply-add over the causal
+    triangle of each chunk's real rows: (C.B^T and the intra terms of dB
+    and dC, Mbar^T C and Mbar B, once per group; dS = dy.x^T and dx's intra
+    term K^T dy once per head; the products of the state's size, of which
+    the backward takes five a head: the chunk states and the dy.C sums
+    again, dh B_j, dh^T x_j, h^T dy_i).  Returned as (cb, mbar, tri_p, st),
+    one of each."""
+    cb = mbar = tri_p = st = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        cb += B * G * 2 * tri * N
+        mbar += B * G * 2 * (2 * tri * N)
+        tri_p += B * H * 2 * tri * P
+        st += B * H * 2 * q * N * P
+    return cb, mbar, tri_p, st
+
+
+def ssd_bwd_work(B, S, H, P, N, G, Q, dtype_name, itemsize, has_h0,
+                 has_dh):
+    """(bytes, flops by type) of the scan's backward, counted as
+    ``ssd_work`` counts the forward: each input (x, B, C, dt, a, h0, dy,
+    dh_final) read once and each gradient written once; every product of
+    ``ssd_bwd_products`` on the bf16 tensor cores (dcum's state term
+    C_i.(h^T dy_i) reuses dC's h^T dy_i).  A product counts once per bf16
+    product it takes: an fp32 factor goes in as hi + lo, so twice with one
+    fp32 factor and three times (hi.hi + hi.lo + lo.hi) with two; with
+    fp32 inputs every product has two.  This is the function's least
+    work, not the kernel's: the bf16 body also takes C.h^T for dcum (2
+    products) and dh^T x_j with x scaled into fp32 first (3, not 2)."""
+    cb, mbar, tri_p, st = ssd_bwd_products(B, S, H, P, N, G, Q)
+    if dtype_name == "bfloat16":
+        # dS 2, K^T dy 3; s_c 2, u_c 2, dh B_j 2, dh^T x_j 2, h^T dy_i 3
+        ops = cb + 2 * mbar + 5 * tri_p + 11 * st
+    else:
+        ops = 3 * (cb + mbar + 2 * tri_p + 5 * st)
+    flops = {"bfloat16": ops}
+    state = B * H * P * N * 4
+    nbytes = (2 * (B * S * H * P * itemsize + 2 * B * S * G * N * itemsize
+                   + 2 * B * S * H * 4)
+              + B * S * H * P * 4 + state * (2 if has_h0 else 0)
+              + (state if has_dh else 0))
     return nbytes, flops
 
 

@@ -1,4 +1,5 @@
-"""Block registry: init / apply / paged-cache-init per block kind (twin of
+"""Block registry: init / apply / cache-init (contiguous and paged) per
+block kind (twin of
 ``repro/models/blocks.py``).  The port implements every kind of the
 reference: ``attn`` — norm, GQA self-attention with RoPE and optional
 qk-norm, norm, the MLP (SwiGLU, GeGLU, GELU or ReLU) — ``moe_attn`` — the
@@ -180,6 +181,52 @@ def init_shared(arch: ArchConfig, *, generator, device, dtype) -> Params:
                               act=arch.act, **kw)}
 
 
+def init_block_cache(kind: str, arch: ArchConfig, batch: int, max_len: int,
+                     *, device, dtype=torch.bfloat16,
+                     repeat: Optional[int] = None) -> Optional[Params]:
+    """The contiguous decode cache of one block kind (the reference's
+    ``init_block_cache``), zeroed; ``repeat`` stacks it on a leading axis
+    (a segment's repeat axis).  ``attn`` and ``moe_attn``: {"k", "v":
+    (batch, max_len, Hkv, D), "pos"} (``layers.init_attention_cache``);
+    ``shared_attn`` the same at the shared block's widths; ``mla`` and
+    ``mla_dense`` the latent cache (``mla.init_mla_cache``); ``mamba2``
+    the conv buffers and SSM state in float32 whatever ``dtype`` is
+    (``mamba2.init_mamba2_cache``); ``cross_attn`` cross K/V rows {"k",
+    "v": (batch, n_img_tokens, Hkv, D)}; ``wdec`` {"self": a self-attention
+    cache, "cross": cross K/V rows over ``encoder.seq_len`` frames (1500
+    without an encoder, as the reference's)}; ``enc_attn`` None."""
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    lead = () if repeat is None else (repeat,)
+    kw = dict(device=device, dtype=dtype, repeat=repeat)
+
+    def rows(T):
+        cfg = cross_cfg_for(arch, kind)
+        shp = lead + (batch, T, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+    if kind in ATTN_KINDS:
+        return L.init_attention_cache(attn_cfg_for(arch), batch, max_len,
+                                      **kw)
+    if kind == "shared_attn":
+        return L.init_attention_cache(shared_cfg_for(arch), batch, max_len,
+                                      **kw)
+    if kind in MLA_KINDS:
+        return MLA.init_mla_cache(mla_cfg_for(arch), batch, max_len, **kw)
+    if kind == "mamba2":
+        return M2.init_mamba2_cache(ssm_cfg_for(arch), batch, device=device,
+                                    repeat=repeat)
+    if kind == "cross_attn":
+        return rows(arch.n_img_tokens)
+    if kind == "wdec":
+        return {"self": L.init_attention_cache(
+                    attn_cfg_for(arch, use_rope=False), batch, max_len,
+                    **kw),
+                "cross": rows(arch.encoder.seq_len if arch.encoder
+                              else 1500)}
+    return None                                       # enc_attn
+
+
 def init_paged_block_cache(kind: str, arch: ArchConfig, num_blocks: int,
                            block_size: int, *, device,
                            dtype=torch.bfloat16,
@@ -258,7 +305,12 @@ def apply_block(p: Params, kind: str, arch: ArchConfig, x: torch.Tensor, *,
     kinds.  ``block_tables`` selects the paged path for the attention
     kinds (KV pools; latent pools for ``mla`` / ``mla_dense``),
     ``slot_ids`` the slot-state pool path for ``mamba2``; either pool
-    ``cache`` is updated in place and returned.  ``shared_attn`` takes the
+    ``cache`` is updated in place and returned.  With neither, a
+    ``cache`` is the block's contiguous decode cache
+    (``init_block_cache``), updated in place and returned: the attention
+    caches at their ``pos``, mamba2's conv buffers and state, and the
+    cross K/V rows written from ``cross_input`` when it is given, read
+    when it is not.  ``shared_attn`` takes the
     shared block's params (``shared``) and the scaled embeddings (``x0``);
     its ``cache`` is this application's slice of the repeat-stacked pool,
     so two applications never mix their KV.  ``cross_attn`` and ``wdec``
@@ -351,14 +403,20 @@ def mamba2_mixer(p: Params, arch: ArchConfig, x: torch.Tensor, *,
                  new_lens=None, impl: str = "xla",
                  split: Optional[M2.HeadSplit] = None):
     """A mamba2 block's mixer over its normed input -> (y, cache): the
-    whole-sequence forward, or the slot-state pool path (``slot_ids``);
-    ``split``: this rank's heads (``mamba2.mamba2``'s)."""
+    whole-sequence forward, the slot-state pool path (``slot_ids``), or
+    a contiguous cache (``init_block_cache``: the prefill seeds the scan
+    from its state, a one-token step is the recurrence), whose leaves
+    are overwritten in place with the new state; ``split``: this rank's
+    heads (``mamba2.mamba2``'s)."""
     cfg = ssm_cfg_for(arch)
     if cache is None:
         return M2.mamba2(p, cfg, x, impl=impl, split=split)
     if slot_ids is None:
-        raise ValueError("the port's cached mamba2 path is the slot-state "
-                         "pool: pass slot_ids with the pools")
+        y, new = M2.mamba2(p, cfg, x, cache=cache, new_lens=new_lens,
+                           impl=impl, split=split)
+        for k, t in cache.items():
+            t.copy_(new[k])
+        return y, cache
     return M2.mamba2_slot(p, cfg, x, pool=cache, slot_ids=slot_ids,
                           new_lens=new_lens, impl=impl, split=split)
 
@@ -368,11 +426,14 @@ def _cross(p: Params, cfg: L.AttnConfig, x: torch.Tensor, cross_input,
     """A block's cross attention -> (y, rows).  On the serving path
     (``slot_ids``) it reads each batch row's slot rows of the pool
     ``rows``, which admission wrote and which stay as they are; otherwise
-    it attends over ``cross_input``."""
+    it attends over ``cross_input``, and with a contiguous cache's
+    ``rows`` writes its K/V there (or reads them when ``cross_input`` is
+    None)."""
     if slot_ids is not None:
         sid = slot_ids.long()
         y, _ = L.attention(p, cfg, x, cache={"k": rows["k"][sid],
                                              "v": rows["v"][sid]}, impl=impl)
     else:
-        y, _ = L.attention(p, cfg, x, kv_input=cross_input, impl=impl)
+        y, _ = L.attention(p, cfg, x, kv_input=cross_input, cache=rows,
+                           impl=impl)
     return y, rows

@@ -363,30 +363,33 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
               impl: str = "xla"):
     """Self- or cross-attention -> (y, cache).
 
-    Self-attention runs over the whole sequence (``cache is None``), or
-    paged over a block pool when ``block_tables`` is given.  In the
+    Self-attention runs over the whole sequence (``cache is None``), paged
+    over a block pool when ``block_tables`` is given, or over a contiguous
+    decode cache {"k", "v": (B, T, Hkv, D), "pos": 0-d int32}
+    (``init_attention_cache``): the new k / v rows are written IN PLACE at
+    ``pos`` .. pos+S-1 (an ``index_copy_`` whose indices stay on the
+    device; a write past T starts at T - S, as the reference's
+    ``dynamic_update_slice`` clamps), the queries attend causally to the
+    cache's first pos+S rows, and ``pos`` advances by S in place.  In the
     whole-sequence causal branch ``impl="pallas"`` runs the port's Hopper
     flash kernel (the reference runs its Pallas kernel there), and any
-    other value, or a bidirectional config, the plain PyTorch ``_sdpa``.
+    other value, a bidirectional config or a cache, the plain PyTorch
+    ``_sdpa``.
 
     Cross attention is taken when ``kv_input`` (B, T, d_model) is given —
-    its K/V are projected here — or when ``cache`` is a dict of
-    precomputed cross K/V rows {"k", "v": (B, T, Hkv, D)} without ``"pos"``
-    (the serving path's slot-state rows, returned as they are); it is
-    plain ``_sdpa``, unmasked.  The reference's contiguous decode caches
-    (a self-attention cache with ``"pos"``, or cross rows written from
-    ``kv_input``) are not ported: the port serves through the paged path.
-    With ``cfg.gated`` the output is scaled by tanh(p["gate"])."""
+    its K/V are projected here, and written into ``cache`` {"k", "v": (B,
+    T, Hkv, D)} in place when one is given — or when ``cache`` is such a
+    dict without ``"pos"`` (precomputed cross K/V rows: the contiguous
+    decode cache's, or the serving path's slot-state rows), which is read
+    and returned as it is; it is plain ``_sdpa``, unmasked.  With
+    ``cfg.gated`` the output is scaled by tanh(p["gate"])."""
     if block_tables is not None:
         if cache is None or positions is None:
             raise ValueError("paged attention needs cache and positions")
         return paged_attention(p, cfg, x, cache=cache, positions=positions,
                                block_tables=block_tables, new_lens=new_lens)
-    is_cross = kv_input is not None or cache is not None
-    if cache is not None and ("pos" in cache or kv_input is not None):
-        raise NotImplementedError(
-            "the port has no contiguous decode cache; serve through the "
-            "paged path (block_tables)")
+    is_cross = kv_input is not None or (cache is not None and
+                                        "pos" not in cache)
     B, S, _ = x.shape
     q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
@@ -402,6 +405,10 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
                                                  cfg.head_dim)
             if cfg.qk_norm:
                 k = rmsnorm(p["k_norm"], k)
+            if cache is not None:      # and store them
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+                new_cache = cache
         else:                          # precomputed cross K/V rows
             k, v = cache["k"], cache["v"]
             new_cache = cache
@@ -416,19 +423,57 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, *,
         v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
         if cfg.qk_norm:
             k = rmsnorm(p["k_norm"], k)
-        if positions is None:
-            positions = torch.arange(S, device=x.device)
-        if cfg.use_rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        if impl == "pallas" and cfg.causal:
-            out = kops.flash_attention(q, k, v, scale=scale)
+        if cache is not None:          # contiguous decode cache
+            pos = cache["pos"]
+            qp = pos + torch.arange(S, device=x.device)
+            if cfg.use_rope:
+                q = apply_rope(q, qp, cfg.rope_theta)
+                k = apply_rope(k, qp, cfg.rope_theta)
+            ck, cv = cache["k"], cache["v"]
+            rows = cache_rows(pos, S, ck.shape[1])
+            ck.index_copy_(1, rows, k.to(ck.dtype))
+            cv.index_copy_(1, rows, v.to(cv.dtype))
+            out = _sdpa(q, ck, cv, causal=True, scale=scale, q_pos=qp,
+                        kv_len=pos + S)
+            pos.add_(S)
+            new_cache = cache
         else:
-            out = _sdpa(q, k, v, causal=cfg.causal, scale=scale)
+            if positions is None:
+                positions = torch.arange(S, device=x.device)
+            if cfg.use_rope:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            if impl == "pallas" and cfg.causal:
+                out = kops.flash_attention(q, k, v, scale=scale)
+            else:
+                out = _sdpa(q, k, v, causal=cfg.causal, scale=scale)
     y = dense(p["wo"], out.reshape(B, S, cfg.q_dim))
     if cfg.gated:
         y = torch.tanh(p["gate"].to(y.dtype)) * y
     return y, new_cache
+
+
+def cache_rows(pos: torch.Tensor, seq: int, max_len: int) -> torch.Tensor:
+    """The int64 rows of a contiguous cache of ``max_len`` rows that ``seq``
+    new tokens at ``pos`` (a 0-d device tensor) are written to: pos ..
+    pos+seq-1, started at max_len - seq where they would run past the end
+    (``jax.lax.dynamic_update_slice``'s clamp).  No host read of ``pos``."""
+    start = torch.clamp(pos.long(), min=0, max=max_len - seq)
+    return start + torch.arange(seq, device=pos.device)
+
+
+def init_attention_cache(cfg: AttnConfig, batch: int, max_len: int, *,
+                         device, dtype=torch.bfloat16,
+                         repeat: Optional[int] = None) -> Params:
+    """A contiguous decode cache: k / v rows (batch, max_len, Hkv, D) in
+    ``dtype``, zeroed, and the write position ``pos`` (a 0-d int32 on the
+    device, 0); ``repeat`` stacks them on a leading axis (``pos`` then
+    (repeat,))."""
+    lead = () if repeat is None else (repeat,)
+    shp = lead + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device),
+            "pos": torch.zeros(lead, dtype=torch.int32, device=device)}
 
 
 def init_paged_attention_cache(cfg: AttnConfig, num_blocks: int,

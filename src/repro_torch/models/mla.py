@@ -4,7 +4,8 @@
 Queries go through a low-rank down/up projection; keys and values come
 from a compressed latent ``c_kv`` (kv_lora_rank) plus one rotary key
 ``k_rope`` shared by the heads.  Serving caches only ``(c_kv, k_rope)``
-a token, in block pools paged like the KV pools of ``layers``.  Both
+a token: in block pools paged like the KV pools of ``layers``, or in a
+contiguous decode cache (``init_mla_cache``).  Both
 LoRA norms (``q_norm``, ``kv_norm``) run the port's RMSNorm kernel; the
 attention itself is the reference's latent-space einsum, which calls no
 kernel there either.
@@ -56,6 +57,22 @@ def init_mla(cfg: MLAConfig, *, generator, device, dtype=torch.float32,
         "wo": L.init_dense(H * cfg.v_head_dim, cfg.d_model,
                            scale=1.0 / math.sqrt(H * cfg.v_head_dim), **kw),
     }
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, *, device,
+                   dtype=torch.bfloat16,
+                   repeat: Optional[int] = None) -> Params:
+    """A contiguous latent decode cache: c_kv (batch, max_len,
+    kv_lora_rank) and k_rope (batch, max_len, qk_rope_head_dim) in
+    ``dtype``, zeroed, and the write position ``pos`` (0-d int32, 0);
+    ``repeat`` stacks them on a leading axis."""
+    lead = () if repeat is None else (repeat,)
+    return {"c_kv": torch.zeros(lead + (batch, max_len, cfg.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros(lead + (batch, max_len,
+                                          cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+            "pos": torch.zeros(lead, dtype=torch.int32, device=device)}
 
 
 def init_paged_mla_cache(cfg: MLAConfig, num_blocks: int, block_size: int, *,
@@ -195,19 +212,32 @@ def mla_paged_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
 def mla_attention(p: Params, cfg: MLAConfig, x: torch.Tensor, *,
                   cache: Optional[Params] = None,
                   positions: Optional[torch.Tensor] = None, gather_q=None):
-    """Whole-sequence causal latent attention -> (out, None).  The port
-    has no contiguous decode cache: serve through
-    ``mla_paged_attention``."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the port has no contiguous decode cache; serve through the "
-            "paged path (block_tables)")
-    S = x.shape[1]
-    if positions is None:
-        positions = torch.arange(S, device=x.device)
+    """Causal latent attention -> (out, cache): over the whole sequence
+    (``cache is None``, -> (out, None)), or over a contiguous latent cache
+    {"c_kv": (B, T, r), "k_rope": (B, T, dr), "pos": 0-d int32}
+    (``init_mla_cache``): the new latents and rotary keys are written IN
+    PLACE at rows pos .. pos+S-1 (``layers.cache_rows``), the queries at
+    those positions attend to the first pos+S rows, and ``pos`` advances
+    by S in place; the cache returned is the one passed."""
+    B, S = x.shape[:2]
     c_kv, k_rope = _latent_kv(p, cfg, x)
+    if cache is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)
+        k_rope = _rope_key(k_rope, positions, cfg.rope_theta)
+        q_nope, q_rope = _project_q(p, cfg, x, positions, gather_q)
+        ctx = _attend(cfg, q_nope, q_rope, c_kv, k_rope, p,
+                      q_positions=positions)
+        return L.dense(p["wo"], ctx), None
+    pos = cache["pos"]
+    positions = pos + torch.arange(S, device=x.device)
     k_rope = _rope_key(k_rope, positions, cfg.rope_theta)
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    rows = L.cache_rows(pos, S, cc.shape[1])
+    cc.index_copy_(1, rows, c_kv.to(cc.dtype))
+    cr.index_copy_(1, rows, k_rope.to(cr.dtype))
     q_nope, q_rope = _project_q(p, cfg, x, positions, gather_q)
-    ctx = _attend(cfg, q_nope, q_rope, c_kv, k_rope, p,
-                  q_positions=positions)
-    return L.dense(p["wo"], ctx), None
+    ctx = _attend(cfg, q_nope, q_rope, cc, cr, p, q_positions=positions,
+                  kv_len=(pos + S).expand(B))
+    pos.add_(S)
+    return L.dense(p["wo"], ctx), cache

@@ -8,6 +8,7 @@ Python loop that indexes the stacked tensors (views, no copies).
 
 Entry points:
   init_lm(arch, device=..., generator=...)            -> params
+  init_cache(arch, batch, max_len, ...)               -> contiguous caches
   init_paged_cache(arch, num_blocks, block_size, ...) -> cache pools
   admit_slot(params, arch, pools, slot_id, frontend)  -> pools (slot rows)
   encode_frontend(params, arch, frontend)             -> encoder output
@@ -112,6 +113,21 @@ def init_lm(arch: ArchConfig, *, device=None,
          for i, kind in enumerate(seg.blocks)}
         for seg in arch.pattern]
     return params
+
+
+def init_cache(arch: ArchConfig, batch: int, max_len: int, *, device=None,
+               dtype=torch.bfloat16) -> list:
+    """Per-segment contiguous decode caches (``blocks.init_block_cache``),
+    each block's stacked on its segment's repeat axis as the reference's
+    ``init_cache`` stacks them: {"k", "v": (R, batch, max_len, Hkv, D),
+    "pos": (R,) int32} for an attention block, and so on by kind.  The
+    prefill and decode steps (``runtime/steps.py``) update them in place."""
+    dev = _device.resolve(device)
+    return [{f"b{i}": B.init_block_cache(kind, arch, batch, max_len,
+                                         device=dev, dtype=dtype,
+                                         repeat=seg.repeat)
+             for i, kind in enumerate(seg.blocks)}
+            for seg in arch.pattern]
 
 
 def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int, *,
@@ -314,22 +330,29 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     tokens: (B, S) integer tokens.
     cache:  None => whole-sequence forward (causal self-attention over the
        S tokens, ``impl="pallas"`` through the port's flash kernel; the
-       mamba2 scan through the port's SSD kernel either way).  Otherwise
-       the pools from ``init_paged_cache``, with ``block_tables`` (B,
-       max_blocks), per-sequence ``positions`` (B,), optional ``new_lens``
-       (B,) (rows past it are padding) and, when the pattern holds mamba2
-       blocks, ``slot_ids`` (B,) — each row's slot-state pool row, the
-       null row (= slots) for inactive rows.  The pools are updated in
-       place and returned as ``LMOutput.cache``.
+       mamba2 scan through the port's SSD kernel either way).  With
+       ``block_tables``, the pools from ``init_paged_cache``, with
+       ``block_tables`` (B, max_blocks), per-sequence ``positions`` (B,),
+       optional ``new_lens`` (B,) (rows past it are padding) and, when the
+       pattern holds mamba2 blocks, ``slot_ids`` (B,) — each row's
+       slot-state pool row, the null row (= slots) for inactive rows.
+       Without, the contiguous caches from ``init_cache``: every row at
+       the caches' own ``pos`` (prefill and decode, plain attention; the
+       mamba2 prefill's scan starts from the cached state).  Either is
+       updated in place and returned as ``LMOutput.cache``.
     frontend: the whole-sequence forward's precomputed modality
        embeddings: for a vision arch (B, n_img_tokens, d_model) patch
        embeddings, the cross_attn blocks' K/V input; for an audio arch
        (B, enc_len, d_model) frame embeddings, run through the encoder
        (``encode_frontend``) whose output the wdec blocks attend to.  The
-       serving path reads the slot rows admission wrote instead.  An arch
-       with an encoder adds sinusoidal positions to the decoder's
+       serving path reads the slot rows admission wrote instead; with a
+       contiguous cache the frontend's cross K/V are written into it (the
+       prefill), and read from it when no frontend is given (decode).  An
+       arch with an encoder adds sinusoidal positions to the decoder's
        embeddings: of 0..S-1 in the forward, of each row's own
-       positions[b] + 0..S-1 on the paged path.
+       positions[b] + 0..S-1 on the paged path, and of pos + 0..S-1 with a
+       contiguous cache, ``pos`` read on the device from the first wdec
+       block's self-attention cache.
     remat: per-layer checkpointing of the whole-sequence forward (one of
        ``REMAT_POLICIES``); the cached forward ignores it, as the
        reference's does.  zamba2's shared block reads ``params["shared"]``
@@ -351,9 +374,6 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     """
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat {remat!r} not in {REMAT_POLICIES}")
-    if cache is not None and block_tables is None:
-        raise NotImplementedError("the port's cached forward is paged: pass "
-                                  "block_tables with the pools")
     cdt = compute_dtype(arch)
     cross_input = None
     if frontend is not None and arch.frontend == "vision":
@@ -366,11 +386,14 @@ def lm_apply(params: Params, arch: ArchConfig, tokens: torch.Tensor, *,
     x = L.embed(params["embed"], tokens.long(), arch.d_model).to(cdt)
     if arch.encoder is not None:   # whisper's decoder: absolute positions
         S = x.shape[1]
+        ar = torch.arange(S, device=x.device)
         if cache is None:
             pe = sinusoidal_positions(S, arch.d_model, device=x.device)
-        else:                      # each row at its own offset: (B, S, D)
-            pe = sinusoidal_at(positions[:, None] + torch.arange(
-                S, device=x.device), arch.d_model)
+        elif block_tables is not None:  # each row at its own offset
+            pe = sinusoidal_at(positions[:, None] + ar, arch.d_model)
+        else:      # the offset of the first wdec self-attention cache
+            pe = sinusoidal_at(cache[0]["b0"]["self"]["pos"][0] + ar,
+                               arch.d_model)
         x = x + pe.to(cdt)
     if positions is None and cache is None:
         positions = torch.arange(x.shape[1], device=x.device)

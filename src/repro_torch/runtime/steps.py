@@ -1,6 +1,8 @@
 """Step factories (twin of ``repro/runtime/steps.py``): the train step
-(loss, grads, microbatch accumulation, clipping, optimizer) and the paged
-serving steps for the continuous-batching engine.
+(loss, grads, microbatch accumulation, clipping, optimizer), the prefill
+and decode steps over the contiguous decode cache
+(``transformer.init_cache``, updated in place and returned), and the
+paged serving steps for the continuous-batching engine.
 
 The train step takes ``(params, opt_state, batch)`` and returns them
 updated, as the reference's does; the reference donates ``(params,
@@ -296,6 +298,32 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_prefill_step(arch: ArchConfig, *, impl: str = "xla",
+                      block_fns=None):
+    """-> prefill(params, cache, tokens (B,S)[, frontend]) -> (last_logits
+    (B,V), cache).  ``cache``: the contiguous caches (``init_cache``),
+    written from each cache's ``pos`` on and returned, the same object;
+    ``frontend``: the arch's patch or frame embeddings, whose cross K/V go
+    into the cache.  ``block_fns``: ``lm_apply``'s."""
+    def prefill_step(params, cache, tokens, frontend=None):
+        out = T.lm_apply(params, arch, tokens, cache=cache,
+                         frontend=frontend, impl=impl, block_fns=block_fns)
+        return out.logits[:, -1], out.cache
+    return prefill_step
+
+
+def make_decode_step(arch: ArchConfig, *, impl: str = "xla",
+                     block_fns=None):
+    """-> decode(params, cache, tokens (B,1)) -> (logits (B,V), cache): one
+    token a row at the caches' ``pos``, which advances by one on the
+    device (no host read); the cache returned is the one passed."""
+    def decode_step(params, cache, tokens):
+        out = T.lm_apply(params, arch, tokens, cache=cache, impl=impl,
+                         block_fns=block_fns)
+        return out.logits[:, -1], out.cache
+    return decode_step
 
 
 def make_paged_prefill_step(arch: ArchConfig, *, impl: str = "xla",

@@ -630,7 +630,9 @@ def _mla_case(seed=7, r=16, H=2):
 @pytest.mark.parametrize("S", [7, 1100])
 def test_mla_attention_matches_reference(S):
     """Whole-sequence latent attention at 1e-5; S = T = 1100 (S*T > 1024^2,
-    S > MLA_CHUNK) takes the q-block scan, the last block padded."""
+    S > MLA_CHUNK) takes the q-block scan, the last block padded.  Then
+    over a contiguous latent cache of S + 4 rows: the output, the
+    latents written at pos and the advanced pos as the reference's."""
     jcfg, tcfg, jp, tp = _mla_case()
     x = np.random.default_rng(S).standard_normal((1, S, 32)).astype(
         np.float32)
@@ -638,8 +640,15 @@ def test_mla_attention_matches_reference(S):
     got, cache = TMLA.mla_attention(tp, tcfg, torch.from_numpy(x))
     assert cache is None
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="paged"):
-        TMLA.mla_attention(tp, tcfg, torch.from_numpy(x), cache={})
+    jc = JMLA.init_mla_cache(jcfg, 1, S + 4, jnp.float32)
+    tc = TMLA.init_mla_cache(tcfg, 1, S + 4, device="cpu",
+                             dtype=torch.float32)
+    want, jc = JMLA.mla_attention(jp, jcfg, jnp.asarray(x), cache=jc)
+    got, cache = TMLA.mla_attention(tp, tcfg, torch.from_numpy(x), cache=tc)
+    assert cache is tc and int(tc["pos"]) == int(jc["pos"]) == S
+    _close(got, want)
+    _close(tc["c_kv"], jc["c_kv"])
+    _close(tc["k_rope"], jc["k_rope"])
 
 
 def test_mla_paged_attention_matches_reference():
