@@ -247,13 +247,14 @@ Phases, each of which fails the run (exit code 1) on any error:
     DTensors, the sharded step's gathers and reductions, as on many
     ranks) trains qwen3-8b at full width and phase 8's depth, bf16,
     impl="pallas", ``TrainConfig(lr=3e-4, warmup_steps=1,
-    total_steps=10, checkpoint_every=3)``, 6 steps of phase 8's batches,
+    total_steps=10, checkpoint_every=4)``, 6 steps of phase 8's batches
+    (one checkpoint, at step 4, for the script's time),
     deterministic algorithms on: every step launches phase 8's kernels
     (``train_launches``); median of steps 2-6 beside phase 8's; peak
     memory, the checkpoint's bytes, snapshot and write seconds (into a
     temporary directory, removed after; depth is cut, never width, if
-    the disk lacks room); a fresh Trainer restores step 3 and every leaf
-    equals the checkpoint's bits, and replays steps 4-6 to the same
+    the disk lacks room); a fresh Trainer restores step 4 and every leaf
+    equals the checkpoint's bits, and replays steps 5-6 to the same
     losses and params (an op without a deterministic CUDA form would be
     named and the replay held at 1e-6 relative); then ``python -m
     repro_torch.launch.train --arch qwen3-8b --smoke --steps 8
@@ -317,7 +318,8 @@ Phases, each of which fails the run (exit code 1) on any error:
     of the Trainer's step: their times, each rank's exact launches a step
     (phase 14's at this depth, the 12 gated norms split), its
     all-reduces and weight gathers; then, in fp32, the engine placed on
-    the mesh serves phase 10's requests: its tokens equal the unplaced
+    the mesh serves the first 4 of phase 10's requests
+    (``TP_SERVE_REQUESTS``): its tokens equal the unplaced
     engine's (rank 0, same depth) on every rank, each prefill call's
     logits within ``TP_LOGIT_TOL`` of max |logit|, every block on its own
     heads (``tp_shared_block``, ``tp_mamba2_block``), its launches
@@ -341,6 +343,30 @@ Phases, each of which fails the run (exit code 1) on any error:
     tokens equal the unplaced engine's, prefill logits within
     ``TP_LOGIT_TOL``, 9 RMSNorm launches a model call, every block
     ``tp_mla_block``, and the latent pools bit-equal across the ranks.
+    Contiguous (``tp_decode``, ``TP_DECODE_NAME``): the serve's weights
+    and 2 prompts through the dry run's serving function, every block
+    ``tp_mla_block`` on a contiguous cache placed by the plan's
+    ``cache_specs`` (the latents split over `model` along time, gathered
+    around each attention), one prefill and ``TP_DECODE_STEPS`` greedy
+    decode steps: tokens equal rank 0's unplaced contiguous steps' (run
+    on the whole weights before they are freed), logits within
+    ``TP_LOGIT_TOL``, the gathered latent caches bit-equal across the
+    ranks, 9 RMSNorm launches a call.  EP-major (``tp_ep_train``,
+    ``TP_EP_NAME``, ``TP_EP_TRAIN``): deepseek at 1 ``mla_dense`` + 1
+    ``mla`` layer, all 256 experts (the MTP head left out for memory),
+    bf16, run first, on a (data 2, model 1) mesh of the same processes
+    under the uniform HP plan with
+    the EP-major specs (``moe_ep_axis("data")``: 128 experts a rank),
+    each rank its own sequence of ``SyntheticLM(129280, 512, 2)``: step
+    1's loss and gradients (``steps.sharded_loss_and_grads``, no
+    optimizer: the layer's AdamW state does not fit) against rank 0's
+    unplaced step, run first and freed (the loss within
+    ``TP_LOSS_REL_TOL``, the grad norm within ``GRAD_NORM_REL_TOL``,
+    every non-expert leaf's and a sample of both ranges' experts'
+    gradients at phase 40's tolerances), exactly 4 all-to-alls (a MoE
+    layer's dispatch and return, forward and backward) of E * C * D
+    bf16 each, 9 RMSNorm launches forward and 9 backward; the peak
+    memory a rank.
 
 42. HP on a multi-pod mesh, mamba2-780m (``POD_TRAIN``: published
     widths, 2 of its 48 layers, bf16, ``SyntheticLM(50280, 1024, 4)``,
@@ -407,8 +433,14 @@ Phases, each of which fails the run (exit code 1) on any error:
     16), all three at once, started before the build and read after it:
     every cell ``ok``, its counted FLOPs, bytes and kernel calls equal to
     the CPU's (``DRYRUN_CPU_COST``, which the CPU tests hold to the CPU's
-    count); memory and collectives printed.  The dry run drives no kernel
-    and no device work: it has no launch count.
+    count); memory and collectives printed.  A fourth process, started
+    with them, runs deepseek-v3-671b x decode_32k ``--moe-ep``
+    (``DRYRUN_EP_CELL``, all 61 layers; it traces for minutes, so it is
+    read after phase 46, ``dryrun_ep_phase``): ``ok``, its all-to-alls
+    2 a MoE layer (116), each E * B_l * C * D bf16 values (the specs'
+    count), its trace seconds, memory, cost and collectives printed.  The
+    dry run drives no kernel and no device work: it has no launch
+    count.
 
 46. The examples' twins (``examples_phase``):
     ``repro_torch.examples.serve_lm`` (the legacy ``Server`` shim, then
@@ -426,8 +458,16 @@ The phases run in the order 1-5, 44, ``QWEN_CUT``, 29-31, 38, 39, 6, 7,
 24-27 (each model's serve, then its forward, each model freed before the
 next; 39 once qwen3-8b's weights are freed), 8, 9, 14, 23, 28 (the
 trains, with every serving weight freed), 33, 34, 35, 36, 37, 40, 41,
-42, 43, then 46 while 45's processes trace; each
-phase's seconds and the total are printed before the result lines.  ``--profile`` also traces a sampled serve of qwen3-8b
+42, 43, then 46 while 45's processes trace, then 45's ``--moe-ep`` cell
+read; each
+phase's seconds and the total are printed before the result lines.
+Cut for the script's time (depth and repetitions, never a check): the
+serve and train depths (``SERVE_LAYERS``, ``TRAIN``, ``QWEN_CUT``,
+``POD_TRAIN``), phase 41's 2 timed steps and phase 42's 3, the fp32
+kernel rows checked, not timed (``TIMED_DTYPES``), phase 40's placed
+serve at 4 of phase 10's 8 requests (``TP_SERVE_REQUESTS``), phase 34's
+one checkpoint (at step 4 of 6, where it saved at 3 and 6), and phase
+45's ``--moe-ep`` cell read after phase 46, beside the card's phases.  ``--profile`` also traces a sampled serve of qwen3-8b
 (``profile sample qwen3-8b``) and one more step of each of phases 35-37's
 timed runs.
 
@@ -715,6 +755,9 @@ TP_LOSS_REL_TOL = 2e-3
 # max |diff| <= TP_LOGIT_TOL * max |unplaced| for each prefill call (the
 # same fp32 sums in another order, ~1e-6 of the scale)
 TP_LOGIT_TOL = 1e-4
+# the placed fp32 serve of phase 40: the first 4 of phase 10's 8 requests
+# (fp32 over gloo runs ~5 tok/s; cut from 8 for the script's time)
+TP_SERVE_REQUESTS = 4
 # phase 41, the MoE family on phase 40's mesh and plan: deepseek-v3-671b at
 # published widths.  Train: 1 mla_dense layer and the MTP head (phase 23's
 # cut; one mla layer's training state, ~184 GB, needs four cards), bf16, 2
@@ -728,6 +771,26 @@ TP_MOE_TRAIN = dict(TRAIN[DEEPSEEK], depth=(1, 0), seq_len=1024, steps=2)
 TP_MOE_SERVE = dict(depth=(1, 1), requests=2, prompt_len=128, max_new=8,
                     slots=2, max_len=256, block_size=16, prefill_chunk=128)
 TP_MOE_SEED = 0
+# phase 41's contiguous part: the serve's weights and its 2 prompts of 128
+# tokens through ``tp_mla_block`` on the (1, 2) mesh, one prefill and
+# TP_DECODE_STEPS greedy decode steps on a contiguous cache of the serve's
+# max_len rows placed by the plan's ``cache_specs`` (the latents split
+# over `model` along time, gathered around each attention)
+TP_DECODE_NAME = f"tp decode {DEEPSEEK}"
+TP_DECODE_STEPS = 4
+# phase 41's EP-major part, run first: deepseek-v3-671b at published
+# widths, 1 mla_dense + 1 mla layer with all 256 experts (the MTP head
+# left out, as the serve leaves it: with it the two ranks' shards, bf16
+# grads and gathered weights passed the card's 80 GB), bf16, on a (data 2,
+# model 1) mesh of the same two processes under the uniform HP plan with
+# the EP-major specs (``moe_ep_axis("data")``): each rank holds 128
+# experts (11.3 GB) and its own sequence of ``SyntheticLM(129280, 512,
+# 2)``.  Step 1's loss and gradients only: the layer's AdamW state does
+# not fit one card.  ``sample``: the experts, offsets within each rank's
+# range, whose gradients are held beside every other leaf's
+TP_EP_NAME = f"ep {DEEPSEEK}"
+TP_EP_TRAIN = dict(depth=(1, 1), seq_len=512, batch=2, sample=(0, 77, 127))
+TP_EP_SEED = 1
 # phase 42, HP on a multi-pod mesh: mamba2-780m at published widths, 2 of
 # its 48 layers (depth cut for the script's time), four processes on the card over gloo on a (pod 2, data 2,
 # model 1) mesh under the uniform HP plan with int8 moments: HP's ZeRO dim
@@ -755,20 +818,23 @@ DRYRUN_CELLS = ((QWEN, "train_4k"), (QWEN, "decode_32k"),
                 (MAMBA, "long_500k"))
 DRYRUN_NAME = "dryrun"
 DRYRUN_TIMEOUT_S = 600
+# and one ``--moe-ep`` cell, read after phase 46 (it traces ~2-3 minutes,
+# beside the card's phases): deepseek-v3-671b x decode_32k, all 61 layers
+DRYRUN_EP_CELL = (DEEPSEEK, "decode_32k")
 # each cell's counted cost with fake CPU tensors (``python -m
 # repro_torch.launch.dryrun --arch A --shape S --no-save --device cpu``;
 # tests/test_torch_dryrun*.py hold these to the CPU's count): the card's
 # count must equal it
 DRYRUN_CPU_COST = {
     (QWEN, "train_4k"): {
-        "flops": 267676790292480, "bytes": 3338592198348,
+        "flops": 267676790292480, "bytes": 3346167111372,
         "kernel_calls": {"rmsnorm": 289, "rmsnorm_bwd": 145}},
     (QWEN, "decode_32k"): {
-        "flops": 275732234240, "bytes": 953248004308,
+        "flops": 26887110656, "bytes": 382284557380,
         "kernel_calls": {"rmsnorm": 145}},
     (MAMBA, "long_500k"): {
-        "flops": 1597347840, "bytes": 5967407128,
-        "kernel_calls": {"rmsnorm": 97}},
+        "flops": 280750080, "bytes": 643202392,
+        "kernel_calls": {"rmsnorm": 49, "rmsnorm_split": 48}},
 }
 # the run's limit, and how much slower a host has run the whole script
 # than the fastest seen: more than 1.29x (its host-bound phases up to
@@ -3205,9 +3271,10 @@ def trainer_phase(torch, report, arch_full, card):
     group (the multi-rank code path: DTensor params and moments, gathers
     and reductions through DTensor) trains qwen3-8b at full width and
     phase 8's depth, bf16, impl="pallas", 6 steps with a checkpoint every
-    3; launches per step equal phase 8's; a fresh Trainer restores step 3
-    bit for bit and replays 4-6 to the same losses (deterministic
-    algorithms on); then the train launcher twice, the second resuming."""
+    4 (one, at step 4); launches per step equal phase 8's; a fresh Trainer
+    restores step 4 bit for bit and replays 5-6 to the same losses
+    (deterministic algorithms on); then the train launcher twice, the
+    second resuming."""
     import dataclasses
     import shutil
     import warnings
@@ -3227,7 +3294,7 @@ def trainer_phase(torch, report, arch_full, card):
     try:
         depth = TRAIN[QWEN]["depth"]
         free = shutil.disk_usage(ckdir).free
-        # two checkpoints (steps 3 and 6) of bf16 params and fp32 moments:
+        # room for two checkpoints of bf16 params and fp32 moments:
         # cut depth, never width, until they fit
         while depth[0] > 1:
             if 2 * 10 * param_count(cut_depth(arch_full, depth)) < 0.9 * free:
@@ -3240,7 +3307,7 @@ def trainer_phase(torch, report, arch_full, card):
         cfg = TrainConfig(lr=TRAIN[QWEN]["peak_lr"],
                           warmup_steps=TRAIN[QWEN]["warmup"],
                           total_steps=TRAIN[QWEN]["total"],
-                          checkpoint_every=3, impl="pallas")
+                          checkpoint_every=4, impl="pallas")
         shape = ShapeSpec("chip", TRAIN[QWEN]["seq_len"],
                           TRAIN[QWEN]["batch"], "train")
         mesh = M.make_host_mesh(device="cuda")
@@ -3292,8 +3359,8 @@ def trainer_phase(torch, report, arch_full, card):
                 step_ms.append(e0.elapsed_time(e1))
                 if tr.step % cfg.checkpoint_every == 0:
                     snap_s.append(t1 - t0 - h[0]["step_time_s"])
-                if tr.step == 3:        # what the checkpoint holds, on the card
-                    saved3 = [(k, x.to_local().clone()
+                if tr.step == 4:        # what the checkpoint holds, on the card
+                    saved4 = [(k, x.to_local().clone()
                                if hasattr(x, "to_local") else x)
                               for k, x in store._flat_with_paths(
                                   {"params": params, "opt": opt})]
@@ -3304,7 +3371,7 @@ def trainer_phase(torch, report, arch_full, card):
                              for w in caught if "deterministic" in
                              str(w.message)})
         peak = torch.cuda.max_memory_allocated() / 1e9
-        ck_bytes = _dir_bytes(pathlib.Path(ckdir) / "step_0000000003")
+        ck_bytes = _dir_bytes(pathlib.Path(ckdir) / "step_0000000004")
         med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
         step8 = report[f"train {arch.name}"]["step_ms_median"] \
             if f"train {arch.name}" in report else None
@@ -3321,10 +3388,10 @@ def trainer_phase(torch, report, arch_full, card):
               f"saved), writes {', '.join(f'{s:.2f}' for _, s in writes)} s "
               f"(in the background; {tail_s:.2f} s waited at the end)")
 
-        # a fresh Trainer restores step 3 and replays 4-6
+        # a fresh Trainer restores step 4 and replays 5-6
         keep = [(t.full_tensor() if hasattr(t, "full_tensor") else t)
                 for t in tree.leaves(params)]
-        keep_losses = losses[3:]
+        keep_losses = losses[4:]
         del params, opt
         gc.collect()
         torch.cuda.empty_cache()
@@ -3332,22 +3399,22 @@ def trainer_phase(torch, report, arch_full, card):
             cfg, checkpoint_every=1000), checkpoint_dir=ckdir)
         p2, o2 = tr2.init_state(seed=1)
         t0 = time.perf_counter()
-        p2, o2 = tr2.maybe_restore(p2, o2, step=3)
+        p2, o2 = tr2.maybe_restore(p2, o2, step=4)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
-        if tr2.step != 3 or tr2.data_offset != 3:
+        if tr2.step != 4 or tr2.data_offset != 4:
             fail(f"{label}: restored step {tr2.step}, data offset "
                  f"{tr2.data_offset}")
         flat = store._flat_with_paths({"params": p2, "opt": o2})
-        unequal = [k for (k, x), (k3, y) in zip(flat, saved3)
-                   if k != k3 or not (torch.equal(x.to_local(), y)
+        unequal = [k for (k, x), (k4, y) in zip(flat, saved4)
+                   if k != k4 or not (torch.equal(x.to_local(), y)
                                       if hasattr(x, "to_local") else x == y)]
-        del saved3
+        del saved4
         if unequal:
             fail(f"{label}: restored leaves differ from the checkpoint: "
                  f"{unequal[:5]}")
         replay = []
-        for _ in range(3):
+        for _ in keep_losses:
             p2, o2, h = tr2.train(p2, o2, SyntheticLM(
                 arch.vocab, shape.seq_len, shape.global_batch).skip(
                 tr2.data_offset), steps=1)
@@ -3360,8 +3427,8 @@ def trainer_phase(torch, report, arch_full, card):
                 (not nondet and not same):
             fail(f"{label}: replayed losses {replay} vs {keep_losses}; "
                  f"params equal {same}; nondeterministic ops {nondet}")
-        print(f"trainer: restored step 3 in {restore_s:.2f} s, every leaf "
-              f"bit-equal to the state saved at step 3 ({len(flat)} "
+        print(f"trainer: restored step 4 in {restore_s:.2f} s, every leaf "
+              f"bit-equal to the state saved at step 4 ({len(flat)} "
               f"leaves); replayed "
               f"losses {replay} {'==' if tol == 0 else 'within 1e-6 of'} "
               f"{keep_losses}; params after step 6 bit-equal: {same}; "
@@ -3910,8 +3977,11 @@ def tp_moe_phase(torch, report, card):
     phase 40's mesh and plan (``tp_rank``); the ranks' results printed and
     kept."""
     res = _spawn_ranks(TP_MOE_NAME, 41)
-    t, sv = res["train"], res["serve"]
+    t, sv, ep = res["train"], res["serve"], res["ep"]
+    dec = sv["contiguous"]
     report[TP_MOE_NAME] = dict(res, launches=t["launches"])
+    report[TP_DECODE_NAME] = dict(dec, launches=dec["launches"])
+    report[TP_EP_NAME] = dict(ep, launches=ep["launches"])
     print(f"tp: {DEEPSEEK} at {t['layers']} mla_dense layer and the MTP "
           f"head, {TP_MODEL} ranks of a (1, {TP_MODEL}) mesh over "
           f"{res['backend']} on one card, uniform MP ({t['method']}): MLA "
@@ -3922,14 +3992,43 @@ def tp_moe_phase(torch, report, card):
           f"equal across the ranks ({sv['pool_digest']}); peak memory "
           f"{sv['peak_mem_gb']:.2f} GB a rank (unplaced "
           f"{sv['unplaced_peak_mem_gb']:.2f} GB); " + _serve_line(sv))
+    print(f"tp: contiguous fp32 prefill + {TP_DECODE_STEPS} decode steps of "
+          f"the serve's prompts through {dec['blocks']}, the latents split "
+          f"over `model` along time (local {dec['cache_local']}): tokens "
+          f"equal the unplaced steps', logits within "
+          f"{dec['worst_logit_rel']:.3g} of max |logit| (max "
+          f"{TP_LOGIT_TOL:g}), {dec['latent_writes']} gathered latent "
+          f"caches bit-equal across the ranks; {dec['wall_s']:.2f} s "
+          f"(unplaced {dec['unplaced_wall_s']:.2f} s); launches "
+          f"{dec['launches']}")
+    print(f"tp: {DEEPSEEK}'s parts' seconds {res['part_s']}: serve "
+          f"{sv['part_s']}, EP-major {ep['part_s']}")
+    print(f"tp: EP-major {DEEPSEEK} at {ep['layers']} layers (1 mla_dense + "
+          f"1 mla, all 256 experts), bf16, on a "
+          f"({res['world']}, 1) mesh over gloo, uniform HP "
+          f"({ep['method']}), experts a rank {ep['experts']}: step 1 loss "
+          f"{ep['loss']:.6f} vs unplaced {ep['loss_unplaced']:.6f}, grad "
+          f"norm {ep['grad_norm']:.6g} vs {ep['grad_norm_unplaced']:.6g}, "
+          f"{ep['n_leaves']} leaves' grads (sampled experts): worst cosine "
+          f"{ep['worst_cos']:.6f} at {ep['worst_cos_leaf']}, worst rel L2 "
+          f"{ep['worst_rel_l2']:.4g} at {ep['worst_rel_l2_leaf']}; "
+          f"all-to-alls {ep['all_to_all']['count']} "
+          f"({ep['all_to_all_mb']:.1f} MB), all-reduces {ep['all_reduces']} "
+          f"({ep['all_reduce_mb']:.1f} MB), all-gathers {ep['all_gathers']} "
+          f"({ep['all_gather_mb']:.1f} MB) a rank; step {ep['step_s']:.2f} s"
+          f" (unplaced {ep['unplaced_step_s']:.2f} s); peak memory "
+          f"{ep['peak_mem_gb']:.2f} GB a rank (unplaced "
+          f"{ep['unplaced_peak_mem_gb']:.2f} GB); launches "
+          f"{ep['launches']}; on {card}")
 
 
 def tp_rank(rank, world, port, out, phase):
     """Rank ``rank`` of ``world`` processes on card 0 for ``phase``: a gloo
     group over CUDA tensors and a (1, world) mesh; phase 40's train check
     and steps (``tp_train``) and placed serve (``tp_serve``) of zamba2,
-    or phase 41's of deepseek (``tp_train``, ``tp_moe_serve``); rank 0
-    writes the results to ``out``/tp.json."""
+    or phase 41's of deepseek (the EP-major step on a (world, 1) mesh,
+    ``tp_ep_train``, then ``tp_train`` and ``tp_moe_serve`` with its
+    contiguous part); rank 0 writes the results to ``out``/tp.json."""
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
@@ -3945,16 +4044,24 @@ def tp_rank(rank, world, port, out, phase):
     from repro_torch.configs import get_arch
     from repro_torch.launch import mesh as M
     mesh = M.make_host_mesh(model=world, device="cuda", backend="gloo")
-    res = {"backend": "gloo", "world": world}
+    res = {"backend": "gloo", "world": world, "part_s": {}}
+
+    def part(key, fn, *a):          # each part's result and its seconds
+        t0 = time.perf_counter()
+        res[key] = fn(*a)
+        res["part_s"][key] = time.perf_counter() - t0
     try:
         if phase == 40:
-            res["train"] = tp_train(torch, mesh, TP_NAME, cut_depth(
+            part("train", tp_train, torch, mesh, TP_NAME, cut_depth(
                 get_arch(ZAMBA), TP_DEPTH), TRAIN[ZAMBA])
-            res["serve"] = tp_serve(torch, np, mesh)
+            part("serve", tp_serve, torch, np, mesh)
         else:
-            res["train"] = tp_train(torch, mesh, TP_MOE_NAME, cut_depth(
+            # the EP-major step first, on an empty card: its two ranks'
+            # shards and bf16 grads take ~70 GB together
+            part("ep", tp_ep_train, torch, TP_EP_NAME)
+            part("train", tp_train, torch, mesh, TP_MOE_NAME, cut_depth(
                 get_arch(DEEPSEEK), TP_MOE_TRAIN["depth"]), TP_MOE_TRAIN)
-            res["serve"] = tp_moe_serve(torch, np, mesh)
+            part("serve", tp_moe_serve, torch, np, mesh)
     finally:
         M.shutdown()
     if rank == 0:
@@ -4267,7 +4374,8 @@ def _placed_checks(torch, label, eng, got, logits, want, want_logits,
 
 def tp_serve(torch, np, mesh):
     """Phase 40's serve part: zamba2 at ``TP_DEPTH`` in fp32, seeded
-    weights, phase 10's requests and settings; rank 0 serves them unplaced
+    weights, the first ``TP_SERVE_REQUESTS`` of phase 10's requests and its
+    settings; rank 0 serves them unplaced
     first, then every rank through the engine placed on ``mesh`` under
     the uniform MP plan.  The placed tokens must equal the unplaced
     engine's on every rank, each prefill call's logits (the rows it
@@ -4291,6 +4399,7 @@ def tp_serve(torch, np, mesh):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, arch.vocab, size=st["prompt_len"])
                .astype(np.int32) for _ in range(st["requests"])]
+    prompts = prompts[:TP_SERVE_REQUESTS]
 
     def requests():
         return [Request(id=i, prompt=q, max_new_tokens=st["max_new"])
@@ -4403,7 +4512,10 @@ def tp_moe_serve(torch, np, mesh):
     checks (``_placed_checks``; both blocks ``tp_mla_block``), 9 RMSNorm
     launches a model call, each rank's MoE on 128 of the 256 experts and
     its latent attention on 64 of the 128 heads, and the latent pools
-    bit-equal across the ranks (every rank writes the same latents)."""
+    bit-equal across the ranks (every rank writes the same latents).
+    Then the contiguous part on the same weights (``tp_decode``, its
+    reference run by rank 0 on the unplaced weights before they are
+    freed)."""
     import dataclasses
     import hashlib
 
@@ -4431,16 +4543,35 @@ def tp_moe_serve(torch, np, mesh):
     kw = dict(device="cuda", slots=st["slots"], max_len=st["max_len"],
               block_size=st["block_size"], prefill_chunk=st["prefill_chunk"])
     want = want_logits = None
+    marks = [time.perf_counter()]
     if rank == 0:
         torch.cuda.reset_peak_memory_stats()
-        eng = ContinuousBatchingEngine(
-            arch, seeded_params(torch, arch, TP_MOE_SEED), **kw)
+        params = seeded_params(torch, arch, TP_MOE_SEED)
+        eng = ContinuousBatchingEngine(arch, params, **kw)
         want, want_logits, want_s = _serve_run(torch, eng, requests())
         unplaced_peak = torch.cuda.max_memory_allocated() / 1e9
         del eng
+        # the contiguous part's reference: the same weights and prompts
+        # through the unplaced contiguous steps
+        from repro_torch.models import transformer as T
+        from repro_torch.runtime import steps as ST
+        pf, dc = ST.make_prefill_step(arch), ST.make_decode_step(arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec_logits, dec_toks = _greedy_steps(
+            torch, lambda k, t: pf(params, k, t),
+            lambda k, t: dc(params, k, t),
+            T.init_cache(arch, len(prompts), st["max_len"], device="cuda",
+                         dtype=torch.float32),
+            torch.as_tensor(np.stack(prompts), device="cuda"),
+            TP_DECODE_STEPS)
+        torch.cuda.synchronize()
+        dec_want = (dec_logits, dec_toks, time.perf_counter() - t0)
+        del params
         gc.collect()
         torch.cuda.empty_cache()
     dist.barrier()
+    marks.append(time.perf_counter())
     torch.cuda.reset_peak_memory_stats()
     plan = uniform_scheduler("MP").plan(
         arch, ShapeSpec("serve", st["max_len"], st["slots"], "decode"),
@@ -4484,7 +4615,359 @@ def tp_moe_serve(torch, np, mesh):
         out.update(unplaced_wall_s=want_s,
                    unplaced_tok_per_s=out["tokens"] / want_s,
                    unplaced_peak_mem_gb=unplaced_peak)
+    marks.append(time.perf_counter())
+    out["contiguous"] = tp_decode(torch, np, mesh, arch, plan, eng, prompts,
+                                  dec_want if rank == 0 else None)
+    marks.append(time.perf_counter())
+    out["part_s"] = dict(zip(("unplaced", "placed", "contiguous"),
+                             (b - a for a, b in zip(marks, marks[1:]))))
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _greedy_steps(torch, prefill, decode, cache, tokens, steps):
+    """One ``prefill`` of ``tokens`` on the contiguous ``cache``, then
+    ``steps`` greedy ``decode`` steps -> (each call's logits on the host,
+    the tokens fed and the last one chosen, (B, steps + 1))."""
+    logits, fed = [], []
+    with torch.no_grad():
+        lg, _ = prefill(cache, tokens)
+        for _ in range(steps):
+            logits.append(lg.float().cpu())
+            fed.append(lg.argmax(-1))
+            lg, _ = decode(cache, fed[-1][:, None].to(torch.int32))
+    logits.append(lg.float().cpu())
+    fed.append(lg.argmax(-1))
+    return logits, torch.stack(fed, 1).cpu()
+
+
+def tp_decode(torch, np, mesh, arch, plan, eng, prompts, want):
+    """Phase 41's contiguous part, after the placed serve: the placed
+    engine's weights (``eng``) through the dry run's serving function
+    (``plan_layout``'s ``tp_mla_block``s, the plan's ``cache_specs``
+    placing a contiguous cache of the serve's max_len rows: the latents
+    split over `model` along time), one prefill of the 2 prompts and
+    TP_DECODE_STEPS greedy decode steps.  ``want``: rank 0's unplaced
+    contiguous run on the whole weights (``_greedy_steps``).  Tokens equal
+    the unplaced ones on every rank, each call's logits within
+    TP_LOGIT_TOL of max |logit|, every block ``tp_mla_block``, the whole
+    latent caches each attention gathers and writes bit-equal across the
+    ranks (every rank writes the same latents), ``forward_launches``
+    RMSNorm launches a call and no flash."""
+    import hashlib
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import mesh_shape_of
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharded as SD
+
+    st = TP_MOE_SERVE
+    B = len(prompts)
+    pspecs, cspecs = plan.param_specs(), plan.cache_specs(B)
+    cache = SH.place(T.init_cache(arch, B, st["max_len"], device="cuda",
+                                  dtype=torch.float32),
+                     SH.shardings(cspecs, mesh))
+    local = tree.map(lambda x: x.to_local(), cache)
+    batch = SH.P(SH.batch_axes(mesh_shape_of(mesh), B), None)
+    fns = {k: DR._serving_fn(arch, k, eng._placed.params, pspecs, cspecs,
+                             mesh, batch) for k in ("prefill", "decode")}
+    blocks = sorted({fn.__qualname__.split(".")[0]
+                     for f in fns["decode"].block_fns.values()
+                     for fn in f.values()})
+    if blocks != ["tp_mla_block"]:
+        fail(f"{TP_DECODE_NAME}: the blocks run {blocks}, want tp_mla_block")
+    digests, back = [], SD._time_back
+
+    def time_back(c, whole, tp):
+        h = hashlib.sha1()
+        for k in sorted(whole):
+            h.update(whole[k].cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+        return back(c, whole, tp)
+    tokens = torch.as_tensor(np.stack(prompts), device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(SD, "_time_back", time_back):
+        logits, toks = _greedy_steps(
+            torch, lambda k, t: fns["prefill"](None, k, t),
+            lambda k, t: fns["decode"](None, k, t), local, tokens,
+            TP_DECODE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    calls = TP_DECODE_STEPS + 1
+    want_counts = dict(rmsnorm=forward_launches(arch)["rmsnorm"] * calls,
+                       flash_attention=0)
+    if any(counts[k] != n for k, n in want_counts.items()):
+        fail(f"{TP_DECODE_NAME}: launches {counts}, want {want_counts} for "
+             f"{calls} calls")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (toks.tolist(), digests))
+    if any(e != every[0] for e in every):
+        fail(f"{TP_DECODE_NAME}: the ranks' tokens or gathered latent "
+             f"caches differ")
+    out = dict(blocks=blocks, calls=calls, launches=counts, wall_s=wall,
+               latent_writes=len(digests), latent_digest=digests[-1][:12],
+               cache_local=[tuple(x.to_local().shape)
+                            for x in tree.leaves(cache) if x.ndim == 4])
+    if dist.get_rank() == 0:
+        want_logits, want_toks, want_s = want
+        if not torch.equal(toks, want_toks):
+            fail(f"{TP_DECODE_NAME}: tokens {toks.tolist()} differ from the "
+                 f"unplaced contiguous steps' {want_toks.tolist()}")
+        rels = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(logits, want_logits)]
+        if not max(rels) <= TP_LOGIT_TOL:
+            fail(f"{TP_DECODE_NAME}: logits differ by up to {max(rels):.3g} "
+                 f"of max |logit| (max {TP_LOGIT_TOL:g})")
+        out.update(worst_logit_rel=max(rels), unplaced_wall_s=want_s)
+    return out
+
+
+def _sum_squares(torch, g, chunk=1 << 26):
+    """sum(g^2) in fp32, ``chunk`` elements at a time (an fp32 copy of one
+    expert stack's gradient would not fit beside the step)."""
+    total = torch.zeros((), dtype=torch.float64, device=g.device)
+    for part in g.reshape(-1).split(chunk):
+        total += part.float().square().sum()
+    return total
+
+
+def _chunked_diffs(torch, a, b, chunk=1 << 26):
+    """``grad_diffs``'s (cosine, relative L2) of ``a`` against ``b`` in
+    float64, ``chunk`` elements at a time on their device (a float64
+    copy of an embedding's gradient would not fit beside the step)."""
+    s = torch.zeros(4, dtype=torch.float64, device=a.device)
+    for x, y in zip(a.reshape(-1).split(chunk), b.reshape(-1).split(chunk)):
+        x, y = x.double(), y.double()
+        d = x - y
+        s += torch.stack([x @ y, x @ x, y @ y, d @ d])
+    dot, aa, bb, dd = s.tolist()
+    return (dot / max(math.sqrt(aa * bb), 1e-30),
+            math.sqrt(dd) / max(math.sqrt(bb), 1e-30))
+
+
+def _chunked_norm(torch, grads):
+    """The global L2 norm of ``grads`` (``_sum_squares``)."""
+    return math.sqrt(float(sum(_sum_squares(torch, g) for g in grads)))
+
+
+def tp_ep_train(torch, label):
+    """Phase 41's EP-major part (``TP_EP_TRAIN``): rank 0 runs step 1's
+    loss and gradients unplaced on the whole model first, alone on the
+    card, keeps on the host each non-expert gradient and the sampled
+    experts', and frees the rest; then both ranks draw their own shards
+    (``seeded_params``) by the uniform HP plan with the EP-major specs on
+    a (data 2, model 1) mesh and run the sharded step's loss and
+    gradients (``steps.sharded_loss_and_grads``: each rank routes its own
+    sequence, one all-to-all over `data` sends each expert's slots to its
+    owner and one brings them back).  Checks: the loss within
+    TP_LOSS_REL_TOL and the grad norm within GRAD_NORM_REL_TOL of the
+    unplaced step's, every non-expert leaf's gradient and the sampled
+    experts' at GRAD_COS_MIN / GRAD_REL_L2_MAX, each rank's stacks its
+    128 experts, exactly 4 all-to-alls (a MoE layer's dispatch and return
+    forward and backward) of E * C * D bf16 each, and the RMSNorm
+    launches of a train step (``train_launches``)."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import sharding as SH
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import mesh_shape_of
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharded as SD
+    from repro_torch.runtime import steps as ST
+
+    import dataclasses
+
+    import numpy as np
+
+    cfg = TP_EP_TRAIN
+    rank, world = dist.get_rank(), dist.get_world_size()
+    arch = dataclasses.replace(cut_depth(get_arch(DEEPSEEK), cfg["depth"]),
+                               mtp=False)
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    E = arch.moe.n_experts
+    per = E // world
+    sample = [r * per + o for r in range(world) for o in cfg["sample"]]
+    batch = next(SyntheticLM(arch.vocab, cfg["seq_len"], cfg["batch"]))
+    names = tree.names(T.init_lm(arch, device="meta",
+                                 generator=torch.Generator()))
+    from unittest import mock
+
+    from repro_torch.models import moe as MOE
+    real_route, routes = MOE.route, []
+
+    def route(*a, **k):         # each MoE call's top-k expert choices
+        out = real_route(*a, **k)
+        routes.append(out[2].cpu())
+        return out
+
+    def held(grads):            # the held leaves' grads, on the host
+        return [g[:, sample].cpu() if ".moe.w_" in n else g.cpu()
+                for n, g in zip(names, grads)]
+    want, part_s, last = {}, {}, [time.perf_counter()]
+
+    def lap(key):               # the seconds since the last lap
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        part_s[key], last[0] = now - last[0], now
+    if rank == 0:       # the unplaced step, alone on the card
+        torch.cuda.reset_peak_memory_stats()
+        params = seeded_params(torch, arch, TP_EP_SEED)
+        lap("unplaced params")
+        tok, lab = (torch.as_tensor(batch[k], device="cuda")
+                    for k in ("tokens", "labels"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(MOE, "route", route):
+            loss_u, _, g_u = ST.loss_and_grads(
+                ST.make_loss_fn(arch, impl="pallas"), params, tok, lab)
+        torch.cuda.synchronize()
+        want.update(loss=float(loss_u), step_s=time.perf_counter() - t0,
+                    grad_norm=_chunked_norm(torch, g_u),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    routes=routes[:])
+        want["grads"] = held(g_u)
+        del g_u, params, tok, lab
+        gc.collect()
+        torch.cuda.empty_cache()
+        routes.clear()
+        lap("unplaced step")
+    dist.barrier()
+    lap("wait")
+    torch.cuda.reset_peak_memory_stats()
+    mesh = M.make_host_mesh(model=1, device="cuda", backend="gloo")
+    ms = mesh_shape_of(mesh)
+    with SH.moe_ep_axis("data"):
+        plan = uniform_scheduler("HP").plan(
+            arch, ShapeSpec("ep", cfg["seq_len"], cfg["batch"], "train"), ms)
+        pns = SH.shardings(plan.param_specs(), mesh)
+    p = seeded_params(torch, arch, TP_EP_SEED, pns)
+    lap("place")
+    stacks = {tuple(x.to_local().shape) for n, x in zip(names,
+                                                        tree.leaves(p))
+              if ".moe.w_" in n}
+    if {s[1] for s in stacks} != {per}:
+        fail(f"{label}: rank {rank}'s expert stacks {stacks}, want {per} "
+             f"experts")
+    act_ns = SH.NamedSharding(mesh, SH.P(SH.batch_axes(ms, cfg["batch"]),
+                                         None, None))
+    a2a = {"count": 0, "bytes": 0}
+    real = dist.all_to_all_single
+
+    def all_to_all(out, inp, *a, **k):
+        a2a["count"] += 1
+        a2a["bytes"] += inp.numel() * inp.element_size()
+        return real(out, inp, *a, **k)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Recorder() as seen, mock.patch.object(
+            dist, "all_to_all_single", all_to_all), \
+            mock.patch.object(MOE, "route", route):
+        total, _, grads = ST.sharded_loss_and_grads(
+            arch, p, batch, act_sharding=act_ns, grad_shardings=pns,
+            impl="pallas")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    lap("step")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the global norm over the shards, as ``sharded.global_norm`` sums it
+    # (a replicated leaf's squares divided by its replicas), in chunks
+    lays = SD.layouts(pns, SD.plan_layout(arch, SH.map_specs(
+        lambda ns: ns.spec, pns), mesh, act_ns.spec)[0])
+    sq = sum(_sum_squares(torch, g) / SD.replicas(lay, mesh)
+             for g, lay in zip(grads, lays))
+    dist.all_reduce(sq)
+    gnorm = math.sqrt(float(sq))
+    loss = torch.stack([total.float()])
+    dist.all_reduce(loss)
+    loss = float(loss[0]) / world
+    bad = [f"{k} {counts[k]} (want {n})"
+           for k, n in train_launches(arch).items() if counts[k] != n]
+    C = max(1, int(arch.moe.capacity_factor * arch.moe.top_k *
+                   cfg["seq_len"] / E))
+    one = E * (cfg["batch"] // world) * C * arch.d_model * torch.empty(
+        (), dtype=T.compute_dtype(arch)).element_size()
+    if a2a != {"count": 4, "bytes": 4 * one}:
+        bad.append(f"all-to-alls {a2a}, want 4 of {one} bytes")
+    # the tokens whose top-k expert set differs from the unplaced step's
+    # (bf16 rounding moves near-ties; a moved choice shifts the capacity
+    # slots of the tokens after it)
+    every = [None] * world
+    dist.all_gather_object(every, [r.numpy() for r in routes])
+    flips = 0
+    if rank == 0:
+        for layer, ru in enumerate(want["routes"]):
+            rp = np.concatenate([e[layer] for e in every])
+            flips += int((np.sort(ru.numpy(), -1) != np.sort(rp, -1))
+                         .any(-1).sum())
+    lap("norm and routes")
+    # every gradient held on rank 0, on the card, which the params leave
+    # room for: non-expert leaves gathered whole one at a time, the
+    # sampled experts from each rank's range
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = {}
+    for i, (n, g, ns) in enumerate(zip(names, grads, tree.leaves(pns))):
+        if ".moe.w_" in n:
+            part = g[:, list(cfg["sample"])].contiguous()
+            got = SD._all_gather(part, 1, world, dist.group.WORLD)
+        else:
+            got = SD.gather_full(g, mesh, ns.placements)
+        if rank == 0:
+            diffs[n] = _chunked_diffs(torch, got,
+                                      want["grads"][i].to(got.device))
+        del got
+    lap("diffs")
+    out = dict(layers=arch.n_layers, method=plan.plan.method, part_s=part_s,
+               start_mem_gb=start_gb,
+               experts=sorted(s[1] for s in stacks), loss=loss,
+               grad_norm=gnorm, step_s=step_s, peak_mem_gb=peak,
+               launches=counts, all_to_all=a2a,
+               all_to_all_mb=a2a["bytes"] / 1e6,
+               all_reduces=seen.all_reduces,
+               all_reduce_mb=seen.all_reduce_bytes / 1e6,
+               all_gathers=seen.all_gathers,
+               all_gather_mb=seen.all_gather_bytes / 1e6, route_flips=flips)
+    if rank == 0:
+        print(f"{label}: every leaf's (cosine, rel L2) against the unplaced "
+              f"step: {diffs}; {flips} tokens' expert sets differ from the "
+              f"unplaced step's", flush=True)
+        bad += [f"{n}: cos {c:.6f}, rel L2 {r:.3g}"
+                for n, (c, r) in diffs.items()
+                if not (c >= GRAD_COS_MIN and r <= GRAD_REL_L2_MAX)]
+        if not abs(loss - want["loss"]) <= TP_LOSS_REL_TOL * abs(
+                want["loss"]):
+            bad.append(f"loss {loss} vs unplaced {want['loss']}")
+        if not abs(gnorm - want["grad_norm"]) <= \
+                GRAD_NORM_REL_TOL * want["grad_norm"]:
+            bad.append(f"grad norm {gnorm} vs unplaced {want['grad_norm']}")
+        cos_leaf = min(diffs, key=lambda n: diffs[n][0])
+        rel_leaf, rel = worst(diffs)
+        out.update(loss_unplaced=want["loss"],
+                   grad_norm_unplaced=want["grad_norm"],
+                   unplaced_step_s=want["step_s"],
+                   unplaced_peak_mem_gb=want["peak_gb"], n_leaves=len(diffs),
+                   worst_cos=diffs[cos_leaf][0], worst_cos_leaf=cos_leaf,
+                   worst_rel_l2=rel, worst_rel_l2_leaf=rel_leaf)
+    if bad:
+        fail(f"{label}: rank {rank}: {bad}")
+    del grads
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5190,22 +5673,23 @@ def dryrun_start():
     build."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     procs = {}
-    for arch, shape in DRYRUN_CELLS:
-        procs[(arch, shape)] = subprocess.Popen(
+    for key in DRYRUN_CELLS + (DRYRUN_EP_CELL + ("moe-ep",),):
+        arch, shape = key[:2]
+        procs[key] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--no-save", "--device", "cuda"],
+             arch, "--shape", shape, "--no-save", "--device", "cuda"]
+            + (["--moe-ep"] if len(key) > 2 else []),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env, cwd=str(ROOT))
     return procs, time.perf_counter()
 
 
-def dryrun_phase(torch, report, card, pending):
-    """45. The dry run's records, ``pending`` from ``dryrun_start``: every
-    cell ``ok`` and its counted cost (FLOPs, bytes, kernel calls) equal
-    to the CPU's, ``DRYRUN_CPU_COST``."""
-    procs, t0 = pending
+def _dryrun_records(procs, keys):
+    """The ``record`` of each cell ``keys`` names, from its process of
+    ``procs`` (``dryrun_start``): each must exit 0 with status ``ok``."""
     recs, errors = {}, []
-    for key, p in procs.items():
+    for key in keys:
+        p = procs[key]
         try:
             out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -5222,6 +5706,50 @@ def dryrun_phase(torch, report, card, pending):
         recs[key] = rec[0]
     if errors:
         fail(f"{DRYRUN_NAME}: {errors}")
+    return recs
+
+
+def dryrun_ep_phase(torch, report, card, pending):
+    """45, the ``--moe-ep`` cell (``DRYRUN_EP_CELL``), read after phase 46:
+    ``ok``, and its all-to-alls those of its specs: the dispatch and the
+    return of each MoE layer in a decode step, each E * B_l * C * D bf16
+    values (B_l = the batch over 16 `data` ranks, C at one token a row);
+    its memory, cost and collectives printed."""
+    from repro_torch.configs import SHAPES, get_arch
+    procs, t0 = pending
+    key = DRYRUN_EP_CELL + ("moe-ep",)
+    rec = _dryrun_records(procs, [key])[key]
+    arch, shape = get_arch(key[0]), SHAPES[key[1]]
+    m = arch.moe
+    layers = block_counts(arch)["mla"] + block_counts(arch)["moe_attn"]
+    C = max(1, int(m.capacity_factor * m.top_k / m.n_experts))
+    one = m.n_experts * (shape.global_batch // 16) * C * arch.d_model * 2
+    want = {"count": 2 * layers, "bytes": 2 * layers * one,
+            "result_bytes": 2 * layers * one}
+    got = rec["collectives"]["all-to-all"]
+    if got != want:
+        fail(f"{DRYRUN_NAME} {key}: all-to-alls {got}, want {want}")
+    coll = {k: (v["count"], v["bytes"]) for k, v in
+            rec["collectives"].items() if isinstance(v, dict)}
+    print(f"{DRYRUN_NAME}: {key[0]} x {key[1]} --moe-ep on 16x16 "
+          f"({rec['method']}): ok, traced in {rec['trace_s']:.1f} s; "
+          f"all-to-alls {got['count']} ({got['bytes']} bytes, the specs' "
+          f"count); memory a rank {rec['memory']}; cost flops "
+          f"{rec['cost']['flops']} bytes {rec['cost']['bytes']}, kernel "
+          f"calls {rec['cost']['kernel_calls']}; collectives (count, bytes "
+          f"from the other ranks) {coll}; model flops "
+          f"{rec['model_flops']:.4g}")
+    report[f"{DRYRUN_NAME} moe-ep"] = {
+        k: rec[k] for k in ("method", "assignment", "memory", "cost",
+                            "collectives", "model_flops", "trace_s")}
+
+
+def dryrun_phase(torch, report, card, pending):
+    """45. The dry run's records, ``pending`` from ``dryrun_start``: every
+    cell ``ok`` and its counted cost (FLOPs, bytes, kernel calls) equal
+    to the CPU's, ``DRYRUN_CPU_COST``."""
+    procs, t0 = pending
+    recs = _dryrun_records(procs, DRYRUN_CELLS)
     res = {}
     for arch, shape in DRYRUN_CELLS:
         gpu, cpu = recs[(arch, shape)], DRYRUN_CPU_COST[(arch, shape)]
@@ -5242,7 +5770,7 @@ def dryrun_phase(torch, report, card, pending):
               f"from the other ranks) {coll}; model flops "
               f"{gpu['model_flops']:.4g}")
     report[DRYRUN_NAME] = dict(res, s=time.perf_counter() - t0)
-    print(f"{DRYRUN_NAME}: {len(procs)} processes done "
+    print(f"{DRYRUN_NAME}: {len(recs)} processes done "
           f"{report[DRYRUN_NAME]['s']:.1f} s after their start")
 
 
@@ -5444,7 +5972,8 @@ def _run(args, torch, np, card, t_start, pending) -> int:
     paths += [QWEN_CUT, f"placed {QWEN}", f"cluster {QWEN}"]
     paths += [f"train {n}" for n in TRAIN] + [f"trainer {QWEN}"]
     paths += [f"train {n}" for n in (VIT_B, RESNET, VIT_DEMO, VIT_224)]
-    paths += [TP_NAME, TP_MOE_NAME, POD_NAME, TRACE_NAME]
+    paths += [TP_NAME, TP_MOE_NAME, TP_DECODE_NAME, TP_EP_NAME, POD_NAME,
+              TRACE_NAME]
     paths += [f"decode {n}" for n in DECODE_ARCHS]
     paths += [EXAMPLES_NAME]
     by_path = {p: {k: 0 for k in KERNELS} for p in paths}
@@ -5548,6 +6077,9 @@ def _run(args, torch, np, card, t_start, pending) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         timed(EXAMPLES_NAME, examples_phase, torch, report, card)
+        # 45, read late: the --moe-ep cell traced beside the card's phases
+        timed(f"{DRYRUN_NAME} moe-ep", dryrun_ep_phase, torch, report, card,
+              pending)
         by_path = {p: report[p]["launches"] for p in paths}
 
     # one entry per kernel, on the main path that runs it most: its

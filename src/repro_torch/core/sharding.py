@@ -30,6 +30,7 @@ locally first (``to_mesh_order``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -45,8 +46,25 @@ from repro_torch.core.strategy import Strategy
 
 # EP layout for MoE expert stacks: "model" (baseline: experts over `model`,
 # expert-tensor over `data` under HP) or "data" (optimized EP-major: experts
-# over `data`, expert-FF over `model`)
+# over `data`, expert-FF over `model`; ``runtime/sharded.py`` dispatches
+# the tokens to them with an all-to-all over `data`).  The reference's
+# launcher sets it per cell; ``moe_ep_axis`` sets it for a scope.
 MOE_EP_AXIS = "model"
+
+
+@contextlib.contextmanager
+def moe_ep_axis(axis: str):
+    """Within it, ``MOE_EP_AXIS`` is ``axis`` ("model" or "data"): every
+    spec made then (``param_specs``, a plan's ``param_specs()``) lays the
+    MoE expert stacks out by it; the old value comes back on exit."""
+    global MOE_EP_AXIS
+    if axis not in ("model", "data"):
+        raise ValueError(f"MOE_EP_AXIS is 'model' or 'data', not {axis!r}")
+    old, MOE_EP_AXIS = MOE_EP_AXIS, axis
+    try:
+        yield
+    finally:
+        MOE_EP_AXIS = old
 
 # column-parallel modules (shard d_out over `model`); row-parallel (d_in)
 COL = {"wq", "wk", "wv", "w_in", "w_gate", "z_proj", "x_proj", "dt_proj",

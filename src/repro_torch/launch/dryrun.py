@@ -37,14 +37,20 @@ Train cells run the sharded train step (``runtime/steps.py`` with the
 plan's shardings: weights gathered on use, the tensor-parallel blocks,
 gradients reduced to their placements).  Prefill and decode cells run
 ``make_prefill_step`` / ``make_decode_step`` on contiguous caches placed
-by the plan's ``cache_specs``: every weight is gathered on use and every
-block's cache shards around its call (the tensor-parallel blocks take
-the whole-sequence forward and the paged step only), so the serving
-cells' collectives are all-gathers.  ``--seq-shard`` is recorded in the
-plan's meta and costs, as the reference's; the port's sharded step
-lays only the batch out over the mesh.  ``--moe-ep`` (the reference's
-EP-major MoE layout, an all-to-all dispatch) is refused on MoE archs:
-``models/moe.py`` has no all-to-all yet.
+by the plan's ``cache_specs``, through ``runtime/sharded.py``'s
+``plan_layout`` blocks: a block the plan shards over `model` computes on
+its own share and takes its cache as placed (an attention cache's time
+shards gathered around the attention), its tensor-parallel weights kept
+as they lie and every other weight gathered on use; a block that runs
+whole gathers its cache's shards around its call (``_rows_block``).
+``--seq-shard`` is recorded in the plan's meta and costs, as the
+reference's; the port's sharded step lays only the batch out over the
+mesh.  ``--moe-ep`` takes the reference's EP-major MoE layout on MoE
+archs (``core.sharding.MOE_EP_AXIS = "data"`` for the cell, and
+``AdaptiveScheduler(moe_ep=True)``): the experts over `data`, their FF
+dim over `model`, the tokens dispatched to them and back by all-to-all
+(``models/moe.py``'s ``ExpertAllToAll``), which ``collectives["all-to-all"]``
+records.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
         --shape decode_32k --no-save --device cpu
@@ -272,13 +278,11 @@ def plan_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec], *,
               multi_pod: bool, seq_shard: bool = False,
               opt8bit: bool = False, moe_ep: bool = False):
     """The cell's ASA plan and meta, as the reference's ``build_cell``
-    makes them: -> (plan, meta, seq_ok)."""
+    makes them: -> (plan, meta, seq_ok).  ``moe_ep`` plans with the cost
+    model's EP terms on a MoE arch (a dense arch is planned as without
+    it); the plan's specs follow ``moe_ep_axis(arch, moe_ep)`` where they
+    are read."""
     arch, shape = _resolve(arch, shape)
-    if moe_ep and arch.moe is not None:
-        raise NotImplementedError(
-            f"{arch.name}: --moe-ep (the EP-major MoE layout, experts over "
-            f"`data` with an all-to-all dispatch) is not ported: "
-            f"models/moe.py has no all-to-all dispatch yet")
     ms = MeshShape(16, 16, pod=2 if multi_pod else 1)
     opt_preset = ("adamw8bit" if (arch.name in QUANTIZED_OPT or opt8bit)
                   else "adamw32")
@@ -287,7 +291,7 @@ def plan_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec], *,
               and shape.kind != "decode" and shape.seq_len % ms.model == 0)
     sched = AdaptiveScheduler(faithful=False, opt_preset=opt_preset,
                               remat="full", seq_sharded=seq_ok,
-                              moe_ep=False)
+                              moe_ep=moe_ep and arch.moe is not None)
     plan = sched.plan(arch, shape, ms)
     meta = {"arch": arch.name, "shape": shape.name,
             "mesh": _mesh_name(multi_pod), "opt_preset": opt_preset,
@@ -296,6 +300,14 @@ def plan_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec], *,
             "predicted": plan.plan.cost,
             "assignment": {k: str(v) for k, v in plan.assignment.items()}}
     return plan, meta, seq_ok
+
+
+def moe_ep_axis(arch: ArchConfig, moe_ep: bool):
+    """The scope a cell's specs are made in: the EP-major layout
+    (``MOE_EP_AXIS = "data"``) for ``--moe-ep`` on a MoE arch, else the
+    default ("model"), as the reference's launcher sets it per cell."""
+    return SH.moe_ep_axis("data" if moe_ep and arch.moe is not None
+                          else "model")
 
 
 def _frontend_shape(arch: ArchConfig, batch: int) -> Optional[tuple]:
@@ -318,7 +330,8 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec],
                               moe_ep=moe_ep)
     ms = mesh_shape_of(mesh)
     Bsz, S = shape.global_batch, shape.seq_len
-    pspecs = plan.param_specs()
+    with moe_ep_axis(arch, moe_ep):
+        pspecs = plan.param_specs()
     params = _place_tree(C.abstract_params(arch), pspecs, mesh, device)
     # FS and uniform DP shard the batch over every mesh axis
     full_batch = plan.uniform in ("FS", "DP") and shape.kind == "train"
@@ -376,7 +389,8 @@ def build_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec],
     cspecs = plan.cache_specs(Bsz)
     cache = _place_tree(T.init_cache(arch, Bsz, S, device="meta"), cspecs,
                         mesh, device)
-    fn = _serving_fn(arch, shape.kind, params, pspecs, cspecs, mesh)
+    fn = _serving_fn(arch, shape.kind, params, pspecs, cspecs, mesh,
+                     SH.P(rows, None))
     # this rank's rows of the batch (cache_specs lay them out alike)
     local = Bsz // shards
     tok = torch.empty((local, S if shape.kind == "prefill" else 1),
@@ -425,21 +439,30 @@ def _rows_block(fn, pls: dict, mesh):
     return apply
 
 
-def _serving_fn(arch, kind, params, pspecs, cspecs, mesh):
-    """The prefill or decode step on placed params and caches, on this
-    rank's rows of the batch: the params gathered on use
-    (``runtime/sharded.py``'s working tree), each block's cache shards
-    gathered around its call (``_rows_block``)."""
+def _serving_fn(arch, kind, params, pspecs, cspecs, mesh, batch_spec):
+    """The prefill or decode step ``fn(_, cache, tokens[, frontend])`` on
+    placed params and caches, on this rank's rows of the batch
+    (``batch_spec``), its blocks' functions as ``fn.block_fns``:
+    ``plan_layout``'s blocks
+    where the plan shards them over `model` (each on its own share and
+    its cache as placed: ``runtime/sharded.py``), their tensor-parallel
+    leaves kept as they lie and every other param gathered on use (the
+    working tree); every other block's cache shards gathered around its
+    call (``_rows_block``)."""
     pns = SH.shardings(pspecs, mesh)
-    lays = SD.layouts(pns, {})
+    roles, tp_fns = SD.plan_layout(arch, pspecs, mesh, batch_spec, cspecs)
+    lays = SD.layouts(pns, roles)
     live = [p.to_local() for p in tree.leaves(params)]
     pls = SH.map_specs(lambda ns: ns.placements, SH.shardings(cspecs, mesh))
     app = PL._pls_map(SD._shift, pls)
-    block_fns = {si: {bi: _rows_block(B.apply_block, app[si][f"b{bi}"],
-                                      mesh)
-                      for bi in range(len(seg.blocks))
-                      if app[si][f"b{bi}"] is not None}
-                 for si, seg in enumerate(arch.pattern)}
+    block_fns = {k: v for k, v in tp_fns.items() if k == "encoder"}
+    for si, seg in enumerate(arch.pattern):
+        for bi in range(len(seg.blocks)):
+            fn = tp_fns.get(si, {}).get(bi)
+            if fn is None and app[si][f"b{bi}"] is not None:
+                fn = _rows_block(B.apply_block, app[si][f"b{bi}"], mesh)
+            if fn is not None:
+                block_fns.setdefault(si, {})[bi] = fn
     make = ST.make_prefill_step if kind == "prefill" else ST.make_decode_step
     step = make(arch, block_fns=block_fns)
 
@@ -447,6 +470,7 @@ def _serving_fn(arch, kind, params, pspecs, cspecs, mesh):
         with torch.no_grad():
             return step(SD.working_tree(params, live, lays, mesh), cache,
                         *rest)
+    fn.block_fns = block_fns
     return fn
 
 
@@ -510,8 +534,6 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec], *,
         rec.update({"status": "skipped", "reason": why})
         _save(rec, save)
         return rec
-    if moe_ep and arch.moe is not None:
-        plan_cell(arch, shape, multi_pod=multi_pod, moe_ep=True)  # raises
     t0 = time.time()
     try:
         with fake_world(512 if multi_pod else 256, device):
@@ -519,7 +541,8 @@ def run_cell(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec], *,
             with FakeTensorMode(allow_non_fake_inputs=True):
                 fn, args, plan, meta, arg_bytes = build_cell(
                     arch, shape, multi_pod=multi_pod, mesh=mesh,
-                    device=device, seq_shard=seq_shard, opt8bit=opt8bit)
+                    device=device, seq_shard=seq_shard, opt8bit=opt8bit,
+                    moe_ep=moe_ep)
                 rec.update(meta)
                 r = _Recorder()
                 with kops.kernel_hook(r.kernel), r:
@@ -573,8 +596,8 @@ def main(argv=None):
     ap.add_argument("--opt8bit", action="store_true",
                     help="int8 optimizer moments for any arch")
     ap.add_argument("--moe-ep", action="store_true",
-                    help="EP-major MoE layout (refused on MoE archs: no "
-                         "all-to-all dispatch yet)")
+                    help="EP-major MoE layout: experts over `data`, an "
+                         "all-to-all dispatch")
     ap.add_argument("--tag", default="", help="suffix for result files")
     ap.add_argument("--device", default="cuda",
                     help="the fake tensors' device: cuda (default) or cpu")
@@ -586,12 +609,6 @@ def main(argv=None):
         cells = [(args.arch, args.shape)]
     else:
         ap.error("--arch and --shape (or --all)")
-    if args.moe_ep:
-        moe = sorted({a for a, _ in cells if get_arch(a).moe is not None})
-        if moe:
-            ap.error(f"--moe-ep on {', '.join(moe)}: the EP-major MoE "
-                     f"layout needs an all-to-all dispatch, which "
-                     f"models/moe.py does not have yet")
 
     n_fail = 0
     for a, s in cells:

@@ -539,9 +539,38 @@ def init_embedding(vocab: int, d_model: int, *, generator, device,
                                  device)}
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]``; backward: each row's gradients summed in fp32
+    (one ``index_put_`` with accumulate into an fp32 table: deterministic)
+    and cast to the table's dtype once.  Indexing's own backward adds
+    each occurrence into the table's dtype, so in bf16 the row of a token
+    that occurs a few hundred times in a batch (a Zipf stream's first
+    tokens) drifts by a few percent, and by another few where the batch
+    is split over ranks."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        acc_dtype = (torch.float32 if ctx.dtype in (torch.bfloat16,
+                                                    torch.float16)
+                     else ctx.dtype)
+        acc = torch.zeros(ctx.shape, dtype=acc_dtype, device=g.device)
+        acc.index_put_((tokens.reshape(-1),),
+                       g.reshape(-1, g.shape[-1]).to(acc_dtype),
+                       accumulate=True)
+        return acc.to(ctx.dtype), None
+
+
 def embed(p: Params, tokens: torch.Tensor, d_model: int) -> torch.Tensor:
-    """Row lookup times sqrt(d_model), in the table's dtype."""
-    return p["embedding"][tokens] * (d_model ** 0.5)
+    """Row lookup times sqrt(d_model), in the table's dtype; the table's
+    gradient summed in fp32 (``_Lookup``)."""
+    return _Lookup.apply(p["embedding"], tokens) * (d_model ** 0.5)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -18,13 +18,26 @@ carries the token).  Dispatch, the expert products and combine are dense
 reference computes them outside any kernel; a decode step therefore reads
 every expert's weights.
 
-Expert parallelism (``routed`` with an ``ExpertSplit``): every `model`
-rank routes all of its tokens over all E experts, so the slots and the
-drops are the whole layer's, then runs and combines only its own range of
-experts; the output is that range's share, summed over the ranks by the
-caller (``runtime/sharded.py``, which runs the ``SIDE_MLPS`` by d_ff).
-Under a batch split over ranks (``batch_split``) the aux loss is the
-whole batch's.
+Expert parallelism (``routed`` with an ``ExpertSplit``): every rank of
+a group that holds the same tokens routes all of them over all E
+experts, so the slots and the drops are the whole layer's, then runs and
+combines only its own range of experts; the output is that range's
+share, summed over the ranks by the caller (``runtime/sharded.py``,
+which runs the ``SIDE_MLPS`` by d_ff).
+
+The EP-major layout (``routed`` with an ``ExpertAllToAll``; the
+reference's ``EP_CONSTRAINTS``, under ``core.sharding.MOE_EP_AXIS =
+"data"``): the experts lie over the `data` ranks, whose tokens differ.
+Each rank routes its own rows over all E experts (the slots and drops a
+single rank's, row for row), builds the expert-major (E, B*C, D) buffer,
+and one ``all_to_all_single`` over `data` sends each rank its E / size
+experts' slots; the rank runs its experts over the size * B * C rows it
+received (with its `model` slice of the expert FF dim: then its output
+is a part, summed over `model` by the caller's one all-reduce after
+combine), the reverse all-to-all brings the outputs back, and each rank
+combines its own rows.  The all-to-all's backward is the same exchange
+(``_AllToAll``).  Under a batch split over ranks (``batch_split``) the
+aux loss is the whole batch's.
 """
 from __future__ import annotations
 
@@ -58,11 +71,53 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExpertSplit:
-    """The experts over the ``size`` ranks of a `model` group, in order:
-    rank ``rank`` holds experts rank * E / size onward (the expert stacks'
-    `model` shards)."""
+    """The experts over ``size`` ranks that hold the same tokens, in
+    order: rank ``rank`` holds experts rank * E / size onward (the expert
+    stacks' shards).  ``sharing``: the ranks that compute the same aux
+    loss and whose router gradients are summed (default ``size``; the
+    placed engine's EP-major layout splits the experts over `data` and
+    their FF dim over `model`, and every rank of the world holds the same
+    rows)."""
     size: int
     rank: int
+    sharing: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertAllToAll:
+    """The EP-major layout: the experts over the ``size`` ranks of
+    ``group`` (the `data` axis, whose rows differ), rank ``rank`` holding
+    experts rank * E / size onward; ``sharing``: the ranks that hold this
+    rank's rows (its `model` group), which compute the same aux loss."""
+    group: object
+    size: int
+    rank: int
+    sharing: int = 1
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """One ``all_to_all_single`` over ``group``: dim 0 cut into as many
+    equal chunks as ranks, chunk j sent to rank j, and the chunk from rank
+    j at j's place."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """``_exchange`` over ``group``; backward: the same exchange of the
+    gradient (rank i's chunk j is rank j's chunk i both ways)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
 
 
 def _estack(shape, dtype, stddev, generator, device, repeat):
@@ -161,16 +216,21 @@ def batch_split(group, n: int):
 
 
 def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
-           split: Optional[ExpertSplit] = None):
+           split=None):
     """x: (B, S, D) -> (the routed experts' output (B, S, D), aux loss):
     the layer without its ``SIDE_MLPS``.
 
-    With ``split`` the expert stacks of ``p`` are this rank's (E / size
-    experts) and the output is their share (the caller sums the shares
-    over the ranks).  The aux loss keeps its value, but its gradient is
-    scaled by 1 / size: every rank computes it whole from the same
-    tokens, so a router (and an input) whose gradient is summed over the
-    ranks would count it ``size`` times."""
+    With ``split`` (an ``ExpertSplit``) the expert stacks of ``p`` are
+    this rank's (E / size experts) and the output is their share (the
+    caller sums the shares over the ranks).  With an ``ExpertAllToAll``
+    the stacks are this rank's E / size experts of the EP-major layout,
+    the slots go to their owners and back by all-to-all, and the output
+    is this rank's rows'; where the stacks hold a slice of the expert FF
+    dim, it is that slice's part.  The aux loss keeps its value, but its
+    gradient is scaled by 1 / ``split.sharing``: every rank that holds
+    the same tokens computes it whole, so a router (and an input) whose
+    gradient is summed over those ranks would count it that many
+    times."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = max(1, int(cfg.capacity_factor * K * S / E))   # per-row capacity
@@ -186,7 +246,8 @@ def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
     # a dropped (or unchosen) assignment has an all-zero row over C
     pos_oh = (keep[..., None] & (pos[..., None] == torch.arange(
         C, device=x.device))).to(x.dtype)                        # (B,S,K,E,C)
-    if split is not None:               # this rank's experts' slots only
+    a2a = isinstance(split, ExpertAllToAll)
+    if split is not None and not a2a:   # this rank's experts' slots only
         n = E // split.size
         pos_oh = pos_oh[:, :, :, split.rank * n:(split.rank + 1) * n]
     disp = pos_oh.sum(dim=2)                                     # (B,S,E,C)
@@ -195,9 +256,19 @@ def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
     # expert-major buffers: (E, B*C, D), one bmm per product
     El = disp.shape[2]
     xe = torch.einsum("bsd,bsec->ebcd", x, disp).reshape(El, B * C, D)
+    if a2a:
+        # each owner's experts' slots of every rank's rows: (E / size,
+        # size * B * C, D), rank-major within each expert
+        n, El = split.size, E // split.size
+        xe = _AllToAll.apply(xe, split.group).reshape(
+            n, El, B * C, D).transpose(0, 1).reshape(El, n * B * C, D)
     h = torch.bmm(xe, p["w_in"].to(x.dtype))
     g = torch.bmm(xe, p["w_gate"].to(x.dtype))
     ye = torch.bmm(_act(h, g, cfg.act), p["w_out"].to(x.dtype))
+    if a2a:                             # back to the rows' ranks
+        ye = _AllToAll.apply(ye.reshape(El, n, B * C, D).transpose(0, 1)
+                             .reshape(E, B * C, D), split.group)
+        El = E
     out = torch.einsum("ebcd,bsec->bsd", ye.reshape(El, B, C, D), comb)
 
     # Switch-style load balance: E * sum_e f_e * p_e / K; the routed
@@ -207,10 +278,11 @@ def routed(p: Params, cfg: MoEConfig, x: torch.Tensor,
     if _batch is not None:
         me, pe = _BatchMean.apply(torch.stack([me, pe]), *_batch)
     aux = cfg.aux_loss_weight * E * torch.sum(me * pe / K)
-    if split is not None:
+    sharing = (split.sharing or split.size) if split is not None else 1
+    if sharing > 1:
         # the aux-loss trap: its forward value stays (the difference term
-        # is exactly 0), its backward is 1 / size of it on each rank
-        aux = aux.detach() + (aux - aux.detach()) / split.size
+        # is exactly 0), its backward is 1 / sharing of it on each rank
+        aux = aux.detach() + (aux - aux.detach()) / sharing
     return out, aux
 
 

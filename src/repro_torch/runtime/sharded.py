@@ -10,7 +10,7 @@ gradients.
 Params and optimizer moments are DTensors placed by the plan's specs
 (``core/sharding.py``).  The forward and backward run on plain local
 tensors: the kernels are autograd Functions over ctypes-bound CUDA code
-that DTensor dispatch never reaches.  Every leaf plays one of three roles:
+that DTensor dispatch never reaches.  Every leaf plays one of four roles:
 
   * ``full`` — gathered whole on use (all-gathered over every mesh dim it
     is sharded on), so each rank computes the whole gradient of its own
@@ -42,7 +42,16 @@ that DTensor dispatch never reaches.  Every leaf plays one of three roles:
     routes every token; the gates reach it through each rank's own
     experts, and the aux loss, computed whole on every rank, through a
     gradient scaled by 1 / size: ``moe.routed``); summed over every rank,
-    `model` included, and divided by the non-`model` size.
+    `model` included, and divided by the non-`model` size;
+  * ``expert`` — an expert stack of the EP-major layout (``core.sharding.
+    MOE_EP_AXIS = "data"``: experts over `data`, the expert FF dim over
+    `model`): kept as it lies on both, and computed with there.  The
+    all-to-all's backward brings every `data` rank's rows' gradient to
+    the experts' owner, so the shard's gradient is already summed over
+    `data` (and is its F slice's whole over `model`): it is summed over
+    the other dims only (`pod`, where the stacks are replicated) and
+    divided by the batch's shards (data x pod), which makes it the
+    single rank's.
 
 Repeat-stacked leaves are gathered one application at a time, as the
 model reaches it (``_Stacked``), others at the start of the forward.  The
@@ -61,18 +70,37 @@ zamba2's ``shared_attn`` (the shared weights walked once, used by every
 application; app_proj by rows), ``mamba2`` (its heads, the gated norm
 over the whole d_inner through the split-row RMSNorm) and the MTP head
 (``tp_mtp_head``: proj by columns, then its columns all-gathered, and its
-``attn`` block).  The MoE FFN is expert-parallel (``_moe``): the `model`
-ranks hold the same tokens, so each routes them all and computes its own
-experts, the shared and dense MLPs by d_ff beside them, and one
-all-reduce sums the parts; no all-to-all.  zamba2's shared leaves are
-used at every application, and their gradients sum over the applications
-as any leaf's do.
+``attn`` block).  The MoE FFN is expert-parallel (``_moe``).  Where the
+plan lays the expert stacks over `model` (``MOE_EP_AXIS = "model"``), the
+`model` ranks hold the same tokens, so each routes them all and computes
+its own experts, the shared and dense MLPs by d_ff beside them, and one
+all-reduce sums the parts.  Under the EP-major layout (``MOE_EP_AXIS =
+"data"``) each rank routes its own rows, one all-to-all over `data` sends
+each expert's slots to its owner and one brings the outputs back
+(``moe.ExpertAllToAll``), each rank computes with its `model` slice of
+the expert FF dim, and the same one all-reduce over `model` after
+combine sums the slices' parts.  A batch not split over `data` (the
+placed engine's: every rank holds the same rows) needs no all-to-all:
+each rank runs its `data` range of experts on every row, and one
+all-reduce over the world sums the parts.  FS lays the batch over
+`model` too: there every weight is gathered on use, the expert stacks
+included (the cost model gives FS no EP term either).  zamba2's shared
+leaves are used at every application, and their gradients sum over the
+applications as any leaf's do.
+
+The serving steps run the same blocks on three paths: the
+whole-sequence forward, the paged step on the engine's pools, and the
+contiguous decode cache (``transformer.init_cache``) at the plan's
+``cache_specs`` placement, written in place at its ``pos``.  Those specs
+lay the attention caches' time axis over `model` (``TPBlock.cache_time``):
+a block all-gathers that axis around its attention, the rank writes its
+own heads' new rows, the ranks exchange them (``_fill_heads``) so that
+every head's are there, and the rank keeps its own time slice.  MLA's
+latents are computed whole on every rank and written whole; mamba2's
+``conv_x`` and ``ssm`` lie by heads, as its mixer runs.
 
 What this does not do: re-gather in the backward (a gathered weight lives
-from its use in the forward to its gradient, as the plain step's do), and
-the reference's EP-major layout (``core.sharding.MOE_EP_AXIS = "data"``:
-experts over `data` with an all-to-all dispatch), which only its dry run
-sets.
+from its use in the forward to its gradient, as the plain step's do).
 """
 from __future__ import annotations
 
@@ -91,7 +119,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 
-ROLES = ("full", "local", "partial")
+ROLES = ("full", "local", "partial", "expert")
 
 
 def _dt():
@@ -205,8 +233,12 @@ class _Working:
         if layout.stacked:
             have = _shift(have)
         self.have = have
-        self.want = tuple(p if (layout.role == "local" and i == model_dim)
-                          else D.Replicate() for i, p in enumerate(have))
+        names = tuple(mesh.mesh_dim_names)
+        kept = ({model_dim} if layout.role == "local" else
+                {i for i, n in enumerate(names) if n in ("data", "model")}
+                if layout.role == "expert" else set())
+        self.want = tuple(p if i in kept else D.Replicate()
+                          for i, p in enumerate(have))
         world = mesh.size()
         model = mesh.shape[model_dim] if model_dim is not None else 1
         self.scale = (1.0 / world if layout.role == "full"
@@ -300,9 +332,17 @@ class TPBlock:
     ``app_proj``: zamba2's per-application projection by rows; ``mla``:
     the latent attention by heads, ``q_split`` where wq_a is split by
     columns too (the q latent all-gathered); ``experts``: the MoE experts
-    by ranges (``moe.ExpertSplit``), ``side_mlp`` the MLP beside them
-    (``moe.SIDE_MLPS``: DeepSeek's shared expert, Arctic's dense FFN) by
-    d_ff; ``proj``: the MTP head's projection by columns."""
+    by ranges over `model` (``moe.ExpertSplit``), or by the EP-major
+    layout's ``ep`` (an ``moe.ExpertAllToAll`` over `data`, or an
+    ``ExpertSplit`` over `data` where every rank holds the same rows),
+    its parts summed over ``ep_group`` (the world in the latter case;
+    else `model`), ``ep_lead`` the ranks of it that add the side MLP's
+    parts (one `data` rank's, where the sum runs over the world);
+    ``side_mlp`` the MLP beside them (``moe.SIDE_MLPS``: DeepSeek's shared
+    expert, Arctic's dense FFN) by d_ff; ``proj``: the MTP head's
+    projection by columns; ``cache_time``: the block's contiguous
+    attention caches lie split over `model` along time (the plan's
+    ``cache_specs``)."""
     group: object
     size: int
     rank: int
@@ -318,6 +358,10 @@ class TPBlock:
     experts: bool = False
     side_mlp: bool = False
     proj: bool = False
+    ep: Optional[object] = None
+    ep_group: Optional[object] = None
+    ep_lead: bool = True
+    cache_time: bool = False
 
     @property
     def on(self) -> bool:
@@ -345,8 +389,9 @@ def _row_parallel(fn, p_out: dict, x, tp: TPBlock):
 
 
 def _kv_view(cache: dict, heads: tuple):
-    """The KV ``cache`` ({"k", "v"}: a paged pool (NB, BS, Hkv, D) or
-    cross-K/V rows (B, T, Hkv, D)) at ``heads`` -> (view, write_back): a
+    """The KV ``cache`` ({"k", "v"}: a paged pool (NB, BS, Hkv, D),
+    cross-K/V rows (B, T, Hkv, D), or a contiguous cache's rows, whose
+    ``pos`` passes through) at ``heads`` -> (view, write_back): a
     view where the heads are a contiguous range (the attention writes a
     pool through it), else a copy that ``write_back()`` puts back.
 
@@ -357,16 +402,18 @@ def _kv_view(cache: dict, heads: tuple):
     (``full_tensor``, a redistribute, a checkpoint or a sanitizer read
     would see one rank's partial copy)."""
     lo = heads[0]
+    rows = {k: t for k, t in cache.items() if k != "pos"}
+    pos = {k: t for k, t in cache.items() if k == "pos"}
     if heads == tuple(range(lo, lo + len(heads))):
-        return {k: t.narrow(2, lo, len(heads)) for k, t in cache.items()}, \
-            lambda: None
+        return {**{k: t.narrow(2, lo, len(heads))
+                   for k, t in rows.items()}, **pos}, lambda: None
     idx = torch.as_tensor(heads, device=cache["k"].device)
-    part = {k: t.index_select(2, idx) for k, t in cache.items()}
+    part = {k: t.index_select(2, idx) for k, t in rows.items()}
 
     def write_back():
-        for k, t in cache.items():
+        for k, t in rows.items():
             t.index_copy_(2, idx, part[k])
-    return part, write_back
+    return {**part, **pos}, write_back
 
 
 def _tp_attention(a: dict, cfg, h, tp: TPBlock, kv_heads, *, cache=None,
@@ -436,103 +483,194 @@ def _mlp(m: dict, h, act: str, tp: TPBlock, on: bool):
 
 def _moe(m: dict, arch: ArchConfig, h, tp: TPBlock):
     """The MoE FFN ``m`` over ``h`` -> (y, aux): ``moe.moe``'s routed
-    experts plus its side MLPs, the experts over `model` where
-    ``tp.experts`` (each rank routes every token over every expert and
-    combines its own range's outputs), the side MLP by d_ff where
+    experts plus its side MLPs, the experts by ranges where
+    ``tp.experts`` (over `model`: each rank routes every token over every
+    expert and combines its own range's outputs; EP-major, ``tp.ep``:
+    over `data`, by all-to-all where the rows differ, each rank with its
+    `model` slice of the FF dim), the side MLP by d_ff where
     ``tp.side_mlp``; the parts on this rank's share added and
-    all-reduced once (f before, g after), the biases and the parts
-    computed whole added after."""
+    all-reduced once over ``tp.ep_group`` or `model` (f before, g after),
+    the biases and the parts computed whole added after."""
     cfg = B.moe_cfg_for(arch)
     if not (tp.experts or tp.side_mlp):
         return MOE.moe(m, cfg, h)
-    hin = _CopyToTP.apply(h, tp.group)
-    y, aux = MOE.routed(m, cfg, hin if tp.experts else h,
-                        MOE.ExpertSplit(tp.size, tp.rank) if tp.experts
-                        else None)
+    group = tp.ep_group or tp.group
+    if group is not tp.group and torch.is_grad_enabled() and \
+            h.requires_grad:
+        raise ValueError("the EP-major layout trains with the batch split "
+                         "over `data` (its all-to-all); a batch every rank "
+                         "holds whole is served, not trained")
+    hin = _CopyToTP.apply(h, group)
+    split = tp.ep or (MOE.ExpertSplit(tp.size, tp.rank) if tp.experts
+                      else None)
+    y, aux = MOE.routed(m, cfg, hin if tp.experts else h, split)
     parts, whole = ([y], []) if tp.experts else ([], [y])
     for key in MOE.SIDE_MLPS:
         if key not in m:
             continue
         if tp.side_mlp:
             part, bias = _mlp_part(m[key], hin, cfg.act)
-            parts.append(part)
+            parts += [part] if tp.ep_lead else []
             whole += [] if bias is None else [bias.to(part.dtype)]
         else:
             whole.append(L.mlp(m[key], h, cfg.act))
-    y = _ReduceFromTP.apply(sum(parts), tp.group)
+    y = _ReduceFromTP.apply(sum(parts), group)
     for w in whole:
         y = y + w
     return y, aux
 
 
+def _cache_path(cache, block_tables) -> str:
+    """A block call's path: ``"whole"`` (the whole-sequence forward),
+    ``"paged"`` (a serving step on the engine's pools) or
+    ``"contiguous"`` (a decode cache, ``transformer.init_cache``)."""
+    if block_tables is not None:
+        if cache is None:
+            raise ValueError("the paged step needs the block's pools")
+        return "paged"
+    return "whole" if cache is None else "contiguous"
+
+
+def _time_whole(cache: dict, tp: TPBlock) -> dict:
+    """A contiguous cache whose rows (B, T / size, ...) are this rank's
+    `model` shard along time, all-gathered whole (every row, in rank
+    order); ``pos`` is the cache's own tensor."""
+    return {k: t if k == "pos" else _all_gather(t, 1, tp.size, tp.group)
+            for k, t in cache.items()}
+
+
+def _time_back(cache: dict, whole: dict, tp: TPBlock) -> None:
+    """This rank's time slice of each row leaf of ``whole`` written back
+    into its shard ``cache``."""
+    for k, t in cache.items():
+        if k != "pos":
+            t.copy_(whole[k].narrow(1, tp.rank * t.shape[1], t.shape[1]))
+
+
+def _fill_heads(cache: dict, rows, cfg, tp: TPBlock, kv_heads) -> None:
+    """Every KV head's new ``rows`` of the whole contiguous cache
+    ``cache``, where this rank wrote only its own heads' (those of its Q
+    heads: ``kv_heads``, or its range of them): each rank's heads
+    all-gathered over `model`, and each head taken from the first rank
+    that owns it."""
+    n_kv = cfg.n_kv_heads
+    picks = [L.local_groups(cfg.n_heads, n_kv, tp.size, r)
+             if kv_heads is not None else
+             tuple(range(r * n_kv // tp.size, (r + 1) * n_kv // tp.size))
+             for r in range(tp.size)]
+    n = len(picks[tp.rank])
+    if any(len(p) != n for p in picks):
+        raise ValueError(f"the ranks own {[len(p) for p in picks]} KV heads: "
+                         f"their new rows do not gather evenly")
+    src = [next(r * n + j for r in range(tp.size)
+                for j, hd in enumerate(picks[r]) if hd == head)
+           for head in range(n_kv)]
+    dev = cache["k"].device
+    own = torch.as_tensor(picks[tp.rank], device=dev)
+    src = torch.as_tensor(src, device=dev)
+    for key in ("k", "v"):
+        t = cache[key]
+        new = t.index_select(1, rows).index_select(2, own)
+        every = _all_gather(new, 2, tp.size, tp.group)
+        t.index_copy_(1, rows, every.index_select(2, src))
+
+
+def _self_attention(a: dict, cfg, h, tp: TPBlock, on: bool, kv_heads, *,
+                    cache, **kw):
+    """A self-attention (``_attention``) on any path.  On the contiguous
+    path with ``tp.cache_time`` the cache's time shards are gathered
+    around it, the new rows of every head made whole on every rank where
+    each rank wrote its own heads (``_fill_heads``), and this rank's time
+    slice written back."""
+    if cache is None or "block_tables" in kw and \
+            kw["block_tables"] is not None or not tp.cache_time:
+        return _attention(a, cfg, h, tp, on, kv_heads, cache=cache, **kw)
+    whole = _time_whole(cache, tp)
+    rows = L.cache_rows(cache["pos"], h.shape[1], whole["k"].shape[1])
+    y = _attention(a, cfg, h, tp, on, kv_heads, cache=whole, **kw)
+    if on:
+        _fill_heads(whole, rows, cfg, tp, kv_heads)
+    _time_back(cache, whole, tp)
+    return y
+
+
 def _mla(a: dict, arch: ArchConfig, h, tp: TPBlock, *, positions, cache,
          block_tables, new_lens):
     """The latent attention ``a`` over ``h``: the whole-sequence forward,
-    or the paged step on the latent pools ``cache`` (replicated: every
-    rank writes the same latents into its own copy, which stays whole).
+    the paged step on the latent pools ``cache`` (replicated: every rank
+    writes the same latents into its own copy, which stays whole), or the
+    contiguous latent cache ``cache`` at its ``pos`` (whole on every
+    rank, or split over `model` along time, ``tp.cache_time``: gathered
+    around the call, this rank's slice written back).
     Where ``tp.mla``, on this rank's heads (a config of H / size heads,
     the q latent all-gathered before ``q_norm`` where wq_a is split),
     all-reduced after wo, whose bias is added once; else whole."""
     cfg = B.mla_cfg_for(arch)
-    kw = (dict(positions=positions) if block_tables is None else
+    path = _cache_path(cache, block_tables)
+    kw = (dict(positions=positions) if path == "whole" else
+          dict(cache=cache) if path == "contiguous" else
           dict(cache=cache, positions=positions, block_tables=block_tables,
                new_lens=new_lens))
-    fn = (MLA.mla_attention if block_tables is None
-          else MLA.mla_paged_attention)
+    fn = (MLA.mla_paged_attention if path == "paged"
+          else MLA.mla_attention)
+    whole = None
+    if path == "contiguous" and tp.cache_time:
+        whole = kw["cache"] = _time_whole(cache, tp)
     if not tp.mla:
-        return fn(a, cfg, h, **kw)[0]
-    lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size)
-    gather = ((lambda q: _GatherFromTP.apply(q, tp, True)) if tp.q_split
-              else None)
-    a = dict(a)
-    wo = a.pop("wo")
-    return _row_parallel(
-        lambda o, hin: fn({**a, "wo": o}, lcfg, hin, gather_q=gather,
-                          **kw)[0],
-        wo, _CopyToTP.apply(h, tp.group), tp)
+        y = fn(a, cfg, h, **kw)[0]
+    else:
+        lcfg = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size)
+        gather = ((lambda q: _GatherFromTP.apply(q, tp, True))
+                  if tp.q_split else None)
+        a = dict(a)
+        wo = a.pop("wo")
+        y = _row_parallel(
+            lambda o, hin: fn({**a, "wo": o}, lcfg, hin, gather_q=gather,
+                              **kw)[0],
+            wo, _CopyToTP.apply(h, tp.group), tp)
+    if whole is not None:           # every rank wrote the same latents
+        _time_back(cache, whole, tp)
+    return y
 
 
 def _cross_kw(cross_input, rows, slot_ids) -> dict:
     """A cross attention's K/V source: the slot rows of each batch row on
-    the serving path (``slot_ids``), else ``cross_input`` (with neither,
-    the attention runs over its own input, as ``blocks._cross``)."""
+    the serving path (``slot_ids``); else ``cross_input``, written into a
+    contiguous cache's cross rows ``rows`` where it has them, or those
+    rows read where ``cross_input`` is None (with neither, the attention
+    runs over its own input, as ``blocks._cross``)."""
     if slot_ids is not None:
         sid = slot_ids.long()
         return {"cache": {"k": rows["k"][sid], "v": rows["v"][sid]}}
-    return {"kv_input": cross_input}
-
-
-def _paged_or_whole(cache, block_tables) -> None:
-    if (cache is None) != (block_tables is None):
-        raise ValueError("the tensor-parallel attention is the "
-                         "whole-sequence forward or the paged step")
+    return {"kv_input": cross_input, "cache": rows}
 
 
 def tp_attn_block(tp: TPBlock):
     """-> a function with ``blocks.apply_block``'s signature that applies
     a dense ``attn``, an encoder ``enc_attn`` or a ``moe_attn`` block
     tensor-parallel by ``tp`` (the MoE FFN as ``_moe``): the
-    whole-sequence forward, or a paged serving step (``cache``
-    and ``block_tables``).  On the paged path the rank attends with its
-    own Q heads over the KV heads they read, which it writes into
-    ``cache`` in place: ``cache`` is this rank's shard of a pool sharded
-    by KV heads over `model` (the plan's paged-cache specs under MP / HP),
-    or a whole pool (replicated: the KV heads do not divide, or the
-    weights alone are sharded), of which the rank reads and writes only
-    those heads (``_kv_view`` says what that asks of the pool's
-    readers)."""
+    whole-sequence forward, a paged serving step (``cache`` and
+    ``block_tables``), or a step on a contiguous cache (``cache`` alone).
+    On the paged path the rank attends with its own Q heads over the KV
+    heads they read, which it writes into ``cache`` in place: ``cache`` is
+    this rank's shard of a pool sharded by KV heads over `model` (the
+    plan's paged-cache specs under MP / HP), or a whole pool (replicated:
+    the KV heads do not divide, or the weights alone are sharded), of
+    which the rank reads and writes only those heads (``_kv_view`` says
+    what that asks of the pool's readers).  The contiguous cache lies as
+    the plan's ``cache_specs`` lay it (``_self_attention``)."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
               cache=None, block_tables=None, new_lens=None, **_):
         if kind not in ("attn", "enc_attn", "moe_attn"):
             raise ValueError(f"tp_attn_block applies attn, enc_attn and "
                              f"moe_attn blocks, not {kind!r}")
-        _paged_or_whole(cache, block_tables)
+        _cache_path(cache, block_tables)
         enc = kind == "enc_attn"
         cfg = B.attn_cfg_for(arch, causal=not enc, use_rope=not enc)
-        x = x + _attention(p["attn"], cfg, B.norm_apply(arch, p["norm1"], x),
-                           tp, tp.attn, tp.kv_heads, positions=positions,
-                           impl=impl, cache=cache, block_tables=block_tables,
-                           new_lens=new_lens)
+        x = x + _self_attention(
+            p["attn"], cfg, B.norm_apply(arch, p["norm1"], x), tp, tp.attn,
+            tp.kv_heads, positions=positions, impl=impl, cache=cache,
+            block_tables=block_tables, new_lens=new_lens)
         h = B.norm_apply(arch, p["norm2"], x)
         if kind == "moe_attn":
             y, aux = _moe(p["moe"], arch, h, tp)
@@ -546,15 +684,15 @@ def tp_mla_block(tp: TPBlock):
     """-> an ``mla_dense`` (latent attention, MLP) or ``mla`` (latent
     attention, MoE) block tensor-parallel by ``tp``: the attention by
     heads (``_mla``), the MLP by d_ff, the MoE as ``_moe``; the
-    whole-sequence forward or a paged step on the block's latent pools,
+    whole-sequence forward, a paged step on the block's latent pools,
     which the plan replicates and every rank keeps whole (so nothing is
-    gathered around the block: it owns its pools)."""
+    gathered around the block: it owns its pools), or a step on its
+    contiguous latent cache."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, cache=None,
               block_tables=None, new_lens=None, **_):
         if kind not in B.MLA_KINDS:
             raise ValueError(f"tp_mla_block applies mla and mla_dense "
                              f"blocks, not {kind!r}")
-        _paged_or_whole(cache, block_tables)
         x = x + _mla(p["attn"], arch, B.norm_apply(arch, p["norm1"], x), tp,
                      positions=positions, cache=cache,
                      block_tables=block_tables, new_lens=new_lens)
@@ -586,22 +724,24 @@ def tp_mtp_head(tp: TPBlock, block=None):
 
 def tp_wdec_block(tp: TPBlock):
     """-> whisper's decoder block (``wdec``) tensor-parallel by ``tp``:
-    its causal self-attention as ``tp_attn_block``'s (its pool
-    ``cache["self"]``), its cross attention by heads over the encoder
-    output or this rank's slot rows (``cache["cross"]``, its KV heads),
-    its MLP by d_ff."""
+    its causal self-attention as ``tp_attn_block``'s (its pool or
+    contiguous cache ``cache["self"]``), its cross attention by heads over
+    the encoder output or this rank's slot rows (``cache["cross"]``, its
+    KV heads; a contiguous cache's cross rows: written from the encoder
+    output where it is given, else read), its MLP by d_ff."""
     def apply(p, kind, arch: ArchConfig, x, *, positions=None, impl="xla",
               cache=None, block_tables=None, new_lens=None, slot_ids=None,
               cross_input=None, **_):
         if kind != "wdec":
             raise ValueError(f"tp_wdec_block applies wdec blocks, not "
                              f"{kind!r}")
-        _paged_or_whole(cache, block_tables)
-        x = x + _attention(p["attn"], B.attn_cfg_for(arch, use_rope=False),
-                           B.norm_apply(arch, p["norm1"], x), tp, tp.attn,
-                           tp.kv_heads, positions=positions, impl=impl,
-                           cache=None if cache is None else cache["self"],
-                           block_tables=block_tables, new_lens=new_lens)
+        _cache_path(cache, block_tables)
+        x = x + _self_attention(
+            p["attn"], B.attn_cfg_for(arch, use_rope=False),
+            B.norm_apply(arch, p["norm1"], x), tp, tp.attn, tp.kv_heads,
+            positions=positions, impl=impl,
+            cache=None if cache is None else cache["self"],
+            block_tables=block_tables, new_lens=new_lens)
         x = x + _attention(p["xattn"], B.cross_cfg_for(arch, kind),
                            B.norm_apply(arch, p["norm2"], x), tp, tp.xattn,
                            tp.xkv_heads, impl=impl, **_cross_kw(
@@ -616,9 +756,11 @@ def tp_wdec_block(tp: TPBlock):
 
 def tp_cross_block(tp: TPBlock):
     """-> llama-vision's gated cross-attention block (``cross_attn``)
-    tensor-parallel by ``tp``: the attention by heads over the frontend or
-    this rank's slot rows (its KV heads), its tanh gate after the
-    all-reduce; the MLP by d_ff, scaled by tanh(mlp_gate) after it."""
+    tensor-parallel by ``tp``: the attention by heads over the frontend,
+    this rank's slot rows or a contiguous cache's cross rows (its KV
+    heads; written from the frontend where it is given, else read), its
+    tanh gate after the all-reduce; the MLP by d_ff, scaled by
+    tanh(mlp_gate) after it."""
     def apply(p, kind, arch: ArchConfig, x, *, impl="xla", cache=None,
               slot_ids=None, cross_input=None, **_):
         if kind != "cross_attn":
@@ -639,7 +781,8 @@ def tp_shared_block(tp: TPBlock):
     """-> one application of zamba2's shared block (``shared_attn``)
     tensor-parallel by ``tp``: the shared attention (2 x d_model, every
     head its own KV head) by heads over this application's paged pool
-    (its shard), the shared MLP by d_ff, then ``app_proj`` by rows: the
+    (its shard) or contiguous cache, the shared MLP by d_ff, then
+    ``app_proj`` by rows: the
     rank takes its columns of the replicated concat, after f, and g
     follows.  The shared weights are ``shared``, used by every
     application; autograd sums their gradients over the applications."""
@@ -649,13 +792,13 @@ def tp_shared_block(tp: TPBlock):
         if kind != "shared_attn" or shared is None or x0 is None:
             raise ValueError("tp_shared_block applies shared_attn blocks, "
                              "with the shared params and the embeddings")
-        _paged_or_whole(cache, block_tables)
+        _cache_path(cache, block_tables)
         z = torch.cat([x, x0], dim=-1)
-        z = z + _attention(shared["attn"], B.shared_cfg_for(arch),
-                           B.norm_apply(arch, shared["norm1"], z), tp,
-                           tp.attn, tp.kv_heads, positions=positions,
-                           impl=impl, cache=cache, block_tables=block_tables,
-                           new_lens=new_lens)
+        z = z + _self_attention(
+            shared["attn"], B.shared_cfg_for(arch),
+            B.norm_apply(arch, shared["norm1"], z), tp, tp.attn, tp.kv_heads,
+            positions=positions, impl=impl, cache=cache,
+            block_tables=block_tables, new_lens=new_lens)
         z = z + _mlp(shared["mlp"], B.norm_apply(arch, shared["norm2"], z),
                      arch.act, tp, tp.mlp)
         if tp.app_proj:
@@ -674,8 +817,9 @@ def tp_mamba2_block(tp: TPBlock):
     """-> a ``mamba2`` block tensor-parallel by ``tp``: the outer norm
     whole, then the mixer on this rank's heads (``mamba2.mamba2`` with a
     ``HeadSplit``: its projections' columns, conv_x channels, A_log, D,
-    gated-norm columns, and its shard of the conv_x and ssm slot pools),
-    f before it and g after out_proj, whose bias is added once."""
+    gated-norm columns, and its shard of the conv_x and ssm slot pools or
+    contiguous caches, conv_b and conv_c whole), f before it and g after
+    out_proj, whose bias is added once."""
     split = M2.HeadSplit(tp.group, tp.size, tp.rank)
 
     def apply(p, kind, arch: ArchConfig, x, *, cache=None, slot_ids=None,
@@ -829,19 +973,34 @@ def _mla_layout(a: dict, pre: str, n_heads: int, size: int):
 
 
 def _moe_layout(m: dict, pre: str):
-    """-> (experts, roles) of a MoE FFN: ``experts`` where the specs split
-    the expert stacks over `model` by experts (``_sanitize`` replicates
-    them where E does not divide: they then run whole), with the stacks
-    ``local`` and the router ``partial`` (the routed gradient reaches it
-    through each rank's own experts)."""
-    if _axis_at(m["w_in"], -3) != "model":
-        return False, {}
-    if any(_axis_at(m[k], -3) != "model" for k in ("w_gate", "w_out")):
-        raise ValueError(f"{pre}: w_in is split by experts but w_gate or "
-                         f"w_out is not")
-    roles = {f"{pre}.{k}": "local" for k in ("w_in", "w_gate", "w_out")}
+    """-> (layout, roles) of a MoE FFN: ``layout`` "model" where the specs
+    split the expert stacks over `model` by experts, with the stacks
+    ``local``; "data" where they lay them out EP-major (``w_in`` /
+    ``w_gate`` ``P("data", None, "model")``, ``w_out`` ``P("data",
+    "model", None)``: experts over `data`, the FF dim over `model`, either
+    replicated where it does not divide), with the stacks ``expert``;
+    None where neither (``_sanitize`` replicates the expert dim where E
+    does not divide: the stacks then run whole).  The router is
+    ``partial`` under both (the routed gradient reaches it through each
+    rank's own experts, or its F slice's part)."""
+    ax = _axis_at(m["w_in"], -3)
+    if ax not in ("model", "data"):
+        return None, {}
+    if any(_axis_at(m[k], -3) != ax for k in ("w_gate", "w_out")):
+        raise ValueError(f"{pre}: w_in is split by experts over {ax!r} but "
+                         f"w_gate or w_out is not")
+    if ax == "data":
+        ff = [_axis_at(m["w_in"], -1), _axis_at(m["w_gate"], -1),
+              _axis_at(m["w_out"], -2)]
+        if len(set(ff)) != 1 or ff[0] not in ("model", None) or any(
+                _axis_at(m[k], -2 if k != "w_out" else -1) is not None
+                for k in ("w_in", "w_gate", "w_out")):
+            raise ValueError(f"{pre}: EP-major expert stacks with specs "
+                             f"{[tuple(m[k]) for k in ('w_in', 'w_gate', 'w_out')]}")
+    role = "local" if ax == "model" else "expert"
+    roles = {f"{pre}.{k}": role for k in ("w_in", "w_gate", "w_out")}
     roles.update({f"{pre}.router.{leaf}": "partial" for leaf in m["router"]})
-    return True, roles
+    return ax, roles
 
 
 def batch_group(mesh, batch_spec):
@@ -865,7 +1024,8 @@ def batch_group(mesh, batch_spec):
                      f"single group")
 
 
-def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
+def plan_layout(arch: ArchConfig, specs, mesh, batch_spec,
+                cache_specs=None):
     """-> (leaf roles: {leaf name (``tree.names``): role} for the
     non-``full`` leaves,
     block_fns for ``lm_apply``: {segment: {block: fn}}, the encoder's
@@ -873,7 +1033,9 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     ``"mtp"``).  ``specs``: the params' spec tree; ``batch_spec``: the
     batch's (tensor parallelism needs the `model` ranks to hold the same
     rows, so a batch laid over `model`, as FS lays it, gathers every
-    weight on use).
+    weight on use); ``cache_specs``: the contiguous caches' spec tree
+    (``sharding.cache_specs``) where the blocks run on such caches, which
+    says whose attention caches lie split over `model` along time.
 
     A block runs tensor-parallel where the specs shard its weights over
     `model`: ``attn``, ``enc_attn`` and ``moe_attn``
@@ -882,7 +1044,10 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     parts (the attention, the latent attention, the cross attention, the
     MLP, the MoE experts and its shared and dense MLPs, the mixer,
     app_proj) on its own share where its own specs say so (an ASA plan may
-    shard a block's mixer and not its FFN), else whole.  zamba2's shared
+    shard a block's mixer and not its FFN), else whole.  The MoE experts
+    follow the stacks' specs: over `model`, or EP-major over `data` (by
+    all-to-all where ``batch_spec`` splits the rows over `data`; else
+    every rank runs its range on every row).  zamba2's shared
     weights (``specs["shared"]``) are walked once, for every application,
     and so is the MTP head (``specs["mtp"]``: its projection by columns,
     its ``attn`` block by heads and d_ff)."""
@@ -896,6 +1061,30 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     size, rank = mesh.shape[mdim], mesh.get_local_rank(mesh_dim=mdim)
     n_kv = min(arch.n_kv_heads, arch.n_heads)
     roles = {}
+    rows_over = ax if isinstance(ax, tuple) else (ax,)
+    ddim = names.index("data") if "data" in names else None
+    dsize = mesh.shape[ddim] if ddim is not None else 1
+    drank = mesh.get_local_rank(mesh_dim=ddim) if ddim is not None else 0
+
+    def ep_fields():
+        """The TPBlock fields of EP-major experts on this mesh and batch."""
+        if dsize == 1:      # every expert here: its F slice over `model`
+            return dict(ep=MOE.ExpertSplit(1, 0, sharing=size))
+        if "data" in rows_over:
+            return dict(ep=MOE.ExpertAllToAll(mesh.get_group(ddim), dsize,
+                                              drank, sharing=size))
+        if mesh.size() != dsize * size:
+            raise ValueError(f"EP-major experts on a mesh of "
+                             f"{dict(zip(names, mesh.shape))} with a batch "
+                             f"laid over {ax!r}: no single group sums them")
+        return dict(ep=MOE.ExpertSplit(dsize, drank, sharing=dsize * size),
+                    ep_group=dist.group.WORLD, ep_lead=drank == 0)
+
+    def time_split(cspec) -> bool:
+        """Whether a contiguous attention cache's spec (one leaf's, with
+        its repeat axis) splits time (dim 2) over a `model` of > 1."""
+        return size > 1 and cspec is not None and len(cspec) > 2 and \
+            cspec[2] == "model"
 
     def attn(a, pre, n=arch.n_heads, kv=n_kv):
         got = _attn_layout(a, pre, n, kv, size, rank)
@@ -919,22 +1108,30 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     def moe(m, pre):
         """-> the TPBlock fields of a MoE FFN: its side MLPs by d_ff only
         where the specs split every one of them."""
-        ep, got = _moe_layout(m, pre)
+        layout, got = _moe_layout(m, pre)
         roles.update(got)
         sides = [_mlp_layout(m[k], f"{pre}.{k}") for k in MOE.SIDE_MLPS
                  if k in m]
         side = bool(sides) and None not in sides
         for r in sides if side else ():
             roles.update(r)
-        return dict(experts=ep, side_mlp=side)
+        return dict(experts=layout is not None, side_mlp=side,
+                    **(ep_fields() if layout == "data" else {}))
 
-    def block(kind, b, pre):
+    def cached(cspec, key) -> dict:
+        """The TPBlock field of a block whose contiguous self-attention
+        cache is ``cspec[key]`` (``cspec``: the block's cache specs)."""
+        c = (cspec or {}).get(key) if key else cspec
+        return dict(cache_time=time_split((c or {}).get("k")))
+
+    def block(kind, b, pre, cspec):
         """-> this block's function, or None where it runs whole."""
         if kind in ("attn", "enc_attn", "cross_attn", "moe_attn"):
             on, kv_heads = attn(b["attn"], f"{pre}.attn")
             ffn = (moe(b["moe"], f"{pre}.moe") if kind == "moe_attn" else
                    dict(mlp=mlp(b["mlp"], f"{pre}.mlp")))
-            tp = TPBlock(group, size, rank, on, kv_heads, **ffn)
+            tp = TPBlock(group, size, rank, on, kv_heads, **ffn,
+                         **cached(cspec, None))
             make = tp_cross_block if kind == "cross_attn" else tp_attn_block
         elif kind in B.MLA_KINDS:
             q_split, got = _mla_layout(b["attn"], f"{pre}.attn",
@@ -943,20 +1140,23 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
             ffn = (moe(b["moe"], f"{pre}.moe") if kind == "mla" else
                    dict(mlp=mlp(b["mlp"], f"{pre}.mlp")))
             tp = TPBlock(group, size, rank, False, None, **ffn,
-                         mla=got is not None, q_split=q_split)
+                         mla=got is not None, q_split=q_split,
+                         cache_time=time_split(
+                             (cspec or {}).get("c_kv")))
             make = tp_mla_block
         elif kind == "wdec":
             on, kv_heads = attn(b["attn"], f"{pre}.attn")
             x_on, x_kv = attn(b["xattn"], f"{pre}.xattn")
             tp = TPBlock(group, size, rank, on, kv_heads,
                          mlp(b["mlp"], f"{pre}.mlp"), xattn=x_on,
-                         xkv_heads=x_kv)
+                         xkv_heads=x_kv, **cached(cspec, "self"))
             make = tp_wdec_block
         elif kind == "shared_attn":
             app = _axis_at(b["app_proj"]["w"], -2) == "model"
             if app:
                 roles[f"{pre}.app_proj.w"] = "local"
-            tp = TPBlock(group, size, rank, **shared, app_proj=app)
+            tp = TPBlock(group, size, rank, **shared, app_proj=app,
+                         **cached(cspec, None))
             make = tp_shared_block
         elif kind == "mamba2":
             got = _mamba2_layout(b["mixer"], f"{pre}.mixer")
@@ -972,12 +1172,15 @@ def plan_layout(arch: ArchConfig, specs, mesh, batch_spec):
     for si, seg in enumerate(arch.pattern):
         for bi, kind in enumerate(seg.blocks):
             fn = block(kind, specs["segments"][si][f"b{bi}"],
-                       f"segments.{si}.b{bi}")
+                       f"segments.{si}.b{bi}",
+                       None if cache_specs is None
+                       else cache_specs[si][f"b{bi}"])
             if fn is not None:
                 fns.setdefault(si, {})[bi] = fn
     for si, seg in enumerate((specs.get("encoder") or {}).get("segments",
                                                              [])):
-        fn = block("enc_attn", seg["b0"], f"encoder.segments.{si}.b0")
+        fn = block("enc_attn", seg["b0"], f"encoder.segments.{si}.b0",
+                   None)
         if fn is not None:
             fns.setdefault("encoder", {}).setdefault(si, {})[0] = fn
     if "mtp" in specs:

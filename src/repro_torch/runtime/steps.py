@@ -182,29 +182,24 @@ def make_train_step(arch: ArchConfig, optimizer, *, microbatches: int = 1,
     return train_step
 
 
-def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
-                             act_sharding, grad_shardings, clip_norm,
-                             mtp_weight):
-    import torch.distributed as dist
-
+def _sharded_grads(arch, *, impl, remat, act_sharding, grad_shardings,
+                   mtp_weight):
+    """-> (local_grads(params, locals_, tokens, labels, frontend) ->
+    (this rank's total, ce, the gradient of each leaf's local shard,
+    reduced to its placement, in the leaf's dtype), the leaves'
+    ``LeafLayout``s): the sharded step's forward and backward on this
+    rank's rows (``tokens``, ``labels``, ``frontend``), ``locals_`` the
+    params' local shards."""
     from repro_torch.core import sharding as SH
     from repro_torch.models import moe as MOE
-    from repro_torch.optim.quantized import QLeaf
     from repro_torch.runtime import sharded as SD
 
     mesh = act_sharding.mesh
     specs = SH.map_specs(lambda ns: ns.spec, grad_shardings)
     roles, block_fns = SD.plan_layout(arch, specs, mesh, act_sharding.spec)
     lays = SD.layouts(grad_shardings, roles)
-    world = mesh.size()
-    _, opt_update = optimizer
     loss_fn = make_loss_fn(arch, impl=impl, remat=remat,
                            mtp_weight=mtp_weight, block_fns=block_fns)
-
-    def rows_of(x, i, per, dev):
-        x = torch.as_tensor(x)[i * per:(i + 1) * per]
-        return x[SH.batch_slice(act_sharding, per)].to(dev)
-
     # the MoE aux loss over the global batch, as the reference's
     split = SD.batch_group(mesh, act_sharding.spec)
 
@@ -218,6 +213,52 @@ def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
         return total.detach(), ce.detach(), [
             torch.zeros_like(x) if g is None else g
             for g, x in zip(grads, live)]
+    return local_grads, lays
+
+
+def sharded_loss_and_grads(arch: ArchConfig, params, batch, *,
+                           act_sharding, grad_shardings, impl: str = "xla",
+                           remat: str = "none", mtp_weight: float = 0.3):
+    """The sharded train step's loss and gradients of one batch, without
+    its update: ``params`` DTensors placed by ``grad_shardings``, ``batch``
+    the whole global batch (``make_train_step``'s), this rank's rows taken
+    by ``act_sharding`` -> (this rank's total, ce, each leaf's local
+    shard's gradient reduced to its placement, in the leaf's dtype: the
+    step's own before its fp32 accumulation)."""
+    from repro_torch.core import sharding as SH
+    local_grads, _ = _sharded_grads(
+        arch, impl=impl, remat=remat, act_sharding=act_sharding,
+        grad_shardings=grad_shardings, mtp_weight=mtp_weight)
+    locals_ = [p.to_local() for p in tree.leaves(params)]
+    dev = locals_[0].device
+    rows = SH.batch_slice(act_sharding,
+                          torch.as_tensor(batch["tokens"]).shape[0])
+    tok, lab = (torch.as_tensor(batch[k])[rows].to(dev)
+                for k in ("tokens", "labels"))
+    fe = batch.get("frontend")
+    fe = None if fe is None else torch.as_tensor(fe)[rows].to(dev)
+    return local_grads(params, locals_, tok, lab, fe)
+
+
+def _make_sharded_train_step(arch, optimizer, *, microbatches, impl, remat,
+                             act_sharding, grad_shardings, clip_norm,
+                             mtp_weight):
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.optim.quantized import QLeaf
+    from repro_torch.runtime import sharded as SD
+
+    mesh = act_sharding.mesh
+    local_grads, lays = _sharded_grads(
+        arch, impl=impl, remat=remat, act_sharding=act_sharding,
+        grad_shardings=grad_shardings, mtp_weight=mtp_weight)
+    world = mesh.size()
+    _, opt_update = optimizer
+
+    def rows_of(x, i, per, dev):
+        x = torch.as_tensor(x)[i * per:(i + 1) * per]
+        return x[SH.batch_slice(act_sharding, per)].to(dev)
 
     def train_step(params, opt_state, batch):
         p_leaves = tree.leaves(params)

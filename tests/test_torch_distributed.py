@@ -27,7 +27,15 @@ every rank, counted once); the all-gather by hand
 split-row RMSNorm over the four ranks equals the reference's whole-row
 norm, forward and gradients; a checkpoint saved on (4, 1) restores onto (2, 2) bit for
 bit.  The single-rank Trainer equals the mesh-free JAX step on the same
-params (and frontends) at 1e-5.
+params (and frontends) at 1e-5.  The EP-major MoE layout (experts over
+`data`, their FF dim over `model`, an all-to-all dispatch) under HP on
+(2, 2) and (4, 1): losses and grad norms at 1e-5, every step-1 gradient
+leaf by leaf, each rank's expert stacks its spec's block, the
+all-to-alls' count and bytes from the specs, and one forward against
+the reference's ``moe`` at 1e-5.  The contiguous prefill and decode
+steps through the tensor-parallel blocks under MP on (1, 4), their
+caches at the plan's ``cache_specs``: the unplaced steps' logits at
+1e-5 and the reference's greedy tokens.
 
 (d) The reference's trainer tests re-pointed at the port (their JAX
 originals fail on jax 0.9.0: its ``Trainer.train`` raises): end to end,
@@ -53,10 +61,12 @@ import torch_dist_worker as W
 from repro.checkpoint import restore_pytree as j_restore
 from repro.checkpoint import save_pytree as j_save
 from repro.data import SyntheticLM as JSyntheticLM
+from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro.optim import optimizers as JO
 from repro.optim import quantized as JQ
 from repro.optim import schedules as JS
+from repro.runtime import steps as JST
 from repro.runtime.steps import jit_step
 from repro.runtime.steps import make_train_step as j_make_train_step
 from repro_torch import convert, tree
@@ -366,6 +376,143 @@ def test_aux_loss_gradient_reaches_the_router_once(four_ranks_moe):
                                    atol=1e-7, err_msg=names[i])
         assert 3 * np.abs(ag.numpy()).max() > 100 * (
             1e-7 + 1e-4 * np.abs(want).max()), names[i]
+
+
+EP_CASES = [(n, m) for n in W.MOE_ARCHS for m in W.EP_MODELS]
+
+
+@pytest.mark.parametrize("name,model", EP_CASES)
+def test_ep_major_trains_like_one(four_ranks_moe, single_rank, name, model):
+    """EP-major HP on (4 / model, model): each rank routes its own rows
+    and sends each expert's slots to its owner by all-to-all; the losses
+    and grad norms equal the single rank's at 1e-5."""
+    got = four_ranks_moe["ep"][(name, model)]
+    np.testing.assert_allclose(got["losses"], single_rank[name], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["grad_norms"],
+                               single_rank[name, "grad_norms"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name,model", EP_CASES)
+def test_ep_major_grads_are_the_single_rank_grads(four_ranks_moe, name,
+                                                  model):
+    """Every leaf's step-1 gradient under EP-major HP, gathered, at 1e-4
+    of its norm: the expert stacks' (the all-to-all's backward brings
+    every `data` rank's rows to the owner: summed over `pod` only and
+    divided by the batch's shards), the router's (partial), the rest."""
+    _assert_single_rank_grads(name, four_ranks_moe["ep"][(name,
+                                                          model)]["grads"])
+
+
+@pytest.mark.parametrize("name,model", EP_CASES)
+def test_ep_major_stacks_are_their_specs_blocks(four_ranks_moe, name,
+                                                model):
+    """Each rank's expert stacks at init are the blocks the EP-major specs
+    (``w_in`` / ``w_gate`` P(None, "data", None, "model"), ``w_out``
+    P(None, "data", "model", None) with the repeat axis) give its
+    coordinates, the reference's way."""
+    stacks = four_ranks_moe["ep"][(name, model)]["stacks"]
+    assert len(stacks) == 4
+    for rank, got in enumerate(stacks):
+        assert got, rank
+        for leaf, (spec, ok) in got.items():
+            assert ok, (rank, leaf)
+            assert spec == ((None, "data", "model", None) if
+                            leaf.endswith("w_out") else
+                            (None, "data", None, "model")), (leaf, spec)
+
+
+def _a2a_from_specs(arch, data: int) -> tuple:
+    """(all-to-alls, bytes sent) of one train step with one microbatch
+    and no remat: each MoE layer's dispatch and return in the forward,
+    and their two in the backward, each an (E, B / data * C, D) fp32
+    buffer at C = int(cf * K * S / E)."""
+    m = arch.moe
+    C = max(1, int(m.capacity_factor * m.top_k * SHAPE.seq_len /
+                   m.n_experts))
+    layers = sum(seg.repeat for seg in arch.pattern for k in seg.blocks
+                 if k in ("mla", "moe_attn"))
+    one = m.n_experts * (SHAPE.global_batch // data) * C * arch.d_model * 4
+    return 4 * layers, 4 * layers * one
+
+
+@pytest.mark.parametrize("name,model", EP_CASES)
+def test_ep_major_all_to_alls_are_the_specs_count(four_ranks_moe, name,
+                                                  model):
+    got = four_ranks_moe["ep"][(name, model)]
+    assert got["microbatches"] == 1
+    count, nbytes = _a2a_from_specs(W.ARCHS[name], 4 // model)
+    assert got["step1_a2a"] == {"count": count, "bytes": nbytes}
+    assert got["steps_a2a"] == {"count": W.TP_STEPS * count,
+                                "bytes": W.TP_STEPS * nbytes}
+
+
+@pytest.mark.parametrize("name,model", EP_CASES)
+def test_ep_major_forward_matches_the_reference(four_ranks_moe, name,
+                                                model):
+    """One EP-major forward of ``moe.routed`` (plus the side MLPs) on
+    ``W.moe_inputs``' params and input against the reference's ``moe``
+    on the CPU, fp32: the output at 1e-5 of its max, the aux loss (the
+    global batch's) at 1e-5."""
+    cfg, p, x = W.moe_inputs(name)
+    want, want_aux = JM.moe(jax.tree.map(jnp.asarray, convert.to_numpy(p)),
+                            JM.MoEConfig(**dataclasses.asdict(cfg)),
+                            jnp.asarray(x))
+    got = four_ranks_moe["ep_forward"][(name, model)]
+    want = np.asarray(want)
+    assert np.abs(got["out"] - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(got["aux"], float(want_aux), rtol=1e-5)
+
+
+def _reference_greedy(name, params_np):
+    """The reference's jitted prefill and greedy decode steps on the
+    contiguous cache, on the worker's params, prompt and frontend ->
+    every token fed and the last one chosen, (B, steps + 1)."""
+    arch = W.ARCHS[name]
+    jarch = _jax_arch(arch)
+    c = W.CONTIGUOUS
+    toks, fe = W.contiguous_inputs(arch)
+    jp = jax.tree.map(jnp.asarray, params_np)
+    cache = JT.init_cache(jarch, c["batch"], c["max_len"], jnp.float32)
+    lg, cache = jax.jit(JST.make_prefill_step(jarch))(
+        jp, cache, jnp.asarray(toks), None if fe is None else
+        jnp.asarray(fe))
+    dec = jax.jit(JST.make_decode_step(jarch))
+    fed = []
+    for _ in range(c["steps"]):
+        fed.append(np.asarray(jnp.argmax(lg, -1)))
+        lg, cache = dec(jp, cache, jnp.asarray(fed[-1][:, None],
+                                               jnp.int32))
+    fed.append(np.asarray(jnp.argmax(lg, -1)))
+    return np.stack(fed, 1)
+
+
+@pytest.mark.parametrize("name", W.CONTIGUOUS_TP + W.CONTIGUOUS_MOE)
+def test_contiguous_steps_through_tp_blocks(request, name):
+    """``make_prefill_step`` and ``make_decode_step`` through the dry
+    run's serving function under MP on (1, 4): every block its
+    tensor-parallel function, on the contiguous caches placed by the
+    plan's ``cache_specs`` (the attention caches a quarter of their rows
+    a rank); every step's logits within 1e-5 of max |logit| of the
+    unplaced steps', and the greedy tokens the reference's."""
+    ranks = request.getfixturevalue(
+        "four_ranks_moe" if name in W.CONTIGUOUS_MOE else "four_ranks_tp")
+    got = ranks["contiguous"][name]
+    assert got["rel"] <= 1e-5, got["rel"]
+    assert np.array_equal(got["tokens"], got["unplaced_tokens"])
+    assert got["block_fns"] and all(f.startswith("tp_")
+                                    for f in got["block_fns"]), \
+        got["block_fns"]
+    max_len = W.CONTIGUOUS["max_len"]
+    split = [(full, local) for full, local in got["cache_shapes"]
+             if len(full) >= 4 and full[2] == max_len]
+    kinds = {k for seg in W.ARCHS[name].pattern for k in seg.blocks}
+    assert bool(split) == bool(kinds - {"mamba2", "cross_attn"}), kinds
+    for full, local in split:
+        assert local[2] * 4 == full[2], (full, local)
+    np.testing.assert_array_equal(got["tokens"],
+                                  _reference_greedy(name, got["params"]))
 
 
 def test_gathers_by_hand_are_dtensors(four_ranks_tp):

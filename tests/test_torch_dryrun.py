@@ -2,8 +2,11 @@
 reference's ``repro/launch/dryrun.py``, on the CPU: model FLOPs and shape
 applicability for every cell, the plan meta of three cells, one cell run
 end to end on a fake group of 256 ranks in a subprocess (its all-gather
-bytes against a count made from the plan's specs), and ``--moe-ep``
-refused on a MoE arch by name.  Exact equality throughout: planning is
+and all-reduce bytes against a count made from the plan's specs), and
+``--moe-ep``: the plan, meta and expert specs of two MoE cells equal the
+reference's ``AdaptiveScheduler(moe_ep=True)`` ones, a dense arch's are
+unchanged, and a depth-cut deepseek-v3-671b decode cell records the
+all-to-alls its specs give.  Exact equality throughout: planning is
 host arithmetic on both sides.
 """
 from __future__ import annotations
@@ -29,7 +32,10 @@ from repro_torch.configs import ARCHS, SHAPES, shape_applicable
 from repro_torch.core import components as C
 from repro_torch.core import sharding as SH
 from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.runtime import sharded as SD
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # a cell's shapes-only run stays far below the model it describes
@@ -116,17 +122,37 @@ def _shards(spec) -> int:
     return n
 
 
+def _roles(arch, shape) -> dict:
+    """``plan_layout``'s leaf roles for a decode cell on a fake group of
+    256 ranks (its batch over `data`, its caches by ``cache_specs``)."""
+    plan, _, _ = DR.plan_cell(arch, shape, multi_pod=False)
+    B = SHAPES[shape].global_batch
+    with DR.fake_world(256, "cpu"):
+        mesh = make_production_mesh(device="cpu")
+        roles, _ = SD.plan_layout(ARCHS[arch], plan.param_specs(), mesh,
+                                  SH.P("data", None), plan.cache_specs(B))
+    return roles
+
+
 def _gathered_bytes(arch, shape) -> int:
     """What a decode step gathers, from the plan's specs alone: each param
-    leaf once (whole: full - local bytes), each cache leaf once around its
-    block over every dim but the batch's (full / batch shards - local)."""
+    leaf once, whole (full - local bytes) where its blocks run it whole,
+    over every dim but `model` where a tensor-parallel block keeps its
+    `model` shard; each cache leaf once around its block, or around its
+    attention in a tensor-parallel block (time over `model`), over every
+    dim but the batch's (full / batch shards - local); and in each
+    tensor-parallel attention the new row of the KV heads the other
+    `model` ranks own (``sharded._fill_heads``)."""
     plan, _, _ = DR.plan_cell(arch, shape, multi_pod=False)
+    roles = _roles(arch, shape)
     total = 0
     params = C.abstract_params(ARCHS[arch])
-    for x, spec in zip(tree.leaves(params),
-                       SH.spec_leaves(plan.param_specs())):
+    for name, x, spec in zip(tree.names(params), tree.leaves(params),
+                             SH.spec_leaves(plan.param_specs())):
         full = x.numel() * x.element_size()
-        total += full - full // _shards(spec)
+        keep = (_axes_size("model") if roles.get(name) == "local"
+                else 1)
+        total += full // keep - full // _shards(spec)
     B = SHAPES[shape].global_batch
     cache = T.init_cache(ARCHS[arch], B, SHAPES[shape].seq_len,
                          device="meta")
@@ -135,6 +161,17 @@ def _gathered_bytes(arch, shape) -> int:
         full = x.numel() * x.element_size()
         rows = _axes_size(spec[1]) if len(spec) > 1 else 1
         total += full // rows - full // _shards(spec)
+    arch = ARCHS[arch]
+    m = _axes_size("model")
+    tp_attn = {n.rsplit(".attn.", 1)[0] for n, r in roles.items()
+               if ".attn.wq." in n and r == "local"}
+    heads = (arch.n_kv_heads // m if arch.n_kv_heads % m == 0 else
+             len(L.local_groups(arch.n_heads, arch.n_kv_heads, m, 0)))
+    reps = {f"segments.{si}.b{bi}": seg.repeat
+            for si, seg in enumerate(arch.pattern)
+            for bi in range(len(seg.blocks))}
+    total += sum(2 * reps[b] for b in tp_attn) * (m - 1) * (
+        B // _axes_size("data")) * heads * arch.resolved_head_dim * 2
     return total
 
 
@@ -142,8 +179,10 @@ def test_decode_cell_runs_on_a_fake_group_of_256():
     """``python -m repro_torch.launch.dryrun --arch qwen3-8b --shape
     decode_32k --no-save --device cpu`` in a subprocess: exit 0, status
     ok, memory / cost / collectives printed, no production-size
-    allocation (the child's peak RSS), and its all-gather bytes equal to
-    the count from the plan's specs, nothing else collected."""
+    allocation (the child's peak RSS), its all-gather bytes equal to the
+    count from the plan's specs (the tensor-parallel blocks keep their
+    weights' `model` shards), its all-reduces the row-parallel
+    projections', nothing else collected."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -166,27 +205,124 @@ def test_decode_cell_runs_on_a_fake_group_of_256():
     assert coll["all-gather"]["bytes"] == _gathered_bytes("qwen3-8b",
                                                          "decode_32k")
     assert coll["all-gather"]["count"] > 0
-    for kind in ("reduce-scatter", "all-reduce", "all-to-all"):
+    # two row-parallel all-reduces a layer (wo, w_out) of this rank's
+    # 8 rows of one token, bf16
+    arch = ARCHS["qwen3-8b"]
+    assert coll["all-reduce"] == {"count": 2 * 36,
+                                  "bytes": 2 * 36 * 8 * arch.d_model * 2,
+                                  "result_bytes": 2 * 36 * 8 *
+                                  arch.d_model * 2}
+    for kind in ("reduce-scatter", "all-to-all"):
         assert coll[kind]["count"] == 0, kind
     assert rec["model_flops"] == DR.model_flops("qwen3-8b", "decode_32k")
     # chip_smoke.py phase 45 holds the card's count to this record
     assert rec["cost"] == smoke_cost()[("qwen3-8b", "decode_32k")]
 
 
-def test_moe_ep_is_refused_by_name(capsys):
-    """``--moe-ep`` on a MoE arch: the CLI refuses before any cell runs,
-    naming the arch and the missing all-to-all; ``plan_cell`` raises."""
-    with pytest.raises(SystemExit) as e:
-        DR.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k",
-                 "--moe-ep", "--no-save", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "deepseek-v3-671b" in err and "all-to-all" in err
-    with pytest.raises(NotImplementedError, match="arctic-480b.*all-to-all"):
-        DR.plan_cell("arctic-480b", "train_4k", multi_pod=False,
-                     moe_ep=True)
-    # a dense arch takes the flag: there is no MoE layer to lay out
-    DR.plan_cell("qwen3-8b", "decode_32k", multi_pod=False, moe_ep=True)
+def _reference_ep_plan(arch, shape, multi_pod):
+    """The reference's ``build_cell`` planning of a ``--moe-ep`` cell:
+    ``AdaptiveScheduler(moe_ep=True)`` at the dry run's settings."""
+    ja, js = J_ARCHS[arch], J_SHAPES[shape]
+    preset = "adamw8bit" if arch in DR.QUANTIZED_OPT else "adamw32"
+    return JScheduler(faithful=False, opt_preset=preset, remat="full",
+                      seq_sharded=False, moe_ep=True).plan(
+        ja, js, JMesh(16, 16, pod=2 if multi_pod else 1))
+
+
+@pytest.mark.parametrize("arch,shape,multi_pod",
+                         [("deepseek-v3-671b", "decode_32k", False),
+                          ("arctic-480b", "train_4k", True)])
+def test_moe_ep_plan_matches_reference(arch, shape, multi_pod):
+    """``plan_cell(..., moe_ep=True)`` on a MoE arch: the reference's
+    ``AdaptiveScheduler(moe_ep=True)`` plan, exactly (assignment, method,
+    predicted cost, microbatches), and under ``moe_ep_axis`` the
+    reference's specs with its ``MOE_EP_AXIS = "data"``, every expert
+    stack EP-major."""
+    from repro.core import sharding as JSH
+    plan, meta, _ = DR.plan_cell(arch, shape, multi_pod=multi_pod,
+                                 moe_ep=True)
+    want = _reference_ep_plan(arch, shape, multi_pod)
+    assert meta["assignment"] == {k: str(v) for k, v in
+                                  want.assignment.items()}
+    assert (meta["method"], meta["feasible"], meta["predicted"],
+            meta["microbatches"]) == (want.plan.method, want.plan.feasible,
+                                      want.plan.cost, want.microbatches)
+    with DR.moe_ep_axis(ARCHS[arch], True):
+        got = SH.spec_leaves(plan.param_specs())
+    assert SH.MOE_EP_AXIS == "model"
+    saved = JSH.MOE_EP_AXIS
+    JSH.MOE_EP_AXIS = "data"
+    try:
+        import jax
+        ref = [tuple(s) for s in jax.tree.leaves(
+            want.param_specs(), is_leaf=lambda x: hasattr(x, "_partitions")
+            or type(x).__name__ == "PartitionSpec")]
+    finally:
+        JSH.MOE_EP_AXIS = saved
+    assert [tuple(s) for s in got] == ref
+    names = tree.names(C.abstract_params(ARCHS[arch]))
+    stacks = [tuple(s) for n, s in zip(names, got) if ".moe.w_" in n]
+    assert stacks and all(s in ((None, "data", None, "model"),
+                                (None, "data", "model", None))
+                          for s in stacks), set(stacks)
+
+
+def test_moe_ep_leaves_a_dense_arch_unchanged():
+    """``--moe-ep`` on a dense arch: the same plan, meta and specs as
+    without it (the reference sets the EP-major layout on MoE archs
+    only)."""
+    a, meta_a, _ = DR.plan_cell("qwen3-8b", "decode_32k", multi_pod=False,
+                                moe_ep=True)
+    b, meta_b, _ = DR.plan_cell("qwen3-8b", "decode_32k", multi_pod=False)
+    assert meta_a == meta_b
+    with DR.moe_ep_axis(ARCHS["qwen3-8b"], True):
+        specs = a.param_specs()
+    assert specs == b.param_specs()
+
+
+# deepseek-v3-671b at published widths, one layer of each segment (an
+# mla_dense and an mla layer with all 256 experts), so that the cell
+# traces in seconds
+_EP_CELL = """
+import dataclasses, json, sys
+from repro_torch.configs import get_arch
+from repro_torch.launch import dryrun as DR
+arch = get_arch("deepseek-v3-671b")
+cut = dataclasses.replace(arch, n_layers=len(arch.pattern), pattern=tuple(
+    dataclasses.replace(s, repeat=1) for s in arch.pattern))
+rec = DR.run_cell(cut, "decode_32k", moe_ep=True, save=False, device="cpu")
+print("record " + json.dumps(rec, default=str))
+"""
+
+
+def test_moe_ep_cell_records_the_specs_all_to_alls():
+    """A ``--moe-ep`` decode cell (``run_cell(..., moe_ep=True)``) of
+    deepseek-v3-671b cut to one mla_dense and one mla layer, in a
+    subprocess on a fake group of 256: status ok, the expert stacks
+    never gathered, and two all-to-alls for its one MoE layer (dispatch
+    and return), each of E * B_l * C * D bf16 values (C = 1 at one token a
+    row, B_l = 128 / 16 rows a rank)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _EP_CELL],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(next(l for l in out.stdout.splitlines()
+                          if l.startswith("record "))[7:])
+    assert rec["status"] == "ok", rec.get("traceback")
+    arch = ARCHS["deepseek-v3-671b"]
+    E, D = arch.moe.n_experts, arch.d_model
+    B_l = SHAPES["decode_32k"].global_batch // 16
+    C = max(1, int(arch.moe.capacity_factor * arch.moe.top_k / E))
+    one = E * B_l * C * D * 2
+    coll = rec["collectives"]
+    assert coll["all-to-all"] == {"count": 2, "bytes": 2 * one,
+                                  "result_bytes": 2 * one}
+    # one layer's expert stacks, 3 x 256 x 7168 x 2048 bf16, are never
+    # gathered: everything gathered is far less
+    assert coll["all-gather"]["result_bytes"] < \
+        3 * E * D * arch.moe.d_ff * 2 / 4
+    assert rec["assignment"]["seg1/b0:mla.ffn"] in ("MP", "HP")
 
 
 def test_train_kernels_count_forward_and_backward_by_formula():

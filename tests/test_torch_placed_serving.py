@@ -20,7 +20,9 @@ on (2, 2): each rank picks the KV heads of its Q heads, and the tokens
 equal the unplaced engine's.  Arctic's shape (tiny-moe: GQA attention by
 heads, 8 experts 4 a rank, the dense FFN by d_ff; its prefill chunks drop
 tokens) gives the JAX engine's tokens on the same params and settings,
-and the unplaced engine's.  Two cases with a frontend in every request
+and the unplaced engine's; so does it under the EP-major layout (experts
+over `data`, their FF dim over `model`, one all-reduce over the world).
+Two cases with a frontend in every request
 and llama-vision's gates opened (the goldens were frozen without
 frontends, gates shut) give the JAX engine's tokens on the same params
 and frontends, and the unplaced engine's: whisper's encoder runs on each rank's heads at
@@ -166,6 +168,7 @@ def four_ranks():
     cases["tiny-moe"] = dict(TINY_MOE_CASE, arch=port_arch(TINY_MOE),
                              params=jax.tree.map(np.asarray,
                                                  jax_params(TINY_MOE)))
+    cases["tiny-moe/ep"] = dict(cases["tiny-moe"], moe_ep=True)
     for name, scenario in FRONTEND_CASES.items():
         arch = scenario_requests(scenario)[0]
         cases[name] = dict(_frontend_case(name), arch=port_arch(arch),
@@ -265,6 +268,25 @@ def test_four_ranks_serve_experts_like_one(four_ranks):
     assert got["tokens"] == {o.request_id: o.token_ids for o in outs}
     assert got["block_fns"] == {(0, 0): "tp_attn_block"}
     assert got["experts"] == {4}
+
+
+def test_four_ranks_serve_ep_major_experts_like_one(four_ranks):
+    """tiny-moe placed on (2, 2) under the EP-major layout (experts over
+    `data`, their FF dim over `model`): every rank holds the same rows,
+    so each runs its `data` range of experts with its `model` slice of F
+    on every row and one all-reduce over the world sums the parts; the
+    tokens are the ones ``test_four_ranks_serve_experts_like_one``
+    holds, and every rank's."""
+    got = four_ranks["tiny-moe/ep"]
+    assert got["tokens"] == four_ranks["tiny-moe"]["tokens"]
+    assert {k: list(v) for k, v in got["tokens"].items()} == \
+        _jax_tokens(TINY_MOE, TINY_MOE_CASE)
+    assert four_ranks["ranks_agree"]
+    assert got["block_fns"] == {(0, 0): "tp_attn_block"}
+    assert got["stack_specs"] == {(None, "data", None, "model"),
+                                  (None, "data", "model", None)}
+    E, F = TINY_MOE.moe.n_experts, TINY_MOE.moe.d_ff
+    assert got["stacks"] == {(E // 2, TINY_MOE.d_model, F // 2)}
 
 
 @pytest.mark.parametrize("name", list(FRONTEND_CASES))

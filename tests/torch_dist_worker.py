@@ -3,8 +3,11 @@ once per test module for the dense archs and the checkpoint (``run``),
 once for the archs whose other block kinds run tensor-parallel
 (``run_tp``) and once for the MoE family's (``run_moe``), each rank joins
 a gloo group through a file store and runs every case; rank 0 pickles
-the results for the test.  Imports torch,
-numpy and the port only (no JAX), so the ranks start fast."""
+the results for the test.  ``run_tp`` and ``run_moe`` also run the
+contiguous prefill and decode steps through the tensor-parallel blocks
+(``contiguous_steps``), and ``run_moe`` the EP-major MoE layout
+(``ep_case``, ``ep_forward``).  Imports torch, numpy and the port only
+(no JAX), so the ranks start fast."""
 from __future__ import annotations
 
 import contextlib
@@ -118,6 +121,16 @@ TP_STEPS = 2
 # spawn stays as cheap as the dense one; every step-1 gradient of theirs
 # under MP and HP is held leaf by leaf
 MOE_ARCHS = ("tiny-mla-ep", "tiny-moe")
+# the EP-major layout's meshes, (data, model) as world / model and model
+EP_MODELS = (2, 1)
+# the contiguous prefill and decode steps through the tensor-parallel
+# blocks: each family's arch under uniform MP on (1, 4), B rows of S
+# prompt tokens (and a frontend where the arch takes one) in a cache of
+# MAX_LEN rows, then DECODE_STEPS greedy steps
+CONTIGUOUS_TP = ("parity", "tiny-ssm", "tiny-shared", "tiny-encdec",
+                 "tiny-cross")
+CONTIGUOUS_MOE = ("tiny-mla-ep", "tiny-moe")
+CONTIGUOUS = dict(batch=2, prompt=12, max_len=32, steps=3, seed=3)
 # (case, strategy or None for the ASA's own plan, model axis)
 CASES = (("DP", "DP", 1), ("MP", "MP", 4), ("HP", "HP", 2), ("FS", "FS", 2),
          ("ASA", None, 2))
@@ -348,6 +361,207 @@ def step1_grads(name: str, strategy: str, model: int, mesh=None) -> dict:
                                    tree.leaves(tr._pns))}
 
 
+def contiguous_inputs(arch):
+    """The contiguous steps' prompt tokens (B, S) int32 and frontend (or
+    None), from numpy seeded by ``CONTIGUOUS["seed"]``."""
+    c = CONTIGUOUS
+    rng = np.random.default_rng(c["seed"])
+    toks = rng.integers(0, arch.vocab, (c["batch"], c["prompt"])).astype(
+        np.int32)
+    fe = None
+    if arch.frontend:
+        n = arch.encoder.seq_len if arch.encoder else arch.n_img_tokens
+        fe = rng.standard_normal((c["batch"], n, arch.d_model)).astype(
+            np.float32)
+    return toks, fe
+
+
+def _greedy(prefill, decode, cache, toks, fe, steps):
+    """One prefill of ``toks``, then ``steps`` greedy decode steps ->
+    (every step's logits, every token fed and the last one chosen)."""
+    logits, fed = [], []
+    with torch.no_grad():
+        lg, _ = prefill(cache, toks, *(() if fe is None else (fe,)))
+        for _ in range(steps):
+            logits.append(lg.clone())
+            fed.append(lg.argmax(-1))
+            lg, _ = decode(cache, fed[-1][:, None].to(torch.int32))
+    logits.append(lg.clone())
+    fed.append(lg.argmax(-1))
+    return logits, torch.stack(fed, 1)
+
+
+def contiguous_steps(name: str, world: int) -> dict:
+    """Arch ``name`` under uniform MP on (1, ``world``): ``make_prefill_
+    step`` and ``make_decode_step`` through the dry run's serving function
+    (``plan_layout``'s blocks on caches placed by the plan's
+    ``cache_specs``) against the same steps unplaced, on the same params
+    (``init_lm`` seeded 0), prompt and frontend: the worst step's logits
+    off by a share of max |logit|, both paths' greedy tokens, which
+    function runs each block, and each cache leaf's local and global
+    shapes; the params (numpy) for the reference's steps."""
+    from repro_torch import convert
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import mesh_shape_of
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import steps as ST
+    c = CONTIGUOUS
+    arch = ARCHS[name]
+    mesh = make_host_mesh(model=world, device="cpu")
+    ms = mesh_shape_of(mesh)
+    B = c["batch"]
+    plan = Uniform("MP").plan(arch, ShapeSpec("decode", c["max_len"], B,
+                                              "decode"), ms)
+    params = T.init_lm(arch, device="cpu", seed=0)
+    toks, fe = contiguous_inputs(arch)
+    toks = torch.as_tensor(toks)
+    fe = None if fe is None else torch.as_tensor(fe)
+
+    def cache():
+        return T.init_cache(arch, B, c["max_len"], device="cpu",
+                            dtype=torch.float32)
+    pf, dc = ST.make_prefill_step(arch), ST.make_decode_step(arch)
+    want, want_toks = _greedy(lambda k, *a: pf(params, k, *a),
+                              lambda k, *a: dc(params, k, *a), cache(), toks,
+                              fe, c["steps"])
+    pspecs, cspecs = plan.param_specs(), plan.cache_specs(B)
+    placed = SH.place(params, SH.shardings(pspecs, mesh))
+    pcache = SH.place(cache(), SH.shardings(cspecs, mesh))
+    local = tree.map(lambda x: x.to_local(), pcache)
+    batch = SH.P(SH.batch_axes(ms, B), None)
+    fns = {k: DR._serving_fn(arch, k, placed, pspecs, cspecs, mesh, batch)
+           for k in ("prefill", "decode")}
+    ran = set()
+    for si, f in fns["decode"].block_fns.items():
+        for bi, fn in (f.items() if si != "encoder" else ()):
+            ran.add(fn.__qualname__.split(".")[0])
+    got, got_toks = _greedy(lambda k, *a: fns["prefill"](None, k, *a),
+                            lambda k, *a: fns["decode"](None, k, *a), local,
+                            toks, fe, c["steps"])
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(got, want))
+    return dict(rel=rel, tokens=got_toks.numpy(),
+                unplaced_tokens=want_toks.numpy(), block_fns=ran,
+                cache_shapes=[(tuple(x.shape), tuple(x.to_local().shape))
+                              for x in tree.leaves(pcache)],
+                params=convert.to_numpy(params))
+
+
+@contextlib.contextmanager
+def counting_all_to_all(rec: dict):
+    """Counts ``torch.distributed.all_to_all_single`` calls into
+    ``rec["count"]`` and the bytes each sends into ``rec["bytes"]``."""
+    rec.update(count=0, bytes=0)
+    real = dist.all_to_all_single
+
+    def a2a(out, inp, *a, **k):
+        rec["count"] += 1
+        rec["bytes"] += inp.numel() * inp.element_size()
+        return real(out, inp, *a, **k)
+    with mock.patch.object(dist, "all_to_all_single", a2a):
+        yield
+
+
+def spec_block(full, spec, sizes: dict, coords: dict):
+    """The block of ``full`` that ``spec`` gives the rank at ``coords`` of
+    a mesh of ``sizes`` ({axis: n}), the reference's (JAX's) way: along
+    each dim the mixed-radix index of its axes, the first the major."""
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n, i = 1, 0
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n, i = n * sizes[a], i * sizes[a] + coords[a]
+        full = full.chunk(n, d)[i]
+    return full
+
+
+def ep_case(name: str, model: int) -> dict:
+    """Arch ``name`` under uniform HP on (world / ``model``, ``model``)
+    with the EP-major layout (``moe_ep_axis("data")``): TP_STEPS steps'
+    losses and grad norms and the all-to-alls they make; step 1's every
+    gradient, gathered (``step1_grads``), and its all-to-alls; whether
+    each rank's expert stacks at init are the blocks their specs give
+    its coordinates."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.models import transformer as T
+    arch = ARCHS[name]
+    mesh = make_host_mesh(model=model, device="cpu")
+    with SH.moe_ep_axis("data"):
+        steps, grads = {}, {}
+        with counting_all_to_all(steps):
+            tr, _, _, losses = train(arch, mesh, "HP", steps=TP_STEPS)
+        with counting_all_to_all(grads):
+            g = step1_grads(name, "HP", model, mesh)
+        p, _ = tr.init_state()
+    full = dict(zip(tree.names(p), tree.leaves(
+        T.init_lm(arch, device="cpu", seed=tr.cfg.seed))))
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = {n: mesh.get_local_rank(mesh_dim=i)
+              for i, n in enumerate(mesh.mesh_dim_names)}
+    stacks = {}
+    for leaf, x, spec in zip(tree.names(p), tree.leaves(p),
+                             SH.spec_leaves(tr._pspecs)):
+        if ".moe.w_" in leaf:
+            stacks[leaf] = (tuple(spec), torch.equal(
+                x.to_local(), spec_block(full[leaf], spec, sizes, coords)))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, stacks)
+    return dict(losses=losses, grad_norms=tr.grad_norms, grads=g,
+                steps_a2a=steps, step1_a2a=grads, stacks=every,
+                microbatches=tr._microbatches())
+
+
+def moe_inputs(name: str):
+    """Arch ``name``'s MoE config, params (``moe.init_moe`` from a
+    generator seeded 0, fp32) and an (8, 32, d_model) input from numpy
+    seeded 5: the same in every process that asks."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import moe as MOE
+    cfg = B.moe_cfg_for(ARCHS[name])
+    p = MOE.init_moe(cfg, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    x = np.random.default_rng(5).standard_normal(
+        (8, 32, cfg.d_model)).astype(np.float32)
+    return cfg, p, x
+
+
+def ep_forward(name: str, model: int) -> dict:
+    """One EP-major forward of ``moe.routed`` on (world / ``model``,
+    ``model``): each rank its `data` rows of ``moe_inputs``' x and its
+    expert block (experts over `data`, FF over `model`), the all-to-all
+    over `data`, the parts summed over `model`, the side MLPs whole, the
+    aux loss over the global batch (``batch_split``); -> the output
+    gathered over `data` and the aux loss."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.runtime import sharded as SD
+    cfg, p, x = moe_inputs(name)
+    mesh = make_host_mesh(model=model, device="cpu")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coords = {n: mesh.get_local_rank(mesh_dim=i)
+              for i, n in enumerate(mesh.mesh_dim_names)}
+    d, di = sizes["data"], coords["data"]
+    local = dict(p)
+    for k, spec in (("w_in", SH.P("data", None, "model")),
+                    ("w_gate", SH.P("data", None, "model")),
+                    ("w_out", SH.P("data", "model", None))):
+        local[k] = spec_block(p[k], spec, sizes, coords)
+    rows = torch.as_tensor(x).chunk(d)[di]
+    dgroup, mgroup = mesh.get_group(0), mesh.get_group(1)
+    with torch.no_grad(), MOE.batch_split(dgroup, d):
+        y, aux = MOE.routed(local, cfg, rows, MOE.ExpertAllToAll(
+            dgroup, d, di, sharing=model))
+        dist.all_reduce(y, group=mgroup)
+        for key in MOE.SIDE_MLPS:
+            if key in p:
+                y = y + L.mlp(p[key], rows, cfg.act)
+    return dict(out=SD._all_gather(y, 0, d, dgroup).numpy(),
+                aux=float(aux))
+
+
 # the pod meshes (pod, data, model): HP's ZeRO dim ("data", "pod") strided
 # on (2, 2, 1); the int8 moments' ("data", "model", "pod") on both
 POD_MESHES = ((2, 2, 1), (2, 1, 2))
@@ -475,7 +689,9 @@ def run_pod(rank: int, world: int, store: str, out: str) -> None:
 
 def run_moe(rank: int, world: int, store: str, out: str) -> None:
     """The MoE family's archs (``MOE_ARCHS``) and their step-1 gradients
-    under MP on (1, 4) and HP on (2, 2)."""
+    under MP on (1, 4) and HP on (2, 2); the EP-major layout under HP on
+    (2, 2) and (4, 1) (``ep_case``, ``ep_forward``); their contiguous
+    steps (``contiguous_steps``)."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
@@ -484,6 +700,12 @@ def run_moe(rank: int, world: int, store: str, out: str) -> None:
                        for name in MOE_ARCHS}
     res["hp_grads"] = {name: step1_grads(name, "HP", 2)
                        for name in MOE_ARCHS}
+    res["ep"] = {(name, model): ep_case(name, model)
+                 for name in MOE_ARCHS for model in EP_MODELS}
+    res["ep_forward"] = {(name, model): ep_forward(name, model)
+                         for name in MOE_ARCHS for model in EP_MODELS}
+    res["contiguous"] = {name: contiguous_steps(name, world)
+                         for name in CONTIGUOUS_MOE}
     if rank == 0:
         with open(out, "wb") as f:
             pickle.dump(res, f)
@@ -492,12 +714,15 @@ def run_moe(rank: int, world: int, store: str, out: str) -> None:
 
 def run_tp(rank: int, world: int, store: str, out: str) -> None:
     """The other tensor-parallel kinds' archs (``TP_ARCHS`` but
-    ``MOE_ARCHS``), the gathers by hand and the split-row RMSNorm."""
+    ``MOE_ARCHS``), their contiguous steps (``contiguous_steps``), the
+    gathers by hand and the split-row RMSNorm."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     res = train_all([n for n in TP_ARCHS if n not in MOE_ARCHS], TP_STEPS,
                     world)
+    res["contiguous"] = {name: contiguous_steps(name, world)
+                         for name in CONTIGUOUS_TP}
     res["gathers_by_hand"] = gathers_by_hand()
     res["split_rmsnorm"] = [None] * world
     dist.all_gather_object(res["split_rmsnorm"], split_rmsnorm(rank, world))

@@ -21,23 +21,34 @@ from repro_torch.serving.engine import ContinuousBatchingEngine, Request
 
 
 def serve(mesh, case: dict) -> dict:
-    eng = ContinuousBatchingEngine(
-        case["arch"], convert.to_torch(case["params"]), mesh,
-        slots=case["slots"], max_len=case["max_len"], **case["engine"])
+    """The case's engine placed on ``mesh`` and its requests served; a
+    case with ``moe_ep`` plans the EP-major MoE layout
+    (``moe_ep_axis("data")``)."""
+    with SH.moe_ep_axis("data" if case.get("moe_ep") else "model"):
+        eng = ContinuousBatchingEngine(
+            case["arch"], convert.to_torch(case["params"]), mesh,
+            slots=case["slots"], max_len=case["max_len"], **case["engine"])
+        param_specs = SH.spec_leaves(eng.plan.param_specs())
     specs = SH.spec_leaves(eng.plan.paged_cache_specs())
     pools = tree.leaves(eng.cache.pools)
-    experts, routed = set(), MOE.routed
+    experts, stacks, routed = set(), set(), MOE.routed
 
     def routed_(p, *a, **k):
         experts.add(p["w_in"].shape[0])
+        stacks.add(tuple(p["w_in"].shape))
         return routed(p, *a, **k)
     with mock.patch.object(MOE, "routed", routed_):
         outs = eng.generate([Request(id=rid, prompt=p.copy(),
                                      max_new_tokens=m, frontend=fe)
                              for rid, p, m, fe in case["requests"]])
     return dict(
-        # the experts of each MoE layer's working stacks
+        # the experts of each MoE layer's working stacks, and their
+        # (experts, d_model, F)
         experts=experts,
+        stacks=stacks,
+        stack_specs={tuple(s) for name, s in zip(
+            tree.names(eng._placed.params), param_specs)
+            if ".moe.w_" in name},
         tokens={o.request_id: o.token_ids for o in outs},
         logprobs={o.request_id: o.logprobs for o in outs},
         n_pool_leaves=len(pools),
